@@ -5,25 +5,40 @@ still starts on the GPU.
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90) and nvcc
 
 Drives ``repro_torch`` (and nothing of the JAX package) through its normal
-entry points on the card, at the full width of the paper's Part 1 instance
-(7 x 4 grid of 2000 x 3000 blocks, n = 14 000, m = 12 000, hinge,
-lambda = 1e-2).  Phases, each printing one line of JSON; any failure is an
-exception and a non-zero exit:
+entry points on the card, at the full width of two instances of the paper:
+the dense Part 1 instance (7 x 4 grid of 2000 x 3000 blocks, n = 14 000,
+m = 12 000, hinge, lambda = 1e-2) and the sparse news20 profile of Part 2
+(``configs/svm_paper.py`` REAL_DATASETS["news20"]: n = 19 996,
+m = 1 355 191 at density 3.4e-4, lambda = 1e-4, padded-ELL cells on the
+same 7 x 4 grid).  Phases, each printing one line of JSON; any failure is
+an exception and a non-zero exit:
 
-  env          a CUDA device or an error; card name and power limit; TF32 off
-  build        build the kernels from ``src/repro_torch/csrc`` and load them
-  kernels      each kernel against its plain PyTorch version ON THE CARD, over
-               the shape sweep of the unit tests and at the main-path shape
-  d3ca_full    ``repro_torch.launch.optimize.main`` -- D3CA, full width
-  radisa_full  the same with RADiSA
-  cpu_vs_card  small case: port on the card (kernels) vs port on the CPU
-  timing       CUDA-event times per kernel (beside its plain version and its
-               roofline bound) and per outer iteration of each solver
+  env                 a CUDA device or an error; card name and power limit;
+                      TF32 off
+  build               build the kernels from ``src/repro_torch/csrc``, load
+  kernels             each kernel against its plain PyTorch version ON THE
+                      CARD, over the shape sweep of the unit tests and at
+                      the main-path shape
+  d3ca_full           ``repro_torch.launch.optimize.main`` -- D3CA, dense
+  radisa_full         the same with RADiSA
+  d3ca_sparse_full    D3CA, ``--block-format sparse`` on the news20 profile
+  radisa_sparse_full  the same with RADiSA
+  sfk_sparse_full     the same with SFK
+  cpu_vs_card         small cases, dense and sparse: port on the card
+                      (kernels) vs port on the CPU
+  timing              CUDA-event times per kernel (beside its plain version
+                      and its roofline bound) and per outer iteration of
+                      each solver; peak device memory of the sparse path
+
+Each full-width phase is a main path: every launch counter is set to 0
+just before it and read just after, and it must have launched its
+kernels as many times as it ran outer iterations (plus serial-SDCA
+epochs for f* where the dense phases compute it).
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi`` gives them, and one JSON object ``{"kernels": [...]}`` with
-every kernel's launches on the main path, error against its plain version,
-times and bound.  The last line is
+every kernel's launches on the main paths, error against its plain
+version, times and bound.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--phases a,b`` runs a subset (``env`` and ``build`` always run); the
@@ -32,6 +47,9 @@ summary lines then hold what those phases measured.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import io
 import json
 import os
 import statistics
@@ -47,22 +65,44 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs.svm_paper import REAL_DATASETS  # noqa: E402
 from repro_torch.core import (ArrayIndexSource, D3CAConfig,  # noqa: E402
-                              GeneratorIndexSource, RADiSAConfig, get_solver,
-                              partition)
+                              GeneratorIndexSource, RADiSAConfig, SFKConfig,
+                              ell_gather, ell_scatter_add, get_loss,
+                              get_solver, partition, partition_sparse)
+from repro_torch.core.d3ca import d3ca_simulated_program  # noqa: E402
 from repro_torch.core.partition import (blocks_times_cols,  # noqa: E402
                                         rows_times_blocks)
-from repro_torch.data import make_svm_data  # noqa: E402
-from repro_torch.kernels.sdca import sdca_epoch, sdca_epoch_plain  # noqa: E402
-from repro_torch.kernels.svrg import svrg_inner, svrg_inner_plain  # noqa: E402
+from repro_torch.core.radisa import (cut_windows,  # noqa: E402
+                                     radisa_simulated_program)
+from repro_torch.core.sfk import sfk_simulated_program  # noqa: E402
+from repro_torch.data import (csr_from_dense,  # noqa: E402
+                              make_sparse_svm_csr, make_sparse_svm_data,
+                              make_svm_data)
+from repro_torch.kernels.sdca import (sdca_epoch,  # noqa: E402
+                                      sdca_epoch_plain, sdca_epoch_sparse,
+                                      sdca_epoch_sparse_plain)
+from repro_torch.kernels.svrg import (svrg_inner,  # noqa: E402
+                                      svrg_inner_plain, svrg_inner_sparse,
+                                      svrg_inner_sparse_plain)
 from repro_torch.launch import optimize  # noqa: E402
 
-PHASES = ("kernels", "d3ca_full", "radisa_full", "cpu_vs_card", "timing")
+MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
+              "radisa_sparse_full", "sfk_sparse_full")
+PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
 P, Q, N, M, LAM = 7, 4, 14000, 12000, 1e-2
 OUTER_ITERS = 10
 REF_EPOCHS = 20          # serial SDCA epochs for f*, through the SDCA kernel
+
+# the news20 profile of the paper's Part 2 on the same 7 x 4 grid: nothing
+# is cut but depth (OUTER_ITERS); f* is skipped by the CLI's own rule
+NEWS20 = REAL_DATASETS["news20"]
+N20, M20, DENS20, LAM20 = (NEWS20["n"], NEWS20["m"], NEWS20["density"],
+                           NEWS20["lam"])
+# the sparse path never forms a dense block grid (that would be 108 GB)
+SPARSE_PEAK_LIMIT = 2e9
 
 SWEEP_TOL = 1e-5         # rtol = atol, as in the unit tests
 # At the main-path shape a launch chains 2000 dependent steps and the kernel
@@ -86,7 +126,19 @@ KERNEL_META = {
     "svrg_inner": {
         "route": "cuda", "source": "src/repro_torch/csrc/svrg_inner.cu",
         "replaces": "src/repro/kernels/svrg/svrg.py:81"},
+    "sdca_epoch_sparse": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/sdca_epoch_sparse.cu",
+        "replaces": "src/repro/kernels/sdca/sparse.py:138"},
+    "svrg_inner_sparse": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/svrg_inner_sparse.cu",
+        "replaces": "src/repro/kernels/svrg/sparse.py:120"},
 }
+#: each kernel's wrapper, whose ``launches`` counts its CUDA launches
+WRAPPERS = {"sdca_epoch": sdca_epoch, "svrg_inner": svrg_inner,
+            "sdca_epoch_sparse": sdca_epoch_sparse,
+            "svrg_inner_sparse": svrg_inner_sparse}
 
 
 def emit(phase: str, **fields):
@@ -201,6 +253,105 @@ def svrg_main_inputs(data, w, t=1):
             src.svrg_rows(t)), lo, eta
 
 
+def ell_cells(rng, P_, Q_, n_p, m_q, k, zero_cell=None):
+    """(P, Q, n_p, k) padded-ELL cells: a random number of distinct columns
+    per row, padding slots (col 0, val 0); row 0 of every cell holds a
+    real entry at column 0 beside its col-0 padding, row 1 holds one
+    column twice (a LIBSVM line may); ``zero_cell`` (p, q) is an all-zero
+    feature block."""
+    cols = np.zeros((P_, Q_, n_p, k), np.int32)
+    vals = np.zeros((P_, Q_, n_p, k), np.float32)
+    for p in range(P_):
+        for q in range(Q_):
+            if (p, q) == zero_cell:
+                continue
+            for i in range(n_p):
+                r = int(rng.integers(1, min(k, m_q) + 1))
+                if i == 0:
+                    r = max(1, min(r, k - 1))
+                    c = np.r_[0, rng.choice(np.arange(1, m_q), size=r - 1,
+                                            replace=False)]
+                else:
+                    c = rng.choice(m_q, size=r, replace=False)
+                c = np.sort(c)
+                if i == 1 and r >= 2:
+                    c[1] = c[0]
+                cols[p, q, i, :r] = c
+                vals[p, q, i, :r] = rng.normal(size=r)
+    return cols, vals
+
+
+def sdca_sparse_inputs(rng, P_, Q_, n_p, m_q, k, steps, dev, zero_cell=None):
+    cols, vals = ell_cells(rng, P_, Q_, n_p, m_q, k, zero_cell)
+    y = np.where(rng.random((P_, n_p)) < 0.5, -1.0, 1.0).astype(np.float32)
+    mask = np.ones((P_, n_p), np.float32)
+    mask[-1, -2:] = 0.0                                  # masked tail
+    a0 = (rng.uniform(0, 0.5, (P_, n_p)) * (y > 0)).astype(np.float32)
+    w0 = (rng.normal(size=(Q_, m_q)) * 0.1).astype(np.float32)
+    idx = rng.integers(0, n_p, (P_, steps)).astype(np.int32)
+    return [torch.from_numpy(a).to(dev)
+            for a in (cols, vals, y, mask, a0, w0, idx)]
+
+
+def svrg_sparse_inputs(rng, P_, Q_, n_p, m_q, m_sub, k, L, dev, lo=None,
+                       zero_cell=None):
+    cols, vals = ell_cells(rng, P_, Q_, n_p, m_q, k, zero_cell)
+    y = np.where(rng.random((P_, n_p)) < 0.5, -1.0, 1.0).astype(np.float32)
+    mask = np.ones((P_, n_p), np.float32)
+    mask[-1, -2:] = 0.0
+    za = rng.normal(size=(P_, n_p)).astype(np.float32)
+    wa = (rng.normal(size=(P_, Q_, m_sub)) * 0.2).astype(np.float32)
+    mu = (rng.normal(size=(P_, Q_, m_sub)) * 0.05).astype(np.float32)
+    idx = rng.integers(0, n_p, (P_, Q_, L)).astype(np.int32)
+    out = [torch.from_numpy(a).to(dev)
+           for a in (cols, vals, y, mask, za, wa, mu, idx)]
+    lo_t = None if lo is None else torch.tensor(lo, dtype=torch.int32,
+                                                device=dev)
+    return out, lo_t
+
+
+@functools.lru_cache(maxsize=1)
+def news20_problem(dev):
+    """The news20 profile cut into 7 x 4 padded-ELL cells on the card (made
+    once, shared by the kernels and timing phases)."""
+    csr, y = make_sparse_svm_csr(N20, M20, density=DENS20, seed=0)
+    return partition_sparse(csr, y, P, Q, m_multiple=P * Q, device=dev)
+
+
+def news20_state(data):
+    """A feasible dual point and its primal image, as the sparse kernels'
+    starting state at the main-path shape."""
+    dev = data.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    alpha = 0.3 * torch.rand((P, data.n_p), generator=gen, device=dev) \
+        * data.y_blocks
+    w = ell_scatter_add(data.m_q, data.cols, data.vals,
+                        (alpha * data.mask)[:, None, :]).sum(0) / (LAM20 * N20)
+    return alpha.contiguous(), w.contiguous()
+
+
+def sdca_sparse_main_inputs(data, alpha, w):
+    src = GeneratorIndexSource(0, P=P, Q=Q, n_p=data.n_p, device=data.device)
+    return (data.cols, data.vals, data.y_blocks, data.mask, alpha, w,
+            src.sdca_rows(1))
+
+
+def svrg_sparse_main_inputs(data, w, t=1):
+    """What sparse RADiSA's step hands the kernel at outer iteration t."""
+    src = GeneratorIndexSource(0, P=P, Q=Q, n_p=data.n_p, device=data.device)
+    z = ell_gather(w, data.cols, data.vals).sum(1)
+    y, mask = data.y_blocks, data.mask
+    gz = torch.where(y * z < 1.0, -y, torch.zeros_like(y)) * mask
+    mu = ell_scatter_add(data.m_q, data.cols, data.vals,
+                         gz[:, None, :]).sum(0) / N20 + LAM20 * w
+    lo, _, w_anchor, mu_sub = cut_windows(w, mu, src.radisa_perm(t),
+                                          data.m_q // P)
+    eta = RADiSAConfig().eta(t + 3)      # a mid-run step size (t = 4)
+    return (data.cols, data.vals, y, mask, z.contiguous(), w_anchor, mu_sub,
+            src.svrg_rows(t)), lo, eta
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -304,6 +455,69 @@ def phase_kernels(dev, results):
         [svrg_inner_plain(*vargs, **vkw)], MAIN_TOL, relative_to_max=True)
     torch.cuda.synchronize()
 
+    # -- the sparse kernels over the unit tests' sweep: hinge / squared,
+    # exact / beta, masked tail, k not a multiple of 32, col-0 entries
+    # beside col-0 padding, a repeated column, an all-zero feature block
+    for (n_p, m_q, k, steps) in [(8, 8, 3, 8), (24, 16, 5, 50),
+                                 (64, 128, 40, 64), (17, 9, 7, 33)]:
+        for grid, zero in [((1, 1), None), ((3, 2), (1, 1))]:
+            args = sdca_sparse_inputs(rng, *grid, n_p, m_q, k, steps, dev,
+                                      zero_cell=zero)
+            check_index_range(args[6], n_p)
+            check_index_range(args[0], m_q)
+            for loss in ("hinge", "squared"):
+                for beta in (None, float(k)):
+                    kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
+                    err = compare(
+                        f"sdca_epoch_sparse{grid}{(n_p, m_q, k, steps)}",
+                        sdca_epoch_sparse(*args, **kw),
+                        sdca_epoch_sparse_plain(*args, **kw), SWEEP_TOL)
+                    checks.append(("sdca_epoch_sparse", err))
+    # (n_p, m_q, m_sub, k, L, window offsets per row partition): the whole
+    # block, windows at 8 / 16 / 0, misaligned windows at 5 / 10 / 1
+    for (n_p, m_q, m_sub, k, L, los) in [
+            (16, 24, 24, 6, 20, None), (16, 24, 8, 6, 20, [8, 16, 0]),
+            (40, 32, 32, 9, 64, None), (13, 15, 5, 5, 11, [5, 10, 1])]:
+        for grid, zero in [((1, 1), None), ((3, 2), (2, 0))]:
+            lo = None if los is None else los[:grid[0]]
+            args, lo_t = svrg_sparse_inputs(rng, *grid, n_p, m_q, m_sub, k,
+                                            L, dev, lo=lo, zero_cell=zero)
+            check_index_range(args[7], n_p)
+            check_index_range(args[0], m_q)
+            for loss in ("hinge", "squared"):
+                kw = dict(lam=0.1, eta=0.03, loss=loss, lo=lo_t)
+                err = compare(
+                    f"svrg_inner_sparse{grid}{(n_p, m_sub, k, L)} lo={lo}",
+                    [svrg_inner_sparse(*args, **kw)],
+                    [svrg_inner_sparse_plain(*args, **kw)], SWEEP_TOL)
+                checks.append(("svrg_inner_sparse", err))
+    torch.cuda.synchronize()
+
+    # -- the sparse main-path shape: 28 news20 cells, k = 168, 2857 steps,
+    # RADiSA windows of 48 400 columns.  Judged like the dense main shape,
+    # relative to the largest entry at MAIN_TOL: the kernels sum each row's
+    # inner product in another order than the plain version, rounding
+    # differences compound along the chain of 2857 dependent steps, and a
+    # hinge margin within rounding of the kink takes the other branch.
+    sp = news20_problem(dev)
+    alpha20, w20 = news20_state(sp)
+    sargs = sdca_sparse_main_inputs(sp, alpha20, w20)
+    check_index_range(sargs[6], sp.n_p)
+    skw = dict(lam=LAM20, n=N20, Q=Q, loss="hinge")
+    main_err["sdca_epoch_sparse"] = compare(
+        "sdca_epoch_sparse main-path shape", sdca_epoch_sparse(*sargs, **skw),
+        sdca_epoch_sparse_plain(*sargs, **skw), MAIN_TOL,
+        relative_to_max=True)
+    vargs, lo, eta = svrg_sparse_main_inputs(sp, w20)
+    check_index_range(vargs[7], sp.n_p)
+    vkw = dict(lam=LAM20, eta=eta, loss="hinge", lo=lo)
+    main_err["svrg_inner_sparse"] = compare(
+        "svrg_inner_sparse main-path shape",
+        [svrg_inner_sparse(*vargs, **vkw)],
+        [svrg_inner_sparse_plain(*vargs, **vkw)], MAIN_TOL,
+        relative_to_max=True)
+    torch.cuda.synchronize()
+
     summary = []
     for name in KERNEL_META:
         sweep = [e for k, e in checks if k == name]
@@ -316,31 +530,46 @@ def phase_kernels(dev, results):
             "sweep_tol", "ok")}})
     emit("kernels", checks=summary,
          main_shape={"cells": P * Q, "n_p": data.n_p, "m_q": data.m_q,
-                     "steps": data.n_p, "m_sub": data.m_q // P})
-    del data, alpha, w, sargs, vargs
+                     "steps": data.n_p, "m_sub": data.m_q // P},
+         sparse_main_shape={"cells": P * Q, "n_p": sp.n_p, "k": sp.k,
+                            "m_q": sp.m_q, "steps": sp.n_p,
+                            "m_sub": sp.m_q // P})
+    del data, alpha, w, sargs, vargs, alpha20, w20
     torch.cuda.empty_cache()
 
 
-def run_solver_full(solver: str, expect_dual: bool):
+def launch_counts():
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def run_solver_full(solver: str, expect_dual: bool, sparse: bool = False):
     """One full-width solve through the CLI's ``main``; returns its
-    history and the launch-count deltas."""
-    before = (sdca_epoch.launches, svrg_inner.launches)
-    torch.cuda.reset_peak_memory_stats()
+    summary, history, what it wrote to stderr and its wall time."""
+    if sparse:
+        flags = ["--dataset", "sparse", "--block-format", "sparse",
+                 "--n", str(N20), "--m", str(M20), "--density", str(DENS20),
+                 "--lam", str(LAM20)]
+    else:
+        flags = ["--n", str(N), "--m", str(M), "--lam", str(LAM),
+                 "--ref-epochs", str(REF_EPOCHS)]
+    err = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, f"{solver}.json")
         t0 = time.perf_counter()
-        summary = optimize.main([
-            "--solver", solver, "--mesh", f"{P}x{Q}", "--n", str(N), "--m",
-            str(M), "--lam", str(LAM), "--iters", str(OUTER_ITERS),
-            "--ref-epochs", str(REF_EPOCHS), "--json-out", out])
+        with contextlib.redirect_stderr(err):
+            summary = optimize.main([
+                "--solver", solver, "--mesh", f"{P}x{Q}", *flags,
+                "--iters", str(OUTER_ITERS), "--json-out", out])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         with open(out) as fh:
             history = json.load(fh)["history"]
-    delta = (sdca_epoch.launches - before[0], svrg_inner.launches - before[1])
+    sys.stderr.write(err.getvalue())
     if summary["device"] != "cuda" or summary["local_backend"] != "kernel":
         raise AssertionError(f"{solver}: not on the card / kernel backend: "
                              f"{summary}")
+    if summary["block_format"] != ("sparse" if sparse else "dense"):
+        raise AssertionError(f"{solver}: block format {summary}")
     if summary["iters"] != OUTER_ITERS or len(history) != OUTER_ITERS:
         raise AssertionError(f"{solver}: ran {summary['iters']} iterations")
     vals = [h["objective"] for h in history]
@@ -348,72 +577,160 @@ def run_solver_full(solver: str, expect_dual: bool):
         vals += [h["duality_gap"] for h in history]
     if not all(np.isfinite(v) for v in vals):
         raise AssertionError(f"{solver}: non-finite history {history}")
+    return summary, history, err.getvalue(), wall
+
+
+def check_descent(solver, history, dual):
     if not history[-1]["objective"] < history[0]["objective"]:
         raise AssertionError(f"{solver}: objective did not decrease: "
-                             f"{vals[:OUTER_ITERS]}")
-    return summary, history, delta, wall
+                             f"{[h['objective'] for h in history]}")
+    if dual:
+        g0, g1 = history[0]["duality_gap"], history[-1]["duality_gap"]
+        if not (g1 > 0 and g1 < g0):
+            raise AssertionError(f"{solver}: duality gap {g0} -> {g1}")
 
 
 def phase_d3ca_full():
-    summary, history, delta, wall = run_solver_full("d3ca", expect_dual=True)
-    g0, g1 = history[0]["duality_gap"], history[-1]["duality_gap"]
-    if not (g1 > 0 and g1 < g0):
-        raise AssertionError(f"d3ca: duality gap {g0} -> {g1}")
-    if delta != (OUTER_ITERS + REF_EPOCHS, 0):
-        raise AssertionError(f"d3ca: launch deltas {delta}; expected "
-                             f"({OUTER_ITERS} + {REF_EPOCHS} epochs, 0)")
+    summary, history, _, wall = run_solver_full("d3ca", expect_dual=True)
+    check_descent("d3ca", history, dual=True)
     emit("d3ca_full", objective_first=history[0]["objective"],
-         objective_last=history[-1]["objective"], gap_first=g0, gap_last=g1,
-         rel_opt_last=history[-1]["rel_opt"], launches_sdca=delta[0],
-         launches_svrg=delta[1], solve_s=summary["total_s"], wall_s=wall,
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
+         objective_last=history[-1]["objective"],
+         gap_first=history[0]["duality_gap"],
+         gap_last=history[-1]["duality_gap"],
+         rel_opt_last=history[-1]["rel_opt"], solve_s=summary["total_s"],
+         wall_s=wall, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return {"sdca_epoch": OUTER_ITERS + REF_EPOCHS}
 
 
 def phase_radisa_full():
-    summary, history, delta, wall = run_solver_full("radisa",
-                                                    expect_dual=False)
-    if delta != (REF_EPOCHS, OUTER_ITERS):
-        raise AssertionError(f"radisa: launch deltas {delta}; expected "
-                             f"({REF_EPOCHS} epochs, {OUTER_ITERS})")
+    summary, history, _, wall = run_solver_full("radisa", expect_dual=False)
+    check_descent("radisa", history, dual=False)
     emit("radisa_full", objective_first=history[0]["objective"],
          objective_last=history[-1]["objective"],
-         rel_opt_last=history[-1]["rel_opt"], launches_sdca=delta[0],
-         launches_svrg=delta[1], solve_s=summary["total_s"], wall_s=wall,
-         peak_mem_bytes=torch.cuda.max_memory_allocated())
+         rel_opt_last=history[-1]["rel_opt"], solve_s=summary["total_s"],
+         wall_s=wall, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return {"sdca_epoch": REF_EPOCHS, "svrg_inner": OUTER_ITERS}
+
+
+def sparse_full(name, solver, kernel, dual):
+    """The news20 profile at full width through ``optimize.main``: CSR in,
+    padded-ELL cells on the card, no f* (densifying it would take
+    108 GB), peak device memory under ``SPARSE_PEAK_LIMIT``."""
+    summary, history, err, wall = run_solver_full(solver, expect_dual=dual,
+                                                  sparse=True)
+    if "skipping f* reference" not in err or summary["rel_opt"] is not None:
+        raise AssertionError(f"{solver}: f* was not skipped: {err!r}")
+    if dual:
+        check_descent(solver, history, dual=True)
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= SPARSE_PEAK_LIMIT:
+        raise AssertionError(f"{solver}: peak device memory {peak} B; the "
+                             "sparse path densified something")
+    fields = dict(objective_first=history[0]["objective"],
+                  objective_last=history[-1]["objective"])
+    if dual:
+        fields.update(gap_first=history[0]["duality_gap"],
+                      gap_last=history[-1]["duality_gap"])
+    emit(name, **fields, n=summary["n"], m=summary["m"],
+         block_format=summary["block_format"], solve_s=summary["total_s"],
+         wall_s=wall, peak_mem_bytes=peak)
+    return {kernel: OUTER_ITERS}
+
+
+def phase_d3ca_sparse_full():
+    return sparse_full("d3ca_sparse_full", "d3ca", "sdca_epoch_sparse", True)
+
+
+def phase_radisa_sparse_full():
+    return sparse_full("radisa_sparse_full", "radisa", "svrg_inner_sparse",
+                       False)
+
+
+def phase_sfk_sparse_full():
+    return sparse_full("sfk_sparse_full", "sfk", "svrg_inner_sparse", False)
+
+
+def run_main_path(name, phase, results):
+    """Drive one main path with every launch counter at 0 just before and
+    read just after; it must have launched exactly the kernels it names,
+    as often as it says."""
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    expected = phase()
+    counts = launch_counts()
+    want = {k: expected.get(k, 0) for k in WRAPPERS}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}; expected {want}")
+    for k, v in counts.items():
+        results[k]["launches"] += v
+
+
+def card_vs_cpu(name, cfg, X, y, grid, streams, block_format):
+    """One solve on the card through the kernels and one on the CPU
+    through their plain versions, with the same index streams; returns
+    the largest difference of w (and alpha)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        solver = get_solver(name)(
+            local_backend="kernel", device=dev, block_format=block_format,
+            index_source=ArrayIndexSource(device=dev, **streams))
+        out[dev] = solver.solve("hinge", X, y, P=grid[0], Q=grid[1],
+                                cfg=cfg)
+    worst = 0.0
+    for f in ("w", "alpha"):
+        card, cpu = getattr(out["cuda"], f), getattr(out["cpu"], f)
+        if card is None:
+            continue
+        card = card.cpu()
+        if not torch.isfinite(card).all() or card.shape != cpu.shape:
+            raise AssertionError(f"{name}/{block_format}: bad {f} on the "
+                                 "card")
+        err = float((card - cpu).abs().max())
+        if not torch.allclose(card, cpu, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{name}/{block_format}: card vs CPU {f} "
+                                 f"differ by {err:.3e}")
+        worst = max(worst, err)
+    return worst
 
 
 def phase_cpu_vs_card():
-    """3 x 2 grid, n = 200, m = 60, 4 iterations, one index stream: the
-    port on the card through the kernels vs the port on the CPU through
-    their plain versions."""
-    Ps, Qs, n, m, iters = 3, 2, 200, 60, 4
-    X, y = make_svm_data(n, m, seed=0)
-    n_p = -(-n // Ps)
+    """Small cases, 4 iterations, one set of index streams each: the port
+    on the card through the kernels vs the port on the CPU through their
+    plain versions.  Dense: 3 x 2 grid, n = 200, m = 60, D3CA and RADiSA.
+    Sparse: the unit tests' edge instance (120 x 41 at 15 % density,
+    feature block q = 1 all zero) on a 4 x 2 grid, D3CA, RADiSA and SFK."""
+    iters = 4
     rng = np.random.default_rng(3)
-    streams = dict(
-        sdca={t: rng.integers(0, n_p, (Ps, n_p)).astype(np.int32)
-              for t in range(1, iters + 1)},
-        svrg={t: rng.integers(0, n_p, (Ps, Qs, n_p)).astype(np.int32)
-              for t in range(1, iters + 1)},
-        perm={t: rng.permutation(Ps) for t in range(1, iters + 1)})
-    worst = {}
-    for name, cfg in (("d3ca", D3CAConfig(lam=0.1, outer_iters=iters)),
-                      ("radisa", RADiSAConfig(lam=0.1, outer_iters=iters,
-                                              gamma=0.05))):
-        out = {}
-        for dev in ("cuda", "cpu"):
-            solver = get_solver(name)(
-                local_backend="kernel", device=dev,
-                index_source=ArrayIndexSource(device=dev, **streams))
-            out[dev] = solver.solve("hinge", X, y, P=Ps, Q=Qs, cfg=cfg)
-        w_card, w_cpu = out["cuda"].w.cpu(), out["cpu"].w
-        if not torch.isfinite(w_card).all() or w_card.shape != (m,):
-            raise AssertionError(f"{name}: bad w on the card")
-        err = float((w_card - w_cpu).abs().max())
-        if not torch.allclose(w_card, w_cpu, rtol=1e-5, atol=1e-5):
-            raise AssertionError(f"{name}: card vs CPU differ by {err:.3e}")
-        worst[name] = err
-    emit("cpu_vs_card", max_abs_err=worst, tol=1e-5)
+
+    def streams(Ps, Qs, n):
+        n_p = -(-n // Ps)
+        ts = range(1, iters + 1)
+        return dict(
+            sdca={t: rng.integers(0, n_p, (Ps, n_p)).astype(np.int32)
+                  for t in ts},
+            svrg={t: rng.integers(0, n_p, (Ps, Qs, n_p)).astype(np.int32)
+                  for t in ts},
+            perm={t: rng.permutation(Ps) for t in ts},
+            sample={t: (rng.random((Ps, n_p)) < 0.5).astype(np.float32)
+                    for t in ts})
+
+    cfgs = {"d3ca": D3CAConfig(lam=0.1, outer_iters=iters),
+            "radisa": RADiSAConfig(lam=0.1, outer_iters=iters, gamma=0.05),
+            "sfk": SFKConfig(lam=0.1, outer_iters=iters, gamma=0.05)}
+    X, y = make_svm_data(200, 60, seed=0)
+    dense_streams = streams(3, 2, 200)
+    worst = {name: card_vs_cpu(name, cfgs[name], X, y, (3, 2),
+                               dense_streams, "dense")
+             for name in ("d3ca", "radisa")}
+    Xs, ys = make_sparse_svm_data(120, 41, density=0.15, seed=7)
+    Xs[:, 24:] = 0.0
+    sparse_streams = streams(4, 2, 120)
+    worst_sparse = {name: card_vs_cpu(name, cfg, csr_from_dense(Xs), ys,
+                                      (4, 2), sparse_streams, "sparse")
+                    for name, cfg in cfgs.items()}
+    emit("cpu_vs_card", max_abs_err=worst, sparse_max_abs_err=worst_sparse,
+         tol=1e-5)
 
 
 def bounds(name, args, m_cols, flops_per_elem):
@@ -438,13 +755,51 @@ def bounds(name, args, m_cols, flops_per_elem):
             "bytes_moved": row_bytes + small + out_bytes}
 
 
-def time_solver(name, dev, X, y, iters=5):
-    """ms per outer iteration of the grid engine (step only, no history),
-    by CUDA events around ``iters`` steps after a warm-up step."""
-    cfg_cls = D3CAConfig if name == "d3ca" else RADiSAConfig
-    solver = get_solver(name)(device=dev)
-    prog = solver.program("hinge", X, y, P=P, Q=Q,
-                          cfg=cfg_cls(lam=LAM, outer_iters=iters))
+def sparse_bounds(name, args, lo=None):
+    """Roofline bound of one sparse launch from THIS run's inputs.  Bytes:
+    the nonzeros (column id + value, 8 B) of the distinct rows each cell
+    samples, the small inputs read once, the outputs written once.
+    Operations: 6 flops per nonzero of every sampled row for SDCA (dot,
+    norm, scatter); for SVRG 5 per in-window nonzero (correction,
+    scatter) plus the dense window pass the algorithm states, 6 flops per
+    window element every step."""
+    cols, vals, idx = args[0], args[1], args[-1]
+    Pn, Qn, n_p, _ = cols.shape
+    nnz_row = (vals != 0).sum(-1)                        # (P, Q, n_p)
+    small = sum(int(a.numel()) * 4 for a in args[2:])
+    if lo is not None:
+        small += int(lo.numel()) * 4
+    if name == "sdca_epoch_sparse":
+        steps, m_out = idx.shape[1], args[5].shape[1]
+        rows = idx.long()[:, None, :].expand(Pn, Qn, steps)
+        ops = 6 * int(torch.gather(nnz_row, 2, rows).sum())
+        distinct = sum(int(nnz_row[p, :, torch.unique(idx[p].long())].sum())
+                       for p in range(Pn))
+        out_bytes = Pn * Qn * (n_p + m_out) * 4
+    else:
+        L, m_out = idx.shape[2], args[5].shape[2]
+        pa = torch.arange(Pn, device=cols.device)[:, None, None]
+        qa = torch.arange(Qn, device=cols.device)[None, :, None]
+        c = cols[pa, qa, idx.long()].long()              # (P, Q, L, k)
+        v = vals[pa, qa, idx.long()]
+        rel = c - (0 if lo is None else lo.long()[:, None, None, None])
+        inwin = int(((rel >= 0) & (rel < m_out) & (v != 0)).sum())
+        del c, v, rel
+        ops = 5 * inwin + 6 * Pn * Qn * L * m_out
+        distinct = sum(int(nnz_row[p, q, torch.unique(idx[p, q].long())]
+                           .sum()) for p in range(Pn) for q in range(Qn))
+        out_bytes = Pn * Qn * m_out * 4
+    nbytes = distinct * 8 + small + out_bytes
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_moved": nbytes, "flops": ops}
+
+
+def time_program(prog, iters=5):
+    """ms per outer iteration of a grid-engine program (step only, no
+    history), by CUDA events around ``iters`` steps after a warm-up
+    step."""
     state = prog.step(1, prog.state)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -490,12 +845,63 @@ def phase_timing(dev, results):
     X, y = make_svm_data(N, M, seed=0)
     X, y = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
     solvers = {}
-    for name, kernel in (("d3ca", "sdca_epoch"), ("radisa", "svrg_inner")):
-        ms_iter = time_solver(name, dev, X, y)
+    for name, kernel, cfg in (("d3ca", "sdca_epoch", D3CAConfig(lam=LAM)),
+                              ("radisa", "svrg_inner",
+                               RADiSAConfig(lam=LAM))):
+        prog = get_solver(name)(device=dev).program("hinge", X, y, P=P, Q=Q,
+                                                    cfg=cfg)
+        ms_iter = time_program(prog)
         solvers[name] = {"ms_per_outer_iter": ms_iter,
                          "kernel": kernel,
                          "kernel_share": results[kernel]["ms"] / ms_iter}
-    emit("timing", solvers=solvers,
+    del X, y, prog
+    torch.cuda.empty_cache()
+
+    # -- the sparse path: news20 profile, 28 padded-ELL cells
+    torch.cuda.reset_peak_memory_stats()
+    sp = news20_problem(dev)
+    alpha20, w20 = news20_state(sp)
+    sargs = sdca_sparse_main_inputs(sp, alpha20, w20)
+    skw = dict(lam=LAM20, n=N20, Q=Q, loss="hinge")
+    vargs, lo, eta = svrg_sparse_main_inputs(sp, w20)
+    vkw = dict(lam=LAM20, eta=eta, loss="hinge", lo=lo)
+    plain_s = [cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
+                       reps=3)]
+    kern_s = [cuda_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7)]
+    plain_v = [cuda_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw),
+                       reps=3)]
+    kern_v = [cuda_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7)]
+    kern_v.append(cuda_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7))
+    plain_v.append(cuda_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw),
+                           reps=3))
+    kern_s.append(cuda_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7))
+    plain_s.append(cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
+                           reps=3))
+    results["sdca_epoch_sparse"].update(
+        ms=statistics.median(kern_s), plain_ms=statistics.median(plain_s),
+        library_ms=None, **sparse_bounds("sdca_epoch_sparse", sargs))
+    results["svrg_inner_sparse"].update(
+        ms=statistics.median(kern_v), plain_ms=statistics.median(plain_v),
+        library_ms=None, **sparse_bounds("svrg_inner_sparse", vargs, lo))
+    del sargs, vargs, alpha20, w20
+    hinge = get_loss("hinge")
+    for name, kernel, build in (
+            ("d3ca_sparse", "sdca_epoch_sparse",
+             lambda: d3ca_simulated_program(hinge, sp,
+                                            D3CAConfig(lam=LAM20))),
+            ("radisa_sparse", "svrg_inner_sparse",
+             lambda: radisa_simulated_program(hinge, sp,
+                                              RADiSAConfig(lam=LAM20))),
+            ("sfk_sparse", "svrg_inner_sparse",
+             lambda: sfk_simulated_program(hinge, sp,
+                                           SFKConfig(lam=LAM20)))):
+        ms_iter = time_program(build())
+        solvers[name] = {"ms_per_outer_iter": ms_iter, "kernel": kernel,
+                         "kernel_share": results[kernel]["ms"] / ms_iter}
+    sparse_peak = torch.cuda.max_memory_allocated()
+    emit("timing", solvers=solvers, sparse_peak_mem_bytes=sparse_peak,
+         sparse_cells={"P": P, "Q": Q, "n_p": sp.n_p, "k": sp.k,
+                       "m_q": sp.m_q, "ell_bytes": 8 * sp.cols.numel()},
          kernels={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "bytes_moved")}
                   for k, v in results.items()})
@@ -521,16 +927,11 @@ def main(argv=None):
     if "kernels" in phases:
         phase_kernels(dev, results)
 
-    # the main path: every count to 0 just before, read just after
-    sdca_epoch.launches = 0
-    svrg_inner.launches = 0
-    if "d3ca_full" in phases:
-        phase_d3ca_full()
-    if "radisa_full" in phases:
-        phase_radisa_full()
-    results["sdca_epoch"]["launches"] = sdca_epoch.launches
-    results["svrg_inner"]["launches"] = svrg_inner.launches
-    if set(phases) >= {"d3ca_full", "radisa_full"}:
+    # the main paths: every count to 0 just before each, read just after
+    for name in MAIN_PATHS:
+        if name in phases:
+            run_main_path(name, globals()[f"phase_{name}"], results)
+    if set(phases) >= set(MAIN_PATHS):
         for name, res in results.items():
             if res["launches"] < 1:
                 raise AssertionError(f"the main path never launched {name}")

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.partition import DoublyPartitioned
+from .core.partition import DoublyPartitioned, SparseDoublyPartitioned
 from .core.solver import SolveResult
 from .core.util import as_tensor, resolve_device
 
@@ -32,6 +32,29 @@ def partition_from_reference(x_blocks, y_blocks, mask, n: int, m: int,
         raise ValueError("y_blocks / mask must be (P, n_p) = "
                          f"({P}, {x.shape[2]})")
     return DoublyPartitioned(x, yb, mb, int(n), int(m), int(P), int(Q))
+
+
+def sparse_partition_from_reference(cols, vals, y_blocks, mask, n: int,
+                                    m: int, m_q: int, P: int, Q: int,
+                                    device="cuda") -> SparseDoublyPartitioned:
+    """The arrays of a reference ``SparseDoublyPartitioned`` -- ``cols``
+    (int32) and ``vals`` ``(P, Q, n_p, k)``, ``y_blocks`` and ``mask``
+    ``(P, n_p)`` -- as the port's, contiguous on ``device``.  The sparse
+    path's state is the same ``(w, alpha)`` as the dense one, so
+    :func:`warm_start_from_reference` serves it unchanged."""
+    device = resolve_device(device)
+    c = as_tensor(np.asarray(cols), device, dtype=torch.int32).contiguous()
+    v = as_tensor(np.asarray(vals), device).contiguous()
+    if c.dim() != 4 or tuple(c.shape[:2]) != (P, Q) or v.shape != c.shape:
+        raise ValueError(f"cols / vals have shapes {tuple(c.shape)} / "
+                         f"{tuple(v.shape)}; expected ({P}, {Q}, n_p, k)")
+    yb = as_tensor(np.asarray(y_blocks), device).contiguous()
+    mb = as_tensor(np.asarray(mask), device).contiguous()
+    if yb.shape != (P, c.shape[2]) or mb.shape != yb.shape:
+        raise ValueError("y_blocks / mask must be (P, n_p) = "
+                         f"({P}, {c.shape[2]})")
+    return SparseDoublyPartitioned(c, v, yb, mb, int(n), int(m), int(m_q),
+                                   int(P), int(Q))
 
 
 def warm_start_from_reference(w, alpha=None, device="cuda"):

@@ -5,9 +5,12 @@ from .engines import (CellProgram, EngineProgram, drive, drive_with_callback,
                       grid_program)
 from .indices import ArrayIndexSource, GeneratorIndexSource
 from .losses import LOSSES, get_loss
-from .partition import DoublyPartitioned, partition
+from .partition import (DoublyPartitioned, SparseDoublyPartitioned,
+                        ell_gather, ell_scatter_add, partition,
+                        partition_sparse)
 from .radisa import RADiSAConfig, radisa_simulated, radisa_simulated_program
 from .reference import duality_gap, objective, rel_opt, serial_sdca
+from .sfk import SFKConfig, sfk_simulated, sfk_simulated_program
 from .solver import (BLOCK_FORMATS, ENGINES, SolveResult, Solver,
                      available_solvers, get_solver, register_solver)
 from .local import LOCAL_BACKENDS
@@ -20,9 +23,11 @@ __all__ = [
     "grid_program",
     "ArrayIndexSource", "GeneratorIndexSource",
     "LOSSES", "get_loss",
-    "DoublyPartitioned", "partition",
+    "DoublyPartitioned", "SparseDoublyPartitioned", "ell_gather",
+    "ell_scatter_add", "partition", "partition_sparse",
     "RADiSAConfig", "radisa_simulated", "radisa_simulated_program",
     "duality_gap", "objective", "rel_opt", "serial_sdca",
+    "SFKConfig", "sfk_simulated", "sfk_simulated_program",
     "BLOCK_FORMATS", "ENGINES", "LOCAL_BACKENDS", "SolveResult", "Solver",
     "available_solvers", "get_solver", "register_solver",
     "resolve_device",

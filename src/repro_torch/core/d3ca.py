@@ -8,7 +8,9 @@ step math plus a CommSchedule declaring its two reductions::
     CommSchedule().pmean("dalpha", axis="model")   # step 6 dual average
                   .psum("w_contrib", axis="data")  # step 9 primal-dual map
 
-``d3ca_simulated_program`` binds it to the single-device grid engine;
+``d3ca_simulated_program`` binds it to the single-device grid engine, on
+dense blocks or on padded-ELL sparse cells (``local.local_sdca_sparse``,
+and step 9's primal-dual map as ``partition.ell_scatter_add``);
 ``d3ca_simulated`` is a thin convenience wrapper.  The outer loop lives
 once in ``engines.drive`` / ``solver.Solver.solve``.
 """
@@ -24,9 +26,10 @@ from .comm import CommSchedule
 from .engines import (CellProgram, EngineProgram, cached_build,
                       drive_with_callback, grid_program)
 from .indices import GeneratorIndexSource
-from .local import local_sdca
+from .local import local_sdca, local_sdca_sparse
 from .losses import Loss, get_loss
-from .partition import DoublyPartitioned, rows_times_blocks
+from .partition import (SparseDoublyPartitioned, ell_scatter_add,
+                        rows_times_blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,33 +49,39 @@ def d3ca_schedule() -> CommSchedule:
 
 
 def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
-                      index_source, local_backend: str = "kernel"
+                      index_source, local_backend: str = "kernel",
+                      sparse: bool = False, m_q: Optional[int] = None
                       ) -> CellProgram:
     """The ONE D3CA program.
 
-    Blocked data: ``(x (P, Q, n_p, m_q), y (P, n_p), mask (P, n_p))``.
+    Blocked data: ``(x (P, Q, n_p, m_q), y (P, n_p), mask (P, n_p))``, or
+    with ``sparse=True`` ``(cols, vals (P, Q, n_p, k), y, mask)``.
     Blocked state: ``(alpha (P, n_p), w (Q, m_q))``.  ``index_source``
     supplies the coordinate order of every outer iteration
     (``sdca_rows(t) -> (P, steps)``, one order per row partition).
     """
     lam = cfg.lam
+    if sparse and m_q is None:
+        raise ValueError("sparse D3CA cells need m_q for the scatter-add")
 
     def cell(comm, t, data, state):
-        x, y, mask = data
+        *x_parts, y, mask = data
         a, w = state
         Pn = comm.axis_size("data")
         Qn = comm.axis_size("model")
         # float32 like every other runtime scalar of the step
         beta = float(np.float32(lam) / np.float32(t))
         idx = index_source.sdca_rows(t)        # coordinate order per p
-        dalpha = local_sdca(loss, x, y, mask, a, w, lam=lam, n=n, Q=Qn,
-                            idx=idx, step_mode=cfg.step_mode, beta=beta,
-                            backend=local_backend)
+        local = local_sdca_sparse if sparse else local_sdca
+        dalpha = local(loss, *x_parts, y, mask, a, w, lam=lam, n=n, Q=Qn,
+                       idx=idx, step_mode=cfg.step_mode, beta=beta,
+                       backend=local_backend)
         # step 6: alpha_[p,.] += (1/P) mean_q dalpha[p, q]
         a_new = a + comm("dalpha", dalpha) / Pn
         # step 9: w_[., q] = (1/(lam n)) sum_p alpha_[p,q]^T x_[p,q]
         am = a_new * mask
-        contrib = rows_times_blocks(am, x)
+        contrib = (ell_scatter_add(m_q, *x_parts, am[:, None, :]) if sparse
+                   else rows_times_blocks(am, *x_parts))
         w_new = comm("w_contrib", contrib) / (lam * n)
         return a_new, w_new
 
@@ -83,14 +92,17 @@ def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
 # single-device grid engine
 # ----------------------------------------------------------------------------
 
-def d3ca_simulated_program(loss: Loss, data: DoublyPartitioned,
-                           cfg: D3CAConfig, *, local_backend: str = "kernel",
+def d3ca_simulated_program(loss: Loss, data, cfg: D3CAConfig, *,
+                           local_backend: str = "kernel",
                            w0=None, alpha0=None, index_source=None,
                            cache=None) -> EngineProgram:
     """Grid engine.  State: (alpha (P, n_p), w_blocks (Q, m_q)).
 
+    ``data`` may be a dense :class:`DoublyPartitioned` or a sparse
+    :class:`SparseDoublyPartitioned` (padded-ELL cells).
     ``index_source=None`` draws the coordinate orders from a
     ``torch.Generator`` seeded from ``cfg.seed`` on the data's device."""
+    sparse = isinstance(data, SparseDoublyPartitioned)
     Pn, Qn = data.P, data.Q
     dev = data.device
     if index_source is None:
@@ -99,8 +111,10 @@ def d3ca_simulated_program(loss: Loss, data: DoublyPartitioned,
             steps=cfg.local_steps or data.n_p, device=dev)
     cellprog = d3ca_cell_program(loss, cfg, n=data.n,
                                  index_source=index_source,
-                                 local_backend=local_backend)
-    gdata = (data.x_blocks, data.y_blocks, data.mask)
+                                 local_backend=local_backend,
+                                 sparse=sparse, m_q=data.m_q)
+    x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
+    gdata = (*x_parts, data.y_blocks, data.mask)
     step = cached_build(cache, "step",
                         lambda: grid_program(cellprog, Pn, Qn, device=dev))
 
@@ -115,7 +129,7 @@ def d3ca_simulated_program(loss: Loss, data: DoublyPartitioned,
         alpha_of=lambda s: data.alpha_from_blocks(s[0] * data.mask))
 
 
-def d3ca_simulated(loss_name: str, data: DoublyPartitioned, cfg: D3CAConfig,
+def d3ca_simulated(loss_name: str, data, cfg: D3CAConfig,
                    callback=None, local_backend: str = "kernel",
                    index_source=None):
     """Run D3CA on the block grid. Returns (w, alpha)."""

@@ -1,7 +1,7 @@
 """Index sources: where the solvers' random coordinate orders come from.
 
 The cell programs never sample by themselves; they ask an index source
-for the three streams the algorithms need, per outer iteration ``t``
+for the four streams the algorithms need, per outer iteration ``t``
 (1-based):
 
   * ``sdca_rows(t)   -> (P, steps) int32`` -- D3CA's local coordinate
@@ -9,8 +9,11 @@ for the three streams the algorithms need, per outer iteration ``t``
     sampled WITH replacement;
   * ``svrg_rows(t)   -> (P, Q, L) int32``  -- RADiSA's minibatch order,
     one per cell;
-  * ``radisa_perm(t) -> (P,) int64``       -- RADiSA's shared permutation
-    assigning sub-block ``perm[p]`` to row partition p.
+  * ``radisa_perm(t) -> (P,) int64``       -- RADiSA's (and SFK's) shared
+    permutation assigning sub-block ``perm[p]`` to row partition p;
+  * ``sfk_sample(t)  -> (P, n_p) float32`` -- SFK's Bernoulli row sample,
+    1.0 for a sampled row, one per row partition p, SHARED by all q of
+    that partition.
 
 ``GeneratorIndexSource`` draws them from a ``torch.Generator`` seeded from
 the solver config's seed (a device generator on a CUDA device);
@@ -23,7 +26,7 @@ from typing import Mapping, Optional
 
 import torch
 
-_SDCA, _SVRG, _PERM = 0, 1, 2
+_SDCA, _SVRG, _PERM, _SAMPLE = 0, 1, 2, 3
 
 
 class GeneratorIndexSource:
@@ -34,11 +37,12 @@ class GeneratorIndexSource:
 
     def __init__(self, seed: int, *, P: int, Q: int, n_p: int,
                  steps: Optional[int] = None, L: Optional[int] = None,
-                 device="cpu"):
+                 sample_frac: float = 0.5, device="cpu"):
         self.seed = int(seed)
         self.P, self.Q, self.n_p = P, Q, n_p
         self.steps = steps if steps is not None else n_p
         self.L = L if L is not None else n_p
+        self.sample_frac = float(sample_frac)
         self.device = torch.device(device)
         self._gen = torch.Generator(device=self.device)
 
@@ -60,15 +64,21 @@ class GeneratorIndexSource:
         return torch.randperm(self.P, generator=self._reseed(t, _PERM),
                               device=self.device)
 
+    def sfk_sample(self, t: int) -> torch.Tensor:
+        u = torch.rand((self.P, self.n_p), generator=self._reseed(t, _SAMPLE),
+                       device=self.device)
+        return (u < self.sample_frac).to(torch.float32)
+
 
 class ArrayIndexSource:
     """Replays given streams.  Each argument maps the outer iteration
     ``t`` (1-based) to that iteration's array -- a dict, or a sequence /
     stacked array whose entry ``t - 1`` belongs to iteration ``t``."""
 
-    def __init__(self, *, sdca=None, svrg=None, perm=None, device="cpu"):
+    def __init__(self, *, sdca=None, svrg=None, perm=None, sample=None,
+                 device="cpu"):
         self._streams = {"sdca_rows": sdca, "svrg_rows": svrg,
-                         "radisa_perm": perm}
+                         "radisa_perm": perm, "sfk_sample": sample}
         self.device = torch.device(device)
 
     def _get(self, name: str, t: int, dtype) -> torch.Tensor:
@@ -91,3 +101,6 @@ class ArrayIndexSource:
 
     def radisa_perm(self, t: int) -> torch.Tensor:
         return self._get("radisa_perm", t, torch.int64)
+
+    def sfk_sample(self, t: int) -> torch.Tensor:
+        return self._get("sfk_sample", t, torch.float32)

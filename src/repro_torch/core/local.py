@@ -153,3 +153,107 @@ def local_svrg(loss: Loss, x, y, mask, z_anchor, w_anchor_sub, mu_sub,
             + mu_sub + lam * (w - w_anchor_sub)
         w = w - eta * g
     return w
+
+
+# ----------------------------------------------------------------------------
+# Sparse-cell variants: every block is a padded-ELL pair (cols, vals) of shape
+# (P, Q, n_p, k) with block-local column ids; k ~ max row nnz, so a cell's
+# memory and per-step gather work scale with the nonzero count instead of
+# m_q.  Padding slots carry (col=0, val=0): gathers read w[0] harmlessly and
+# scatters add zero, so they are inert.  Same index streams as the dense
+# variants, so sparse and dense runs agree to float tolerance on identical
+# data.
+# ----------------------------------------------------------------------------
+
+def local_sdca_sparse(loss: Loss, cols, vals, y, mask, alpha0, w0, *, lam, n,
+                      Q, idx, step_mode: str = "exact", beta=None,
+                      backend: str = "kernel"):
+    """Sparse-cell version of :func:`local_sdca`.
+
+    Args:
+      cols, vals: (P, Q, n_p, k) padded-ELL blocks (block-local columns).
+      w0: (Q, m_q) the shared primal blocks.
+      Everything else as in :func:`local_sdca`.
+
+    Returns:
+      delta_alpha: (P, Q, n_p) accumulated dual change of every cell.
+    """
+    use_beta = step_mode == "beta"
+
+    if backend == "kernel":
+        _check_kernel_loss(loss)
+        from repro_torch.kernels.sdca import sdca_epoch_sparse
+        dalpha, _ = sdca_epoch_sparse(cols, vals, y, mask, alpha0, w0, idx,
+                                      lam=lam, n=n, Q=Q, loss=loss.name,
+                                      beta=(beta if use_beta else None))
+        return dalpha
+    if backend != "ref":
+        raise ValueError(f"unknown local backend {backend!r}")
+
+    P, Qc, n_p, _ = cols.shape
+    m_q = w0.shape[-1]
+    x_sq = torch.sum(vals * vals, dim=-1)          # (P, Q, n_p)
+    w = w0.unsqueeze(0).expand(P, Qc, m_q).clone()
+    dalpha = torch.zeros((P, Qc, n_p), dtype=vals.dtype, device=vals.device)
+    pa = torch.arange(P, device=vals.device)
+    idx = idx.long()
+    for h in range(idx.shape[1]):
+        i = idx[:, h]
+        ci = cols[pa, :, i].long()                 # (P, Q, k)
+        vi = vals[pa, :, i]
+        zloc = (vi * torch.gather(w, 2, ci)).sum(-1)
+        a_i = alpha0[pa, i].unsqueeze(1) + dalpha[pa, :, i]
+        d = loss.sdca_delta(a_i, x_sq[pa, :, i], zloc, y[pa, i].unsqueeze(1),
+                            lam, n, Q, beta=(beta if use_beta else None))
+        d = d * mask[pa, i].unsqueeze(1)           # padded rows never move
+        w.scatter_add_(2, ci, (d / (lam * n)).unsqueeze(-1) * vi)
+        dalpha[pa, :, i] += d
+    # the local w is dropped: D3CA recomputes w from the primal-dual map
+    return dalpha
+
+
+def local_svrg_sparse(loss: Loss, cols, vals, y, mask, z_anchor,
+                      w_anchor_sub, mu_sub, *, lam, eta, idx, lo=None,
+                      backend: str = "kernel"):
+    """Sparse-cell version of :func:`local_svrg`.
+
+    Every cell receives the FULL feature block as (n_p, k) ELL; the
+    assigned window ``[lo[p], lo[p] + m_sub)`` is selected by masking the
+    in-window entries of each sampled row (an ELL row cannot be
+    column-sliced).  ``lo=None`` means the window is the whole block
+    (RADiSA-avg).
+
+    Returns:
+      w_sub: (P, Q, m_sub) updated sub-block iterates.
+    """
+    if backend == "kernel":
+        _check_kernel_loss(loss)
+        from repro_torch.kernels.svrg import svrg_inner_sparse
+        return svrg_inner_sparse(cols, vals, y, mask, z_anchor, w_anchor_sub,
+                                 mu_sub, idx, lam=lam, eta=eta,
+                                 loss=loss.name, lo=lo)
+    if backend != "ref":
+        raise ValueError(f"unknown local backend {backend!r}")
+
+    P, Qc, _, _ = cols.shape
+    m_sub = w_anchor_sub.shape[-1]
+    pa = torch.arange(P, device=vals.device)[:, None]
+    qa = torch.arange(Qc, device=vals.device)[None, :]
+    off = 0 if lo is None else lo.long()[:, None, None]
+    idx = idx.long()
+    w = w_anchor_sub.clone()
+    for h in range(idx.shape[-1]):
+        j = idx[:, :, h]                           # (P, Q)
+        rel = cols[pa, qa, j].long() - off         # (P, Q, k)
+        vj = vals[pa, qa, j]
+        yj, zj = y[pa, j], z_anchor[pa, j]
+        sel = ((rel >= 0) & (rel < m_sub)).to(vj.dtype)
+        relc = rel.clamp(0, m_sub - 1)
+        diff = w - w_anchor_sub
+        corr = (vj * sel * torch.gather(diff, 2, relc)).sum(-1)
+        z = zj + corr
+        gdiff = (loss.grad(z, yj) - loss.grad(zj, yj)) * mask[pa, j]
+        g_sparse = torch.zeros_like(w).scatter_add_(
+            2, relc, gdiff.unsqueeze(-1) * vj * sel)
+        w = w - eta * (g_sparse + mu_sub + lam * diff)
+    return w

@@ -2,7 +2,9 @@
 
 Primal SGD x CD hybrid with SVRG variance reduction in the doubly
 distributed setting.  The cell-local inner loop is ``local.local_svrg``
-(the CUDA SVRG kernel or the plain loop, selected by ``local_backend``).
+(the CUDA SVRG kernel or the plain loop, selected by ``local_backend``),
+or ``local.local_svrg_sparse`` on padded-ELL cells, where the anchor pass
+becomes ``partition.ell_gather`` / ``ell_scatter_add``.
 The algorithm is ONE :class:`~repro_torch.core.engines.CellProgram` whose
 CommSchedule names the paper's communication pattern (per outer
 iteration)::
@@ -40,10 +42,11 @@ from .comm import CommSchedule
 from .engines import (CellProgram, EngineProgram, cached_build,
                       drive_with_callback, grid_program)
 from .indices import GeneratorIndexSource
-from .local import local_svrg
+from .local import local_svrg, local_svrg_sparse
 from .losses import Loss, get_loss
-from .partition import (DoublyPartitioned, blocks_times_cols, partition,
-                        rows_times_blocks)
+from .partition import (DoublyPartitioned, SparseDoublyPartitioned,
+                        blocks_times_cols, ell_gather, ell_scatter_add,
+                        partition, rows_times_blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,34 +88,75 @@ def _check_subblocks(m_q: int, Pn: int, avg: bool):
             "partition(..., m_multiple=P*Q) -- or use variant='avg'.")
 
 
+# ----------------------------------------------------------------------------
+# the anchor pass and the sub-block windows, shared with SFK (core/sfk.py)
+# ----------------------------------------------------------------------------
+
+def blocks_times_w(x_parts, w, sparse: bool):
+    """Every cell's x_[p,q] w_q -> ``(P, Q, n_p)``: a batched matvec over
+    dense blocks ``(x,)`` or a gather over ELL cells ``(cols, vals)``."""
+    return ell_gather(w, *x_parts) if sparse else blocks_times_cols(*x_parts, w)
+
+
+def rows_times_x(v, x_parts, m_q: int, sparse: bool):
+    """Every cell's v_p^T x_[p,q] -> ``(P, Q, m_q)`` for ``v (P, n_p)``: a
+    batched matvec over dense blocks or a scatter-add over ELL cells."""
+    if sparse:
+        return ell_scatter_add(m_q, *x_parts, v[:, None, :])
+    return rows_times_blocks(v, *x_parts)
+
+
+def cut_windows(w, mu, perm, m_sub: int):
+    """Sub-block ``perm[p]`` of every feature block for row partition p:
+    returns ``lo (P,) int32``, the window columns ``win (P, m_sub)`` and
+    each cell's window of ``w`` and ``mu`` ``(P, Q, m_sub)``."""
+    lo = (perm * m_sub).to(torch.int32)
+    win = lo.long()[:, None] + torch.arange(m_sub, device=w.device)
+    # (Q, P, m_sub) -> (P, Q, m_sub)
+    return (lo, win, w[:, win].transpose(0, 1).contiguous(),
+            mu[:, win].transpose(0, 1).contiguous())
+
+
+def paste_windows(win, delta_sub, m_q: int):
+    """Each cell's window change ``(P, Q, m_sub)`` placed at its columns
+    ``win (P, m_sub)`` of a zero ``(P, Q, m_q)``."""
+    Pn, Qn, m_sub = delta_sub.shape
+    delta = torch.zeros((Pn, Qn, m_q), dtype=delta_sub.dtype,
+                        device=delta_sub.device)
+    return delta.scatter_(2, win[:, None, :].expand(Pn, Qn, m_sub),
+                          delta_sub)
+
+
 def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
-                        index_source, local_backend: str = "kernel"
-                        ) -> CellProgram:
+                        index_source, local_backend: str = "kernel",
+                        sparse: bool = False) -> CellProgram:
     """The ONE RADiSA program.
 
-    Blocked data: ``(x (P, Q, n_p, m_q), y (P, n_p), mask (P, n_p))``;
+    Blocked data: ``(x (P, Q, n_p, m_q), y (P, n_p), mask (P, n_p))``, or
+    with ``sparse=True`` ``(cols, vals (P, Q, n_p, k), y, mask)``;
     blocked state: ``w (Q, m_q)``.  ``index_source`` supplies the shared
     sub-block permutation (``radisa_perm(t) -> (P,)``) and the minibatch
     order of every cell (``svrg_rows(t) -> (P, Q, L)``).  The sub-block
-    window of a cell is read in place by the local solver; no column
+    window of a cell is read in place by the local solver (a dense
+    block's columns, or the in-window entries of an ELL row); no column
     slice of the block is materialised."""
     lam = cfg.lam
     avg = cfg.variant == "avg"
+    local = local_svrg_sparse if sparse else local_svrg
 
     def cell(comm, t, data, state):
-        x, y, mask = data
+        *x_parts, y, mask = data
         w = state
         Pn = comm.axis_size("data")
         Qn = comm.axis_size("model")
         m_sub = m_q if avg else m_q // Pn
         eta = cfg.eta(t)
         # (1) anchor inner products, reduced across feature blocks
-        z_local = blocks_times_cols(x, w)
-        z = comm("z", z_local)                               # (P, n_p)
+        z = comm("z", blocks_times_w(x_parts, w, sparse))    # (P, n_p)
         # (2) full gradient of F at the anchor, reduced across rows
         gz = loss.grad(z, y) * mask
-        gcol = rows_times_blocks(gz, x)
-        mu = comm("grad", gcol) / n + lam * w                # (Q, m_q)
+        mu = (comm("grad", rows_times_x(gz, x_parts, m_q, sparse)) / n
+              + lam * w)                                     # (Q, m_q)
         # (3) sub-block assignment (shared permutation) + local SVRG
         idx = index_source.svrg_rows(t)                      # (P, Q, L)
         if avg:
@@ -120,22 +164,15 @@ def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
             w_anchor = w.unsqueeze(0).expand(Pn, Qn, m_q).contiguous()
             mu_sub = mu.unsqueeze(0).expand(Pn, Qn, m_q).contiguous()
         else:
-            perm = index_source.radisa_perm(t)               # (P,)
-            lo = (perm * m_sub).to(torch.int32)       # assigned sub-blocks
-            cols = lo.long()[:, None] + torch.arange(m_sub, device=w.device)
-            # (Q, P, m_sub) -> (P, Q, m_sub): each cell's window of w, mu
-            w_anchor = w[:, cols].transpose(0, 1).contiguous()
-            mu_sub = mu[:, cols].transpose(0, 1).contiguous()
-        w_new = local_svrg(loss, x, y, mask, z, w_anchor, mu_sub, lam=lam,
-                           eta=eta, idx=idx, lo=lo, backend=local_backend)
+            lo, win, w_anchor, mu_sub = cut_windows(
+                w, mu, index_source.radisa_perm(t), m_sub)
+        w_new = local(loss, *x_parts, y, mask, z, w_anchor, mu_sub, lam=lam,
+                      eta=eta, idx=idx, lo=lo, backend=local_backend)
         # (4) recombine
         if avg:
             # RADiSA-avg: average the P overlapping solutions per block
             return comm("w_avg", w_new)
-        delta = torch.zeros((Pn, Qn, m_q), dtype=w.dtype, device=w.device)
-        delta.scatter_(2, cols[:, None, :].expand(Pn, Qn, m_sub),
-                       w_new - w_anchor)
-        return w + comm("dw", delta)
+        return w + comm("dw", paste_windows(win, w_new - w_anchor, m_q))
 
     return CellProgram(radisa_schedule(cfg.variant), cell)
 
@@ -144,16 +181,18 @@ def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
 # single-device grid engine
 # ----------------------------------------------------------------------------
 
-def radisa_simulated_program(loss: Loss, data: DoublyPartitioned,
-                             cfg: RADiSAConfig, *,
+def radisa_simulated_program(loss: Loss, data, cfg: RADiSAConfig, *,
                              local_backend: str = "kernel", w0=None,
                              index_source=None, cache=None) -> EngineProgram:
     """Grid engine.  State: w_blocks (Q, m_q).
 
-    Requires P | m_q (pre-pad with ``partition(..., m_multiple=P*Q)``).
+    ``data`` may be a dense :class:`DoublyPartitioned` or a sparse
+    :class:`SparseDoublyPartitioned` (padded-ELL cells).  Requires
+    P | m_q (pre-pad with ``partition(..., m_multiple=P*Q)``).
     ``index_source=None`` draws the permutations and minibatch orders
     from a ``torch.Generator`` seeded from ``cfg.seed`` on the data's
     device."""
+    sparse = isinstance(data, SparseDoublyPartitioned)
     Pn, Qn = data.P, data.Q
     dev = data.device
     _check_subblocks(data.m_q, Pn, cfg.variant == "avg")
@@ -163,8 +202,10 @@ def radisa_simulated_program(loss: Loss, data: DoublyPartitioned,
             device=dev)
     cellprog = radisa_cell_program(loss, cfg, n=data.n, m_q=data.m_q,
                                    index_source=index_source,
-                                   local_backend=local_backend)
-    gdata = (data.x_blocks, data.y_blocks, data.mask)
+                                   local_backend=local_backend,
+                                   sparse=sparse)
+    x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
+    gdata = (*x_parts, data.y_blocks, data.mask)
     step = cached_build(cache, "step",
                         lambda: grid_program(cellprog, Pn, Qn, device=dev))
     w_init = (torch.zeros((Qn, data.m_q), device=dev) if w0 is None
@@ -175,14 +216,15 @@ def radisa_simulated_program(loss: Loss, data: DoublyPartitioned,
         w_of=lambda s: data.w_from_blocks(s))
 
 
-def radisa_simulated(loss_name: str, data: DoublyPartitioned,
-                     cfg: RADiSAConfig, callback=None,
+def radisa_simulated(loss_name: str, data, cfg: RADiSAConfig, callback=None,
                      local_backend: str = "kernel", index_source=None):
     loss = get_loss(loss_name)
     Pn, Qn = data.P, data.Q
-    if data.m_q % Pn and cfg.variant != "avg":
+    if (data.m_q % Pn and cfg.variant != "avg"
+            and isinstance(data, DoublyPartitioned)):
         # RADiSA pre-splits each feature block into P sub-blocks; repartition
         # with extra (inert, all-zero) column padding so that P | m_q.
+        # (Sparse cells are not re-cut here: the program raises instead.)
         X, y = data.dense()
         padded = partition(X, y, Pn, Qn, m_multiple=Pn * Qn,
                            device=data.device)

@@ -1,10 +1,10 @@
-"""Unified solver framework: one API over D3CA / RADiSA.
+"""Unified solver framework: one API over D3CA / RADiSA / SFK.
 
 The paper's doubly distributed optimizers share one P x Q execution
 story.  This module provides that story once:
 
   * a :class:`Solver` base class with a registry --
-    ``get_solver("d3ca" | "radisa")`` returns the solver class;
+    ``get_solver("d3ca" | "radisa" | "sfk")`` returns the solver class;
   * knobs threaded end-to-end:
       - ``device="cuda" | "cpu"`` -- where the grid lives.  The default
         is the card; without one the solver raises rather than carrying
@@ -12,19 +12,23 @@ story.  This module provides that story once:
       - ``local_backend="kernel" | "ref"`` -- the hand-written CUDA
         kernels (their plain PyTorch versions for tensors on the CPU) vs
         the plain per-step loop of ``core/local.py``;
+      - ``block_format="dense" | "sparse"`` -- per-cell (n_p, m_q) tiles
+        or padded-ELL cells (memory ~ nnz).  ``"sparse"`` takes a
+        :class:`~repro_torch.data.sparse.CSRMatrix` (or a dense array,
+        converted row-wise) and never densifies it; ``"dense"``
+        densifies a CSR input;
       - ``index_source`` -- where the random coordinate orders come from
         (``core/indices.py``); ``None`` draws them from a
         ``torch.Generator`` seeded from the config;
   * a shared outer loop: objective / duality-gap history, early
     stopping, warm starts from a previous ``w`` / ``alpha``.
 
-This slice of the port covers the single-device grid engine
-(``engine="simulated"``) on dense blocks.  Every other knob of the
-reference's ``Solver`` -- the mesh engines, ``block_format="sparse"``,
+The port covers the single-device grid engine (``engine="simulated"``).
+Every other knob of the reference's ``Solver`` -- the mesh engines,
 ``staleness``, ``compression``, ``topology``, row gates and
-``Solver.update``, tracer / registry / monitor, and the solvers ``sfk``
-and ``admm`` -- raises ``NotImplementedError`` naming the ROADMAP queue
-item that brings it; nothing is silently ignored.
+``Solver.update``, tracer / registry / monitor, and the solver ``admm``
+-- raises ``NotImplementedError`` naming the ROADMAP queue item that
+brings it; nothing is silently ignored.
 
 Example::
 
@@ -35,6 +39,11 @@ Example::
                        cfg=D3CAConfig(lam=1e-2, outer_iters=20),
                        f_star=f_star, tol=1e-2)
     res.w, res.history[-1]["objective"], res.converged
+
+    # news20-scale sparse data: CSR in, padded-ELL cells on the card
+    csr, y = make_sparse_svm_csr(19996, 1355191, density=3.4e-4)
+    res = get_solver("radisa")(block_format="sparse").solve(
+        "hinge", csr, y, P=7, Q=4, cfg=RADiSAConfig(lam=1e-4))
 """
 from __future__ import annotations
 
@@ -42,36 +51,34 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Type
 
+from ..data.sparse import CSRMatrix
 from .d3ca import D3CAConfig, d3ca_simulated_program
 from .engines import EngineProgram, drive
 from .local import LOCAL_BACKENDS
 from .losses import get_loss
-from .partition import partition
+from .partition import partition, partition_sparse
 from .radisa import RADiSAConfig, radisa_simulated_program
 from .reference import rel_opt
+from .sfk import SFKConfig, sfk_simulated_program
 from .util import as_tensor, resolve_device
 
 ENGINES = ("simulated",)
-BLOCK_FORMATS = ("dense",)
+BLOCK_FORMATS = ("dense", "sparse")
 
 #: what the reference offers and this slice does not (solver knobs, CLI
 #: flags by their argparse dest, solver names), with the title of the
 #: ROADMAP queue-A item that ports it
 _ITEMS = {
     "mesh": "'Multi-device engines'",
-    "sparse": "'Sparse path'",
     "comm": "'Comm policies on the grid engine'",
     "online": "'Row gate, online service, scorer, checkpoints'",
     "obs": "'Observability'",
     "fleet": "'Fleet'",
-    "sfk": "'RADiSA, then SFK'",
     "admm": "'ADMM'",
 }
 NOT_PORTED = {
     "engine": _ITEMS["mesh"], "mesh": _ITEMS["mesh"],
     "force_host_devices": _ITEMS["mesh"],
-    "block_format": _ITEMS["sparse"], "dataset": _ITEMS["sparse"],
-    "libsvm_path": _ITEMS["sparse"],
     "staleness": _ITEMS["comm"], "compression": _ITEMS["comm"],
     "topology": _ITEMS["comm"],
     "program_cache": _ITEMS["online"], "row_gate": _ITEMS["online"],
@@ -81,7 +88,7 @@ NOT_PORTED = {
     "metrics": _ITEMS["obs"], "listen": _ITEMS["obs"],
     "health": _ITEMS["obs"], "flight_recorder": _ITEMS["obs"],
     "problems": _ITEMS["fleet"],
-    "sfk": _ITEMS["sfk"], "admm": _ITEMS["admm"],
+    "admm": _ITEMS["admm"],
 }
 
 
@@ -148,7 +155,8 @@ class Solver:
             raise ValueError(f"local_backend={local_backend!r}; expected one "
                              f"of {LOCAL_BACKENDS}")
         if block_format not in BLOCK_FORMATS:
-            raise not_ported("block_format", block_format)
+            raise ValueError(f"block_format={block_format!r}; expected one "
+                             f"of {BLOCK_FORMATS}")
         if int(staleness) != 0:
             raise not_ported("staleness", staleness)
         if compression is not None:
@@ -177,12 +185,16 @@ class Solver:
         """Bind the solver to data on the configured device/backend.
 
         Pads the feature dimension to a multiple of P*Q so RADiSA's P
-        sub-blocks always divide m_q.
+        sub-blocks always divide m_q.  ``block_format="sparse"`` cuts
+        padded-ELL cells from a :class:`CSRMatrix` ``X`` and never
+        materialises the dense matrix (a dense ``X`` is converted row by
+        row); ``block_format="dense"`` densifies a CSR input.
 
         Args:
           loss_name: a key of :data:`repro_torch.core.losses.LOSSES`.
-          X, y: the (n, m) training matrix and (n,) labels (numpy arrays
-            or tensors; moved to the solver's device).
+          X, y: the (n, m) training matrix and (n,) labels (numpy arrays,
+            tensors or, for X, a :class:`CSRMatrix`; the blocks are made
+            on the solver's device).
           P, Q: observation/feature partition counts.
           cfg: the solver's config dataclass (``config_cls()`` default).
           warm_start: a :class:`SolveResult`, a ``(w, alpha)`` tuple, or
@@ -200,7 +212,14 @@ class Solver:
         w0, alpha0 = _unpack_warm_start(warm_start)
         if P is None or Q is None:
             raise ValueError("engine='simulated' needs P and Q")
-        data = partition(X, y, P, Q, m_multiple=P * Q, device=self.device)
+        if self.block_format == "sparse":
+            data = partition_sparse(X, y, P, Q, m_multiple=P * Q,
+                                    device=self.device)
+        else:
+            if isinstance(X, CSRMatrix):
+                X = X.toarray()   # CSR input under block_format="dense"
+            data = partition(X, y, P, Q, m_multiple=P * Q,
+                             device=self.device)
         return self._simulated_program(loss, data, cfg, w0, alpha0)
 
     # ---- the shared outer loop --------------------------------------------
@@ -251,8 +270,10 @@ class Solver:
         """One program build + outer loop."""
         loss = get_loss(loss_name)
         # the objective is evaluated on the device, against the same
-        # tensors the blocks were cut from
-        X = as_tensor(X, self.device)
+        # data the blocks were cut from (a CSR matrix stays one: its
+        # products run on the device of the vector)
+        if not isinstance(X, CSRMatrix):
+            X = as_tensor(X, self.device)
         y = as_tensor(y, self.device)
         prog = self.program(loss_name, X, y, P=P, Q=Q, cfg=cfg, mesh=mesh,
                             warm_start=warm_start, row_gate=row_gate)
@@ -322,7 +343,7 @@ def get_solver(name: str) -> Type[Solver]:
 
     Raises:
       NotImplementedError: for a solver of the reference that is not
-        ported yet (``sfk``, ``admm``).
+        ported yet (``admm``).
       KeyError: for any other unregistered name (the message lists what
         IS registered).
     """
@@ -336,7 +357,8 @@ def get_solver(name: str) -> Type[Solver]:
 
 
 def available_solvers():
-    """Sorted names of every registered solver (``["d3ca", "radisa"]``)."""
+    """Sorted names of every registered solver
+    (``["d3ca", "radisa", "sfk"]``)."""
     return sorted(_REGISTRY)
 
 
@@ -363,3 +385,18 @@ class RADiSASolver(Solver):
                                         local_backend=self.local_backend,
                                         w0=w0,
                                         index_source=self.index_source)
+
+
+@register_solver
+class SFKSolver(Solver):
+    """Stochastic Fang--Klabjan sampling scheme (arXiv 1803.11287): a
+    primal solver whose outer iteration subsamples the observations --
+    minibatch anchor gradients plus variance-reduced local steps on the
+    sampled rows only (see :mod:`repro_torch.core.sfk`)."""
+    name = "sfk"
+    config_cls = SFKConfig
+
+    def _simulated_program(self, loss, data, cfg, w0, alpha0):
+        return sfk_simulated_program(loss, data, cfg,
+                                     local_backend=self.local_backend,
+                                     w0=w0, index_source=self.index_source)

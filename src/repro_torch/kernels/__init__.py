@@ -1,12 +1,16 @@
 """Hand-written CUDA kernels (Hopper, sm_90a) for the cell-local hot spots.
 
-  sdca/    local dual coordinate ascent epoch (paper Algorithm 2)
-  svrg/    RADiSA inner loop (paper Algorithm 3 steps 7-10)
+  sdca/    local dual coordinate ascent epoch (paper Algorithm 2), on
+           dense blocks and on padded-ELL sparse cells
+  svrg/    RADiSA / SFK inner loop (paper Algorithm 3 steps 7-10), on
+           dense blocks and on padded-ELL sparse cells
 
-Each package: ``ops.py`` (the public wrapper: checks its arguments,
-launches the CUDA kernel for tensors on a CUDA device or raises, and
-takes the plain PyTorch version only for tensors that lie on the CPU)
-and ``ref.py`` (the plain PyTorch version of the same batched function).
+Each package: ``ops.py`` (the public wrapper of the dense kernel: checks
+its arguments, launches the CUDA kernel for tensors on a CUDA device or
+raises, and takes the plain PyTorch version only for tensors that lie on
+the CPU), ``ref.py`` (the plain PyTorch version of the same batched
+function) and ``sparse.py`` (the sparse kernel's wrapper and plain
+version, under the same rules).
 The CUDA sources live in ``repro_torch/csrc``; ``_build`` compiles them
 with ``nvcc`` at first use into one shared library with a plain C
 interface, loaded through ``ctypes``.

@@ -46,6 +46,20 @@ _SIGNATURES = {
         + [_FLT] * 2                      # lam eta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
+    "sdca_epoch_sparse_launch": (
+        [_PTR] * 7 + [_PTR] * 2          # cols vals y mask alpha0 w0 idx
+        #                                  | dalpha w_out
+        + [_INT] * 6                      # P Q n_p k m_q steps
+        + [_FLT] * 4 + [_INT]             # lam n q_scale beta use_beta
+        + [_PTR]                          # cell_params (null: use scalars)
+        + [_INT] * 2 + [_PTR]),           # loss threads stream
+    "svrg_inner_sparse_launch": (
+        [_PTR] * 9 + [_PTR] * 2          # cols vals y mask z_a w_a mu idx lo
+        #                                  | w_out g_scratch
+        + [_INT] * 6                      # P Q n_p k m_sub L
+        + [_FLT] * 2                      # lam eta
+        + [_PTR]                          # cell_params (null: use scalars)
+        + [_INT] * 2 + [_PTR]),           # loss threads stream
 }
 
 

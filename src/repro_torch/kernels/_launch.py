@@ -42,6 +42,15 @@ def block_threads(m: int) -> int:
     return 32 * max(1, min(8, warps))
 
 
+def ell_threads(k: int, m: int = 0, max_warps: int = 8) -> int:
+    """Threads per block for a kernel that walks ELL rows of ``k`` slots
+    and, where it also sweeps a dense vector of ``m`` floats every step,
+    that vector: a warp per 32 slots and per 128 elements, at least four
+    warps, at most ``max_warps``."""
+    warps = max(4, -(-k // 32), -(-m // 128))
+    return 32 * min(max_warps, warps)
+
+
 def check_smem(nbytes: int, what: str):
     if nbytes > MAX_DYNAMIC_SMEM:
         raise ValueError(

@@ -1,4 +1,6 @@
 from .ops import sdca_epoch
 from .ref import sdca_epoch_plain
+from .sparse import sdca_epoch_sparse, sdca_epoch_sparse_plain
 
-__all__ = ["sdca_epoch", "sdca_epoch_plain"]
+__all__ = ["sdca_epoch", "sdca_epoch_plain", "sdca_epoch_sparse",
+           "sdca_epoch_sparse_plain"]

@@ -1,4 +1,6 @@
 from .ops import svrg_inner
 from .ref import svrg_inner_plain
+from .sparse import svrg_inner_sparse, svrg_inner_sparse_plain
 
-__all__ = ["svrg_inner", "svrg_inner_plain"]
+__all__ = ["svrg_inner", "svrg_inner_plain", "svrg_inner_sparse",
+           "svrg_inner_sparse_plain"]

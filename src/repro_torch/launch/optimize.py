@@ -1,25 +1,32 @@
 """CLI over the unified solver framework (``repro_torch.core.solver``).
 
-Run D3CA or RADiSA on a synthetic dense dataset on the single-device
-grid engine:
+Run D3CA, RADiSA or SFK on a synthetic dataset (or a LIBSVM file) on the
+single-device grid engine:
 
   # the paper's Part 1 instance at full width, on the card, through the
   # CUDA kernels (the defaults: --device cuda --backend kernel)
   PYTHONPATH=src python -m repro_torch.launch.optimize \\
       --solver d3ca --mesh 7x4 --n 14000 --m 12000 --lam 1e-2 --iters 10
 
+  # news20-profile sparse data at full width: CSR all the way down,
+  # padded-ELL cells on the card (f* is skipped: densifying 19 996 x
+  # 1 355 191 for serial SDCA would need 108 GB)
+  PYTHONPATH=src python -m repro_torch.launch.optimize \\
+      --solver radisa --dataset sparse --block-format sparse --n 19996 \\
+      --m 1355191 --density 3.4e-4 --lam 1e-4 --mesh 7x4 --iters 10
+
   # a small instance on the CPU (plain PyTorch versions of the kernels)
   PYTHONPATH=src python -m repro_torch.launch.optimize \\
-      --solver radisa --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu
+      --solver sfk --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu
 
 Prints one line per outer iteration (objective, duality gap when the
 solver has a dual, relative optimality when --ref-epochs > 0) and a
 final JSON summary.
 
-The flags of layers that are not ported yet (mesh engines, sparse block
-format, staleness, compression, topology, fleet fan-out, libsvm / sparse
-datasets, tracing and the observability plane) are still parsed, so that
-asking for one fails by name instead of being ignored.
+The flags of layers that are not ported yet (mesh engines, staleness,
+compression, topology, fleet fan-out, tracing and the observability
+plane) are still parsed, so that asking for one fails by name instead of
+being ignored.
 """
 from __future__ import annotations
 
@@ -30,7 +37,13 @@ import sys
 from repro_torch.core import get_solver, objective, serial_sdca
 from repro_torch.core.solver import not_ported_message
 from repro_torch.core.util import as_tensor
-from repro_torch.data import make_svm_data
+from repro_torch.data import (CSRMatrix, load_libsvm, load_libsvm_csr,
+                              make_sparse_svm_csr, make_sparse_svm_data,
+                              make_svm_data)
+
+#: serial SDCA for f* densifies a CSR input; above this many entries the
+#: reference's rule skips it
+DENSE_REF_LIMIT = 20_000_000
 
 #: flags of the reference CLI whose layer is not ported: (flag, argparse
 #: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
@@ -40,9 +53,6 @@ _NOT_PORTED_FLAGS = (
     ("--staleness", "staleness", 0),
     ("--compression", "compression", None),
     ("--topology", "topology", None),
-    ("--block-format", "block_format", "dense"),
-    ("--dataset", "dataset", "dense"),
-    ("--libsvm-path", "libsvm_path", None),
     ("--problems", "problems", 1),
     ("--force-host-devices", "force_host_devices", None),
     ("--trace", "trace", None),
@@ -66,7 +76,7 @@ def build_parser():
         prog="repro_torch.launch.optimize",
         description="Doubly distributed solver CLI (PyTorch/CUDA port)")
     ap.add_argument("--solver", default="d3ca",
-                    help="d3ca | radisa (see get_solver)")
+                    help="d3ca | radisa | sfk (see get_solver)")
     ap.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
                     help="cell-local solver backend: the CUDA kernels "
                          "(plain PyTorch versions on the CPU) or the plain "
@@ -75,10 +85,19 @@ def build_parser():
                     help="cuda (default; fails without a card) | cpu")
     ap.add_argument("--mesh", type=_parse_mesh, default=(4, 2),
                     metavar="PxQ", help="grid shape, e.g. 4x2")
+    ap.add_argument("--block-format", default="dense",
+                    choices=["dense", "sparse"],
+                    help="per-cell data layout: dense (n_p, m_q) tiles or "
+                         "padded-ELL sparse cells (memory ~ nnz)")
     ap.add_argument("--dataset", default="dense",
                     choices=["dense", "sparse", "libsvm"])
+    ap.add_argument("--libsvm-path", default=None,
+                    help="path for --dataset libsvm (streamed into CSR "
+                         "when --block-format sparse)")
     ap.add_argument("--n", type=int, default=1600)
     ap.add_argument("--m", type=int, default=400)
+    ap.add_argument("--density", type=float, default=0.05,
+                    help="nonzero fraction for --dataset sparse")
     ap.add_argument("--loss", default="hinge",
                     choices=["hinge", "squared", "logistic"])
     ap.add_argument("--lam", type=float, default=1e-1)
@@ -96,12 +115,10 @@ def build_parser():
                     help=argparse.SUPPRESS)
     ap.add_argument("--problems", type=int, default=1,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--block-format", default="dense",
-                    help=argparse.SUPPRESS)
     ap.add_argument("--force-host-devices", type=int, default=None,
                     help=argparse.SUPPRESS)
-    for flag in ("--compression", "--topology", "--libsvm-path", "--trace",
-                 "--listen", "--flight-recorder"):
+    for flag in ("--compression", "--topology", "--trace", "--listen",
+                 "--flight-recorder"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     for flag in ("--metrics", "--health"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -124,16 +141,44 @@ def main(argv=None):
         ap.error(str(e.args[0]))
     P, Q = args.mesh
     # raises when the card is asked for (the default) and there is none
-    solver = cls(local_backend=args.backend, device=args.device)
+    solver = cls(local_backend=args.backend, device=args.device,
+                 block_format=args.block_format)
+    sparse_fmt = args.block_format == "sparse"
 
-    X, y = make_svm_data(args.n, args.m, seed=args.seed)
-    X, y = as_tensor(X, solver.device), as_tensor(y, solver.device)
+    if args.dataset == "dense":
+        X, y = make_svm_data(args.n, args.m, seed=args.seed)
+    elif args.dataset == "libsvm":
+        if not args.libsvm_path:
+            ap.error("--dataset libsvm needs --libsvm-path")
+        X, y = (load_libsvm_csr if sparse_fmt else load_libsvm)(
+            args.libsvm_path)
+    elif sparse_fmt:
+        # CSR all the way down: the dense matrix is never materialised
+        X, y = make_sparse_svm_csr(args.n, args.m, density=args.density,
+                                   seed=args.seed)
+    else:
+        X, y = make_sparse_svm_data(args.n, args.m, density=args.density,
+                                    seed=args.seed)
+    if not isinstance(X, CSRMatrix):
+        X = as_tensor(X, solver.device)
+    y = as_tensor(y, solver.device)
 
     f_star = None
     if args.ref_epochs > 0:
-        w_ref, _ = serial_sdca(args.loss, X, y, lam=args.lam,
-                               epochs=args.ref_epochs, device=solver.device)
-        f_star = float(objective(args.loss, X, y, w_ref, args.lam))
+        n_, m_ = X.shape
+        if isinstance(X, CSRMatrix) and n_ * m_ > DENSE_REF_LIMIT:
+            print(f"[optimize] skipping f* reference: densifying "
+                  f"{n_}x{m_} for serial SDCA would need "
+                  f"{n_ * m_ * 4 / 1e9:.1f} GB (pass --ref-epochs 0 to "
+                  "silence)", file=sys.stderr)
+        else:
+            X_ref = X.toarray() if isinstance(X, CSRMatrix) else X
+            w_ref, _ = serial_sdca(args.loss, X_ref, y, lam=args.lam,
+                                   epochs=args.ref_epochs,
+                                   device=solver.device)
+            f_star = float(objective(args.loss, as_tensor(X_ref,
+                                                          solver.device),
+                                     y, w_ref, args.lam))
 
     cfg = cls.config_cls(lam=args.lam, outer_iters=args.iters)
     print(f"[optimize] {args.solver} engine={solver.engine} "

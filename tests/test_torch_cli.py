@@ -19,7 +19,7 @@ SUMMARY_KEYS = {"solver", "engine", "local_backend", "device",
 
 
 
-@pytest.mark.parametrize("solver", ["d3ca", "radisa"])
+@pytest.mark.parametrize("solver", ["d3ca", "radisa", "sfk"])
 @pytest.mark.parametrize("backend", ["kernel", "ref"])
 def test_cli_runs_and_reports(solver, backend, tmp_path, capsys):
     out = tmp_path / "run.json"
@@ -39,6 +39,43 @@ def test_cli_runs_and_reports(solver, backend, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert f"[optimize] {solver} engine=simulated backend={backend}" in printed
     assert printed.count("  t=") == 3 and "rel_opt=" in printed
+
+
+@pytest.mark.parametrize("solver", ["d3ca", "radisa", "sfk"])
+def test_cli_sparse_block_format(solver, capsys):
+    summary = optimize.main([
+        "--solver", solver, "--dataset", "sparse", "--density", "0.05",
+        "--n", "96", "--m", "40", "--block-format", "sparse", "--iters",
+        "2", "--ref-epochs", "5", "--mesh", "4x2", "--device", "cpu"])
+    assert (summary["block_format"], summary["n"], summary["m"]) == (
+        "sparse", 96, 40)
+    assert np.isfinite(summary["objective"])
+    assert np.isfinite(summary["rel_opt"])    # n * m is small: f* is run
+    assert "block_format=sparse" in capsys.readouterr().out
+    # the same data through dense blocks (densified from the generator)
+    dense = optimize.main([
+        "--solver", solver, "--dataset", "sparse", "--density", "0.05",
+        "--n", "96", "--m", "40", "--iters", "2", "--ref-epochs", "0",
+        "--mesh", "4x2", "--device", "cpu"])
+    assert dense["block_format"] == "dense" and np.isfinite(
+        dense["objective"])
+
+
+@pytest.mark.parametrize("block_format", ["dense", "sparse"])
+def test_cli_libsvm_dataset(block_format, tmp_path):
+    from repro_torch.data import save_libsvm
+    X, y = make_problem(60, 20, seed=3)
+    X[np.abs(X) < 0.8] = 0.0
+    path = tmp_path / "train.svm"
+    save_libsvm(str(path), X, y)
+    summary = optimize.main([
+        "--solver", "d3ca", "--dataset", "libsvm", "--libsvm-path",
+        str(path), "--block-format", block_format, "--mesh", "2x2",
+        "--iters", "2", "--ref-epochs", "3", "--device", "cpu"])
+    assert (summary["n"], summary["block_format"]) == (60, block_format)
+    assert summary["m"] == int(np.flatnonzero(X.any(0)).max()) + 1
+    assert np.isfinite(summary["objective"]) and np.isfinite(
+        summary["rel_opt"])
 
 
 def test_cli_ref_epochs_zero_skips_rel_opt_and_logistic_needs_ref():
@@ -64,10 +101,9 @@ def test_cli_early_stop():
     (["--staleness", "1"], "--staleness"),
     (["--compression", "int8"], "--compression"),
     (["--topology", "pods=2:int8"], "--topology"),
-    (["--block-format", "sparse"], "--block-format"),
-    (["--dataset", "sparse"], "--dataset sparse"),
-    (["--dataset", "libsvm", "--libsvm-path", "x.svm"], "--dataset libsvm"),
-    (["--libsvm-path", "x.svm"], "--libsvm-path"),
+    (["--block-format", "sparse", "--engine", "shard_map"], "--engine"),
+    (["--block-format", "csc"], "--block-format"),
+    (["--dataset", "libsvm"], "--dataset libsvm needs --libsvm-path"),
     (["--problems", "4"], "--problems"),
     (["--force-host-devices", "6"], "--force-host-devices"),
     (["--trace", "t.json"], "--trace"),
@@ -75,8 +111,8 @@ def test_cli_early_stop():
     (["--listen", "127.0.0.1:0"], "--listen"),
     (["--health"], "--health"),
     (["--flight-recorder", "fr"], "--flight-recorder"),
-    (["--solver", "sfk"], "sfk"),
     (["--solver", "admm"], "admm"),
+    (["--solver", "admm", "--block-format", "sparse"], "admm"),
     (["--solver", "nope"], "unknown solver"),
     (["--backend", "pallas"], "--backend"),
 ])
@@ -86,14 +122,15 @@ def test_cli_rejects_unported_flags_by_name(flags, named, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert named in err
-    if named not in ("unknown solver", "--backend"):
+    if named not in ("unknown solver", "--backend", "--block-format",
+                     "--dataset libsvm needs --libsvm-path"):
         assert "ROADMAP" in err
 
 
 @pytest.mark.parametrize("kw,named", [
     (dict(engine="shard_map"), "engine='shard_map'"),
     (dict(engine="async"), "engine='async'"),
-    (dict(block_format="sparse"), "block_format='sparse'"),
+    (dict(block_format="sparse", engine="shard_map"), "engine='shard_map'"),
     (dict(staleness=2), "staleness=2"),
     (dict(compression="int8"), "compression='int8'"),
     (dict(topology="pods=2"), "topology='pods=2'"),
@@ -116,17 +153,17 @@ def test_solver_rejects_unported_calls_by_name():
             solver.solve("hinge", X, y, P=2, Q=2, cfg=cfg, **kw)
     with pytest.raises(NotImplementedError, match="update"):
         solver.update("hinge", X, y, touched=[0], warm_start=None)
-    for name in ("sfk", "admm"):
-        with pytest.raises(NotImplementedError, match=name):
-            get_solver(name)
+    with pytest.raises(NotImplementedError, match="admm"):
+        get_solver("admm")
     with pytest.raises(KeyError, match="available"):
         get_solver("nope")
     with pytest.raises(ValueError, match="local_backend"):
         get_solver("d3ca")(local_backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="needs P and Q"):
         solver.solve("hinge", X, y, cfg=cfg)
-    assert available_solvers() == ["d3ca", "radisa"]
+    assert available_solvers() == ["d3ca", "radisa", "sfk"]
     assert issubclass(get_solver("radisa"), Solver)
+    assert issubclass(get_solver("sfk"), Solver)
 
 
 def test_default_device_is_the_card_and_is_never_swapped_for_the_cpu():

@@ -54,6 +54,20 @@ def radisa_streams(seed, iters, P, Q, n_p, L):
     return perms, rows
 
 
+def sfk_samples(seed, iters, P, n_p, frac):
+    """{t: (P, n_p) float32 0/1} -- SFK's Bernoulli row sample,
+    ``uniform(fold_in(fold_in(fold_in(key0, t), 2), p)) < frac``."""
+    key0 = jax.random.PRNGKey(seed)
+    out = {}
+    for t in range(1, iters + 1):
+        key_2 = jax.random.fold_in(jax.random.fold_in(key0, t), 2)
+        out[t] = np.stack([
+            np.asarray(jax.random.uniform(jax.random.fold_in(key_2, p),
+                                          (n_p,)) < frac)
+            for p in range(P)]).astype(np.float32)
+    return out
+
+
 def serial_perms(seed, epochs, n):
     """(epochs, n) -- the visiting orders of the reference's serial SDCA."""
     keys = jax.random.split(jax.random.PRNGKey(seed), epochs)
@@ -74,27 +88,37 @@ def ceil_div(a, k):
     return -(-a // k)
 
 
-def collect(solver, loss, X, y, cfg, **kw):
+def collect(solver, loss, X, y, cfg, grid=(P, Q), **kw):
     """Solve and keep every iteration's (w, alpha)."""
     iterates = []
 
     def cb(t, w, alpha):
         iterates.append((np.array(w), None if alpha is None
                          else np.array(alpha)))
-    res = solver.solve(loss, X, y, P=P, Q=Q, cfg=cfg, callback=cb, **kw)
+    res = solver.solve(loss, X, y, P=grid[0], Q=grid[1], cfg=cfg,
+                       callback=cb, **kw)
     return res, iterates
 
 
-def d3ca_source(seed, n, iters=ITERS, steps=None):
-    n_p = ceil_div(n, P)
-    return ArrayIndexSource(sdca=d3ca_rows(seed, iters, P, n_p,
+def d3ca_source(seed, n, iters=ITERS, steps=None, grid=(P, Q)):
+    n_p = ceil_div(n, grid[0])
+    return ArrayIndexSource(sdca=d3ca_rows(seed, iters, grid[0], n_p,
                                            steps or n_p))
 
 
-def radisa_source(seed, n, iters=ITERS):
-    n_p = ceil_div(n, P)
-    perms, rows = radisa_streams(seed, iters, P, Q, n_p, n_p)
+def radisa_source(seed, n, iters=ITERS, grid=(P, Q), L=None):
+    n_p = ceil_div(n, grid[0])
+    perms, rows = radisa_streams(seed, iters, *grid, n_p, L or n_p)
     return ArrayIndexSource(svrg=rows, perm=perms)
+
+
+def sfk_source(seed, n, frac, iters=ITERS, grid=(P, Q), L=None):
+    """SFK draws its permutation and minibatch orders as RADiSA does, plus
+    the row sample."""
+    n_p = ceil_div(n, grid[0])
+    perms, rows = radisa_streams(seed, iters, *grid, n_p, L or n_p)
+    return ArrayIndexSource(svrg=rows, perm=perms, sample=sfk_samples(
+        seed, iters, grid[0], n_p, frac))
 
 
 def compare(res_t, its_t, res_j, its_j, dual):

@@ -66,7 +66,8 @@ def test_no_source_names_jax_or_the_jax_package(path):
 
 def test_cuda_sources_ship_and_build_dir_is_ignored():
     csrc = os.path.join(PKG, "csrc")
-    for name in ("sdca_epoch.cu", "svrg_inner.cu"):
+    for name in ("sdca_epoch.cu", "svrg_inner.cu", "sdca_epoch_sparse.cu",
+                 "svrg_inner_sparse.cu"):
         src = open(os.path.join(csrc, name)).read()
         assert "__global__" in src and 'extern "C"' in src
         # the note every kernel carries: what it replaces, what bounds it
