@@ -5,13 +5,16 @@ still starts on the GPU.
     python3 chip_smoke.py            # needs one NVIDIA GPU (sm_90) and nvcc
 
 Drives ``repro_torch`` (and nothing of the JAX package) through its normal
-entry points on the card, at the full width of two instances of the paper:
-the dense Part 1 instance (7 x 4 grid of 2000 x 3000 blocks, n = 14 000,
+entry points on the card, at the full width of two instances of the paper
+-- the dense Part 1 instance (7 x 4 grid of 2000 x 3000 blocks, n = 14 000,
 m = 12 000, hinge, lambda = 1e-2) and the sparse news20 profile of Part 2
 (``configs/svm_paper.py`` REAL_DATASETS["news20"]: n = 19 996,
 m = 1 355 191 at density 3.4e-4, lambda = 1e-4, padded-ELL cells on the
-same 7 x 4 grid).  Phases, each printing one line of JSON; any failure is
-an exception and a non-zero exit:
+same 7 x 4 grid) -- and of two LM architectures served through the serving
+CLI's ``main`` with random weights from a seed: Qwen3-1.7B (all 28 layers)
+on the continuous-batching engine with its paged KV cache, and RWKV6-3B
+(all 32 layers) on the static loop.  Phases, each printing one line of
+JSON; any failure is an exception and a non-zero exit:
 
   env                 a CUDA device or an error; card name and power limit;
                       TF32 off
@@ -24,16 +27,29 @@ an exception and a non-zero exit:
   d3ca_sparse_full    D3CA, ``--block-format sparse`` on the news20 profile
   radisa_sparse_full  the same with RADiSA
   sfk_sparse_full     the same with SFK
-  cpu_vs_card         small cases, dense and sparse: port on the card
-                      (kernels) vs port on the CPU
-  timing              CUDA-event times per kernel (beside its plain version
-                      and its roofline bound) and per outer iteration of
-                      each solver; peak device memory of the sparse path
+  serve_qwen3_full    ``repro_torch.launch.serve.main`` -- Qwen3-1.7B, bf16,
+                      greedy, 16 requests of 128..1024 prompt tokens over 8
+                      slots; every prefill attention layer is the flash
+                      attention kernel
+  serve_rwkv6_full    the same CLI with RWKV6-3B: the engine refuses the
+                      recurrent mixer and the static loop runs 8 prompts of
+                      512 tokens; every prefill time mix is the linear
+                      attention kernel
+  cpu_vs_card         small cases, dense and sparse solvers and reduced
+                      Qwen3 / RWKV6: port on the card (kernels) vs port on
+                      the CPU
+  timing              CUDA-event times per kernel (beside its plain version,
+                      its roofline bound and, where one PyTorch call
+                      computes the same function, that call) and per outer
+                      iteration of each solver; peak device memory of the
+                      sparse path; Qwen3 prefill and decode step, RWKV6
+                      prefill
 
 Each full-width phase is a main path: every launch counter is set to 0
-just before it and read just after, and it must have launched its
-kernels as many times as it ran outer iterations (plus serial-SDCA
-epochs for f* where the dense phases compute it).
+just before it and read just after, and it must have launched exactly the
+kernels it names as often as it says: the solvers once per outer
+iteration (plus serial-SDCA epochs for f* where the dense phases compute
+it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi`` gives them, and one JSON object ``{"kernels": [...]}`` with
@@ -49,6 +65,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import io
 import json
 import os
@@ -65,6 +82,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.svm_paper import REAL_DATASETS  # noqa: E402
 from repro_torch.core import (ArrayIndexSource, D3CAConfig,  # noqa: E402
                               GeneratorIndexSource, RADiSAConfig, SFKConfig,
@@ -82,13 +100,23 @@ from repro_torch.data import (csr_from_dense,  # noqa: E402
 from repro_torch.kernels.sdca import (sdca_epoch,  # noqa: E402
                                       sdca_epoch_plain, sdca_epoch_sparse,
                                       sdca_epoch_sparse_plain)
+from repro_torch.kernels.flash import (flash_attention,  # noqa: E402
+                                       flash_attention_plain)
+from repro_torch.kernels.linattn import (rwkv_linattn,  # noqa: E402
+                                         rwkv_linattn_ref)
 from repro_torch.kernels.svrg import (svrg_inner,  # noqa: E402
                                       svrg_inner_plain, svrg_inner_sparse,
                                       svrg_inner_sparse_plain)
 from repro_torch.launch import optimize  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import Transformer, reduced  # noqa: E402
+from repro_torch.models.transformer import tree_map  # noqa: E402
+from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
+                                     make_paged_arenas)
 
 MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
-              "radisa_sparse_full", "sfk_sparse_full")
+              "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
+              "serve_rwkv6_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -114,10 +142,31 @@ SWEEP_TOL = 1e-5         # rtol = atol, as in the unit tests
 # reference result, at 1e-4 (measured on an H100: about 1e-6).
 MAIN_TOL = 1e-4
 
-# published peaks of one H100 SXM: device memory rate and float32 rate
-# outside the tensor cores (neither kernel holds a matrix product)
+# published peaks of one H100 SXM: device memory rate, float32 rate
+# outside the tensor cores (no solver kernel holds a matrix product) and
+# the dense bf16 tensor-core rate (what bounds attention's products)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+
+# the LM serving paths: the CLI's flags, and the shapes each kernel gets
+QWEN3_ARGV = ["--arch", "qwen3-1.7b", "--requests", "16", "--slots", "8",
+              "--prompt-len", "128", "--prompt-len-max", "1024", "--gen",
+              "32", "--page-size", "16", "--num-pages", "1024",
+              "--max-seq-len", "2048"]
+RWKV6_ARGV = ["--arch", "rwkv6-3b", "--requests", "8", "--prompt-len", "512",
+              "--gen", "32", "--max-seq-len", "544"]
+# Qwen3 prefill of one 1024-token bucket: (B, S, H, KV, D), bf16, causal
+FLASH_MAIN = (1, 1024, 16, 8, 128)
+# RWKV6 prefill of 8 prompts of 512 tokens: (B, S, H, D), u per head
+LINATTN_MAIN = (8, 512, 40, 64)
+# tests/test_kernels.py's tolerances (rtol = atol): flash f32 / bf16, and
+# the chunked linear attention against the exact recurrence
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+LINATTN_TOL = 2e-4
+# card vs CPU on the reduced LM configs, float32: relative to the largest
+# entry (the kernels sum in another order than the plain versions)
+LM_CARD_CPU_TOL = 1e-4
 
 KERNEL_META = {
     "sdca_epoch": {
@@ -134,11 +183,31 @@ KERNEL_META = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/svrg_inner_sparse.cu",
         "replaces": "src/repro/kernels/svrg/sparse.py:120"},
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash/flash.py:81"},
+    "rwkv_linattn": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv_linattn.cu",
+        "replaces": "src/repro/kernels/linattn/linattn.py:80"},
 }
 #: each kernel's wrapper, whose ``launches`` counts its CUDA launches
 WRAPPERS = {"sdca_epoch": sdca_epoch, "svrg_inner": svrg_inner,
             "sdca_epoch_sparse": sdca_epoch_sparse,
-            "svrg_inner_sparse": svrg_inner_sparse}
+            "svrg_inner_sparse": svrg_inner_sparse,
+            "flash_attention": flash_attention,
+            "rwkv_linattn": rwkv_linattn}
+#: (main-shape tolerance, sweep tolerance) per kernel, as ``compare`` uses
+#: them (the solver kernels' main shapes relative to the largest entry)
+TOLS = {"sdca_epoch": (MAIN_TOL, SWEEP_TOL),
+        "svrg_inner": (MAIN_TOL, SWEEP_TOL),
+        "sdca_epoch_sparse": (MAIN_TOL, SWEEP_TOL),
+        "svrg_inner_sparse": (MAIN_TOL, SWEEP_TOL),
+        "flash_attention": (FLASH_TOL[torch.bfloat16],
+                            {"float32": FLASH_TOL[torch.float32],
+                             "bfloat16": FLASH_TOL[torch.bfloat16]}),
+        "rwkv_linattn": (LINATTN_TOL, LINATTN_TOL)}
 
 
 def emit(phase: str, **fields):
@@ -518,13 +587,15 @@ def phase_kernels(dev, results):
         relative_to_max=True)
     torch.cuda.synchronize()
 
+    lm_kernel_checks(rng, dev, checks, main_err)
+
     summary = []
     for name in KERNEL_META:
         sweep = [e for k, e in checks if k == name]
-        results[name].update(max_abs_err=main_err[name], tol=MAIN_TOL,
+        results[name].update(max_abs_err=main_err[name], tol=TOLS[name][0],
                              sweep_cases=len(sweep),
                              sweep_max_abs_err=max(sweep),
-                             sweep_tol=SWEEP_TOL, ok=True)
+                             sweep_tol=TOLS[name][1], ok=True)
         summary.append({"name": name, **{k: results[name][k] for k in (
             "max_abs_err", "tol", "sweep_cases", "sweep_max_abs_err",
             "sweep_tol", "ok")}})
@@ -533,9 +604,90 @@ def phase_kernels(dev, results):
                      "steps": data.n_p, "m_sub": data.m_q // P},
          sparse_main_shape={"cells": P * Q, "n_p": sp.n_p, "k": sp.k,
                             "m_q": sp.m_q, "steps": sp.n_p,
-                            "m_sub": sp.m_q // P})
+                            "m_sub": sp.m_q // P},
+         flash_main_shape=dict(zip("B S H KV D".split(), FLASH_MAIN)),
+         linattn_main_shape=dict(zip("B S H D".split(), LINATTN_MAIN)))
     del data, alpha, w, sargs, vargs, alpha20, w20
     torch.cuda.empty_cache()
+
+
+def flash_inputs(rng, B, S, H, KV, D, dtype, dev):
+    """q (B, S, H, D), k / v (B, S, KV, D): normal draws, so that the
+    scaled scores have unit variance, rounded to ``dtype`` on the card."""
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dev, dtype)
+            for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))]
+
+
+def linattn_inputs(rng, BH, S, D, dev, heads=None, logw=None):
+    """r, k, v (BH, S, D) normal; logw the model's decay range
+    -exp(clip(normal, -20, 4)) floored at -8 (or the given constant);
+    u (D,) or (heads, D)."""
+    r, k, v = (rng.normal(size=(BH, S, D)).astype(np.float32)
+               for _ in range(3))
+    if logw is None:
+        lw = np.maximum(-np.exp(np.clip(rng.normal(size=(BH, S, D)), -20, 4)),
+                        -8.0).astype(np.float32)
+    else:
+        lw = np.full((BH, S, D), logw, np.float32)
+    u = (0.5 * rng.normal(size=(D,) if heads is None else (heads, D))
+         ).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (r, k, v, lw, u)]
+
+
+def lm_kernel_checks(rng, dev, checks, main_err):
+    """B5 and B6 against their plain versions on the card: the unit
+    tests' sweeps (tests/test_kernels.py), ragged lengths, head dim 128,
+    the extreme decay, and the main-path shapes."""
+    for (B, S, H, KV, D) in [(2, 128, 4, 2, 32), (1, 256, 2, 2, 64),
+                             (2, 64, 8, 1, 16), (1, 80, 4, 2, 128),
+                             (2, 200, 4, 1, 64), (1, 80, 2, 2, 16)]:
+        for window in (None, 48):
+            for dtype, tol in FLASH_TOL.items():
+                q, k, v = flash_inputs(rng, B, S, H, KV, D, dtype, dev)
+                kw = dict(causal=True, window=window)
+                checks.append(("flash_attention", compare(
+                    f"flash_attention{(B, S, H, KV, D)} w={window} {dtype}",
+                    [flash_attention(q, k, v, **kw).float()],
+                    [flash_attention_plain(q, k, v, **kw).float()], tol)))
+    q, k, v = flash_inputs(rng, 1, 40, 4, 2, 32, torch.float32, dev)
+    checks.append(("flash_attention", compare(
+        "flash_attention non-causal",
+        [flash_attention(q, k, v, causal=False)],
+        [flash_attention_plain(q, k, v, causal=False)],
+        FLASH_TOL[torch.float32])))
+    torch.cuda.synchronize()
+    q, k, v = flash_inputs(rng, *FLASH_MAIN, torch.bfloat16, dev)
+    main_err["flash_attention"] = compare(
+        f"flash_attention main-path shape {FLASH_MAIN}",
+        [flash_attention(q, k, v).float()],
+        [flash_attention_plain(q, k, v).float()], FLASH_TOL[torch.bfloat16])
+    del q, k, v
+
+    for (BH, S, D, chunk) in [(2, 64, 16, 16), (3, 128, 32, 32),
+                              (1, 256, 64, 64), (2, 96, 16, 32),
+                              (2, 100, 64, 64), (3, 37, 32, 16)]:
+        r, k, v, lw, u = linattn_inputs(rng, BH, S, D, dev)
+        checks.append(("rwkv_linattn", compare(
+            f"rwkv_linattn{(BH, S, D, chunk)}",
+            rwkv_linattn(r, k, v, lw, u, chunk=chunk),
+            rwkv_linattn_ref(r, k, v, lw, u), LINATTN_TOL)))
+    r, k, v, lw, u = linattn_inputs(rng, 1, 64, 16, dev, logw=-50.0)
+    checks.append(("rwkv_linattn", compare(           # raises if not finite
+        "rwkv_linattn logw=-50", rwkv_linattn(r, k, v, lw, u, chunk=16),
+        rwkv_linattn_ref(r, k, v, lw, u), LINATTN_TOL)))
+    r, k, v, lw, u = linattn_inputs(rng, 6, 70, 64, dev, heads=3)
+    checks.append(("rwkv_linattn", compare(
+        "rwkv_linattn per-head u", rwkv_linattn(r, k, v, lw, u),
+        rwkv_linattn_ref(r, k, v, lw, u), LINATTN_TOL)))
+    torch.cuda.synchronize()
+    B, S, H, D = LINATTN_MAIN
+    r, k, v, lw, u = linattn_inputs(rng, B * H, S, D, dev, heads=H)
+    main_err["rwkv_linattn"] = compare(
+        f"rwkv_linattn main-path shape {LINATTN_MAIN}",
+        rwkv_linattn(r, k, v, lw, u), rwkv_linattn_ref(r, k, v, lw, u),
+        LINATTN_TOL)
+    torch.cuda.synchronize()
 
 
 def launch_counts():
@@ -650,12 +802,82 @@ def phase_sfk_sparse_full():
     return sparse_full("sfk_sparse_full", "sfk", "svrg_inner_sparse", False)
 
 
+def serve_json(text):
+    """The summary JSON block the serving CLI prints (``{`` to ``}`` on
+    lines of their own)."""
+    lines = text.splitlines()
+    start = lines.index("{")
+    return json.loads("\n".join(lines[start:lines.index("}", start) + 1]))
+
+
+def run_serve(argv):
+    """The serving CLI's ``main`` at full width; returns its outputs, what
+    it printed and its wall time."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        outputs = serve.main(argv)
+    torch.cuda.synchronize()
+    return outputs, buf.getvalue(), time.perf_counter() - t0
+
+
+def check_outputs(name, outputs, n, gen, vocab):
+    if sorted(outputs) != list(range(n)):
+        raise AssertionError(f"{name}: served {sorted(outputs)}")
+    for rid, toks in outputs.items():
+        toks = np.asarray(toks)
+        if toks.shape != (gen,) or toks.min() < 0 or toks.max() >= vocab:
+            raise AssertionError(f"{name}: request {rid} gave {toks}")
+
+
+def phase_serve_qwen3_full():
+    """Qwen3-1.7B at full width (28 layers, bf16 compute, greedy) through
+    the continuous-batching engine: every admitted request is one prefill
+    of its prompt padded to a multiple of 16 tokens, 28 flash attention
+    launches; decode attention over the paged arena is plain PyTorch."""
+    outputs, text, wall = run_serve(QWEN3_ARGV)
+    summ = serve_json(text)
+    vocab = get_config("qwen3-1.7b").vocab
+    check_outputs("serve_qwen3_full", outputs, 16, 32, vocab)
+    if summ["requests_finished"] != 16 or summ["rejections"]:
+        raise AssertionError(f"serve_qwen3_full: {summ}")
+    emit("serve_qwen3_full", tokens_per_sec=summ["tokens_per_sec"],
+         ttft_p50_s=summ["ttft_s"]["p50"],
+         latency_p99_s=summ["latency_s"]["p99"],
+         generated_tokens=summ["generated_tokens"],
+         elapsed_s=summ["elapsed_s"], prefills=summ["prefills"],
+         decode_steps=summ["decode_steps"],
+         preemptions=summ["preemptions"], wall_s=wall,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         first_tokens=[int(t) for t in outputs[0][:8]])
+    return {"flash_attention": 28 * summ["prefills"]}
+
+
+def phase_serve_rwkv6_full():
+    """RWKV6-3B at full width (32 layers, bf16 compute) through the same
+    CLI: the paged engine refuses the recurrent mixer and the static loop
+    prefills 8 prompts of 512 tokens at once (32 linear attention
+    launches), then decodes 32 tokens with the plain recurrence."""
+    outputs, text, wall = run_serve(RWKV6_ARGV)
+    if "falling back to the static loop" not in text:
+        raise AssertionError(f"serve_rwkv6_full: engine path? {text!r}")
+    check_outputs("serve_rwkv6_full", outputs, 8, 32,
+                  get_config("rwkv6-3b").vocab)
+    emit("serve_rwkv6_full", wall_s=wall, generated_tokens=8 * 32,
+         tokens_per_sec=8 * 32 / wall,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         first_tokens=[int(t) for t in outputs[0][:8]])
+    return {"rwkv_linattn": 32}
+
+
 def run_main_path(name, phase, results):
     """Drive one main path with every launch counter at 0 just before and
     read just after; it must have launched exactly the kernels it names,
     as often as it says."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     expected = phase()
     counts = launch_counts()
@@ -730,7 +952,59 @@ def phase_cpu_vs_card():
                                       (4, 2), sparse_streams, "sparse")
                     for name, cfg in cfgs.items()}
     emit("cpu_vs_card", max_abs_err=worst, sparse_max_abs_err=worst_sparse,
-         tol=1e-5)
+         tol=1e-5, lm=lm_card_vs_cpu(torch.device("cuda")),
+         lm_tol=LM_CARD_CPU_TOL)
+
+
+def lm_card_vs_cpu(dev):
+    """Reduced Qwen3 and RWKV6, float32 compute, the same weights on both
+    sides: prefill of 2 prompts of 40 tokens (the kernels on the card, not
+    a multiple of their 64-token tiles) then 4 greedy decode steps; logits
+    and every cache leaf relative to their largest entry, and the greedy
+    tokens equal."""
+    out = {}
+    for arch in ("qwen3-1.7b", "rwkv6-3b"):
+        cfg = reduced(get_config(arch), compute_dtype="float32")
+        models = {"cpu": Transformer(cfg, device="cpu"),
+                  "card": Transformer(cfg, device=dev)}
+        params = {"cpu": models["cpu"].init(0)}
+        params["card"] = tree_map(lambda t: t.to(dev), params["cpu"])
+        toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 40))
+        res = {d: models[d].prefill(params[d],
+                                    {"tokens": torch.as_tensor(toks)}, 48)
+               for d in models}
+        worst = 0.0
+        for step in range(5):
+            (lc, cc), (lg, cg) = res["cpu"], res["card"]
+            leaves = [(lc, lg)] + [
+                (a, b) for key in ("periods", "remainder")
+                for a, b in zip(tree_leaves(cc[key]), tree_leaves(cg[key]))]
+            for a, b in leaves:
+                b = b.cpu()
+                err = float((a - b).abs().max())
+                scale = max(1.0, float(a.abs().max()))
+                if not torch.isfinite(b).all() or err > LM_CARD_CPU_TOL * scale:
+                    raise AssertionError(f"{arch} step {step}: card vs CPU "
+                                         f"differ by {err:.3e}")
+                worst = max(worst, err / scale)
+            nxt = {d: torch.argmax(res[d][0][:, -1], dim=-1) for d in res}
+            if not torch.equal(nxt["cpu"], nxt["card"].cpu()):
+                raise AssertionError(f"{arch} step {step}: greedy tokens "
+                                     f"{nxt['cpu']} vs {nxt['card']}")
+            if step < 4:
+                res = {d: models[d].decode_step(
+                    params[d], res[d][1], {"tokens": nxt[d][:, None]})
+                    for d in res}
+        out[arch] = worst
+    return out
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def bounds(name, args, m_cols, flops_per_elem):
@@ -860,6 +1134,7 @@ def phase_timing(dev, results):
     # -- the sparse path: news20 profile, 28 padded-ELL cells
     torch.cuda.reset_peak_memory_stats()
     sp = news20_problem(dev)
+    sp_shape = (sp.n_p, sp.k, sp.m_q, 8 * sp.cols.numel())
     alpha20, w20 = news20_state(sp)
     sargs = sdca_sparse_main_inputs(sp, alpha20, w20)
     skw = dict(lam=LAM20, n=N20, Q=Q, loss="hinge")
@@ -899,12 +1174,180 @@ def phase_timing(dev, results):
         solvers[name] = {"ms_per_outer_iter": ms_iter, "kernel": kernel,
                          "kernel_share": results[kernel]["ms"] / ms_iter}
     sparse_peak = torch.cuda.max_memory_allocated()
+    del sp
+    news20_problem.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_timing(dev, results)
     emit("timing", solvers=solvers, sparse_peak_mem_bytes=sparse_peak,
-         sparse_cells={"P": P, "Q": Q, "n_p": sp.n_p, "k": sp.k,
-                       "m_q": sp.m_q, "ell_bytes": 8 * sp.cols.numel()},
-         kernels={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "bytes_moved")}
+         sparse_cells={"P": P, "Q": Q, "n_p": sp_shape[0], "k": sp_shape[1],
+                       "m_q": sp_shape[2], "ell_bytes": sp_shape[3]},
+         lm=lm,
+         kernels={k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by",
+                                        "bytes_moved")}
                   for k, v in results.items()})
+
+
+def flash_bound(B, S, H, KV, D, nbytes_el):
+    """Least time of one causal flash attention call: q, k, v read once
+    and out written once; 4 D flops (q.k and p.v) per unmasked (query,
+    key) pair, S (S + 1) / 2 pairs per head, at the bf16 tensor-core
+    peak."""
+    nbytes = nbytes_el * B * S * D * (2 * H + 2 * KV)
+    flops = 4 * D * (S * (S + 1) // 2) * B * H
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_moved": nbytes, "flops": flops}
+
+
+def linattn_bound(BH, S, D, C=64):
+    """Least time of one chunked linear attention call: r, k, v, logw read
+    once, out and the state written once; operations of the chunked form
+    per chunk of c tokens -- scores c (c - 1) / 2 D (an exp, a multiply
+    and an FMA each: 4), r.S0 and the state update 2 c D^2 each, scores
+    times v c (c - 1) D, the bonus 4 c D, the decays 4 c D, the state
+    decay D^2 -- at the float32 peak."""
+    nbytes = 4 * (5 * BH * S * D + BH * D * D)
+    flops = 0
+    for t0 in range(0, S, C):
+        c = min(C, S - t0)
+        flops += (2 * c * (c - 1) * D + 4 * c * D * D + c * (c - 1) * D
+                  + 8 * c * D + D * D)
+    flops *= BH
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_moved": nbytes, "flops": flops}
+
+
+def device_busy(fn, reps=3):
+    """What the device does during ``fn()``, by ``torch.profiler``: the
+    kernels' own device time per call (ms), the kernels launched per
+    call, and the five kernels with the most device time (name, ms per
+    call).  Against the call's CUDA-event time this gives the device's
+    idle share."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # the kernels themselves (the operators that launch them report the
+    # same device time again)
+    evts = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    evts.sort(key=lambda e: -e.self_device_time_total)
+    return {"busy_ms": sum(e.self_device_time_total for e in evts)
+            / 1e3 / reps,
+            "kernels_per_call": sum(e.count for e in evts) / reps,
+            "top": [[e.key[:80], e.self_device_time_total / 1e3 / reps]
+                    for e in evts[:5]]}
+
+
+def with_idle(ms, busy):
+    busy = dict(busy)
+    busy["idle_share"] = 1.0 - busy["busy_ms"] / ms if busy["busy_ms"] \
+        else None                  # no device time seen: not measured
+    return busy
+
+
+def lm_timing(dev, results):
+    """B5 and B6 at their main-path shapes (kernel, plain version and, for
+    B5, ``F.scaled_dot_product_attention`` on the expanded heads -- timed
+    here only, the port never calls it), then the full-width models:
+    Qwen3 prefill of one 1024-token bucket and one paged decode step of 8
+    slots, RWKV6 prefill of 8 x 512 tokens."""
+    rng = np.random.default_rng(11)
+    B, S, H, KV, D = FLASH_MAIN
+    q, k, v = flash_inputs(rng, B, S, H, KV, D, torch.bfloat16, dev)
+    G = H // KV
+    qs, ks, vs = (q.transpose(1, 2),
+                  k.repeat_interleave(G, 2).transpose(1, 2),
+                  v.repeat_interleave(G, 2).transpose(1, 2))
+    plain = [cuda_ms(lambda: flash_attention_plain(q, k, v), reps=5)]
+    kern = [cuda_ms(lambda: flash_attention(q, k, v), reps=20)]
+    lib = [cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), reps=20)]
+    lib.append(cuda_ms(lambda: torch.nn.functional
+                       .scaled_dot_product_attention(qs, ks, vs,
+                                                     is_causal=True),
+                       reps=20))
+    kern.append(cuda_ms(lambda: flash_attention(q, k, v), reps=20))
+    plain.append(cuda_ms(lambda: flash_attention_plain(q, k, v), reps=5))
+    results["flash_attention"].update(
+        ms=statistics.median(kern), plain_ms=statistics.median(plain),
+        library_ms=statistics.median(lib),
+        **flash_bound(B, S, H, KV, D, 2))
+    del q, k, v, qs, ks, vs
+
+    Bl, Sl, Hl, Dl = LINATTN_MAIN
+    r, k, v, lw, u = linattn_inputs(rng, Bl * Hl, Sl, Dl, dev, heads=Hl)
+    plain = [cuda_ms(lambda: rwkv_linattn_ref(r, k, v, lw, u), reps=3)]
+    kern = [cuda_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20)]
+    kern.append(cuda_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20))
+    plain.append(cuda_ms(lambda: rwkv_linattn_ref(r, k, v, lw, u), reps=3))
+    results["rwkv_linattn"].update(
+        ms=statistics.median(kern), plain_ms=statistics.median(plain),
+        library_ms=None, **linattn_bound(Bl * Hl, Sl, Dl))
+    del r, k, v, lw, u
+
+    out = {}
+    # Qwen3-1.7B: prefill of one bucket, then a decode step of 8 slots
+    model = Transformer(get_config("qwen3-1.7b"), device=dev)
+    params = model.compute_params(model.init(0))
+    toks = torch.as_tensor(rng.integers(0, model.cfg.vocab, (1, S)),
+                           device=dev)
+    pc = PagedCacheConfig(page_size=16, num_pages=1024)
+    arenas = make_paged_arenas(model.cfg, pc, dev)
+    slots, max_pages = 8, pc.pages_for(2048)
+    bt = torch.arange(slots * max_pages, device=dev).reshape(
+        slots, max_pages) % pc.num_pages
+    lengths = torch.full((slots,), 600, device=dev)
+    active = torch.ones(slots, dtype=torch.bool, device=dev)
+    step_toks = torch.zeros((slots, 1), dtype=torch.long, device=dev)
+
+    def prefill():
+        return model.prefill(params, {"tokens": toks}, S, last_pos=S - 1,
+                             linear_cache=True)
+
+    def decode():
+        return model.decode_step_paged(params, arenas, {"tokens": step_toks},
+                                       bt, lengths, active)
+    pre_ms = cuda_ms(prefill, reps=5)
+    dec_ms = cuda_ms(decode, reps=10)
+    out["qwen3"] = {"prefill_ms": pre_ms, "prefill_tokens": S,
+                    "decode_step_ms": dec_ms, "decode_slots": slots,
+                    "decode_kv_len": 600,
+                    "flash_share_of_prefill":
+                        28 * results["flash_attention"]["ms"] / pre_ms,
+                    "prefill_device": with_idle(pre_ms, device_busy(prefill)),
+                    "decode_device": with_idle(dec_ms, device_busy(decode))}
+    del model, params, arenas
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # RWKV6-3B: prefill of 8 prompts of 512 tokens
+    model = Transformer(get_config("rwkv6-3b"), device=dev)
+    params = model.compute_params(model.init(0))
+    toks = torch.as_tensor(rng.integers(0, model.cfg.vocab, (Bl, Sl)),
+                           device=dev)
+
+    def rwkv_prefill():
+        return model.prefill(params, {"tokens": toks}, Sl + 32)
+    pre_ms = cuda_ms(rwkv_prefill, reps=5)
+    out["rwkv6"] = {"prefill_ms": pre_ms, "prefill_tokens": Bl * Sl,
+                    "linattn_share_of_prefill":
+                        32 * results["rwkv_linattn"]["ms"] / pre_ms,
+                    "prefill_device": with_idle(pre_ms,
+                                                device_busy(rwkv_prefill))}
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None):

@@ -3,7 +3,8 @@
 Everything here takes plain numpy arrays -- what ``numpy.asarray`` makes of
 the reference's arrays -- and imports neither the reference package nor its
 array library, so a caller that holds results of the reference can continue
-in the port (and the parity tests can hand one side's state to the other).
+in the port (and the parity tests can hand one side's state to the other):
+solver partitions and warm starts, and LM parameter trees.
 """
 from __future__ import annotations
 
@@ -78,3 +79,19 @@ def to_numpy(result: SolveResult) -> SolveResult:
             else np.asarray(t)
     return SolveResult(**{**result.__dict__, "w": host(result.w),
                           "alpha": host(result.alpha)})
+
+
+def lm_params_from_reference(tree, device="cuda"):
+    """A reference LM parameter tree (``Transformer.init(key)[0]``, in
+    ``param_dtype``) whose leaves were made numpy arrays -- nested dicts
+    and lists of arrays -- as the port's tree of tensors on ``device``,
+    dtypes kept."""
+    device = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return torch.from_numpy(np.array(t, copy=True)).to(device)
+    return walk(tree)

@@ -60,6 +60,13 @@ _SIGNATURES = {
         + [_FLT] * 2                      # lam eta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
+    "flash_attention_launch": (
+        [_PTR] * 4                        # q k v | out
+        + [_INT] * 6                      # B S Skv H KV D
+        + [_FLT] + [_INT] * 3 + [_PTR]),  # scale causal window dtype stream
+    "rwkv_linattn_launch": (
+        [_PTR] * 5 + [_PTR] * 2          # r k v logw u | out state
+        + [_INT] * 5 + [_PTR]),           # BH S D H C stream
 }
 
 

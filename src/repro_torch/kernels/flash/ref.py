@@ -1,0 +1,32 @@
+"""Plain PyTorch version of the flash attention kernel: masked softmax
+attention with float32 scores (the port of ``repro/kernels/flash/ref.py``
+``mha_ref``).
+
+Layout (BH, S, D): batch*heads flattened, kv already expanded to H heads.
+The CPU tests run it, the chip check compares the kernel with it on the
+card, and ``ops.flash_attention`` takes it only for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def mha_ref(q, k, v, *, causal=True, window=None, scale=None):
+    """q: (BH, S, D); k, v: (BH, Skv, D).  Float32 inside; returns
+    (BH, S, D) in q's dtype."""
+    BH, S, D = q.shape
+    Skv = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bsd,bxd->bsx", q.float() * scale, k.float())
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bsx,bxd->bsd", p, v.float()).to(q.dtype)

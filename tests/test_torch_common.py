@@ -133,3 +133,30 @@ def compare(res_t, its_t, res_j, its_j, dual):
             np.testing.assert_allclose(a_t, a_j, **TOL)
             np.testing.assert_allclose(h_t["duality_gap"],
                                        h_j["duality_gap"], **TOL)
+
+
+_LM_PAIRS = {}
+
+
+def lm_pair(arch, **overrides):
+    """(reference model, reference params, port model, port params) of
+    ``reduced(get_config(arch))`` with float32 compute unless overridden,
+    both on the CPU, the port's weights carried across from the
+    reference's ``init(PRNGKey(0))``; cached per process so the
+    reference's init compiles once per config."""
+    from repro import models as ref_models
+    from repro.configs import get_config as ref_get_config
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, reduced
+    key = (arch, tuple(sorted(overrides.items())))
+    if key not in _LM_PAIRS:
+        kw = {"compute_dtype": "float32", **overrides}
+        rmodel = ref_models.Transformer(
+            ref_models.reduced(ref_get_config(arch), **kw))
+        rparams = jax.jit(lambda k: rmodel.init(k)[0])(jax.random.PRNGKey(0))
+        pmodel = Transformer(reduced(get_config(arch), **kw), device="cpu")
+        pparams = convert.lm_params_from_reference(
+            jax.tree.map(np.asarray, rparams), device="cpu")
+        _LM_PAIRS[key] = (rmodel, rparams, pmodel, pparams)
+    return _LM_PAIRS[key]

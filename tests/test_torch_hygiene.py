@@ -37,6 +37,11 @@ def _modules():
 def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
     mods = _modules()
     assert "repro_torch.core.solver" in mods and len(mods) >= 25
+    for m in ("repro_torch.kernels.flash.ops", "repro_torch.kernels.linattn"
+              ".ops", "repro_torch.models.transformer",
+              "repro_torch.serve.engine", "repro_torch.launch.serve",
+              "repro_torch.configs.qwen3_1_7b"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})\n"
@@ -66,8 +71,11 @@ def test_no_source_names_jax_or_the_jax_package(path):
 
 def test_cuda_sources_ship_and_build_dir_is_ignored():
     csrc = os.path.join(PKG, "csrc")
-    for name in ("sdca_epoch.cu", "svrg_inner.cu", "sdca_epoch_sparse.cu",
-                 "svrg_inner_sparse.cu"):
+    sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert set(sources) >= {"sdca_epoch.cu", "svrg_inner.cu",
+                            "sdca_epoch_sparse.cu", "svrg_inner_sparse.cu",
+                            "flash_attention.cu", "rwkv_linattn.cu"}
+    for name in sources:
         src = open(os.path.join(csrc, name)).read()
         assert "__global__" in src and 'extern "C"' in src
         # the note every kernel carries: what it replaces, what bounds it
