@@ -19,9 +19,11 @@ JSON; any failure is an exception and a non-zero exit:
   env                 a CUDA device or an error; card name and power limit;
                       TF32 off
   build               build the kernels from ``src/repro_torch/csrc``, load
-  kernels             each kernel against its plain PyTorch version ON THE
-                      CARD, over the shape sweep of the unit tests and at
-                      the main-path shape
+  kernels             each kernel, on every route of its wrapper, against
+                      its plain PyTorch version ON THE CARD, over the shape
+                      sweep of the unit tests, the edge cases of each route
+                      and the main-path shape -- the first call to make
+                      after touching a ``.cu`` file (``--phases kernels``)
   d3ca_full           ``repro_torch.launch.optimize.main`` -- D3CA, dense
   radisa_full         the same with RADiSA
   d3ca_sparse_full    D3CA, ``--block-format sparse`` on the news20 profile
@@ -37,9 +39,11 @@ JSON; any failure is an exception and a non-zero exit:
                       attention kernel
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       Qwen3 / RWKV6: port on the card (kernels) vs port on
-                      the CPU
+                      the CPU, in float32, and a reduced Qwen3 prefill in
+                      bfloat16 at head dim 64 (the tensor-core route)
   timing              CUDA-event times per kernel (beside its plain version,
-                      its roofline bound and, where one PyTorch call
+                      its roofline bound, the route it replaced on the main
+                      path where it has two and, where one PyTorch call
                       computes the same function, that call) and per outer
                       iteration of each solver; peak device memory of the
                       sparse path; Qwen3 prefill and decode step, RWKV6
@@ -49,12 +53,15 @@ Each full-width phase is a main path: every launch counter is set to 0
 just before it and read just after, and it must have launched exactly the
 kernels it names as often as it says: the solvers once per outer
 iteration (plus serial-SDCA epochs for f* where the dense phases compute
-it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times.
+it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times.  The
+two wrappers with two routes count launches per route too, and every
+main-path launch of flash attention must take the tensor-core route
+(``tc``), every one of the sparse SVRG inner loop the cluster route.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi`` gives them, and one JSON object ``{"kernels": [...]}`` with
 every kernel's launches on the main paths, error against its plain
-version, times and bound.  The last line is
+version, times, bound and launches per route.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--phases a,b`` runs a subset (``env`` and ``build`` always run); the
@@ -101,12 +108,15 @@ from repro_torch.kernels.sdca import (sdca_epoch,  # noqa: E402
                                       sdca_epoch_plain, sdca_epoch_sparse,
                                       sdca_epoch_sparse_plain)
 from repro_torch.kernels.flash import (flash_attention,  # noqa: E402
-                                       flash_attention_plain)
+                                       flash_attention_plain, flash_route)
+from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.linattn import (rwkv_linattn,  # noqa: E402
                                          rwkv_linattn_ref)
 from repro_torch.kernels.svrg import (svrg_inner,  # noqa: E402
                                       svrg_inner_plain, svrg_inner_sparse,
-                                      svrg_inner_sparse_plain)
+                                      svrg_inner_sparse_plain,
+                                      svrg_sparse_route)
+from repro_torch.kernels.svrg import sparse as svrg_sparse  # noqa: E402
 from repro_torch.launch import optimize  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Transformer, reduced  # noqa: E402
@@ -167,6 +177,9 @@ LINATTN_TOL = 2e-4
 # card vs CPU on the reduced LM configs, float32: relative to the largest
 # entry (the kernels sum in another order than the plain versions)
 LM_CARD_CPU_TOL = 1e-4
+# the same in bfloat16 (prefill logits relative to the largest logit), the
+# bf16 tolerance of tests/test_torch_lm_model.py
+LM_CARD_CPU_BF16_TOL = 5e-2
 
 KERNEL_META = {
     "sdca_epoch": {
@@ -185,7 +198,9 @@ KERNEL_META = {
         "replaces": "src/repro/kernels/svrg/sparse.py:120"},
     "flash_attention": {
         "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_tc.cu",
+        "sources": {"tc": "src/repro_torch/csrc/flash_attention_tc.cu",
+                    "simt": "src/repro_torch/csrc/flash_attention.cu"},
         "replaces": "src/repro/kernels/flash/flash.py:81"},
     "rwkv_linattn": {
         "route": "cuda",
@@ -198,6 +213,8 @@ WRAPPERS = {"sdca_epoch": sdca_epoch, "svrg_inner": svrg_inner,
             "svrg_inner_sparse": svrg_inner_sparse,
             "flash_attention": flash_attention,
             "rwkv_linattn": rwkv_linattn}
+#: the route every main-path launch of a two-route wrapper must take
+MAIN_ROUTES = {"flash_attention": "tc", "svrg_inner_sparse": "cluster"}
 #: (main-shape tolerance, sweep tolerance) per kernel, as ``compare`` uses
 #: them (the solver kernels' main shapes relative to the largest entry)
 TOLS = {"sdca_epoch": (MAIN_TOL, SWEEP_TOL),
@@ -214,8 +231,17 @@ def emit(phase: str, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps: int = 5, warmup: int = 1):
-    """Median CUDA-event time of ``fn()`` in milliseconds."""
+# device cycles (~1 ms) the card spins before a queued timing, longer than
+# the host takes to enqueue one kernel call
+QUEUE_CYCLES = 2_000_000
+
+
+def cuda_ms(fn, reps: int = 5, warmup: int = 1, queued: bool = False):
+    """Median CUDA-event time of ``fn()`` in milliseconds.  ``queued``: the
+    card first spins for ``QUEUE_CYCLES``, so that the start event, the
+    call and the end event are all enqueued before the start event fires
+    -- the time is then the device's alone, without the host's launch
+    latency (for one kernel call that is tens of microseconds)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -223,6 +249,8 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -379,6 +407,49 @@ def svrg_sparse_inputs(rng, P_, Q_, n_p, m_q, m_sub, k, L, dev, lo=None,
     return out, lo_t
 
 
+def svrg_cluster_inputs(rng, P_, Q_, n_p, m_q, m_sub, k, L, dev, lo):
+    """``svrg_sparse_inputs`` with the cluster route's edge cases: row 2 of
+    every cell all padding, row 3 holding the columns on both sides of
+    every slice boundary of the window (and the window's own ends), row 1
+    a column twice; steps visit rows 1-3 often."""
+    args, lo_t = svrg_sparse_inputs(rng, P_, Q_, n_p, m_q, m_sub, k, L, dev,
+                                    lo=lo)
+    cols, vals, idx = args[0], args[1], args[7]
+    sl = svrg_sparse.cluster_slice(m_sub)
+    for p in range(P_):
+        off = 0 if lo is None else lo[p]
+        edge = sorted({off + c for r in range(1, svrg_sparse.CLUSTER_SIZE)
+                       for c in (r * sl - 1, r * sl) if 0 <= c < m_sub}
+                      | {off, off + m_sub - 1, max(off - 1, 0),
+                         min(off + m_sub, m_q - 1)})[:k]
+        cols[p, :, 2] = 0
+        vals[p, :, 2] = 0.0
+        cols[p, :, 3] = 0
+        vals[p, :, 3] = 0.0
+        cols[p, :, 3, :len(edge)] = torch.tensor(edge, dtype=torch.int32)
+        vals[p, :, 3, :len(edge)] = torch.from_numpy(
+            rng.normal(size=len(edge)).astype(np.float32)).to(dev)
+    idx[..., ::3] = 3
+    idx[..., 1::5] = 2
+    idx[..., 2::7] = 1
+    return args, lo_t
+
+
+# the cluster route's sweep: (n_p, m_q, m_sub, k, L, window offsets per row
+# partition).  Windows that do not divide by 8, narrower than 8 columns,
+# and slices for every register budget of the kernel (8 to 64 columns a
+# thread: m_sub 1001, 20 000, 60 000, 100 000, 131 072)
+SVRG_CLUSTER_SWEEP = [
+    (16, 24, 13, 20, 40, [0, 5, 11]), (16, 40, 5, 16, 40, [3, 0, 35]),
+    (24, 1100, 1001, 24, 64, [99, 0, 50]), (20, 20000, 20000, 32, 60, None),
+    (16, 61000, 60000, 24, 48, [1000, 7, 0]),
+    (12, 100000, 100000, 20, 40, None), (12, 131072, 131072, 20, 30, None),
+]
+# the block route at RADiSA-avg width on the news20 profile (a whole
+# 338 800-column feature block), at a reduced row count
+SVRG_BLOCK_WIDE = (64, 338800, 338800, 40, 64)
+
+
 @functools.lru_cache(maxsize=1)
 def news20_problem(dev):
     """The news20 profile cut into 7 x 4 padded-ELL cells on the card (made
@@ -441,18 +512,33 @@ def phase_env():
     return smi
 
 
+def ptxas_usage(log):
+    """Per kernel (mangled name): registers, shared memory and spills as
+    ``ptxas -v`` reported them."""
+    usage, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for " in ln:
+            name = ln.split("Function properties for ")[1].strip()
+            usage[name] = {}
+        elif name and "spill" in ln:
+            usage[name]["spill"] = ln.strip()
+        elif name and "Used " in ln and "registers" in ln:
+            usage[name]["used"] = ln.split("Used ", 1)[1].strip()
+            name = None
+    return usage
+
+
 def phase_build():
     t0 = time.perf_counter()
     info = kernels.build_info()
-    usage = [ln for ln in info.pop("ptxas").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0, **info,
-         ptxas=usage)
+    usage = ptxas_usage(info.pop("ptxas"))
+    emit("build", seconds=time.perf_counter() - t0, **info, ptxas=usage)
 
 
 def phase_kernels(dev, results):
     rng = np.random.default_rng(7)
     checks = []
+    reset_counts()
 
     # -- the unit tests' shape sweep, one cell and a small grid ------------
     for (n_p, m_q, steps) in [(8, 8, 8), (24, 16, 50), (64, 128, 64),
@@ -560,6 +646,34 @@ def phase_kernels(dev, results):
                     [svrg_inner_sparse(*args, **kw)],
                     [svrg_inner_sparse_plain(*args, **kw)], SWEEP_TOL)
                 checks.append(("svrg_inner_sparse", err))
+    for (n_p, m_q, m_sub, k, L, los) in SVRG_CLUSTER_SWEEP:
+        if svrg_sparse_route(m_sub, k) != "cluster":
+            raise AssertionError(f"m_sub={m_sub}, k={k} is not a cluster case")
+        grid = (3, 2) if m_sub < 30000 else (1, 2)
+        lo = None if los is None else los[:grid[0]]
+        args, lo_t = svrg_cluster_inputs(rng, *grid, n_p, m_q, m_sub, k, L,
+                                         dev, lo)
+        check_index_range(args[7], n_p)
+        check_index_range(args[0], m_q)
+        if lo_t is not None:
+            check_index_range(lo_t, m_q - m_sub + 1)
+        for loss in ("hinge", "squared"):
+            kw = dict(lam=0.1, eta=0.03, loss=loss, lo=lo_t)
+            checks.append(("svrg_inner_sparse", compare(
+                f"svrg_inner_sparse cluster{grid}{(n_p, m_sub, k, L)} lo={lo}",
+                [svrg_inner_sparse(*args, **kw)],
+                [svrg_inner_sparse_plain(*args, **kw)], SWEEP_TOL)))
+    n_p, m_q, m_sub, k, L = SVRG_BLOCK_WIDE
+    if svrg_sparse_route(m_sub, k) != "block":
+        raise AssertionError(f"m_sub={m_sub} is not a block-route case")
+    args, _ = svrg_sparse_inputs(rng, 1, 1, n_p, m_q, m_sub, k, L, dev)
+    for loss in ("hinge", "squared"):
+        kw = dict(lam=0.1, eta=0.03, loss=loss)
+        checks.append(("svrg_inner_sparse", compare(
+            f"svrg_inner_sparse block {(n_p, m_sub, k, L)}",
+            [svrg_inner_sparse(*args, **kw)],
+            [svrg_inner_sparse_plain(*args, **kw)], SWEEP_TOL)))
+    del args
     torch.cuda.synchronize()
 
     # -- the sparse main-path shape: 28 news20 cells, k = 168, 2857 steps,
@@ -592,13 +706,18 @@ def phase_kernels(dev, results):
     summary = []
     for name in KERNEL_META:
         sweep = [e for k, e in checks if k == name]
+        by_route = route_counts(name)
+        if not all(by_route.values()):
+            raise AssertionError(f"{name}: a route was never checked: "
+                                 f"{by_route}")
         results[name].update(max_abs_err=main_err[name], tol=TOLS[name][0],
                              sweep_cases=len(sweep),
                              sweep_max_abs_err=max(sweep),
-                             sweep_tol=TOLS[name][1], ok=True)
+                             sweep_tol=TOLS[name][1],
+                             checked_launches_by_route=by_route, ok=True)
         summary.append({"name": name, **{k: results[name][k] for k in (
             "max_abs_err", "tol", "sweep_cases", "sweep_max_abs_err",
-            "sweep_tol", "ok")}})
+            "sweep_tol", "checked_launches_by_route", "ok")}})
     emit("kernels", checks=summary,
          main_shape={"cells": P * Q, "n_p": data.n_p, "m_q": data.m_q,
                      "steps": data.n_p, "m_sub": data.m_q // P},
@@ -611,12 +730,27 @@ def phase_kernels(dev, results):
     torch.cuda.empty_cache()
 
 
-def flash_inputs(rng, B, S, H, KV, D, dtype, dev):
-    """q (B, S, H, D), k / v (B, S, KV, D): normal draws, so that the
-    scaled scores have unit variance, rounded to ``dtype`` on the card."""
+def flash_inputs(rng, B, S, H, KV, D, dtype, dev, Skv=None):
+    """q (B, S, H, D), k / v (B, Skv, KV, D) (Skv = S by default): normal
+    draws, so that the scaled scores have unit variance, rounded to
+    ``dtype`` on the card."""
+    Skv = S if Skv is None else Skv
     return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
             .to(dev, dtype)
-            for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))]
+            for shape in ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, D))]
+
+
+# the tensor-core route's own sweep, bf16: (B, S, Skv, H, KV, D, causal,
+# window) -- ragged S (multiples of 16 and odd), Skv != S both ways, GQA
+# ratios 1 / 2 / 4, head dims 64 / 128, windows of 1, 48 and 100 keys
+FLASH_TC_SWEEP = [
+    (1, 80, 80, 4, 4, 128, True, None), (2, 37, 37, 4, 2, 64, True, None),
+    (1, 129, 129, 8, 2, 128, True, 48), (2, 208, 208, 4, 1, 64, True, 100),
+    (1, 100, 40, 4, 2, 128, True, None), (1, 48, 130, 4, 4, 64, False, None),
+    (2, 64, 200, 8, 2, 128, False, 48), (1, 333, 333, 4, 1, 128, True, 1),
+    (1, 16, 16, 2, 1, 64, True, None), (1, 1, 70, 4, 2, 128, False, None),
+    (3, 190, 190, 4, 2, 64, True, 48), (1, 257, 257, 4, 4, 128, False, 100),
+]
 
 
 def linattn_inputs(rng, BH, S, D, dev, heads=None, logw=None):
@@ -639,6 +773,8 @@ def lm_kernel_checks(rng, dev, checks, main_err):
     """B5 and B6 against their plain versions on the card: the unit
     tests' sweeps (tests/test_kernels.py), ragged lengths, head dim 128,
     the extreme decay, and the main-path shapes."""
+    # the unit tests' sweep: float32 and D 16 / 32 on the CUDA-core route,
+    # bfloat16 at D 64 / 128 on the tensor-core route
     for (B, S, H, KV, D) in [(2, 128, 4, 2, 32), (1, 256, 2, 2, 64),
                              (2, 64, 8, 1, 16), (1, 80, 4, 2, 128),
                              (2, 200, 4, 1, 64), (1, 80, 2, 2, 16)]:
@@ -647,9 +783,19 @@ def lm_kernel_checks(rng, dev, checks, main_err):
                 q, k, v = flash_inputs(rng, B, S, H, KV, D, dtype, dev)
                 kw = dict(causal=True, window=window)
                 checks.append(("flash_attention", compare(
-                    f"flash_attention{(B, S, H, KV, D)} w={window} {dtype}",
+                    f"flash_attention{(B, S, H, KV, D)} w={window} {dtype} "
+                    f"{flash_route(dtype, D)}",
                     [flash_attention(q, k, v, **kw).float()],
                     [flash_attention_plain(q, k, v, **kw).float()], tol)))
+    for (B, S, Skv, H, KV, D, causal, window) in FLASH_TC_SWEEP:
+        q, k, v = flash_inputs(rng, B, S, H, KV, D, torch.bfloat16, dev,
+                               Skv=Skv)
+        kw = dict(causal=causal, window=window)
+        checks.append(("flash_attention", compare(
+            f"flash_attention tc {(B, S, Skv, H, KV, D)} causal={causal} "
+            f"w={window}", [flash_attention(q, k, v, **kw).float()],
+            [flash_attention_plain(q, k, v, **kw).float()],
+            FLASH_TOL[torch.bfloat16])))
     q, k, v = flash_inputs(rng, 1, 40, 4, 2, 32, torch.float32, dev)
     checks.append(("flash_attention", compare(
         "flash_attention non-causal",
@@ -690,8 +836,30 @@ def lm_kernel_checks(rng, dev, checks, main_err):
     torch.cuda.synchronize()
 
 
+#: the one route of each single-route wrapper: a block per solver cell, or
+#: the CUDA cores
+SINGLE_ROUTE = {"sdca_epoch": "block", "svrg_inner": "block",
+                "sdca_epoch_sparse": "block", "rwkv_linattn": "simt"}
+
+
 def launch_counts():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def route_counts(name):
+    """Launches of one wrapper per route (one route: all its launches)."""
+    fn = WRAPPERS[name]
+    if name in SINGLE_ROUTE:
+        return {SINGLE_ROUTE[name]: fn.launches}
+    return dict(fn.launches_by_route)
+
+
+def reset_counts():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            for r in fn.launches_by_route:
+                fn.launches_by_route[r] = 0
 
 
 def run_solver_full(solver: str, expect_dual: bool, sparse: bool = False):
@@ -873,9 +1041,9 @@ def phase_serve_rwkv6_full():
 def run_main_path(name, phase, results):
     """Drive one main path with every launch counter at 0 just before and
     read just after; it must have launched exactly the kernels it names,
-    as often as it says."""
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    as often as it says, and every launch of a two-route wrapper must have
+    taken its main route (``MAIN_ROUTES``)."""
+    reset_counts()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -884,8 +1052,15 @@ def run_main_path(name, phase, results):
     want = {k: expected.get(k, 0) for k in WRAPPERS}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}; expected {want}")
+    for k, route in MAIN_ROUTES.items():
+        by = route_counts(k)
+        if by[route] != counts[k]:
+            raise AssertionError(f"{name}: {k} launches by route {by}; all "
+                                 f"{counts[k]} must take the {route!r} route")
     for k, v in counts.items():
         results[k]["launches"] += v
+        for r, n in route_counts(k).items():
+            results[k]["routes"][r] += n
 
 
 def card_vs_cpu(name, cfg, X, y, grid, streams, block_format):
@@ -953,7 +1128,38 @@ def phase_cpu_vs_card():
                     for name, cfg in cfgs.items()}
     emit("cpu_vs_card", max_abs_err=worst, sparse_max_abs_err=worst_sparse,
          tol=1e-5, lm=lm_card_vs_cpu(torch.device("cuda")),
-         lm_tol=LM_CARD_CPU_TOL)
+         lm_tol=LM_CARD_CPU_TOL,
+         lm_bf16=lm_card_vs_cpu_bf16(torch.device("cuda")),
+         lm_bf16_tol=LM_CARD_CPU_BF16_TOL)
+
+
+def lm_card_vs_cpu_bf16(dev):
+    """Reduced Qwen3 at head dim 64 in bfloat16 compute, the same weights on
+    both sides: prefill logits of 2 prompts of 40 tokens, on the card
+    through the tensor-core flash route (one launch per layer) and on the
+    CPU through the plain version, relative to the largest logit."""
+    cfg = reduced(get_config("qwen3-1.7b"), compute_dtype="bfloat16",
+                  head_dim=64)
+    models = {"cpu": Transformer(cfg, device="cpu"),
+              "card": Transformer(cfg, device=dev)}
+    params = {"cpu": models["cpu"].init(0)}
+    params["card"] = tree_map(lambda t: t.to(dev), params["cpu"])
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab,
+                                                             (2, 40)))
+    before = flash_attention.launches_by_route["tc"]
+    logits = {d: models[d].prefill(params[d], {"tokens": toks}, 48)[0]
+              .float().cpu() for d in models}
+    launched = flash_attention.launches_by_route["tc"] - before
+    if launched != cfg.n_layers:
+        raise AssertionError(f"bf16 prefill: {launched} tensor-core flash "
+                             f"launches, expected {cfg.n_layers}")
+    err = float((logits["card"] - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    if not torch.isfinite(logits["card"]).all() or \
+            err > LM_CARD_CPU_BF16_TOL * scale:
+        raise AssertionError(f"bf16 prefill: card vs CPU logits differ by "
+                             f"{err:.3e} (largest logit {scale:.3e})")
+    return err / scale
 
 
 def lm_card_vs_cpu(dev):
@@ -1097,12 +1303,16 @@ def phase_timing(dev, results):
 
     # plain, kernel, kernel, plain -- on one card, in one process
     plain_s = [cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3)]
-    kern_s = [cuda_ms(lambda: sdca_epoch(*sargs, **skw), reps=7)]
+    kern_s = [cuda_ms(lambda: sdca_epoch(*sargs, **skw), reps=7,
+                      queued=True)]
     plain_v = [cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3)]
-    kern_v = [cuda_ms(lambda: svrg_inner(*vargs, **vkw), reps=7)]
-    kern_v.append(cuda_ms(lambda: svrg_inner(*vargs, **vkw), reps=7))
+    kern_v = [cuda_ms(lambda: svrg_inner(*vargs, **vkw), reps=7,
+                      queued=True)]
+    kern_v.append(cuda_ms(lambda: svrg_inner(*vargs, **vkw), reps=7,
+                          queued=True))
     plain_v.append(cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3))
-    kern_s.append(cuda_ms(lambda: sdca_epoch(*sargs, **skw), reps=7))
+    kern_s.append(cuda_ms(lambda: sdca_epoch(*sargs, **skw), reps=7,
+                          queued=True))
     plain_s.append(cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3))
 
     # per step: dot (2) + norm (2) + update (2) flops per row element;
@@ -1142,14 +1352,26 @@ def phase_timing(dev, results):
     vkw = dict(lam=LAM20, eta=eta, loss="hinge", lo=lo)
     plain_s = [cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
                        reps=3)]
-    kern_s = [cuda_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7)]
+    kern_s = [cuda_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7,
+                      queued=True)]
+    if svrg_sparse_route(vargs[5].shape[2], sp.k) != "cluster":
+        raise AssertionError("the news20 window is not on the cluster route")
+
+    def block_route():            # the route the main path took before
+        return svrg_sparse._launch(*vargs, lo, lam=LAM20, eta=eta,
+                                   loss_id=0, route="block")
     plain_v = [cuda_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw),
                        reps=3)]
-    kern_v = [cuda_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7)]
-    kern_v.append(cuda_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7))
+    kern_v = [cuda_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7,
+                      queued=True)]
+    prev_v = [cuda_ms(block_route, reps=5, queued=True),
+              cuda_ms(block_route, reps=5, queued=True)]
+    kern_v.append(cuda_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7,
+                          queued=True))
     plain_v.append(cuda_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw),
                            reps=3))
-    kern_s.append(cuda_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7))
+    kern_s.append(cuda_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7,
+                          queued=True))
     plain_s.append(cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
                            reps=3))
     results["sdca_epoch_sparse"].update(
@@ -1157,7 +1379,11 @@ def phase_timing(dev, results):
         library_ms=None, **sparse_bounds("sdca_epoch_sparse", sargs))
     results["svrg_inner_sparse"].update(
         ms=statistics.median(kern_v), plain_ms=statistics.median(plain_v),
-        library_ms=None, **sparse_bounds("svrg_inner_sparse", vargs, lo))
+        library_ms=None, prev_route="block",
+        prev_route_ms=statistics.median(prev_v),
+        clusters_resident=kernels.load_library()
+        .svrg_inner_sparse_cluster_occupancy(vargs[5].shape[2], sp.k),
+        **sparse_bounds("svrg_inner_sparse", vargs, lo))
     del sargs, vargs, alpha20, w20
     hinge = get_loss("hinge")
     for name, kernel, build in (
@@ -1183,9 +1409,10 @@ def phase_timing(dev, results):
          sparse_cells={"P": P, "Q": Q, "n_p": sp_shape[0], "k": sp_shape[1],
                        "m_q": sp_shape[2], "ell_bytes": sp_shape[3]},
          lm=lm,
-         kernels={k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
-                                        "bound_ms", "bound_by",
-                                        "bytes_moved")}
+         kernels={k: {f: v.get(f) for f in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by",
+                                            "bytes_moved", "prev_route",
+                                            "prev_route_ms")}
                   for k, v in results.items()})
 
 
@@ -1268,27 +1495,40 @@ def lm_timing(dev, results):
     qs, ks, vs = (q.transpose(1, 2),
                   k.repeat_interleave(G, 2).transpose(1, 2),
                   v.repeat_interleave(G, 2).transpose(1, 2))
+    if flash_route(q.dtype, D) != "tc":
+        raise AssertionError("the Qwen3 prefill shape is not on the "
+                             "tensor-core route")
+
+    def simt_route():             # the route the main path took before
+        return flash_ops._launch(q, k, v, True, None, D ** -0.5, "simt")
     plain = [cuda_ms(lambda: flash_attention_plain(q, k, v), reps=5)]
-    kern = [cuda_ms(lambda: flash_attention(q, k, v), reps=20)]
-    lib = [cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True), reps=20)]
-    lib.append(cuda_ms(lambda: torch.nn.functional
-                       .scaled_dot_product_attention(qs, ks, vs,
-                                                     is_causal=True),
-                       reps=20))
-    kern.append(cuda_ms(lambda: flash_attention(q, k, v), reps=20))
+    kern = [cuda_ms(lambda: flash_attention(q, k, v), reps=20,
+                    queued=True)]
+    prev = [cuda_ms(simt_route, reps=20, queued=True)]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+    lib = [cuda_ms(library, reps=20, queued=True)]
+    lib.append(cuda_ms(library, reps=20, queued=True))
+    prev.append(cuda_ms(simt_route, reps=20, queued=True))
+    kern.append(cuda_ms(lambda: flash_attention(q, k, v), reps=20,
+                        queued=True))
     plain.append(cuda_ms(lambda: flash_attention_plain(q, k, v), reps=5))
     results["flash_attention"].update(
         ms=statistics.median(kern), plain_ms=statistics.median(plain),
-        library_ms=statistics.median(lib),
+        library_ms=statistics.median(lib), prev_route="simt",
+        prev_route_ms=statistics.median(prev),
         **flash_bound(B, S, H, KV, D, 2))
     del q, k, v, qs, ks, vs
 
     Bl, Sl, Hl, Dl = LINATTN_MAIN
     r, k, v, lw, u = linattn_inputs(rng, Bl * Hl, Sl, Dl, dev, heads=Hl)
     plain = [cuda_ms(lambda: rwkv_linattn_ref(r, k, v, lw, u), reps=3)]
-    kern = [cuda_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20)]
-    kern.append(cuda_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20))
+    kern = [cuda_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20,
+                    queued=True)]
+    kern.append(cuda_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20,
+                        queued=True))
     plain.append(cuda_ms(lambda: rwkv_linattn_ref(r, k, v, lw, u), reps=3))
     results["rwkv_linattn"].update(
         ms=statistics.median(kern), plain_ms=statistics.median(plain),
@@ -1364,6 +1604,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     phase_build()
     results = {name: {"name": name, **meta, "launches": 0,
+                      "routes": dict.fromkeys(route_counts(name), 0),
                       "max_abs_err": None, "ms": None, "plain_ms": None,
                       "bound_ms": None, "bound_by": None, "library_ms": None}
                for name, meta in KERNEL_META.items()}

@@ -30,7 +30,14 @@
 // conflicts on the transposing store or the strided reads); the row max
 // and row sum of the online softmax are 16-lane shuffles.  The query
 // tiles furthest down the diagonal, which have the most KV tiles, are
-// launched first.  Tensor-core (wgmma) tiles and TMA loads are later work.
+// launched first.
+//
+// This is the `simt` route: float32 (whose 2e-5 tolerance TF32 products
+// would not hold), and head dims 16 / 32 in either type.  bfloat16 at
+// head dims 64 / 128 -- every prefill of the serving path -- takes the
+// tensor-core kernel of flash_attention_tc.cu (the `tc` route); the
+// wrapper picks the route from (dtype, D) alone
+// (kernels/flash/ops.py::flash_route).
 
 #include <cuda_bf16.h>
 

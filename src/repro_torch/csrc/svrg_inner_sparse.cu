@@ -7,8 +7,9 @@
 // counter of one cell; the (1, k) ELL row of the FULL feature block was
 // fetched by scalar-prefetch DMA and the window [lo, lo + m_sub) selected
 // by masking rel = cols - lo.
-// Here the cell index is the CUDA grid, the step loop runs inside one
-// thread block, and the window is selected the same way, per slot.
+// Here (the `block` route) the cell index is the CUDA grid, the step loop
+// runs inside one thread block, and the window is selected the same way,
+// per slot.
 //
 // Per step j = idx[h]:
 //   1. corr = sum over in-window slots of vals * (w[rel] - w~[rel]);
@@ -51,10 +52,63 @@
 //     step's scalars early.
 // A lazy (closed-form) update of the dense part would remove the per-step
 // pass but changes rounding; it is left to later work.
+//
+// Two routes, chosen by shape alone (kernels/svrg/sparse.py::
+// svrg_sparse_route):
+//   * `cluster` (svrg_inner_sparse_cluster_kernel, below) -- every window
+//     whose slice of ceil(m_sub / 8) columns fits one CTA's registers and
+//     shared memory; the main path's 48 400-column windows take it;
+//   * `block` (svrg_inner_sparse_kernel, the design above) -- wider
+//     windows, such as RADiSA's `avg` variant at news20 width (338 800).
+//
+// ---------------------------------------------------------------------------
+// The cluster route: one thread-block cluster of kClusterSize CTAs per cell.
+//
+// Replaces the same TPU kernel.  What bounds the block route on this card
+// is the dense pass: 24 B per window element per step through the one SM
+// of a cell, 28 of 132 SMs busy (12.6 us a step at news20 width).  The
+// cluster route cuts the window into kClusterSize contiguous slices, one
+// per CTA (224 CTAs on the main path, two per SM, all resident at once),
+// and keeps the slice on chip for the whole launch:
+//   * the thread that owns a column of the slice holds w, w~ and mu of it
+//     in registers (E columns a thread, a template parameter, in runs of
+//     4 adjacent columns);
+//   * shared memory holds d = w - w~, rounded as the block route rounds
+//     it, for the gather of step 1, and the scatter scratch g;
+//   * the dense pass reads g and writes d in shared memory -- 8 B a
+//     column, 16-byte accesses -- and g is reset only at the slots the
+//     step scattered to;
+//   * w is written to w_out once, at the end; no global scratch.
+// What bounds it then is the step chain itself: the per-step exchange of
+// partial sums between the CTAs of a cluster and the block barriers.
+// Per step j = idx[h]:
+//   1. each CTA sums vals * d[rel] over the in-window slots of the row that
+//      fall in its own slice, and reduces that over its block;
+//   2. thread 0 sends the partial to slot [h & 1][rank] of every CTA of
+//      the cluster with st.async, each store completing 4 bytes of the
+//      transaction count of that CTA's mbarrier [h & 1] -- no cluster-wide
+//      barrier in the step;
+//   3. each CTA waits on its own mbarrier for the kClusterSize partials and
+//      sums them in rank order, so z and gscale are bitwise the same in
+//      every CTA;
+//   4. gscale * vals is scattered into the CTA's own g slice with shared
+//      atomics (zero slots and slots outside the slice skipped);
+//   5. __syncthreads; the dense pass over the slice with the same
+//      svrg_update expression and _rn intrinsics as the block route, so
+//      each column is rounded as before; __syncthreads; g reset at the
+//      row's slots.
+// The double-buffered slots and mbarriers are safe to reuse: a CTA sends
+// the partial of step h + 2 only after it has received every peer's
+// partial of step h + 1, which each peer sends after it has read its
+// slots of step h.  The next row's cols / vals are prefetched with
+// cp.async as before.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -221,11 +275,324 @@ __global__ void __launch_bounds__(1024) svrg_inner_sparse_kernel(
   __pipeline_wait_prior(0);
 }
 
+
+// ---------------------------------------------------------------------------
+// cluster route
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterSize = 8;        // CTAs per cell (portable)
+constexpr int kClusterThreads = 256;
+constexpr int kClusterWarps = kClusterThreads / 32;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of `local` in the CTA of cluster rank `rank`
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+
+// 4 bytes into a peer's shared memory, completing 4 bytes of the
+// transaction count of the peer's mbarrier
+__device__ __forceinline__ void st_async_peer(uint32_t addr, float v,
+                                              uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+// wait until the phase of parity `parity` has completed, seeing the
+// peers' stores; a wait that outlasts ~2^26 polls (seconds) is a fault,
+// and traps instead of hanging
+__device__ __forceinline__ void cl_mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+template <int LOSS, int E>
+__global__ void __launch_bounds__(kClusterThreads, E <= 24 ? 2 : 1)
+svrg_inner_sparse_cluster_kernel(
+    const int* __restrict__ cols,        // (P, Q, n_p, k), FULL block
+    const float* __restrict__ vals,      // (P, Q, n_p, k)
+    const float* __restrict__ y,         // (P, n_p)
+    const float* __restrict__ mask,      // (P, n_p)
+    const float* __restrict__ z_anchor,  // (P, n_p)
+    const float* __restrict__ w_anchor,  // (P, Q, m_sub)
+    const float* __restrict__ mu,        // (P, Q, m_sub)
+    const int* __restrict__ idx,         // (P, Q, L)
+    const int* __restrict__ lo,          // (P,) window offsets, or null = 0
+    float* __restrict__ w_out,           // (P, Q, m_sub)
+    int Q, int n_p, int k, int m_sub, int L, int slice,
+    float lam, float eta,
+    const float* __restrict__ cell_params) {  // (P*Q, 2) [lam, eta] or null
+  static_assert(E % 4 == 0, "a thread owns runs of 4 columns");
+  extern __shared__ __align__(16) unsigned char smem_cl[];
+  __shared__ float part[2][kClusterSize];       // partials of step h: [h & 1]
+  __shared__ __align__(8) unsigned long long pbar[2];   // their mbarriers
+  __shared__ float red[2][kClusterWarps + 4];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long c = blockIdx.x / kClusterSize;
+  const long long p = c / Q;
+
+  if (cell_params != nullptr) {
+    lam = cell_params[2 * c];
+    eta = cell_params[2 * c + 1];
+  }
+
+  // slice padded to whole runs of 4; the padding columns are inert
+  const int spad = (slice + 3) & ~3;
+  float* d_s = reinterpret_cast<float*>(smem_cl);   // [spad] w - w~
+  float* g_s = d_s + spad;                           // [spad] scatter
+  int* rc = reinterpret_cast<int*>(g_s + spad);      // [2][k]
+  float* rv = reinterpret_cast<float*>(rc + 2 * k);  // [2][k]
+
+  const int* cc = cols + c * n_p * k;
+  const float* vc = vals + c * n_p * k;
+  const float* yp = y + p * n_p;
+  const float* mp = mask + p * n_p;
+  const float* zp = z_anchor + p * n_p;
+  const int* ip = idx + c * L;
+  const int s0 = rank * slice;                       // slice start in the window
+  const int s_len = max(0, min(slice, m_sub - s0));
+  const int off = (lo != nullptr ? lo[p] : 0) + s0;  // block column of slice[0]
+  const float* wa = w_anchor + c * m_sub + s0;
+  const float* mus = mu + c * m_sub + s0;
+
+  // run r = tid + kClusterThreads * (i / 4) of the slice: columns 4 r ..
+  // 4 r + 3 belong to this thread, as w_r[i .. i + 3]
+  float w_r[E], wa_r[E], mu_r[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int e = 4 * (tid + kClusterThreads * (i / 4)) + (i % 4);
+    wa_r[i] = e < s_len ? wa[e] : 0.f;
+    mu_r[i] = e < s_len ? mus[e] : 0.f;
+    w_r[i] = wa_r[i];
+    if (e < spad) {
+      d_s[e] = __fsub_rn(w_r[i], wa_r[i]);
+      g_s[e] = 0.f;
+    }
+  }
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(&pbar[b])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  int j_next = 0, j_next2 = 0;
+  float cy = 0.f, cm = 0.f, cz = 0.f, ny = 0.f, nm = 0.f, nz = 0.f;
+  if (L > 0) {
+    const int j = ip[0];
+    j_next = L > 1 ? ip[1] : 0;
+    prefetch_ell_row(rc, rv, cc + static_cast<long long>(j) * k,
+                     vc + static_cast<long long>(j) * k, k, tid,
+                     kClusterThreads);
+    if (tid == 0) { cy = yp[j]; cm = mp[j]; cz = zp[j]; }
+  }
+  __pipeline_commit();
+  // every CTA of the cluster runs, its mbarriers are initialised and its
+  // slice is filled before the first partial arrives from a peer
+  cluster.sync();
+
+  for (int h = 0; h < L; ++h) {
+    const int* ccur = rc + (h & 1) * k;
+    const float* vcur = rv + (h & 1) * k;
+    if (h + 1 < L) {
+      const int b = (h + 1) & 1;
+      prefetch_ell_row(rc + b * k, rv + b * k,
+                       cc + static_cast<long long>(j_next) * k,
+                       vc + static_cast<long long>(j_next) * k, k, tid,
+                       kClusterThreads);
+      if (tid == 0) { ny = yp[j_next]; nm = mp[j_next]; nz = zp[j_next]; }
+      j_next2 = h + 2 < L ? ip[h + 2] : 0;
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // everything but the newest copy has landed
+
+    // 1. this slice's part of the correction
+    float corr = 0.f;
+    for (int s = tid; s < k; s += kClusterThreads) {
+      const int rel = ccur[s] - off;
+      if (rel >= 0 && rel < s_len) corr = fmaf(vcur[s], d_s[rel], corr);
+    }
+    corr = rt::warp_sum(corr);
+    float* r = red[h & 1];
+    if (lane == 0) r[warp] = corr;
+    if (tid == 0) {
+      r[kClusterWarps + 0] = cy;
+      r[kClusterWarps + 1] = cm;
+      r[kClusterWarps + 2] = cz;
+    }
+    __syncthreads();
+    // 2. the partial into slot [h & 1][rank] of every CTA of the cluster,
+    // each store completing 4 bytes on that CTA's mbarrier of the step
+    const uint32_t bar = smem_addr(&pbar[h & 1]);
+    if (tid == 0) {
+      float ps = 0.f;
+      for (int wi = 0; wi < kClusterWarps; ++wi) ps += r[wi];
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(bar), "r"(4 * kClusterSize) : "memory");
+      const uint32_t slot = smem_addr(&part[h & 1][rank]);
+      for (int q = 0; q < kClusterSize; ++q)
+        st_async_peer(peer_addr(slot, q), ps, peer_addr(bar, q));
+    }
+    // 3. wait for the kClusterSize partials; sum them in rank order
+    cl_mbar_wait(bar, (h >> 1) & 1);
+    corr = 0.f;
+#pragma unroll
+    for (int q = 0; q < kClusterSize; ++q) corr += part[h & 1][q];
+    const float yj = r[kClusterWarps + 0];
+    const float mj = r[kClusterWarps + 1];
+    const float zj = r[kClusterWarps + 2];
+    const float z = zj + corr;
+    const float gscale =
+        (rt::loss_grad<LOSS>(z, yj) - rt::loss_grad<LOSS>(zj, yj)) * mj;
+
+    // 4. sparse part of the direction, scattered into this slice of g
+    if (gscale != 0.f) {
+      for (int s = tid; s < k; s += kClusterThreads) {
+        const int rel = ccur[s] - off;
+        const float v = vcur[s];
+        if (rel >= 0 && rel < s_len && v != 0.f)
+          atomicAdd(g_s + rel, gscale * v);
+      }
+    }
+    __syncthreads();
+
+    // 5. dense pass over the slice, rounded as the block route rounds it
+#pragma unroll
+    for (int i = 0; i < E; i += 4) {
+      const int e = 4 * (tid + kClusterThreads * (i / 4));
+      if (e < s_len) {
+        const float4 g4 = *reinterpret_cast<const float4*>(g_s + e);
+        float4 d4;
+        w_r[i + 0] = svrg_update(w_r[i + 0], wa_r[i + 0], mu_r[i + 0], g4.x, lam, eta);
+        w_r[i + 1] = svrg_update(w_r[i + 1], wa_r[i + 1], mu_r[i + 1], g4.y, lam, eta);
+        w_r[i + 2] = svrg_update(w_r[i + 2], wa_r[i + 2], mu_r[i + 2], g4.z, lam, eta);
+        w_r[i + 3] = svrg_update(w_r[i + 3], wa_r[i + 3], mu_r[i + 3], g4.w, lam, eta);
+        d4.x = __fsub_rn(w_r[i + 0], wa_r[i + 0]);
+        d4.y = __fsub_rn(w_r[i + 1], wa_r[i + 1]);
+        d4.z = __fsub_rn(w_r[i + 2], wa_r[i + 2]);
+        d4.w = __fsub_rn(w_r[i + 3], wa_r[i + 3]);
+        *reinterpret_cast<float4*>(d_s + e) = d4;
+      }
+    }
+    __syncthreads();  // d and g are read before g is reset
+    if (gscale != 0.f) {
+      for (int s = tid; s < k; s += kClusterThreads) {
+        const int rel = ccur[s] - off;
+        if (rel >= 0 && rel < s_len) g_s[rel] = 0.f;
+      }
+    }
+
+    if (tid == 0) { cy = ny; cm = nm; cz = nz; }
+    j_next = j_next2;
+  }
+  __pipeline_wait_prior(0);
+
+  float* wo = w_out + c * m_sub + s0;
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int e = 4 * (tid + kClusterThreads * (i / 4)) + (i % 4);
+    if (e < s_len) wo[e] = w_r[i];
+  }
+  cluster.sync();  // no CTA leaves while a peer may still address it
+}
+
+// columns per thread the cluster kernel is compiled for; the slice of a
+// window must fit kClusterThreads * the largest
+constexpr int kClusterPerThread[] = {8, 16, 24, 32, 48, 64};
+
+template <int LOSS, int E>
+int cluster_launch_e(const int* cols, const float* vals, const float* y,
+                     const float* mask, const float* z_anchor,
+                     const float* w_anchor, const float* mu, const int* idx,
+                     const int* lo, float* w_out, int P, int Q, int n_p,
+                     int k, int m_sub, int L, int slice, float lam, float eta,
+                     const float* cell_params, size_t smem,
+                     cudaStream_t stream, int* max_clusters) {
+  auto kern = svrg_inner_sparse_cluster_kernel<LOSS, E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P * Q * kClusterSize);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterSize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters != nullptr)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(max_clusters, kern, &cfg));
+  err = cudaLaunchKernelEx(&cfg, kern, cols, vals, y, mask, z_anchor,
+                           w_anchor, mu, idx, lo, w_out, Q, n_p, k, m_sub, L,
+                           slice, lam, eta, cell_params);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOSS>
+int cluster_launch(const int* cols, const float* vals, const float* y,
+                   const float* mask, const float* z_anchor,
+                   const float* w_anchor, const float* mu, const int* idx,
+                   const int* lo, float* w_out, int P, int Q, int n_p, int k,
+                   int m_sub, int L, float lam, float eta,
+                   const float* cell_params, cudaStream_t stream,
+                   int* max_clusters) {
+  const int slice = (m_sub + kClusterSize - 1) / kClusterSize;
+  const int spad = (slice + 3) & ~3;
+  const size_t smem = 2 * static_cast<size_t>(spad) * sizeof(float) +
+                      2 * static_cast<size_t>(k) * (sizeof(int) + sizeof(float));
+  if (smem > rt::kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(sizeof(kClusterPerThread) == 6 * sizeof(int) &&
+                    kClusterPerThread[5] == 64,
+                "the dispatch below covers every entry");
+#define RT_CLUSTER_E(EV)                                                      \
+  if (slice <= kClusterThreads * (EV))                                        \
+    return cluster_launch_e<LOSS, EV>(cols, vals, y, mask, z_anchor,          \
+                                      w_anchor, mu, idx, lo, w_out, P, Q,     \
+                                      n_p, k, m_sub, L, slice, lam, eta,      \
+                                      cell_params, smem, stream, max_clusters);
+  RT_CLUSTER_E(8)
+  RT_CLUSTER_E(16)
+  RT_CLUSTER_E(24)
+  RT_CLUSTER_E(32)
+  RT_CLUSTER_E(48)
+  RT_CLUSTER_E(64)
+#undef RT_CLUSTER_E
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// Launch on `stream`; allocates nothing, does not synchronise, returns
-// cudaGetLastError().  `lo` may be null (window starts at column 0);
-// `g_scratch` must hold P*Q*m_sub zeros (it is left zeroed);
+// The block route.  Launch on `stream`; allocates nothing, does not
+// synchronise, returns cudaGetLastError().  `lo` may be null (window
+// starts at column 0); `g_scratch` must hold P*Q*m_sub zeros (it is left zeroed);
 // `cell_params` may be null (the scalars apply to every cell) or point
 // to (P*Q, 2) floats [lam, eta] per cell.
 extern "C" int svrg_inner_sparse_launch(
@@ -248,4 +615,37 @@ extern "C" int svrg_inner_sparse_launch(
       cols, vals, y, mask, z_anchor, w_anchor, mu, idx, lo, w_out, g_scratch,
       Q, n_p, k, m_sub, L, lam, eta, cell_params);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster route.  Launch on `stream`; allocates nothing, does not
+// synchronise, returns cudaGetLastError().  Arguments as above, without
+// g_scratch and threads: P*Q clusters of 8 CTAs of 256 threads; the
+// window's slice ceil(m_sub / 8) must fit 256 * 64 columns and, with the
+// two ELL row buffers, the shared memory of one CTA.
+extern "C" int svrg_inner_sparse_cluster_launch(
+    const int* cols, const float* vals, const float* y, const float* mask,
+    const float* z_anchor, const float* w_anchor, const float* mu,
+    const int* idx, const int* lo, float* w_out,
+    int P, int Q, int n_p, int k, int m_sub, int L,
+    float lam, float eta, const float* cell_params, int loss, void* stream) {
+  if (P < 1 || Q < 1 || m_sub < 0 || k < 0 || L < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (loss == rt::kHinge)
+    return cluster_launch<rt::kHinge>(cols, vals, y, mask, z_anchor, w_anchor,
+                                      mu, idx, lo, w_out, P, Q, n_p, k, m_sub,
+                                      L, lam, eta, cell_params, st, nullptr);
+  return cluster_launch<rt::kSquared>(cols, vals, y, mask, z_anchor, w_anchor,
+                                      mu, idx, lo, w_out, P, Q, n_p, k, m_sub,
+                                      L, lam, eta, cell_params, st, nullptr);
+}
+
+// How many clusters of the cluster route the card holds at once for this
+// window width and row width (cudaOccupancyMaxActiveClusters), or -1.
+extern "C" int svrg_inner_sparse_cluster_occupancy(int m_sub, int k) {
+  int n = -1;
+  const int code = cluster_launch<rt::kHinge>(
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, 1, 1, 1, k, m_sub, 0, 0.f, 0.f, nullptr, nullptr, &n);
+  return code == 0 ? n : -1;
 }

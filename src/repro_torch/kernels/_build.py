@@ -60,6 +60,18 @@ _SIGNATURES = {
         + [_FLT] * 2                      # lam eta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
+    "svrg_inner_sparse_cluster_launch": (
+        [_PTR] * 9 + [_PTR]               # cols vals y mask z_a w_a mu idx lo
+        #                                  | w_out
+        + [_INT] * 6                      # P Q n_p k m_sub L
+        + [_FLT] * 2                      # lam eta
+        + [_PTR]                          # cell_params (null: use scalars)
+        + [_INT] + [_PTR]),               # loss stream
+    "svrg_inner_sparse_cluster_occupancy": [_INT] * 2,   # m_sub k
+    "flash_attention_tc_launch": (
+        [_PTR] * 4                        # q k v | out
+        + [_INT] * 6                      # B S Skv H KV D
+        + [_FLT] + [_INT] * 2 + [_PTR]),  # scale causal window stream
     "flash_attention_launch": (
         [_PTR] * 4                        # q k v | out
         + [_INT] * 6                      # B S Skv H KV D

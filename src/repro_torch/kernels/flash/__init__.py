@@ -1,4 +1,5 @@
-from .ops import flash_attention, flash_attention_plain
+from .ops import flash_attention, flash_attention_plain, flash_route
 from .ref import mha_ref
 
-__all__ = ["flash_attention", "flash_attention_plain", "mha_ref"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_route",
+           "mha_ref"]

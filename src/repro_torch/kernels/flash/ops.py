@@ -1,5 +1,11 @@
-"""Public wrapper of the flash attention kernel, GQA-aware (the port of
-``repro/kernels/flash/ops.py``)."""
+"""Public wrapper of the flash attention kernels, GQA-aware (the port of
+``repro/kernels/flash/ops.py``).
+
+Two routes, chosen by :func:`flash_route` from (dtype, head dim) alone:
+``"tc"`` -- bfloat16 at D 64 / 128, the tensor-core kernel
+(``csrc/flash_attention_tc.cu``: wgmma, TMA, P rounded to bf16 before
+P V); ``"simt"`` -- everything else (float32, D 16 / 32), the CUDA-core
+kernel (``csrc/flash_attention.cu``, float32 inside)."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +16,18 @@ from .ref import mha_ref
 
 #: head dims the kernel is compiled for (csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of the tensor-core route (csrc/flash_attention_tc.cu)
+TC_HEAD_DIMS = (64, 128)
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("tc", "simt")
+
+
+def flash_route(dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bfloat16
+    at head dims 64 and 128, ``"simt"`` (CUDA cores, float32 inside)
+    otherwise -- TF32 products would not hold float32's tolerance."""
+    return ("tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+            else "simt")
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None):
@@ -39,11 +56,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     q's dtype; float32 inside, scale ``D ** -0.5`` by default, masked
     scores at -1e30, the row sum clamped at 1e-30 -- the semantics of
     ``flash_attention_pallas``.  Any S and Skv (the kernel masks the
-    ragged last tile itself).
+    ragged last tile itself).  On the ``"tc"`` route (:func:`flash_route`)
+    q k^T is formed from the bf16 operands and p is rounded to bf16 before
+    p v -- one bf16 rounding more than float32 inside -- and q, k, v must
+    start on 16-byte boundaries (TMA reads them).
 
-    A CUDA tensor launches the CUDA kernel (no copy of the KV heads: query
-    head h reads KV head h // (H // KV) in place) or raises; the plain
-    version runs only for tensors that lie on the CPU.
+    A CUDA tensor launches the route's CUDA kernel (no copy of the KV
+    heads: query head h reads KV head h // (H // KV) in place) or raises;
+    the plain version runs only for tensors that lie on the CPU.
     """
     if not isinstance(q, torch.Tensor) or q.dim() != 4:
         raise ValueError("q must be a (B, S, H, D) tensor")
@@ -64,6 +84,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     check_tensor("q", q, (B, S, H, D), q.dtype, dev)
     check_tensor("k", k, (B, Skv, KV, D), q.dtype, dev)
     check_tensor("v", v, (B, Skv, KV, D), q.dtype, dev)
+    route = flash_route(q.dtype, D)
+    if route == "tc":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"{name} starts at a 16-byte misaligned address; the "
+                    "tensor-core route reads it by TMA (pass a fresh "
+                    "contiguous tensor)")
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -74,27 +102,35 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
             f"the flash attention kernel is compiled for head dims "
             f"{HEAD_DIMS}, not {D}")
     return _launch(q, k, v, causal, window,
-                   float(scale if scale is not None else D ** -0.5))
+                   float(scale if scale is not None else D ** -0.5), route)
 
 
-#: number of CUDA kernel launches made by this wrapper (and nothing else)
+#: number of CUDA kernel launches made by this wrapper (and nothing else),
+#: in all and per route
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _launch(q, k, v, causal, window, scale):
+def _launch(q, k, v, causal, window, scale, route):
     B, S, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if B * H == 0 or S == 0:
         return out
     lib = _build.load_library()
+    win = -1 if window is None else int(window)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, Skv, H, KV, D, scale, int(bool(causal)),
-            -1 if window is None else int(window), _DTYPE_IDS[q.dtype],
-            stream)
-    _build.check_launch(lib, code, "flash_attention")
+        if route == "tc":
+            code = lib.flash_attention_tc_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, Skv, H, KV, D, scale, int(bool(causal)), win, stream)
+        else:
+            code = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, Skv, H, KV, D, scale, int(bool(causal)), win,
+                _DTYPE_IDS[q.dtype], stream)
+    _build.check_launch(lib, code, f"flash_attention ({route} route)")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out

@@ -1,6 +1,14 @@
 """RADiSA / SFK inner loop on padded-ELL sparse blocks: the public wrapper
 of ``csrc/svrg_inner_sparse.cu`` and its plain PyTorch version.
 
+Two routes, chosen by :func:`svrg_sparse_route` from the window width and
+the ELL row width alone: ``"cluster"`` -- one thread-block cluster of
+``CLUSTER_SIZE`` CTAs per cell, each holding a slice of the window on chip
+for the whole launch -- wherever the slice fits; ``"block"`` -- one block
+per cell, the window in device memory -- for wider windows (RADiSA's
+``avg`` variant at news20 width).  Both round every element of the dense
+pass alike.
+
 The plain version is the same batched function as the kernel: a Python
 loop over the L steps, vectorised over the P x Q cells.  The CPU tests
 run it, the chip check compares the kernel with it on the card, and
@@ -11,8 +19,40 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .._launch import check_loss, check_smem, check_tensor, ell_threads
+from .._launch import (MAX_DYNAMIC_SMEM, check_loss, check_smem,
+                       check_tensor, ell_threads)
 from .ref import _grad
+
+#: CTAs per cell on the cluster route (the portable cluster size)
+CLUSTER_SIZE = 8
+#: threads of one cluster CTA, and window columns each holds at most in
+#: registers (csrc/svrg_inner_sparse.cu kClusterThreads, kClusterPerThread)
+CLUSTER_THREADS = 256
+CLUSTER_MAX_PER_THREAD = 64
+ROUTES = ("cluster", "block")
+
+
+def cluster_slice(m_sub: int) -> int:
+    """Window columns one CTA of the cluster route owns."""
+    return -(-m_sub // CLUSTER_SIZE)
+
+
+def cluster_smem(m_sub: int, k: int) -> int:
+    """Dynamic shared memory of one cluster CTA: its slice (padded to a
+    whole number of 4-column runs) of w - w~ and of the scatter scratch,
+    and two ELL rows (column ids and values)."""
+    return 8 * (-(-cluster_slice(m_sub) // 4) * 4) + 2 * k * 8
+
+
+def svrg_sparse_route(m_sub: int, k: int) -> str:
+    """The kernel a CUDA call takes, by shape alone: ``"cluster"`` when a
+    window slice of ``ceil(m_sub / CLUSTER_SIZE)`` columns fits the
+    registers of one CTA (``CLUSTER_THREADS * CLUSTER_MAX_PER_THREAD``)
+    and, with two ELL rows of ``k`` slots, its shared memory; else
+    ``"block"``."""
+    fits = (cluster_slice(m_sub) <= CLUSTER_THREADS * CLUSTER_MAX_PER_THREAD
+            and cluster_smem(m_sub, k) <= MAX_DYNAMIC_SMEM)
+    return "cluster" if fits else "block"
 
 
 def svrg_inner_sparse(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, *,
@@ -33,8 +73,9 @@ def svrg_inner_sparse(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, *,
     (m_sub,)``, ``idx (L,)``, ``lo`` an int or None -- are accepted too.
 
     Returns the updated window iterate ``(P, Q, m_sub)`` (or
-    ``(m_sub,)``).  A CUDA tensor launches the CUDA kernel or raises; the
-    plain PyTorch version runs only for tensors that lie on the CPU.
+    ``(m_sub,)``).  A CUDA tensor launches the route's CUDA kernel
+    (:func:`svrg_sparse_route`) or raises; the plain PyTorch version runs
+    only for tensors that lie on the CPU.
     """
     loss_id = check_loss(loss, "the svrg_inner_sparse kernel")
     unbatched = isinstance(cols, torch.Tensor) and cols.dim() == 2
@@ -73,37 +114,48 @@ def svrg_inner_sparse(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, *,
                                     lo=lo)
     elif dev.type == "cuda":
         w = _launch(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, lo,
-                    lam=lam, eta=eta, loss_id=loss_id)
+                    lam=lam, eta=eta, loss_id=loss_id,
+                    route=svrg_sparse_route(m_sub, k))
     else:
         raise NotImplementedError(f"svrg_inner_sparse has no path for {dev}")
     return w[0, 0] if unbatched else w
 
 
-#: number of CUDA kernel launches made by this wrapper (and nothing else)
+#: number of CUDA kernel launches made by this wrapper (and nothing else),
+#: in all and per route
 svrg_inner_sparse.launches = 0
+svrg_inner_sparse.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _launch(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, lo, *, lam,
-            eta, loss_id):
+            eta, loss_id, route):
     P, Qc, n_p, k = cols.shape
     m_sub = w_anchor.shape[2]
-    # only the two ELL row buffers live in shared memory; the window
-    # vectors stay in device memory, whatever m_sub
-    check_smem(2 * k * 8, f"svrg_inner_sparse with k={k}")
     lib = _build.load_library()
     w = torch.empty((P, Qc, m_sub), dtype=vals.dtype, device=vals.device)
-    g = torch.zeros((P, Qc, m_sub), dtype=vals.dtype, device=vals.device)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.svrg_inner_sparse_launch(
-            cols.data_ptr(), vals.data_ptr(), y.data_ptr(), mask.data_ptr(),
+    ptrs = (cols.data_ptr(), vals.data_ptr(), y.data_ptr(), mask.data_ptr(),
             z_anchor.data_ptr(), w_anchor.data_ptr(), mu.data_ptr(),
             idx.data_ptr(), lo.data_ptr() if lo is not None else None,
-            w.data_ptr(), g.data_ptr(), P, Qc, n_p, k, m_sub, idx.shape[2],
-            float(lam), float(eta), None, loss_id,
-            ell_threads(k, m_sub, max_warps=32), stream)
-    _build.check_launch(lib, code, "svrg_inner_sparse")
+            w.data_ptr())
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "cluster":
+            code = lib.svrg_inner_sparse_cluster_launch(
+                *ptrs, P, Qc, n_p, k, m_sub, idx.shape[2], float(lam),
+                float(eta), None, loss_id, stream)
+        else:
+            # only the two ELL row buffers live in shared memory; the
+            # window vectors stay in device memory, whatever m_sub
+            check_smem(2 * k * 8, f"svrg_inner_sparse with k={k}")
+            g = torch.zeros((P, Qc, m_sub), dtype=vals.dtype,
+                            device=vals.device)
+            code = lib.svrg_inner_sparse_launch(
+                *ptrs, g.data_ptr(), P, Qc, n_p, k, m_sub, idx.shape[2],
+                float(lam), float(eta), None, loss_id,
+                ell_threads(k, m_sub, max_warps=32), stream)
+    _build.check_launch(lib, code, f"svrg_inner_sparse ({route} route)")
     svrg_inner_sparse.launches += 1
+    svrg_inner_sparse.launches_by_route[route] += 1
     return w
 
 

@@ -1,12 +1,14 @@
 """Attention for the LM stack (counterpart of ``repro/models/attention.py``).
 
 ``chunked_attention`` -- what every prefill attention layer calls -- is
-the flash attention kernel: on a CUDA tensor it launches the hand-written
-kernel (``kernels/flash``, ``csrc/flash_attention.cu``), on a CPU tensor
-it runs the kernel's plain version.  Both follow the Pallas kernel
-(float32 inside); the reference's pure-JAX ``chunked_attention`` instead
+the flash attention kernel: on a CUDA tensor it launches a hand-written
+kernel (``kernels/flash``: bfloat16 at head dims 64 / 128 on the tensor
+cores, ``csrc/flash_attention_tc.cu``, which rounds p to bfloat16 before
+p @ v; everything else float32 inside, ``csrc/flash_attention.cu``), on a
+CPU tensor it runs the kernel's plain version (float32 inside, as the
+Pallas kernel).  The reference's pure-JAX ``chunked_attention`` instead
 scales q in the input dtype and rounds p to it before p @ v, so in
-bfloat16 the two agree only to bfloat16 rounding.  ``full_attention`` and
+bfloat16 they all agree only to bfloat16 rounding.  ``full_attention`` and
 ``decode_attention`` are plain PyTorch with the reference's dtype steps.
 
 GQA layout: q (B, S, H, D), k/v (B, Skv, KV, D) with G = H // KV query
