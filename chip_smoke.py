@@ -44,7 +44,11 @@ JSON; any failure is an exception and a non-zero exit:
   timing              CUDA-event times per kernel (beside its plain version,
                       its roofline bound, the route it replaced on the main
                       path where it has two and, where one PyTorch call
-                      computes the same function, that call) and per outer
+                      computes the same function, that call), each kernel,
+                      replaced route and library call timed two ways:
+                      ``ms`` with the host's launch latency inside, and
+                      ``device_ms`` with the call enqueued before the
+                      clock starts (the device's time alone); and per outer
                       iteration of each solver; peak device memory of the
                       sparse path; Qwen3 prefill and decode step, RWKV6
                       prefill
@@ -257,6 +261,22 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1, queued: bool = False):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def both_ms(fn, reps: int):
+    """``fn()`` timed both ways, one right after the other: ``(launch ms,
+    device ms)`` -- without ``queued`` (the host's launch latency inside:
+    what a caller that waits for one call sees) and with it (the device's
+    time alone).  Compare two calls within one of the two, never across."""
+    return cuda_ms(fn, reps=reps), cuda_ms(fn, reps=reps, queued=True)
+
+
+def medians(pairs, key: str) -> dict:
+    """``{key: median launch ms, <key with ms -> device_ms>: median device
+    ms}`` of a list of :func:`both_ms` pairs."""
+    return {key: statistics.median(p[0] for p in pairs),
+            key.replace("ms", "device_ms"):
+                statistics.median(p[1] for p in pairs)}
 
 
 # ---------------------------------------------------------------------------
@@ -802,6 +822,30 @@ def lm_kernel_checks(rng, dev, checks, main_err):
         [flash_attention(q, k, v, causal=False)],
         [flash_attention_plain(q, k, v, causal=False)],
         FLASH_TOL[torch.float32])))
+    # query rows with no unmasked key (window 5, S 200 > Skv + 4): both
+    # routes give them 0 (the plain version, as mha_ref, the average of
+    # v; ROADMAP queue C); every row with a key agrees with the plain one
+    S, Skv, window = 200, 10, 5
+    rows, keys = torch.arange(S, device=dev), torch.arange(Skv, device=dev)
+    for dtype, D, causal in ((torch.bfloat16, 128, False),
+                             (torch.bfloat16, 64, True),
+                             (torch.float32, 64, False),
+                             (torch.bfloat16, 32, True)):
+        q, k, v = flash_inputs(rng, 1, S, 4, 2, D, dtype, dev, Skv=Skv)
+        ok = rows[:, None] - keys[None] < window
+        if causal:
+            ok &= keys[None] <= rows[:, None]
+        keyed = ok.any(1)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw).float()
+        label = (f"flash_attention {flash_route(dtype, D)} rows without a "
+                 f"key {(S, Skv, D)} {dtype} causal={causal} w={window}")
+        checks.append(("flash_attention", compare(
+            label, [got[:, keyed]],
+            [flash_attention_plain(q, k, v, **kw).float()[:, keyed]],
+            FLASH_TOL[dtype])))
+        compare(label + " (zero)", [got[:, ~keyed]],
+                [torch.zeros_like(got[:, ~keyed])], 0.0)
     torch.cuda.synchronize()
     q, k, v = flash_inputs(rng, *FLASH_MAIN, torch.bfloat16, dev)
     main_err["flash_attention"] = compare(
@@ -1303,25 +1347,21 @@ def phase_timing(dev, results):
 
     # plain, kernel, kernel, plain -- on one card, in one process
     plain_s = [cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3)]
-    kern_s = [cuda_ms(lambda: sdca_epoch(*sargs, **skw), reps=7,
-                      queued=True)]
+    kern_s = [both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7)]
     plain_v = [cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3)]
-    kern_v = [cuda_ms(lambda: svrg_inner(*vargs, **vkw), reps=7,
-                      queued=True)]
-    kern_v.append(cuda_ms(lambda: svrg_inner(*vargs, **vkw), reps=7,
-                          queued=True))
+    kern_v = [both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7)]
+    kern_v.append(both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7))
     plain_v.append(cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3))
-    kern_s.append(cuda_ms(lambda: sdca_epoch(*sargs, **skw), reps=7,
-                          queued=True))
+    kern_s.append(both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7))
     plain_s.append(cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3))
 
     # per step: dot (2) + norm (2) + update (2) flops per row element;
     # SVRG: subtract + dot (3) + update (6)
     results["sdca_epoch"].update(
-        ms=statistics.median(kern_s), plain_ms=statistics.median(plain_s),
+        **medians(kern_s, "ms"), plain_ms=statistics.median(plain_s),
         library_ms=None, **bounds("sdca_epoch", sargs, data.m_q, 6))
     results["svrg_inner"].update(
-        ms=statistics.median(kern_v), plain_ms=statistics.median(plain_v),
+        **medians(kern_v, "ms"), plain_ms=statistics.median(plain_v),
         library_ms=None, **bounds("svrg_inner", vargs, data.m_q // P, 9))
     del data, alpha, w, sargs, vargs
     torch.cuda.empty_cache()
@@ -1352,8 +1392,7 @@ def phase_timing(dev, results):
     vkw = dict(lam=LAM20, eta=eta, loss="hinge", lo=lo)
     plain_s = [cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
                        reps=3)]
-    kern_s = [cuda_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7,
-                      queued=True)]
+    kern_s = [both_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7)]
     if svrg_sparse_route(vargs[5].shape[2], sp.k) != "cluster":
         raise AssertionError("the news20 window is not on the cluster route")
 
@@ -1362,27 +1401,21 @@ def phase_timing(dev, results):
                                    loss_id=0, route="block")
     plain_v = [cuda_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw),
                        reps=3)]
-    kern_v = [cuda_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7,
-                      queued=True)]
-    prev_v = [cuda_ms(block_route, reps=5, queued=True),
-              cuda_ms(block_route, reps=5, queued=True)]
-    kern_v.append(cuda_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7,
-                          queued=True))
+    kern_v = [both_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7)]
+    prev_v = [both_ms(block_route, reps=5), both_ms(block_route, reps=5)]
+    kern_v.append(both_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7))
     plain_v.append(cuda_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw),
                            reps=3))
-    kern_s.append(cuda_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7,
-                          queued=True))
+    kern_s.append(both_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7))
     plain_s.append(cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
                            reps=3))
     results["sdca_epoch_sparse"].update(
-        ms=statistics.median(kern_s), plain_ms=statistics.median(plain_s),
+        **medians(kern_s, "ms"), plain_ms=statistics.median(plain_s),
         library_ms=None, **sparse_bounds("sdca_epoch_sparse", sargs))
     results["svrg_inner_sparse"].update(
-        ms=statistics.median(kern_v), plain_ms=statistics.median(plain_v),
+        **medians(kern_v, "ms"), plain_ms=statistics.median(plain_v),
         library_ms=None, prev_route="block",
-        prev_route_ms=statistics.median(prev_v),
-        clusters_resident=kernels.load_library()
-        .svrg_inner_sparse_cluster_occupancy(vargs[5].shape[2], sp.k),
+        **medians(prev_v, "prev_route_ms"),
         **sparse_bounds("svrg_inner_sparse", vargs, lo))
     del sargs, vargs, alpha20, w20
     hinge = get_loss("hinge")
@@ -1409,10 +1442,10 @@ def phase_timing(dev, results):
          sparse_cells={"P": P, "Q": Q, "n_p": sp_shape[0], "k": sp_shape[1],
                        "m_q": sp_shape[2], "ell_bytes": sp_shape[3]},
          lm=lm,
-         kernels={k: {f: v.get(f) for f in ("ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_by",
-                                            "bytes_moved", "prev_route",
-                                            "prev_route_ms")}
+         kernels={k: {f: v.get(f) for f in (
+             "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+             "bound_ms", "bound_by", "bytes_moved", "prev_route",
+             "prev_route_ms", "prev_route_device_ms")}
                   for k, v in results.items()})
 
 
@@ -1502,36 +1535,31 @@ def lm_timing(dev, results):
     def simt_route():             # the route the main path took before
         return flash_ops._launch(q, k, v, True, None, D ** -0.5, "simt")
     plain = [cuda_ms(lambda: flash_attention_plain(q, k, v), reps=5)]
-    kern = [cuda_ms(lambda: flash_attention(q, k, v), reps=20,
-                    queued=True)]
-    prev = [cuda_ms(simt_route, reps=20, queued=True)]
+    kern = [both_ms(lambda: flash_attention(q, k, v), reps=20)]
+    prev = [both_ms(simt_route, reps=20)]
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True)
-    lib = [cuda_ms(library, reps=20, queued=True)]
-    lib.append(cuda_ms(library, reps=20, queued=True))
-    prev.append(cuda_ms(simt_route, reps=20, queued=True))
-    kern.append(cuda_ms(lambda: flash_attention(q, k, v), reps=20,
-                        queued=True))
+    lib = [both_ms(library, reps=20), both_ms(library, reps=20)]
+    prev.append(both_ms(simt_route, reps=20))
+    kern.append(both_ms(lambda: flash_attention(q, k, v), reps=20))
     plain.append(cuda_ms(lambda: flash_attention_plain(q, k, v), reps=5))
     results["flash_attention"].update(
-        ms=statistics.median(kern), plain_ms=statistics.median(plain),
-        library_ms=statistics.median(lib), prev_route="simt",
-        prev_route_ms=statistics.median(prev),
+        **medians(kern, "ms"), plain_ms=statistics.median(plain),
+        **medians(lib, "library_ms"), prev_route="simt",
+        **medians(prev, "prev_route_ms"),
         **flash_bound(B, S, H, KV, D, 2))
     del q, k, v, qs, ks, vs
 
     Bl, Sl, Hl, Dl = LINATTN_MAIN
     r, k, v, lw, u = linattn_inputs(rng, Bl * Hl, Sl, Dl, dev, heads=Hl)
     plain = [cuda_ms(lambda: rwkv_linattn_ref(r, k, v, lw, u), reps=3)]
-    kern = [cuda_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20,
-                    queued=True)]
-    kern.append(cuda_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20,
-                        queued=True))
+    kern = [both_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20),
+            both_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20)]
     plain.append(cuda_ms(lambda: rwkv_linattn_ref(r, k, v, lw, u), reps=3))
     results["rwkv_linattn"].update(
-        ms=statistics.median(kern), plain_ms=statistics.median(plain),
+        **medians(kern, "ms"), plain_ms=statistics.median(plain),
         library_ms=None, **linattn_bound(Bl * Hl, Sl, Dl))
     del r, k, v, lw, u
 
@@ -1563,7 +1591,8 @@ def lm_timing(dev, results):
                     "decode_step_ms": dec_ms, "decode_slots": slots,
                     "decode_kv_len": 600,
                     "flash_share_of_prefill":
-                        28 * results["flash_attention"]["ms"] / pre_ms,
+                        28 * results["flash_attention"]["device_ms"]
+                        / pre_ms,
                     "prefill_device": with_idle(pre_ms, device_busy(prefill)),
                     "decode_device": with_idle(dec_ms, device_busy(decode))}
     del model, params, arenas

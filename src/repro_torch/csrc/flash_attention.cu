@@ -14,7 +14,10 @@
 // the row sum clamped at 1e-30, KV tiles that are masked for every row of
 // the query tile (above the diagonal, left of the window) never loaded.
 // Unlike the Pallas kernel, S and Skv need not be multiples of the tile:
-// rows past S are not stored and keys past Skv are masked.
+// rows past S are not stored and keys past Skv are masked.  A query row
+// with no unmasked key at all (a window with S > Skv + window - 1) comes
+// out 0, on both routes; mha_ref gives it the uniform average of v
+// (ROADMAP.md queue C).
 //
 // What bounds it: at the serving shapes (S = 1024, D = 128, bf16) the
 // operations -- 2 S^2 D flops per head under causality -- over the bytes
@@ -198,10 +201,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   for (int i = 0; i < 4; ++i) {
     const int qr = q0 + ty * 4 + i;
     if (qr >= S) continue;
+    // a row with no unmasked key comes out 0, as on the tc route (its
+    // p stays 0 where the -1e30 scores minus the -1e30 max give p = 1)
+    const bool none = m[i] == kNegInf;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc)
-      store(ob + qr * q_pos + tx + 16 * cc, acc[i][cc] / denom);
+      store(ob + qr * q_pos + tx + 16 * cc, none ? 0.f : acc[i][cc] / denom);
   }
 }
 

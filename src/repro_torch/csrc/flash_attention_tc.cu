@@ -55,8 +55,9 @@
 // bf16 before P V (the Pallas kernel keeps both in float32): one bf16
 // rounding, inside the bf16 tolerance 3e-2 of tests/test_kernels.py that
 // chip_smoke.py holds this route to.  A row with no unmasked key at all
-// (possible only with a window and S > Skv + window - 1) is outside the
-// contract, as on the simt route (ROADMAP.md queue C).
+// (possible only with a window and S > Skv + window - 1) comes out 0, as
+// on the simt route; mha_ref gives it the uniform average of v
+// (ROADMAP.md queue C).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>

@@ -515,10 +515,6 @@ svrg_inner_sparse_cluster_kernel(
   cluster.sync();  // no CTA leaves while a peer may still address it
 }
 
-// columns per thread the cluster kernel is compiled for; the slice of a
-// window must fit kClusterThreads * the largest
-constexpr int kClusterPerThread[] = {8, 16, 24, 32, 48, 64};
-
 template <int LOSS, int E>
 int cluster_launch_e(const int* cols, const float* vals, const float* y,
                      const float* mask, const float* z_anchor,
@@ -526,7 +522,7 @@ int cluster_launch_e(const int* cols, const float* vals, const float* y,
                      const int* lo, float* w_out, int P, int Q, int n_p,
                      int k, int m_sub, int L, int slice, float lam, float eta,
                      const float* cell_params, size_t smem,
-                     cudaStream_t stream, int* max_clusters) {
+                     cudaStream_t stream) {
   auto kern = svrg_inner_sparse_cluster_kernel<LOSS, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -546,9 +542,6 @@ int cluster_launch_e(const int* cols, const float* vals, const float* y,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (max_clusters != nullptr)
-    return static_cast<int>(
-        cudaOccupancyMaxActiveClusters(max_clusters, kern, &cfg));
   err = cudaLaunchKernelEx(&cfg, kern, cols, vals, y, mask, z_anchor,
                            w_anchor, mu, idx, lo, w_out, Q, n_p, k, m_sub, L,
                            slice, lam, eta, cell_params);
@@ -556,28 +549,21 @@ int cluster_launch_e(const int* cols, const float* vals, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the smallest E the kernel is compiled for that holds the slice
 template <int LOSS>
 int cluster_launch(const int* cols, const float* vals, const float* y,
                    const float* mask, const float* z_anchor,
                    const float* w_anchor, const float* mu, const int* idx,
                    const int* lo, float* w_out, int P, int Q, int n_p, int k,
-                   int m_sub, int L, float lam, float eta,
-                   const float* cell_params, cudaStream_t stream,
-                   int* max_clusters) {
-  const int slice = (m_sub + kClusterSize - 1) / kClusterSize;
-  const int spad = (slice + 3) & ~3;
-  const size_t smem = 2 * static_cast<size_t>(spad) * sizeof(float) +
-                      2 * static_cast<size_t>(k) * (sizeof(int) + sizeof(float));
-  if (smem > rt::kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  static_assert(sizeof(kClusterPerThread) == 6 * sizeof(int) &&
-                    kClusterPerThread[5] == 64,
-                "the dispatch below covers every entry");
+                   int m_sub, int L, int slice, float lam, float eta,
+                   const float* cell_params, size_t smem,
+                   cudaStream_t stream) {
 #define RT_CLUSTER_E(EV)                                                      \
   if (slice <= kClusterThreads * (EV))                                        \
     return cluster_launch_e<LOSS, EV>(cols, vals, y, mask, z_anchor,          \
                                       w_anchor, mu, idx, lo, w_out, P, Q,     \
                                       n_p, k, m_sub, L, slice, lam, eta,      \
-                                      cell_params, smem, stream, max_clusters);
+                                      cell_params, smem, stream);
   RT_CLUSTER_E(8)
   RT_CLUSTER_E(16)
   RT_CLUSTER_E(24)
@@ -619,33 +605,34 @@ extern "C" int svrg_inner_sparse_launch(
 
 // The cluster route.  Launch on `stream`; allocates nothing, does not
 // synchronise, returns cudaGetLastError().  Arguments as above, without
-// g_scratch and threads: P*Q clusters of 8 CTAs of 256 threads; the
-// window's slice ceil(m_sub / 8) must fit 256 * 64 columns and, with the
-// two ELL row buffers, the shared memory of one CTA.
+// g_scratch and threads.  The caller (kernels/svrg/sparse.py) owns the
+// geometry: `cluster` CTAs of `threads` threads per cell -- refused unless
+// they are the 8 and 256 compiled here --, `slice` window columns a CTA
+// (at least ceil(m_sub / cluster), at most 256 * 64) and `smem` bytes of
+// dynamic shared memory a CTA, which must hold the kernel's layout: two
+// float vectors of the slice rounded up to a multiple of 4, then two ELL
+// rows of k int ids and k float values.
 extern "C" int svrg_inner_sparse_cluster_launch(
     const int* cols, const float* vals, const float* y, const float* mask,
     const float* z_anchor, const float* w_anchor, const float* mu,
     const int* idx, const int* lo, float* w_out,
     int P, int Q, int n_p, int k, int m_sub, int L,
-    float lam, float eta, const float* cell_params, int loss, void* stream) {
-  if (P < 1 || Q < 1 || m_sub < 0 || k < 0 || L < 0)
+    float lam, float eta, const float* cell_params, int loss,
+    int cluster, int threads, int slice, int smem, void* stream) {
+  if (P < 1 || Q < 1 || m_sub < 0 || k < 0 || L < 0 ||
+      cluster != kClusterSize || threads != kClusterThreads ||
+      static_cast<long long>(slice) * kClusterSize < m_sub || smem < 0 ||
+      static_cast<size_t>(smem) > rt::kMaxDynamicSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  auto nbytes = static_cast<size_t>(smem);
   if (loss == rt::kHinge)
     return cluster_launch<rt::kHinge>(cols, vals, y, mask, z_anchor, w_anchor,
                                       mu, idx, lo, w_out, P, Q, n_p, k, m_sub,
-                                      L, lam, eta, cell_params, st, nullptr);
+                                      L, slice, lam, eta, cell_params, nbytes,
+                                      st);
   return cluster_launch<rt::kSquared>(cols, vals, y, mask, z_anchor, w_anchor,
                                       mu, idx, lo, w_out, P, Q, n_p, k, m_sub,
-                                      L, lam, eta, cell_params, st, nullptr);
-}
-
-// How many clusters of the cluster route the card holds at once for this
-// window width and row width (cudaOccupancyMaxActiveClusters), or -1.
-extern "C" int svrg_inner_sparse_cluster_occupancy(int m_sub, int k) {
-  int n = -1;
-  const int code = cluster_launch<rt::kHinge>(
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, nullptr, 1, 1, 1, k, m_sub, 0, 0.f, 0.f, nullptr, nullptr, &n);
-  return code == 0 ? n : -1;
+                                      L, slice, lam, eta, cell_params, nbytes,
+                                      st);
 }

@@ -66,8 +66,8 @@ _SIGNATURES = {
         + [_INT] * 6                      # P Q n_p k m_sub L
         + [_FLT] * 2                      # lam eta
         + [_PTR]                          # cell_params (null: use scalars)
-        + [_INT] + [_PTR]),               # loss stream
-    "svrg_inner_sparse_cluster_occupancy": [_INT] * 2,   # m_sub k
+        + [_INT] * 5                      # loss cluster threads slice smem
+        + [_PTR]),                        # stream
     "flash_attention_tc_launch": (
         [_PTR] * 4                        # q k v | out
         + [_INT] * 6                      # B S Skv H KV D

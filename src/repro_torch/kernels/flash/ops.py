@@ -58,8 +58,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     ``flash_attention_pallas``.  Any S and Skv (the kernel masks the
     ragged last tile itself).  On the ``"tc"`` route (:func:`flash_route`)
     q k^T is formed from the bf16 operands and p is rounded to bf16 before
-    p v -- one bf16 rounding more than float32 inside -- and q, k, v must
-    start on 16-byte boundaries (TMA reads them).
+    p v -- one bf16 rounding more than float32 inside -- and on the card
+    q, k, v must start on 16-byte boundaries (TMA reads them).
 
     A CUDA tensor launches the route's CUDA kernel (no copy of the KV
     heads: query head h reads KV head h // (H // KV) in place) or raises;
@@ -84,14 +84,6 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     check_tensor("q", q, (B, S, H, D), q.dtype, dev)
     check_tensor("k", k, (B, Skv, KV, D), q.dtype, dev)
     check_tensor("v", v, (B, Skv, KV, D), q.dtype, dev)
-    route = flash_route(q.dtype, D)
-    if route == "tc":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(
-                    f"{name} starts at a 16-byte misaligned address; the "
-                    "tensor-core route reads it by TMA (pass a fresh "
-                    "contiguous tensor)")
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -101,8 +93,23 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
         raise NotImplementedError(
             f"the flash attention kernel is compiled for head dims "
             f"{HEAD_DIMS}, not {D}")
+    route = flash_route(q.dtype, D)
+    if route == "tc":
+        check_tma_alignment(q, k, v)
     return _launch(q, k, v, causal, window,
                    float(scale if scale is not None else D ** -0.5), route)
+
+
+def check_tma_alignment(q, k, v):
+    """Raise unless q, k and v start on 16-byte boundaries: the
+    tensor-core kernel reads them by TMA (a CUDA constraint; the plain
+    version on the CPU has none)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name} starts at a 16-byte misaligned address; the "
+                "tensor-core route reads it by TMA (pass a fresh "
+                "contiguous tensor)")
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
@@ -112,6 +119,10 @@ flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _launch(q, k, v, causal, window, scale, route):
+    """Launch the kernel of ``route`` on checked CUDA arguments.  The
+    wrapper passes :func:`flash_route`'s choice; ``chip_smoke.py`` also
+    passes ``"simt"`` for a bf16 call the tensor-core route takes, to time
+    the route that the main path took before."""
     B, S, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

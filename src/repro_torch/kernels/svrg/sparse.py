@@ -23,10 +23,11 @@ from .._launch import (MAX_DYNAMIC_SMEM, check_loss, check_smem,
                        check_tensor, ell_threads)
 from .ref import _grad
 
-#: CTAs per cell on the cluster route (the portable cluster size)
+#: the cluster route's geometry, owned here and passed to the launch, which
+#: refuses any other cluster size or thread count than the kernel is
+#: compiled for: CTAs per cell (the portable cluster size), threads of a
+#: CTA, and the most window columns a thread holds in registers
 CLUSTER_SIZE = 8
-#: threads of one cluster CTA, and window columns each holds at most in
-#: registers (csrc/svrg_inner_sparse.cu kClusterThreads, kClusterPerThread)
 CLUSTER_THREADS = 256
 CLUSTER_MAX_PER_THREAD = 64
 ROUTES = ("cluster", "block")
@@ -38,9 +39,9 @@ def cluster_slice(m_sub: int) -> int:
 
 
 def cluster_smem(m_sub: int, k: int) -> int:
-    """Dynamic shared memory of one cluster CTA: its slice (padded to a
-    whole number of 4-column runs) of w - w~ and of the scatter scratch,
-    and two ELL rows (column ids and values)."""
+    """Dynamic shared memory of one cluster CTA, in the kernel's layout:
+    its slice (padded to a whole number of 4-column runs) of w - w~ and of
+    the scatter scratch, then two ELL rows (column ids and values)."""
     return 8 * (-(-cluster_slice(m_sub) // 4) * 4) + 2 * k * 8
 
 
@@ -129,6 +130,10 @@ svrg_inner_sparse.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 def _launch(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, lo, *, lam,
             eta, loss_id, route):
+    """Launch the kernel of ``route`` on checked CUDA arguments.  The
+    wrapper passes :func:`svrg_sparse_route`'s choice; ``chip_smoke.py``
+    also passes ``"block"`` for a window the cluster route takes, to time
+    the route that the main path took before."""
     P, Qc, n_p, k = cols.shape
     m_sub = w_anchor.shape[2]
     lib = _build.load_library()
@@ -142,7 +147,8 @@ def _launch(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, lo, *, lam,
         if route == "cluster":
             code = lib.svrg_inner_sparse_cluster_launch(
                 *ptrs, P, Qc, n_p, k, m_sub, idx.shape[2], float(lam),
-                float(eta), None, loss_id, stream)
+                float(eta), None, loss_id, CLUSTER_SIZE, CLUSTER_THREADS,
+                cluster_slice(m_sub), cluster_smem(m_sub, k), stream)
         else:
             # only the two ELL row buffers live in shared memory; the
             # window vectors stay in device memory, whatever m_sub

@@ -7,9 +7,6 @@ dtype, so it is tested here at its boundaries, beside the wrappers'
 argument checks and the plain versions at the shapes and edge layouts the
 new routes take, against the reference.  The CUDA kernels themselves are
 held against these plain versions on the card by ``chip_smoke.py``."""
-import os
-import re
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,8 +20,6 @@ from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.svrg import svrg_inner_sparse, svrg_sparse_route
 from repro_torch.kernels.svrg import sparse as svrg_sparse
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "src", "repro_torch", "csrc")
 #: tests/test_kernels.py's bf16 tolerance (rtol = atol)
 BF16_TOL = 3e-2
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -74,19 +69,26 @@ def test_flash_tc_shapes_plain_matches_reference(B, S, Skv, H, KV, D,
 
 
 def test_flash_tc_route_checks_its_arguments():
-    """The tensor-core route reads q, k and v by TMA, which needs 16-byte
-    aligned bases: a contiguous view that starts mid-element pair is
-    refused on every device, before any route runs."""
+    """The tensor-core kernel reads q, k and v by TMA, which needs 16-byte
+    aligned bases: the check refuses a contiguous view that starts
+    mid-element pair.  It guards only the CUDA launch -- on the CPU such a
+    view takes the plain version like any other tensor."""
     B, S, H, KV, D = 1, 16, 2, 1, 64
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _qkv(1, B, S, S, H, KV, D))
     flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
     shifted = flat[1:].view(B, S, H, D)           # data_ptr 2 bytes off
+    shifted.copy_(q)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_attention(shifted, k, v)
-    with pytest.raises(ValueError, match="16-byte"):
-        flash_attention(q, k, flat[1:k.numel() + 1].view(k.shape))
+    with pytest.raises(ValueError, match="q starts at a 16-byte"):
+        flash_ops.check_tma_alignment(shifted, k, v)
+    vflat = torch.zeros(v.numel() + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="v starts at a 16-byte"):
+        flash_ops.check_tma_alignment(q, k, vflat[1:].view(v.shape))
+    flash_ops.check_tma_alignment(q, k, v)        # fresh tensors pass
+    assert flash_route(shifted.dtype, D) == "tc"
+    torch.testing.assert_close(flash_attention(shifted, k, v),
+                               flash_attention(q, k, v), rtol=0, atol=0)
     # the CUDA-core route has no such requirement
     q32 = torch.zeros(q.numel() + 1)[1:].view(q.shape)
     out = flash_attention(q32, k.float(), v.float())
@@ -135,22 +137,25 @@ def test_svrg_sparse_route_boundaries(m_sub, k, route):
     assert (route == "cluster") == (fits_smem and fits_regs)
 
 
-def test_cluster_geometry_mirrors_the_cuda_source():
-    """The Python route function and the kernel must agree on the cluster
-    size, the threads of a CTA and the most columns a thread holds."""
-    with open(os.path.join(CSRC, "svrg_inner_sparse.cu")) as fh:
-        src = fh.read()
-    assert int(re.search(r"kClusterSize = (\d+);", src).group(1)) == \
-        svrg_sparse.CLUSTER_SIZE
-    assert int(re.search(r"kClusterThreads = (\d+);", src).group(1)) == \
-        svrg_sparse.CLUSTER_THREADS
-    per = re.search(r"kClusterPerThread\[\] = \{([\d, ]+)\};", src).group(1)
-    assert max(int(x) for x in per.split(",")) == \
-        svrg_sparse.CLUSTER_MAX_PER_THREAD
+@pytest.mark.parametrize("m_sub,k", [
+    (48400, 168), (1, 1), (13, 20), (64, 0), (8 * MAX_SLICE, 168),
+    (8 * MAX_SLICE - 7, 3), (131071, 0)])
+def test_cluster_geometry_covers_the_window(m_sub, k):
+    """The geometry the wrapper hands the cluster launch: the slices of
+    the CTAs cover the window, each fits the registers of a CTA, and the
+    shared memory holds the kernel's layout -- d and g for the slice
+    rounded up to runs of 4 columns, then two ELL rows of k ids and
+    values."""
+    assert svrg_sparse_route(m_sub, k) == "cluster"
+    sl = svrg_sparse.cluster_slice(m_sub)
+    assert (sl - 1) * svrg_sparse.CLUSTER_SIZE < m_sub \
+        <= sl * svrg_sparse.CLUSTER_SIZE
+    assert sl <= MAX_SLICE
+    spad = -(-sl // 4) * 4
+    assert spad % 4 == 0 and sl <= spad < sl + 4
+    assert svrg_sparse.cluster_smem(m_sub, k) == 2 * 4 * spad + 2 * k * (4 + 4)
+    assert svrg_sparse.cluster_smem(m_sub, k) <= MAX_DYNAMIC_SMEM
     assert svrg_sparse.cluster_slice(48400) == 6050
-    assert svrg_sparse.cluster_slice(13) == 2
-    assert svrg_sparse.cluster_smem(48400, 168) == 8 * 6052 + 16 * 168
-    assert svrg_sparse.cluster_smem(8 * 6052, 0) == 8 * 6052
 
 
 def _edge_inputs(rng, n_p, m_q, m_sub, k, L, lo):
