@@ -48,7 +48,9 @@ JSON; any failure is an exception and a non-zero exit:
                       replaced route and library call timed two ways:
                       ``ms`` with the host's launch latency inside, and
                       ``device_ms`` with the call enqueued before the
-                      clock starts (the device's time alone); and per outer
+                      clock starts (the device's time alone); the dense
+                      SDCA epoch at both main-path shapes and on every
+                      cluster size measured for each; and per outer
                       iteration of each solver; peak device memory of the
                       sparse path; Qwen3 prefill and decode step, RWKV6
                       prefill
@@ -58,14 +60,17 @@ just before it and read just after, and it must have launched exactly the
 kernels it names as often as it says: the solvers once per outer
 iteration (plus serial-SDCA epochs for f* where the dense phases compute
 it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times.  The
-two wrappers with two routes count launches per route too, and every
-main-path launch of flash attention must take the tensor-core route
-(``tc``), every one of the sparse SVRG inner loop the cluster route.
+four wrappers with two routes count launches per route too, and every
+main-path launch must take the new route: flash attention and RWKV6
+linear attention the tensor-core route (``tc``), the dense SDCA epoch
+(at both of its shapes, the D3CA cells and the serial-SDCA epochs for f*)
+and the sparse SVRG inner loop the cluster route.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi`` gives them, and one JSON object ``{"kernels": [...]}`` with
 every kernel's launches on the main paths, error against its plain
-version, times, bound and launches per route.  The last line is
+version, times, bound, launches and source per route and, for the dense
+SDCA epoch, the same per main-path shape.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 ``--phases a,b`` runs a subset (``env`` and ``build`` always run); the
@@ -110,12 +115,14 @@ from repro_torch.data import (csr_from_dense,  # noqa: E402
                               make_svm_data)
 from repro_torch.kernels.sdca import (sdca_epoch,  # noqa: E402
                                       sdca_epoch_plain, sdca_epoch_sparse,
-                                      sdca_epoch_sparse_plain)
+                                      sdca_epoch_sparse_plain, sdca_route)
+from repro_torch.kernels.sdca import ops as sdca_ops  # noqa: E402
 from repro_torch.kernels.flash import (flash_attention,  # noqa: E402
                                        flash_attention_plain, flash_route)
 from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.linattn import (rwkv_linattn,  # noqa: E402
-                                         rwkv_linattn_ref)
+from repro_torch.kernels.linattn import (linattn_route,  # noqa: E402
+                                         rwkv_linattn, rwkv_linattn_ref)
+from repro_torch.kernels.linattn import ops as linattn_ops  # noqa: E402
 from repro_torch.kernels.svrg import (svrg_inner,  # noqa: E402
                                       svrg_inner_plain, svrg_inner_sparse,
                                       svrg_inner_sparse_plain,
@@ -187,7 +194,10 @@ LM_CARD_CPU_BF16_TOL = 5e-2
 
 KERNEL_META = {
     "sdca_epoch": {
-        "route": "cuda", "source": "src/repro_torch/csrc/sdca_epoch.cu",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/sdca_epoch_cluster.cu",
+        "sources": {"cluster": "src/repro_torch/csrc/sdca_epoch_cluster.cu",
+                    "block": "src/repro_torch/csrc/sdca_epoch.cu"},
         "replaces": "src/repro/kernels/sdca/sdca.py:139"},
     "svrg_inner": {
         "route": "cuda", "source": "src/repro_torch/csrc/svrg_inner.cu",
@@ -208,7 +218,9 @@ KERNEL_META = {
         "replaces": "src/repro/kernels/flash/flash.py:81"},
     "rwkv_linattn": {
         "route": "cuda",
-        "source": "src/repro_torch/csrc/rwkv_linattn.cu",
+        "source": "src/repro_torch/csrc/rwkv_linattn_tc.cu",
+        "sources": {"tc": "src/repro_torch/csrc/rwkv_linattn_tc.cu",
+                    "simt": "src/repro_torch/csrc/rwkv_linattn.cu"},
         "replaces": "src/repro/kernels/linattn/linattn.py:80"},
 }
 #: each kernel's wrapper, whose ``launches`` counts its CUDA launches
@@ -218,7 +230,8 @@ WRAPPERS = {"sdca_epoch": sdca_epoch, "svrg_inner": svrg_inner,
             "flash_attention": flash_attention,
             "rwkv_linattn": rwkv_linattn}
 #: the route every main-path launch of a two-route wrapper must take
-MAIN_ROUTES = {"flash_attention": "tc", "svrg_inner_sparse": "cluster"}
+MAIN_ROUTES = {"flash_attention": "tc", "svrg_inner_sparse": "cluster",
+               "sdca_epoch": "cluster", "rwkv_linattn": "tc"}
 #: (main-shape tolerance, sweep tolerance) per kernel, as ``compare`` uses
 #: them (the solver kernels' main shapes relative to the largest entry)
 TOLS = {"sdca_epoch": (MAIN_TOL, SWEEP_TOL),
@@ -512,6 +525,70 @@ def svrg_sparse_main_inputs(data, w, t=1):
             src.svrg_rows(t)), lo, eta
 
 
+def sdca_launch(args, kw, route, cluster=None):
+    """One sdca_epoch launch on a forced route (and cluster size): the
+    wrapper's private ``_launch``, past its route choice."""
+    return sdca_ops._launch(
+        *args, lam=kw["lam"], n=kw["n"], Q=kw["Q"],
+        loss_id=sdca_ops.check_loss(kw["loss"], "sdca_epoch"),
+        beta=kw.get("beta"), route=route, cluster=cluster)
+
+
+def sdca_block(args, kw):
+    """The block route, which the wrapper no longer takes at these
+    shapes: its sweep stays, as in earlier slices."""
+    return sdca_launch(args, kw, "block")
+
+
+def repeated_rows(idx, R=4):
+    """``idx`` with a row visited twice in a row, three times in a row,
+    R steps apart and R + 1 steps apart, in every row partition."""
+    idx = idx.clone()
+    steps = idx.shape[1]
+    for h, back in ((5, 1), (9, 1), (10, 2), (20, R), (31, R + 1), (33, R)):
+        if h < steps:
+            idx[:, h] = idx[:, h - back]
+    return idx
+
+
+def sdca_cluster_sweep(rng, dev, checks):
+    """The cluster route at every cluster size it is compiled for, forced
+    past the wrapper's table: widths that do not divide by G * E (9, 17,
+    3003; at G = 16 some CTAs of width 9 own no column), masked rows,
+    exact and beta denominators, hinge and squared, repeated indices,
+    step counts not a multiple of the ring (and below it)."""
+    for G in sdca_ops.CLUSTER_SIZES:
+        for (grid, n_p, m_q, steps) in (((3, 2), 24, 9, 101),
+                                        ((3, 2), 40, 17, 64),
+                                        ((2, 2), 40, 3003, 3),
+                                        ((1, 2), 40, 3003, 150)):
+            args = sdca_inputs(rng, *grid, n_p, m_q, steps, dev)
+            args[5] = repeated_rows(args[5])
+            check_index_range(args[5], n_p)
+            if m_q > 1000:
+                args[0] = args[0] / float(np.sqrt(m_q))
+            for loss in ("hinge", "squared"):
+                for beta in (None, float(m_q)):
+                    kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
+                    checks.append(("sdca_epoch", compare(
+                        f"sdca_epoch cluster G={G} {grid}"
+                        f"{(n_p, m_q, steps)} {loss} beta={beta}",
+                        sdca_launch(args, kw, "cluster", G),
+                        sdca_epoch_plain(*args, **kw), SWEEP_TOL)))
+    # the serial-SDCA width on the sizes measured for it
+    args = sdca_inputs(rng, 1, 1, 300, M, 300, dev, masked_tail=3)
+    args[0] = args[0] / float(np.sqrt(M))
+    args[5] = repeated_rows(args[5])
+    for G in (8, 16):
+        for loss in ("hinge", "squared"):
+            kw = dict(lam=0.2, n=300, Q=1, loss=loss)
+            checks.append(("sdca_epoch", compare(
+                f"sdca_epoch cluster G={G} m={M} {loss}",
+                sdca_launch(args, kw, "cluster", G),
+                sdca_epoch_plain(*args, **kw), SWEEP_TOL)))
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -560,7 +637,9 @@ def phase_kernels(dev, results):
     checks = []
     reset_counts()
 
-    # -- the unit tests' shape sweep, one cell and a small grid ------------
+    # -- the unit tests' shape sweep, one cell and a small grid, on both
+    # routes: the wrapper's (cluster, one CTA a cell at these widths) and
+    # the block route the wider shapes of earlier slices took
     for (n_p, m_q, steps) in [(8, 8, 8), (24, 16, 50), (64, 128, 64),
                               (17, 9, 33)]:
         for grid in [(1, 1), (3, 2)]:
@@ -569,10 +648,13 @@ def phase_kernels(dev, results):
             for loss in ("hinge", "squared"):
                 for beta in (None, float(m_q)):
                     kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
-                    err = compare(f"sdca_epoch{grid}{(n_p, m_q, steps)}",
-                                  sdca_epoch(*args, **kw),
-                                  sdca_epoch_plain(*args, **kw), SWEEP_TOL)
-                    checks.append(("sdca_epoch", err))
+                    want = sdca_epoch_plain(*args, **kw)
+                    label = f"sdca_epoch{grid}{(n_p, m_q, steps)} {loss}"
+                    checks.append(("sdca_epoch", compare(
+                        label, sdca_epoch(*args, **kw), want, SWEEP_TOL)))
+                    checks.append(("sdca_epoch", compare(
+                        label + " block", sdca_block(args, kw), want,
+                        SWEEP_TOL)))
     # one cell alone, in the unbatched shapes of the TPU kernel's signature
     args = sdca_inputs(rng, 1, 1, 17, 9, 33, dev)
     kw = dict(lam=0.2, n=200, Q=3, loss="hinge")
@@ -581,14 +663,23 @@ def phase_kernels(dev, results):
     checks.append(("sdca_epoch", compare(
         "sdca_epoch unbatched", got, (want[0][0, 0], want[1][0, 0]),
         SWEEP_TOL)))
-    # the serial-SDCA shape: one cell, m = 12 000 -> 144 KB of dynamic
-    # shared memory, over the 48 KB that needs no opt-in
+    # the serial-SDCA shape: one cell, m = 12 000, at 500 steps (cluster
+    # route, the table's cluster size; block route: 144 KB of dynamic
+    # shared memory, over the 48 KB that needs no opt-in)
     args = sdca_inputs(rng, 1, 1, 500, M, 500, dev, masked_tail=0)
     args[0] = args[0] / float(np.sqrt(M))
     kw = dict(lam=0.2, n=500, Q=1, loss="hinge")
+    if sdca_route(500, M, 500) != "cluster":
+        raise AssertionError("the serial-SDCA width is not a cluster case")
+    want = sdca_epoch_plain(*args, **kw)
     checks.append(("sdca_epoch", compare(
-        "sdca_epoch one cell m=12000", sdca_epoch(*args, **kw),
-        sdca_epoch_plain(*args, **kw), SWEEP_TOL)))
+        "sdca_epoch one cell m=12000", sdca_epoch(*args, **kw), want,
+        SWEEP_TOL)))
+    checks.append(("sdca_epoch", compare(
+        "sdca_epoch one cell m=12000 block", sdca_block(args, kw), want,
+        SWEEP_TOL)))
+    sdca_cluster_sweep(rng, dev, checks)
+    del args, want
 
     for (n_p, m_sub, L) in [(16, 8, 20), (40, 32, 64), (13, 5, 11)]:
         for grid in [(1, 1), (3, 2)]:
@@ -773,6 +864,22 @@ FLASH_TC_SWEEP = [
 ]
 
 
+# the tensor-core route's own sweep, D 64: (BH, S, heads of u or None,
+# constant logw or None for the model's range)
+LINATTN_TC_SWEEP = [
+    (2, 37, None, None), (3, 5, 3, None), (2, 1, None, None),
+    (4, 130, 2, None), (2, 200, None, -50.0), (2, 77, 2, 0.0),
+    (5, 16, 5, None), (2, 64, None, -50.0),
+]
+
+
+def linattn_simt(r, k, v, lw, u, chunk=64):
+    """The CUDA-core route, forced past the wrapper's route choice."""
+    H = 1 if u.dim() == 1 else u.shape[0]
+    return linattn_ops._launch(r, k, v, lw, u.reshape(H, -1).contiguous(),
+                               H, min(chunk, r.shape[1]), "simt")
+
+
 def linattn_inputs(rng, BH, S, D, dev, heads=None, logw=None):
     """r, k, v (BH, S, D) normal; logw the model's decay range
     -exp(clip(normal, -20, 4)) floored at -8 (or the given constant);
@@ -823,29 +930,20 @@ def lm_kernel_checks(rng, dev, checks, main_err):
         [flash_attention_plain(q, k, v, causal=False)],
         FLASH_TOL[torch.float32])))
     # query rows with no unmasked key (window 5, S 200 > Skv + 4): both
-    # routes give them 0 (the plain version, as mha_ref, the average of
-    # v; ROADMAP queue C); every row with a key agrees with the plain one
+    # routes and the plain version give them 0; whole outputs compared
     S, Skv, window = 200, 10, 5
-    rows, keys = torch.arange(S, device=dev), torch.arange(Skv, device=dev)
     for dtype, D, causal in ((torch.bfloat16, 128, False),
                              (torch.bfloat16, 64, True),
                              (torch.float32, 64, False),
                              (torch.bfloat16, 32, True)):
         q, k, v = flash_inputs(rng, 1, S, 4, 2, D, dtype, dev, Skv=Skv)
-        ok = rows[:, None] - keys[None] < window
-        if causal:
-            ok &= keys[None] <= rows[:, None]
-        keyed = ok.any(1)
         kw = dict(causal=causal, window=window)
-        got = flash_attention(q, k, v, **kw).float()
-        label = (f"flash_attention {flash_route(dtype, D)} rows without a "
-                 f"key {(S, Skv, D)} {dtype} causal={causal} w={window}")
         checks.append(("flash_attention", compare(
-            label, [got[:, keyed]],
-            [flash_attention_plain(q, k, v, **kw).float()[:, keyed]],
+            f"flash_attention {flash_route(dtype, D)} rows without a key "
+            f"{(S, Skv, D)} {dtype} causal={causal} w={window}",
+            [flash_attention(q, k, v, **kw).float()],
+            [flash_attention_plain(q, k, v, **kw).float()],
             FLASH_TOL[dtype])))
-        compare(label + " (zero)", [got[:, ~keyed]],
-                [torch.zeros_like(got[:, ~keyed])], 0.0)
     torch.cuda.synchronize()
     q, k, v = flash_inputs(rng, *FLASH_MAIN, torch.bfloat16, dev)
     main_err["flash_attention"] = compare(
@@ -854,14 +952,20 @@ def lm_kernel_checks(rng, dev, checks, main_err):
         [flash_attention_plain(q, k, v).float()], FLASH_TOL[torch.bfloat16])
     del q, k, v
 
+    # the unit tests' sweep (the two D 64 / chunk 64 cases now on the
+    # tensor-core route, and on the CUDA-core route they took before)
     for (BH, S, D, chunk) in [(2, 64, 16, 16), (3, 128, 32, 32),
                               (1, 256, 64, 64), (2, 96, 16, 32),
                               (2, 100, 64, 64), (3, 37, 32, 16)]:
         r, k, v, lw, u = linattn_inputs(rng, BH, S, D, dev)
+        want = rwkv_linattn_ref(r, k, v, lw, u)
         checks.append(("rwkv_linattn", compare(
-            f"rwkv_linattn{(BH, S, D, chunk)}",
-            rwkv_linattn(r, k, v, lw, u, chunk=chunk),
-            rwkv_linattn_ref(r, k, v, lw, u), LINATTN_TOL)))
+            f"rwkv_linattn{(BH, S, D, chunk)} {linattn_route(D, chunk)}",
+            rwkv_linattn(r, k, v, lw, u, chunk=chunk), want, LINATTN_TOL)))
+        if linattn_route(D, chunk) == "tc":
+            checks.append(("rwkv_linattn", compare(
+                f"rwkv_linattn{(BH, S, D, chunk)} simt",
+                linattn_simt(r, k, v, lw, u, chunk), want, LINATTN_TOL)))
     r, k, v, lw, u = linattn_inputs(rng, 1, 64, 16, dev, logw=-50.0)
     checks.append(("rwkv_linattn", compare(           # raises if not finite
         "rwkv_linattn logw=-50", rwkv_linattn(r, k, v, lw, u, chunk=16),
@@ -870,6 +974,18 @@ def lm_kernel_checks(rng, dev, checks, main_err):
     checks.append(("rwkv_linattn", compare(
         "rwkv_linattn per-head u", rwkv_linattn(r, k, v, lw, u),
         rwkv_linattn_ref(r, k, v, lw, u), LINATTN_TOL)))
+    # the tensor-core route's own sweep: S not a multiple of 16 or 64, S
+    # below 16 (one zero-padded chunk), per-head u, the extreme decay, no
+    # decay at all
+    for (BH, S, heads, logw) in LINATTN_TC_SWEEP:
+        if linattn_route(64, 64) != "tc":
+            raise AssertionError("D 64 / chunk 64 is not the tc route")
+        r, k, v, lw, u = linattn_inputs(rng, BH, S, 64, dev, heads=heads,
+                                        logw=logw)
+        checks.append(("rwkv_linattn", compare(       # raises if not finite
+            f"rwkv_linattn tc {(BH, S, 64)} heads={heads} logw={logw}",
+            rwkv_linattn(r, k, v, lw, u), rwkv_linattn_ref(r, k, v, lw, u),
+            LINATTN_TOL)))
     torch.cuda.synchronize()
     B, S, H, D = LINATTN_MAIN
     r, k, v, lw, u = linattn_inputs(rng, B * H, S, D, dev, heads=H)
@@ -880,10 +996,8 @@ def lm_kernel_checks(rng, dev, checks, main_err):
     torch.cuda.synchronize()
 
 
-#: the one route of each single-route wrapper: a block per solver cell, or
-#: the CUDA cores
-SINGLE_ROUTE = {"sdca_epoch": "block", "svrg_inner": "block",
-                "sdca_epoch_sparse": "block", "rwkv_linattn": "simt"}
+#: the one route of each single-route wrapper: a block per solver cell
+SINGLE_ROUTE = {"svrg_inner": "block", "sdca_epoch_sparse": "block"}
 
 
 def launch_counts():
@@ -1082,6 +1196,12 @@ def phase_serve_rwkv6_full():
     return {"rwkv_linattn": 32}
 
 
+#: B1's launches on each dense main path, by shape
+SDCA_SHAPE_LAUNCHES = {
+    "d3ca_full": {"d3ca_cells": OUTER_ITERS, "serial": REF_EPOCHS},
+    "radisa_full": {"serial": REF_EPOCHS}}
+
+
 def run_main_path(name, phase, results):
     """Drive one main path with every launch counter at 0 just before and
     read just after; it must have launched exactly the kernels it names,
@@ -1105,6 +1225,15 @@ def run_main_path(name, phase, results):
         results[k]["launches"] += v
         for r, n in route_counts(k).items():
             results[k]["routes"][r] += n
+    # B1 runs at two shapes: the split of its counted launches by the
+    # phase's structure (OUTER_ITERS D3CA iterations, REF_EPOCHS serial
+    # epochs for f*), which must add up to the count
+    split = SDCA_SHAPE_LAUNCHES.get(name, {})
+    if sum(split.values()) != counts["sdca_epoch"]:
+        raise AssertionError(f"{name}: sdca_epoch launches "
+                             f"{counts['sdca_epoch']} != {split}")
+    for shape, n in split.items():
+        results["sdca_epoch"]["shapes"][shape]["launches"] += n
 
 
 def card_vs_cpu(name, cfg, X, y, grid, streams, block_format):
@@ -1336,6 +1465,46 @@ def time_program(prog, iters=5):
     return start.elapsed_time(end) / iters
 
 
+def serial_timing(X, y, dev):
+    """B1 at the serial-SDCA shape: one epoch of the f* reference on the
+    whole instance (one cell of 14 000 x 12 000, 14 000 steps, the first
+    epoch's state: alpha = 0, w = 0, a random permutation), on the
+    wrapper's route, every cluster size measured for it and the block
+    route, beside the plain version (one call: a 14 000-step Python
+    loop), which the kernel's result is also held against."""
+    n = X.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    idx = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    args = [X[None, None], y.float()[None], torch.ones((1, n), device=dev),
+            torch.zeros((1, n), device=dev), torch.zeros((1, M), device=dev),
+            idx[None]]
+    kw = dict(lam=LAM, n=n, Q=1, loss="hinge")
+    if sdca_route(n, M, n) != "cluster":
+        raise AssertionError("the serial-SDCA shape is not on the cluster "
+                             "route")
+    kern = [both_ms(lambda: sdca_epoch(*args, **kw), reps=5)]
+    prev = [both_ms(lambda: sdca_block(args, kw), reps=3)]
+    sizes = {G: both_ms(lambda G=G: sdca_launch(args, kw, "cluster", G),
+                        reps=5) for G in (8, 16)}
+    prev.append(both_ms(lambda: sdca_block(args, kw), reps=3))
+    kern.append(both_ms(lambda: sdca_epoch(*args, **kw), reps=5))
+    t0 = time.perf_counter()
+    want = sdca_epoch_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = compare("sdca_epoch serial-SDCA shape", sdca_epoch(*args, **kw),
+                  want, MAIN_TOL, relative_to_max=True)
+    return {**medians(kern, "ms"), "plain_ms": plain_ms,
+            "plain_clock": "host, one call", "max_abs_err": err,
+            "prev_route": "block", **medians(prev, "prev_route_ms"),
+            "cluster": sdca_ops.sdca_cluster_size(M),
+            "cluster_sizes": {G: {"ms": v[0], "device_ms": v[1]}
+                              for G, v in sizes.items()},
+            **bounds("sdca_epoch", args, M, 6),
+            "shape": {"cells": 1, "n_p": n, "m_q": M, "steps": n}}
+
+
 def phase_timing(dev, results):
     data, alpha, w = full_problem(dev)
     src = GeneratorIndexSource(0, P=P, Q=Q, n_p=data.n_p, device=dev)
@@ -1345,21 +1514,37 @@ def phase_timing(dev, results):
     vargs, lo, eta = svrg_main_inputs(data, w)
     vkw = dict(lam=LAM, eta=eta, loss="hinge", lo=lo)
 
-    # plain, kernel, kernel, plain -- on one card, in one process
+    # plain, kernel, kernel, plain -- on one card, in one process; between
+    # them the block route (the main path's before this slice) and every
+    # cluster size measured for the shape
     plain_s = [cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3)]
     kern_s = [both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7)]
+    prev_s = [both_ms(lambda: sdca_block(sargs, skw), reps=5)]
     plain_v = [cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3)]
     kern_v = [both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7)]
     kern_v.append(both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7))
     plain_v.append(cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3))
+    sizes = {G: both_ms(lambda G=G: sdca_launch(sargs, skw, "cluster", G),
+                        reps=5) for G in (1, 2, 4)}
+    prev_s.append(both_ms(lambda: sdca_block(sargs, skw), reps=5))
     kern_s.append(both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7))
     plain_s.append(cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3))
 
     # per step: dot (2) + norm (2) + update (2) flops per row element;
     # SVRG: subtract + dot (3) + update (6)
-    results["sdca_epoch"].update(
-        **medians(kern_s, "ms"), plain_ms=statistics.median(plain_s),
-        library_ms=None, **bounds("sdca_epoch", sargs, data.m_q, 6))
+    cells = {**medians(kern_s, "ms"), "plain_ms": statistics.median(plain_s),
+             "prev_route": "block", **medians(prev_s, "prev_route_ms"),
+             "cluster": sdca_ops.sdca_cluster_size(data.m_q),
+             "cluster_sizes": {G: {"ms": v[0], "device_ms": v[1]}
+                               for G, v in sizes.items()},
+             **bounds("sdca_epoch", sargs, data.m_q, 6),
+             "shape": {"cells": P * Q, "n_p": data.n_p, "m_q": data.m_q,
+                       "steps": data.n_p}}
+    results["sdca_epoch"].update(library_ms=None, **{
+        k: cells[k] for k in ("ms", "device_ms", "plain_ms", "prev_route",
+                              "prev_route_ms", "prev_route_device_ms",
+                              "bound_ms", "bound_by", "bytes_moved")})
+    results["sdca_epoch"]["shapes"]["d3ca_cells"].update(cells)
     results["svrg_inner"].update(
         **medians(kern_v, "ms"), plain_ms=statistics.median(plain_v),
         library_ms=None, **bounds("svrg_inner", vargs, data.m_q // P, 9))
@@ -1368,6 +1553,7 @@ def phase_timing(dev, results):
 
     X, y = make_svm_data(N, M, seed=0)
     X, y = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    results["sdca_epoch"]["shapes"]["serial"].update(serial_timing(X, y, dev))
     solvers = {}
     for name, kernel, cfg in (("d3ca", "sdca_epoch", D3CAConfig(lam=LAM)),
                               ("radisa", "svrg_inner",
@@ -1445,7 +1631,7 @@ def phase_timing(dev, results):
          kernels={k: {f: v.get(f) for f in (
              "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
              "bound_ms", "bound_by", "bytes_moved", "prev_route",
-             "prev_route_ms", "prev_route_device_ms")}
+             "prev_route_ms", "prev_route_device_ms", "shapes")}
                   for k, v in results.items()})
 
 
@@ -1554,13 +1740,19 @@ def lm_timing(dev, results):
 
     Bl, Sl, Hl, Dl = LINATTN_MAIN
     r, k, v, lw, u = linattn_inputs(rng, Bl * Hl, Sl, Dl, dev, heads=Hl)
+    if linattn_route(Dl, 64) != "tc":
+        raise AssertionError("the RWKV6 prefill shape is not on the "
+                             "tensor-core route")
     plain = [cuda_ms(lambda: rwkv_linattn_ref(r, k, v, lw, u), reps=3)]
-    kern = [both_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20),
-            both_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20)]
+    kern = [both_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20)]
+    prev = [both_ms(lambda: linattn_simt(r, k, v, lw, u), reps=10),
+            both_ms(lambda: linattn_simt(r, k, v, lw, u), reps=10)]
+    kern.append(both_ms(lambda: rwkv_linattn(r, k, v, lw, u), reps=20))
     plain.append(cuda_ms(lambda: rwkv_linattn_ref(r, k, v, lw, u), reps=3))
     results["rwkv_linattn"].update(
         **medians(kern, "ms"), plain_ms=statistics.median(plain),
-        library_ms=None, **linattn_bound(Bl * Hl, Sl, Dl))
+        library_ms=None, prev_route="simt", **medians(prev, "prev_route_ms"),
+        **linattn_bound(Bl * Hl, Sl, Dl))
     del r, k, v, lw, u
 
     out = {}
@@ -1637,6 +1829,8 @@ def main(argv=None):
                       "max_abs_err": None, "ms": None, "plain_ms": None,
                       "bound_ms": None, "bound_by": None, "library_ms": None}
                for name, meta in KERNEL_META.items()}
+    results["sdca_epoch"]["shapes"] = {"d3ca_cells": {"launches": 0},
+                                       "serial": {"launches": 0}}
     if "kernels" in phases:
         phase_kernels(dev, results)
 

@@ -37,6 +37,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from .util import resolve_device
+
 LOGICAL_AXES = ("data", "model")
 OPS = ("psum", "pmean", "allgather")
 #: position of each logical axis among a blocked payload's leading axes
@@ -123,10 +125,10 @@ class Comm:
     """
 
     def __init__(self, schedule: CommSchedule, sizes: Dict[str, int],
-                 device="cpu"):
+                 device="cuda"):
         self.schedule = schedule
         self.sizes = dict(sizes)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._executed: set = set()
 
     # -- step-facing API -----------------------------------------------------

@@ -26,6 +26,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from .comm import CommSchedule, SyncComm
+from .util import resolve_device
 
 
 @dataclasses.dataclass
@@ -106,7 +107,8 @@ def cached_build(cache, key, build):
     return cache[key]
 
 
-def grid_program(cellprog: CellProgram, Pn: int, Qn: int, *, device="cpu"):
+def grid_program(cellprog: CellProgram, Pn: int, Qn: int, *,
+                 device="cuda"):
     """Single-device grid executor.  Returns ``step(t, data, state) ->
     state`` where ``data``/``state`` are blocked: the P x Q grid is the
     leading axes of the operands and the declared collectives run as
@@ -114,6 +116,7 @@ def grid_program(cellprog: CellProgram, Pn: int, Qn: int, *, device="cpu"):
     exactly-once contract is checked after the step."""
     sizes = {"data": Pn, "model": Qn}
     sched = cellprog.schedule
+    device = resolve_device(device)
 
     def step(t, data, state):
         comm = SyncComm(sched, sizes, device=device)

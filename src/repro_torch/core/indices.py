@@ -26,6 +26,8 @@ from typing import Mapping, Optional
 
 import torch
 
+from .util import resolve_device
+
 _SDCA, _SVRG, _PERM, _SAMPLE = 0, 1, 2, 3
 
 
@@ -37,13 +39,13 @@ class GeneratorIndexSource:
 
     def __init__(self, seed: int, *, P: int, Q: int, n_p: int,
                  steps: Optional[int] = None, L: Optional[int] = None,
-                 sample_frac: float = 0.5, device="cpu"):
+                 sample_frac: float = 0.5, device="cuda"):
         self.seed = int(seed)
         self.P, self.Q, self.n_p = P, Q, n_p
         self.steps = steps if steps is not None else n_p
         self.L = L if L is not None else n_p
         self.sample_frac = float(sample_frac)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._gen = torch.Generator(device=self.device)
 
     def _reseed(self, t: int, stream: int) -> torch.Generator:
@@ -76,10 +78,10 @@ class ArrayIndexSource:
     stacked array whose entry ``t - 1`` belongs to iteration ``t``."""
 
     def __init__(self, *, sdca=None, svrg=None, perm=None, sample=None,
-                 device="cpu"):
+                 device="cuda"):
         self._streams = {"sdca_rows": sdca, "svrg_rows": svrg,
                          "radisa_perm": perm, "sfk_sample": sample}
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _get(self, name: str, t: int, dtype) -> torch.Tensor:
         stream = self._streams[name]

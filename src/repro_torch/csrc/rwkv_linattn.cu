@@ -32,8 +32,12 @@
 // in shared memory with an odd row stride (conflict-free column walks);
 // the exponentials of the inter-chunk and state terms are folded into r
 // and k once per chunk (C D of them instead of C D^2); each output and
-// state entry is one thread's register sum.  Tensor-core products for the
-// three matrix terms are later work.
+// state entry is one thread's register sum.
+//
+// This is the `simt` route of kernels/linattn/ops.py::rwkv_linattn: head
+// dims 16 and 32, and chunks shorter than 64 tokens.  Head dim 64 with
+// 64-token chunks -- every RWKV6 prefill -- takes the `tc` route
+// (rwkv_linattn_tc.cu, the three matrix terms on the tensor cores).
 
 #include "common.cuh"
 

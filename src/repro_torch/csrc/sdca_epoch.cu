@@ -26,6 +26,14 @@
 //     of the one block that owns the row touches it, in program order,
 //     which keeps the read-after-write on a repeated index exact.
 // Offsets are 64-bit: a weak-scaling grid exceeds 2^31 elements.
+//
+// This is the `block` route of kernels/sdca/ops.py::sdca_epoch.  The main
+// path no longer takes it: the `cluster` route (sdca_epoch_cluster.cu)
+// takes every shape whose slice of w fits the registers of a CTA (rows up
+// to 65 536 columns) and whose dual deltas, order and ring of rows fit its
+// shared memory; this kernel keeps the rest -- wider rows, or more rows
+// and steps than a CTA's shared memory holds (n_p + steps above 32 896
+// at 3003 columns).
 
 #include "common.cuh"
 

@@ -106,6 +106,7 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -284,42 +285,10 @@ constexpr int kClusterSize = 8;        // CTAs per cell (portable)
 constexpr int kClusterThreads = 256;
 constexpr int kClusterWarps = kClusterThreads / 32;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the shared::cluster address of `local` in the CTA of cluster rank `rank`
-__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(local), "r"(rank));
-  return r;
-}
-
-// 4 bytes into a peer's shared memory, completing 4 bytes of the
-// transaction count of the peer's mbarrier
-__device__ __forceinline__ void st_async_peer(uint32_t addr, float v,
-                                              uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n" ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-
-// wait until the phase of parity `parity` has completed, seeing the
-// peers' stores; a wait that outlasts ~2^26 polls (seconds) is a fault,
-// and traps instead of hanging
-__device__ __forceinline__ void cl_mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (polls == (1u << 26)) __trap();
-  }
-}
+using rt::cl_mbar_wait;
+using rt::peer_addr;
+using rt::smem_addr;
+using rt::st_async_peer;
 
 template <int LOSS, int E>
 __global__ void __launch_bounds__(kClusterThreads, E <= 24 ? 2 : 1)

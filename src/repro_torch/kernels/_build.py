@@ -40,6 +40,14 @@ _SIGNATURES = {
         + [_FLT] * 4 + [_INT]             # lam n q_scale beta use_beta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
+    "sdca_epoch_cluster_launch": (
+        [_PTR] * 6 + [_PTR] * 2          # x y mask alpha0 w0 idx | dalpha w_out
+        + [_INT] * 5                      # P Q n_p m_q steps
+        + [_FLT] * 4 + [_INT]             # lam n q_scale beta use_beta
+        + [_PTR]                          # cell_params (null: use scalars)
+        + [_INT] * 6                      # loss cluster threads per_thread
+        #                                   slice smem
+        + [_PTR]),                        # stream
     "svrg_inner_launch": (
         [_PTR] * 8 + [_PTR]               # x y mask z_a w_a mu idx lo | w_out
         + [_INT] * 6                      # P Q n_p m_x m_sub L
@@ -77,6 +85,9 @@ _SIGNATURES = {
         + [_INT] * 6                      # B S Skv H KV D
         + [_FLT] + [_INT] * 3 + [_PTR]),  # scale causal window dtype stream
     "rwkv_linattn_launch": (
+        [_PTR] * 5 + [_PTR] * 2          # r k v logw u | out state
+        + [_INT] * 5 + [_PTR]),           # BH S D H C stream
+    "rwkv_linattn_tc_launch": (
         [_PTR] * 5 + [_PTR] * 2          # r k v logw u | out state
         + [_INT] * 5 + [_PTR]),           # BH S D H C stream
 }

@@ -15,7 +15,14 @@ NEG_INF = -1e30
 
 def mha_ref(q, k, v, *, causal=True, window=None, scale=None):
     """q: (BH, S, D); k, v: (BH, Skv, D).  Float32 inside; returns
-    (BH, S, D) in q's dtype."""
+    (BH, S, D) in q's dtype.
+
+    A query row with no unmasked key at all (a sliding window with
+    S > Skv + window - 1) comes out 0, as on both CUDA routes and as in
+    the Pallas kernel for a query block whose every KV tile is skipped
+    (its accumulator stays 0 and is divided by max(l, 1e-30)).  The JAX
+    ``mha_ref`` gives such a row the uniform average of v instead; every
+    row that has a key agrees with it."""
     BH, S, D = q.shape
     Skv = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
@@ -29,4 +36,5 @@ def mha_ref(q, k, v, *, causal=True, window=None, scale=None):
         mask &= qp - kp < window
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[None, :, None], p, torch.zeros_like(p))
     return torch.einsum("bsx,bxd->bsd", p, v.float()).to(q.dtype)

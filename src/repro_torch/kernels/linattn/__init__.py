@@ -1,4 +1,4 @@
-from .ops import rwkv_linattn
+from .ops import linattn_route, rwkv_linattn
 from .ref import rwkv_linattn_ref
 
-__all__ = ["rwkv_linattn", "rwkv_linattn_ref"]
+__all__ = ["linattn_route", "rwkv_linattn", "rwkv_linattn_ref"]

@@ -1,5 +1,13 @@
-"""Public wrapper of the chunked RWKV6 linear-attention kernel (the port of
-``repro/kernels/linattn/ops.py``)."""
+"""Public wrapper of the chunked RWKV6 linear-attention kernels (the port of
+``repro/kernels/linattn/ops.py``).
+
+Two routes, chosen by :func:`linattn_route` from the head dim and the
+chunk alone: ``"tc"`` (``csrc/rwkv_linattn_tc.cu``) -- the three matrix
+terms on the tensor cores in 3xTF32, 16-token sub-chunks for the scores --
+at head dim 64 with chunks of 64 tokens, which is every RWKV6 prefill;
+``"simt"`` (``csrc/rwkv_linattn.cu``) -- float32 FMAs on the CUDA cores --
+for head dims 16 / 32 or smaller chunks.  Both compute the same function.
+"""
 from __future__ import annotations
 
 import torch
@@ -8,9 +16,21 @@ from .. import _build
 from .._launch import check_tensor
 from .ref import rwkv_linattn_ref
 
-#: head dims the kernel is compiled for (csrc/rwkv_linattn.cu)
+#: head dims the kernels are compiled for (csrc/rwkv_linattn.cu; the
+#: tensor-core kernel takes 64 only)
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 64
+ROUTES = ("tc", "simt")
+#: the one head dim and chunk of the tensor-core kernel
+TC_HEAD_DIM = 64
+TC_CHUNK = 64
+
+
+def linattn_route(D: int, chunk: int) -> str:
+    """The kernel a CUDA call takes, by head dim and chunk alone:
+    ``"tc"`` at D = ``TC_HEAD_DIM`` with chunks of ``TC_CHUNK`` tokens
+    (any S: a short sequence is one zero-padded chunk), else ``"simt"``."""
+    return "tc" if (D, chunk) == (TC_HEAD_DIM, TC_CHUNK) else "simt"
 
 
 def rwkv_linattn(r, k, v, logw, u, *, chunk=64):
@@ -24,9 +44,9 @@ def rwkv_linattn(r, k, v, logw, u, *, chunk=64):
     tokens per chunk (at most 64, and at most S); S need not be a multiple
     of it.
 
-    A CUDA tensor launches the CUDA kernel or raises; the plain version
-    (the exact sequential recurrence) runs only for tensors that lie on
-    the CPU.
+    A CUDA tensor launches the route's CUDA kernel (:func:`linattn_route`)
+    or raises; the plain version (the exact sequential recurrence) runs
+    only for tensors that lie on the CPU.
     """
     if not isinstance(r, torch.Tensor) or r.dim() != 3:
         raise ValueError("r must be a (BH, S, D) tensor")
@@ -56,17 +76,23 @@ def rwkv_linattn(r, k, v, logw, u, *, chunk=64):
         raise NotImplementedError(
             f"the linear-attention kernel is compiled for head dims "
             f"{HEAD_DIMS}, not {D}")
+    route = linattn_route(D, chunk)
     out, state = _launch(*(t.float().contiguous() for t in (r, k, v, logw)),
                          u.float().reshape(H, D).contiguous(), H,
-                         min(chunk, S))
+                         TC_CHUNK if route == "tc" else min(chunk, S), route)
     return out.to(r.dtype), state
 
 
-#: number of CUDA kernel launches made by this wrapper (and nothing else)
+#: number of CUDA kernel launches made by this wrapper (and nothing else),
+#: in all and per route
 rwkv_linattn.launches = 0
+rwkv_linattn.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _launch(r, k, v, logw, u, H, C):
+def _launch(r, k, v, logw, u, H, C, route):
+    """Launch one route on float32 contiguous inputs; ``chip_smoke.py``
+    also calls it with ``route="simt"`` at the main-path shape, to time
+    the route the tensor-core kernel replaced."""
     BH, S, D = r.shape
     out = torch.empty_like(r)
     state = torch.empty((BH, D, D), dtype=torch.float32, device=r.device)
@@ -75,10 +101,13 @@ def _launch(r, k, v, logw, u, H, C):
     lib = _build.load_library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.rwkv_linattn_launch(
+        launch = {"tc": lib.rwkv_linattn_tc_launch,
+                  "simt": lib.rwkv_linattn_launch}[route]
+        code = launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u.data_ptr(), out.data_ptr(), state.data_ptr(), BH, S, D, H, C,
             stream)
-    _build.check_launch(lib, code, "rwkv_linattn")
+    _build.check_launch(lib, code, f"rwkv_linattn ({route})")
     rwkv_linattn.launches += 1
+    rwkv_linattn.launches_by_route[route] += 1
     return out, state

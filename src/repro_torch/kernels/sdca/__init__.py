@@ -1,6 +1,6 @@
-from .ops import sdca_epoch
+from .ops import sdca_epoch, sdca_route
 from .ref import sdca_epoch_plain
 from .sparse import sdca_epoch_sparse, sdca_epoch_sparse_plain
 
 __all__ = ["sdca_epoch", "sdca_epoch_plain", "sdca_epoch_sparse",
-           "sdca_epoch_sparse_plain"]
+           "sdca_epoch_sparse_plain", "sdca_route"]

@@ -1,11 +1,88 @@
-"""Public wrapper of the local SDCA epoch kernel."""
+"""Public wrapper of the local SDCA epoch kernel.
+
+Two routes, chosen by :func:`sdca_route` from the block shape alone:
+``"cluster"`` (``csrc/sdca_epoch_cluster.cu``) -- one thread-block
+cluster of :func:`sdca_cluster_size` CTAs per cell, each holding a slice
+of w in registers and the epoch's order, dual deltas and next rows in
+shared memory -- wherever the slice fits a CTA's registers and the rest
+its shared memory, which covers every main-path shape (the D3CA cells and
+the serial-SDCA epochs for f*); ``"block"`` (``csrc/sdca_epoch.cu``) --
+one block per cell, w and two rows in shared memory -- for the rest.  Both compute the
+same function; they sum each row's inner product in other orders.
+"""
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .._launch import (block_threads, check_loss, check_smem, check_tensor)
+from .._launch import (MAX_DYNAMIC_SMEM, block_threads, check_loss,
+                       check_smem, check_tensor)
 from .ref import sdca_epoch_plain
+
+ROUTES = ("cluster", "block")
+#: the cluster route's geometry, owned here and passed to the launch, which
+#: refuses any other than the kernel is compiled for: the cluster sizes,
+#: threads of a CTA, the columns of w a thread may hold in registers, and
+#: the rows in flight (slots of the shared-memory ring)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+CLUSTER_THREADS = 128
+CLUSTER_PER_THREAD = (4, 6, 8, 12, 16, 24, 32)
+CLUSTER_RING = 8
+CLUSTER_MAX_SLICE = CLUSTER_THREADS * CLUSTER_PER_THREAD[-1]
+#: (widest m_q, CTAs per cell), first match: rows up to 4096 columns stay
+#: on one CTA (no exchange between CTAs: at the D3CA cells' 3003 columns
+#: one CTA beat 2 and 4 on the card); wider rows are cut over 16, which
+#: beat 8 at the serial-SDCA epochs' 12 000 columns
+CLUSTER_TABLE = ((CLUSTER_MAX_SLICE, 1), (16 * CLUSTER_MAX_SLICE, 16))
+
+
+def sdca_cluster_size(m_q: int) -> int:
+    """CTAs per cell of the cluster route, from the row width alone
+    (``CLUSTER_TABLE``; the widest entry for rows wider than the table)."""
+    for widest, g in CLUSTER_TABLE:
+        if m_q <= widest:
+            return g
+    return CLUSTER_TABLE[-1][1]
+
+
+def sdca_cluster_slice(m_q: int, cluster: int | None = None) -> int:
+    """Columns of w one CTA of the cluster route owns."""
+    g = sdca_cluster_size(m_q) if cluster is None else cluster
+    return max(1, -(-m_q // g))
+
+
+def sdca_cluster_per_thread(slice_: int) -> int:
+    """Columns a thread holds: the fewest the kernel is compiled for that
+    cover the slice (the most, for a slice wider than a CTA holds)."""
+    for e in CLUSTER_PER_THREAD:
+        if slice_ <= CLUSTER_THREADS * e:
+            return e
+    return CLUSTER_PER_THREAD[-1]
+
+
+def sdca_cluster_smem(n_p: int, steps: int, per_thread: int) -> int:
+    """Dynamic shared memory of one cluster CTA, in the kernel's layout:
+    the n_p dual deltas and the epoch's ``steps`` indices (rounded up to
+    a multiple of 4), ``CLUSTER_RING`` row slots of ``CLUSTER_THREADS *
+    per_thread + 8`` floats (a slice copied from the 16-byte boundary at
+    or before its first column), and 4 floats
+    (label, mask, alpha0, padding) for each of ``2 * CLUSTER_RING``
+    steps."""
+    return 4 * (-(-(n_p + steps) // 4) * 4
+                + CLUSTER_RING * (CLUSTER_THREADS * per_thread + 8)
+                + 2 * CLUSTER_RING * 4)
+
+
+def sdca_route(n_p: int, m_q: int, steps: int) -> str:
+    """The kernel a CUDA call takes, by shape alone: ``"cluster"`` when a
+    slice of w fits the registers of a CTA (``CLUSTER_MAX_SLICE``
+    columns) and the dual deltas, the order and the ring of rows its
+    shared memory; else ``"block"``."""
+    sl = sdca_cluster_slice(m_q) if m_q >= 1 else 0
+    fits = (n_p >= 1 and 1 <= sl <= CLUSTER_MAX_SLICE
+            and sdca_cluster_smem(n_p, steps, sdca_cluster_per_thread(sl))
+            <= MAX_DYNAMIC_SMEM)
+    return "cluster" if fits else "block"
 
 
 def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
@@ -25,8 +102,9 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
     step_mode="beta" denominator.  Returns ``(dalpha, w_final)`` of
     shapes ``(P, Q, n_p)`` / ``(P, Q, m_q)`` (or ``(n_p,)`` / ``(m_q,)``).
 
-    A CUDA tensor launches the CUDA kernel or raises; the plain PyTorch
-    version runs only for tensors that lie on the CPU.
+    A CUDA tensor launches the route's CUDA kernel (:func:`sdca_route`)
+    or raises; the plain PyTorch version runs only for tensors that lie on
+    the CPU.
     """
     loss_id = check_loss(loss, "the sdca_epoch kernel")
     unbatched = isinstance(x, torch.Tensor) and x.dim() == 2
@@ -53,7 +131,8 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
                                          beta=beta)
     elif dev.type == "cuda":
         dalpha, w_fin = _launch(x, y, mask, alpha0, w0, idx, lam=lam, n=n,
-                                Q=Q, loss_id=loss_id, beta=beta)
+                                Q=Q, loss_id=loss_id, beta=beta,
+                                route=sdca_route(n_p, m_q, idx.shape[1]))
     else:
         raise NotImplementedError(f"sdca_epoch has no path for {dev}")
     if unbatched:
@@ -61,24 +140,46 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
     return dalpha, w_fin
 
 
-#: number of CUDA kernel launches made by this wrapper (and nothing else)
+#: number of CUDA kernel launches made by this wrapper (and nothing else),
+#: in all and per route
 sdca_epoch.launches = 0
+sdca_epoch.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _launch(x, y, mask, alpha0, w0, idx, *, lam, n, Q, loss_id, beta):
+def _launch(x, y, mask, alpha0, w0, idx, *, lam, n, Q, loss_id, beta,
+            route, cluster=None):
+    """Launch one route.  ``cluster`` overrides the cluster size of the
+    table; only ``chip_smoke.py`` passes it (and ``route="block"`` at a
+    main-path shape), to time the sizes and the route they replaced."""
     P, Qc, n_p, m_q = x.shape
-    check_smem(3 * m_q * 4, f"sdca_epoch with m_q={m_q}")
+    if route not in ROUTES:
+        raise ValueError(f"unknown sdca_epoch route {route!r}")
+    if route == "block":
+        check_smem(3 * m_q * 4, f"sdca_epoch with m_q={m_q}")
     lib = _build.load_library()
-    dalpha = torch.zeros((P, Qc, n_p), dtype=x.dtype, device=x.device)
+    alloc = torch.zeros if route == "block" else torch.empty
+    dalpha = alloc((P, Qc, n_p), dtype=x.dtype, device=x.device)
     w_fin = torch.empty((P, Qc, m_q), dtype=x.dtype, device=x.device)
+    scalars = (float(lam), float(n), float(Q),
+               float(beta if beta is not None else 0.0), int(beta is not None))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sdca_epoch_launch(
-            x.data_ptr(), y.data_ptr(), mask.data_ptr(), alpha0.data_ptr(),
-            w0.data_ptr(), idx.data_ptr(), dalpha.data_ptr(),
-            w_fin.data_ptr(), P, Qc, n_p, m_q, idx.shape[1],
-            float(lam), float(n), float(Q), float(beta if beta is not None else 0.0),
-            int(beta is not None), None, loss_id, block_threads(m_q), stream)
-    _build.check_launch(lib, code, "sdca_epoch")
+        ptrs = (x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+                alpha0.data_ptr(), w0.data_ptr(), idx.data_ptr(),
+                dalpha.data_ptr(), w_fin.data_ptr())
+        if route == "cluster":
+            g = sdca_cluster_size(m_q) if cluster is None else cluster
+            sl = sdca_cluster_slice(m_q, g)
+            e = sdca_cluster_per_thread(sl)
+            code = lib.sdca_epoch_cluster_launch(
+                *ptrs, P, Qc, n_p, m_q, idx.shape[1], *scalars, None,
+                loss_id, g, CLUSTER_THREADS, e, sl,
+                sdca_cluster_smem(n_p, idx.shape[1], e), stream)
+        else:
+            code = lib.sdca_epoch_launch(
+                *ptrs, P, Qc, n_p, m_q, idx.shape[1], *scalars, None,
+                loss_id, block_threads(m_q), stream)
+    _build.check_launch(lib, code, f"sdca_epoch ({route})")
     sdca_epoch.launches += 1
+    sdca_epoch.launches_by_route[route] += 1
     return dalpha, w_fin

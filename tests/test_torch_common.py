@@ -103,13 +103,13 @@ def collect(solver, loss, X, y, cfg, grid=(P, Q), **kw):
 def d3ca_source(seed, n, iters=ITERS, steps=None, grid=(P, Q)):
     n_p = ceil_div(n, grid[0])
     return ArrayIndexSource(sdca=d3ca_rows(seed, iters, grid[0], n_p,
-                                           steps or n_p))
+                                           steps or n_p), device="cpu")
 
 
 def radisa_source(seed, n, iters=ITERS, grid=(P, Q), L=None):
     n_p = ceil_div(n, grid[0])
     perms, rows = radisa_streams(seed, iters, *grid, n_p, L or n_p)
-    return ArrayIndexSource(svrg=rows, perm=perms)
+    return ArrayIndexSource(svrg=rows, perm=perms, device="cpu")
 
 
 def sfk_source(seed, n, frac, iters=ITERS, grid=(P, Q), L=None):
@@ -118,7 +118,7 @@ def sfk_source(seed, n, frac, iters=ITERS, grid=(P, Q), L=None):
     n_p = ceil_div(n, grid[0])
     perms, rows = radisa_streams(seed, iters, *grid, n_p, L or n_p)
     return ArrayIndexSource(svrg=rows, perm=perms, sample=sfk_samples(
-        seed, iters, grid[0], n_p, frac))
+        seed, iters, grid[0], n_p, frac), device="cpu")
 
 
 def compare(res_t, its_t, res_j, its_j, dual):

@@ -1,22 +1,44 @@
 """The two-route wrappers of the port, on the CPU: flash attention
 (``"tc"`` tensor-core kernel for bfloat16 at head dims 64 / 128, ``"simt"``
-CUDA-core kernel otherwise) and the sparse SVRG inner loop (``"cluster"``
+CUDA-core kernel otherwise), the sparse SVRG inner loop (``"cluster"``
 thread-block-cluster kernel where a window slice fits one CTA,
-``"block"`` otherwise).  Route choice is a pure function of shape and
-dtype, so it is tested here at its boundaries, beside the wrappers'
-argument checks and the plain versions at the shapes and edge layouts the
-new routes take, against the reference.  The CUDA kernels themselves are
-held against these plain versions on the card by ``chip_smoke.py``."""
+``"block"`` otherwise), the dense SDCA epoch (``"cluster"`` where a slice
+of w fits a CTA's registers and the dual deltas its shared memory,
+``"block"`` otherwise) and RWKV6 linear attention (``"tc"`` at head dim 64
+with chunks of 64, ``"simt"`` otherwise).  Route choice is a pure function
+of shape and dtype, so it is tested here at its boundaries, beside the
+wrappers' argument checks and the plain versions at the shapes and edge
+layouts the new routes take, against the reference.  The CUDA kernels
+themselves are held against these plain versions on the card by
+``chip_smoke.py``.
+
+Also here: the port's device rule for the building blocks that
+``repro_torch.core`` exports (no silent CPU default), and the plain flash
+version's answer for query rows with no unmasked key, held against the
+Pallas kernel in interpret mode."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.flash import flash_attention as ref_flash
+from repro.kernels.flash import flash_attention_pallas
+from repro.kernels.flash import mha_ref as jax_mha_ref
+from repro.kernels.linattn import rwkv_linattn_ref as jax_linattn_ref
+from repro.kernels.sdca import sdca_epoch_pallas
 from repro.kernels.svrg import svrg_inner_sparse_pallas
+from repro_torch.core import (ArrayIndexSource, CellProgram, CommSchedule,
+                              GeneratorIndexSource, SyncComm)
+from repro_torch.core.comm import Comm
+from repro_torch.core.engines import grid_program
+from repro_torch.core.util import resolve_device
 from repro_torch.kernels._launch import MAX_DYNAMIC_SMEM
-from repro_torch.kernels.flash import flash_attention, flash_route
+from repro_torch.kernels.flash import flash_attention, flash_route, mha_ref
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.linattn import linattn_route, rwkv_linattn
+from repro_torch.kernels.linattn import ops as linattn_ops
+from repro_torch.kernels.sdca import sdca_epoch, sdca_route
+from repro_torch.kernels.sdca import ops as sdca_ops
 from repro_torch.kernels.svrg import svrg_inner_sparse, svrg_sparse_route
 from repro_torch.kernels.svrg import sparse as svrg_sparse
 
@@ -224,3 +246,264 @@ def test_svrg_sparse_cpu_calls_count_no_launch_on_either_route():
     assert (svrg_inner_sparse.launches,
             svrg_inner_sparse.launches_by_route) == before
     assert set(before[1]) == {"cluster", "block"}
+
+
+# ---------------------------------------------------------------------------
+# dense SDCA epoch
+# ---------------------------------------------------------------------------
+
+SDCA_MAX_SLICE = sdca_ops.CLUSTER_MAX_SLICE
+
+
+def _rows_at_smem_limit(m_q, steps):
+    """The most rows whose dual deltas still fit one cluster CTA's shared
+    memory beside the order of ``steps`` indices and the ring of rows."""
+    e = sdca_ops.sdca_cluster_per_thread(sdca_ops.sdca_cluster_slice(m_q))
+    return (MAX_DYNAMIC_SMEM - sdca_ops.sdca_cluster_smem(0, 0, e)) // 4 \
+        - steps
+
+
+@pytest.mark.parametrize("n_p,m_q,steps,route", [
+    (2000, 3003, 2000, "cluster"),            # the D3CA cells of Part 1
+    (14000, 12000, 14000, "cluster"),         # a serial-SDCA epoch for f*
+    (8, 8, 8, "cluster"), (17, 9, 33, "cluster"), (1, 1, 0, "cluster"),
+    (_rows_at_smem_limit(3003, 2000), 3003, 2000, "cluster"),
+    (_rows_at_smem_limit(3003, 2000) + 1, 3003, 2000, "block"),
+    (2000, 3003, _rows_at_smem_limit(3003, 2000), "cluster"),
+    (2000, 3003, _rows_at_smem_limit(3003, 2000) + 1, "block"),
+    (100, 16 * SDCA_MAX_SLICE, 100, "cluster"),  # the widest row
+    (100, 16 * SDCA_MAX_SLICE + 1, 100, "block"),
+    (0, 64, 8, "block"), (64, 0, 8, "block")])
+def test_sdca_route_boundaries(n_p, m_q, steps, route):
+    assert sdca_route(n_p, m_q, steps) == route
+    assert route in sdca_ops.ROUTES
+
+
+@pytest.mark.parametrize("m_q", [1, 9, 17, 3003, 4096, 4097, 12000, 32768,
+                                 32769, 16 * SDCA_MAX_SLICE - 5,
+                                 16 * SDCA_MAX_SLICE])
+def test_sdca_cluster_geometry_covers_the_row(m_q):
+    """The cluster size comes from m_q alone, out of the sizes the kernel
+    is compiled for; the slices of its CTAs cover the row, the columns a
+    thread holds cover its slice with the fewest the kernel is compiled
+    for, and the shared memory holds the kernel's layout."""
+    g = sdca_ops.sdca_cluster_size(m_q)
+    assert g in sdca_ops.CLUSTER_SIZES
+    sl = sdca_ops.sdca_cluster_slice(m_q)
+    assert sl == sdca_ops.sdca_cluster_slice(m_q, g)
+    assert (sl - 1) * g < m_q <= sl * g
+    assert sl <= SDCA_MAX_SLICE
+    e = sdca_ops.sdca_cluster_per_thread(sl)
+    assert e in sdca_ops.CLUSTER_PER_THREAD
+    assert sl <= sdca_ops.CLUSTER_THREADS * e
+    smaller = [v for v in sdca_ops.CLUSTER_PER_THREAD if v < e]
+    assert not smaller or sl > sdca_ops.CLUSTER_THREADS * smaller[-1]
+    # dual deltas and order (rounded up to 4), 8 slots of 128 e + 8 floats
+    # (a slice copied from the 16-byte boundary before it), 16 x 4 scalars
+    assert sdca_ops.sdca_cluster_smem(2000, 2000, e) == \
+        4 * (4000 + 8 * (128 * e + 8) + 64)
+    assert sdca_ops.sdca_cluster_smem(3, 2, e) == \
+        sdca_ops.sdca_cluster_smem(4, 4, e)
+    # the main-path widths: one CTA for the D3CA cells, 16 for the serial
+    # epochs
+    assert sdca_ops.sdca_cluster_size(3003) == 1
+    assert sdca_ops.sdca_cluster_size(12000) == 16
+    # monotone: a wider row never takes fewer CTAs
+    assert sdca_ops.sdca_cluster_size(m_q + 1) >= g
+
+
+def _sdca_cell(rng, n_p, m_q, steps):
+    x = (rng.normal(size=(n_p, m_q)) / np.sqrt(m_q)).astype(np.float32)
+    y = np.where(rng.random(n_p) < 0.5, -1.0, 1.0).astype(np.float32)
+    mask = np.ones(n_p, np.float32)
+    mask[-2:] = 0.0
+    a0 = (rng.uniform(0, 0.5, n_p) * (y > 0)).astype(np.float32)
+    w0 = (rng.normal(size=m_q) * 0.1).astype(np.float32)
+    idx = rng.integers(0, n_p, steps).astype(np.int32)
+    # a row twice in a row, three times in a row, and 4 and 5 steps apart
+    for h, back in ((5, 1), (9, 1), (10, 2), (20, 4), (31, 5)):
+        if h < steps:
+            idx[h] = idx[h - back]
+    return x, y, mask, a0, w0, idx
+
+
+@pytest.mark.parametrize("m_q", [9, 17, 33])
+@pytest.mark.parametrize("loss,beta", [("hinge", None), ("squared", None),
+                                       ("hinge", 1.0), ("squared", 1.0)])
+def test_sdca_cluster_edge_layout_plain_vs_pallas(m_q, loss, beta):
+    """Widths that do not divide by a cluster's columns, masked rows,
+    exact and beta denominators, repeated indices: the port's plain
+    version against the reference's Pallas kernel in interpret mode."""
+    assert sdca_route(24, m_q, 37) == "cluster"
+    args = _sdca_cell(np.random.default_rng(m_q), 24, m_q, 37)
+    kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
+    da_j, w_j = sdca_epoch_pallas(*map(jnp.asarray, args), **kw)
+    da_t, w_t = sdca_epoch(*map(torch.from_numpy, args), **kw)
+    np.testing.assert_allclose(da_t.numpy(), np.asarray(da_j), **TOL)
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), **TOL)
+
+
+def test_sdca_cluster_launch_checks_its_route():
+    """The private launch refuses a route it does not know before it
+    touches the library; the public wrapper keeps its argument checks."""
+    args = list(map(torch.from_numpy, _sdca_cell(np.random.default_rng(2),
+                                                 16, 9, 12)))
+    with pytest.raises(ValueError, match="unknown sdca_epoch route"):
+        sdca_ops._launch(*[a[None, None] if a.dim() == 2 else a[None]
+                           for a in args], lam=0.2, n=200, Q=3, loss_id=0,
+                         beta=None, route="warp")
+    with pytest.raises(ValueError, match="x must be"):
+        sdca_epoch(args[0][None], *args[1:], lam=0.2, n=200, Q=3)
+    with pytest.raises(ValueError, match="idx must be"):
+        sdca_epoch(args[0][None, None], *[a[None] for a in args[1:5]],
+                   args[5][None, None], lam=0.2, n=200, Q=3)
+
+
+def test_sdca_cpu_calls_count_no_launch_on_either_route():
+    rng = np.random.default_rng(3)
+    before = (sdca_epoch.launches, dict(sdca_epoch.launches_by_route))
+    for n_p, m_q in ((12, 9), (_rows_at_smem_limit(2, 6) + 1, 2)):
+        assert sdca_route(n_p, m_q, 6) == ("cluster" if n_p == 12
+                                           else "block")
+        args = _sdca_cell(rng, n_p, m_q, 6)
+        da, w = sdca_epoch(*map(torch.from_numpy, args), lam=0.2, n=200,
+                           Q=1)
+        assert da.shape == (n_p,) and w.shape == (m_q,)
+    assert (sdca_epoch.launches, sdca_epoch.launches_by_route) == before
+    assert set(before[1]) == {"cluster", "block"}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 linear attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D,chunk,route", [
+    (64, 64, "tc"), (64, 32, "simt"), (64, 63, "simt"), (64, 1, "simt"),
+    (32, 64, "simt"), (16, 64, "simt"), (128, 64, "simt")])
+def test_linattn_route_is_chosen_by_head_dim_and_chunk(D, chunk, route):
+    assert linattn_route(D, chunk) == route
+    assert route in linattn_ops.ROUTES
+
+
+def _linattn(rng, BH, S, D, heads=None, logw=None):
+    r, k, v = (rng.normal(size=(BH, S, D)).astype(np.float32)
+               for _ in range(3))
+    lw = (np.maximum(-np.exp(np.clip(rng.normal(size=(BH, S, D)), -20, 4)),
+                     -8.0) if logw is None
+          else np.full((BH, S, D), logw)).astype(np.float32)
+    u = (0.5 * rng.normal(size=(D,) if heads is None else (heads, D))
+         ).astype(np.float32)
+    return r, k, v, lw, u
+
+
+@pytest.mark.parametrize("BH,S,logw", [(2, 5, None), (1, 1, None),
+                                       (2, 37, -50.0), (1, 70, 0.0)])
+def test_linattn_tc_shapes_plain_matches_reference(BH, S, logw):
+    """The tensor-core route's shapes -- S below 16, S not a multiple of
+    16 or 64, the extreme decay, no decay -- through the port's wrapper
+    on the CPU (its plain version) against the reference's plain
+    recurrence."""
+    assert linattn_route(64, 64) == "tc"
+    args = _linattn(np.random.default_rng(S), BH, S, 64, logw=logw)
+    out_t, st_t = rwkv_linattn(*map(torch.from_numpy, args))
+    out_j, st_j = jax_linattn_ref(*map(jnp.asarray, args))
+    assert np.isfinite(out_t.numpy()).all()
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(st_t.numpy(), np.asarray(st_j), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_linattn_wrapper_checks_its_arguments():
+    r, k, v, lw, u = map(torch.from_numpy,
+                         _linattn(np.random.default_rng(1), 4, 10, 64,
+                                  heads=2))
+    with pytest.raises(ValueError, match="chunk must be"):
+        rwkv_linattn(r, k, v, lw, u, chunk=65)
+    with pytest.raises(ValueError, match="chunk must be"):
+        rwkv_linattn(r, k, v, lw, u, chunk=0)
+    with pytest.raises(ValueError, match="not a multiple of 3 heads"):
+        rwkv_linattn(r, k, v, lw, torch.zeros(3, 64))
+    with pytest.raises(ValueError, match="u must be"):
+        rwkv_linattn(r, k, v, lw, torch.zeros(1, 2, 64))
+    with pytest.raises(ValueError, match="k has shape"):
+        rwkv_linattn(r, k[:, :-1], v, lw, u)
+    with pytest.raises(ValueError, match="r must be"):
+        rwkv_linattn(r[0], k, v, lw, u)
+
+
+def test_linattn_cpu_calls_count_no_launch_on_either_route():
+    rng = np.random.default_rng(5)
+    before = (rwkv_linattn.launches, dict(rwkv_linattn.launches_by_route))
+    for D, chunk in ((64, 64), (32, 16)):
+        out, state = rwkv_linattn(*map(torch.from_numpy,
+                                       _linattn(rng, 2, 9, D)), chunk=chunk)
+        assert out.shape == (2, 9, D) and state.shape == (2, D, D)
+    assert (rwkv_linattn.launches, rwkv_linattn.launches_by_route) == before
+    assert set(before[1]) == {"tc", "simt"}
+
+
+# ---------------------------------------------------------------------------
+# repairs: the device rule, and rows with no unmasked key
+# ---------------------------------------------------------------------------
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as rule:
+        resolve_device()
+    return str(rule.value)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: Comm(CommSchedule().psum("a", axis="data"),
+                 {"data": 2, "model": 1}),
+    lambda: SyncComm(CommSchedule().psum("a", axis="data"),
+                     {"data": 2, "model": 1}),
+    lambda: grid_program(CellProgram(CommSchedule(), lambda *a: None), 2, 1),
+    lambda: GeneratorIndexSource(0, P=2, Q=1, n_p=4),
+    lambda: ArrayIndexSource(sdca={1: np.zeros((2, 4), np.int32)})],
+    ids=["Comm", "SyncComm", "grid_program", "GeneratorIndexSource",
+         "ArrayIndexSource"])
+def test_core_building_blocks_default_to_the_card(build, monkeypatch):
+    """Built with no ``device``, each raises on a machine without a card
+    the way ``resolve_device`` does; ``device="cpu"`` has to be asked
+    for."""
+    msg = _no_card(monkeypatch)
+    with pytest.raises(RuntimeError) as got:
+        build()
+    assert str(got.value) == msg and "device='cpu'" in msg
+
+
+def test_core_building_blocks_take_the_cpu_when_asked():
+    assert Comm(CommSchedule(), {"data": 1, "model": 1},
+                device="cpu").device.type == "cpu"
+    assert GeneratorIndexSource(0, P=1, Q=1, n_p=2,
+                                device="cpu").sdca_rows(1).device.type == "cpu"
+    assert ArrayIndexSource(sdca={1: np.zeros((1, 2), np.int32)},
+                            device="cpu").sdca_rows(1).device.type == "cpu"
+    sched = CommSchedule().psum("a", axis="data")
+    step = grid_program(CellProgram(sched, lambda comm, t, d, s: comm(
+        "a", torch.ones(2, 1, 3))), 2, 1, device="cpu")
+    assert torch.equal(step(1, None, None), torch.full((1, 3), 2.0))
+
+
+def test_flash_plain_gives_keyless_rows_zero_as_the_pallas_kernel():
+    """BH 2, S 256, Skv 64, window 8, non-causal, 64-row blocks: rows >= 71
+    have no unmasked key.  The Pallas kernel skips every KV tile of query
+    blocks 2-3 (rows 128-255) and gives them 0, as the port's plain
+    version does; rows that have a key agree with the JAX ``mha_ref``.
+    (Rows 71-127 share a visited tile with keyed rows: there the Pallas
+    kernel gives the average of v, so they are held to neither.)"""
+    rng = np.random.default_rng(21)
+    q, k, v = (rng.normal(size=s).astype(np.float32)
+               for s in ((2, 256, 32), (2, 64, 32), (2, 64, 32)))
+    kw = dict(causal=False, window=8)
+    got = mha_ref(*map(torch.from_numpy, (q, k, v)), **kw).numpy()
+    pallas = np.asarray(flash_attention_pallas(
+        *map(jnp.asarray, (q, k, v)), block_q=64, block_k=64, **kw))
+    want = np.asarray(jax_mha_ref(*map(jnp.asarray, (q, k, v)), **kw))
+    np.testing.assert_array_equal(pallas[:, 128:], 0.0)
+    np.testing.assert_array_equal(got[:, 71:], 0.0)
+    np.testing.assert_allclose(got[:, 128:], pallas[:, 128:], atol=0)
+    np.testing.assert_allclose(got[:, :71], want[:, :71], **TOL)
+    np.testing.assert_allclose(got[:, :71], pallas[:, :71], **TOL)

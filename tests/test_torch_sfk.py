@@ -93,7 +93,8 @@ def test_sfk_eta_and_sample_frac_follow_the_reference():
 
 
 def test_sfk_sample_stream_is_new_and_leaves_the_others_alone():
-    src = GeneratorIndexSource(5, P=3, Q=2, n_p=400, sample_frac=0.25)
+    src = GeneratorIndexSource(5, P=3, Q=2, n_p=400, sample_frac=0.25,
+                               device="cpu")
     s1 = src.sfk_sample(1)
     assert s1.shape == (3, 400) and s1.dtype == torch.float32
     assert set(torch.unique(s1).tolist()) <= {0.0, 1.0}
@@ -106,10 +107,10 @@ def test_sfk_sample_stream_is_new_and_leaves_the_others_alone():
         0, 400, (3, 400), generator=gen, dtype=torch.int32))
     gen = torch.Generator().manual_seed((5 * 1_000_003 + 1) * 4 + 2)
     assert torch.equal(src.radisa_perm(1), torch.randperm(3, generator=gen))
-    arr = ArrayIndexSource(sample={1: s1.numpy()})
+    arr = ArrayIndexSource(sample={1: s1.numpy()}, device="cpu")
     assert torch.equal(arr.sfk_sample(1), s1)
     with pytest.raises(KeyError, match="sfk_sample"):
-        ArrayIndexSource().sfk_sample(1)
+        ArrayIndexSource(device="cpu").sfk_sample(1)
 
 
 def test_sfk_default_source_reproducible_and_descends():

@@ -180,7 +180,8 @@ def test_default_generator_source_reproducible_and_descends(name):
 
 
 def test_generator_index_source_shapes_and_ranges():
-    src = GeneratorIndexSource(5, P=3, Q=2, n_p=17, steps=40, L=9)
+    src = GeneratorIndexSource(5, P=3, Q=2, n_p=17, steps=40, L=9,
+                               device="cpu")
     rows = src.sdca_rows(1)
     assert rows.shape == (3, 40) and rows.dtype == torch.int32
     assert 0 <= int(rows.min()) and int(rows.max()) < 17
@@ -190,7 +191,7 @@ def test_generator_index_source_shapes_and_ranges():
     # a draw depends on (seed, t, stream) only, not on what came before
     assert torch.equal(src.sdca_rows(1), rows)
     assert not torch.equal(src.sdca_rows(2), rows)
-    arr = ArrayIndexSource(sdca={1: rows.numpy()})
+    arr = ArrayIndexSource(sdca={1: rows.numpy()}, device="cpu")
     assert torch.equal(arr.sdca_rows(1), rows)
     with pytest.raises(KeyError, match="t=2"):
         arr.sdca_rows(2)
@@ -217,11 +218,11 @@ def test_comm_schedule_exactly_once_contract():
         return comm("grad", v)
 
     with pytest.raises(ValueError, match="never executed.*w_contrib"):
-        grid_program(CellProgram(sched, skips), 3, 2)(1, None, None)
+        grid_program(CellProgram(sched, skips), 3, 2, device="cpu")(1, None, None)
     with pytest.raises(ValueError, match="executed twice"):
-        grid_program(CellProgram(sched, twice), 3, 2)(1, None, None)
+        grid_program(CellProgram(sched, twice), 3, 2, device="cpu")(1, None, None)
     with pytest.raises(KeyError, match="not declared"):
-        grid_program(CellProgram(sched, undeclared), 3, 2)(1, None, None)
+        grid_program(CellProgram(sched, undeclared), 3, 2, device="cpu")(1, None, None)
     with pytest.raises(ValueError, match="declared twice"):
         CommSchedule().psum("z", axis="model").psum("z", axis="data")
     with pytest.raises(ValueError, match="op="):
@@ -230,7 +231,8 @@ def test_comm_schedule_exactly_once_contract():
 
     comm = SyncComm(CommSchedule().psum("a", axis="data")
                     .pmean("b", axis="model").allgather("c", axis="data")
-                    .allgather("d", axis="model"), {"data": 3, "model": 2})
+                    .allgather("d", axis="model"), {"data": 3, "model": 2},
+                    device="cpu")
     assert torch.equal(comm("a", v), v.sum(0))            # (Q, ...)
     assert torch.equal(comm("b", v), v.mean(1))           # (P, ...)
     assert comm("c", v).shape == (2, 3, 4)                # per q: all p
@@ -239,7 +241,8 @@ def test_comm_schedule_exactly_once_contract():
     assert comm.axis_size("data") == 3
     assert comm.axis_index("model").tolist() == [0, 1]
     with pytest.raises(ValueError, match="does not lead with the 3x2 grid"):
-        SyncComm(sched, {"data": 3, "model": 2})("dalpha", v[:2])
+        SyncComm(sched, {"data": 3, "model": 2},
+                 device="cpu")("dalpha", v[:2])
     cache = {}
     assert cached_build(cache, "k", lambda: 1) == 1
     assert cached_build(cache, "k", lambda: 2) == 1
