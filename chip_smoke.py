@@ -49,8 +49,7 @@ JSON; any failure is an exception and a non-zero exit:
                       ``ms`` with the host's launch latency inside, and
                       ``device_ms`` with the call enqueued before the
                       clock starts (the device's time alone); the dense
-                      SDCA epoch at both main-path shapes and on every
-                      cluster size measured for each; and per outer
+                      SDCA epoch at both main-path shapes; and per outer
                       iteration of each solver; peak device memory of the
                       sparse path; Qwen3 prefill and decode step, RWKV6
                       prefill
@@ -64,7 +63,9 @@ four wrappers with two routes count launches per route too, and every
 main-path launch must take the new route: flash attention and RWKV6
 linear attention the tensor-core route (``tc``), the dense SDCA epoch
 (at both of its shapes, the D3CA cells and the serial-SDCA epochs for f*)
-and the sparse SVRG inner loop the cluster route.
+and the sparse SVRG inner loop the cluster route.  The dense SDCA epoch
+also counts its launches per cluster size, which must be 1 CTA a cell for
+each D3CA iteration and 16 for each serial epoch.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi`` gives them, and one JSON object ``{"kernels": [...]}`` with
@@ -164,11 +165,13 @@ SWEEP_TOL = 1e-5         # rtol = atol, as in the unit tests
 MAIN_TOL = 1e-4
 
 # published peaks of one H100 SXM: device memory rate, float32 rate
-# outside the tensor cores (no solver kernel holds a matrix product) and
-# the dense bf16 tensor-core rate (what bounds attention's products)
+# outside the tensor cores (no solver kernel holds a matrix product), the
+# dense bf16 tensor-core rate (what bounds attention's products) and the
+# dense TF32 one (RWKV6 linear attention's products)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 
 # the LM serving paths: the CLI's flags, and the shapes each kernel gets
 QWEN3_ARGV = ["--arch", "qwen3-1.7b", "--requests", "16", "--slots", "8",
@@ -525,19 +528,28 @@ def svrg_sparse_main_inputs(data, w, t=1):
             src.svrg_rows(t)), lo, eta
 
 
-def sdca_launch(args, kw, route, cluster=None):
-    """One sdca_epoch launch on a forced route (and cluster size): the
-    wrapper's private ``_launch``, past its route choice."""
+def sdca_block(args, kw):
+    """One sdca_epoch launch on the block route, which the wrapper no
+    longer takes at these shapes (its private ``_launch``, past its route
+    choice): its sweep stays, as in earlier slices."""
     return sdca_ops._launch(
         *args, lam=kw["lam"], n=kw["n"], Q=kw["Q"],
         loss_id=sdca_ops.check_loss(kw["loss"], "sdca_epoch"),
-        beta=kw.get("beta"), route=route, cluster=cluster)
+        beta=kw.get("beta"), route="block")
 
 
-def sdca_block(args, kw):
-    """The block route, which the wrapper no longer takes at these
-    shapes: its sweep stays, as in earlier slices."""
-    return sdca_launch(args, kw, "block")
+def sdca_cluster_of(fn):
+    """Call ``fn`` (one sdca_epoch call) and return the cluster size its
+    launch took, read from the wrapper's per-size counter."""
+    before = dict(sdca_epoch.launches_by_cluster)
+    out = fn()
+    grew = [g for g, v in sdca_epoch.launches_by_cluster.items()
+            if v != before[g]]
+    if len(grew) != 1 or sdca_epoch.launches_by_cluster[grew[0]] \
+            != before[grew[0]] + 1:
+        raise AssertionError(f"expected one cluster launch: {before} -> "
+                             f"{sdca_epoch.launches_by_cluster}")
+    return grew[0], out
 
 
 def repeated_rows(idx, R=4):
@@ -551,41 +563,42 @@ def repeated_rows(idx, R=4):
     return idx
 
 
+#: the cluster route's sweep: (grid, n_p, m_q, steps) at both cluster
+#: sizes of the wrapper's table -- widths 9, 17 and 3003 on one CTA, 4097
+#: (15 slices of 257 columns and one of 242) and the serial-SDCA width on
+#: 16 -- none of which divides by G * E; step counts below the ring, not
+#: a multiple of it, and (300) enough for 75 turns of the four slots of
+#: the exchange between CTAs
+SDCA_CLUSTER_SWEEP = [((3, 2), 24, 9, 101), ((3, 2), 40, 17, 64),
+                      ((2, 2), 40, 3003, 3), ((1, 2), 40, 3003, 150),
+                      ((2, 2), 40, 4097, 3), ((1, 2), 40, 4097, 150),
+                      ((1, 1), 300, M, 300)]
+
+
 def sdca_cluster_sweep(rng, dev, checks):
-    """The cluster route at every cluster size it is compiled for, forced
-    past the wrapper's table: widths that do not divide by G * E (9, 17,
-    3003; at G = 16 some CTAs of width 9 own no column), masked rows,
-    exact and beta denominators, hinge and squared, repeated indices,
-    step counts not a multiple of the ring (and below it)."""
-    for G in sdca_ops.CLUSTER_SIZES:
-        for (grid, n_p, m_q, steps) in (((3, 2), 24, 9, 101),
-                                        ((3, 2), 40, 17, 64),
-                                        ((2, 2), 40, 3003, 3),
-                                        ((1, 2), 40, 3003, 150)):
-            args = sdca_inputs(rng, *grid, n_p, m_q, steps, dev)
-            args[5] = repeated_rows(args[5])
-            check_index_range(args[5], n_p)
-            if m_q > 1000:
-                args[0] = args[0] / float(np.sqrt(m_q))
-            for loss in ("hinge", "squared"):
-                for beta in (None, float(m_q)):
-                    kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
-                    checks.append(("sdca_epoch", compare(
-                        f"sdca_epoch cluster G={G} {grid}"
-                        f"{(n_p, m_q, steps)} {loss} beta={beta}",
-                        sdca_launch(args, kw, "cluster", G),
-                        sdca_epoch_plain(*args, **kw), SWEEP_TOL)))
-    # the serial-SDCA width on the sizes measured for it
-    args = sdca_inputs(rng, 1, 1, 300, M, 300, dev, masked_tail=3)
-    args[0] = args[0] / float(np.sqrt(M))
-    args[5] = repeated_rows(args[5])
-    for G in (8, 16):
+    """The cluster route through the public wrapper at every cluster
+    size of its table (read from its counter): masked rows, exact and
+    beta denominators, hinge and squared, repeated indices."""
+    seen = set()
+    for (grid, n_p, m_q, steps) in SDCA_CLUSTER_SWEEP:
+        if sdca_route(n_p, m_q, steps) != "cluster":
+            raise AssertionError(f"m_q={m_q} is not a cluster case")
+        args = sdca_inputs(rng, *grid, n_p, m_q, steps, dev, masked_tail=3)
+        args[5] = repeated_rows(args[5])
+        check_index_range(args[5], n_p)
+        if m_q > 1000:
+            args[0] = args[0] / float(np.sqrt(m_q))
         for loss in ("hinge", "squared"):
-            kw = dict(lam=0.2, n=300, Q=1, loss=loss)
-            checks.append(("sdca_epoch", compare(
-                f"sdca_epoch cluster G={G} m={M} {loss}",
-                sdca_launch(args, kw, "cluster", G),
-                sdca_epoch_plain(*args, **kw), SWEEP_TOL)))
+            for beta in (None, float(m_q)):
+                kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
+                G, got = sdca_cluster_of(lambda: sdca_epoch(*args, **kw))
+                seen.add(G)
+                checks.append(("sdca_epoch", compare(
+                    f"sdca_epoch cluster G={G} {grid}{(n_p, m_q, steps)} "
+                    f"{loss} beta={beta}", got,
+                    sdca_epoch_plain(*args, **kw), SWEEP_TOL)))
+    if seen != set(sdca_ops.CLUSTER_SIZES):
+        raise AssertionError(f"the sweep took cluster sizes {sorted(seen)}")
     torch.cuda.synchronize()
 
 
@@ -1015,9 +1028,9 @@ def route_counts(name):
 def reset_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_route"):
-            for r in fn.launches_by_route:
-                fn.launches_by_route[r] = 0
+        for by in ("launches_by_route", "launches_by_cluster"):
+            for r in getattr(fn, by, {}):
+                getattr(fn, by)[r] = 0
 
 
 def run_solver_full(solver: str, expect_dual: bool, sparse: bool = False):
@@ -1196,7 +1209,10 @@ def phase_serve_rwkv6_full():
     return {"rwkv_linattn": 32}
 
 
-#: B1's launches on each dense main path, by shape
+#: B1's main-path shapes by the cluster size their launches take (counted
+#: by the wrapper where it launches): 1 CTA a D3CA cell, 16 a serial epoch
+SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
+#: B1's launches on each main path, by shape
 SDCA_SHAPE_LAUNCHES = {
     "d3ca_full": {"d3ca_cells": OUTER_ITERS, "serial": REF_EPOCHS},
     "radisa_full": {"serial": REF_EPOCHS}}
@@ -1225,14 +1241,19 @@ def run_main_path(name, phase, results):
         results[k]["launches"] += v
         for r, n in route_counts(k).items():
             results[k]["routes"][r] += n
-    # B1 runs at two shapes: the split of its counted launches by the
-    # phase's structure (OUTER_ITERS D3CA iterations, REF_EPOCHS serial
-    # epochs for f*), which must add up to the count
-    split = SDCA_SHAPE_LAUNCHES.get(name, {})
-    if sum(split.values()) != counts["sdca_epoch"]:
-        raise AssertionError(f"{name}: sdca_epoch launches "
-                             f"{counts['sdca_epoch']} != {split}")
-    for shape, n in split.items():
+    # B1 runs at two shapes, told apart by the cluster size each launch
+    # took: OUTER_ITERS D3CA iterations on 1 CTA a cell and REF_EPOCHS
+    # serial epochs for f* on 16
+    by_shape = {SDCA_SHAPE_OF_CLUSTER[g]: v
+                for g, v in sdca_epoch.launches_by_cluster.items()}
+    want = {shape: SDCA_SHAPE_LAUNCHES.get(name, {}).get(shape, 0)
+            for shape in SDCA_SHAPE_OF_CLUSTER.values()}
+    if by_shape != want:
+        raise AssertionError(f"{name}: sdca_epoch launches by shape "
+                             f"{by_shape}, by cluster size "
+                             f"{sdca_epoch.launches_by_cluster}; expected "
+                             f"{want}")
+    for shape, n in by_shape.items():
         results["sdca_epoch"]["shapes"][shape]["launches"] += n
 
 
@@ -1469,9 +1490,9 @@ def serial_timing(X, y, dev):
     """B1 at the serial-SDCA shape: one epoch of the f* reference on the
     whole instance (one cell of 14 000 x 12 000, 14 000 steps, the first
     epoch's state: alpha = 0, w = 0, a random permutation), on the
-    wrapper's route, every cluster size measured for it and the block
-    route, beside the plain version (one call: a 14 000-step Python
-    loop), which the kernel's result is also held against."""
+    wrapper's route and the block route, beside the plain version (one
+    call: a 14 000-step Python loop), which the kernel's result is also
+    held against."""
     n = X.shape[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1485,23 +1506,19 @@ def serial_timing(X, y, dev):
                              "route")
     kern = [both_ms(lambda: sdca_epoch(*args, **kw), reps=5)]
     prev = [both_ms(lambda: sdca_block(args, kw), reps=3)]
-    sizes = {G: both_ms(lambda G=G: sdca_launch(args, kw, "cluster", G),
-                        reps=5) for G in (8, 16)}
     prev.append(both_ms(lambda: sdca_block(args, kw), reps=3))
     kern.append(both_ms(lambda: sdca_epoch(*args, **kw), reps=5))
     t0 = time.perf_counter()
     want = sdca_epoch_plain(*args, **kw)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    err = compare("sdca_epoch serial-SDCA shape", sdca_epoch(*args, **kw),
-                  want, MAIN_TOL, relative_to_max=True)
+    G, got = sdca_cluster_of(lambda: sdca_epoch(*args, **kw))
+    err = compare("sdca_epoch serial-SDCA shape", got, want, MAIN_TOL,
+                  relative_to_max=True)
     return {**medians(kern, "ms"), "plain_ms": plain_ms,
             "plain_clock": "host, one call", "max_abs_err": err,
             "prev_route": "block", **medians(prev, "prev_route_ms"),
-            "cluster": sdca_ops.sdca_cluster_size(M),
-            "cluster_sizes": {G: {"ms": v[0], "device_ms": v[1]}
-                              for G, v in sizes.items()},
-            **bounds("sdca_epoch", args, M, 6),
+            "cluster": G, **bounds("sdca_epoch", args, M, 6),
             "shape": {"cells": 1, "n_p": n, "m_q": M, "steps": n}}
 
 
@@ -1515,8 +1532,7 @@ def phase_timing(dev, results):
     vkw = dict(lam=LAM, eta=eta, loss="hinge", lo=lo)
 
     # plain, kernel, kernel, plain -- on one card, in one process; between
-    # them the block route (the main path's before this slice) and every
-    # cluster size measured for the shape
+    # them the block route (the main path's before this slice)
     plain_s = [cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3)]
     kern_s = [both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7)]
     prev_s = [both_ms(lambda: sdca_block(sargs, skw), reps=5)]
@@ -1524,8 +1540,6 @@ def phase_timing(dev, results):
     kern_v = [both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7)]
     kern_v.append(both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7))
     plain_v.append(cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3))
-    sizes = {G: both_ms(lambda G=G: sdca_launch(sargs, skw, "cluster", G),
-                        reps=5) for G in (1, 2, 4)}
     prev_s.append(both_ms(lambda: sdca_block(sargs, skw), reps=5))
     kern_s.append(both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7))
     plain_s.append(cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3))
@@ -1534,9 +1548,8 @@ def phase_timing(dev, results):
     # SVRG: subtract + dot (3) + update (6)
     cells = {**medians(kern_s, "ms"), "plain_ms": statistics.median(plain_s),
              "prev_route": "block", **medians(prev_s, "prev_route_ms"),
-             "cluster": sdca_ops.sdca_cluster_size(data.m_q),
-             "cluster_sizes": {G: {"ms": v[0], "device_ms": v[1]}
-                               for G, v in sizes.items()},
+             "cluster": sdca_cluster_of(
+                 lambda: sdca_epoch(*sargs, **skw))[0],
              **bounds("sdca_epoch", sargs, data.m_q, 6),
              "shape": {"cells": P * Q, "n_p": data.n_p, "m_q": data.m_q,
                        "steps": data.n_p}}
@@ -1648,24 +1661,35 @@ def flash_bound(B, S, H, KV, D, nbytes_el):
             "bytes_moved": nbytes, "flops": flops}
 
 
-def linattn_bound(BH, S, D, C=64):
-    """Least time of one chunked linear attention call: r, k, v, logw read
-    once, out and the state written once; operations of the chunked form
-    per chunk of c tokens -- scores c (c - 1) / 2 D (an exp, a multiply
-    and an FMA each: 4), r.S0 and the state update 2 c D^2 each, scores
-    times v c (c - 1) D, the bonus 4 c D, the decays 4 c D, the state
-    decay D^2 -- at the float32 peak."""
+def linattn_bound(BH, S, D, C=64, sub=16):
+    """Least time of one chunked linear attention call, for the work of
+    the tensor-core route: r, k, v, logw read once, out and the state
+    written once.  Per chunk of c tokens in sub-chunks of ``sub``: on the
+    tensor cores, as three TF32 products each (3xTF32: a third of the
+    TF32 peak), r.S0 and the state update 2 c D^2 each, scores times v
+    c (c - 1) D, and the scores of token pairs in different sub-chunks
+    2 D each; on the CUDA cores at the float32 peak, the scores of pairs
+    within a sub-chunk (an exp, a multiply and an FMA a channel: 4 D),
+    the bonus 4 c D, the decays 4 c D and the state decay D^2.  The two
+    kinds of core run at once, so the operations take the longer of
+    their two times."""
     nbytes = 4 * (5 * BH * S * D + BH * D * D)
-    flops = 0
+    tc_flops = simt_flops = 0
     for t0 in range(0, S, C):
         c = min(C, S - t0)
-        flops += (2 * c * (c - 1) * D + 4 * c * D * D + c * (c - 1) * D
-                  + 8 * c * D + D * D)
-    flops *= BH
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+        pairs = c * (c - 1) // 2
+        diag = sum(b * (b - 1) // 2
+                   for b in (min(sub, c - s) for s in range(0, c, sub)))
+        tc_flops += 4 * c * D * D + 2 * pairs * D + 2 * (pairs - diag) * D
+        simt_flops += 4 * diag * D + 8 * c * D + D * D
+    tc_flops *= BH
+    simt_flops *= BH
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(3 * tc_flops / PEAK_TF32_FLOPS, simt_flops / PEAK_F32_FLOPS)
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_moved": nbytes, "flops": flops}
+            "bytes_moved": nbytes, "flops": tc_flops + simt_flops,
+            "tensor_core_flops": tc_flops}
 
 
 def device_busy(fn, reps=3):

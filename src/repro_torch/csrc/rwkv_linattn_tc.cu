@@ -18,11 +18,14 @@
 //   S     = diag(e^{la_63}) S0 + sum_i (k_i e^{la_63 - la_i})^T v_i
 //
 // What bounds it on this card: at B 8, H 40, S 512 it reads 168 MB and
-// does ~4.8 GFLOP (0.05 ms of bytes, 0.07 ms at the float32 rate of the
-// CUDA cores), so operations bound it -- and the CUDA-core kernel spent
-// them as FMAs whose both operands came from shared memory, with a full
-// expf for each of the C^2 D / 2 pairwise score terms, one 117 KB CTA an
-// SM (three waves of 320 rows on 132 SMs).
+// writes 47 MB, 0.064 ms at the memory rate.  Done as below, its 3.8
+// GFLOP of matrix products take 0.023 ms at the 3xTF32 rate (a third of
+// the TF32 peak) and its 0.4 GFLOP on the CUDA cores 0.006 ms, so the
+// bytes bound it.  The CUDA-core kernel did all 4.8 GFLOP of its form as
+// FMAs whose both operands came from shared memory (0.07 ms at the
+// float32 rate alone), with a full expf for each of the C^2 D / 2
+// pairwise score terms, one 117 KB CTA an SM (three waves of 320 rows on
+// 132 SMs).
 //
 // What the design does about it:
 //   * the three matrix terms run on the tensor cores as mma.sync m16n8k8

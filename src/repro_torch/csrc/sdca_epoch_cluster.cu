@@ -20,9 +20,10 @@
 // and, at the serial shape, the rate at which one SM can pull its rows.
 //
 // What the design does about it:
-//   * one cluster of G CTAs per cell (G = 1, 2, 4, 8, 16, chosen by the
-//     wrapper from m_q alone): CTA `rank` owns a slice of ceil(m_q / G)
-//     columns, so a serial epoch's rows stream through G SMs;
+//   * one cluster of G CTAs per cell (G = 1 or 16, chosen by the wrapper
+//     from m_q alone; on the card G = 1 beat 2 and 4 at the D3CA cells, and
+//     16 beat 8 at the serial shape): CTA `rank` owns a slice of
+//     ceil(m_q / G) columns, so a serial epoch's rows stream through G SMs;
 //   * w lives in registers for the whole epoch: thread t of 128 owns
 //     columns t, t + 128, ... of the slice (E of them, a template
 //     parameter), and writes them to w_out once, at the end;
@@ -50,7 +51,7 @@
 //     x_k . w_k = x_k . w_{k-1} + c_{k-1} (x_k . x_{k-1}), the sums of step
 //     k + 1 (x_{k+1} . w_k, x_{k+1} . x_k, ||x_{k+1}||^2) are sent during
 //     step k, before the CTA waits for those of step k, so a round trip
-//     overlaps a step's work;
+//     overlaps a step's work (four rounds rotate through four slots);
 //   * the epoch's dual deltas live in shared memory (n_p floats, a copy
 //     in every CTA, identical because d is); thread 0 reads the current
 //     value of the step's row before the barrier and writes the new one
@@ -73,6 +74,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRing = 8;             // row slots: step h + 7 requested at h
 constexpr int kMaxCluster = 16;
+constexpr int kPeerSlots = 4;     // rounds of the exchange in flight
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   __pipeline_memcpy_async(dst, src, 4);
@@ -125,8 +127,9 @@ __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(
   float* scal = ring + kRing * kSlot;              // [2 kRing][4] y, mask, alpha0
   __shared__ __align__(8) unsigned long long rbar[kRing];  // slot landed
   __shared__ float red[2][3 * kWarps + 1];         // step parity: partials, dual
-  __shared__ __align__(16) float part[3][kMaxCluster][4];  // rounds: peers' sums
-  __shared__ __align__(8) unsigned long long pbar[3];
+  // rounds of the exchange: every peer's sums, by rank
+  __shared__ __align__(16) float part[kPeerSlots][kMaxCluster][4];
+  __shared__ __align__(8) unsigned long long pbar[kPeerSlots];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -169,7 +172,8 @@ __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(
   if (tid == 0) {
     for (int sl = 0; sl < kRing; ++sl) rt::cl_mbar_init(rt::smem_addr(&rbar[sl]));
     if (G > 1)
-      for (int r = 0; r < 3; ++r) rt::cl_mbar_init(rt::smem_addr(&pbar[r]));
+      for (int r = 0; r < kPeerSlots; ++r)
+        rt::cl_mbar_init(rt::smem_addr(&pbar[r]));
     rt::cl_mbar_fence_init();
   }
   __pipeline_wait_prior(0);
@@ -299,16 +303,20 @@ __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(
     // x_k . w_{k-1}, x_k . x_{k-1} and ||x_k||^2, which need only w_{k-1}:
     // each CTA sends round k + 1 during step k, before it waits for round
     // k (sent a step earlier), and the round trip overlaps a step's work.
-    // Three slots and mbarriers per CTA: a CTA sends round r + 3 only
-    // after receiving every peer's round r + 2, which each peer sends after
-    // it has read round r.
+    // Rounds rotate through kPeerSlots = 4 slots and mbarriers per CTA.  A
+    // CTA sends round r + 4 (into the slot of round r) during step r + 3,
+    // after it has received every peer's round r + 1 during step r; a peer
+    // sends round r + 1 during step r only after it has read round r
+    // (step r - 1 ended), so no peer's round r is overwritten before it is
+    // read.  (With three slots a CTA would wait for round r + 1 only when
+    // it sends round r + 3, which a peer may send before reading round r.)
     auto send = [&](int r, float a, float b, float q) {
       if (warp == 0 && lane < G) {
-        const uint32_t bar = rt::smem_addr(&pbar[r % 3]);
+        const uint32_t bar = rt::smem_addr(&pbar[r % kPeerSlots]);
         if (lane == 0) rt::cl_mbar_expect(bar, 12 * G);
         const uint32_t pb = rt::peer_addr(bar, lane);
-        const uint32_t slot = rt::peer_addr(rt::smem_addr(part[r % 3][rank]),
-                                            lane);
+        const uint32_t slot = rt::peer_addr(
+            rt::smem_addr(part[r % kPeerSlots][rank]), lane);
         rt::st_async_peer(slot, a, pb);
         rt::st_async_peer(slot + 4, b, pb);
         rt::st_async_peer(slot + 8, q, pb);
@@ -389,10 +397,11 @@ __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(
       cta_sum(h & 1, a, b, q, dal_i);   // round h + 1 over this CTA
       if (ahead) send(h + 1, a, b, q);
       // round h: the G slice sums, in rank order
-      rt::cl_mbar_wait(rt::smem_addr(&pbar[h % 3]), (h / 3) & 1);
+      rt::cl_mbar_wait(rt::smem_addr(&pbar[h % kPeerSlots]),
+                       (h / kPeerSlots) & 1);
       float sa = 0.f, sb = 0.f, sq = 0.f;
       for (int g = 0; g < G; ++g) {
-        const float4 v = *reinterpret_cast<const float4*>(part[h % 3][g]);
+        const float4 v = *reinterpret_cast<const float4*>(part[h % kPeerSlots][g]);
         sa += v.x;
         sb += v.y;
         sq += v.z;
@@ -493,7 +502,7 @@ int launch_loss(const float* x, const float* y, const float* mask,
 // sdca_epoch_launch's (csrc/sdca_epoch.cu), but dalpha need not be
 // zeroed.  The caller (kernels/sdca/ops.py) owns the geometry, which the
 // launch refuses unless the kernel is compiled for it: `cluster` CTAs of
-// `threads` threads per cell (1, 2, 4, 8 or 16; 128), `per_thread`
+// `threads` threads per cell (1 or 16; 128), `per_thread`
 // columns a thread (4, 6, 8, 12, 16, 24 or 32), `slice` columns a CTA (at
 // least ceil(m_q / cluster), at most threads * per_thread) and `smem`
 // bytes of dynamic shared memory a CTA, at least the kernel's layout:
@@ -508,8 +517,7 @@ extern "C" int sdca_epoch_cluster_launch(
     const float* cell_params, int loss,
     int cluster, int threads, int per_thread, int slice, int smem,
     void* stream) {
-  const bool g_ok = cluster == 1 || cluster == 2 || cluster == 4 ||
-                    cluster == 8 || cluster == kMaxCluster;
+  const bool g_ok = cluster == 1 || cluster == kMaxCluster;
   if (P < 1 || Q < 1 || n_p < 1 || m_q < 1 || steps < 0 || !g_ok ||
       threads != kThreads || slice < 1 ||
       static_cast<long long>(slice) * cluster < m_q || smem < 0 ||

@@ -24,7 +24,7 @@ ROUTES = ("cluster", "block")
 #: refuses any other than the kernel is compiled for: the cluster sizes,
 #: threads of a CTA, the columns of w a thread may hold in registers, and
 #: the rows in flight (slots of the shared-memory ring)
-CLUSTER_SIZES = (1, 2, 4, 8, 16)
+CLUSTER_SIZES = (1, 16)
 CLUSTER_THREADS = 128
 CLUSTER_PER_THREAD = (4, 6, 8, 12, 16, 24, 32)
 CLUSTER_RING = 8
@@ -32,7 +32,7 @@ CLUSTER_MAX_SLICE = CLUSTER_THREADS * CLUSTER_PER_THREAD[-1]
 #: (widest m_q, CTAs per cell), first match: rows up to 4096 columns stay
 #: on one CTA (no exchange between CTAs: at the D3CA cells' 3003 columns
 #: one CTA beat 2 and 4 on the card); wider rows are cut over 16, which
-#: beat 8 at the serial-SDCA epochs' 12 000 columns
+#: beat 8 at the serial-SDCA epochs' 12 000 columns (PERF.md)
 CLUSTER_TABLE = ((CLUSTER_MAX_SLICE, 1), (16 * CLUSTER_MAX_SLICE, 16))
 
 
@@ -45,10 +45,9 @@ def sdca_cluster_size(m_q: int) -> int:
     return CLUSTER_TABLE[-1][1]
 
 
-def sdca_cluster_slice(m_q: int, cluster: int | None = None) -> int:
+def sdca_cluster_slice(m_q: int) -> int:
     """Columns of w one CTA of the cluster route owns."""
-    g = sdca_cluster_size(m_q) if cluster is None else cluster
-    return max(1, -(-m_q // g))
+    return max(1, -(-m_q // sdca_cluster_size(m_q)))
 
 
 def sdca_cluster_per_thread(slice_: int) -> int:
@@ -141,16 +140,17 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
-#: in all and per route
+#: in all, per route, and per cluster size of the cluster route
 sdca_epoch.launches = 0
 sdca_epoch.launches_by_route = dict.fromkeys(ROUTES, 0)
+sdca_epoch.launches_by_cluster = dict.fromkeys(CLUSTER_SIZES, 0)
 
 
 def _launch(x, y, mask, alpha0, w0, idx, *, lam, n, Q, loss_id, beta,
-            route, cluster=None):
-    """Launch one route.  ``cluster`` overrides the cluster size of the
-    table; only ``chip_smoke.py`` passes it (and ``route="block"`` at a
-    main-path shape), to time the sizes and the route they replaced."""
+            route):
+    """Launch one route.  Only ``chip_smoke.py`` calls it directly, with
+    ``route="block"`` at a main-path shape, to time the route the cluster
+    route replaced."""
     P, Qc, n_p, m_q = x.shape
     if route not in ROUTES:
         raise ValueError(f"unknown sdca_epoch route {route!r}")
@@ -168,8 +168,8 @@ def _launch(x, y, mask, alpha0, w0, idx, *, lam, n, Q, loss_id, beta,
                 alpha0.data_ptr(), w0.data_ptr(), idx.data_ptr(),
                 dalpha.data_ptr(), w_fin.data_ptr())
         if route == "cluster":
-            g = sdca_cluster_size(m_q) if cluster is None else cluster
-            sl = sdca_cluster_slice(m_q, g)
+            g = sdca_cluster_size(m_q)
+            sl = sdca_cluster_slice(m_q)
             e = sdca_cluster_per_thread(sl)
             code = lib.sdca_epoch_cluster_launch(
                 *ptrs, P, Qc, n_p, m_q, idx.shape[1], *scalars, None,
@@ -182,4 +182,6 @@ def _launch(x, y, mask, alpha0, w0, idx, *, lam, n, Q, loss_id, beta,
     _build.check_launch(lib, code, f"sdca_epoch ({route})")
     sdca_epoch.launches += 1
     sdca_epoch.launches_by_route[route] += 1
+    if route == "cluster":
+        sdca_epoch.launches_by_cluster[g] += 1
     return dalpha, w_fin

@@ -290,7 +290,7 @@ def test_sdca_cluster_geometry_covers_the_row(m_q):
     g = sdca_ops.sdca_cluster_size(m_q)
     assert g in sdca_ops.CLUSTER_SIZES
     sl = sdca_ops.sdca_cluster_slice(m_q)
-    assert sl == sdca_ops.sdca_cluster_slice(m_q, g)
+    assert sl == -(-m_q // g)
     assert (sl - 1) * g < m_q <= sl * g
     assert sl <= SDCA_MAX_SLICE
     e = sdca_ops.sdca_cluster_per_thread(sl)
@@ -361,7 +361,8 @@ def test_sdca_cluster_launch_checks_its_route():
 
 def test_sdca_cpu_calls_count_no_launch_on_either_route():
     rng = np.random.default_rng(3)
-    before = (sdca_epoch.launches, dict(sdca_epoch.launches_by_route))
+    before = (sdca_epoch.launches, dict(sdca_epoch.launches_by_route),
+              dict(sdca_epoch.launches_by_cluster))
     for n_p, m_q in ((12, 9), (_rows_at_smem_limit(2, 6) + 1, 2)):
         assert sdca_route(n_p, m_q, 6) == ("cluster" if n_p == 12
                                            else "block")
@@ -369,8 +370,10 @@ def test_sdca_cpu_calls_count_no_launch_on_either_route():
         da, w = sdca_epoch(*map(torch.from_numpy, args), lam=0.2, n=200,
                            Q=1)
         assert da.shape == (n_p,) and w.shape == (m_q,)
-    assert (sdca_epoch.launches, sdca_epoch.launches_by_route) == before
+    assert (sdca_epoch.launches, sdca_epoch.launches_by_route,
+            sdca_epoch.launches_by_cluster) == before
     assert set(before[1]) == {"cluster", "block"}
+    assert set(before[2]) == set(sdca_ops.CLUSTER_SIZES)
 
 
 # ---------------------------------------------------------------------------
