@@ -22,8 +22,13 @@ JSON; any failure is an exception and a non-zero exit:
   kernels             each kernel, on every route of its wrapper, against
                       its plain PyTorch version ON THE CARD, over the shape
                       sweep of the unit tests, the edge cases of each route
-                      and the main-path shape -- the first call to make
-                      after touching a ``.cu`` file (``--phases kernels``)
+                      and the main-path shape, and every solver route
+                      with a tenant axis (T = 1 and 3, a distinct lambda in
+                      every cell; T = 1 bitwise the scalar launch), and
+                      each solver kernel at the fleets' main-path shape
+                      (T tenants' cells in one launch) -- the first call
+                      to make after touching a ``.cu`` file (``--phases
+                      kernels``)
   d3ca_full           ``repro_torch.launch.optimize.main`` -- D3CA, dense
   radisa_full         the same with RADiSA
   d3ca_sparse_full    D3CA, ``--block-format sparse`` on the news20 profile
@@ -37,6 +42,18 @@ JSON; any failure is an exception and a non-zero exit:
                       recurrent mixer and the static loop runs 8 prompts of
                       512 tokens; every prefill time mix is the linear
                       attention kernel
+  fleet_dense_full    ``repro_torch.launch.fleet`` (``main``'s ``parse_args``
+                      and ``run``) -- 4 tenants of the dense instance
+                      (seeds 0-3, lambda 1e-2 * 0.5^(t mod 3)) with D3CA,
+                      RADiSA and ADMM (rho = lambda): one launch of each
+                      solver kernel per outer step for all tenants; every
+                      tenant within 1e-6 of its solo solve on the card
+                      (relative to the largest entry; the solo solves run
+                      before the launch counts go to 0)
+  fleet_sparse_full   the same with 2 news20-profile tenants, D3CA and
+                      RADiSA
+  admm_full           ``optimize.main --solver admm`` on the dense
+                      instance: no kernel launch
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       Qwen3 / RWKV6: port on the card (kernels) vs port on
                       the CPU, in float32, and a reduced Qwen3 prefill in
@@ -49,8 +66,12 @@ JSON; any failure is an exception and a non-zero exit:
                       ``ms`` with the host's launch latency inside, and
                       ``device_ms`` with the call enqueued before the
                       clock starts (the device's time alone); the dense
-                      SDCA epoch at both main-path shapes; and per outer
-                      iteration of each solver; peak device memory of the
+                      SDCA epoch at both main-path shapes, each solver
+                      kernel at the fleets' T tenants; and per outer
+                      iteration of each solver and each fleet (beside T x
+                      the solo's, with the device's busy time and idle
+                      share in a step, and solves per second); peak
+                      device memory of the
                       sparse path; Qwen3 prefill and decode step, RWKV6
                       prefill
 
@@ -117,6 +138,7 @@ from repro_torch.data import (csr_from_dense,  # noqa: E402
 from repro_torch.kernels.sdca import (sdca_epoch,  # noqa: E402
                                       sdca_epoch_plain, sdca_epoch_sparse,
                                       sdca_epoch_sparse_plain, sdca_route)
+from repro_torch.kernels._launch import tenant_axes  # noqa: E402
 from repro_torch.kernels.sdca import ops as sdca_ops  # noqa: E402
 from repro_torch.kernels.flash import (flash_attention,  # noqa: E402
                                        flash_attention_plain, flash_route)
@@ -129,6 +151,8 @@ from repro_torch.kernels.svrg import (svrg_inner,  # noqa: E402
                                       svrg_inner_sparse_plain,
                                       svrg_sparse_route)
 from repro_torch.kernels.svrg import sparse as svrg_sparse  # noqa: E402
+from repro_torch.fleet import FleetSolver, solo_config  # noqa: E402
+from repro_torch.launch import fleet as fleet_cli  # noqa: E402
 from repro_torch.launch import optimize  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Transformer, reduced  # noqa: E402
@@ -138,7 +162,8 @@ from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
 
 MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
-              "serve_rwkv6_full")
+              "serve_rwkv6_full", "fleet_dense_full", "fleet_sparse_full",
+              "admm_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -153,6 +178,14 @@ N20, M20, DENS20, LAM20 = (NEWS20["n"], NEWS20["m"], NEWS20["density"],
                            NEWS20["lam"])
 # the sparse path never forms a dense block grid (that would be 108 GB)
 SPARSE_PEAK_LIMIT = 2e9
+
+# the fleets: T tenants of the dense Part 1 instance (tenant t: seed t,
+# lambda = LAM * 0.5 ** (t % 3)) and of the news20 profile (LAM20 * 0.5 **
+# t); every tenant's final iterates are held against its solo solve of the
+# same seed on the card, relative to the largest entry
+FLEET_T_DENSE = 4
+FLEET_T_SPARSE = 2
+FLEET_TOL = 1e-6
 
 SWEEP_TOL = 1e-5         # rtol = atol, as in the unit tests
 # At the main-path shape a launch chains 2000 dependent steps and the kernel
@@ -232,6 +265,10 @@ WRAPPERS = {"sdca_epoch": sdca_epoch, "svrg_inner": svrg_inner,
             "svrg_inner_sparse": svrg_inner_sparse,
             "flash_attention": flash_attention,
             "rwkv_linattn": rwkv_linattn}
+#: the solver kernels' plain versions
+PLAINS = {"sdca_epoch": sdca_epoch_plain, "svrg_inner": svrg_inner_plain,
+          "sdca_epoch_sparse": sdca_epoch_sparse_plain,
+          "svrg_inner_sparse": svrg_inner_sparse_plain}
 #: the route every main-path launch of a two-route wrapper must take
 MAIN_ROUTES = {"flash_attention": "tc", "svrg_inner_sparse": "cluster",
                "sdca_epoch": "cluster", "rwkv_linattn": "tc"}
@@ -507,10 +544,10 @@ def news20_state(data):
     return alpha.contiguous(), w.contiguous()
 
 
-def sdca_sparse_main_inputs(data, alpha, w):
+def sdca_sparse_main_inputs(data, alpha, w, t=1):
     src = GeneratorIndexSource(0, P=P, Q=Q, n_p=data.n_p, device=data.device)
     return (data.cols, data.vals, data.y_blocks, data.mask, alpha, w,
-            src.sdca_rows(1))
+            src.sdca_rows(t))
 
 
 def svrg_sparse_main_inputs(data, w, t=1):
@@ -600,6 +637,268 @@ def sdca_cluster_sweep(rng, dev, checks):
     if seen != set(sdca_ops.CLUSTER_SIZES):
         raise AssertionError(f"the sweep took cluster sizes {sorted(seen)}")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the tenant axis: T problems of one shape in one launch, a distinct lam in
+# every cell (the fleet's runtime branch of the four solver kernels)
+# ---------------------------------------------------------------------------
+
+def stack_tenants(name, per_tenant):
+    """T argument lists of one kernel (each a problem of the same shape)
+    -> one list with the tenant axis (``kernels._launch.TENANT_AXES``),
+    contiguous."""
+    return [torch.stack(arrs, dim=ax).contiguous()
+            for arrs, ax in zip(zip(*per_tenant), tenant_axes(name))]
+
+
+def drop_tenant(name, args):
+    """The T = 1 arguments without their tenant axis."""
+    return [a.squeeze(ax).contiguous()
+            for a, ax in zip(args, tenant_axes(name))]
+
+
+def one_launch(name, fn):
+    """``fn()`` must make exactly one launch of ``name``, whatever T."""
+    before = WRAPPERS[name].launches
+    out = fn()
+    if WRAPPERS[name].launches != before + 1:
+        raise AssertionError(f"{name}: {WRAPPERS[name].launches - before} "
+                             "launches for one call")
+    return out
+
+
+def cell_scalars(rng, lead, lo, hi, dev):
+    return torch.from_numpy(rng.uniform(lo, hi, lead).astype(np.float32)
+                            ).to(dev)
+
+
+def tenant_case(rng, dev, checks, name, label, make, call, plain, kw_of):
+    """One route of one solver kernel at T = 1 and T = 3, a distinct lam
+    (and beta) in every cell, against its plain version; at T = 1 the
+    launch with per-cell scalars (all equal) must also give bitwise the
+    output of the scalar launch of the same arguments without a tenant
+    axis."""
+    for T in (1, 3):
+        per = [make() for _ in range(T)]
+        lo = None
+        if isinstance(per[0], tuple):            # SVRG: (args, lo)
+            lo = torch.stack([p[1] for p in per], dim=1).contiguous()
+            per = [p[0] for p in per]
+        args = stack_tenants(name, per)
+        lead = tuple(args[0].shape[:3])
+        for kw in kw_of(lead):
+            kw = dict(kw, **({} if lo is None else {"lo": lo}))
+            got = one_launch(name, lambda: call(args, kw))
+            want = plain(*args, **kw)
+            got, want = ((got,), (want,)) if torch.is_tensor(got) \
+                else (got, want)
+            checks.append((name, compare(
+                f"{name} {label} T={T} per-cell lam {tuple(args[0].shape)} "
+                f"{kw.get('loss')} beta={kw.get('beta') is not None}",
+                got, want, SWEEP_TOL)))
+            if T != 1:
+                continue
+            same = {k: (torch.full(lead, float(v.flatten()[0]), device=dev)
+                        if torch.is_tensor(v) and v.dtype == torch.float32
+                        and k != "lo" else v) for k, v in kw.items()}
+            scal = {k: (float(v.flatten()[0]) if torch.is_tensor(v)
+                        and v.dtype == torch.float32 and k != "lo" else v)
+                    for k, v in kw.items()}
+            if lo is not None:
+                scal["lo"] = lo[:, 0].contiguous()
+            per_cell = call(args, same)
+            scalar = call(drop_tenant(name, args), scal)
+            per_cell = (per_cell,) if torch.is_tensor(per_cell) else per_cell
+            scalar = (scalar,) if torch.is_tensor(scalar) else scalar
+            for a, b in zip(per_cell, scalar):
+                if not torch.equal(a[:, :, 0], b):
+                    raise AssertionError(
+                        f"{name} {label}: T = 1 with per-cell scalars is "
+                        "not bitwise the scalar launch")
+
+
+def tenant_kernel_checks(rng, dev, checks):
+    """Every route of the four solver kernels with a tenant axis (T = 1
+    and 3) and a distinct lam -- and, for SDCA, beta -- in every cell:
+    B1 block (forced past the wrapper's route choice, as its sweep above)
+    and cluster at both cluster sizes, B2, B3, B4 block (forced) and
+    cluster.  The counters must see one launch a call."""
+    def sdca_kw(loss_beta):
+        def kws(lead):
+            out = []
+            for loss, beta in loss_beta:
+                kw = dict(lam=cell_scalars(rng, lead, 0.05, 0.5, dev),
+                          n=cell_scalars(rng, lead, 150, 250, dev), Q=3,
+                          loss=loss)
+                if beta is not None:
+                    kw["beta"] = cell_scalars(rng, lead, 0.8 * beta,
+                                              1.2 * beta, dev)
+                out.append(kw)
+            return out
+        return kws
+
+    def svrg_kw(lead):
+        return [dict(lam=cell_scalars(rng, lead, 0.05, 0.3, dev),
+                     eta=cell_scalars(rng, lead, 0.01, 0.04, dev), loss=loss)
+                for loss in ("hinge", "squared")]
+
+    def sdca_call(route=None):
+        def call(args, kw):
+            if route == "block":
+                return sdca_block(args, kw)
+            return sdca_epoch(*args, **kw)
+        return call
+
+    for label, (grid, n_p, m_q, steps), G in (
+            ("cluster G=1", ((3, 2), 24, 17, 64), 1),
+            ("cluster G=16", ((1, 2), 40, 4097, 150), 16),
+            ("block", ((3, 2), 17, 9, 33), None)):
+        if G is not None and (sdca_route(n_p, m_q, steps) != "cluster" or
+                              sdca_ops.sdca_cluster_size(m_q) != G):
+            raise AssertionError(f"{m_q} columns are not a G={G} case")
+
+        def make(grid=grid, n_p=n_p, m_q=m_q, steps=steps):
+            args = sdca_inputs(rng, *grid, n_p, m_q, steps, dev)
+            if m_q > 1000:
+                args[0] = args[0] / float(np.sqrt(m_q))
+            args[5] = repeated_rows(args[5])
+            return args
+        before = dict(sdca_epoch.launches_by_cluster)
+        tenant_case(rng, dev, checks, "sdca_epoch", label, make,
+                    sdca_call("block" if G is None else None),
+                    sdca_epoch_plain,
+                    sdca_kw([("hinge", None), ("squared", None),
+                             ("hinge", float(m_q))]))
+        if G is not None and sdca_epoch.launches_by_cluster[G] == before[G]:
+            raise AssertionError(f"no sdca_epoch launch at G={G}")
+
+    tenant_case(rng, dev, checks, "svrg_inner", "block",
+                lambda: svrg_inputs(rng, 3, 2, 13, 15, 5, 11, dev,
+                                    lo=[5, 10, 1]),
+                lambda args, kw: svrg_inner(*args, **kw), svrg_inner_plain,
+                svrg_kw)
+    tenant_case(rng, dev, checks, "sdca_epoch_sparse", "block",
+                lambda: sdca_sparse_inputs(rng, 3, 2, 17, 9, 7, 33, dev,
+                                           zero_cell=(1, 1)),
+                lambda args, kw: sdca_epoch_sparse(*args, **kw),
+                sdca_epoch_sparse_plain,
+                sdca_kw([("hinge", None), ("squared", None),
+                         ("hinge", 7.0)]))
+    n_p, m_q, m_sub, k, L, los = SVRG_CLUSTER_SWEEP[2]
+    if svrg_sparse_route(m_sub, k) != "cluster":
+        raise AssertionError("the tenant case is not on the cluster route")
+    tenant_case(rng, dev, checks, "svrg_inner_sparse", "cluster",
+                lambda: svrg_cluster_inputs(rng, 3, 2, n_p, m_q, m_sub, k,
+                                            L, dev, los),
+                lambda args, kw: svrg_inner_sparse(*args, **kw),
+                svrg_inner_sparse_plain, svrg_kw)
+
+    def sparse_block(args, kw):
+        kw = dict(kw)
+        lo = kw.pop("lo", None)
+        return svrg_sparse._launch(*args, lo, loss_id=0 if kw.pop("loss")
+                                   == "hinge" else 1, route="block", **kw)
+    tenant_case(rng, dev, checks, "svrg_inner_sparse", "block",
+                lambda: svrg_sparse_inputs(rng, 3, 2, 13, 15, 5, 5, 11, dev,
+                                           lo=[5, 10, 1], zero_cell=(2, 0)),
+                sparse_block, svrg_inner_sparse_plain, svrg_kw)
+    torch.cuda.synchronize()
+
+
+def fleet_lams(base, T):
+    """The fleets' per-tenant lambda: ``base * 0.5 ** (t % 3)``."""
+    return [base * 0.5 ** (t % 3) for t in range(T)]
+
+
+def dense_tenants(data, alpha, w, T):
+    """B1's and B2's main-path inputs for T tenants of the dense instance,
+    as a fleet hands them over: tenant t at ``fleet_lams(LAM, T)[t]``
+    with its primal image scaled to that lambda, its own coordinate
+    orders and window offsets (outer iteration 1 + t of the seed-0
+    source), lambda (and n) as per-tenant (T,) tensors.  Per kernel:
+    (per-tenant argument lists, per-tenant lo or None, keywords)."""
+    lams = fleet_lams(LAM, T)
+    dev = data.device
+    src = GeneratorIndexSource(0, P=P, Q=Q, n_p=data.n_p, device=dev)
+    lam_t = torch.tensor(lams, device=dev)
+    sdca = [(data.x_blocks, data.y_blocks, data.mask, alpha, w * (LAM / lam),
+             src.sdca_rows(1 + t)) for t, lam in enumerate(lams)]
+    svrg = [svrg_main_inputs(data, w * (LAM / lam), t=1 + t)
+            for t, lam in enumerate(lams)]
+    return {
+        "sdca_epoch": (sdca, None, dict(
+            lam=lam_t, n=torch.full((T,), float(N), device=dev), Q=Q,
+            loss="hinge")),
+        "svrg_inner": ([a for a, _, _ in svrg], [lo for _, lo, _ in svrg],
+                       dict(lam=lam_t, eta=svrg[0][2], loss="hinge"))}
+
+
+def sparse_tenants(sp, alpha, w, T):
+    """B3's and B4's main-path inputs for T news20 tenants, as
+    :func:`dense_tenants` makes B1's and B2's."""
+    lams = fleet_lams(LAM20, T)
+    dev = sp.device
+    lam_t = torch.tensor(lams, device=dev)
+    sdca = [sdca_sparse_main_inputs(sp, alpha, w * (LAM20 / lam), t=1 + t)
+            for t, lam in enumerate(lams)]
+    svrg = [svrg_sparse_main_inputs(sp, w * (LAM20 / lam), t=1 + t)
+            for t, lam in enumerate(lams)]
+    return {
+        "sdca_epoch_sparse": (sdca, None, dict(
+            lam=lam_t, n=torch.full((T,), float(N20), device=dev), Q=Q,
+            loss="hinge")),
+        "svrg_inner_sparse": ([a for a, _, _ in svrg],
+                              [lo for _, lo, _ in svrg],
+                              dict(lam=lam_t, eta=svrg[0][2], loss="hinge"))}
+
+
+def stacked(name, per, los, kw):
+    """One launch's arguments and keywords from :func:`dense_tenants` /
+    :func:`sparse_tenants`: the tenants stacked on their tenant axes."""
+    kw = dict(kw)
+    if los is not None:
+        kw["lo"] = torch.stack(los, dim=tenant_axes(name)[-1]).contiguous()
+    return stack_tenants(name, per), kw
+
+
+#: the route each solver kernel's fleet launches take at the main path's
+#: shapes (and, for B1, the cluster size)
+FLEET_ROUTES = {"sdca_epoch": ("cluster", 1), "svrg_inner": ("block", None),
+                "sdca_epoch_sparse": ("block", None),
+                "svrg_inner_sparse": ("cluster", None)}
+
+
+def tenant_main_check(name, tenants):
+    """One solver kernel at the fleet's main-path shape -- T tenants'
+    cells in one launch, per-tenant scalars -- against its plain
+    version, relative to the largest entry at MAIN_TOL, on the route
+    (and cluster size) the fleet phases take."""
+    per, los, kw = tenants[name]
+    args, kw = stacked(name, per, los, kw)
+    T = args[0].shape[2]
+    route, G = FLEET_ROUTES[name]
+    before = route_counts(name)
+    if name == "sdca_epoch":
+        took, got = sdca_cluster_of(
+            lambda: one_launch(name, lambda: sdca_epoch(*args, **kw)))
+        if took != G:
+            raise AssertionError(f"{name} at T={T}: cluster size {took}")
+    else:
+        got = one_launch(name, lambda: WRAPPERS[name](*args, **kw))
+    if route_counts(name)[route] != before[route] + 1:
+        raise AssertionError(f"{name} at T={T} did not take the {route!r} "
+                             "route")
+    got = (got,) if torch.is_tensor(got) else got
+    want = PLAINS[name](*args, **kw)
+    want = (want,) if torch.is_tensor(want) else want
+    err = compare(f"{name} main-path shape, T={T} tenants "
+                  f"{tuple(args[0].shape)}", got, want, MAIN_TOL,
+                  relative_to_max=True)
+    del args, got, want
+    torch.cuda.synchronize()
+    return {"T": T, "route": route, "cluster": G, "max_abs_err": err,
+            "tol": MAIN_TOL, "relative_to_max": True}
 
 
 # ---------------------------------------------------------------------------
@@ -732,6 +1031,12 @@ def phase_kernels(dev, results):
     main_err["svrg_inner"] = compare(
         "svrg_inner main-path shape", [svrg_inner(*vargs, **vkw)],
         [svrg_inner_plain(*vargs, **vkw)], MAIN_TOL, relative_to_max=True)
+    # -- the same kernels as the dense fleet launches them: 4 tenants' cells
+    # (B1: 112 CTAs, one wave) with per-tenant lambda and n in one launch
+    tenants = dense_tenants(data, alpha, w, FLEET_T_DENSE)
+    for name in ("sdca_epoch", "svrg_inner"):
+        results[name]["tenant_main"] = tenant_main_check(name, tenants)
+    del tenants
     torch.cuda.synchronize()
 
     # -- the sparse kernels over the unit tests' sweep: hinge / squared,
@@ -823,8 +1128,15 @@ def phase_kernels(dev, results):
         [svrg_inner_sparse(*vargs, **vkw)],
         [svrg_inner_sparse_plain(*vargs, **vkw)], MAIN_TOL,
         relative_to_max=True)
+    # -- and as the sparse fleet launches them: 2 news20 tenants (B4: 56
+    # clusters of 8 CTAs, two waves)
+    tenants = sparse_tenants(sp, alpha20, w20, FLEET_T_SPARSE)
+    for name in ("sdca_epoch_sparse", "svrg_inner_sparse"):
+        results[name]["tenant_main"] = tenant_main_check(name, tenants)
+    del tenants
     torch.cuda.synchronize()
 
+    tenant_kernel_checks(rng, dev, checks)
     lm_kernel_checks(rng, dev, checks, main_err)
 
     summary = []
@@ -839,9 +1151,10 @@ def phase_kernels(dev, results):
                              sweep_max_abs_err=max(sweep),
                              sweep_tol=TOLS[name][1],
                              checked_launches_by_route=by_route, ok=True)
-        summary.append({"name": name, **{k: results[name][k] for k in (
-            "max_abs_err", "tol", "sweep_cases", "sweep_max_abs_err",
-            "sweep_tol", "checked_launches_by_route", "ok")}})
+        summary.append({"name": name, **{k: results[name].get(k) for k in (
+            "max_abs_err", "tol", "tenant_main", "sweep_cases",
+            "sweep_max_abs_err", "sweep_tol", "checked_launches_by_route",
+            "ok")}})
     emit("kernels", checks=summary,
          main_shape={"cells": P * Q, "n_p": data.n_p, "m_q": data.m_q,
                      "steps": data.n_p, "m_sub": data.m_q // P},
@@ -1033,7 +1346,8 @@ def reset_counts():
                 getattr(fn, by)[r] = 0
 
 
-def run_solver_full(solver: str, expect_dual: bool, sparse: bool = False):
+def run_solver_full(solver: str, expect_dual: bool, sparse: bool = False,
+                    ref_epochs: int = REF_EPOCHS):
     """One full-width solve through the CLI's ``main``; returns its
     summary, history, what it wrote to stderr and its wall time."""
     if sparse:
@@ -1042,7 +1356,7 @@ def run_solver_full(solver: str, expect_dual: bool, sparse: bool = False):
                  "--lam", str(LAM20)]
     else:
         flags = ["--n", str(N), "--m", str(M), "--lam", str(LAM),
-                 "--ref-epochs", str(REF_EPOCHS)]
+                 "--ref-epochs", str(ref_epochs)]
     err = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, f"{solver}.json")
@@ -1126,6 +1440,196 @@ def sparse_full(name, solver, kernel, dual):
          block_format=summary["block_format"], solve_s=summary["total_s"],
          wall_s=wall, peak_mem_bytes=peak)
     return {kernel: OUTER_ITERS}
+
+
+def phase_admm_full():
+    """The paper's ADMM baseline (rho = lambda) at full width on the dense
+    instance through the CLI's ``main``: no kernel (its inner solve is the
+    cached Cholesky factor of each column block), no f* (the serial-SDCA
+    reference would launch the SDCA kernel)."""
+    summary, history, _, wall = run_solver_full("admm", expect_dual=False,
+                                                ref_epochs=0)
+    check_descent("admm", history, dual=False)
+    emit("admm_full", objective_first=history[0]["objective"],
+         objective_last=history[-1]["objective"], solve_s=summary["total_s"],
+         wall_s=wall, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return {}
+
+
+def fleet_argv(solver, sparse):
+    """The fleet CLI's flags at a fleet phase's configuration."""
+    if sparse:
+        size = ["--block-format", "sparse", "--tenants", str(FLEET_T_SPARSE),
+                "--n", str(N20), "--m", str(M20), "--density", str(DENS20),
+                "--lam", str(LAM20)]
+    else:
+        size = ["--tenants", str(FLEET_T_DENSE), "--n", str(N), "--m",
+                str(M), "--lam", str(LAM)]
+    return ["--solver", solver, "--mesh", f"{P}x{Q}", *size, "--iters",
+            str(OUTER_ITERS), "--check-every", "1", "--seed", "0"]
+
+
+def fleet_config(solver, lam):
+    cls = get_solver(solver).config_cls
+    kw = {"lam": lam, "outer_iters": OUTER_ITERS}
+    if solver == "admm":
+        kw["rho"] = lam
+    return cls(**kw)
+
+
+#: the solvers of each fleet phase
+FLEET_SOLVERS = {False: ("d3ca", "radisa", "admm"), True: ("d3ca", "radisa")}
+
+
+@functools.lru_cache(maxsize=1)
+def fleet_tenants(sparse):
+    """The fleet CLI's tenants at a fleet phase's configuration (made as
+    its ``run`` makes them)."""
+    return fleet_cli.make_tenants(
+        fleet_cli.parse_args(fleet_argv("d3ca", sparse)))
+
+
+def fleet_solos(sparse):
+    """Every tenant's solo solve on the card for each solver of a fleet
+    phase, the result its fleet tenant is held against: {solver:
+    {tenant: (w, alpha)}}.  Made before the phase's launch counts go to
+    0, so that only the fleets' own launches are counted."""
+    bf = "sparse" if sparse else "dense"
+    out = {}
+    for solver in FLEET_SOLVERS[sparse]:
+        cfg = fleet_config(solver, LAM20 if sparse else LAM)
+        out[solver] = {}
+        for p in fleet_tenants(sparse):
+            res = get_solver(solver)(block_format=bf).solve(
+                p.loss_name, p.X, p.y, P=P, Q=Q, cfg=solo_config(cfg, p),
+                record_history=False)
+            out[solver][p.tenant_id] = (res.w, res.alpha)
+            del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_fleet_full(solver, sparse, solos):
+    """One fleet at full width through the fleet CLI (its ``main``'s
+    ``parse_args`` and ``run``, the latter told to hand back each
+    tenant's result): its launches (in all, per route, per cluster size),
+    peak device memory and wall time; every tenant's objective must fall
+    and be finite, and its final w (and alpha) must lie within
+    ``FLEET_TOL`` of its solo solve of the same seed on the card
+    (``solos``), relative to the largest entry."""
+    def snap():
+        return (launch_counts(), {k: route_counts(k) for k in WRAPPERS},
+                dict(sdca_epoch.launches_by_cluster))
+    got = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0, r0, g0 = snap()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = fleet_cli.run(
+            fleet_cli.parse_args(fleet_argv(solver, sparse)),
+            on_result=lambda p, r: got.append((p, r)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    c1, r1, g1 = snap()
+    T = FLEET_T_SPARSE if sparse else FLEET_T_DENSE
+    if summary["device"] != "cuda" or summary["local_backend"] != "kernel" \
+            or len(got) != T or summary["buckets"] != 1:
+        raise AssertionError(f"fleet {solver}: {summary}")
+    tenants, worst, exact = [], 0.0, True
+    for p, res in got:
+        hist = [h["objective"] for h in res.history]
+        if len(hist) != OUTER_ITERS or not all(np.isfinite(hist)) \
+                or not hist[-1] < hist[0]:
+            raise AssertionError(f"fleet {solver} {p.tenant_id}: "
+                                 f"objective {hist}")
+        errs = {}
+        for f, b in zip(("w", "alpha"), solos[solver][p.tenant_id]):
+            if b is None:
+                continue
+            a = getattr(res, f)
+            errs[f] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+            exact = exact and bool(torch.equal(a, b))
+        worst = max(worst, *errs.values())
+        tenants.append({"tenant": p.tenant_id, "lam": p.lam,
+                        "seed": p.seed, "objective_first": hist[0],
+                        "objective_last": hist[-1],
+                        "rel_err_vs_solo": errs})
+    if worst > FLEET_TOL:
+        raise AssertionError(f"fleet {solver}: a tenant lies {worst:.3e} "
+                             f"(relative) from its solo solve: {tenants}")
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tenants": tenants, "max_rel_err_vs_solo": worst,
+            "bitwise_equal_to_solo": exact, "wall_s": wall,
+            "solves_per_s": summary["solves_per_s"], "peak_mem_bytes": peak,
+            "launches": {k: c1[k] - c0[k] for k in WRAPPERS},
+            "routes": {k: {r: r1[k][r] - r0[k][r] for r in r1[k]}
+                       for k in WRAPPERS},
+            "sdca_clusters": {g: g1[g] - g0[g] for g in g1}}
+
+
+def check_fleet_launches(name, res, want, route=None, cluster=None):
+    """Exact launches of one fleet: ``want`` {kernel: n}, all of them on
+    ``route`` (a two-route wrapper) and, for B1, at cluster size
+    ``cluster``."""
+    full = {k: want.get(k, 0) for k in WRAPPERS}
+    if res["launches"] != full:
+        raise AssertionError(f"{name}: launches {res['launches']}; "
+                             f"expected {full}")
+    for k, n in want.items():
+        if route is not None and res["routes"][k][route] != n:
+            raise AssertionError(f"{name}: {k} by route {res['routes'][k]}")
+    if cluster is not None and res["sdca_clusters"] != {
+            g: (OUTER_ITERS if g == cluster else 0)
+            for g in sdca_ops.CLUSTER_SIZES}:
+        raise AssertionError(f"{name}: B1 by cluster size "
+                             f"{res['sdca_clusters']}")
+
+
+def phase_fleet_dense_full(solos):
+    """Four tenants of the dense Part 1 instance (seeds 0-3, lambda = 1e-2
+    * 0.5 ** (t mod 3)) through the fleet CLI, with D3CA, RADiSA and ADMM
+    (rho = lambda): 10 B1 launches on the cluster route at one CTA a cell
+    for all 4 x 28 D3CA cells, 10 B2 launches for RADiSA, none for ADMM;
+    ``solos``: :func:`fleet_solos`."""
+    out = {}
+    for solver, want, route, cluster in (
+            ("d3ca", {"sdca_epoch": OUTER_ITERS}, "cluster", 1),
+            ("radisa", {"svrg_inner": OUTER_ITERS}, None, None),
+            ("admm", {}, None, None)):
+        res = run_fleet_full(solver, False, solos)
+        check_fleet_launches(f"fleet_dense_full {solver}", res, want,
+                             route, cluster)
+        out[solver] = res
+    emit("fleet_dense_full", tenants=FLEET_T_DENSE, **out)
+    return {"sdca_epoch": OUTER_ITERS, "svrg_inner": OUTER_ITERS}
+
+
+def phase_fleet_sparse_full(solos):
+    """Two tenants of the news20 profile (seeds 0-1, lambda = 1e-4 * 0.5 **
+    t) through the fleet CLI, with D3CA (10 B3 launches) and RADiSA (10 B4
+    launches, all on the cluster route); peak device memory under T times
+    the solo sparse limit; ``solos``: :func:`fleet_solos`."""
+    out = {}
+    for solver, want, route in (
+            ("d3ca", {"sdca_epoch_sparse": OUTER_ITERS}, None),
+            ("radisa", {"svrg_inner_sparse": OUTER_ITERS}, "cluster")):
+        res = run_fleet_full(solver, True, solos)
+        check_fleet_launches(f"fleet_sparse_full {solver}", res, want,
+                             route)
+        if res["peak_mem_bytes"] >= FLEET_T_SPARSE * SPARSE_PEAK_LIMIT:
+            raise AssertionError(f"fleet_sparse_full {solver}: peak device "
+                                 f"memory {res['peak_mem_bytes']} B")
+        out[solver] = res
+    emit("fleet_sparse_full", tenants=FLEET_T_SPARSE, **out)
+    return {"sdca_epoch_sparse": OUTER_ITERS,
+            "svrg_inner_sparse": OUTER_ITERS}
 
 
 def phase_d3ca_sparse_full():
@@ -1215,19 +1719,29 @@ SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
 #: B1's launches on each main path, by shape
 SDCA_SHAPE_LAUNCHES = {
     "d3ca_full": {"d3ca_cells": OUTER_ITERS, "serial": REF_EPOCHS},
-    "radisa_full": {"serial": REF_EPOCHS}}
+    "radisa_full": {"serial": REF_EPOCHS},
+    # the fleet's launches take 1 CTA a cell too, for 4 x 28 cells
+    "fleet_dense_full": {"d3ca_cells": OUTER_ITERS}}
+
+
+#: what a main path is held against that must be made before its counted
+#: window (the fleets' solo solves), handed to its phase
+PHASE_SETUP = {"fleet_dense_full": lambda: fleet_solos(False),
+               "fleet_sparse_full": lambda: fleet_solos(True)}
 
 
 def run_main_path(name, phase, results):
     """Drive one main path with every launch counter at 0 just before and
     read just after; it must have launched exactly the kernels it names,
     as often as it says, and every launch of a two-route wrapper must have
-    taken its main route (``MAIN_ROUTES``)."""
+    taken its main route (``MAIN_ROUTES``).  Its ``PHASE_SETUP``, if any,
+    runs before the counters go to 0."""
+    setup = [PHASE_SETUP[name]()] if name in PHASE_SETUP else []
     reset_counts()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    expected = phase()
+    expected = phase(*setup)
     counts = launch_counts()
     want = {k: expected.get(k, 0) for k in WRAPPERS}
     if counts != want:
@@ -1423,10 +1937,11 @@ def bounds(name, args, m_cols, flops_per_elem):
     out_bytes = Pn * Qn * m_cols * 4 + (Pn * Qn * n_p * 4
                                         if name == "sdca_epoch" else 0)
     t_bytes = (row_bytes + small + out_bytes) / PEAK_BYTES_PER_S
-    t_ops = Pn * Qn * steps * m_cols * flops_per_elem / PEAK_F32_FLOPS
+    ops = Pn * Qn * steps * m_cols * flops_per_elem
+    t_ops = ops / PEAK_F32_FLOPS
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_moved": row_bytes + small + out_bytes}
+            "bytes_moved": row_bytes + small + out_bytes, "flops": ops}
 
 
 def sparse_bounds(name, args, lo=None):
@@ -1484,6 +1999,119 @@ def time_program(prog, iters=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_fleet(prog, iters=5):
+    """ms per outer iteration of a fleet program (every tenant active),
+    as :func:`time_program` times a solo one."""
+    active = torch.ones(prog.n_tenants, device="cuda")
+    state = prog.step(1, active, prog.state)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for t in range(2, 2 + iters):
+        state = prog.step(t, active, state)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def tenant_timing(name, tenants, bound_of):
+    """One solver kernel at a fleet's main-path shape (T tenants' cells in
+    one launch, per-tenant scalars: :func:`dense_tenants` /
+    :func:`sparse_tenants`), timed both ways.  Its bound is that of the
+    tenants' work together: the bytes and the operations that
+    ``bound_of(args, lo)`` counts in each tenant's inputs of this run,
+    summed."""
+    per, los, kw = tenants[name]
+    parts = [bound_of(a, None if los is None else los[t])
+             for t, a in enumerate(per)]
+    nbytes = sum(b["bytes_moved"] for b in parts)
+    ops = sum(b["flops"] for b in parts)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    args, kw = stacked(name, per, los, kw)
+    pairs = [both_ms(lambda: WRAPPERS[name](*args, **kw), reps=5)
+             for _ in range(2)]
+    del args
+    torch.cuda.empty_cache()
+    return {"T": len(per), **medians(pairs, "ms"),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_moved": nbytes, "flops": ops}
+
+
+def step_busy(step, state):
+    """:func:`device_busy` of one outer step, ``step(state) -> state``."""
+    box = [state]
+
+    def one():
+        box[0] = step(box[0])
+    return device_busy(one)
+
+
+def fleet_timing(dev):
+    """Each fleet of the fleet phases at its configuration: ms per outer
+    iteration of the fleet beside T x the solo's (tenant 0), what the
+    device does in one step of each (``torch.profiler``: busy ms, idle
+    share, kernels a step, the five longest), and solves
+    per second of one fleet solve of the T tenants (10 iterations, no
+    history; packing included) against T solo solves one after the
+    other (partitioning included)."""
+    out = {}
+    for sparse, T, solvers in ((False, FLEET_T_DENSE,
+                                ("d3ca", "radisa", "admm")),
+                               (True, FLEET_T_SPARSE, ("d3ca", "radisa"))):
+        problems = fleet_tenants(sparse)
+        bf = "sparse" if sparse else "dense"
+        for solver in solvers:
+            cfg = fleet_config(solver, LAM20 if sparse else LAM)
+            fleet = FleetSolver(solver=solver, block_format=bf)
+            solo = get_solver(solver)(block_format=bf)
+            p0 = problems[0]
+            prog = fleet.program(problems, P=P, Q=Q, cfg=cfg)
+            active = torch.ones(T, device="cuda")
+            fleet_ms = time_fleet(prog)
+            fleet_busy = with_idle(fleet_ms, step_busy(
+                lambda st: prog.step(2, active, st), prog.state))
+            del prog
+            gc.collect()
+            torch.cuda.empty_cache()
+            prog = solo.program(p0.loss_name, p0.X, p0.y, P=P, Q=Q,
+                                cfg=solo_config(cfg, p0))
+            solo_ms = time_program(prog)
+            solo_busy = with_idle(solo_ms, step_busy(
+                lambda st: prog.step(2, st), prog.state))
+            del prog
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fleet.solve_batch(problems, P=P, Q=Q, cfg=cfg,
+                              record_history=False)
+            torch.cuda.synchronize()
+            fleet_s = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            for p in problems:
+                solo.solve(p.loss_name, p.X, p.y, P=P, Q=Q,
+                           cfg=solo_config(cfg, p), record_history=False)
+            torch.cuda.synchronize()
+            solo_s = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[solver + ("_sparse" if sparse else "")] = {
+                "tenants": T, "ms_per_outer_iter": fleet_ms,
+                "solo_ms_per_outer_iter": solo_ms,
+                "T_x_solo_ms_per_outer_iter": T * solo_ms,
+                "device": fleet_busy, "solo_device": solo_busy,
+                "fleet_solve_s": fleet_s, "solo_solves_s": solo_s,
+                "fleet_solves_per_s": T / fleet_s,
+                "solo_solves_per_s": T / solo_s}
+        del problems
+        gc.collect()
+    return out
 
 
 def serial_timing(X, y, dev):
@@ -1561,7 +2189,14 @@ def phase_timing(dev, results):
     results["svrg_inner"].update(
         **medians(kern_v, "ms"), plain_ms=statistics.median(plain_v),
         library_ms=None, **bounds("svrg_inner", vargs, data.m_q // P, 9))
-    del data, alpha, w, sargs, vargs
+    tenants = dense_tenants(data, alpha, w, FLEET_T_DENSE)
+    results["sdca_epoch"]["tenants"] = tenant_timing(
+        "sdca_epoch", tenants,
+        lambda a, lo: bounds("sdca_epoch", a, data.m_q, 6))
+    results["svrg_inner"]["tenants"] = tenant_timing(
+        "svrg_inner", tenants,
+        lambda a, lo: bounds("svrg_inner", a, data.m_q // P, 9))
+    del data, alpha, w, sargs, vargs, tenants
     torch.cuda.empty_cache()
 
     X, y = make_svm_data(N, M, seed=0)
@@ -1616,7 +2251,14 @@ def phase_timing(dev, results):
         library_ms=None, prev_route="block",
         **medians(prev_v, "prev_route_ms"),
         **sparse_bounds("svrg_inner_sparse", vargs, lo))
-    del sargs, vargs, alpha20, w20
+    # the tenant timings' stacked inputs stay out of the sparse path's peak
+    peak_before = torch.cuda.max_memory_allocated()
+    tenants = sparse_tenants(sp, alpha20, w20, FLEET_T_SPARSE)
+    for name in ("sdca_epoch_sparse", "svrg_inner_sparse"):
+        results[name]["tenants"] = tenant_timing(
+            name, tenants, functools.partial(sparse_bounds, name))
+    torch.cuda.reset_peak_memory_stats()
+    del sargs, vargs, alpha20, w20, tenants
     hinge = get_loss("hinge")
     for name, kernel, build in (
             ("d3ca_sparse", "sdca_epoch_sparse",
@@ -1631,20 +2273,22 @@ def phase_timing(dev, results):
         ms_iter = time_program(build())
         solvers[name] = {"ms_per_outer_iter": ms_iter, "kernel": kernel,
                          "kernel_share": results[kernel]["ms"] / ms_iter}
-    sparse_peak = torch.cuda.max_memory_allocated()
+    sparse_peak = max(peak_before, torch.cuda.max_memory_allocated())
     del sp
     news20_problem.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
+    fleets = fleet_timing(dev)
     lm = lm_timing(dev, results)
-    emit("timing", solvers=solvers, sparse_peak_mem_bytes=sparse_peak,
+    emit("timing", solvers=solvers, fleets=fleets,
+         sparse_peak_mem_bytes=sparse_peak,
          sparse_cells={"P": P, "Q": Q, "n_p": sp_shape[0], "k": sp_shape[1],
                        "m_q": sp_shape[2], "ell_bytes": sp_shape[3]},
          lm=lm,
          kernels={k: {f: v.get(f) for f in (
              "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
              "bound_ms", "bound_by", "bytes_moved", "prev_route",
-             "prev_route_ms", "prev_route_device_ms", "shapes")}
+             "prev_route_ms", "prev_route_device_ms", "shapes", "tenants")}
                   for k, v in results.items()})
 
 

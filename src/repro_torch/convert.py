@@ -59,10 +59,14 @@ def sparse_partition_from_reference(cols, vals, y_blocks, mask, n: int,
 
 
 def warm_start_from_reference(w, alpha=None, device="cuda"):
-    """``(w, alpha)`` of a reference solve -> what
-    ``Solver.solve(warm_start=...)`` takes: a ``(w, alpha)`` tuple of
-    float32 tensors on ``device`` (``alpha`` stays None for primal-only
+    """``(w, alpha)`` of a reference solve -- numpy arrays, or the
+    reference's ``SolveResult`` itself (anything with ``.w`` and
+    ``.alpha``) -> what ``Solver.solve(warm_start=...)`` and a fleet
+    round's ``warm_starts`` entry take: a ``(w, alpha)`` tuple of float32
+    tensors on ``device`` (``alpha`` stays None for primal-only
     solvers)."""
+    if hasattr(w, "w") and hasattr(w, "alpha"):
+        w, alpha = w.w, (w.alpha if alpha is None else alpha)
     device = resolve_device(device)
     w_t = as_tensor(np.asarray(w), device)
     a_t = None if alpha is None else as_tensor(np.asarray(alpha), device)

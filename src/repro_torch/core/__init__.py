@@ -1,9 +1,11 @@
 """Core: the paper's doubly distributed optimization algorithms."""
+from .admm import ADMMConfig, admm_simulated, admm_simulated_program
 from .comm import Collective, Comm, CommSchedule, SyncComm
 from .d3ca import D3CAConfig, d3ca_simulated, d3ca_simulated_program
 from .engines import (CellProgram, EngineProgram, drive, drive_with_callback,
                       grid_program)
-from .indices import ArrayIndexSource, GeneratorIndexSource
+from .indices import (ArrayIndexSource, GeneratorIndexSource,
+                      TenantIndexSource)
 from .losses import LOSSES, get_loss
 from .partition import (DoublyPartitioned, SparseDoublyPartitioned,
                         ell_gather, ell_scatter_add, partition,
@@ -17,11 +19,12 @@ from .local import LOCAL_BACKENDS
 from .util import resolve_device
 
 __all__ = [
+    "ADMMConfig", "admm_simulated", "admm_simulated_program",
     "Collective", "Comm", "CommSchedule", "SyncComm",
     "D3CAConfig", "d3ca_simulated", "d3ca_simulated_program",
     "CellProgram", "EngineProgram", "drive", "drive_with_callback",
     "grid_program",
-    "ArrayIndexSource", "GeneratorIndexSource",
+    "ArrayIndexSource", "GeneratorIndexSource", "TenantIndexSource",
     "LOSSES", "get_loss",
     "DoublyPartitioned", "SparseDoublyPartitioned", "ell_gather",
     "ell_scatter_add", "partition", "partition_sparse",

@@ -50,8 +50,8 @@ def d3ca_schedule() -> CommSchedule:
 
 def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
                       index_source, local_backend: str = "kernel",
-                      sparse: bool = False, m_q: Optional[int] = None
-                      ) -> CellProgram:
+                      sparse: bool = False, m_q: Optional[int] = None,
+                      per_problem: bool = False) -> CellProgram:
     """The ONE D3CA program.
 
     Blocked data: ``(x (P, Q, n_p, m_q), y (P, n_p), mask (P, n_p))``, or
@@ -59,33 +59,49 @@ def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
     Blocked state: ``(alpha (P, n_p), w (Q, m_q))``.  ``index_source``
     supplies the coordinate order of every outer iteration
     (``sdca_rows(t) -> (P, steps)``, one order per row partition).
+
+    ``per_problem=True`` is the fleet path: every array carries a tenant
+    axis T right after its grid axes (``x (P, Q, T, n_p, m_q)``, ``alpha
+    (P, T, n_p)``, ``w (Q, T, m_q)``, orders ``(P, T, steps)``), and the
+    data tuple ends with per-tenant ``lam (T,)`` and ``n (T,)`` float32
+    tensors that replace ``cfg.lam`` and ``n``: ``beta = lam_t / t`` and
+    step 9's ``lam_t * n_t`` are per tenant, and the local epoch gets
+    them as per-tenant scalars (the kernels' ``cell_params``).
     """
     lam = cfg.lam
     if sparse and m_q is None:
         raise ValueError("sparse D3CA cells need m_q for the scatter-add")
 
     def cell(comm, t, data, state):
+        if per_problem:
+            *data, lam_t, n_t = data
+            beta = lam_t / t                   # float32, per tenant
+            lam_n = (lam_t * n_t)[:, None]     # against w (Q, T, m_q)
+        else:
+            lam_t, n_t = lam, n
+            # float32 like every other runtime scalar of the step
+            beta = float(np.float32(lam) / np.float32(t))
+            lam_n = lam * n
         *x_parts, y, mask = data
         a, w = state
         Pn = comm.axis_size("data")
         Qn = comm.axis_size("model")
-        # float32 like every other runtime scalar of the step
-        beta = float(np.float32(lam) / np.float32(t))
         idx = index_source.sdca_rows(t)        # coordinate order per p
         local = local_sdca_sparse if sparse else local_sdca
-        dalpha = local(loss, *x_parts, y, mask, a, w, lam=lam, n=n, Q=Qn,
-                       idx=idx, step_mode=cfg.step_mode, beta=beta,
+        dalpha = local(loss, *x_parts, y, mask, a, w, lam=lam_t, n=n_t,
+                       Q=Qn, idx=idx, step_mode=cfg.step_mode, beta=beta,
                        backend=local_backend)
         # step 6: alpha_[p,.] += (1/P) mean_q dalpha[p, q]
         a_new = a + comm("dalpha", dalpha) / Pn
         # step 9: w_[., q] = (1/(lam n)) sum_p alpha_[p,q]^T x_[p,q]
         am = a_new * mask
-        contrib = (ell_scatter_add(m_q, *x_parts, am[:, None, :]) if sparse
+        contrib = (ell_scatter_add(m_q, *x_parts, am.unsqueeze(1)) if sparse
                    else rows_times_blocks(am, *x_parts))
-        w_new = comm("w_contrib", contrib) / (lam * n)
+        w_new = comm("w_contrib", contrib) / lam_n
         return a_new, w_new
 
-    return CellProgram(d3ca_schedule(), cell)
+    return CellProgram(d3ca_schedule(), cell,
+                       state_specs=(("data",), ("model",)))
 
 
 # ----------------------------------------------------------------------------

@@ -91,10 +91,16 @@ class CellProgram:
     over as leading axes, in (data, model) order -- and performs every
     cross-cell reduction through the :class:`~repro_torch.core.comm.Comm`
     it is handed, never with an inline sum over a grid axis.
+
+    ``state_specs`` names the grid axes each state leaf leads with --
+    ``("data",)``, ``("model",)`` or ``("data", "model")`` per leaf (a
+    bare spec for a single-tensor state) -- which is where the fleet path
+    (``repro_torch.fleet``) puts its tenant axis.
     """
 
     schedule: CommSchedule
     cell: Callable[..., Any]
+    state_specs: Any = None
 
 
 def cached_build(cache, key, build):

@@ -18,7 +18,8 @@ for the four streams the algorithms need, per outer iteration ``t``
 ``GeneratorIndexSource`` draws them from a ``torch.Generator`` seeded from
 the solver config's seed (a device generator on a CUDA device);
 ``ArrayIndexSource`` replays arrays it was given, which is how a caller
-reproduces another implementation's exact streams.
+reproduces another implementation's exact streams; ``TenantIndexSource``
+stacks one source per tenant on the tenant axis of the fleet path.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Mapping, Optional
 
 import torch
 
+from ..kernels._launch import TENANT_AXES
 from .util import resolve_device
 
 _SDCA, _SVRG, _PERM, _SAMPLE = 0, 1, 2, 3
@@ -106,3 +108,37 @@ class ArrayIndexSource:
 
     def sfk_sample(self, t: int) -> torch.Tensor:
         return self._get("sfk_sample", t, torch.float32)
+
+
+class TenantIndexSource:
+    """T per-tenant sources as one: every stream of every tenant, stacked
+    on the tenant axis right after the grid axes the stream varies over
+    -- ``sdca_rows -> (P, T, steps)``, ``svrg_rows -> (P, Q, T, L)``,
+    ``radisa_perm -> (P, T)``, ``sfk_sample -> (P, T, n_p)`` -- so each
+    tenant of a fleet draws exactly what its solo solve draws."""
+
+    # each stream takes the tenant axis of the kernel argument it becomes
+    # (the SFK sample multiplies the row mask)
+    _AXIS = {"sdca_rows": TENANT_AXES["sdca_epoch"]["idx"],
+             "svrg_rows": TENANT_AXES["svrg_inner"]["idx"],
+             "radisa_perm": TENANT_AXES["svrg_inner"]["lo"],
+             "sfk_sample": TENANT_AXES["svrg_inner"]["mask"]}
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+
+    def _stack(self, name: str, t: int) -> torch.Tensor:
+        return torch.stack([getattr(s, name)(t) for s in self.sources],
+                           dim=self._AXIS[name])
+
+    def sdca_rows(self, t: int) -> torch.Tensor:
+        return self._stack("sdca_rows", t)
+
+    def svrg_rows(self, t: int) -> torch.Tensor:
+        return self._stack("svrg_rows", t)
+
+    def radisa_perm(self, t: int) -> torch.Tensor:
+        return self._stack("radisa_perm", t)
+
+    def sfk_sample(self, t: int) -> torch.Tensor:
+        return self._stack("sfk_sample", t)

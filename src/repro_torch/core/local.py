@@ -6,7 +6,13 @@ one outer step at once: ``x`` of shape (P, Q, n_p, m_q), labels/mask
 feature partition.  The coordinate order is an argument (see
 ``indices.py``), never sampled here.
 
-Both take a ``backend`` knob ("kernel" | "ref"):
+A tenant axis -- T independent problems of one shape, the fleet path --
+is one more leading axis right after the grid axes (``x (P, Q, T, n_p,
+m_q)``, row vectors ``(P, T, n_p)``, ``w0 (Q, T, m_q)``, ...), and
+``lam`` / ``n`` / ``beta`` are then per-tenant ``(T,)`` tensors instead
+of numbers.
+
+Every function takes a ``backend`` knob ("kernel" | "ref"):
 
   * ``backend="kernel"`` goes through ``repro_torch.kernels``: the
     hand-written CUDA kernel for tensors on a CUDA device (one launch for
@@ -14,16 +20,35 @@ Both take a ``backend`` knob ("kernel" | "ref"):
     The kernels cover hinge and squared losses; logistic raises (use
     backend="ref");
   * ``backend="ref"`` runs the plain per-step loop below, written against
-    the ``Loss`` objects, for every loss.
+    the ``Loss`` objects, for every loss (one tenant after the other).
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels._launch import tenant_axes
 from .losses import Loss
 
 KERNEL_LOSSES = ("hinge", "squared")
 LOCAL_BACKENDS = ("kernel", "ref")
+
+
+def _by_tenant(fn, kernel, arrays, scalars):
+    """The ``backend="ref"`` loops with a tenant axis: run ``fn`` on
+    tenant t's slice of every argument of ``arrays`` (in the order of
+    the wrapper ``kernel``, whose tenant axes they have; None passes
+    through) and its entry of every per-tenant scalar of ``scalars`` (a
+    number stays a number), for every tenant, and stack the results on
+    the tenant axis of the cells' outputs, 2."""
+    axes = tenant_axes(kernel)
+
+    def pick(v, t):
+        return v[t] if isinstance(v, torch.Tensor) and v.dim() else v
+    outs = [fn(*[None if a is None else a.select(ax, t)
+                 for a, ax in zip(arrays, axes)],
+               *[pick(v, t) for v in scalars])
+            for t in range(arrays[0].shape[axes[0]])]
+    return torch.stack(outs, dim=2)
 
 
 def _check_kernel_loss(loss: Loss):
@@ -43,21 +68,23 @@ def local_sdca(loss: Loss, x, y, mask, alpha0, w0, *, lam, n, Q, idx,
     """Run ``idx.shape[1]`` SDCA coordinate updates on every local block.
 
     Args:
-      x: (P, Q, n_p, m_q) data blocks.
+      x: (P, Q, n_p, m_q) data blocks, or (P, Q, T, n_p, m_q) with a
+        tenant axis (then every array below gains T after its grid axes).
       y, mask: (P, n_p) labels and row-validity mask.
       alpha0: (P, n_p) the shared dual blocks alpha_[p, .].
       w0: (Q, m_q) the shared primal blocks w_[., q].
-      lam, n: global regularization and *global* observation count.
+      lam, n: global regularization and *global* observation count --
+        numbers, or per-tenant (T,) tensors.
       Q: number of feature partitions (scales the conjugate by 1/Q).
       idx: (P, steps) int32 coordinate order per row partition (shared
         across q so every feature block visits the same observation
         sequence, matching the paper's per-partition sampling).
       step_mode: "exact" uses ||x_i||^2; "beta" uses the paper's step-size
-        parameter ``beta`` (they use beta = lam / t).
+        parameter ``beta`` (they use beta = lam / t; a number or (T,)).
       backend: "kernel" | "ref".
 
     Returns:
-      delta_alpha: (P, Q, n_p) accumulated dual change of every cell.
+      delta_alpha: (P, Q[, T], n_p) accumulated dual change of every cell.
     """
     use_beta = step_mode == "beta"
 
@@ -70,7 +97,15 @@ def local_sdca(loss: Loss, x, y, mask, alpha0, w0, *, lam, n, Q, idx,
         return dalpha
     if backend != "ref":
         raise ValueError(f"unknown local backend {backend!r}")
+    if x.dim() == 5:
+        return _by_tenant(lambda *a: _sdca_ref(loss, *a, Q, use_beta),
+                          "sdca_epoch", [x, y, mask, alpha0, w0, idx],
+                          [lam, n, beta])
+    return _sdca_ref(loss, x, y, mask, alpha0, w0, idx, lam, n, beta, Q,
+                     use_beta)
 
+
+def _sdca_ref(loss, x, y, mask, alpha0, w0, idx, lam, n, beta, Q, use_beta):
     P, Qc, n_p, m_q = x.shape
     x_sq = torch.sum(x * x, dim=-1)                # (P, Q, n_p)
     w = w0.unsqueeze(0).expand(P, Qc, m_q).clone()
@@ -113,14 +148,18 @@ def local_svrg(loss: Loss, x, y, mask, z_anchor, w_anchor_sub, mu_sub,
         sub-block.
       mu_sub: (P, Q, m_sub) coordinates of the full anchor gradient of F
         (includes the lam*w_tilde term).
+      lam: regularization, a number or per-tenant (T,) tensor.
       eta: learning rate eta_t.
       idx: (P, Q, L) int32 minibatch order per cell.
       lo: (P,) int32 window offsets, or None when the window is the whole
         block (RADiSA-avg).
       backend: "kernel" | "ref".
 
+    With a tenant axis ``x (P, Q, T, n_p, m_q)`` every array gains T
+    after its grid axes (``lo (P, T)``).
+
     Returns:
-      w_sub: (P, Q, m_sub) updated sub-blocks.
+      w_sub: (P, Q[, T], m_sub) updated sub-blocks.
     """
     if backend == "kernel":
         _check_kernel_loss(loss)
@@ -129,7 +168,16 @@ def local_svrg(loss: Loss, x, y, mask, z_anchor, w_anchor_sub, mu_sub,
                           lam=lam, eta=eta, loss=loss.name, lo=lo)
     if backend != "ref":
         raise ValueError(f"unknown local backend {backend!r}")
+    if x.dim() == 5:
+        return _by_tenant(lambda *a: _svrg_ref(loss, *a, eta), "svrg_inner",
+                          [x, y, mask, z_anchor, w_anchor_sub, mu_sub, idx,
+                           lo], [lam])
+    return _svrg_ref(loss, x, y, mask, z_anchor, w_anchor_sub, mu_sub, idx,
+                     lo, lam, eta)
 
+
+def _svrg_ref(loss, x, y, mask, z_anchor, w_anchor_sub, mu_sub, idx, lo,
+              lam, eta):
     P, Qc, n_p, _ = x.shape
     m_sub = w_anchor_sub.shape[-1]
     pa = torch.arange(P, device=x.device)[:, None]
@@ -176,7 +224,7 @@ def local_sdca_sparse(loss: Loss, cols, vals, y, mask, alpha0, w0, *, lam, n,
       Everything else as in :func:`local_sdca`.
 
     Returns:
-      delta_alpha: (P, Q, n_p) accumulated dual change of every cell.
+      delta_alpha: (P, Q[, T], n_p) accumulated dual change of every cell.
     """
     use_beta = step_mode == "beta"
 
@@ -189,7 +237,17 @@ def local_sdca_sparse(loss: Loss, cols, vals, y, mask, alpha0, w0, *, lam, n,
         return dalpha
     if backend != "ref":
         raise ValueError(f"unknown local backend {backend!r}")
+    if cols.dim() == 5:
+        return _by_tenant(lambda *a: _sdca_sparse_ref(loss, *a, Q, use_beta),
+                          "sdca_epoch_sparse",
+                          [cols, vals, y, mask, alpha0, w0, idx],
+                          [lam, n, beta])
+    return _sdca_sparse_ref(loss, cols, vals, y, mask, alpha0, w0, idx, lam,
+                            n, beta, Q, use_beta)
 
+
+def _sdca_sparse_ref(loss, cols, vals, y, mask, alpha0, w0, idx, lam, n,
+                     beta, Q, use_beta):
     P, Qc, n_p, _ = cols.shape
     m_q = w0.shape[-1]
     x_sq = torch.sum(vals * vals, dim=-1)          # (P, Q, n_p)
@@ -223,8 +281,11 @@ def local_svrg_sparse(loss: Loss, cols, vals, y, mask, z_anchor,
     column-sliced).  ``lo=None`` means the window is the whole block
     (RADiSA-avg).
 
+    With a tenant axis ``cols, vals (P, Q, T, n_p, k)`` every array gains
+    T after its grid axes and ``lam`` may be a per-tenant (T,) tensor.
+
     Returns:
-      w_sub: (P, Q, m_sub) updated sub-block iterates.
+      w_sub: (P, Q[, T], m_sub) updated sub-block iterates.
     """
     if backend == "kernel":
         _check_kernel_loss(loss)
@@ -234,7 +295,17 @@ def local_svrg_sparse(loss: Loss, cols, vals, y, mask, z_anchor,
                                  loss=loss.name, lo=lo)
     if backend != "ref":
         raise ValueError(f"unknown local backend {backend!r}")
+    if cols.dim() == 5:
+        return _by_tenant(lambda *a: _svrg_sparse_ref(loss, *a, eta),
+                          "svrg_inner_sparse",
+                          [cols, vals, y, mask, z_anchor, w_anchor_sub,
+                           mu_sub, idx, lo], [lam])
+    return _svrg_sparse_ref(loss, cols, vals, y, mask, z_anchor,
+                            w_anchor_sub, mu_sub, idx, lo, lam, eta)
 
+
+def _svrg_sparse_ref(loss, cols, vals, y, mask, z_anchor, w_anchor_sub,
+                     mu_sub, idx, lo, lam, eta):
     P, Qc, _, _ = cols.shape
     m_sub = w_anchor_sub.shape[-1]
     pa = torch.arange(P, device=vals.device)[:, None]

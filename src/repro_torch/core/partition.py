@@ -131,14 +131,24 @@ def rows_times_blocks(v, x_blocks):
     """``v (P, n_p)``, ``x_blocks (P, Q, n_p, m_q)`` -> ``(P, Q, m_q)``:
     every cell's v_p^T x_[p,q].  A broadcast batched matmul over the
     cells, so the blocks are read in place (an einsum would first copy
-    them into another layout)."""
-    return torch.matmul(v[:, None, None, :], x_blocks).squeeze(2)
+    them into another layout).  With a tenant axis: ``v (P, T, n_p)``,
+    ``x_blocks (P, Q, T, n_p, m_q)`` -> ``(P, Q, T, m_q)``."""
+    return torch.matmul(v.unsqueeze(1).unsqueeze(-2), x_blocks).squeeze(-2)
+
+
+def cells_times_blocks(v, x_blocks):
+    """``v (P, Q[, T], n_p)`` -- one vector per cell -- times that cell's
+    block: ``(P, Q[, T], m_q)``, read in place."""
+    return torch.matmul(v.unsqueeze(-2), x_blocks).squeeze(-2)
 
 
 def blocks_times_cols(x_blocks, w_blocks):
     """``x_blocks (P, Q, n_p, m_q)``, ``w_blocks (Q, m_q)`` ->
-    ``(P, Q, n_p)``: every cell's x_[p,q] w_q, read in place."""
-    return torch.matmul(x_blocks, w_blocks[None, :, :, None]).squeeze(3)
+    ``(P, Q, n_p)``: every cell's x_[p,q] w_q, read in place.  With a
+    tenant axis: ``(P, Q, T, n_p, m_q)``, ``(Q, T, m_q)`` ->
+    ``(P, Q, T, n_p)``."""
+    return torch.matmul(x_blocks,
+                        w_blocks.unsqueeze(0).unsqueeze(-1)).squeeze(-1)
 
 
 # ---------------------------------------------------------------------------

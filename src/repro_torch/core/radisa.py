@@ -100,36 +100,48 @@ def blocks_times_w(x_parts, w, sparse: bool):
 
 def rows_times_x(v, x_parts, m_q: int, sparse: bool):
     """Every cell's v_p^T x_[p,q] -> ``(P, Q, m_q)`` for ``v (P, n_p)``: a
-    batched matvec over dense blocks or a scatter-add over ELL cells."""
+    batched matvec over dense blocks or a scatter-add over ELL cells
+    (with a tenant axis ``v (P, T, n_p)`` -> ``(P, Q, T, m_q)``)."""
     if sparse:
-        return ell_scatter_add(m_q, *x_parts, v[:, None, :])
+        return ell_scatter_add(m_q, *x_parts, v.unsqueeze(1))
     return rows_times_blocks(v, *x_parts)
+
+
+def _cells_of_rows(a, Qn: int):
+    """A row-partition array ``(P, [T,] k)`` seen by every cell:
+    ``(P, Q, [T,] k)``, expanded (no copy)."""
+    return a.unsqueeze(1).expand(a.shape[0], Qn, *a.shape[1:])
 
 
 def cut_windows(w, mu, perm, m_sub: int):
     """Sub-block ``perm[p]`` of every feature block for row partition p:
     returns ``lo (P,) int32``, the window columns ``win (P, m_sub)`` and
-    each cell's window of ``w`` and ``mu`` ``(P, Q, m_sub)``."""
+    each cell's window of ``w`` and ``mu`` ``(P, Q, m_sub)``.  With a
+    tenant axis: ``w, mu (Q, T, m_q)``, ``perm (P, T)`` -> ``lo (P, T)``,
+    ``win (P, T, m_sub)`` and windows ``(P, Q, T, m_sub)``."""
     lo = (perm * m_sub).to(torch.int32)
-    win = lo.long()[:, None] + torch.arange(m_sub, device=w.device)
-    # (Q, P, m_sub) -> (P, Q, m_sub)
-    return (lo, win, w[:, win].transpose(0, 1).contiguous(),
-            mu[:, win].transpose(0, 1).contiguous())
+    win = lo.long()[..., None] + torch.arange(m_sub, device=w.device)
+    ix = _cells_of_rows(win, w.shape[0])
+    Pn = perm.shape[0]
+
+    def cut(v):
+        return torch.gather(v.unsqueeze(0).expand(Pn, *v.shape), -1, ix)
+    return lo, win, cut(w), cut(mu)
 
 
 def paste_windows(win, delta_sub, m_q: int):
-    """Each cell's window change ``(P, Q, m_sub)`` placed at its columns
-    ``win (P, m_sub)`` of a zero ``(P, Q, m_q)``."""
-    Pn, Qn, m_sub = delta_sub.shape
-    delta = torch.zeros((Pn, Qn, m_q), dtype=delta_sub.dtype,
+    """Each cell's window change ``(P, Q[, T], m_sub)`` placed at its
+    columns ``win (P[, T], m_sub)`` of a zero ``(P, Q[, T], m_q)``."""
+    delta = torch.zeros((*delta_sub.shape[:-1], m_q), dtype=delta_sub.dtype,
                         device=delta_sub.device)
-    return delta.scatter_(2, win[:, None, :].expand(Pn, Qn, m_sub),
+    return delta.scatter_(-1, _cells_of_rows(win, delta_sub.shape[1]),
                           delta_sub)
 
 
 def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
                         index_source, local_backend: str = "kernel",
-                        sparse: bool = False) -> CellProgram:
+                        sparse: bool = False,
+                        per_problem: bool = False) -> CellProgram:
     """The ONE RADiSA program.
 
     Blocked data: ``(x (P, Q, n_p, m_q), y (P, n_p), mask (P, n_p))``, or
@@ -139,12 +151,24 @@ def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
     order of every cell (``svrg_rows(t) -> (P, Q, L)``).  The sub-block
     window of a cell is read in place by the local solver (a dense
     block's columns, or the in-window entries of an ELL row); no column
-    slice of the block is materialised."""
+    slice of the block is materialised.
+
+    ``per_problem=True`` is the fleet path: every array carries a tenant
+    axis T after its grid axes (``w (Q, T, m_q)``, orders ``(P, Q, T,
+    L)``, permutations ``(P, T)``), and the data tuple ends with
+    per-tenant ``lam (T,)`` and ``n (T,)`` float32 tensors: ``mu = grad /
+    n_t + lam_t * w`` and the local loop's ``lam_t`` are per tenant."""
     lam = cfg.lam
     avg = cfg.variant == "avg"
     local = local_svrg_sparse if sparse else local_svrg
 
     def cell(comm, t, data, state):
+        if per_problem:
+            *data, lam_t, n_t = data
+            lam_b, n_b = lam_t[:, None], n_t[:, None]   # against (Q, T, m_q)
+        else:
+            lam_t = lam_b = lam
+            n_b = n
         *x_parts, y, mask = data
         w = state
         Pn = comm.axis_size("data")
@@ -155,26 +179,28 @@ def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
         z = comm("z", blocks_times_w(x_parts, w, sparse))    # (P, n_p)
         # (2) full gradient of F at the anchor, reduced across rows
         gz = loss.grad(z, y) * mask
-        mu = (comm("grad", rows_times_x(gz, x_parts, m_q, sparse)) / n
-              + lam * w)                                     # (Q, m_q)
+        mu = (comm("grad", rows_times_x(gz, x_parts, m_q, sparse)) / n_b
+              + lam_b * w)                                   # (Q, m_q)
         # (3) sub-block assignment (shared permutation) + local SVRG
         idx = index_source.svrg_rows(t)                      # (P, Q, L)
         if avg:
             lo = None
-            w_anchor = w.unsqueeze(0).expand(Pn, Qn, m_q).contiguous()
-            mu_sub = mu.unsqueeze(0).expand(Pn, Qn, m_q).contiguous()
+            w_anchor = w.unsqueeze(0).expand(Pn, *w.shape).contiguous()
+            mu_sub = mu.unsqueeze(0).expand(Pn, *mu.shape).contiguous()
         else:
             lo, win, w_anchor, mu_sub = cut_windows(
                 w, mu, index_source.radisa_perm(t), m_sub)
-        w_new = local(loss, *x_parts, y, mask, z, w_anchor, mu_sub, lam=lam,
-                      eta=eta, idx=idx, lo=lo, backend=local_backend)
+        w_new = local(loss, *x_parts, y, mask, z, w_anchor, mu_sub,
+                      lam=lam_t, eta=eta, idx=idx, lo=lo,
+                      backend=local_backend)
         # (4) recombine
         if avg:
             # RADiSA-avg: average the P overlapping solutions per block
             return comm("w_avg", w_new)
         return w + comm("dw", paste_windows(win, w_new - w_anchor, m_q))
 
-    return CellProgram(radisa_schedule(cfg.variant), cell)
+    return CellProgram(radisa_schedule(cfg.variant), cell,
+                       state_specs=("model",))
 
 
 # ----------------------------------------------------------------------------

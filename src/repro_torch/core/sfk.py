@@ -92,7 +92,8 @@ def sfk_schedule() -> CommSchedule:
 
 def sfk_cell_program(loss: Loss, cfg: SFKConfig, *, n: int, m_q: int,
                      index_source, local_backend: str = "kernel",
-                     sparse: bool = False) -> CellProgram:
+                     sparse: bool = False,
+                     per_problem: bool = False) -> CellProgram:
     """The ONE SFK program.
 
     Blocked data: ``(x (P, Q, n_p, m_q), y (P, n_p), mask (P, n_p))``, or
@@ -101,11 +102,23 @@ def sfk_cell_program(loss: Loss, cfg: SFKConfig, *, n: int, m_q: int,
     sample (``sfk_sample(t) -> (P, n_p)``), the sub-block permutation and
     the minibatch orders.  Requires P | m_q (the Solver API pads the
     feature dimension to a multiple of P*Q).
+
+    ``per_problem=True`` is the fleet path: every array carries a tenant
+    axis T after its grid axes, and the data tuple ends with per-tenant
+    ``lam (T,)`` and ``n (T,)`` float32 tensors: the anchor gradient
+    divides by ``n_t * sample_frac`` and the local loop takes ``lam_t``.
     """
     lam = cfg.lam
     local = local_svrg_sparse if sparse else local_svrg
 
     def cell(comm, t, data, state):
+        if per_problem:
+            *data, lam_t, n_t = data
+            lam_b = lam_t[:, None]                  # against (Q, T, m_q)
+            n_s = (n_t * cfg.sample_frac)[:, None]
+        else:
+            lam_t = lam_b = lam
+            n_s = n * cfg.sample_frac
         *x_parts, y, mask = data
         w = state
         Pn = comm.axis_size("data")
@@ -118,17 +131,17 @@ def sfk_cell_program(loss: Loss, cfg: SFKConfig, *, n: int, m_q: int,
         # (3) unbiased minibatch anchor gradient over the sample
         gz = loss.grad(z, y) * smask
         mu = (comm("grad", rows_times_x(gz, x_parts, m_q, sparse))
-              / (n * cfg.sample_frac) + lam * w)             # (Q, m_q)
+              / n_s + lam_b * w)                             # (Q, m_q)
         # (4) disjoint sub-block assignment + local inner loop on S_p(t)
         lo, win, w_anchor, mu_sub = cut_windows(
             w, mu, index_source.radisa_perm(t), m_sub)
         w_new = local(loss, *x_parts, y, smask, z, w_anchor, mu_sub,
-                      lam=lam, eta=eta, idx=index_source.svrg_rows(t),
+                      lam=lam_t, eta=eta, idx=index_source.svrg_rows(t),
                       lo=lo, backend=local_backend)
         # (5) concatenate disjoint sub-block deltas
         return w + comm("dw", paste_windows(win, w_new - w_anchor, m_q))
 
-    return CellProgram(sfk_schedule(), cell)
+    return CellProgram(sfk_schedule(), cell, state_specs=("model",))
 
 
 # ----------------------------------------------------------------------------

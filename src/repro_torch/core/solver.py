@@ -1,17 +1,19 @@
-"""Unified solver framework: one API over D3CA / RADiSA / SFK.
+"""Unified solver framework: one API over D3CA / RADiSA / SFK / ADMM.
 
 The paper's doubly distributed optimizers share one P x Q execution
 story.  This module provides that story once:
 
   * a :class:`Solver` base class with a registry --
-    ``get_solver("d3ca" | "radisa" | "sfk")`` returns the solver class;
+    ``get_solver("d3ca" | "radisa" | "sfk" | "admm")`` returns the solver
+    class;
   * knobs threaded end-to-end:
       - ``device="cuda" | "cpu"`` -- where the grid lives.  The default
         is the card; without one the solver raises rather than carrying
         on on the CPU, which has to be asked for by name;
       - ``local_backend="kernel" | "ref"`` -- the hand-written CUDA
         kernels (their plain PyTorch versions for tensors on the CPU) vs
-        the plain per-step loop of ``core/local.py``;
+        the plain per-step loop of ``core/local.py`` (ADMM, whose inner
+        solve is a cached Cholesky, accepts the knob and ignores it);
       - ``block_format="dense" | "sparse"`` -- per-cell (n_p, m_q) tiles
         or padded-ELL cells (memory ~ nnz).  ``"sparse"`` takes a
         :class:`~repro_torch.data.sparse.CSRMatrix` (or a dense array,
@@ -23,12 +25,13 @@ story.  This module provides that story once:
   * a shared outer loop: objective / duality-gap history, early
     stopping, warm starts from a previous ``w`` / ``alpha``.
 
-The port covers the single-device grid engine (``engine="simulated"``).
-Every other knob of the reference's ``Solver`` -- the mesh engines,
-``staleness``, ``compression``, ``topology``, row gates and
-``Solver.update``, tracer / registry / monitor, and the solver ``admm``
--- raises ``NotImplementedError`` naming the ROADMAP queue item that
-brings it; nothing is silently ignored.
+The port covers the single-device grid engine (``engine="simulated"``);
+many problems of one shape solve together through
+``repro_torch.fleet.FleetSolver``.  Every other knob of the reference's
+``Solver`` -- the mesh engines, ``staleness``, ``compression``,
+``topology``, row gates and ``Solver.update``, tracer / registry /
+monitor -- raises ``NotImplementedError`` naming the ROADMAP queue item
+that brings it; nothing is silently ignored.
 
 Example::
 
@@ -52,6 +55,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Type
 
 from ..data.sparse import CSRMatrix
+from .admm import ADMMConfig, admm_simulated_program
 from .d3ca import D3CAConfig, d3ca_simulated_program
 from .engines import EngineProgram, drive
 from .local import LOCAL_BACKENDS
@@ -66,15 +70,13 @@ ENGINES = ("simulated",)
 BLOCK_FORMATS = ("dense", "sparse")
 
 #: what the reference offers and this slice does not (solver knobs, CLI
-#: flags by their argparse dest, solver names), with the title of the
-#: ROADMAP queue-A item that ports it
+#: flags by their argparse dest), with the title of the ROADMAP queue-A
+#: item that ports it
 _ITEMS = {
     "mesh": "'Multi-device engines'",
     "comm": "'Comm policies on the grid engine'",
     "online": "'Row gate, online service, scorer, checkpoints'",
     "obs": "'Observability'",
-    "fleet": "'Fleet'",
-    "admm": "'ADMM'",
 }
 NOT_PORTED = {
     "engine": _ITEMS["mesh"], "mesh": _ITEMS["mesh"],
@@ -87,8 +89,8 @@ NOT_PORTED = {
     "monitor": _ITEMS["obs"], "trace": _ITEMS["obs"],
     "metrics": _ITEMS["obs"], "listen": _ITEMS["obs"],
     "health": _ITEMS["obs"], "flight_recorder": _ITEMS["obs"],
-    "problems": _ITEMS["fleet"],
-    "admm": _ITEMS["admm"],
+    "flight_capacity": _ITEMS["obs"], "min_tenants": _ITEMS["obs"],
+    "publish_snapshots": _ITEMS["online"],
 }
 
 
@@ -342,13 +344,9 @@ def get_solver(name: str) -> Type[Solver]:
     ``get_solver(name)(local_backend=..., device=...)``.
 
     Raises:
-      NotImplementedError: for a solver of the reference that is not
-        ported yet (``admm``).
-      KeyError: for any other unregistered name (the message lists what
-        IS registered).
+      KeyError: for an unregistered name (the message lists what IS
+        registered).
     """
-    if name not in _REGISTRY and name in NOT_PORTED:
-        raise not_ported(name)
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -358,7 +356,7 @@ def get_solver(name: str) -> Type[Solver]:
 
 def available_solvers():
     """Sorted names of every registered solver
-    (``["d3ca", "radisa", "sfk"]``)."""
+    (``["admm", "d3ca", "radisa", "sfk"]``)."""
     return sorted(_REGISTRY)
 
 
@@ -400,3 +398,15 @@ class SFKSolver(Solver):
         return sfk_simulated_program(loss, data, cfg,
                                      local_backend=self.local_backend,
                                      w0=w0, index_source=self.index_source)
+
+
+@register_solver
+class ADMMSolver(Solver):
+    """Block-splitting ADMM, the paper's baseline (see
+    :mod:`repro_torch.core.admm`).  Its inner solve is a cached Cholesky:
+    ``local_backend`` is accepted and ignored, and it draws no indices."""
+    name = "admm"
+    config_cls = ADMMConfig
+
+    def _simulated_program(self, loss, data, cfg, w0, alpha0):
+        return admm_simulated_program(loss, data, cfg, w0=w0)

@@ -33,6 +33,21 @@ __device__ __forceinline__ void prefetch_row(float* dst, const float* src,
     __pipeline_memcpy_async(dst + k, src + k, sizeof(float));
 }
 
+// Where the cell of flat index c = (p*Q + q)*T + t of a launch over a
+// P x Q grid with T tenants (T = 1: the grid alone) reads its operands:
+// `row` = p*T + t indexes the (P, T, n_p) row vectors and the window
+// offsets `lo`, `col` = q*T + t the primal blocks w0 (Q, T, m_q); every
+// per-cell array (blocks, outputs, SVRG orders, `cell_params`) is
+// indexed by c itself.
+struct Cell {
+  long long row, col;
+};
+
+__device__ __forceinline__ Cell decode_cell(long long c, int Q, int T) {
+  const long long t = c % T, pq = c / T;
+  return {(pq / Q) * T + t, (pq % Q) * T + t};
+}
+
 template <int LOSS>
 __device__ __forceinline__ float loss_grad(float z, float y) {
   if (LOSS == kHinge) return (y * z < 1.0f) ? -y : 0.0f;

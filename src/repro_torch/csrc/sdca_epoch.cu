@@ -6,7 +6,7 @@
 // in order on one core, with w and the dual deltas in VMEM scratch and the
 // next row fetched by scalar-prefetch DMA.  Here blocks run in parallel
 // and in no order, so the cell index is the CUDA grid (blockIdx.x ->
-// (p, q)) and the sequential step loop runs inside one thread block.
+// (p, q, tenant)) and the sequential step loop runs inside one thread block.
 //
 // What bounds it: the bytes it must move are one pass over the sampled
 // rows, which the card streams in a fraction of a millisecond; the time
@@ -41,24 +41,24 @@ namespace {
 
 template <int LOSS>
 __global__ void sdca_epoch_kernel(
-    const float* __restrict__ x,       // (P, Q, n_p, m_q)
-    const float* __restrict__ y,       // (P, n_p)
-    const float* __restrict__ mask,    // (P, n_p)
-    const float* __restrict__ alpha0,  // (P, n_p)
-    const float* __restrict__ w0,      // (Q, m_q)
-    const int* __restrict__ idx,       // (P, steps)
-    float* dalpha,                     // (P, Q, n_p), zeroed by the caller
-    float* __restrict__ w_out,         // (P, Q, m_q)
-    int Q, int n_p, int m_q, int steps,
+    const float* __restrict__ x,       // (P, Q, T, n_p, m_q)
+    const float* __restrict__ y,       // (P, T, n_p)
+    const float* __restrict__ mask,    // (P, T, n_p)
+    const float* __restrict__ alpha0,  // (P, T, n_p)
+    const float* __restrict__ w0,      // (Q, T, m_q)
+    const int* __restrict__ idx,       // (P, T, steps)
+    float* dalpha,                     // (P, Q, T, n_p), zeroed by the caller
+    float* __restrict__ w_out,         // (P, Q, T, m_q)
+    int Q, int Tn, int n_p, int m_q, int steps,
     float lam, float n, float Qf, float beta, int use_beta,
-    const float* __restrict__ cell_params) {  // (P*Q, 3) [lam, n, beta] or null
+    const float* __restrict__ cell_params) {  // (P*Q*T, 3) [lam, n, beta] or null
   extern __shared__ float smem[];
   __shared__ float red[2][2 * rt::kMaxWarps + 4];
 
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
   const long long c = blockIdx.x;
-  const long long p = c / Q, q = c % Q;
+  const rt::Cell cell = rt::decode_cell(c, Q, Tn);
 
   if (cell_params != nullptr) {
     lam = cell_params[3 * c];
@@ -71,13 +71,13 @@ __global__ void sdca_epoch_kernel(
   float* rows = smem + m_q;  // two row buffers of m_q floats each
 
   const float* xc = x + c * n_p * m_q;
-  const float* yp = y + p * n_p;
-  const float* mp = mask + p * n_p;
-  const float* ap = alpha0 + p * n_p;
-  const int* ip = idx + p * steps;
+  const float* yp = y + cell.row * n_p;
+  const float* mp = mask + cell.row * n_p;
+  const float* ap = alpha0 + cell.row * n_p;
+  const int* ip = idx + cell.row * steps;
   float* dal = dalpha + c * n_p;
 
-  for (int k = tid; k < m_q; k += T) w[k] = w0[q * m_q + k];
+  for (int k = tid; k < m_q; k += T) w[k] = w0[cell.col * m_q + k];
 
   // i: this step's row, i_next: the next one (being prefetched),
   // i_next2: loaded one step early so the prefetch never waits on it.
@@ -171,19 +171,20 @@ extern "C" const char* rt_error_string(int code) {
 }
 
 // Launch on `stream`; allocates nothing, does not synchronise, returns
-// cudaGetLastError().  `Q` is the grid's extent (cell c is (c / Q, c % Q));
-// `q_scale` is the number of feature partitions that scales the conjugate
-// term (they differ when one cell of a larger grid is run alone).
-// `cell_params` may be null (the scalars apply to
-// every cell) or point to (P*Q, 3) floats [lam, n, beta] per cell.
+// cudaGetLastError().  `Q` and `T` are the grid's and the tenant axis's
+// extents (cell c = (p*Q + q)*T + t; T = 1 without tenants); `q_scale` is
+// the number of feature partitions that scales the conjugate term (they
+// differ when one cell of a larger grid is run alone).  `cell_params` may
+// be null (the scalars apply to every cell) or point to (P*Q*T, 3) floats
+// [lam, n, beta] per cell.
 extern "C" int sdca_epoch_launch(
     const float* x, const float* y, const float* mask, const float* alpha0,
     const float* w0, const int* idx, float* dalpha, float* w_out,
-    int P, int Q, int n_p, int m_q, int steps,
+    int P, int Q, int T, int n_p, int m_q, int steps,
     float lam, float n, float q_scale, float beta, int use_beta,
     const float* cell_params,
     int loss, int threads, void* stream) {
-  if (threads < 32 || threads > 32 * rt::kMaxWarps || threads % 32 != 0)
+  if (T < 1 || threads < 32 || threads > 32 * rt::kMaxWarps || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 3 * static_cast<size_t>(m_q) * sizeof(float);
   if (smem > rt::kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -192,8 +193,8 @@ extern "C" int sdca_epoch_launch(
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<P * Q, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, y, mask, alpha0, w0, idx, dalpha, w_out, Q, n_p, m_q, steps,
+  kern<<<P * Q * T, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, y, mask, alpha0, w0, idx, dalpha, w_out, Q, T, n_p, m_q, steps,
       lam, n, q_scale, beta, use_beta, cell_params);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,9 @@
 // 14 000 x 12 000).  It computes exactly what the `block` route
 // (sdca_epoch.cu) computes: hinge / squared loss, the exact denominator
 // ||x_i||^2 or the runtime beta, the row mask, the q_scale of the
-// conjugate, the 1e-12 clamps, per-cell scalars from `cell_params`, and a
-// repeated index reads its own updated dual.
+// conjugate, the 1e-12 clamps, per-cell scalars from `cell_params`, a
+// tenant axis (T problems of one shape, rt::decode_cell), and a repeated
+// index reads its own updated dual.
 //
 // What bounds it on this card: the bytes are one pass over the sampled
 // rows (0.13 ms at the D3CA shape, 0.20 ms -- 672 MB -- at the serial
@@ -106,17 +107,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 template <int LOSS, int E>
 __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(
-    const float* __restrict__ x,       // (P, Q, n_p, m_q)
-    const float* __restrict__ y,       // (P, n_p)
-    const float* __restrict__ mask,    // (P, n_p)
-    const float* __restrict__ alpha0,  // (P, n_p)
-    const float* __restrict__ w0,      // (Q, m_q)
-    const int* __restrict__ idx,       // (P, steps)
-    float* __restrict__ dalpha,        // (P, Q, n_p)
-    float* __restrict__ w_out,         // (P, Q, m_q)
-    int Q, int n_p, int m_q, int steps, int G, int slice,
+    const float* __restrict__ x,       // (P, Q, T, n_p, m_q)
+    const float* __restrict__ y,       // (P, T, n_p)
+    const float* __restrict__ mask,    // (P, T, n_p)
+    const float* __restrict__ alpha0,  // (P, T, n_p)
+    const float* __restrict__ w0,      // (Q, T, m_q)
+    const int* __restrict__ idx,       // (P, T, steps)
+    float* __restrict__ dalpha,        // (P, Q, T, n_p)
+    float* __restrict__ w_out,         // (P, Q, T, m_q)
+    int Q, int Tn, int n_p, int m_q, int steps, int G, int slice,
     float lam, float n, float Qf, float beta, int use_beta,
-    const float* __restrict__ cell_params) {  // (P*Q, 3) [lam, n, beta] or null
+    const float* __restrict__ cell_params) {  // (P*Q*T, 3) [lam, n, beta] or null
   // a slot holds the slice's row from the 16-byte boundary at or before
   // its first column, rounded up to 16 bytes: at most slice + 3 (+ 3) floats
   constexpr int kSlot = E * kThreads + 8;
@@ -136,7 +137,7 @@ __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(
   const int rank = G > 1 ? static_cast<int>(cg::this_cluster().block_rank())
                          : 0;
   const long long c = blockIdx.x / G;
-  const long long p = c / Q, q = c % Q;
+  const rt::Cell cell = rt::decode_cell(c, Q, Tn);
 
   if (cell_params != nullptr) {
     lam = cell_params[3 * c];
@@ -159,13 +160,13 @@ __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(
   const int io_lane = tid - (kThreads - 32);
   const bool io_scalar = io_lane >= 0 && io_lane < 3;
   const float* sc_src =
-      (io_lane == 0 ? y : io_lane == 1 ? mask : alpha0) + p * n_p;
-  const int* ip = idx + p * steps;
+      (io_lane == 0 ? y : io_lane == 1 ? mask : alpha0) + cell.row * n_p;
+  const int* ip = idx + cell.row * steps;
 
   float w[E];
 #pragma unroll
   for (int j = 0; j < E; ++j)
-    w[j] = j < nvalid ? w0[q * m_q + s0 + tid + kThreads * j] : 0.f;
+    w[j] = j < nvalid ? w0[cell.col * m_q + s0 + tid + kThreads * j] : 0.f;
   for (int i = tid; i < n_p; i += kThreads) dal_s[i] = 0.f;
   for (int h = tid; h < steps; h += kThreads) cp_async4(idx_s + h, ip + h);
   __pipeline_commit();
@@ -434,8 +435,9 @@ __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(
 template <int LOSS, int E>
 int launch_e(const float* x, const float* y, const float* mask,
              const float* alpha0, const float* w0, const int* idx,
-             float* dalpha, float* w_out, int P, int Q, int n_p, int m_q,
-             int steps, int G, int slice, float lam, float n, float q_scale,
+             float* dalpha, float* w_out, int P, int Q, int T, int n_p,
+             int m_q, int steps, int G, int slice, float lam, float n,
+             float q_scale,
              float beta, int use_beta, const float* cell_params, size_t smem,
              cudaStream_t stream) {
   // the kernel's layout: dual deltas, the order, the ring, the scalars
@@ -454,7 +456,7 @@ int launch_e(const float* x, const float* y, const float* mask,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(P * Q * G);
+  cfg.gridDim = dim3(P * Q * T * G);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -466,7 +468,7 @@ int launch_e(const float* x, const float* y, const float* mask,
   cfg.attrs = attr;
   cfg.numAttrs = G > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kern, x, y, mask, alpha0, w0, idx, dalpha,
-                           w_out, Q, n_p, m_q, steps, G, slice, lam, n,
+                           w_out, Q, T, n_p, m_q, steps, G, slice, lam, n,
                            q_scale, beta, use_beta, cell_params);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -475,15 +477,16 @@ int launch_e(const float* x, const float* y, const float* mask,
 template <int LOSS>
 int launch_loss(const float* x, const float* y, const float* mask,
                 const float* alpha0, const float* w0, const int* idx,
-                float* dalpha, float* w_out, int P, int Q, int n_p, int m_q,
-                int steps, int G, int slice, int E, float lam, float n,
+                float* dalpha, float* w_out, int P, int Q, int T, int n_p,
+                int m_q, int steps, int G, int slice, int E, float lam, float n,
                 float q_scale, float beta, int use_beta,
                 const float* cell_params, size_t smem, cudaStream_t stream) {
 #define RT_SDCA_E(EV)                                                         \
   if (E == (EV))                                                              \
     return launch_e<LOSS, EV>(x, y, mask, alpha0, w0, idx, dalpha, w_out, P,  \
-                              Q, n_p, m_q, steps, G, slice, lam, n, q_scale,  \
-                              beta, use_beta, cell_params, smem, stream);
+                              Q, T, n_p, m_q, steps, G, slice, lam, n,        \
+                              q_scale, beta, use_beta, cell_params, smem,     \
+                              stream);
   RT_SDCA_E(4)
   RT_SDCA_E(6)
   RT_SDCA_E(8)
@@ -512,13 +515,13 @@ int launch_loss(const float* x, const float* y, const float* mask,
 extern "C" int sdca_epoch_cluster_launch(
     const float* x, const float* y, const float* mask, const float* alpha0,
     const float* w0, const int* idx, float* dalpha, float* w_out,
-    int P, int Q, int n_p, int m_q, int steps,
+    int P, int Q, int T, int n_p, int m_q, int steps,
     float lam, float n, float q_scale, float beta, int use_beta,
     const float* cell_params, int loss,
     int cluster, int threads, int per_thread, int slice, int smem,
     void* stream) {
   const bool g_ok = cluster == 1 || cluster == kMaxCluster;
-  if (P < 1 || Q < 1 || n_p < 1 || m_q < 1 || steps < 0 || !g_ok ||
+  if (P < 1 || Q < 1 || T < 1 || n_p < 1 || m_q < 1 || steps < 0 || !g_ok ||
       threads != kThreads || slice < 1 ||
       static_cast<long long>(slice) * cluster < m_q || smem < 0 ||
       static_cast<size_t>(smem) > rt::kMaxDynamicSmem)
@@ -527,11 +530,11 @@ extern "C" int sdca_epoch_cluster_launch(
   auto nbytes = static_cast<size_t>(smem);
   if (loss == rt::kHinge)
     return launch_loss<rt::kHinge>(x, y, mask, alpha0, w0, idx, dalpha,
-                                   w_out, P, Q, n_p, m_q, steps, cluster,
+                                   w_out, P, Q, T, n_p, m_q, steps, cluster,
                                    slice, per_thread, lam, n, q_scale, beta,
                                    use_beta, cell_params, nbytes, st);
   return launch_loss<rt::kSquared>(x, y, mask, alpha0, w0, idx, dalpha,
-                                   w_out, P, Q, n_p, m_q, steps, cluster,
+                                   w_out, P, Q, T, n_p, m_q, steps, cluster,
                                    slice, per_thread, lam, n, q_scale, beta,
                                    use_beta, cell_params, nbytes, st);
 }

@@ -56,25 +56,25 @@ __device__ __forceinline__ void prefetch_ell_row(
 
 template <int LOSS>
 __global__ void sdca_epoch_sparse_kernel(
-    const int* __restrict__ cols,      // (P, Q, n_p, k)
-    const float* __restrict__ vals,    // (P, Q, n_p, k)
-    const float* __restrict__ y,       // (P, n_p)
-    const float* __restrict__ mask,    // (P, n_p)
-    const float* __restrict__ alpha0,  // (P, n_p)
-    const float* __restrict__ w0,      // (Q, m_q)
-    const int* __restrict__ idx,       // (P, steps)
-    float* dalpha,                     // (P, Q, n_p), zeroed by the caller
-    float* w_out,                      // (P, Q, m_q): the working w
-    int Q, int n_p, int k, int m_q, int steps,
+    const int* __restrict__ cols,      // (P, Q, T, n_p, k)
+    const float* __restrict__ vals,    // (P, Q, T, n_p, k)
+    const float* __restrict__ y,       // (P, T, n_p)
+    const float* __restrict__ mask,    // (P, T, n_p)
+    const float* __restrict__ alpha0,  // (P, T, n_p)
+    const float* __restrict__ w0,      // (Q, T, m_q)
+    const int* __restrict__ idx,       // (P, T, steps)
+    float* dalpha,                     // (P, Q, T, n_p), zeroed by the caller
+    float* w_out,                      // (P, Q, T, m_q): the working w
+    int Q, int Tn, int n_p, int k, int m_q, int steps,
     float lam, float n, float Qf, float beta, int use_beta,
-    const float* __restrict__ cell_params) {  // (P*Q, 3) [lam, n, beta] or null
+    const float* __restrict__ cell_params) {  // (P*Q*T, 3) [lam, n, beta] or null
   extern __shared__ unsigned char smem_raw[];
   __shared__ float red[2][2 * rt::kMaxWarps + 4];
 
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
   const long long c = blockIdx.x;
-  const long long p = c / Q, q = c % Q;
+  const rt::Cell cell = rt::decode_cell(c, Q, Tn);
 
   if (cell_params != nullptr) {
     lam = cell_params[3 * c];
@@ -89,14 +89,14 @@ __global__ void sdca_epoch_sparse_kernel(
 
   const int* cc = cols + c * n_p * k;
   const float* vc = vals + c * n_p * k;
-  const float* yp = y + p * n_p;
-  const float* mp = mask + p * n_p;
-  const float* ap = alpha0 + p * n_p;
-  const int* ip = idx + p * steps;
+  const float* yp = y + cell.row * n_p;
+  const float* mp = mask + cell.row * n_p;
+  const float* ap = alpha0 + cell.row * n_p;
+  const int* ip = idx + cell.row * steps;
   float* dal = dalpha + c * n_p;
   float* w = w_out + c * m_q;
 
-  const float* w0q = w0 + q * m_q;
+  const float* w0q = w0 + cell.col * m_q;
   for (int e = tid; e < m_q; e += T) w[e] = w0q[e];
 
   int i = 0, i_next = 0, i_next2 = 0;
@@ -193,18 +193,19 @@ __global__ void sdca_epoch_sparse_kernel(
 }  // namespace
 
 // Launch on `stream`; allocates nothing, does not synchronise, returns
-// cudaGetLastError().  `Q` is the grid's extent (cell c is (c / Q, c % Q));
-// `q_scale` is the number of feature partitions that scales the conjugate
-// term.  `cell_params` may be null (the scalars apply to every cell) or
-// point to (P*Q, 3) floats [lam, n, beta] per cell.
+// cudaGetLastError().  `Q` and `T` are the grid's and the tenant axis's
+// extents (cell c = (p*Q + q)*T + t; T = 1 without tenants); `q_scale` is
+// the number of feature partitions that scales the conjugate term.
+// `cell_params` may be null (the scalars apply to every cell) or point to
+// (P*Q*T, 3) floats [lam, n, beta] per cell.
 extern "C" int sdca_epoch_sparse_launch(
     const int* cols, const float* vals, const float* y, const float* mask,
     const float* alpha0, const float* w0, const int* idx, float* dalpha,
-    float* w_out, int P, int Q, int n_p, int k, int m_q, int steps,
+    float* w_out, int P, int Q, int T, int n_p, int k, int m_q, int steps,
     float lam, float n, float q_scale, float beta, int use_beta,
     const float* cell_params,
     int loss, int threads, void* stream) {
-  if (threads < 32 || threads > 32 * rt::kMaxWarps || threads % 32 != 0)
+  if (T < 1 || threads < 32 || threads > 32 * rt::kMaxWarps || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(k) * (sizeof(int) + sizeof(float));
   if (smem > rt::kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -213,8 +214,8 @@ extern "C" int sdca_epoch_sparse_launch(
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<P * Q, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cols, vals, y, mask, alpha0, w0, idx, dalpha, w_out, Q, n_p, k, m_q,
+  kern<<<P * Q * T, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      cols, vals, y, mask, alpha0, w0, idx, dalpha, w_out, Q, T, n_p, k, m_q,
       steps, lam, n, q_scale, beta, use_beta, cell_params);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,25 +30,25 @@ namespace {
 
 template <int LOSS>
 __global__ void svrg_inner_kernel(
-    const float* __restrict__ x,         // (P, Q, n_p, m_x)
-    const float* __restrict__ y,         // (P, n_p)
-    const float* __restrict__ mask,      // (P, n_p)
-    const float* __restrict__ z_anchor,  // (P, n_p)
-    const float* __restrict__ w_anchor,  // (P, Q, m_sub)
-    const float* __restrict__ mu,        // (P, Q, m_sub)
-    const int* __restrict__ idx,         // (P, Q, L)
-    const int* __restrict__ lo,          // (P,) window offsets, or null = 0
-    float* __restrict__ w_out,           // (P, Q, m_sub)
-    int Q, int n_p, int m_x, int m_sub, int L,
+    const float* __restrict__ x,         // (P, Q, T, n_p, m_x)
+    const float* __restrict__ y,         // (P, T, n_p)
+    const float* __restrict__ mask,      // (P, T, n_p)
+    const float* __restrict__ z_anchor,  // (P, T, n_p)
+    const float* __restrict__ w_anchor,  // (P, Q, T, m_sub)
+    const float* __restrict__ mu,        // (P, Q, T, m_sub)
+    const int* __restrict__ idx,         // (P, Q, T, L)
+    const int* __restrict__ lo,          // (P, T) window offsets, or null = 0
+    float* __restrict__ w_out,           // (P, Q, T, m_sub)
+    int Q, int Tn, int n_p, int m_x, int m_sub, int L,
     float lam, float eta,
-    const float* __restrict__ cell_params) {  // (P*Q, 2) [lam, eta] or null
+    const float* __restrict__ cell_params) {  // (P*Q*T, 2) [lam, eta] or null
   extern __shared__ float smem[];
   __shared__ float red[2][rt::kMaxWarps + 4];
 
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
   const long long c = blockIdx.x;
-  const long long p = c / Q;
+  const long long row = rt::decode_cell(c, Q, Tn).row;
 
   if (cell_params != nullptr) {
     lam = cell_params[2 * c];
@@ -60,10 +60,10 @@ __global__ void svrg_inner_kernel(
   float* mus = smem + 2 * static_cast<size_t>(m_sub);
   float* rows = smem + 3 * static_cast<size_t>(m_sub);  // two row buffers
 
-  const float* xc = x + c * n_p * m_x + (lo != nullptr ? lo[p] : 0);
-  const float* yp = y + p * n_p;
-  const float* mp = mask + p * n_p;
-  const float* zp = z_anchor + p * n_p;
+  const float* xc = x + c * n_p * m_x + (lo != nullptr ? lo[row] : 0);
+  const float* yp = y + row * n_p;
+  const float* mp = mask + row * n_p;
+  const float* zp = z_anchor + row * n_p;
   const int* ip = idx + c * L;
 
   for (int k = tid; k < m_sub; k += T) {
@@ -130,16 +130,17 @@ __global__ void svrg_inner_kernel(
 }  // namespace
 
 // Launch on `stream`; allocates nothing, does not synchronise, returns
-// cudaGetLastError().  `lo` may be null (window starts at column 0);
-// `cell_params` may be null (the scalars apply to every cell) or point
-// to (P*Q, 2) floats [lam, eta] per cell.
+// cudaGetLastError().  `T` is the tenant axis's extent (cell c =
+// (p*Q + q)*T + t; T = 1 without tenants); `lo` may be null (window
+// starts at column 0); `cell_params` may be null (the scalars apply to
+// every cell) or point to (P*Q*T, 2) floats [lam, eta] per cell.
 extern "C" int svrg_inner_launch(
     const float* x, const float* y, const float* mask, const float* z_anchor,
     const float* w_anchor, const float* mu, const int* idx, const int* lo,
-    float* w_out, int P, int Q, int n_p, int m_x, int m_sub, int L,
+    float* w_out, int P, int Q, int T, int n_p, int m_x, int m_sub, int L,
     float lam, float eta, const float* cell_params,
     int loss, int threads, void* stream) {
-  if (threads < 32 || threads > 32 * rt::kMaxWarps || threads % 32 != 0)
+  if (T < 1 || threads < 32 || threads > 32 * rt::kMaxWarps || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 5 * static_cast<size_t>(m_sub) * sizeof(float);
   if (smem > rt::kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -148,8 +149,8 @@ extern "C" int svrg_inner_launch(
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<P * Q, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, y, mask, z_anchor, w_anchor, mu, idx, lo, w_out, Q, n_p, m_x, m_sub, L,
+  kern<<<P * Q * T, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, y, mask, z_anchor, w_anchor, mu, idx, lo, w_out, Q, T, n_p, m_x, m_sub, L,
       lam, eta, cell_params);
   return static_cast<int>(cudaGetLastError());
 }

@@ -132,27 +132,27 @@ __device__ __forceinline__ float svrg_update(float w, float wa, float mu,
 
 template <int LOSS>
 __global__ void __launch_bounds__(1024) svrg_inner_sparse_kernel(
-    const int* __restrict__ cols,        // (P, Q, n_p, k), FULL block
-    const float* __restrict__ vals,      // (P, Q, n_p, k)
-    const float* __restrict__ y,         // (P, n_p)
-    const float* __restrict__ mask,      // (P, n_p)
-    const float* __restrict__ z_anchor,  // (P, n_p)
-    const float* __restrict__ w_anchor,  // (P, Q, m_sub)
-    const float* __restrict__ mu,        // (P, Q, m_sub)
-    const int* __restrict__ idx,         // (P, Q, L)
-    const int* __restrict__ lo,          // (P,) window offsets, or null = 0
-    float* w_out,                        // (P, Q, m_sub): the working w
-    float* g_scratch,                    // (P, Q, m_sub), zeroed by the caller
-    int Q, int n_p, int k, int m_sub, int L,
+    const int* __restrict__ cols,        // (P, Q, T, n_p, k), FULL block
+    const float* __restrict__ vals,      // (P, Q, T, n_p, k)
+    const float* __restrict__ y,         // (P, T, n_p)
+    const float* __restrict__ mask,      // (P, T, n_p)
+    const float* __restrict__ z_anchor,  // (P, T, n_p)
+    const float* __restrict__ w_anchor,  // (P, Q, T, m_sub)
+    const float* __restrict__ mu,        // (P, Q, T, m_sub)
+    const int* __restrict__ idx,         // (P, Q, T, L)
+    const int* __restrict__ lo,          // (P, T) window offsets, or null = 0
+    float* w_out,                        // (P, Q, T, m_sub): the working w
+    float* g_scratch,                    // (P, Q, T, m_sub), zeroed by the caller
+    int Q, int Tn, int n_p, int k, int m_sub, int L,
     float lam, float eta,
-    const float* __restrict__ cell_params) {  // (P*Q, 2) [lam, eta] or null
+    const float* __restrict__ cell_params) {  // (P*Q*T, 2) [lam, eta] or null
   extern __shared__ unsigned char smem_raw[];
   __shared__ float red[2][rt::kMaxWarps + 4];
 
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
   const long long c = blockIdx.x;
-  const long long p = c / Q;
+  const long long row = rt::decode_cell(c, Q, Tn).row;
 
   if (cell_params != nullptr) {
     lam = cell_params[2 * c];
@@ -164,15 +164,15 @@ __global__ void __launch_bounds__(1024) svrg_inner_sparse_kernel(
 
   const int* cc = cols + c * n_p * k;
   const float* vc = vals + c * n_p * k;
-  const float* yp = y + p * n_p;
-  const float* mp = mask + p * n_p;
-  const float* zp = z_anchor + p * n_p;
+  const float* yp = y + row * n_p;
+  const float* mp = mask + row * n_p;
+  const float* zp = z_anchor + row * n_p;
   const int* ip = idx + c * L;
   const float* wa = w_anchor + c * m_sub;
   const float* mus = mu + c * m_sub;
   float* w = w_out + c * m_sub;
   float* g = g_scratch + c * m_sub;
-  const int off = lo != nullptr ? lo[p] : 0;
+  const int off = lo != nullptr ? lo[row] : 0;
   // 16-byte accesses in the dense pass when every cell's window is
   // 16-byte aligned
   const bool vec4 =
@@ -293,19 +293,19 @@ using rt::st_async_peer;
 template <int LOSS, int E>
 __global__ void __launch_bounds__(kClusterThreads, E <= 24 ? 2 : 1)
 svrg_inner_sparse_cluster_kernel(
-    const int* __restrict__ cols,        // (P, Q, n_p, k), FULL block
-    const float* __restrict__ vals,      // (P, Q, n_p, k)
-    const float* __restrict__ y,         // (P, n_p)
-    const float* __restrict__ mask,      // (P, n_p)
-    const float* __restrict__ z_anchor,  // (P, n_p)
-    const float* __restrict__ w_anchor,  // (P, Q, m_sub)
-    const float* __restrict__ mu,        // (P, Q, m_sub)
-    const int* __restrict__ idx,         // (P, Q, L)
-    const int* __restrict__ lo,          // (P,) window offsets, or null = 0
-    float* __restrict__ w_out,           // (P, Q, m_sub)
-    int Q, int n_p, int k, int m_sub, int L, int slice,
+    const int* __restrict__ cols,        // (P, Q, T, n_p, k), FULL block
+    const float* __restrict__ vals,      // (P, Q, T, n_p, k)
+    const float* __restrict__ y,         // (P, T, n_p)
+    const float* __restrict__ mask,      // (P, T, n_p)
+    const float* __restrict__ z_anchor,  // (P, T, n_p)
+    const float* __restrict__ w_anchor,  // (P, Q, T, m_sub)
+    const float* __restrict__ mu,        // (P, Q, T, m_sub)
+    const int* __restrict__ idx,         // (P, Q, T, L)
+    const int* __restrict__ lo,          // (P, T) window offsets, or null = 0
+    float* __restrict__ w_out,           // (P, Q, T, m_sub)
+    int Q, int Tn, int n_p, int k, int m_sub, int L, int slice,
     float lam, float eta,
-    const float* __restrict__ cell_params) {  // (P*Q, 2) [lam, eta] or null
+    const float* __restrict__ cell_params) {  // (P*Q*T, 2) [lam, eta] or null
   static_assert(E % 4 == 0, "a thread owns runs of 4 columns");
   extern __shared__ __align__(16) unsigned char smem_cl[];
   __shared__ float part[2][kClusterSize];       // partials of step h: [h & 1]
@@ -317,7 +317,7 @@ svrg_inner_sparse_cluster_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const long long c = blockIdx.x / kClusterSize;
-  const long long p = c / Q;
+  const long long row = rt::decode_cell(c, Q, Tn).row;
 
   if (cell_params != nullptr) {
     lam = cell_params[2 * c];
@@ -333,13 +333,13 @@ svrg_inner_sparse_cluster_kernel(
 
   const int* cc = cols + c * n_p * k;
   const float* vc = vals + c * n_p * k;
-  const float* yp = y + p * n_p;
-  const float* mp = mask + p * n_p;
-  const float* zp = z_anchor + p * n_p;
+  const float* yp = y + row * n_p;
+  const float* mp = mask + row * n_p;
+  const float* zp = z_anchor + row * n_p;
   const int* ip = idx + c * L;
   const int s0 = rank * slice;                       // slice start in the window
   const int s_len = max(0, min(slice, m_sub - s0));
-  const int off = (lo != nullptr ? lo[p] : 0) + s0;  // block column of slice[0]
+  const int off = (lo != nullptr ? lo[row] : 0) + s0;  // block column of slice[0]
   const float* wa = w_anchor + c * m_sub + s0;
   const float* mus = mu + c * m_sub + s0;
 
@@ -488,8 +488,9 @@ template <int LOSS, int E>
 int cluster_launch_e(const int* cols, const float* vals, const float* y,
                      const float* mask, const float* z_anchor,
                      const float* w_anchor, const float* mu, const int* idx,
-                     const int* lo, float* w_out, int P, int Q, int n_p,
-                     int k, int m_sub, int L, int slice, float lam, float eta,
+                     const int* lo, float* w_out, int P, int Q, int T,
+                     int n_p, int k, int m_sub, int L, int slice, float lam,
+                     float eta,
                      const float* cell_params, size_t smem,
                      cudaStream_t stream) {
   auto kern = svrg_inner_sparse_cluster_kernel<LOSS, E>;
@@ -500,7 +501,7 @@ int cluster_launch_e(const int* cols, const float* vals, const float* y,
                              static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(P * Q * kClusterSize);
+  cfg.gridDim = dim3(P * Q * T * kClusterSize);
   cfg.blockDim = dim3(kClusterThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -512,8 +513,8 @@ int cluster_launch_e(const int* cols, const float* vals, const float* y,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, cols, vals, y, mask, z_anchor,
-                           w_anchor, mu, idx, lo, w_out, Q, n_p, k, m_sub, L,
-                           slice, lam, eta, cell_params);
+                           w_anchor, mu, idx, lo, w_out, Q, T, n_p, k, m_sub,
+                           L, slice, lam, eta, cell_params);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -523,14 +524,14 @@ template <int LOSS>
 int cluster_launch(const int* cols, const float* vals, const float* y,
                    const float* mask, const float* z_anchor,
                    const float* w_anchor, const float* mu, const int* idx,
-                   const int* lo, float* w_out, int P, int Q, int n_p, int k,
-                   int m_sub, int L, int slice, float lam, float eta,
+                   const int* lo, float* w_out, int P, int Q, int T, int n_p,
+                   int k, int m_sub, int L, int slice, float lam, float eta,
                    const float* cell_params, size_t smem,
                    cudaStream_t stream) {
 #define RT_CLUSTER_E(EV)                                                      \
   if (slice <= kClusterThreads * (EV))                                        \
     return cluster_launch_e<LOSS, EV>(cols, vals, y, mask, z_anchor,          \
-                                      w_anchor, mu, idx, lo, w_out, P, Q,     \
+                                      w_anchor, mu, idx, lo, w_out, P, Q, T,  \
                                       n_p, k, m_sub, L, slice, lam, eta,      \
                                       cell_params, smem, stream);
   RT_CLUSTER_E(8)
@@ -546,18 +547,19 @@ int cluster_launch(const int* cols, const float* vals, const float* y,
 }  // namespace
 
 // The block route.  Launch on `stream`; allocates nothing, does not
-// synchronise, returns cudaGetLastError().  `lo` may be null (window
-// starts at column 0); `g_scratch` must hold P*Q*m_sub zeros (it is left zeroed);
-// `cell_params` may be null (the scalars apply to every cell) or point
-// to (P*Q, 2) floats [lam, eta] per cell.
+// synchronise, returns cudaGetLastError().  `T` is the tenant axis's
+// extent (cell c = (p*Q + q)*T + t; T = 1 without tenants); `lo` may be
+// null (window starts at column 0); `g_scratch` must hold P*Q*T*m_sub
+// zeros (it is left zeroed); `cell_params` may be null (the scalars apply
+// to every cell) or point to (P*Q*T, 2) floats [lam, eta] per cell.
 extern "C" int svrg_inner_sparse_launch(
     const int* cols, const float* vals, const float* y, const float* mask,
     const float* z_anchor, const float* w_anchor, const float* mu,
     const int* idx, const int* lo, float* w_out, float* g_scratch,
-    int P, int Q, int n_p, int k, int m_sub, int L,
+    int P, int Q, int T, int n_p, int k, int m_sub, int L,
     float lam, float eta, const float* cell_params,
     int loss, int threads, void* stream) {
-  if (threads < 32 || threads > 32 * rt::kMaxWarps || threads % 32 != 0)
+  if (T < 1 || threads < 32 || threads > 32 * rt::kMaxWarps || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(k) * (sizeof(int) + sizeof(float));
   if (smem > rt::kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -566,9 +568,9 @@ extern "C" int svrg_inner_sparse_launch(
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<P * Q, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<P * Q * T, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       cols, vals, y, mask, z_anchor, w_anchor, mu, idx, lo, w_out, g_scratch,
-      Q, n_p, k, m_sub, L, lam, eta, cell_params);
+      Q, T, n_p, k, m_sub, L, lam, eta, cell_params);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -585,10 +587,10 @@ extern "C" int svrg_inner_sparse_cluster_launch(
     const int* cols, const float* vals, const float* y, const float* mask,
     const float* z_anchor, const float* w_anchor, const float* mu,
     const int* idx, const int* lo, float* w_out,
-    int P, int Q, int n_p, int k, int m_sub, int L,
+    int P, int Q, int T, int n_p, int k, int m_sub, int L,
     float lam, float eta, const float* cell_params, int loss,
     int cluster, int threads, int slice, int smem, void* stream) {
-  if (P < 1 || Q < 1 || m_sub < 0 || k < 0 || L < 0 ||
+  if (P < 1 || Q < 1 || T < 1 || m_sub < 0 || k < 0 || L < 0 ||
       cluster != kClusterSize || threads != kClusterThreads ||
       static_cast<long long>(slice) * kClusterSize < m_sub || smem < 0 ||
       static_cast<size_t>(smem) > rt::kMaxDynamicSmem)
@@ -597,11 +599,11 @@ extern "C" int svrg_inner_sparse_cluster_launch(
   auto nbytes = static_cast<size_t>(smem);
   if (loss == rt::kHinge)
     return cluster_launch<rt::kHinge>(cols, vals, y, mask, z_anchor, w_anchor,
-                                      mu, idx, lo, w_out, P, Q, n_p, k, m_sub,
-                                      L, slice, lam, eta, cell_params, nbytes,
-                                      st);
+                                      mu, idx, lo, w_out, P, Q, T, n_p, k,
+                                      m_sub, L, slice, lam, eta, cell_params,
+                                      nbytes, st);
   return cluster_launch<rt::kSquared>(cols, vals, y, mask, z_anchor, w_anchor,
-                                      mu, idx, lo, w_out, P, Q, n_p, k, m_sub,
-                                      L, slice, lam, eta, cell_params, nbytes,
-                                      st);
+                                      mu, idx, lo, w_out, P, Q, T, n_p, k,
+                                      m_sub, L, slice, lam, eta, cell_params,
+                                      nbytes, st);
 }

@@ -36,13 +36,14 @@ _PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sdca_epoch_launch": (
         [_PTR] * 6 + [_PTR] * 2          # x y mask alpha0 w0 idx | dalpha w_out
-        + [_INT] * 5                      # P Q n_p m_q steps
+        + [_INT] * 6                      # P Q T n_p m_q steps
         + [_FLT] * 4 + [_INT]             # lam n q_scale beta use_beta
         + [_PTR]                          # cell_params (null: use scalars)
+        #                                   (P*Q*T, 3 | 2) in cell order
         + [_INT] * 2 + [_PTR]),           # loss threads stream
     "sdca_epoch_cluster_launch": (
         [_PTR] * 6 + [_PTR] * 2          # x y mask alpha0 w0 idx | dalpha w_out
-        + [_INT] * 5                      # P Q n_p m_q steps
+        + [_INT] * 6                      # P Q T n_p m_q steps
         + [_FLT] * 4 + [_INT]             # lam n q_scale beta use_beta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 6                      # loss cluster threads per_thread
@@ -50,28 +51,28 @@ _SIGNATURES = {
         + [_PTR]),                        # stream
     "svrg_inner_launch": (
         [_PTR] * 8 + [_PTR]               # x y mask z_a w_a mu idx lo | w_out
-        + [_INT] * 6                      # P Q n_p m_x m_sub L
+        + [_INT] * 7                      # P Q T n_p m_x m_sub L
         + [_FLT] * 2                      # lam eta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
     "sdca_epoch_sparse_launch": (
         [_PTR] * 7 + [_PTR] * 2          # cols vals y mask alpha0 w0 idx
         #                                  | dalpha w_out
-        + [_INT] * 6                      # P Q n_p k m_q steps
+        + [_INT] * 7                      # P Q T n_p k m_q steps
         + [_FLT] * 4 + [_INT]             # lam n q_scale beta use_beta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
     "svrg_inner_sparse_launch": (
         [_PTR] * 9 + [_PTR] * 2          # cols vals y mask z_a w_a mu idx lo
         #                                  | w_out g_scratch
-        + [_INT] * 6                      # P Q n_p k m_sub L
+        + [_INT] * 7                      # P Q T n_p k m_sub L
         + [_FLT] * 2                      # lam eta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
     "svrg_inner_sparse_cluster_launch": (
         [_PTR] * 9 + [_PTR]               # cols vals y mask z_a w_a mu idx lo
         #                                  | w_out
-        + [_INT] * 6                      # P Q n_p k m_sub L
+        + [_INT] * 7                      # P Q T n_p k m_sub L
         + [_FLT] * 2                      # lam eta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 5                      # loss cluster threads slice smem

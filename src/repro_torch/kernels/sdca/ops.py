@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .._launch import (MAX_DYNAMIC_SMEM, block_threads, check_loss,
-                       check_smem, check_tensor)
+from .._launch import (MAX_DYNAMIC_SMEM, block_threads, cell_params,
+                       check_loss, check_smem, check_tensor, is_per_cell,
+                       scalar_arg)
 from .ref import sdca_epoch_plain
 
 ROUTES = ("cluster", "block")
@@ -92,14 +93,21 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
     ``y, mask, alpha0 (P, n_p)`` (indexed by the row partition p);
     ``w0 (Q, m_q)`` (indexed by the feature partition q);
     ``idx (P, steps)`` int32 with ``0 <= idx < n_p`` (the caller's
-    contract; not checked per launch).  The unbatched shapes of one cell
-    -- ``x (n_p, m_q)``, vectors ``(n_p,)``, ``w0 (m_q,)``,
-    ``idx (steps,)`` -- are accepted too.
+    contract; not checked per launch).  With a tenant axis after the grid
+    axes -- T problems of one shape in one launch -- ``x (P, Q, T, n_p,
+    m_q)``, ``y, mask, alpha0 (P, T, n_p)``, ``w0 (Q, T, m_q)`` and
+    ``idx (P, T, steps)``.  The unbatched shapes of one cell -- ``x
+    (n_p, m_q)``, vectors ``(n_p,)``, ``w0 (m_q,)``, ``idx (steps,)`` --
+    are accepted too.
 
+    ``lam`` and ``n`` (the regularizer and the global observation count)
+    and ``beta`` are numbers, or tensors broadcastable to the cell grid
+    ``(P, Q[, T])`` -- a per-tenant ``(T,)`` vector, or one value per
+    cell -- which reach the kernel as its per-cell ``cell_params``.
     ``Q`` is the number of feature partitions that scales the conjugate
-    term; ``beta`` (a runtime scalar or None) selects the paper's
-    step_mode="beta" denominator.  Returns ``(dalpha, w_final)`` of
-    shapes ``(P, Q, n_p)`` / ``(P, Q, m_q)`` (or ``(n_p,)`` / ``(m_q,)``).
+    term; ``beta`` (None or given) selects the paper's step_mode="beta"
+    denominator.  Returns ``(dalpha, w_final)`` of shapes ``(P, Q[, T],
+    n_p)`` / ``(P, Q[, T], m_q)`` (or ``(n_p,)`` / ``(m_q,)``).
 
     A CUDA tensor launches the route's CUDA kernel (:func:`sdca_route`)
     or raises; the plain PyTorch version runs only for tensors that lie on
@@ -111,18 +119,22 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
         x, y, mask, alpha0, w0, idx = (
             x[None, None], y[None], mask[None], alpha0[None], w0[None],
             idx[None])
-    if not isinstance(x, torch.Tensor) or x.dim() != 4:
-        raise ValueError("x must be (P, Q, n_p, m_q) or (n_p, m_q)")
-    P, Qc, n_p, m_q = x.shape
+    if not isinstance(x, torch.Tensor) or x.dim() not in (4, 5):
+        raise ValueError("x must be (P, Q, n_p, m_q), (P, Q, T, n_p, m_q) "
+                         "or (n_p, m_q)")
+    P, Qc = x.shape[:2]
+    ten = tuple(x.shape[2:-2])                     # (T,) or ()
+    n_p, m_q = x.shape[-2:]
     dev, f32 = x.device, torch.float32
-    check_tensor("x", x, (P, Qc, n_p, m_q), f32, dev)
-    check_tensor("y", y, (P, n_p), f32, dev)
-    check_tensor("mask", mask, (P, n_p), f32, dev)
-    check_tensor("alpha0", alpha0, (P, n_p), f32, dev)
-    check_tensor("w0", w0, (Qc, m_q), f32, dev)
-    if idx.dim() != 2:
-        raise ValueError(f"idx must be (P, steps), got {tuple(idx.shape)}")
-    check_tensor("idx", idx, (P, idx.shape[1]), torch.int32, dev)
+    check_tensor("x", x, (P, Qc, *ten, n_p, m_q), f32, dev)
+    check_tensor("y", y, (P, *ten, n_p), f32, dev)
+    check_tensor("mask", mask, (P, *ten, n_p), f32, dev)
+    check_tensor("alpha0", alpha0, (P, *ten, n_p), f32, dev)
+    check_tensor("w0", w0, (Qc, *ten, m_q), f32, dev)
+    if idx.dim() != 2 + len(ten):
+        raise ValueError(f"idx must be (P, {'T, ' if ten else ''}steps), "
+                         f"got {tuple(idx.shape)}")
+    check_tensor("idx", idx, (P, *ten, idx.shape[-1]), torch.int32, dev)
 
     if dev.type == "cpu":
         dalpha, w_fin = sdca_epoch_plain(x, y, mask, alpha0, w0, idx,
@@ -131,7 +143,7 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
     elif dev.type == "cuda":
         dalpha, w_fin = _launch(x, y, mask, alpha0, w0, idx, lam=lam, n=n,
                                 Q=Q, loss_id=loss_id, beta=beta,
-                                route=sdca_route(n_p, m_q, idx.shape[1]))
+                                route=sdca_route(n_p, m_q, idx.shape[-1]))
     else:
         raise NotImplementedError(f"sdca_epoch has no path for {dev}")
     if unbatched:
@@ -140,7 +152,8 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
-#: in all, per route, and per cluster size of the cluster route
+#: in all, per route, and per cluster size of the cluster route -- one per
+#: call, whatever the number of tenants
 sdca_epoch.launches = 0
 sdca_epoch.launches_by_route = dict.fromkeys(ROUTES, 0)
 sdca_epoch.launches_by_cluster = dict.fromkeys(CLUSTER_SIZES, 0)
@@ -151,33 +164,43 @@ def _launch(x, y, mask, alpha0, w0, idx, *, lam, n, Q, loss_id, beta,
     """Launch one route.  Only ``chip_smoke.py`` calls it directly, with
     ``route="block"`` at a main-path shape, to time the route the cluster
     route replaced."""
-    P, Qc, n_p, m_q = x.shape
+    P, Qc = x.shape[:2]
+    lead = tuple(x.shape[:-2])                     # (P, Q[, T])
+    T = x.shape[2] if x.dim() == 5 else 1
+    n_p, m_q = x.shape[-2:]
+    steps = idx.shape[-1]
     if route not in ROUTES:
         raise ValueError(f"unknown sdca_epoch route {route!r}")
     if route == "block":
         check_smem(3 * m_q * 4, f"sdca_epoch with m_q={m_q}")
     lib = _build.load_library()
     alloc = torch.zeros if route == "block" else torch.empty
-    dalpha = alloc((P, Qc, n_p), dtype=x.dtype, device=x.device)
-    w_fin = torch.empty((P, Qc, m_q), dtype=x.dtype, device=x.device)
-    scalars = (float(lam), float(n), float(Q),
-               float(beta if beta is not None else 0.0), int(beta is not None))
+    dalpha = alloc((*lead, n_p), dtype=x.dtype, device=x.device)
+    w_fin = torch.empty((*lead, m_q), dtype=x.dtype, device=x.device)
+    use_beta = beta is not None
+    params = None
+    if is_per_cell(lam, n, beta):
+        params = cell_params(lead, x.device, lam, n,
+                             beta if use_beta else 0.0)
+    scalars = (scalar_arg(lam), scalar_arg(n), float(Q),
+               scalar_arg(beta if use_beta else 0.0), int(use_beta))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (x.data_ptr(), y.data_ptr(), mask.data_ptr(),
                 alpha0.data_ptr(), w0.data_ptr(), idx.data_ptr(),
                 dalpha.data_ptr(), w_fin.data_ptr())
+        pp = params.data_ptr() if params is not None else None
         if route == "cluster":
             g = sdca_cluster_size(m_q)
             sl = sdca_cluster_slice(m_q)
             e = sdca_cluster_per_thread(sl)
             code = lib.sdca_epoch_cluster_launch(
-                *ptrs, P, Qc, n_p, m_q, idx.shape[1], *scalars, None,
+                *ptrs, P, Qc, T, n_p, m_q, steps, *scalars, pp,
                 loss_id, g, CLUSTER_THREADS, e, sl,
-                sdca_cluster_smem(n_p, idx.shape[1], e), stream)
+                sdca_cluster_smem(n_p, steps, e), stream)
         else:
             code = lib.sdca_epoch_launch(
-                *ptrs, P, Qc, n_p, m_q, idx.shape[1], *scalars, None,
+                *ptrs, P, Qc, T, n_p, m_q, steps, *scalars, pp,
                 loss_id, block_threads(m_q), stream)
     _build.check_launch(lib, code, f"sdca_epoch ({route})")
     sdca_epoch.launches += 1

@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .._launch import check_loss, check_smem, check_tensor, ell_threads
+from .._launch import (cell_index, cell_params, check_loss, check_smem,
+                       check_tensor, ell_threads, is_per_cell, per_cell,
+                       scalar_arg)
 
 
 def sdca_epoch_sparse(cols, vals, y, mask, alpha0, w0, idx, *, lam, n, Q,
@@ -22,15 +24,20 @@ def sdca_epoch_sparse(cols, vals, y, mask, alpha0, w0, idx, *, lam, n, Q,
     Batched shapes: ``cols (P, Q, n_p, k)`` int32 and ``vals (P, Q, n_p,
     k)`` float32, contiguous -- block-local column ids and values, padding
     slots (col 0, val 0); ``y, mask, alpha0 (P, n_p)``; ``w0 (Q, m_q)``;
-    ``idx (P, steps)`` int32.  The caller's contract, not checked per
-    launch: ``0 <= idx < n_p`` and ``0 <= cols < m_q``.  The unbatched
-    shapes of one cell -- ``cols, vals (n_p, k)``, vectors ``(n_p,)``,
-    ``w0 (m_q,)``, ``idx (steps,)`` -- are accepted too.
+    ``idx (P, steps)`` int32.  With a tenant axis after the grid axes:
+    ``cols, vals (P, Q, T, n_p, k)``, ``y, mask, alpha0 (P, T, n_p)``,
+    ``w0 (Q, T, m_q)``, ``idx (P, T, steps)``.  The caller's contract,
+    not checked per launch: ``0 <= idx < n_p`` and ``0 <= cols < m_q``.
+    The unbatched shapes of one cell -- ``cols, vals (n_p, k)``, vectors
+    ``(n_p,)``, ``w0 (m_q,)``, ``idx (steps,)`` -- are accepted too.
 
-    ``Q`` is the number of feature partitions that scales the conjugate
-    term; ``beta`` (a runtime scalar or None) selects the paper's
-    step_mode="beta" denominator.  Returns ``(dalpha, w_final)`` of
-    shapes ``(P, Q, n_p)`` / ``(P, Q, m_q)`` (or ``(n_p,)`` / ``(m_q,)``).
+    ``lam``, ``n`` and ``beta`` are numbers, or tensors broadcastable to
+    the cell grid ``(P, Q[, T])`` (per tenant or per cell), which reach
+    the kernel as its per-cell ``cell_params``.  ``Q`` is the number of
+    feature partitions that scales the conjugate term; ``beta`` (None or
+    given) selects the paper's step_mode="beta" denominator.  Returns
+    ``(dalpha, w_final)`` of shapes ``(P, Q[, T], n_p)`` / ``(P, Q[, T],
+    m_q)`` (or ``(n_p,)`` / ``(m_q,)``).
 
     A CUDA tensor launches the CUDA kernel or raises; the plain PyTorch
     version runs only for tensors that lie on the CPU.
@@ -41,21 +48,26 @@ def sdca_epoch_sparse(cols, vals, y, mask, alpha0, w0, idx, *, lam, n, Q,
         cols, vals, y, mask, alpha0, w0, idx = (
             cols[None, None], vals[None, None], y[None], mask[None],
             alpha0[None], w0[None], idx[None])
-    if not isinstance(cols, torch.Tensor) or cols.dim() != 4:
-        raise ValueError("cols must be (P, Q, n_p, k) or (n_p, k)")
-    P, Qc, n_p, k = cols.shape
+    if not isinstance(cols, torch.Tensor) or cols.dim() not in (4, 5):
+        raise ValueError("cols must be (P, Q, n_p, k), (P, Q, T, n_p, k) "
+                         "or (n_p, k)")
+    P, Qc = cols.shape[:2]
+    ten = tuple(cols.shape[2:-2])                  # (T,) or ()
+    n_p, k = cols.shape[-2:]
     dev, f32 = cols.device, torch.float32
-    check_tensor("cols", cols, (P, Qc, n_p, k), torch.int32, dev)
-    check_tensor("vals", vals, (P, Qc, n_p, k), f32, dev)
-    check_tensor("y", y, (P, n_p), f32, dev)
-    check_tensor("mask", mask, (P, n_p), f32, dev)
-    check_tensor("alpha0", alpha0, (P, n_p), f32, dev)
-    if w0.dim() != 2:
-        raise ValueError(f"w0 must be (Q, m_q), got {tuple(w0.shape)}")
-    check_tensor("w0", w0, (Qc, w0.shape[1]), f32, dev)
-    if idx.dim() != 2:
-        raise ValueError(f"idx must be (P, steps), got {tuple(idx.shape)}")
-    check_tensor("idx", idx, (P, idx.shape[1]), torch.int32, dev)
+    check_tensor("cols", cols, (P, Qc, *ten, n_p, k), torch.int32, dev)
+    check_tensor("vals", vals, (P, Qc, *ten, n_p, k), f32, dev)
+    check_tensor("y", y, (P, *ten, n_p), f32, dev)
+    check_tensor("mask", mask, (P, *ten, n_p), f32, dev)
+    check_tensor("alpha0", alpha0, (P, *ten, n_p), f32, dev)
+    if w0.dim() != 2 + len(ten):
+        raise ValueError(f"w0 must be (Q, {'T, ' if ten else ''}m_q), got "
+                         f"{tuple(w0.shape)}")
+    check_tensor("w0", w0, (Qc, *ten, w0.shape[-1]), f32, dev)
+    if idx.dim() != 2 + len(ten):
+        raise ValueError(f"idx must be (P, {'T, ' if ten else ''}steps), "
+                         f"got {tuple(idx.shape)}")
+    check_tensor("idx", idx, (P, *ten, idx.shape[-1]), torch.int32, dev)
 
     if dev.type == "cpu":
         dalpha, w_fin = sdca_epoch_sparse_plain(
@@ -73,28 +85,37 @@ def sdca_epoch_sparse(cols, vals, y, mask, alpha0, w0, idx, *, lam, n, Q,
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else)
+#: -- one per call, whatever the number of tenants
 sdca_epoch_sparse.launches = 0
 
 
 def _launch(cols, vals, y, mask, alpha0, w0, idx, *, lam, n, Q, loss_id,
             beta):
-    P, Qc, n_p, k = cols.shape
-    m_q = w0.shape[1]
+    P, Qc = cols.shape[:2]
+    lead = tuple(cols.shape[:-2])                  # (P, Q[, T])
+    T = cols.shape[2] if cols.dim() == 5 else 1
+    n_p, k = cols.shape[-2:]
+    m_q = w0.shape[-1]
     # only the two ELL row buffers live in shared memory; w stays in
     # device memory (the w_final output), whatever m_q
     check_smem(2 * k * 8, f"sdca_epoch_sparse with k={k}")
     lib = _build.load_library()
-    dalpha = torch.zeros((P, Qc, n_p), dtype=vals.dtype, device=vals.device)
-    w_fin = torch.empty((P, Qc, m_q), dtype=vals.dtype, device=vals.device)
+    dalpha = torch.zeros((*lead, n_p), dtype=vals.dtype, device=vals.device)
+    w_fin = torch.empty((*lead, m_q), dtype=vals.dtype, device=vals.device)
+    use_beta = beta is not None
+    params = (cell_params(lead, vals.device, lam, n,
+                          beta if use_beta else 0.0)
+              if is_per_cell(lam, n, beta) else None)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.sdca_epoch_sparse_launch(
             cols.data_ptr(), vals.data_ptr(), y.data_ptr(), mask.data_ptr(),
             alpha0.data_ptr(), w0.data_ptr(), idx.data_ptr(),
-            dalpha.data_ptr(), w_fin.data_ptr(), P, Qc, n_p, k, m_q,
-            idx.shape[1], float(lam), float(n), float(Q),
-            float(beta if beta is not None else 0.0), int(beta is not None),
-            None, loss_id, ell_threads(k), stream)
+            dalpha.data_ptr(), w_fin.data_ptr(), P, Qc, T, n_p, k, m_q,
+            idx.shape[-1], scalar_arg(lam), scalar_arg(n), float(Q),
+            scalar_arg(beta if use_beta else 0.0), int(use_beta),
+            params.data_ptr() if params is not None else None, loss_id,
+            ell_threads(k), stream)
     _build.check_launch(lib, code, "sdca_epoch_sparse")
     sdca_epoch_sparse.launches += 1
     return dalpha, w_fin
@@ -104,46 +125,55 @@ def sdca_epoch_sparse_plain(cols, vals, y, mask, alpha0, w0, idx, *, lam, n,
                             Q, loss: str = "hinge", beta=None):
     """cols, vals: (P, Q, n_p, k); y, mask, alpha0: (P, n_p); w0: (Q, m_q);
     idx: (P, steps) int32 coordinate order, shared by the cells of a row
-    partition.
+    partition.  With a tenant axis: cols, vals (P, Q, T, n_p, k); y,
+    mask, alpha0 (P, T, n_p); w0 (Q, T, m_q); idx (P, T, steps).
 
     Per step: z = sum(vals * w[cols]) (gather), the closed-form dual
     step, w[cols] += d / (lam n) * vals (scatter-add, so the duplicate
-    col-0 padding slots add zero), dalpha[i] += d.  ``beta`` (runtime
-    scalar) replaces the ||x_i||^2 denominator when given.  Returns
-    (dalpha (P, Q, n_p), w_final (P, Q, m_q)) in float32.
+    col-0 padding slots add zero), dalpha[i] += d.  ``lam``, ``n`` and
+    ``beta`` are numbers or tensors broadcastable to the cell grid, formed
+    in float32 per cell as the kernel forms them; ``beta`` replaces the
+    ||x_i||^2 denominator when given.  Returns (dalpha (P, Q[, T], n_p),
+    w_final (P, Q[, T], m_q)) in float32.
     """
     if loss not in ("hinge", "squared"):
         raise ValueError(loss)
-    P, Qc, n_p, k = cols.shape
+    tenant = cols.dim() == 5
+    P, Qc = cols.shape[:2]
+    T = cols.shape[2] if tenant else 1
+    n_p, k = cols.shape[-2:]
     m_q = w0.shape[-1]
-    w = w0.unsqueeze(0).expand(P, Qc, m_q).clone()
-    dalpha = torch.zeros((P, Qc, n_p), dtype=vals.dtype, device=vals.device)
-    pa = torch.arange(P, device=vals.device)
-    idx = idx.long()
-    for h in range(idx.shape[1]):
-        i = idx[:, h]                              # (P,)
-        ci = cols[pa, :, i].long()                 # (P, Q, k)
-        vi = vals[pa, :, i]
-        yi = y[pa, i].unsqueeze(1)                 # (P, 1)
-        mi = mask[pa, i].unsqueeze(1)
-        zloc = (vi * torch.gather(w, 2, ci)).sum(-1)   # (P, Q)
-        a_i = alpha0[pa, i].unsqueeze(1) + dalpha[pa, :, i]
-        if beta is None:
-            denom = (vi * vi).sum(-1)
-        else:
-            denom = torch.full_like(zloc, float(beta))
+    lead = (P, Qc, T) if tenant else (P, Qc)
+    dev = vals.device
+    cell, row, col = cell_index(P, Qc, T, dev)
+    cf, vf = cols.reshape(-1, n_p, k), vals.reshape(-1, n_p, k)
+    yf, mf, af = (v.reshape(P * T, n_p)[row] for v in (y, mask, alpha0))
+    idxf = idx.reshape(P * T, -1)[row].long()
+    w = w0.reshape(Qc * T, m_q)[col]
+    lam_c, n_c = per_cell(lam, lead, dev), per_cell(n, lead, dev)
+    lam_n = lam_c * n_c
+    beta_c = None if beta is None else per_cell(beta, lead, dev)
+    dalpha = torch.zeros((cell.numel(), n_p), dtype=vals.dtype, device=dev)
+    for h in range(idxf.shape[1]):
+        i = idxf[:, h]                             # (C,)
+        ci = cf[cell, i].long()                    # (C, k)
+        vi = vf[cell, i]
+        yi, mi = yf[cell, i], mf[cell, i]
+        zloc = (vi * torch.gather(w, 1, ci)).sum(-1)
+        a_i = af[cell, i] + dalpha[cell, i]
+        denom = (vi * vi).sum(-1) if beta_c is None else beta_c
         denom = torch.clamp(denom, min=1e-12)
         if loss == "hinge":
-            d = (yi / Q - zloc) * lam * n / denom
+            d = (yi / Q - zloc) * lam_c * n_c / denom
             pos = yi > 0
             lo = torch.where(pos, 0.0, -1.0)
             hi = torch.where(pos, 1.0, 0.0)
             d = torch.minimum(torch.maximum(a_i + d, lo), hi) - a_i
         else:
             num = yi / Q - a_i / (2.0 * Q) - zloc
-            den = 1.0 / (2.0 * Q) + denom / (lam * n)
+            den = 1.0 / (2.0 * Q) + denom / lam_n
             d = num / torch.clamp(den, min=1e-12)
         d = d * mi                                 # padded rows never move
-        w.scatter_add_(2, ci, (d / (lam * n)).unsqueeze(-1) * vi)
-        dalpha[pa, :, i] += d
-    return dalpha, w
+        w.scatter_add_(1, ci, (d / lam_n).unsqueeze(-1) * vi)
+        dalpha[cell, i] += d
+    return dalpha.reshape(*lead, n_p), w.reshape(*lead, m_q)

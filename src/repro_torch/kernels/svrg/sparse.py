@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .._launch import (MAX_DYNAMIC_SMEM, check_loss, check_smem,
-                       check_tensor, ell_threads)
+from .._launch import (MAX_DYNAMIC_SMEM, cell_index, cell_params,
+                       check_loss, check_smem, check_tensor, ell_threads,
+                       is_per_cell, per_cell, scalar_arg)
 from .ref import _grad
 
 #: the cluster route's geometry, owned here and passed to the launch, which
@@ -69,14 +70,19 @@ def svrg_inner_sparse(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, *,
     int32 -- the window ``[lo[p], lo[p] + m_sub)`` of block-local columns
     the cells of row partition p work on, chosen inside the kernel by
     masking ``cols - lo`` (entries outside it are skipped, so any ``lo``
-    is safe); ``None`` means column 0.  The unbatched shapes of one cell
-    -- ``cols, vals (n_p, k)``, vectors ``(n_p,)``, ``w_anchor, mu
-    (m_sub,)``, ``idx (L,)``, ``lo`` an int or None -- are accepted too.
+    is safe); ``None`` means column 0.  With a tenant axis after the grid
+    axes: ``cols, vals (P, Q, T, n_p, k)``, rows ``(P, T, n_p)``,
+    ``w_anchor, mu (P, Q, T, m_sub)``, ``idx (P, Q, T, L)``, ``lo (P,
+    T)``.  The unbatched shapes of one cell -- ``cols, vals (n_p, k)``,
+    vectors ``(n_p,)``, ``w_anchor, mu (m_sub,)``, ``idx (L,)``, ``lo``
+    an int or None -- are accepted too.
 
-    Returns the updated window iterate ``(P, Q, m_sub)`` (or
-    ``(m_sub,)``).  A CUDA tensor launches the route's CUDA kernel
-    (:func:`svrg_sparse_route`) or raises; the plain PyTorch version runs
-    only for tensors that lie on the CPU.
+    ``lam`` and ``eta`` are numbers, or tensors broadcastable to the cell
+    grid ``(P, Q[, T])`` (per tenant or per cell), which reach the kernel
+    as its per-cell ``cell_params``.  Returns the updated window iterate
+    ``(P, Q[, T], m_sub)`` (or ``(m_sub,)``).  A CUDA tensor launches the
+    route's CUDA kernel (:func:`svrg_sparse_route`) or raises; the plain
+    PyTorch version runs only for tensors that lie on the CPU.
     """
     loss_id = check_loss(loss, "the svrg_inner_sparse kernel")
     unbatched = isinstance(cols, torch.Tensor) and cols.dim() == 2
@@ -88,26 +94,30 @@ def svrg_inner_sparse(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, *,
         if lo is not None:
             lo = torch.tensor([int(lo)], dtype=torch.int32,
                               device=cols.device)
-    if not isinstance(cols, torch.Tensor) or cols.dim() != 4:
-        raise ValueError("cols must be (P, Q, n_p, k) or (n_p, k)")
-    P, Qc, n_p, k = cols.shape
+    if not isinstance(cols, torch.Tensor) or cols.dim() not in (4, 5):
+        raise ValueError("cols must be (P, Q, n_p, k), (P, Q, T, n_p, k) "
+                         "or (n_p, k)")
+    P, Qc = cols.shape[:2]
+    ten = tuple(cols.shape[2:-2])                  # (T,) or ()
+    n_p, k = cols.shape[-2:]
     dev, f32 = cols.device, torch.float32
-    check_tensor("cols", cols, (P, Qc, n_p, k), torch.int32, dev)
-    check_tensor("vals", vals, (P, Qc, n_p, k), f32, dev)
-    check_tensor("y", y, (P, n_p), f32, dev)
-    check_tensor("mask", mask, (P, n_p), f32, dev)
-    check_tensor("z_anchor", z_anchor, (P, n_p), f32, dev)
-    if w_anchor.dim() != 3:
-        raise ValueError("w_anchor must be (P, Q, m_sub), got "
-                         f"{tuple(w_anchor.shape)}")
-    m_sub = w_anchor.shape[2]
-    check_tensor("w_anchor", w_anchor, (P, Qc, m_sub), f32, dev)
-    check_tensor("mu", mu, (P, Qc, m_sub), f32, dev)
-    if idx.dim() != 3:
-        raise ValueError(f"idx must be (P, Q, L), got {tuple(idx.shape)}")
-    check_tensor("idx", idx, (P, Qc, idx.shape[2]), torch.int32, dev)
+    check_tensor("cols", cols, (P, Qc, *ten, n_p, k), torch.int32, dev)
+    check_tensor("vals", vals, (P, Qc, *ten, n_p, k), f32, dev)
+    check_tensor("y", y, (P, *ten, n_p), f32, dev)
+    check_tensor("mask", mask, (P, *ten, n_p), f32, dev)
+    check_tensor("z_anchor", z_anchor, (P, *ten, n_p), f32, dev)
+    if w_anchor.dim() != 3 + len(ten):
+        raise ValueError(f"w_anchor must be (P, Q, {'T, ' if ten else ''}"
+                         f"m_sub), got {tuple(w_anchor.shape)}")
+    m_sub = w_anchor.shape[-1]
+    check_tensor("w_anchor", w_anchor, (P, Qc, *ten, m_sub), f32, dev)
+    check_tensor("mu", mu, (P, Qc, *ten, m_sub), f32, dev)
+    if idx.dim() != 3 + len(ten):
+        raise ValueError(f"idx must be (P, Q, {'T, ' if ten else ''}L), "
+                         f"got {tuple(idx.shape)}")
+    check_tensor("idx", idx, (P, Qc, *ten, idx.shape[-1]), torch.int32, dev)
     if lo is not None:
-        check_tensor("lo", lo, (P,), torch.int32, dev)
+        check_tensor("lo", lo, (P, *ten), torch.int32, dev)
 
     if dev.type == "cpu":
         w = svrg_inner_sparse_plain(cols, vals, y, mask, z_anchor, w_anchor,
@@ -123,7 +133,7 @@ def svrg_inner_sparse(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, *,
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
-#: in all and per route
+#: in all and per route -- one per call, whatever the number of tenants
 svrg_inner_sparse.launches = 0
 svrg_inner_sparse.launches_by_route = dict.fromkeys(ROUTES, 0)
 
@@ -134,31 +144,38 @@ def _launch(cols, vals, y, mask, z_anchor, w_anchor, mu, idx, lo, *, lam,
     wrapper passes :func:`svrg_sparse_route`'s choice; ``chip_smoke.py``
     also passes ``"block"`` for a window the cluster route takes, to time
     the route that the main path took before."""
-    P, Qc, n_p, k = cols.shape
-    m_sub = w_anchor.shape[2]
+    P, Qc = cols.shape[:2]
+    lead = tuple(cols.shape[:-2])                  # (P, Q[, T])
+    T = cols.shape[2] if cols.dim() == 5 else 1
+    n_p, k = cols.shape[-2:]
+    m_sub = w_anchor.shape[-1]
+    L = idx.shape[-1]
     lib = _build.load_library()
-    w = torch.empty((P, Qc, m_sub), dtype=vals.dtype, device=vals.device)
+    w = torch.empty((*lead, m_sub), dtype=vals.dtype, device=vals.device)
+    params = (cell_params(lead, vals.device, lam, eta)
+              if is_per_cell(lam, eta) else None)
     ptrs = (cols.data_ptr(), vals.data_ptr(), y.data_ptr(), mask.data_ptr(),
             z_anchor.data_ptr(), w_anchor.data_ptr(), mu.data_ptr(),
             idx.data_ptr(), lo.data_ptr() if lo is not None else None,
             w.data_ptr())
+    scalars = (scalar_arg(lam), scalar_arg(eta),
+               params.data_ptr() if params is not None else None)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "cluster":
             code = lib.svrg_inner_sparse_cluster_launch(
-                *ptrs, P, Qc, n_p, k, m_sub, idx.shape[2], float(lam),
-                float(eta), None, loss_id, CLUSTER_SIZE, CLUSTER_THREADS,
-                cluster_slice(m_sub), cluster_smem(m_sub, k), stream)
+                *ptrs, P, Qc, T, n_p, k, m_sub, L, *scalars, loss_id,
+                CLUSTER_SIZE, CLUSTER_THREADS, cluster_slice(m_sub),
+                cluster_smem(m_sub, k), stream)
         else:
             # only the two ELL row buffers live in shared memory; the
             # window vectors stay in device memory, whatever m_sub
             check_smem(2 * k * 8, f"svrg_inner_sparse with k={k}")
-            g = torch.zeros((P, Qc, m_sub), dtype=vals.dtype,
+            g = torch.zeros((*lead, m_sub), dtype=vals.dtype,
                             device=vals.device)
             code = lib.svrg_inner_sparse_launch(
-                *ptrs, g.data_ptr(), P, Qc, n_p, k, m_sub, idx.shape[2],
-                float(lam), float(eta), None, loss_id,
-                ell_threads(k, m_sub, max_warps=32), stream)
+                *ptrs, g.data_ptr(), P, Qc, T, n_p, k, m_sub, L, *scalars,
+                loss_id, ell_threads(k, m_sub, max_warps=32), stream)
     _build.check_launch(lib, code, f"svrg_inner_sparse ({route} route)")
     svrg_inner_sparse.launches += 1
     svrg_inner_sparse.launches_by_route[route] += 1
@@ -169,32 +186,45 @@ def svrg_inner_sparse_plain(cols, vals, y, mask, z_anchor, w_anchor, mu, idx,
                             *, lam, eta, loss: str = "hinge", lo=None):
     """cols, vals: (P, Q, n_p, k) FULL blocks; y, mask, z_anchor: (P, n_p);
     w_anchor, mu: (P, Q, m_sub); idx: (P, Q, L) int32 minibatch order per
-    cell; ``lo`` (P,) int32 window offsets (None: column 0).
+    cell; ``lo`` (P,) int32 window offsets (None: column 0).  With a
+    tenant axis: cols, vals (P, Q, T, n_p, k); rows (P, T, n_p);
+    w_anchor, mu (P, Q, T, m_sub); idx (P, Q, T, L); lo (P, T).  ``lam``
+    and ``eta`` are numbers or tensors broadcastable to the cell grid.
 
     Per step: rel = cols - lo selects the in-window entries of row j;
     z = z_anchor[j] + sum(vals * sel * (w - w~)[rel]); the loss-gradient
     difference times the row is scatter-added into a zero window vector
     g_sparse, and w = w - eta * (g_sparse + mu + lam * (w - w~)).
-    Returns w (P, Q, m_sub).
+    Returns w (P, Q[, T], m_sub).
     """
+    tenant = cols.dim() == 5
     P, Qc = cols.shape[:2]
+    T = cols.shape[2] if tenant else 1
+    n_p, k = cols.shape[-2:]
     m_sub = w_anchor.shape[-1]
-    pa = torch.arange(P, device=vals.device)[:, None]
-    qa = torch.arange(Qc, device=vals.device)[None, :]
-    off = 0 if lo is None else lo.long()[:, None, None]
-    idx = idx.long()
-    w = w_anchor.clone()
-    for h in range(idx.shape[-1]):
-        j = idx[:, :, h]                                # (P, Q)
-        rel = cols[pa, qa, j].long() - off              # (P, Q, k)
-        vj = vals[pa, qa, j]
-        yj, mj, zj = y[pa, j], mask[pa, j], z_anchor[pa, j]
+    lead = (P, Qc, T) if tenant else (P, Qc)
+    dev = vals.device
+    cell, row, _ = cell_index(P, Qc, T, dev)
+    cf, vf = cols.reshape(-1, n_p, k), vals.reshape(-1, n_p, k)
+    yf, mf, zf = (v.reshape(P * T, n_p)[row] for v in (y, mask, z_anchor))
+    wa = w_anchor.reshape(-1, m_sub)
+    muf = mu.reshape(-1, m_sub)
+    idxf = idx.reshape(cell.numel(), -1).long()
+    off = 0 if lo is None else lo.reshape(P * T)[row].long()[:, None]
+    lam_c = per_cell(lam, lead, dev)[:, None]
+    eta_c = per_cell(eta, lead, dev)[:, None]
+    w = wa.clone()
+    for h in range(idxf.shape[1]):
+        j = idxf[:, h]                                  # (C,)
+        rel = cf[cell, j].long() - off                  # (C, k)
+        vj = vf[cell, j]
+        yj, mj, zj = yf[cell, j], mf[cell, j], zf[cell, j]
         sel = ((rel >= 0) & (rel < m_sub)).to(vj.dtype)
         relc = rel.clamp(0, m_sub - 1)
-        diff = w - w_anchor
-        z = zj + (vj * sel * torch.gather(diff, 2, relc)).sum(-1)
+        diff = w - wa
+        z = zj + (vj * sel * torch.gather(diff, 1, relc)).sum(-1)
         gscale = (_grad(loss, z, yj) - _grad(loss, zj, yj)) * mj
         g_sparse = torch.zeros_like(w).scatter_add_(
-            2, relc, gscale.unsqueeze(-1) * vj * sel)
-        w = w - eta * (g_sparse + mu + lam * diff)
-    return w
+            1, relc, gscale.unsqueeze(-1) * vj * sel)
+        w = w - eta_c * (g_sparse + muf + lam_c * diff)
+    return w.reshape(*lead, m_sub)

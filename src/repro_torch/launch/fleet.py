@@ -1,0 +1,264 @@
+"""Multi-tenant fleet CLI over :mod:`repro_torch.fleet`.
+
+Solve many independent tenant problems in one batched program on the
+single-device grid engine: every outer step launches each solver kernel
+once for all tenants' cells.
+
+  # the paper's Part 1 instance, four tenants, on the card
+  PYTHONPATH=src python -m repro_torch.launch.fleet \\
+      --solver d3ca --tenants 4 --n 14000 --m 12000 --mesh 7x4 \\
+      --lam 1e-2 --iters 10
+
+  # news20-profile sparse tenants: CSR all the way down, padded-ELL
+  # cells on the card
+  PYTHONPATH=src python -m repro_torch.launch.fleet \\
+      --solver radisa --block-format sparse --tenants 2 --n 19996 \\
+      --m 1355191 --density 3.4e-4 --lam 1e-4 --mesh 7x4 --iters 10
+
+  # a small fleet on the CPU; mixed shapes make two buckets, and round r
+  # warm-starts every tenant from its round r-1 result
+  PYTHONPATH=src python -m repro_torch.launch.fleet \\
+      --tenants 8 --shape-mix --rounds 2 --device cpu
+
+Tenant i gets ``lam * 0.5 ** (i % 3)`` and seed ``seed + i``.  Dense
+tenants come from ``make_svm_data``; with ``--block-format sparse`` they
+are made as CSR by ``make_sparse_svm_csr`` and never densified.  Prints
+one line per tenant per round and a final JSON summary.
+
+The flags of layers that are not ported yet (the mesh engine, tracing,
+metrics and the observability plane, publishing snapshots to the online
+service) are still parsed, so that asking for one fails by name instead
+of being ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+from repro_torch.core import get_solver
+from repro_torch.core.solver import not_ported_message
+from repro_torch.data import (make_sparse_svm_csr, make_sparse_svm_data,
+                               make_svm_data)
+from repro_torch.fleet import FleetProblem, FleetScheduler
+
+#: flags of the reference CLI whose layer is not ported: (flag, argparse
+#: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
+#: means "not asked for")
+_NOT_PORTED_FLAGS = (
+    ("--engine", "engine", "simulated"),
+    ("--force-host-devices", "force_host_devices", None),
+    ("--publish-snapshots", "publish_snapshots", False),
+    ("--trace", "trace", None),
+    ("--metrics", "metrics", False),
+    ("--min-tenants", "min_tenants", 2),
+    ("--listen", "listen", None),
+    ("--health", "health", False),
+    ("--flight-recorder", "flight_recorder", None),
+    ("--flight-capacity", "flight_capacity", None),
+)
+
+
+def _parse_mesh(s: str):
+    try:
+        p, q = s.lower().split("x")
+        return int(p), int(q)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--mesh expects PxQ, got {s!r}")
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.fleet",
+        description="Multi-tenant batched solves (PyTorch/CUDA port): one "
+                    "program, and one launch of each solver kernel per "
+                    "outer step, for T tenants")
+    ap.add_argument("--solver", default="d3ca",
+                    help="d3ca | radisa | sfk | admm")
+    ap.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
+                    help="cell-local solver backend: the CUDA kernels "
+                         "(plain PyTorch versions on the CPU) or the plain "
+                         "per-step loop")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a card) | cpu")
+    ap.add_argument("--block-format", default="dense",
+                    choices=["dense", "sparse"])
+    ap.add_argument("--mesh", type=_parse_mesh, default=(2, 2),
+                    metavar="PxQ", help="grid shape, e.g. 2x2")
+    ap.add_argument("--tenants", type=int, default=8, metavar="T")
+    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--m", type=int, default=64)
+    ap.add_argument("--density", type=float, default=0.05,
+                    help="nonzero fraction for --block-format sparse data")
+    ap.add_argument("--loss", default="hinge",
+                    choices=["hinge", "squared", "logistic"])
+    ap.add_argument("--lam", type=float, default=1.0,
+                    help="base regularization; tenant i uses "
+                         "lam * 0.5^(i mod 3)")
+    ap.add_argument("--iters", type=int, default=6)
+    ap.add_argument("--tol", type=float, default=None,
+                    help="per-tenant early stopping (converged tenants "
+                         "freeze exactly; the batch stops when all froze)")
+    ap.add_argument("--check-every", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="resubmit every tenant this many times; round "
+                         "r warm-starts from round r-1 (warm registry)")
+    ap.add_argument("--max-tenants", type=int, default=None,
+                    help="cap tenants per batched solve (bigger buckets "
+                         "split into chunks)")
+    ap.add_argument("--shape-mix", action="store_true",
+                    help="give every other tenant 50%% more rows, "
+                         "exercising the scheduler's shape buckets")
+    ap.add_argument("--json-out", default=None,
+                    help="write the summary JSON here as well")
+    # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
+    ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
+    ap.add_argument("--force-host-devices", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--min-tenants", type=int, default=2,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--flight-capacity", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    for flag in ("--trace", "--listen", "--flight-recorder"):
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--publish-snapshots", "--metrics", "--health"):
+        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    return ap
+
+
+def make_tenants(args, *, count=None, lam_of=None, prefix="tenant"):
+    """Synthetic tenants from the parsed flags: tenant i has seed ``seed +
+    i``, ``lam_of(i)`` (default the fleet's rule ``lam * 0.5 ** (i %
+    3)``) and ``n`` rows (``n + n // 2`` every other one with
+    ``--shape-mix``).  Sparse tenants (``--block-format sparse``, or the
+    optimize CLI's ``--dataset sparse``) are CSR (``make_sparse_svm_csr``)
+    on sparse blocks, never densified, and ``make_sparse_svm_data`` on
+    dense ones; the rest ``make_svm_data``."""
+    count = args.tenants if count is None else count
+    lam_of = lam_of or (lambda i: args.lam * 0.5 ** (i % 3))
+    sparse_rows = getattr(args, "dataset", args.block_format) == "sparse"
+    problems = []
+    for i in range(count):
+        n = args.n + (args.n // 2 if getattr(args, "shape_mix", False)
+                      and i % 2 else 0)
+        seed = args.seed + i
+        if sparse_rows and args.block_format == "sparse":
+            X, y = make_sparse_svm_csr(n, args.m, density=args.density,
+                                       seed=seed)
+        elif sparse_rows:
+            X, y = make_sparse_svm_data(n, args.m, density=args.density,
+                                        seed=seed)
+        else:
+            X, y = make_svm_data(n, args.m, seed=seed)
+        problems.append(FleetProblem(
+            tenant_id=f"{prefix}{i}", loss_name=args.loss, X=X, y=y,
+            lam=lam_of(i), seed=seed))
+    return problems
+
+
+def report(problems, results, label=""):
+    """Print one line per tenant and return its summary entries."""
+    entries = []
+    for p in problems:
+        res = results[p.tenant_id]
+        obj = res.history[-1]["objective"] if res.history else None
+        entries.append({"tenant": p.tenant_id, "lam": p.lam, "seed": p.seed,
+                        "n": p.n, "m": p.m, "iters": res.iters,
+                        "converged": res.converged, "objective": obj})
+        print(f"  {label}{p.tenant_id:>10} lam={p.lam:<8g} seed={p.seed} "
+              f"n={p.n} iters={res.iters} "
+              + (f"f={obj:.6f}" if obj is not None else "f=?")
+              + (" converged" if res.converged else ""))
+    return entries
+
+
+def finish(args, summary):
+    """Print the summary JSON, write it to ``--json-out`` and return it."""
+    print(json.dumps(summary, indent=1))
+    if args.json_out:
+        with open(args.json_out, "w") as fh:
+            json.dump(summary, fh, indent=1)
+    return summary
+
+
+def parse_args(argv=None):
+    """The CLI's flags; exits 2 naming the ROADMAP item of a flag whose
+    layer is not ported, or an unknown solver."""
+    ap = build_parser()
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    for flag, dest, unset in _NOT_PORTED_FLAGS:
+        if getattr(args, dest) != unset:
+            ap.error(not_ported_message(dest,
+                                        f"{flag} {getattr(args, dest)}"))
+    try:
+        get_solver(args.solver)
+    except KeyError as e:
+        ap.error(str(e.args[0]))
+    return args
+
+
+def run(args, on_result=None):
+    """The CLI's work on parsed flags: every round's fleet solves.
+    ``on_result(problem, result)`` fires for every tenant of every round
+    with its :class:`~repro_torch.fleet.FleetProblem` and its
+    ``SolveResult`` (``main`` passes none).  Returns the summary dict it
+    prints."""
+    cls = get_solver(args.solver)
+    P, Q = args.mesh
+    cfg_kw = {"lam": args.lam, "outer_iters": args.iters}
+    if args.solver == "admm":
+        cfg_kw["rho"] = args.lam
+    cfg = cls.config_cls(**cfg_kw)
+
+    problems = make_tenants(args)
+    by_id = {p.tenant_id: p for p in problems}
+    try:
+        # raises when the card is asked for (the default) and there is none
+        sched = FleetScheduler(
+            P=P, Q=Q, solver=args.solver, local_backend=args.backend,
+            block_format=args.block_format, cfg=cfg, tol=args.tol,
+            check_every=args.check_every, max_tenants=args.max_tenants,
+            device=args.device,
+            on_result=(None if on_result is None else
+                       lambda tid, res: on_result(by_id[tid], res)))
+    except ValueError as e:
+        build_parser().error(str(e))
+
+    print(f"[fleet] {args.solver} engine=simulated "
+          f"backend={args.backend} device={sched.fleet.device} "
+          f"block_format={args.block_format} grid={P}x{Q} "
+          f"tenants={args.tenants} loss={args.loss} rounds={args.rounds}")
+
+    entries = {}
+    buckets = 0
+    t0 = time.perf_counter()
+    for r in range(args.rounds):
+        for p in problems:
+            sched.submit(p)
+        buckets = len(sched.buckets())
+        results = sched.run()
+        for e in report(problems, results, label=f"round={r} "):
+            entries[e["tenant"]] = e
+    total_s = time.perf_counter() - t0
+
+    solves = args.tenants * args.rounds
+    return finish(args, {
+        "solver": args.solver, "engine": "simulated",
+        "local_backend": args.backend, "device": str(sched.fleet.device),
+        "block_format": args.block_format, "P": P, "Q": Q,
+        "loss": args.loss, "tenants": args.tenants,
+        "rounds": args.rounds, "buckets": buckets,
+        "total_s": total_s, "solves_per_s": solves / total_s,
+        "results": list(entries.values()),
+    })
+
+
+def main(argv=None):
+    """Run the CLI; returns the summary dict it prints."""
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

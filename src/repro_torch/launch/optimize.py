@@ -1,7 +1,7 @@
 """CLI over the unified solver framework (``repro_torch.core.solver``).
 
-Run D3CA, RADiSA or SFK on a synthetic dataset (or a LIBSVM file) on the
-single-device grid engine:
+Run D3CA, RADiSA, SFK or ADMM on a synthetic dataset (or a LIBSVM file)
+on the single-device grid engine:
 
   # the paper's Part 1 instance at full width, on the card, through the
   # CUDA kernels (the defaults: --device cuda --backend kernel)
@@ -19,20 +19,27 @@ single-device grid engine:
   PYTHONPATH=src python -m repro_torch.launch.optimize \\
       --solver sfk --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu
 
+  # the paper's ADMM baseline (rho = lam), and a fan-out of 3 synthetic
+  # instances (seeds seed .. seed + 2) through one batched fleet solve
+  PYTHONPATH=src python -m repro_torch.launch.optimize \\
+      --solver admm --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.optimize \\
+      --problems 3 --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu
+
 Prints one line per outer iteration (objective, duality gap when the
 solver has a dual, relative optimality when --ref-epochs > 0) and a
 final JSON summary.
 
 The flags of layers that are not ported yet (mesh engines, staleness,
-compression, topology, fleet fan-out, tracing and the observability
-plane) are still parsed, so that asking for one fails by name instead of
-being ignored.
+compression, topology, tracing and the observability plane) are still
+parsed, so that asking for one fails by name instead of being ignored.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import time
 
 from repro_torch.core import get_solver, objective, serial_sdca
 from repro_torch.core.solver import not_ported_message
@@ -53,7 +60,6 @@ _NOT_PORTED_FLAGS = (
     ("--staleness", "staleness", 0),
     ("--compression", "compression", None),
     ("--topology", "topology", None),
-    ("--problems", "problems", 1),
     ("--force-host-devices", "force_host_devices", None),
     ("--trace", "trace", None),
     ("--metrics", "metrics", False),
@@ -76,7 +82,7 @@ def build_parser():
         prog="repro_torch.launch.optimize",
         description="Doubly distributed solver CLI (PyTorch/CUDA port)")
     ap.add_argument("--solver", default="d3ca",
-                    help="d3ca | radisa | sfk (see get_solver)")
+                    help="d3ca | radisa | sfk | admm (see get_solver)")
     ap.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
                     help="cell-local solver backend: the CUDA kernels "
                          "(plain PyTorch versions on the CPU) or the plain "
@@ -109,11 +115,13 @@ def build_parser():
                     help="serial SDCA epochs for f*; 0 skips rel-opt")
     ap.add_argument("--json-out", default=None,
                     help="write the summary JSON here as well")
+    ap.add_argument("--problems", type=int, default=1,
+                    help="N > 1: solve N synthetic instances (seeds seed "
+                         ".. seed + N - 1) in ONE batched fleet solve "
+                         "(repro_torch.fleet.FleetSolver)")
     # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
     ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
     ap.add_argument("--staleness", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--problems", type=int, default=1,
                     help=argparse.SUPPRESS)
     ap.add_argument("--force-host-devices", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -137,9 +145,11 @@ def main(argv=None):
 
     try:
         cls = get_solver(args.solver)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         ap.error(str(e.args[0]))
     P, Q = args.mesh
+    if args.problems > 1:
+        return _fanout(ap, args, cls, P, Q)
     # raises when the card is asked for (the default) and there is none
     solver = cls(local_backend=args.backend, device=args.device,
                  block_format=args.block_format)
@@ -180,7 +190,7 @@ def main(argv=None):
                                                           solver.device),
                                      y, w_ref, args.lam))
 
-    cfg = cls.config_cls(lam=args.lam, outer_iters=args.iters)
+    cfg = _config(cls, args)
     print(f"[optimize] {args.solver} engine={solver.engine} "
           f"backend={args.backend} device={solver.device} "
           f"block_format={solver.block_format} grid={P}x{Q} "
@@ -213,6 +223,49 @@ def main(argv=None):
             json.dump({"summary": summary, "history": res.history}, fh,
                       indent=1)
     return summary
+
+
+def _config(cls, args):
+    cfg_kw = {"lam": args.lam, "outer_iters": args.iters}
+    if args.solver == "admm":
+        cfg_kw["rho"] = args.lam       # the paper sets rho = lam
+    return cls.config_cls(**cfg_kw)
+
+
+def _fanout(ap, args, cls, P, Q):
+    """--problems N: one batched fleet solve over N synthetic instances,
+    made as the fleet CLI makes its tenants, all at ``--lam``."""
+    from repro_torch.fleet import FleetSolver
+
+    from . import fleet as fleet_cli
+
+    if args.dataset == "libsvm":
+        ap.error("--problems fans out synthetic instances; use --dataset "
+                 "dense or sparse (one libsvm file is one problem)")
+    # raises when the card is asked for (the default) and there is none
+    fleet = FleetSolver(solver=args.solver, local_backend=args.backend,
+                        block_format=args.block_format, device=args.device)
+    probs = fleet_cli.make_tenants(args, count=args.problems,
+                                   lam_of=lambda i: args.lam, prefix="p")
+    cfg = _config(cls, args)
+    print(f"[optimize] {args.solver} engine={fleet.engine} "
+          f"backend={args.backend} device={fleet.device} "
+          f"block_format={args.block_format} grid={P}x{Q} "
+          f"problems={args.problems} {args.dataset}({args.n}x{args.m}) "
+          f"loss={args.loss} lam={args.lam} (fleet fan-out)")
+    t0 = time.perf_counter()
+    results = fleet.solve_batch(probs, P=P, Q=Q, cfg=cfg, tol=args.tol)
+    total_s = time.perf_counter() - t0
+    entries = fleet_cli.report(
+        probs, {p.tenant_id: r for p, r in zip(probs, results)})
+    return fleet_cli.finish(args, {
+        "solver": args.solver, "engine": fleet.engine,
+        "local_backend": args.backend, "device": str(fleet.device),
+        "block_format": args.block_format, "P": P, "Q": Q,
+        "n": args.n, "m": args.m, "loss": args.loss, "lam": args.lam,
+        "problems": args.problems, "total_s": total_s,
+        "solves_per_s": args.problems / total_s, "results": entries,
+    })
 
 
 if __name__ == "__main__":

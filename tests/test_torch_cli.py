@@ -104,15 +104,19 @@ def test_cli_early_stop():
     (["--block-format", "sparse", "--engine", "shard_map"], "--engine"),
     (["--block-format", "csc"], "--block-format"),
     (["--dataset", "libsvm"], "--dataset libsvm needs --libsvm-path"),
-    (["--problems", "4"], "--problems"),
+    # the fan-out is ported; it takes synthetic instances only
+    (["--problems", "4", "--dataset", "libsvm"], "--problems"),
     (["--force-host-devices", "6"], "--force-host-devices"),
     (["--trace", "t.json"], "--trace"),
     (["--metrics"], "--metrics"),
     (["--listen", "127.0.0.1:0"], "--listen"),
     (["--health"], "--health"),
     (["--flight-recorder", "fr"], "--flight-recorder"),
-    (["--solver", "admm"], "admm"),
-    (["--solver", "admm", "--block-format", "sparse"], "admm"),
+    # ADMM is ported; its comm and mesh knobs are not
+    pytest.param(["--solver", "admm", "--compression", "int8"],
+                 "--compression", id="flags15-admm"),
+    pytest.param(["--solver", "admm", "--block-format", "sparse",
+                  "--engine", "shard_map"], "--engine", id="flags16-admm"),
     (["--solver", "nope"], "unknown solver"),
     (["--backend", "pallas"], "--backend"),
 ])
@@ -123,7 +127,7 @@ def test_cli_rejects_unported_flags_by_name(flags, named, capsys):
     err = capsys.readouterr().err
     assert named in err
     if named not in ("unknown solver", "--backend", "--block-format",
-                     "--dataset libsvm needs --libsvm-path"):
+                     "--dataset libsvm needs --libsvm-path", "--problems"):
         assert "ROADMAP" in err
 
 
@@ -153,15 +157,15 @@ def test_solver_rejects_unported_calls_by_name():
             solver.solve("hinge", X, y, P=2, Q=2, cfg=cfg, **kw)
     with pytest.raises(NotImplementedError, match="update"):
         solver.update("hinge", X, y, touched=[0], warm_start=None)
-    with pytest.raises(NotImplementedError, match="admm"):
-        get_solver("admm")
+    with pytest.raises(NotImplementedError, match="compression='int8'"):
+        get_solver("admm")(device="cpu", compression="int8")
     with pytest.raises(KeyError, match="available"):
         get_solver("nope")
     with pytest.raises(ValueError, match="local_backend"):
         get_solver("d3ca")(local_backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="needs P and Q"):
         solver.solve("hinge", X, y, cfg=cfg)
-    assert available_solvers() == ["d3ca", "radisa", "sfk"]
+    assert available_solvers() == ["admm", "d3ca", "radisa", "sfk"]
     assert issubclass(get_solver("radisa"), Solver)
     assert issubclass(get_solver("sfk"), Solver)
 
