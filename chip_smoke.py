@@ -26,7 +26,10 @@ JSON; any failure is an exception and a non-zero exit:
                       with a tenant axis (T = 1 and 3, a distinct lambda in
                       every cell; T = 1 bitwise the scalar launch), and
                       each solver kernel at the fleets' main-path shape
-                      (T tenants' cells in one launch) -- the first call
+                      (T tenants' cells in one launch), and the RWKV6
+                      linear attention at its main shape against the
+                      exact recurrence in float64 at several input draws
+                      (``linattn_draws`` line) -- the first call
                       to make after touching a ``.cu`` file (``--phases
                       kernels``)
   d3ca_full           ``repro_torch.launch.optimize.main`` -- D3CA, dense
@@ -79,14 +82,17 @@ Each full-width phase is a main path: every launch counter is set to 0
 just before it and read just after, and it must have launched exactly the
 kernels it names as often as it says: the solvers once per outer
 iteration (plus serial-SDCA epochs for f* where the dense phases compute
-it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times.  The
-four wrappers with two routes count launches per route too, and every
+it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times.  All
+six wrappers have two routes and count launches per route too, and every
 main-path launch must take the new route: flash attention and RWKV6
 linear attention the tensor-core route (``tc``), the dense SDCA epoch
 (at both of its shapes, the D3CA cells and the serial-SDCA epochs for f*)
-and the sparse SVRG inner loop the cluster route.  The dense SDCA epoch
-also counts its launches per cluster size, which must be 1 CTA a cell for
-each D3CA iteration and 16 for each serial epoch.
+and the sparse SVRG inner loop the cluster route, the dense SVRG inner
+loop the ring route and the sparse SDCA epoch the lookahead route.  The
+replaced routes are held against the plain versions and timed beside
+them, off the main paths.  The dense
+SDCA epoch also counts its launches per cluster size, which must be 1 CTA
+a cell for each D3CA iteration and 16 for each serial epoch.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi`` gives them, and one JSON object ``{"kernels": [...]}`` with
@@ -137,9 +143,11 @@ from repro_torch.data import (csr_from_dense,  # noqa: E402
                               make_svm_data)
 from repro_torch.kernels.sdca import (sdca_epoch,  # noqa: E402
                                       sdca_epoch_plain, sdca_epoch_sparse,
-                                      sdca_epoch_sparse_plain, sdca_route)
+                                      sdca_epoch_sparse_plain, sdca_route,
+                                      sdca_sparse_route)
 from repro_torch.kernels._launch import tenant_axes  # noqa: E402
 from repro_torch.kernels.sdca import ops as sdca_ops  # noqa: E402
+from repro_torch.kernels.sdca import sparse as sdca_sparse  # noqa: E402
 from repro_torch.kernels.flash import (flash_attention,  # noqa: E402
                                        flash_attention_plain, flash_route)
 from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
@@ -148,8 +156,9 @@ from repro_torch.kernels.linattn import (linattn_route,  # noqa: E402
 from repro_torch.kernels.linattn import ops as linattn_ops  # noqa: E402
 from repro_torch.kernels.svrg import (svrg_inner,  # noqa: E402
                                       svrg_inner_plain, svrg_inner_sparse,
-                                      svrg_inner_sparse_plain,
+                                      svrg_inner_sparse_plain, svrg_route,
                                       svrg_sparse_route)
+from repro_torch.kernels.svrg import ops as svrg_ops  # noqa: E402
 from repro_torch.kernels.svrg import sparse as svrg_sparse  # noqa: E402
 from repro_torch.fleet import FleetSolver, solo_config  # noqa: E402
 from repro_torch.launch import fleet as fleet_cli  # noqa: E402
@@ -221,6 +230,9 @@ LINATTN_MAIN = (8, 512, 40, 64)
 # the chunked linear attention against the exact recurrence
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 LINATTN_TOL = 2e-4
+# input draws of the main-shape check of the linear attention, each held
+# against the exact recurrence in float64
+LINATTN_DRAWS = 6
 # card vs CPU on the reduced LM configs, float32: relative to the largest
 # entry (the kernels sum in another order than the plain versions)
 LM_CARD_CPU_TOL = 1e-4
@@ -236,11 +248,16 @@ KERNEL_META = {
                     "block": "src/repro_torch/csrc/sdca_epoch.cu"},
         "replaces": "src/repro/kernels/sdca/sdca.py:139"},
     "svrg_inner": {
-        "route": "cuda", "source": "src/repro_torch/csrc/svrg_inner.cu",
+        "route": "cuda", "source": "src/repro_torch/csrc/svrg_inner_ring.cu",
+        "sources": {"ring": "src/repro_torch/csrc/svrg_inner_ring.cu",
+                    "block": "src/repro_torch/csrc/svrg_inner.cu"},
         "replaces": "src/repro/kernels/svrg/svrg.py:81"},
     "sdca_epoch_sparse": {
         "route": "cuda",
-        "source": "src/repro_torch/csrc/sdca_epoch_sparse.cu",
+        "source": "src/repro_torch/csrc/sdca_epoch_sparse_ahead.cu",
+        "sources": {
+            "lookahead": "src/repro_torch/csrc/sdca_epoch_sparse_ahead.cu",
+            "block": "src/repro_torch/csrc/sdca_epoch_sparse.cu"},
         "replaces": "src/repro/kernels/sdca/sparse.py:138"},
     "svrg_inner_sparse": {
         "route": "cuda",
@@ -269,9 +286,10 @@ WRAPPERS = {"sdca_epoch": sdca_epoch, "svrg_inner": svrg_inner,
 PLAINS = {"sdca_epoch": sdca_epoch_plain, "svrg_inner": svrg_inner_plain,
           "sdca_epoch_sparse": sdca_epoch_sparse_plain,
           "svrg_inner_sparse": svrg_inner_sparse_plain}
-#: the route every main-path launch of a two-route wrapper must take
+#: the route every main-path launch of each wrapper must take
 MAIN_ROUTES = {"flash_attention": "tc", "svrg_inner_sparse": "cluster",
-               "sdca_epoch": "cluster", "rwkv_linattn": "tc"}
+               "sdca_epoch": "cluster", "rwkv_linattn": "tc",
+               "svrg_inner": "ring", "sdca_epoch_sparse": "lookahead"}
 #: (main-shape tolerance, sweep tolerance) per kernel, as ``compare`` uses
 #: them (the solver kernels' main shapes relative to the largest entry)
 TOLS = {"sdca_epoch": (MAIN_TOL, SWEEP_TOL),
@@ -374,7 +392,9 @@ def check_index_range(idx, n_p):
 
 
 def compare(name, got, want, tol, relative_to_max=False):
-    """Max abs error over all outputs; raises when over the tolerance."""
+    """Max abs error over all outputs; raises when over the tolerance
+    (``relative_to_max``: over ``tol`` times the largest entry of that
+    output's plain result, or 1)."""
     worst = 0.0
     for g, w in zip(got, want):
         if not torch.isfinite(g).all():
@@ -391,6 +411,27 @@ def compare(name, got, want, tol, relative_to_max=False):
                 f"{float(err.max()):.3e} (tol {tol}, max |ref| "
                 f"{float(w.abs().max()):.3e})")
     return worst
+
+
+def main_check(label, got, want):
+    """A solver kernel at a main-path shape against its plain version,
+    each output judged relative to its own largest entry at MAIN_TOL: per
+    output (``dalpha`` and ``w``, or ``w``) the max abs error beside the
+    largest entry of the plain result (``max_abs_ref``) and their ratio
+    (``rel_err``); at the top level the output with the largest ratio."""
+    got = (got,) if torch.is_tensor(got) else tuple(got)
+    want = (want,) if torch.is_tensor(want) else tuple(want)
+    names = ("dalpha", "w") if len(want) == 2 else ("w",)
+    each = {}
+    for n, g, w in zip(names, got, want):
+        err = compare(f"{label} {n}", [g], [w], MAIN_TOL,
+                      relative_to_max=True)
+        ref = float(w.abs().max())
+        each[n] = {"max_abs_err": err, "max_abs_ref": ref,
+                   "rel_err": err / max(ref, 1e-30)}
+    worst = max(each.values(), key=lambda v: v["rel_err"])
+    return {**worst, "outputs": each, "tol": MAIN_TOL,
+            "relative_to_max": True}
 
 
 def full_problem(dev):
@@ -575,6 +616,32 @@ def sdca_block(args, kw):
         beta=kw.get("beta"), route="block")
 
 
+def svrg_block(args, kw):
+    """One svrg_inner launch on the block route, which the wrapper no
+    longer takes at the ring route's shapes (its private ``_launch``)."""
+    return svrg_route_launch(args, kw, "block")
+
+
+def svrg_route_launch(args, kw, route):
+    """One svrg_inner launch on ``route``, past the wrapper's route
+    choice."""
+    kw = dict(kw)
+    lo = kw.pop("lo", None)
+    return svrg_ops._launch(*args, lo, lam=kw["lam"], eta=kw["eta"],
+                            loss_id=svrg_ops.check_loss(kw["loss"],
+                                                        "svrg_inner"),
+                            route=route)
+
+
+def sparse_route_launch(args, kw, route):
+    """One sdca_epoch_sparse launch on ``route``, past the wrapper's route
+    choice."""
+    return sdca_sparse._launch(
+        *args, lam=kw["lam"], n=kw["n"], Q=kw["Q"],
+        loss_id=sdca_sparse.check_loss(kw["loss"], "sdca_epoch_sparse"),
+        beta=kw.get("beta"), route=route)
+
+
 def sdca_cluster_of(fn):
     """Call ``fn`` (one sdca_epoch call) and return the cluster size its
     launch took, read from the wrapper's per-size counter."""
@@ -590,13 +657,14 @@ def sdca_cluster_of(fn):
 
 
 def repeated_rows(idx, R=4):
-    """``idx`` with a row visited twice in a row, three times in a row,
-    R steps apart and R + 1 steps apart, in every row partition."""
+    """``idx`` (steps on the last axis) with a row visited twice in a row,
+    three times in a row, R steps apart and R + 1 steps apart, in every
+    cell's order."""
     idx = idx.clone()
-    steps = idx.shape[1]
+    steps = idx.shape[-1]
     for h, back in ((5, 1), (9, 1), (10, 2), (20, R), (31, R + 1), (33, R)):
         if h < steps:
-            idx[:, h] = idx[:, h - back]
+            idx[..., h] = idx[..., h - back]
     return idx
 
 
@@ -636,6 +704,104 @@ def sdca_cluster_sweep(rng, dev, checks):
                     sdca_epoch_plain(*args, **kw), SWEEP_TOL)))
     if seen != set(sdca_ops.CLUSTER_SIZES):
         raise AssertionError(f"the sweep took cluster sizes {sorted(seen)}")
+    torch.cuda.synchronize()
+
+
+#: the ring route's sweep: (grid, n_p, m_x, m_sub, L, window offsets per
+#: row partition) -- windows that start off a 16-byte boundary (lo 1, 3, 5,
+#: 7, 87, 429, 858), widths that divide by no thread count (13, 100, 429,
+#: 513 on four warps, 2000), a whole row as the window, step counts 0 and 3
+#: (below the ring) and 150
+SVRG_RING_SWEEP = [((3, 2), 16, 20, 13, 40, [1, 5, 7]),
+                   ((3, 2), 24, 110, 100, 70, [3, 10, 0]),
+                   ((2, 2), 40, 3003, 429, 150, [1, 429]),
+                   ((1, 2), 30, 3003, 429, 3, [858]),
+                   ((2, 1), 20, 600, 513, 60, [87, 1]),
+                   ((1, 2), 24, 2000, 2000, 50, None),
+                   ((2, 2), 8, 20, 16, 0, [0, 3])]
+
+
+def svrg_ring_sweep(rng, dev, checks):
+    """The ring route through the public wrapper, at both warp counts of
+    its table: masked rows, hinge and squared, rows repeated 1, 2, 4 and 5
+    steps apart."""
+    warps_seen = set()
+    for (grid, n_p, m_x, m_sub, L, los) in SVRG_RING_SWEEP:
+        if svrg_route(m_sub, L) != "ring":
+            raise AssertionError(f"m_sub={m_sub}, L={L} is not a ring case")
+        args, lo_t = svrg_inputs(rng, *grid, n_p, m_x, m_sub, L, dev,
+                                 lo=los)
+        args[0] = args[0] / float(np.sqrt(m_sub))   # eta ||x||^2 < 1
+        args[6] = repeated_rows(args[6])
+        if L:
+            check_index_range(args[6], n_p)
+        if lo_t is not None:
+            check_index_range(lo_t, m_x - m_sub + 1)
+        warps_seen.add(svrg_ops.svrg_ring_warps(m_sub))
+        for loss in ("hinge", "squared"):
+            kw = dict(lam=0.1, eta=0.03, loss=loss, lo=lo_t)
+            want = [svrg_inner_plain(*args, **kw)]
+            label = f"svrg_inner ring{grid}{(n_p, m_x, m_sub, L)} lo={los}"
+            checks.append(("svrg_inner", compare(
+                f"{label} {loss}", [svrg_inner(*args, **kw)], want,
+                SWEEP_TOL)))
+    if warps_seen != set(svrg_ops.RING_WARPS):
+        raise AssertionError(f"the ring sweep took warps {warps_seen}")
+    torch.cuda.synchronize()
+
+
+def shuffled_slots(rng, args):
+    """``sdca_sparse_inputs``' cells with the slots of every ELL row in a
+    random order: unsorted LIBSVM rows, padding between real entries."""
+    cols, vals = args[0], args[1]
+    order = torch.from_numpy(np.argsort(rng.random(cols.shape), axis=-1)
+                             ).to(cols.device)
+    return [torch.gather(cols, -1, order).contiguous(),
+            torch.gather(vals, -1, order).contiguous(), *args[2:]]
+
+
+def repeated_at(idx, distances, start=12, gap=6):
+    """``idx`` with step ``start + gap * t`` visiting the row of the step
+    ``distances[t]`` before it (the steps that exist)."""
+    idx = idx.clone()
+    for t, back in enumerate(distances):
+        h = start + gap * t
+        if h < idx.shape[-1]:
+            idx[..., h] = idx[..., h - back]
+    return idx
+
+
+#: the lookahead route's sweep: (grid, n_p, m_q, k, steps) -- ELL rows of
+#: 2, 4 and 10 16-byte words, a block narrower than a row (m_q = 20 < 2 k:
+#: rows share most columns, every overlap counts), a wide block, step
+#: counts 3 (below the deepest lookahead) and 50 / 150 (past the ring)
+SPARSE_AHEAD_SWEEP = [((3, 2), 24, 20, 16, 50), ((3, 2), 40, 128, 40, 150),
+                      ((2, 2), 17, 9, 8, 3), ((1, 2), 64, 5000, 40, 100)]
+
+
+def sparse_ahead_sweep(rng, dev, checks):
+    """The lookahead route through the public wrapper: unsorted rows,
+    padding slots, a column twice in a row, an all-zero feature block,
+    masked rows, hinge and squared, exact and beta denominators, and rows
+    repeated 1 .. D + 1 steps apart (D the lookahead depth)."""
+    D = sdca_sparse.AHEAD_DEPTH
+    for (grid, n_p, m_q, k, steps) in SPARSE_AHEAD_SWEEP:
+        if sdca_sparse_route(n_p, k, steps) != "lookahead":
+            raise AssertionError(f"k={k} is not a lookahead case")
+        args = shuffled_slots(rng, sdca_sparse_inputs(
+            rng, *grid, n_p, m_q, k, steps, dev,
+            zero_cell=(1, 1) if grid == (3, 2) else None))
+        check_index_range(args[0], m_q)
+        args[6] = repeated_at(args[6], range(1, D + 2))
+        check_index_range(args[6], n_p)
+        for loss in ("hinge", "squared"):
+            for beta in (None, float(k)):
+                kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
+                checks.append(("sdca_epoch_sparse", compare(
+                    f"sdca_epoch_sparse lookahead{grid}"
+                    f"{(n_p, m_q, k, steps)} {loss} beta={beta}",
+                    sdca_epoch_sparse(*args, **kw),
+                    sdca_epoch_sparse_plain(*args, **kw), SWEEP_TOL)))
     torch.cuda.synchronize()
 
 
@@ -722,8 +888,9 @@ def tenant_kernel_checks(rng, dev, checks):
     """Every route of the four solver kernels with a tenant axis (T = 1
     and 3) and a distinct lam -- and, for SDCA, beta -- in every cell:
     B1 block (forced past the wrapper's route choice, as its sweep above)
-    and cluster at both cluster sizes, B2, B3, B4 block (forced) and
-    cluster.  The counters must see one launch a call."""
+    and cluster at both cluster sizes, B2 ring and block (forced), B3
+    lookahead and block, B4 block (forced) and cluster.  The counters
+    must see one launch a call."""
     def sdca_kw(loss_beta):
         def kws(lead):
             out = []
@@ -773,7 +940,11 @@ def tenant_kernel_checks(rng, dev, checks):
         if G is not None and sdca_epoch.launches_by_cluster[G] == before[G]:
             raise AssertionError(f"no sdca_epoch launch at G={G}")
 
-    tenant_case(rng, dev, checks, "svrg_inner", "block",
+    if svrg_route(5, 11) != "ring" or svrg_route(5, 37) != "ring" \
+            or sdca_sparse_route(17, 8, 33) != "lookahead" \
+            or sdca_sparse_route(17, 7, 33) != "block":
+        raise AssertionError("the B2 / B3 tenant cases left their routes")
+    tenant_case(rng, dev, checks, "svrg_inner", "ring",
                 lambda: svrg_inputs(rng, 3, 2, 13, 15, 5, 11, dev,
                                     lo=[5, 10, 1]),
                 lambda args, kw: svrg_inner(*args, **kw), svrg_inner_plain,
@@ -803,6 +974,32 @@ def tenant_kernel_checks(rng, dev, checks):
                 lambda: svrg_sparse_inputs(rng, 3, 2, 13, 15, 5, 5, 11, dev,
                                            lo=[5, 10, 1], zero_cell=(2, 0)),
                 sparse_block, svrg_inner_sparse_plain, svrg_kw)
+
+    # the routes added last: B2 ring with repeated rows and B2 block
+    # (forced), B3 lookahead on unsorted rows with rows repeated 1 .. D + 1
+    # steps apart
+    def svrg_make():
+        args, lo = svrg_inputs(rng, 3, 2, 13, 15, 5, 37, dev,
+                               lo=[5, 10, 1])
+        args[6] = repeated_rows(args[6])
+        return args, lo
+    tenant_case(rng, dev, checks, "svrg_inner", "ring", svrg_make,
+                lambda args, kw: svrg_inner(*args, **kw), svrg_inner_plain,
+                svrg_kw)
+    tenant_case(rng, dev, checks, "svrg_inner", "block", svrg_make,
+                svrg_block, svrg_inner_plain, svrg_kw)
+
+    def ahead_make():
+        args = shuffled_slots(rng, sdca_sparse_inputs(
+            rng, 3, 2, 17, 9, 8, 33, dev, zero_cell=(1, 1)))
+        args[6] = repeated_at(args[6], range(1, sdca_sparse.AHEAD_DEPTH + 2),
+                              start=4, gap=5)
+        return args
+    tenant_case(rng, dev, checks, "sdca_epoch_sparse", "lookahead",
+                ahead_make, lambda args, kw: sdca_epoch_sparse(*args, **kw),
+                sdca_epoch_sparse_plain,
+                sdca_kw([("hinge", None), ("squared", None),
+                         ("hinge", 8.0)]))
     torch.cuda.synchronize()
 
 
@@ -864,8 +1061,8 @@ def stacked(name, per, los, kw):
 
 #: the route each solver kernel's fleet launches take at the main path's
 #: shapes (and, for B1, the cluster size)
-FLEET_ROUTES = {"sdca_epoch": ("cluster", 1), "svrg_inner": ("block", None),
-                "sdca_epoch_sparse": ("block", None),
+FLEET_ROUTES = {"sdca_epoch": ("cluster", 1), "svrg_inner": ("ring", None),
+                "sdca_epoch_sparse": ("lookahead", None),
                 "svrg_inner_sparse": ("cluster", None)}
 
 
@@ -889,16 +1086,12 @@ def tenant_main_check(name, tenants):
     if route_counts(name)[route] != before[route] + 1:
         raise AssertionError(f"{name} at T={T} did not take the {route!r} "
                              "route")
-    got = (got,) if torch.is_tensor(got) else got
-    want = PLAINS[name](*args, **kw)
-    want = (want,) if torch.is_tensor(want) else want
-    err = compare(f"{name} main-path shape, T={T} tenants "
-                  f"{tuple(args[0].shape)}", got, want, MAIN_TOL,
-                  relative_to_max=True)
-    del args, got, want
+    res = main_check(f"{name} main-path shape, T={T} tenants "
+                     f"{tuple(args[0].shape)}", got,
+                     PLAINS[name](*args, **kw))
+    del args, got
     torch.cuda.synchronize()
-    return {"T": T, "route": route, "cluster": G, "max_abs_err": err,
-            "tol": MAIN_TOL, "relative_to_max": True}
+    return {"T": T, "route": route, "cluster": G, **res}
 
 
 # ---------------------------------------------------------------------------
@@ -1007,12 +1200,14 @@ def phase_kernels(dev, results):
                     check_index_range(lo_t, m_x - m_sub + 1)
                 for loss in ("hinge", "squared"):
                     kw = dict(lam=0.1, eta=0.03, loss=loss, lo=lo_t)
-                    err = compare(
-                        f"svrg_inner{grid}{(n_p, m_sub, L)} lo={lo}",
-                        [svrg_inner(*args, **kw)],
-                        [svrg_inner_plain(*args, **kw)], SWEEP_TOL)
-                    checks.append(("svrg_inner", err))
-    torch.cuda.synchronize()
+                    want = [svrg_inner_plain(*args, **kw)]
+                    label = f"svrg_inner{grid}{(n_p, m_sub, L)} lo={lo}"
+                    checks.append(("svrg_inner", compare(
+                        label, [svrg_inner(*args, **kw)], want, SWEEP_TOL)))
+                    checks.append(("svrg_inner", compare(
+                        label + " block", [svrg_block(args, kw)], want,
+                        SWEEP_TOL)))
+    svrg_ring_sweep(rng, dev, checks)
 
     # -- the main-path shape: 28 cells of 2000 x 3003 -----------------------
     data, alpha, w = full_problem(dev)
@@ -1021,16 +1216,17 @@ def phase_kernels(dev, results):
     check_index_range(idx, data.n_p)
     sargs = (data.x_blocks, data.y_blocks, data.mask, alpha, w, idx)
     skw = dict(lam=LAM, n=N, Q=Q, loss="hinge")
-    main_err = {"sdca_epoch": compare(
+    main_err = {"sdca_epoch": main_check(
         "sdca_epoch main-path shape", sdca_epoch(*sargs, **skw),
-        sdca_epoch_plain(*sargs, **skw), MAIN_TOL, relative_to_max=True)}
+        sdca_epoch_plain(*sargs, **skw))}
     vargs, lo, eta = svrg_main_inputs(data, w)
     check_index_range(vargs[6], data.n_p)
     check_index_range(lo, data.m_q - data.m_q // P + 1)
     vkw = dict(lam=LAM, eta=eta, loss="hinge", lo=lo)
-    main_err["svrg_inner"] = compare(
-        "svrg_inner main-path shape", [svrg_inner(*vargs, **vkw)],
-        [svrg_inner_plain(*vargs, **vkw)], MAIN_TOL, relative_to_max=True)
+    want = svrg_inner_plain(*vargs, **vkw)
+    main_err["svrg_inner"] = main_check("svrg_inner main-path shape",
+                                        svrg_inner(*vargs, **vkw), want)
+    del want
     # -- the same kernels as the dense fleet launches them: 4 tenants' cells
     # (B1: 112 CTAs, one wave) with per-tenant lambda and n in one launch
     tenants = dense_tenants(data, alpha, w, FLEET_T_DENSE)
@@ -1052,11 +1248,17 @@ def phase_kernels(dev, results):
             for loss in ("hinge", "squared"):
                 for beta in (None, float(k)):
                     kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
-                    err = compare(
-                        f"sdca_epoch_sparse{grid}{(n_p, m_q, k, steps)}",
-                        sdca_epoch_sparse(*args, **kw),
-                        sdca_epoch_sparse_plain(*args, **kw), SWEEP_TOL)
-                    checks.append(("sdca_epoch_sparse", err))
+                    want = sdca_epoch_sparse_plain(*args, **kw)
+                    label = f"sdca_epoch_sparse{grid}{(n_p, m_q, k, steps)}"
+                    checks.append(("sdca_epoch_sparse", compare(
+                        label, sdca_epoch_sparse(*args, **kw), want,
+                        SWEEP_TOL)))
+                    if sdca_sparse_route(n_p, k, steps) != "block":
+                        checks.append(("sdca_epoch_sparse", compare(
+                            label + " block",
+                            sparse_route_launch(args, kw, "block"), want,
+                            SWEEP_TOL)))
+    sparse_ahead_sweep(rng, dev, checks)
     # (n_p, m_q, m_sub, k, L, window offsets per row partition): the whole
     # block, windows at 8 / 16 / 0, misaligned windows at 5 / 10 / 1
     for (n_p, m_q, m_sub, k, L, los) in [
@@ -1116,18 +1318,18 @@ def phase_kernels(dev, results):
     sargs = sdca_sparse_main_inputs(sp, alpha20, w20)
     check_index_range(sargs[6], sp.n_p)
     skw = dict(lam=LAM20, n=N20, Q=Q, loss="hinge")
-    main_err["sdca_epoch_sparse"] = compare(
+    want = sdca_epoch_sparse_plain(*sargs, **skw)
+    main_err["sdca_epoch_sparse"] = main_check(
         "sdca_epoch_sparse main-path shape", sdca_epoch_sparse(*sargs, **skw),
-        sdca_epoch_sparse_plain(*sargs, **skw), MAIN_TOL,
-        relative_to_max=True)
+        want)
+    del want
     vargs, lo, eta = svrg_sparse_main_inputs(sp, w20)
     check_index_range(vargs[7], sp.n_p)
     vkw = dict(lam=LAM20, eta=eta, loss="hinge", lo=lo)
-    main_err["svrg_inner_sparse"] = compare(
+    main_err["svrg_inner_sparse"] = main_check(
         "svrg_inner_sparse main-path shape",
-        [svrg_inner_sparse(*vargs, **vkw)],
-        [svrg_inner_sparse_plain(*vargs, **vkw)], MAIN_TOL,
-        relative_to_max=True)
+        svrg_inner_sparse(*vargs, **vkw),
+        svrg_inner_sparse_plain(*vargs, **vkw))
     # -- and as the sparse fleet launches them: 2 news20 tenants (B4: 56
     # clusters of 8 CTAs, two waves)
     tenants = sparse_tenants(sp, alpha20, w20, FLEET_T_SPARSE)
@@ -1146,15 +1348,23 @@ def phase_kernels(dev, results):
         if not all(by_route.values()):
             raise AssertionError(f"{name}: a route was never checked: "
                                  f"{by_route}")
-        results[name].update(max_abs_err=main_err[name], tol=TOLS[name][0],
+        main = main_err[name]
+        if isinstance(main, dict):        # beside its largest entry
+            results[name].update({k: main[k] for k in main if k in (
+                "max_abs_err", "max_abs_ref", "rel_err", "outputs",
+                "max_abs_err_vs_plain_f32", "reference", "draws")})
+        else:
+            results[name]["max_abs_err"] = main
+        results[name].update(tol=TOLS[name][0],
                              sweep_cases=len(sweep),
                              sweep_max_abs_err=max(sweep),
                              sweep_tol=TOLS[name][1],
                              checked_launches_by_route=by_route, ok=True)
         summary.append({"name": name, **{k: results[name].get(k) for k in (
-            "max_abs_err", "tol", "tenant_main", "sweep_cases",
-            "sweep_max_abs_err", "sweep_tol", "checked_launches_by_route",
-            "ok")}})
+            "max_abs_err", "max_abs_ref", "rel_err", "outputs",
+            "max_abs_err_vs_plain_f32", "reference", "draws", "tol",
+            "tenant_main", "sweep_cases", "sweep_max_abs_err",
+            "sweep_tol", "checked_launches_by_route", "ok")}})
     emit("kernels", checks=summary,
          main_shape={"cells": P * Q, "n_p": data.n_p, "m_q": data.m_q,
                      "steps": data.n_p, "m_sub": data.m_q // P},
@@ -1313,17 +1523,53 @@ def lm_kernel_checks(rng, dev, checks, main_err):
             rwkv_linattn(r, k, v, lw, u), rwkv_linattn_ref(r, k, v, lw, u),
             LINATTN_TOL)))
     torch.cuda.synchronize()
-    B, S, H, D = LINATTN_MAIN
-    r, k, v, lw, u = linattn_inputs(rng, B * H, S, D, dev, heads=H)
-    main_err["rwkv_linattn"] = compare(
-        f"rwkv_linattn main-path shape {LINATTN_MAIN}",
-        rwkv_linattn(r, k, v, lw, u), rwkv_linattn_ref(r, k, v, lw, u),
-        LINATTN_TOL)
+    main_err["rwkv_linattn"] = linattn_main_check(rng, dev)
     torch.cuda.synchronize()
 
 
-#: the one route of each single-route wrapper: a block per solver cell
-SINGLE_ROUTE = {"svrg_inner": "block", "sdca_epoch_sparse": "block"}
+def linattn_main_check(rng, dev):
+    """B6 at the main-path shape, at LINATTN_DRAWS input draws: the kernel
+    and the plain recurrence in float32 each against the plain recurrence
+    in float64, per output (out, state): max abs error, largest entry, and
+    the worst element's share of the elementwise bound LINATTN_TOL (1 +
+    |ref|) (``ratio``).  Every draw is read and printed before any is
+    judged; the kernel must be within the bound of the float64 recurrence
+    everywhere."""
+    B, S, H, D = LINATTN_MAIN
+
+    def reading(a, ref):
+        err = (a.double() - ref).abs()
+        return {"max_abs_err": float(err.max()),
+                "max_abs_ref": float(ref.abs().max()),
+                "ratio": float((err / (LINATTN_TOL
+                                       * (1 + ref.abs()))).max())}
+    draws = []
+    for _ in range(LINATTN_DRAWS):
+        r, k, v, lw, u = linattn_inputs(rng, B * H, S, D, dev, heads=H)
+        got = rwkv_linattn(r, k, v, lw, u)
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError("rwkv_linattn: kernel output is not finite")
+        f32 = rwkv_linattn_ref(r, k, v, lw, u)
+        f64 = rwkv_linattn_ref(r, k, v, lw, u, dtype=torch.float64)
+        draws.append({name: {"kernel": reading(g, e), "plain_f32":
+                             reading(p, e), "kernel_vs_plain_f32":
+                             reading(g, p.double())}
+                      for name, g, p, e in zip(("out", "state"), got, f32,
+                                               f64)})
+        del got, f32, f64
+    emit("linattn_draws", shape=dict(zip("B S H D".split(), LINATTN_MAIN)),
+         tol=LINATTN_TOL, draws=draws)
+    worst = max(d[o]["kernel"]["ratio"] for d in draws for o in d)
+    if worst > 1.0:
+        raise AssertionError(
+            f"rwkv_linattn main-path shape {LINATTN_MAIN}: kernel and the "
+            f"float64 recurrence disagree ({worst:.3f} of the bound)")
+    return {"max_abs_err": max(d[o]["kernel"]["max_abs_err"]
+                               for d in draws for o in d),
+            "max_abs_err_vs_plain_f32": max(
+                d[o]["kernel_vs_plain_f32"]["max_abs_err"]
+                for d in draws for o in d),
+            "reference": "float64 recurrence", "draws": len(draws)}
 
 
 def launch_counts():
@@ -1331,11 +1577,8 @@ def launch_counts():
 
 
 def route_counts(name):
-    """Launches of one wrapper per route (one route: all its launches)."""
-    fn = WRAPPERS[name]
-    if name in SINGLE_ROUTE:
-        return {SINGLE_ROUTE[name]: fn.launches}
-    return dict(fn.launches_by_route)
+    """Launches of one wrapper per route."""
+    return dict(WRAPPERS[name].launches_by_route)
 
 
 def reset_counts():
@@ -1596,12 +1839,13 @@ def phase_fleet_dense_full(solos):
     """Four tenants of the dense Part 1 instance (seeds 0-3, lambda = 1e-2
     * 0.5 ** (t mod 3)) through the fleet CLI, with D3CA, RADiSA and ADMM
     (rho = lambda): 10 B1 launches on the cluster route at one CTA a cell
-    for all 4 x 28 D3CA cells, 10 B2 launches for RADiSA, none for ADMM;
+    for all 4 x 28 D3CA cells, 10 B2 launches on the ring route for
+    RADiSA, none for ADMM;
     ``solos``: :func:`fleet_solos`."""
     out = {}
     for solver, want, route, cluster in (
             ("d3ca", {"sdca_epoch": OUTER_ITERS}, "cluster", 1),
-            ("radisa", {"svrg_inner": OUTER_ITERS}, None, None),
+            ("radisa", {"svrg_inner": OUTER_ITERS}, "ring", None),
             ("admm", {}, None, None)):
         res = run_fleet_full(solver, False, solos)
         check_fleet_launches(f"fleet_dense_full {solver}", res, want,
@@ -1613,12 +1857,13 @@ def phase_fleet_dense_full(solos):
 
 def phase_fleet_sparse_full(solos):
     """Two tenants of the news20 profile (seeds 0-1, lambda = 1e-4 * 0.5 **
-    t) through the fleet CLI, with D3CA (10 B3 launches) and RADiSA (10 B4
-    launches, all on the cluster route); peak device memory under T times
+    t) through the fleet CLI, with D3CA (10 B3 launches, all on the
+    lookahead route) and RADiSA (10 B4 launches, all on the cluster
+    route); peak device memory under T times
     the solo sparse limit; ``solos``: :func:`fleet_solos`."""
     out = {}
     for solver, want, route in (
-            ("d3ca", {"sdca_epoch_sparse": OUTER_ITERS}, None),
+            ("d3ca", {"sdca_epoch_sparse": OUTER_ITERS}, "lookahead"),
             ("radisa", {"svrg_inner_sparse": OUTER_ITERS}, "cluster")):
         res = run_fleet_full(solver, True, solos)
         check_fleet_launches(f"fleet_sparse_full {solver}", res, want,
@@ -2017,13 +2262,14 @@ def time_fleet(prog, iters=5):
     return start.elapsed_time(end) / iters
 
 
-def tenant_timing(name, tenants, bound_of):
+def tenant_timing(name, tenants, bound_of, prev=None):
     """One solver kernel at a fleet's main-path shape (T tenants' cells in
     one launch, per-tenant scalars: :func:`dense_tenants` /
-    :func:`sparse_tenants`), timed both ways.  Its bound is that of the
-    tenants' work together: the bytes and the operations that
-    ``bound_of(args, lo)`` counts in each tenant's inputs of this run,
-    summed."""
+    :func:`sparse_tenants`), timed both ways -- and, where ``prev(args,
+    kw)`` launches the route it replaced, that route beside it (kernel,
+    replaced, replaced, kernel).  Its bound is that of the tenants' work
+    together: the bytes and the operations that ``bound_of(args, lo)``
+    counts in each tenant's inputs of this run, summed."""
     per, los, kw = tenants[name]
     parts = [bound_of(a, None if los is None else los[t])
              for t, a in enumerate(per)]
@@ -2031,11 +2277,17 @@ def tenant_timing(name, tenants, bound_of):
     ops = sum(b["flops"] for b in parts)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOPS
     args, kw = stacked(name, per, los, kw)
-    pairs = [both_ms(lambda: WRAPPERS[name](*args, **kw), reps=5)
-             for _ in range(2)]
+    pairs = [both_ms(lambda: WRAPPERS[name](*args, **kw), reps=5)]
+    extra = {}
+    if prev is not None:
+        prev_pairs = [both_ms(lambda: prev(args, kw), reps=3)
+                      for _ in range(2)]
+        extra = {"prev_route": "block",
+                 **medians(prev_pairs, "prev_route_ms")}
+    pairs.append(both_ms(lambda: WRAPPERS[name](*args, **kw), reps=5))
     del args
     torch.cuda.empty_cache()
-    return {"T": len(per), **medians(pairs, "ms"),
+    return {"T": len(per), **medians(pairs, "ms"), **extra,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_moved": nbytes, "flops": ops}
@@ -2141,10 +2393,9 @@ def serial_timing(X, y, dev):
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     G, got = sdca_cluster_of(lambda: sdca_epoch(*args, **kw))
-    err = compare("sdca_epoch serial-SDCA shape", got, want, MAIN_TOL,
-                  relative_to_max=True)
     return {**medians(kern, "ms"), "plain_ms": plain_ms,
-            "plain_clock": "host, one call", "max_abs_err": err,
+            "plain_clock": "host, one call",
+            **main_check("sdca_epoch serial-SDCA shape", got, want),
             "prev_route": "block", **medians(prev, "prev_route_ms"),
             "cluster": G, **bounds("sdca_epoch", args, M, 6),
             "shape": {"cells": 1, "n_p": n, "m_q": M, "steps": n}}
@@ -2164,8 +2415,11 @@ def phase_timing(dev, results):
     plain_s = [cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3)]
     kern_s = [both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7)]
     prev_s = [both_ms(lambda: sdca_block(sargs, skw), reps=5)]
+    # B2: plain, ring, block, block, ring, plain
     plain_v = [cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3)]
     kern_v = [both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7)]
+    prev_v = [both_ms(lambda: svrg_block(vargs, vkw), reps=5)]
+    prev_v.append(both_ms(lambda: svrg_block(vargs, vkw), reps=5))
     kern_v.append(both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7))
     plain_v.append(cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3))
     prev_s.append(both_ms(lambda: sdca_block(sargs, skw), reps=5))
@@ -2188,14 +2442,15 @@ def phase_timing(dev, results):
     results["sdca_epoch"]["shapes"]["d3ca_cells"].update(cells)
     results["svrg_inner"].update(
         **medians(kern_v, "ms"), plain_ms=statistics.median(plain_v),
-        library_ms=None, **bounds("svrg_inner", vargs, data.m_q // P, 9))
+        library_ms=None, prev_route="block", **medians(prev_v, "prev_route_ms"),
+        **bounds("svrg_inner", vargs, data.m_q // P, 9))
     tenants = dense_tenants(data, alpha, w, FLEET_T_DENSE)
     results["sdca_epoch"]["tenants"] = tenant_timing(
         "sdca_epoch", tenants,
         lambda a, lo: bounds("sdca_epoch", a, data.m_q, 6))
     results["svrg_inner"]["tenants"] = tenant_timing(
         "svrg_inner", tenants,
-        lambda a, lo: bounds("svrg_inner", a, data.m_q // P, 9))
+        lambda a, lo: bounds("svrg_inner", a, data.m_q // P, 9), svrg_block)
     del data, alpha, w, sargs, vargs, tenants
     torch.cuda.empty_cache()
 
@@ -2224,9 +2479,14 @@ def phase_timing(dev, results):
     skw = dict(lam=LAM20, n=N20, Q=Q, loss="hinge")
     vargs, lo, eta = svrg_sparse_main_inputs(sp, w20)
     vkw = dict(lam=LAM20, eta=eta, loss="hinge", lo=lo)
+    # B3: plain, lookahead, block, block, lookahead, plain
     plain_s = [cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
                        reps=3)]
     kern_s = [both_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7)]
+    prev_s = [both_ms(lambda: sparse_route_launch(sargs, skw, "block"),
+                      reps=5)]
+    prev_s.append(both_ms(lambda: sparse_route_launch(sargs, skw, "block"),
+                          reps=5))
     if svrg_sparse_route(vargs[5].shape[2], sp.k) != "cluster":
         raise AssertionError("the news20 window is not on the cluster route")
 
@@ -2245,7 +2505,8 @@ def phase_timing(dev, results):
                            reps=3))
     results["sdca_epoch_sparse"].update(
         **medians(kern_s, "ms"), plain_ms=statistics.median(plain_s),
-        library_ms=None, **sparse_bounds("sdca_epoch_sparse", sargs))
+        library_ms=None, prev_route="block", **medians(prev_s, "prev_route_ms"),
+        **sparse_bounds("sdca_epoch_sparse", sargs))
     results["svrg_inner_sparse"].update(
         **medians(kern_v, "ms"), plain_ms=statistics.median(plain_v),
         library_ms=None, prev_route="block",
@@ -2254,9 +2515,11 @@ def phase_timing(dev, results):
     # the tenant timings' stacked inputs stay out of the sparse path's peak
     peak_before = torch.cuda.max_memory_allocated()
     tenants = sparse_tenants(sp, alpha20, w20, FLEET_T_SPARSE)
-    for name in ("sdca_epoch_sparse", "svrg_inner_sparse"):
+    for name, prev in (("sdca_epoch_sparse",
+                        lambda a, kw: sparse_route_launch(a, kw, "block")),
+                       ("svrg_inner_sparse", None)):
         results[name]["tenants"] = tenant_timing(
-            name, tenants, functools.partial(sparse_bounds, name))
+            name, tenants, functools.partial(sparse_bounds, name), prev)
     torch.cuda.reset_peak_memory_stats()
     del sargs, vargs, alpha20, w20, tenants
     hinge = get_loss("hinge")
@@ -2288,7 +2551,8 @@ def phase_timing(dev, results):
          kernels={k: {f: v.get(f) for f in (
              "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
              "bound_ms", "bound_by", "bytes_moved", "prev_route",
-             "prev_route_ms", "prev_route_device_ms", "shapes", "tenants")}
+             "prev_route_ms", "prev_route_device_ms", "shapes",
+             "tenants")}
                   for k, v in results.items()})
 
 

@@ -55,8 +55,20 @@
 //     a per-channel scale (e^{lp_{s_b}} <= 1, e^{la_63 - la_{e_a}} <= 1).
 //     Only the four diagonal 16 x 16 blocks keep per-pair, per-channel
 //     exponentials on the CUDA cores: 30 720 a chunk, 4x fewer than
-//     before, as ex2.approx with log2 e folded into the cumulative sums;
-//     the current-token bonus fills the diagonal of the score matrix;
+//     before, as ex2.approx of log2 decays; the current-token bonus fills
+//     the diagonal of the score matrix;
+//   * every exponent is a sum of the log decays it spans, never the
+//     difference of two cumulative sums that share a long prefix.  In
+//     float32 such a difference loses the prefix's rounding: with decays
+//     down to e^-8 a token, cumulative sums reach -700 in log2 units,
+//     whose ulp (6e-5) became the relative error of a term, and the
+//     output of the main shape was 15x farther from the exact recurrence
+//     than the float32 recurrence itself (PERF.md).  So each sub-chunk
+//     keeps its own exclusive prefix sums P_t as a compensated pair hi +
+//     lo (TwoSum), and its total; a decay within a sub-chunk is a
+//     difference of two such pairs, (hi_t - hi_i) + (lo_t - lo_i), whose
+//     hi part is exact where it cancels (Sterbenz), and a decay across
+//     sub-chunks is a sum of the totals in between;
 //   * occupancy: r~, k~, v, the log decays and the scores of one chunk in
 //     110 KB of shared memory (odd-by-4 row strides, conflict-free for the
 //     fragments), so two CTAs fit an SM and the 320 rows run as two
@@ -71,7 +83,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kC = 64;               // tokens a chunk
 constexpr int kD = 64;               // head dim
-constexpr int kLD = kD + 4;          // row stride of r, k, la, lp, scores
+constexpr int kLD = kD + 4;          // row stride of r, k, P, scores
 constexpr int kLDV = kD + 8;         // row stride of v (B-operand reads)
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -117,18 +129,18 @@ __device__ __forceinline__ void mma3(float (&c)[4], const float (&a)[4],
 // shared-memory layout, in floats
 constexpr int kOffR = 0;                       // [C][kLD] r, then r~
 constexpr int kOffK = kOffR + kC * kLD;        // [C][kLD] k, then k~
-constexpr int kOffLA = kOffK + kC * kLD;       // [C][kLD] la * log2 e
-constexpr int kOffLP = kOffLA + kC * kLD;      // [C][kLD] logw, then lp * log2 e
+// P_t: token t's exclusive prefix sum of log2 decays within its sub-chunk
+constexpr int kOffLA = kOffK + kC * kLD;       // [C][kLD] P_t, lo part
+constexpr int kOffLP = kOffLA + kC * kLD;      // [C][kLD] logw, then P_t, hi
 constexpr int kOffA = kOffLP + kC * kLD;       // [C][kLD] scores (t, i)
 constexpr int kOffV = kOffA + kC * kLD;        // [C][kLDV] v
-constexpr int kOffP = kOffV + kC * kLDV;       // [4][D] lp at s_b
-constexpr int kOffL = kOffP + 4 * kD;          // [4][D] la at e_a
+constexpr int kOffP = kOffV + kC * kLDV;       // [4][D] sub-chunk totals, hi
+constexpr int kOffL = kOffP + 4 * kD;          // [4][D] and lo
 constexpr int kOffE = kOffL + 4 * kD;          // [4][D] e^{lp_{s_b}}
 constexpr int kOffF = kOffE + 4 * kD;          // [4][D] e^{la_63 - la_{e_a}}
 constexpr int kOffDp = kOffF + 4 * kD;         // [6][D] e^{lp_{s_b} - la_{e_a}}
 constexpr int kOffDec = kOffDp + 6 * kD;       // [D] e^{la_63}
-constexpr int kOffLast = kOffDec + kD;         // [D] la_63
-constexpr int kOffU = kOffLast + kD;           // [D] u of this head
+constexpr int kOffU = kOffDec + kD;            // [D] u of this head
 constexpr int kSmemFloats = kOffU + kD;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
@@ -144,19 +156,17 @@ __global__ void __launch_bounds__(kThreads, 2) rwkv_linattn_tc_kernel(
   extern __shared__ __align__(16) float sm[];
   float* rs = sm + kOffR;
   float* ks = sm + kOffK;
-  float* la = sm + kOffLA;
-  float* lp = sm + kOffLP;
+  float* plo = sm + kOffLA;
+  float* phi = sm + kOffLP;
   float* as = sm + kOffA;
   float* vs = sm + kOffV;
-  float* Pb = sm + kOffP;
-  float* La = sm + kOffL;
+  float* Th = sm + kOffP;
+  float* Tl = sm + kOffL;
   float* Eb = sm + kOffE;
   float* Fa = sm + kOffF;
   float* Dp = sm + kOffDp;
   float* dec = sm + kOffDec;
-  float* last = sm + kOffLast;
   float* us = sm + kOffU;
-  float* seg = as;                   // scan scratch [4][D], before the scores
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -189,34 +199,29 @@ __global__ void __launch_bounds__(kThreads, 2) rwkv_linattn_tc_kernel(
       rs[t * kLD + d] = ok ? r[gi] : 0.f;
       ks[t * kLD + d] = ok ? k[gi] : 0.f;
       vs[t * kLDV + d] = ok ? v[gi] : 0.f;
-      lp[t * kLD + d] = ok ? logw[gi] : 0.f;
+      phi[t * kLD + d] = ok ? logw[gi] : 0.f;
     }
     __syncthreads();
 
-    // 2. cumulative log decay per channel, by sub-chunk: thread (d, b)
-    // sums its 16 tokens, then adds the totals of the sub-chunks before
+    // 2. log2 decays summed per channel within each sub-chunk: thread
+    // (d, b) keeps P_t = hi + lo, the exclusive prefix sum of its 16
+    // tokens (TwoSum carries each addition's rounding into lo), and the
+    // sub-chunk's total T_b = Th + Tl
     {
       const int d = tid & 63, b = tid >> 6;
-      float a = 0.f;
-      for (int tt = 0; tt < 16; ++tt) a += lp[(16 * b + tt) * kLD + d];
-      seg[b * kD + d] = a;
-      __syncthreads();
-      float off = 0.f;
-      for (int bb = 0; bb < b; ++bb) off += seg[bb * kD + d];
-      // la_t = off + (local sum to t); lp_t = la_{t-1} exactly, so every
-      // difference lp_t - la_i (i < t) is <= 0 in floating point too
-      float prev = off, loc = 0.f;
-      Pb[b * kD + d] = off * kLog2e;
+      float hi = 0.f, lo = 0.f;
       for (int tt = 0; tt < 16; ++tt) {
         const int t = 16 * b + tt;
-        loc += lp[t * kLD + d];
-        const float cur = off + loc;
-        lp[t * kLD + d] = prev * kLog2e;
-        la[t * kLD + d] = cur * kLog2e;
-        prev = cur;
+        const float x = phi[t * kLD + d] * kLog2e;
+        phi[t * kLD + d] = hi;
+        plo[t * kLD + d] = lo;
+        const float sum = hi + x;
+        const float xb = sum - hi;
+        lo += (hi - (sum - xb)) + (x - xb);
+        hi = sum;
       }
-      La[b * kD + d] = prev * kLog2e;
-      if (b == 3) last[d] = prev * kLog2e;
+      Th[b * kD + d] = hi;
+      Tl[b * kD + d] = lo;
     }
     __syncthreads();
 
@@ -232,18 +237,25 @@ __global__ void __launch_bounds__(kThreads, 2) rwkv_linattn_tc_kernel(
         if ((tl + 1) * tl / 2 <= p) ++tl;
         t = 16 * b + tl;
         i = 16 * b + (p - tl * (tl - 1) / 2);
+        // the decay from token i + 1 to t - 1: P_t - P_{i+1}, both in
+        // sub-chunk b
         const float4* rr = reinterpret_cast<const float4*>(rs + t * kLD);
-        const float4* pp = reinterpret_cast<const float4*>(lp + t * kLD);
         const float4* kk = reinterpret_cast<const float4*>(ks + i * kLD);
-        const float4* aa = reinterpret_cast<const float4*>(la + i * kLD);
+        const float4* tph = reinterpret_cast<const float4*>(phi + t * kLD);
+        const float4* tpl = reinterpret_cast<const float4*>(plo + t * kLD);
+        const float4* iph =
+            reinterpret_cast<const float4*>(phi + (i + 1) * kLD);
+        const float4* ipl =
+            reinterpret_cast<const float4*>(plo + (i + 1) * kLD);
         float s1 = 0.f;
 #pragma unroll 4
         for (int q = 0; q < kD / 4; ++q) {
-          const float4 r4 = rr[q], p4 = pp[q], k4 = kk[q], a4 = aa[q];
-          s = fmaf(r4.x * k4.x, ex2(p4.x - a4.x), s);
-          s1 = fmaf(r4.y * k4.y, ex2(p4.y - a4.y), s1);
-          s = fmaf(r4.z * k4.z, ex2(p4.z - a4.z), s);
-          s1 = fmaf(r4.w * k4.w, ex2(p4.w - a4.w), s1);
+          const float4 r4 = rr[q], k4 = kk[q], h1 = tph[q], l1 = tpl[q],
+                       h0 = iph[q], l0 = ipl[q];
+          s = fmaf(r4.x * k4.x, ex2((h1.x - h0.x) + (l1.x - l0.x)), s);
+          s1 = fmaf(r4.y * k4.y, ex2((h1.y - h0.y) + (l1.y - l0.y)), s1);
+          s = fmaf(r4.z * k4.z, ex2((h1.z - h0.z) + (l1.z - l0.z)), s);
+          s1 = fmaf(r4.w * k4.w, ex2((h1.w - h0.w) + (l1.w - l0.w)), s1);
         }
         s += s1;
       } else {
@@ -259,27 +271,39 @@ __global__ void __launch_bounds__(kThreads, 2) rwkv_linattn_tc_kernel(
     }
     __syncthreads();
 
-    // 4. r decayed to its sub-chunk's start, k to its sub-chunk's end
-    // (exponents <= 0), and the per-channel scales
+    // 4. r decayed to its sub-chunk's start (by P_t), k to its sub-chunk's
+    // end (by T_b - P_{t+1}), and the per-channel scales from the totals
+    // of the sub-chunks they span
     for (int e = tid; e < kC * kD; e += kThreads) {
       const int t = e >> 6, d = e & 63, b = t >> 4;
-      rs[t * kLD + d] *= ex2(lp[t * kLD + d] - Pb[b * kD + d]);
-      ks[t * kLD + d] *= ex2(La[b * kD + d] - la[t * kLD + d]);
+      rs[t * kLD + d] *= ex2(phi[t * kLD + d] + plo[t * kLD + d]);
+      if ((t & 15) != 15)
+        ks[t * kLD + d] *= ex2((Th[b * kD + d] - phi[(t + 1) * kLD + d]) +
+                               (Tl[b * kD + d] - plo[(t + 1) * kLD + d]));
     }
+    // sum_{b0 <= c < b1} T_c for channel d
+    auto span = [&](int b0, int b1, int d) {
+      float h = 0.f, l = 0.f;
+      for (int cc = b0; cc < b1; ++cc) {
+        h += Th[cc * kD + d];
+        l += Tl[cc * kD + d];
+      }
+      return h + l;
+    };
     for (int e = tid; e < 15 * kD; e += kThreads) {
       const int row = e >> 6, d = e & 63;
       if (row < 4) {
-        Eb[row * kD + d] = ex2(Pb[row * kD + d]);
+        Eb[row * kD + d] = ex2(span(0, row, d));
       } else if (row < 8) {
-        Fa[(row - 4) * kD + d] = ex2(last[d] - La[(row - 4) * kD + d]);
+        Fa[(row - 4) * kD + d] = ex2(span(row - 3, 4, d));
       } else if (row < 14) {
         // pair (b, a), b > a, numbered b (b - 1) / 2 + a
         const int pr = row - 8;
         const int b = pr < 1 ? 1 : (pr < 3 ? 2 : 3);
         const int a = pr - b * (b - 1) / 2;
-        Dp[pr * kD + d] = ex2(Pb[b * kD + d] - La[a * kD + d]);
+        Dp[pr * kD + d] = ex2(span(a + 1, b, d));
       } else {
-        dec[d] = ex2(last[d]);
+        dec[d] = ex2(span(0, 4, d));
       }
     }
     __syncthreads();

@@ -81,29 +81,8 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   __pipeline_memcpy_async(dst, src, 4);
 }
 
-// one bulk copy (TMA) of `bytes` (a multiple of 16) from 16-byte aligned
-// global memory into 16-byte aligned shared memory, completing `bytes` of
-// the transaction count of the mbarrier `bar`
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wait (CTA scope) until the phase of parity `parity` of `bar` completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (polls == (1u << 26)) __trap();
-  }
-}
+using rt::bulk_copy;
+using rt::mbar_wait;
 
 template <int LOSS, int E>
 __global__ void __launch_bounds__(kThreads, 1) sdca_epoch_cluster_kernel(

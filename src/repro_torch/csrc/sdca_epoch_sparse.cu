@@ -38,6 +38,19 @@
 //     which keeps the read-after-write on a repeated index exact.
 // The caller guarantees 0 <= idx < n_p and 0 <= cols < m_q.  Offsets are
 // 64-bit.
+//
+// Two routes, chosen by shape alone (kernels/sdca/sparse.py::
+// sdca_sparse_route):
+//   * `lookahead` (sdca_epoch_sparse_ahead.cu) -- every block whose ELL
+//     rows are a whole number of 16-byte words and whose order, dual
+//     deltas, ring of rows and row tables fit a CTA's shared memory;
+//     the main path's news20 cells take it: a cluster of 4 CTAs a cell
+//     sharing its columns, one warp of each stepping the chain while the
+//     others prepare the rows, the rows by bulk copies, the duals in
+//     shared memory, and the gather D steps ahead of the dual step, the
+//     scatters it missed added back through the rows' overlaps;
+//   * `block` (this file, the design above) -- the rest (k not a multiple
+//     of 4, or too many rows or steps for the shared memory).
 
 #include "common.cuh"
 

@@ -23,6 +23,13 @@
 // next step's scalars early.  Nothing here is 16-byte aligned (m_x = 3003,
 // lo a multiple of 429), hence the 4-byte copies; the ragged edge needs no
 // mask because the window always lies inside the row.
+//
+// Two routes, chosen by shape alone (kernels/svrg/ops.py::svrg_route):
+//   * `ring` (svrg_inner_ring.cu) -- every window that fits the registers
+//     of one CTA (up to 2048 columns) and whose order and ring of rows fit
+//     its shared memory; the main path's 429-column windows take it, on
+//     one warp a cell, the rows by bulk copies 7 steps ahead;
+//   * `block` (this file, the design above) -- the rest.
 
 #include "common.cuh"
 

@@ -55,6 +55,13 @@ _SIGNATURES = {
         + [_FLT] * 2                      # lam eta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
+    "svrg_inner_ring_launch": (
+        [_PTR] * 8 + [_PTR]               # x y mask z_a w_a mu idx lo | w_out
+        + [_INT] * 7                      # P Q T n_p m_x m_sub L
+        + [_FLT] * 2                      # lam eta
+        + [_PTR]                          # cell_params (null: use scalars)
+        + [_INT] * 5                      # loss warps per_thread ring smem
+        + [_PTR]),                        # stream
     "sdca_epoch_sparse_launch": (
         [_PTR] * 7 + [_PTR] * 2          # cols vals y mask alpha0 w0 idx
         #                                  | dalpha w_out
@@ -62,6 +69,14 @@ _SIGNATURES = {
         + [_FLT] * 4 + [_INT]             # lam n q_scale beta use_beta
         + [_PTR]                          # cell_params (null: use scalars)
         + [_INT] * 2 + [_PTR]),           # loss threads stream
+    "sdca_epoch_sparse_ahead_launch": (
+        [_PTR] * 7 + [_PTR] * 2          # cols vals y mask alpha0 w0 idx
+        #                                  | dalpha w_out
+        + [_INT] * 7                      # P Q T n_p k m_q steps
+        + [_FLT] * 4 + [_INT]             # lam n q_scale beta use_beta
+        + [_PTR]                          # cell_params (null: use scalars)
+        + [_INT] * 5                      # loss depth cluster threads smem
+        + [_PTR]),                        # stream
     "svrg_inner_sparse_launch": (
         [_PTR] * 9 + [_PTR] * 2          # cols vals y mask z_a w_a mu idx lo
         #                                  | w_out g_scratch

@@ -23,15 +23,17 @@ def per_row_u(u, BH):
     return u.repeat(BH // H, 1)
 
 
-def rwkv_linattn_ref(r, k, v, logw, u, state0=None):
+def rwkv_linattn_ref(r, k, v, logw, u, state0=None, dtype=torch.float32):
     """r, k, v, logw: (BH, S, D); u: (D,) or (H, D).  Returns (out
-    (BH, S, D) float32, state (BH, D, D) float32)."""
+    (BH, S, D), state (BH, D, D)), computed and returned in ``dtype``
+    (float32, as the kernel; float64 gives a reference for the rounding
+    of both)."""
     BH, S, D = r.shape
-    rt, kt, vt = r.float(), k.float(), v.float()
-    wt = torch.exp(logw.float())
-    uf = per_row_u(u, BH)
-    st = (torch.zeros((BH, D, D), dtype=torch.float32, device=r.device)
-          if state0 is None else state0.float())
+    rt, kt, vt = r.to(dtype), k.to(dtype), v.to(dtype)
+    wt = torch.exp(logw.to(dtype))
+    uf = per_row_u(u, BH).to(dtype)
+    st = (torch.zeros((BH, D, D), dtype=dtype, device=r.device)
+          if state0 is None else state0.to(dtype))
     outs = []
     for t in range(S):
         kv = kt[:, t, :, None] * vt[:, t, None, :]           # (BH, D, D)
@@ -39,5 +41,5 @@ def rwkv_linattn_ref(r, k, v, logw, u, state0=None):
                                  st + uf[:, :, None] * kv))
         st = wt[:, t, :, None] * st + kv
     out = (torch.stack(outs, dim=1) if outs
-           else torch.zeros((BH, 0, D), dtype=torch.float32, device=r.device))
+           else torch.zeros((BH, 0, D), dtype=dtype, device=r.device))
     return out, st

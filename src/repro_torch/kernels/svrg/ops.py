@@ -1,12 +1,79 @@
-"""Public wrapper of the RADiSA/SVRG inner-loop kernel."""
+"""Public wrapper of the RADiSA/SVRG inner-loop kernel.
+
+Two routes, chosen by :func:`svrg_route` from the window width and the
+step count alone: ``"ring"`` (``csrc/svrg_inner_ring.cu``) -- one CTA of
+:func:`svrg_ring_warps` warps per cell, the window's w, w~ and mu in
+registers, the cell's order and a ring of rows (bulk copies) in shared
+memory -- wherever the window fits the registers and the order and the
+ring the shared memory, which covers the main path's RADiSA cells;
+``"block"`` (``csrc/svrg_inner.cu``) -- one block per cell, w, w~ and mu
+in shared memory, the next row by 4-byte copies -- for the rest.  Both
+update each column with the same expression; they sum each row's inner
+product in other orders.
+"""
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .._launch import (block_threads, cell_params, check_loss, check_smem,
-                       check_tensor, is_per_cell, scalar_arg)
+from .._launch import (MAX_DYNAMIC_SMEM, block_threads, cell_params,
+                       check_loss, check_smem, check_tensor, is_per_cell,
+                       scalar_arg)
 from .ref import svrg_inner_plain
+
+ROUTES = ("ring", "block")
+#: the ring route's geometry, owned here and passed to the launch, which
+#: refuses any other than the kernel is compiled for: the warps of a cell,
+#: the window columns a thread may hold in registers (4, 8 or 16 on one
+#: warp; 8 or 16 on four, which take only windows over 512 columns), and
+#: the rows in flight (slots of the shared-memory ring)
+RING_WARPS = (1, 4)
+RING_PER_THREAD = (4, 8, 16)
+RING_SLOTS = 8
+RING_MAX_WINDOW = 32 * RING_WARPS[-1] * RING_PER_THREAD[-1]
+#: (widest window, warps a cell), first match: windows up to 512 columns
+#: on one warp, no barrier a step (at the RADiSA cells' 429 columns one
+#: warp beat four on the card, PERF.md); wider ones on four warps
+RING_TABLE = ((32 * RING_PER_THREAD[-1], 1), (RING_MAX_WINDOW, 4))
+
+
+def svrg_ring_warps(m_sub: int) -> int:
+    """Warps a cell of the ring route, from the window width alone
+    (``RING_TABLE``; the widest entry for wider windows)."""
+    for widest, warps in RING_TABLE:
+        if m_sub <= widest:
+            return warps
+    return RING_TABLE[-1][1]
+
+
+def svrg_ring_per_thread(m_sub: int, warps: int) -> int:
+    """Window columns a thread holds: the fewest the kernel is compiled
+    for that cover the window (the most, for a wider window)."""
+    for e in RING_PER_THREAD:
+        if m_sub <= 32 * warps * e:
+            return e
+    return RING_PER_THREAD[-1]
+
+
+def svrg_ring_smem(L: int, warps: int, per_thread: int) -> int:
+    """Dynamic shared memory of one ring CTA, in the kernel's layout: the
+    cell's ``L`` indices (rounded up to a multiple of 4), then
+    ``RING_SLOTS`` slots of ``32 * warps * per_thread + 8`` floats of row (a window
+    copied from the 16-byte boundary at or before its first column) and
+    12 of scalars (three 16-byte chunks: label, mask, anchor margin)."""
+    return 4 * (-(-L // 4) * 4 + RING_SLOTS * (32 * warps * per_thread + 20))
+
+
+def svrg_route(m_sub: int, L: int) -> str:
+    """The kernel a CUDA call takes, by shape alone: ``"ring"`` when the
+    window fits the registers of one CTA (``RING_MAX_WINDOW`` columns)
+    and the order and the ring of rows its shared memory; else
+    ``"block"``."""
+    if not 1 <= m_sub <= RING_MAX_WINDOW or L < 0:
+        return "block"
+    warps = svrg_ring_warps(m_sub)
+    smem = svrg_ring_smem(L, warps, svrg_ring_per_thread(m_sub, warps))
+    return "ring" if smem <= MAX_DYNAMIC_SMEM else "block"
 
 
 def svrg_inner(x, y, mask, z_anchor, w_anchor, mu, idx, *, lam, eta,
@@ -35,7 +102,8 @@ def svrg_inner(x, y, mask, z_anchor, w_anchor, mu, idx, *, lam, eta,
     as its per-cell ``cell_params``.  Returns the updated sub-block
     iterate ``(P, Q[, T], m_sub)`` (or ``(m_sub,)``).  A CUDA tensor
     launches the CUDA kernel or raises; the plain PyTorch version runs
-    only for tensors that lie on the CPU.
+    only for tensors that lie on the CPU.  On the card the route is
+    :func:`svrg_route`'s.
     """
     loss_id = check_loss(loss, "the svrg_inner kernel")
     unbatched = isinstance(x, torch.Tensor) and x.dim() == 2
@@ -80,39 +148,57 @@ def svrg_inner(x, y, mask, z_anchor, w_anchor, mu, idx, *, lam, eta,
                              lam=lam, eta=eta, loss=loss, lo=lo)
     elif dev.type == "cuda":
         w = _launch(x, y, mask, z_anchor, w_anchor, mu, idx, lo, lam=lam,
-                    eta=eta, loss_id=loss_id)
+                    eta=eta, loss_id=loss_id,
+                    route=svrg_route(m_sub, idx.shape[-1]))
     else:
         raise NotImplementedError(f"svrg_inner has no path for {dev}")
     return w[0, 0] if unbatched else w
 
 
-#: number of CUDA kernel launches made by this wrapper (and nothing else)
-#: -- one per call, whatever the number of tenants
+#: number of CUDA kernel launches made by this wrapper (and nothing else),
+#: in all and per route -- one per call, whatever the number of tenants
 svrg_inner.launches = 0
+svrg_inner.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _launch(x, y, mask, z_anchor, w_anchor, mu, idx, lo, *, lam, eta,
-            loss_id):
+            loss_id, route):
+    """Launch one route.  The wrapper passes :func:`svrg_route`'s choice;
+    only ``chip_smoke.py`` calls it directly, with ``route="block"`` at a
+    main-path shape, to time the route the ring route replaced."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown svrg_inner route {route!r}")
     P, Qc = x.shape[:2]
     lead = tuple(x.shape[:-2])                     # (P, Q[, T])
     T = x.shape[2] if x.dim() == 5 else 1
     n_p, m_x = x.shape[-2:]
     m_sub = w_anchor.shape[-1]
-    check_smem(5 * m_sub * 4, f"svrg_inner with m_sub={m_sub}")
+    L = idx.shape[-1]
+    if route == "block":
+        check_smem(5 * m_sub * 4, f"svrg_inner with m_sub={m_sub}")
     lib = _build.load_library()
     w = torch.empty((*lead, m_sub), dtype=x.dtype, device=x.device)
     params = (cell_params(lead, x.device, lam, eta)
               if is_per_cell(lam, eta) else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.svrg_inner_launch(
-            x.data_ptr(), y.data_ptr(), mask.data_ptr(), z_anchor.data_ptr(),
-            w_anchor.data_ptr(), mu.data_ptr(), idx.data_ptr(),
-            lo.data_ptr() if lo is not None else None, w.data_ptr(),
-            P, Qc, T, n_p, m_x, m_sub, idx.shape[-1], scalar_arg(lam),
-            scalar_arg(eta),
-            params.data_ptr() if params is not None else None, loss_id,
-            block_threads(m_sub), stream)
-    _build.check_launch(lib, code, "svrg_inner")
+        ptrs = (x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+                z_anchor.data_ptr(), w_anchor.data_ptr(), mu.data_ptr(),
+                idx.data_ptr(), lo.data_ptr() if lo is not None else None,
+                w.data_ptr())
+        scalars = (scalar_arg(lam), scalar_arg(eta),
+                   params.data_ptr() if params is not None else None)
+        if route == "ring":
+            warps = svrg_ring_warps(m_sub)
+            e = svrg_ring_per_thread(m_sub, warps)
+            code = lib.svrg_inner_ring_launch(
+                *ptrs, P, Qc, T, n_p, m_x, m_sub, L, *scalars, loss_id,
+                warps, e, RING_SLOTS, svrg_ring_smem(L, warps, e), stream)
+        else:
+            code = lib.svrg_inner_launch(
+                *ptrs, P, Qc, T, n_p, m_x, m_sub, L, *scalars, loss_id,
+                block_threads(m_sub), stream)
+    _build.check_launch(lib, code, f"svrg_inner ({route})")
     svrg_inner.launches += 1
+    svrg_inner.launches_by_route[route] += 1
     return w
