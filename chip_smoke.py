@@ -29,9 +29,12 @@ JSON; any failure is an exception and a non-zero exit:
                       (T tenants' cells in one launch), and the RWKV6
                       linear attention at its main shape against the
                       exact recurrence in float64 at several input draws
-                      (``linattn_draws`` line) -- the first call
-                      to make after touching a ``.cu`` file (``--phases
-                      kernels``)
+                      (``linattn_draws`` line), and each SDCA kernel on
+                      every route with a row gate as its mask (one row
+                      partition on, 5 % of rows on, all off -- all off
+                      must leave dalpha 0 and w bitwise w0) -- the first
+                      call to make after touching a ``.cu`` file
+                      (``--phases kernels``)
   d3ca_full           ``repro_torch.launch.optimize.main`` -- D3CA, dense
   radisa_full         the same with RADiSA
   d3ca_sparse_full    D3CA, ``--block-format sparse`` on the news20 profile
@@ -57,6 +60,19 @@ JSON; any failure is an exception and a non-zero exit:
                       RADiSA
   admm_full           ``optimize.main --solver admm`` on the dense
                       instance: no kernel launch
+  online_full         ``repro_torch.launch.online`` (``main``'s
+                      ``parse_args`` and ``run``) -- the online service at
+                      the dense instance's width: a window of 14 000 x
+                      12 000 on the card, 30 rounds of 500 rows (the ring
+                      wraps at round 28), two gated D3CA passes an update
+                      (60 B1 launches, cluster at G = 1), the launches of
+                      three rounds against the plain version, frozen duals
+                      outside each batch, recovery from the checkpoints
+                      bitwise; the all-ones gate bitwise the ungated solve;
+                      update, swap, scoring and checkpoint times
+  online_sparse_full  ``Solver("d3ca", block_format="sparse")`` on the
+                      news20 profile: a cold solve and a gated ``update``
+                      of 1000 rows, 4 B3 launches against the plain version
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       Qwen3 / RWKV6: port on the card (kernels) vs port on
                       the CPU, in float32, and a reduced Qwen3 prefill in
@@ -110,6 +126,7 @@ import argparse
 import contextlib
 import functools
 import gc
+import importlib
 import io
 import json
 import os
@@ -126,6 +143,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.svm_paper import REAL_DATASETS  # noqa: E402
 from repro_torch.core import (ArrayIndexSource, D3CAConfig,  # noqa: E402
@@ -162,6 +180,7 @@ from repro_torch.kernels.svrg import ops as svrg_ops  # noqa: E402
 from repro_torch.kernels.svrg import sparse as svrg_sparse  # noqa: E402
 from repro_torch.fleet import FleetSolver, solo_config  # noqa: E402
 from repro_torch.launch import fleet as fleet_cli  # noqa: E402
+from repro_torch.launch import online as online_cli  # noqa: E402
 from repro_torch.launch import optimize  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Transformer, reduced  # noqa: E402
@@ -172,7 +191,7 @@ from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
 MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
               "serve_rwkv6_full", "fleet_dense_full", "fleet_sparse_full",
-              "admm_full")
+              "admm_full", "online_full", "online_sparse_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -195,6 +214,29 @@ SPARSE_PEAK_LIMIT = 2e9
 FLEET_T_DENSE = 4
 FLEET_T_SPARSE = 2
 FLEET_TOL = 1e-6
+
+# the online service at the Part 1 width: a window of N rows of M features
+# on the same 7 x 4 grid, batches of ONLINE_BATCH rows (the ring wraps at
+# round N / ONLINE_BATCH = 28), ONLINE_PASSES gated passes an update, a
+# checkpoint of every published version
+ONLINE_ROUNDS, ONLINE_BATCH, ONLINE_PASSES = 30, 500, 2
+ONLINE_ARGV = ["--m", str(M), "--capacity", str(N), "--mesh", f"{P}x{Q}",
+               "--loss", "hinge", "--lam", str(LAM), "--passes",
+               str(ONLINE_PASSES), "--batch", str(ONLINE_BATCH),
+               "--score-batch", "4096"]
+#: the rounds whose launches are held against the plain version: the first,
+#: the first after the wrap, the last
+ONLINE_CHECKED = (0, N // ONLINE_BATCH, ONLINE_ROUNDS - 1)
+#: the accuracy the served model must beat at the end.  The stream has n / m
+#: = 1.17 rows a feature in the window, and the reference's own CLI on the
+#: same stream at a tenth of the width (repro.launch.online --m 1200
+#: --capacity 1400 --batch 50, the same ratios) serves 0.738 at its last
+#: round: a linear model learned from so few rows a feature generalises no
+#: better, so 0.9 is out of reach of the algorithm, not of the port
+ONLINE_MIN_ACC = 0.65
+#: the sparse online update: this many consecutive rows from the middle of
+#: row partition 3 of the news20 profile
+ONLINE_SPARSE_ROWS = 1000
 
 SWEEP_TOL = 1e-5         # rtol = atol, as in the unit tests
 # At the main-path shape a launch chains 2000 dependent steps and the kernel
@@ -806,6 +848,98 @@ def sparse_ahead_sweep(rng, dev, checks):
 
 
 # ---------------------------------------------------------------------------
+# row gates: the online service's updates hand the SDCA kernels a mask that
+# is off on most rows (mask * gate, core/d3ca.py)
+# ---------------------------------------------------------------------------
+
+#: the gated sweep's cases: (kernel, route, grid, n_p, m_q, k or None,
+#: steps, cluster size of B1's cluster route or None)
+GATED_SWEEP = [
+    ("sdca_epoch", "cluster", (3, 2), 24, 17, None, 64, 1),
+    ("sdca_epoch", "cluster", (2, 2), 40, 4097, None, 150, 16),
+    ("sdca_epoch", "block", (3, 2), 17, 9, None, 33, None),
+    ("sdca_epoch_sparse", "lookahead", (3, 2), 24, 20, 16, 50, None),
+    ("sdca_epoch_sparse", "block", (3, 2), 17, 9, 7, 33, None),
+]
+
+
+def gate_masks(rng, mask):
+    """The gates of the sweep, each times the row mask of the inputs:
+    one row partition on and the rest off, 5 % of the rows on at random,
+    every row off."""
+    one = torch.zeros_like(mask)
+    one[mask.shape[0] // 2] = 1.0
+    few = torch.from_numpy((rng.random(tuple(mask.shape)) < 0.05)
+                           .astype(np.float32)).to(mask.device)
+    return {"one partition": one * mask, "5 % of rows": few * mask,
+            "all off": torch.zeros_like(mask)}
+
+
+def gated_sweep(rng, dev, checks):
+    """B1 (cluster at G = 1 and 16, block) and B3 (lookahead, block) with
+    the gates of :func:`gate_masks` as their row mask, against their
+    plain versions within SWEEP_TOL; with every row off, dalpha must be 0
+    exactly and w_out bitwise w0 in every cell.  Returns one record a
+    case."""
+    out = []
+    for name, route, grid, n_p, m_q, k, steps, G in GATED_SWEEP:
+        if name == "sdca_epoch":
+            args = sdca_inputs(rng, *grid, n_p, m_q, steps, dev,
+                               masked_tail=3)
+            args[5] = repeated_rows(args[5])
+            if m_q > 1000:
+                args[0] = args[0] / float(np.sqrt(m_q))
+            mask_at = 2
+            routed = sdca_route(n_p, m_q, steps)
+        else:
+            args = shuffled_slots(rng, sdca_sparse_inputs(
+                rng, *grid, n_p, m_q, k, steps, dev, zero_cell=(1, 1)))
+            args[6] = repeated_at(args[6], range(1, sdca_sparse.AHEAD_DEPTH
+                                                 + 2))
+            mask_at = 3
+            routed = sdca_sparse_route(n_p, k, steps)
+        if route != "block" and routed != route or (
+                G is not None and sdca_ops.sdca_cluster_size(m_q) != G):
+            raise AssertionError(f"{name} {(n_p, m_q, k, steps)} is not a "
+                                 f"{route} G={G} case")
+        for label, gate in gate_masks(rng, args[mask_at]).items():
+            gargs = list(args)
+            gargs[mask_at] = gate
+            for loss in ("hinge", "squared"):
+                for beta in (None, float(k or m_q)):
+                    kw = dict(lam=0.2, n=200, Q=3, loss=loss, beta=beta)
+                    if route == "block":
+                        got = (sdca_block(gargs, kw) if name == "sdca_epoch"
+                               else sparse_route_launch(gargs, kw, "block"))
+                    elif G is not None:
+                        took, got = sdca_cluster_of(
+                            lambda: sdca_epoch(*gargs, **kw))
+                        if took != G:
+                            raise AssertionError(f"{name}: G = {took}")
+                    else:
+                        got = WRAPPERS[name](*gargs, **kw)
+                    err = compare(f"{name} {route} G={G} gated ({label}) "
+                                  f"{grid}{(n_p, m_q, k, steps)} {loss} "
+                                  f"beta={beta}", got,
+                                  PLAINS[name](*gargs, **kw), SWEEP_TOL)
+                    checks.append((name, err))
+                    if label == "all off":
+                        w0 = gargs[mask_at + 2]
+                        if not bool((got[0] == 0).all()) or not torch.equal(
+                                got[1].view(torch.int32),
+                                w0.expand_as(got[1]).view(torch.int32)):
+                            raise AssertionError(
+                                f"{name} {route} G={G}: a gated-off row "
+                                "moved its dual or w")
+                    out.append({"kernel": name, "route": route,
+                                "cluster": G, "gate": label, "loss": loss,
+                                "beta": beta is not None,
+                                "max_abs_err": err})
+    torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the tenant axis: T problems of one shape in one launch, a distinct lam in
 # every cell (the fleet's runtime branch of the four solver kernels)
 # ---------------------------------------------------------------------------
@@ -1339,6 +1473,7 @@ def phase_kernels(dev, results):
     torch.cuda.synchronize()
 
     tenant_kernel_checks(rng, dev, checks)
+    gated = gated_sweep(rng, dev, checks)
     lm_kernel_checks(rng, dev, checks, main_err)
 
     summary = []
@@ -1372,7 +1507,13 @@ def phase_kernels(dev, results):
                             "m_q": sp.m_q, "steps": sp.n_p,
                             "m_sub": sp.m_q // P},
          flash_main_shape=dict(zip("B S H KV D".split(), FLASH_MAIN)),
-         linattn_main_shape=dict(zip("B S H D".split(), LINATTN_MAIN)))
+         linattn_main_shape=dict(zip("B S H D".split(), LINATTN_MAIN)),
+         gated_sweep={"cases": len(gated),
+                      "max_abs_err": max(g["max_abs_err"] for g in gated),
+                      "all_off_exact": sum(g["gate"] == "all off"
+                                           for g in gated),
+                      "by": sorted({(g["kernel"], g["route"], g["cluster"])
+                                    for g in gated}, key=str)})
     del data, alpha, w, sargs, vargs, alpha20, w20
     torch.cuda.empty_cache()
 
@@ -1877,6 +2018,259 @@ def phase_fleet_sparse_full(solos):
             "svrg_inner_sparse": OUTER_ITERS}
 
 
+@contextlib.contextmanager
+def tap(name, on_launch):
+    """Pass every call of the SDCA wrapper ``name`` that the cell-local
+    solvers make (``core/local.py`` takes it from
+    ``repro_torch.kernels.sdca`` at each call) on to the real wrapper,
+    then hand ``on_launch(args, kwargs, outputs)`` what it got and gave.
+    The wrapper's counters are untouched; restored on exit."""
+    pkg = importlib.import_module("repro_torch.kernels.sdca")
+    real = getattr(pkg, name)
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        on_launch(args, kw, out)
+        return out
+    setattr(pkg, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(pkg, name, real)
+
+
+def run_online(argv, on_start=None, on_round=None):
+    """The online CLI's ``main`` (its ``parse_args`` and ``run``, the
+    latter with its hooks) on the card; returns its summary."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = online_cli.run(online_cli.parse_args(argv),
+                                 on_start=on_start, on_round=on_round)
+    if summary["device"] != "cuda" or summary["backend"] != "kernel":
+        raise AssertionError(f"online: not on the card / kernels: {summary}")
+    return summary
+
+
+def gated_rows(mask):
+    return int((mask != 0).sum())
+
+
+def phase_online_full():
+    """The online service at the Part 1 width through the online CLI: a
+    window of N x M on the card, 7 x 4 cells of 2000 x 3003, batches of
+    ONLINE_BATCH rows (the ring wraps at round N / ONLINE_BATCH, so the
+    overwritten rows are gated on with a stale warm-start alpha), two
+    gated D3CA passes an update.  Checks: ONLINE_ROUNDS * ONLINE_PASSES B1
+    launches, all cluster at G = 1, each gating on exactly the batch's
+    rows; those of the rounds ONLINE_CHECKED against the plain version
+    (MAIN_TOL relative to the largest entry); alpha outside each update's
+    touched rows equal to its warm start; objective over the filled rows
+    below round 1's, accuracy over ONLINE_MIN_ACC; a second run on the
+    same checkpoint directory recovers the last version with w bitwise;
+    outside the CLI, the all-ones gate is bitwise the ungated solve."""
+    taken, rounds, events, checked = [], [], [], []
+    state = {"round": 0}
+
+    def check_taken():
+        # (b) each launch of a checked round against its plain version,
+        # after the round's update was timed
+        for r, args, kw, out in taken:
+            checked.append({"round": r, **main_check(
+                f"online_full round {r} sdca_epoch", out,
+                sdca_epoch_plain(*args, **kw))})
+        taken.clear()
+
+    def on_launch(args, kw, out):
+        if gated_rows(args[2]) != ONLINE_BATCH:
+            raise AssertionError(f"online_full: a launch gated "
+                                 f"{gated_rows(args[2])} rows on")
+        if state["round"] in ONLINE_CHECKED:
+            taken.append((state["round"], args, kw, out))
+
+    def on_start(svc):
+        state["svc"] = svc
+        state["alpha"] = svc.book.current().alpha
+        real = svc.solver.update
+
+        def timed(*args, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            res = real(*args, **kw)
+            e.record()
+            events.append((s, e))
+            return res
+        svc.solver.update = timed
+
+    def on_round(r, svc, rec):
+        # (c) the duals outside the batch's rows equal their warm start
+        cur = svc.book.current()
+        rows = torch.from_numpy((r * ONLINE_BATCH + np.arange(ONLINE_BATCH))
+                                % N).to(svc.device)
+        off = torch.ones(N, dtype=torch.bool, device=svc.device)
+        off[rows] = False
+        if cur.version != r + 1 or not torch.equal(cur.alpha[off],
+                                                   state["alpha"][off]):
+            raise AssertionError(f"online_full round {r}: version "
+                                 f"{cur.version}, or a dual outside the "
+                                 "batch's rows moved")
+        rounds.append({**rec, "rows_moved": int(
+            (cur.alpha[rows] != state["alpha"][rows]).sum())})
+        state["alpha"] = cur.alpha
+        state["round"] = r + 1
+        if r != ONLINE_ROUNDS - 1:   # the last round's after the summary
+            check_taken()
+
+    c0, g0 = launch_counts(), dict(sdca_epoch.launches_by_cluster)
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        with tap("sdca_epoch", on_launch):
+            summary = run_online([*ONLINE_ARGV, "--rounds",
+                                  str(ONLINE_ROUNDS), "--ckpt-dir", ck],
+                                 on_start, on_round)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check_taken()
+        want = ONLINE_ROUNDS * ONLINE_PASSES
+        launched = launch_counts()["sdca_epoch"] - c0["sdca_epoch"]
+        at_g1 = sdca_epoch.launches_by_cluster[1] - g0[1]
+        if launched != want or at_g1 != want:
+            raise AssertionError(f"online_full: {launched} B1 launches, "
+                                 f"{at_g1} at G = 1; expected {want}")
+        if sorted({c["round"] for c in checked}) != sorted(ONLINE_CHECKED) \
+                or len(checked) != ONLINE_PASSES * len(ONLINE_CHECKED):
+            raise AssertionError(f"online_full: checked {len(checked)} "
+                                 "launches")
+        svc = state.pop("svc")
+        last = svc.book.current()
+        update_ms = [s.elapsed_time(e) for s, e in events]
+        hist = {k.split("{")[0]: v for k, v in
+                svc.registry.snapshot()["histograms"].items()}
+        # (d) the model learned
+        f0, f1 = rounds[0]["f"], rounds[-1]["f"]
+        acc0, acc1 = rounds[0]["acc"], rounds[-1]["acc"]
+        if not (np.isfinite(f1) and f1 < f0 and acc1 > ONLINE_MIN_ACC):
+            raise AssertionError(f"online_full: objective {f0} -> {f1}, "
+                                 f"accuracy {acc0} -> {acc1}")
+        # (e) a restart recovers the last version, w bitwise
+        got = []
+        again = run_online([*ONLINE_ARGV, "--rounds", "2", "--ckpt-dir", ck],
+                           on_start=lambda s: got.append(s.book.current()))
+        rec = got[0]
+        if rec.version != ONLINE_ROUNDS or rec.trained_seq != \
+                last.trained_seq or not torch.equal(
+                    rec.w.view(torch.int32), last.w.view(torch.int32)) \
+                or again["version"] != ONLINE_ROUNDS + 2:
+            raise AssertionError(f"online_full: recovered version "
+                                 f"{rec.version}, then {again['version']}")
+        # checkpoint write: one snapshot tree, synchronously, host clock
+        mgr = CheckpointManager(os.path.join(ck, "timing"), keep_n=1)
+        tree = {"w": last.w, "alpha": last.alpha,
+                "trained_seq": np.asarray(last.trained_seq, np.int64)}
+        ck_ms = []
+        for i in range(3):
+            t1 = time.perf_counter()
+            mgr.save(i + 1, tree)
+            ck_ms.append(1e3 * (time.perf_counter() - t1))
+    # the all-ones gate against no gate, outside the CLI, on the window
+    cfg = D3CAConfig(lam=LAM, outer_iters=2)
+    solver = get_solver("d3ca")()
+    X, y = svc.store.X, svc.store.y
+    plain = solver.solve("hinge", X, y, P=P, Q=Q, cfg=cfg,
+                         record_history=False)
+    ones = solver.solve("hinge", X, y, P=P, Q=Q, cfg=cfg,
+                        record_history=False,
+                        row_gate=torch.ones(N, device=X.device))
+    if not (torch.equal(plain.w.view(torch.int32), ones.w.view(torch.int32))
+            and torch.equal(plain.alpha.view(torch.int32),
+                            ones.alpha.view(torch.int32))):
+        raise AssertionError("online_full: the all-ones gate is not bitwise "
+                             "the ungated solve")
+    emit("online_full", rounds=ONLINE_ROUNDS, batch=ONLINE_BATCH,
+         passes=ONLINE_PASSES, capacity=summary["store_capacity"],
+         launches=launched, launches_at_g1=at_g1,
+         checked_launches=checked,
+         worst_rel_err=max(c["rel_err"] for c in checked),
+         objective_first=f0, objective_last=f1, acc_first=acc0,
+         acc_last=acc1, rows_moved=[r["rows_moved"] for r in rounds],
+         recovered_version=rec.version, ones_gate_bitwise=True,
+         wall_s=wall)
+    emit("online_full_times",
+         update_ms_by_cuda_events={"p50": statistics.median(update_ms),
+                                   "max": max(update_ms),
+                                   "first": update_ms[0],
+                                   "all": update_ms},
+         update_s_host=hist["online/update_s"],
+         swap_s_host=hist["online/swap_s"],
+         score_rows_per_s=summary["score_rows_per_sec"],
+         ckpt_write_ms={"median": statistics.median(ck_ms), "all": ck_ms},
+         staleness_s_end=summary["staleness_s"],
+         version_lag_end=summary["version_lag"], peak_mem_bytes=peak)
+    del svc, X, y, plain, ones, last, rec, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sdca_epoch": want + 2 * ONLINE_PASSES + 2 * cfg.outer_iters}
+
+
+def phase_online_sparse_full():
+    """The news20 profile through ``Solver("d3ca",
+    block_format="sparse")`` on the CSR matrix: a cold 2-iteration solve,
+    then ``update`` of ONLINE_SPARSE_ROWS consecutive rows from the middle
+    of row partition 3, 2 passes.  Checks: 4 B3 launches (all lookahead,
+    by the main path's route check), each against its plain version
+    (MAIN_TOL relative to the largest entry), the update's gating on
+    exactly the touched rows; alpha outside them equal to the cold
+    solve's; peak device memory under SPARSE_PEAK_LIMIT."""
+    csr, y = make_sparse_svm_csr(N20, M20, density=DENS20, seed=0)
+    n_p = -(-N20 // P)
+    start = 3 * n_p + n_p // 2
+    touched = np.arange(start, start + ONLINE_SPARSE_ROWS)
+    solver = get_solver("d3ca")(block_format="sparse")
+    cfg = D3CAConfig(lam=LAM20, outer_iters=2)
+    taken = []
+    with tap("sdca_epoch_sparse", lambda a, kw, out: taken.append(
+            (a, kw, out))):
+        cold = solver.solve("hinge", csr, y, P=P, Q=Q, cfg=cfg,
+                            record_history=False)
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        s.record()
+        res = solver.update("hinge", csr, y, touched=touched,
+                            warm_start=cold, P=P, Q=Q, cfg=cfg, passes=2,
+                            record_history=False)
+        e.record()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= SPARSE_PEAK_LIMIT:
+        raise AssertionError(f"online_sparse_full: peak device memory {peak}"
+                             " B; the sparse path densified something")
+    off = torch.ones(N20, dtype=torch.bool, device=res.alpha.device)
+    off[torch.from_numpy(touched).to(off.device)] = False
+    moved = int((res.alpha[~off] != cold.alpha[~off]).sum())
+    if not torch.equal(res.alpha[off], cold.alpha[off]) or moved == 0:
+        raise AssertionError("online_sparse_full: a dual outside the "
+                             f"touched rows moved, or none inside ({moved})")
+    if len(taken) != 4 or [gated_rows(a[3]) for a, _, _ in taken[2:]] != \
+            [ONLINE_SPARSE_ROWS] * 2:
+        raise AssertionError(f"online_sparse_full: {len(taken)} launches")
+    checked = [main_check(f"online_sparse_full launch {i}", out,
+                          sdca_epoch_sparse_plain(*a, **kw))
+               for i, (a, kw, out) in enumerate(taken)]
+    del taken
+    emit("online_sparse_full", n=N20, m=M20, touched=[int(touched[0]),
+                                                      int(touched[-1])],
+         checked_launches=checked,
+         worst_rel_err=max(c["rel_err"] for c in checked),
+         rows_moved=moved, update_ms_by_cuda_events=s.elapsed_time(e),
+         update_ms_host=host_ms, peak_mem_bytes=peak)
+    del cold, res, csr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sdca_epoch_sparse": 2 * cfg.outer_iters}
+
+
 def phase_d3ca_sparse_full():
     return sparse_full("d3ca_sparse_full", "d3ca", "sdca_epoch_sparse", True)
 
@@ -1966,7 +2360,10 @@ SDCA_SHAPE_LAUNCHES = {
     "d3ca_full": {"d3ca_cells": OUTER_ITERS, "serial": REF_EPOCHS},
     "radisa_full": {"serial": REF_EPOCHS},
     # the fleet's launches take 1 CTA a cell too, for 4 x 28 cells
-    "fleet_dense_full": {"d3ca_cells": OUTER_ITERS}}
+    "fleet_dense_full": {"d3ca_cells": OUTER_ITERS},
+    # two passes an update over 30 + 2 rounds, and 2 + 2 iterations of the
+    # all-ones gate against no gate
+    "online_full": {"d3ca_cells": ONLINE_PASSES * (ONLINE_ROUNDS + 2) + 4}}
 
 
 #: what a main path is held against that must be made before its counted
@@ -2230,6 +2627,23 @@ def sparse_bounds(name, args, lo=None):
             "bytes_moved": nbytes, "flops": ops}
 
 
+def gated_timing(fn, args, kw, mask_at, start, rows):
+    """One SDCA launch at a main-path shape with ``rows`` consecutive rows
+    from global row ``start`` gated on (the row mask times the gate, as an
+    online update hands it over), timed both ways beside the ungated
+    launch, in turns: ungated, gated, gated, ungated."""
+    mask = args[mask_at]
+    gate = torch.zeros(mask.numel(), device=mask.device)
+    gate[start: start + rows] = 1.0
+    gated = list(args)
+    gated[mask_at] = (mask.reshape(-1) * gate).reshape(mask.shape)
+    plain = [both_ms(lambda: fn(*args, **kw), reps=5)]
+    gpairs = [both_ms(lambda: fn(*gated, **kw), reps=5) for _ in range(2)]
+    plain.append(both_ms(lambda: fn(*args, **kw), reps=5))
+    return {"rows_on": gated_rows(gated[mask_at]), **medians(gpairs, "ms"),
+            **medians(plain, "ungated_ms")}
+
+
 def time_program(prog, iters=5):
     """ms per outer iteration of a grid-engine program (step only, no
     history), by CUDA events around ``iters`` steps after a warm-up
@@ -2440,6 +2854,10 @@ def phase_timing(dev, results):
                               "prev_route_ms", "prev_route_device_ms",
                               "bound_ms", "bound_by", "bytes_moved")})
     results["sdca_epoch"]["shapes"]["d3ca_cells"].update(cells)
+    # the online update's launch: the same cells with ONLINE_BATCH rows
+    # gated on (it walks every step all the same; PERF.md section 7)
+    results["sdca_epoch"]["shapes"]["d3ca_cells"]["gated"] = gated_timing(
+        sdca_epoch, sargs, skw, 2, 0, ONLINE_BATCH)
     results["svrg_inner"].update(
         **medians(kern_v, "ms"), plain_ms=statistics.median(plain_v),
         library_ms=None, prev_route="block", **medians(prev_v, "prev_route_ms"),
@@ -2503,6 +2921,9 @@ def phase_timing(dev, results):
     kern_s.append(both_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7))
     plain_s.append(cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
                            reps=3))
+    results["sdca_epoch_sparse"]["gated"] = gated_timing(
+        sdca_epoch_sparse, sargs, skw, 3, 3 * sp.n_p + sp.n_p // 2,
+        ONLINE_SPARSE_ROWS)
     results["sdca_epoch_sparse"].update(
         **medians(kern_s, "ms"), plain_ms=statistics.median(plain_s),
         library_ms=None, prev_route="block", **medians(prev_s, "prev_route_ms"),

@@ -51,6 +51,7 @@ def d3ca_schedule() -> CommSchedule:
 def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
                       index_source, local_backend: str = "kernel",
                       sparse: bool = False, m_q: Optional[int] = None,
+                      gated: bool = False,
                       per_problem: bool = False) -> CellProgram:
     """The ONE D3CA program.
 
@@ -59,6 +60,14 @@ def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
     Blocked state: ``(alpha (P, n_p), w (Q, m_q))``.  ``index_source``
     supplies the coordinate order of every outer iteration
     (``sdca_rows(t) -> (P, steps)``, one order per row partition).
+
+    ``gated=True`` appends a per-row activity gate ``gate (P, n_p)`` to
+    the data tuple: the local SDCA epoch masks its coordinate updates by
+    ``mask * gate``, so rows gated off never move their dual, while the
+    step-9 primal-dual map still sums EVERY row's alpha (the model stays
+    exact for the whole dataset).  A gate of all ones is bit-identical to
+    the ungated program.  This is the incremental online-update path:
+    warm-started passes that move only the rows of new observations.
 
     ``per_problem=True`` is the fleet path: every array carries a tenant
     axis T right after its grid axes (``x (P, Q, T, n_p, m_q)``, ``alpha
@@ -82,13 +91,16 @@ def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
             # float32 like every other runtime scalar of the step
             beta = float(np.float32(lam) / np.float32(t))
             lam_n = lam * n
+        if gated:
+            *data, gate = data
         *x_parts, y, mask = data
+        step_mask = mask * gate if gated else mask
         a, w = state
         Pn = comm.axis_size("data")
         Qn = comm.axis_size("model")
         idx = index_source.sdca_rows(t)        # coordinate order per p
         local = local_sdca_sparse if sparse else local_sdca
-        dalpha = local(loss, *x_parts, y, mask, a, w, lam=lam_t, n=n_t,
+        dalpha = local(loss, *x_parts, y, step_mask, a, w, lam=lam_t, n=n_t,
                        Q=Qn, idx=idx, step_mode=cfg.step_mode, beta=beta,
                        backend=local_backend)
         # step 6: alpha_[p,.] += (1/P) mean_q dalpha[p, q]
@@ -111,13 +123,16 @@ def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
 def d3ca_simulated_program(loss: Loss, data, cfg: D3CAConfig, *,
                            local_backend: str = "kernel",
                            w0=None, alpha0=None, index_source=None,
-                           cache=None) -> EngineProgram:
+                           row_gate=None, cache=None) -> EngineProgram:
     """Grid engine.  State: (alpha (P, n_p), w_blocks (Q, m_q)).
 
     ``data`` may be a dense :class:`DoublyPartitioned` or a sparse
     :class:`SparseDoublyPartitioned` (padded-ELL cells).
     ``index_source=None`` draws the coordinate orders from a
-    ``torch.Generator`` seeded from ``cfg.seed`` on the data's device."""
+    ``torch.Generator`` seeded from ``cfg.seed`` on the data's device.
+    ``row_gate`` ((n,) of 0/1) builds the gated incremental program: dual
+    updates are restricted to gated-on rows (see
+    :func:`d3ca_cell_program`)."""
     sparse = isinstance(data, SparseDoublyPartitioned)
     Pn, Qn = data.P, data.Q
     dev = data.device
@@ -128,9 +143,12 @@ def d3ca_simulated_program(loss: Loss, data, cfg: D3CAConfig, *,
     cellprog = d3ca_cell_program(loss, cfg, n=data.n,
                                  index_source=index_source,
                                  local_backend=local_backend,
-                                 sparse=sparse, m_q=data.m_q)
+                                 sparse=sparse, m_q=data.m_q,
+                                 gated=row_gate is not None)
     x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
-    gdata = (*x_parts, data.y_blocks, data.mask)
+    gate_parts = (() if row_gate is None
+                  else (data.alpha_to_blocks(row_gate),))
+    gdata = (*x_parts, data.y_blocks, data.mask, *gate_parts)
     step = cached_build(cache, "step",
                         lambda: grid_program(cellprog, Pn, Qn, device=dev))
 

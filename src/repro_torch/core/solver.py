@@ -22,6 +22,11 @@ story.  This module provides that story once:
       - ``index_source`` -- where the random coordinate orders come from
         (``core/indices.py``); ``None`` draws them from a
         ``torch.Generator`` seeded from the config;
+      - ``program_cache=True`` -- reuse the built step across program
+        builds of one key (always on inside :meth:`Solver.update`);
+      - ``row_gate`` -- the incremental online-update path: dual updates
+        restricted to gated-on rows (D3CA only, ``supports_row_gate``);
+        :meth:`Solver.update` builds the gate from the touched rows;
   * a shared outer loop: objective / duality-gap history, early
     stopping, warm starts from a previous ``w`` / ``alpha``.
 
@@ -29,9 +34,9 @@ The port covers the single-device grid engine (``engine="simulated"``);
 many problems of one shape solve together through
 ``repro_torch.fleet.FleetSolver``.  Every other knob of the reference's
 ``Solver`` -- the mesh engines, ``staleness``, ``compression``,
-``topology``, row gates and ``Solver.update``, tracer / registry /
-monitor -- raises ``NotImplementedError`` naming the ROADMAP queue item
-that brings it; nothing is silently ignored.
+``topology``, tracer / registry / monitor -- raises
+``NotImplementedError`` naming the ROADMAP queue item that brings it;
+nothing is silently ignored.
 
 Example::
 
@@ -54,6 +59,9 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Type
 
+import numpy as np
+import torch
+
 from ..data.sparse import CSRMatrix
 from .admm import ADMMConfig, admm_simulated_program
 from .d3ca import D3CAConfig, d3ca_simulated_program
@@ -64,7 +72,7 @@ from .partition import partition, partition_sparse
 from .radisa import RADiSAConfig, radisa_simulated_program
 from .reference import rel_opt
 from .sfk import SFKConfig, sfk_simulated_program
-from .util import as_tensor, resolve_device
+from .util import DTYPE, as_tensor, resolve_device
 
 ENGINES = ("simulated",)
 BLOCK_FORMATS = ("dense", "sparse")
@@ -75,7 +83,6 @@ BLOCK_FORMATS = ("dense", "sparse")
 _ITEMS = {
     "mesh": "'Multi-device engines'",
     "comm": "'Comm policies on the grid engine'",
-    "online": "'Row gate, online service, scorer, checkpoints'",
     "obs": "'Observability'",
 }
 NOT_PORTED = {
@@ -83,14 +90,12 @@ NOT_PORTED = {
     "force_host_devices": _ITEMS["mesh"],
     "staleness": _ITEMS["comm"], "compression": _ITEMS["comm"],
     "topology": _ITEMS["comm"],
-    "program_cache": _ITEMS["online"], "row_gate": _ITEMS["online"],
-    "update": _ITEMS["online"],
     "tracer": _ITEMS["obs"], "registry": _ITEMS["obs"],
     "monitor": _ITEMS["obs"], "trace": _ITEMS["obs"],
     "metrics": _ITEMS["obs"], "listen": _ITEMS["obs"],
     "health": _ITEMS["obs"], "flight_recorder": _ITEMS["obs"],
     "flight_capacity": _ITEMS["obs"], "min_tenants": _ITEMS["obs"],
-    "publish_snapshots": _ITEMS["online"],
+    "max_staleness": _ITEMS["obs"], "max_lag": _ITEMS["obs"],
 }
 
 
@@ -145,6 +150,7 @@ class Solver:
     name: str = ""
     config_cls: Type = None
     has_dual: bool = False
+    supports_row_gate: bool = False
 
     def __init__(self, engine: str = "simulated",
                  local_backend: str = "kernel", block_format: str = "dense",
@@ -165,8 +171,6 @@ class Solver:
             raise not_ported("compression", compression)
         if topology is not None:
             raise not_ported("topology", topology)
-        if program_cache:
-            raise not_ported("program_cache", program_cache)
         self.engine = engine
         self.local_backend = local_backend
         self.block_format = block_format
@@ -174,11 +178,29 @@ class Solver:
         #: there is none
         self.device = resolve_device(device)
         self.index_source = index_source
+        #: reuse the built step across program builds with constant
+        #: shapes (always on inside :meth:`update`, where shapes are
+        #: constant by design).  Keyed on (solver, engine, loss,
+        #: cfg-minus-outer_iters, backend, format, gate-ness, shapes,
+        #: grid).
+        self.program_cache = bool(program_cache)
+        self._prog_cache: Dict = {}
 
     # ---- subclass hook ----------------------------------------------------
-    def _simulated_program(self, loss, data, cfg, w0, alpha0
-                           ) -> EngineProgram:
+    def _simulated_program(self, loss, data, cfg, w0, alpha0,
+                           cache=None) -> EngineProgram:
         raise NotImplementedError
+
+    def _build_cache(self, loss_name, cfg, X, P, Q, gated: bool):
+        """The per-key dict in which the ``*_simulated_program``
+        functions memoize their steps, or None when caching is off."""
+        if not self.program_cache:
+            return None
+        key = (self.name, self.engine, loss_name,
+               dataclasses.replace(cfg, outer_iters=0),
+               self.local_backend, self.block_format, gated,
+               tuple(X.shape), P, Q)
+        return self._prog_cache.setdefault(key, {})
 
     # ---- program construction --------------------------------------------
     def program(self, loss_name: str, X, y, *, P: int = None, Q: int = None,
@@ -201,16 +223,30 @@ class Solver:
           cfg: the solver's config dataclass (``config_cls()`` default).
           warm_start: a :class:`SolveResult`, a ``(w, alpha)`` tuple, or
             a bare ``w`` to initialize the iterates from.
+          row_gate: optional (n,) 0/1 per-row activity gate restricting
+            dual updates to gated-on rows -- the incremental
+            online-update path.  Only solvers with ``supports_row_gate``
+            accept it.
 
         Returns:
           An :class:`EngineProgram` ready for :func:`engines.drive`.
+
+        Raises:
+          ValueError: on a missing grid spec or an unsupported
+            ``row_gate``.
         """
         if mesh is not None:
             raise not_ported("mesh")
-        if row_gate is not None:
-            raise not_ported("row_gate")
         loss = get_loss(loss_name)
         cfg = cfg if cfg is not None else self.config_cls()
+        if row_gate is not None and not self.supports_row_gate:
+            raise ValueError(
+                f"solver {self.name!r} has no incremental row-gate path; "
+                "gated warm-started passes are a dual-solver feature "
+                "(use 'd3ca')")
+        gate_kw = {} if row_gate is None else {"row_gate": row_gate}
+        cache = self._build_cache(loss_name, cfg, X, P, Q,
+                                  row_gate is not None)
         w0, alpha0 = _unpack_warm_start(warm_start)
         if P is None or Q is None:
             raise ValueError("engine='simulated' needs P and Q")
@@ -222,7 +258,8 @@ class Solver:
                 X = X.toarray()   # CSR input under block_format="dense"
             data = partition(X, y, P, Q, m_multiple=P * Q,
                              device=self.device)
-        return self._simulated_program(loss, data, cfg, w0, alpha0)
+        return self._simulated_program(loss, data, cfg, w0, alpha0,
+                                       cache=cache, **gate_kw)
 
     # ---- the shared outer loop --------------------------------------------
     def solve(self, loss_name: str, X, y, *, P: int = None, Q: int = None,
@@ -246,6 +283,7 @@ class Solver:
             field and rel-opt early stopping.
           record_history: collect per-iteration history entries.
           callback: ``callback(t, w, alpha)`` per outer iteration.
+          row_gate: see :meth:`program`.
 
         Returns:
           A :class:`SolveResult` whose ``w`` / ``alpha`` are tensors on
@@ -263,8 +301,57 @@ class Solver:
             row_gate=row_gate)
         return res
 
-    def update(self, *args, **kwargs):
-        raise not_ported("update")
+    def update(self, loss_name: str, X, y, *, touched, warm_start,
+               P: int = None, Q: int = None, cfg=None, mesh=None,
+               passes: int = 1, tracer=None, registry=None, monitor=None,
+               record_history: bool = True) -> SolveResult:
+        """Incremental-update entry point for the online service.
+
+        Runs ``passes`` warm-started outer iterations in which dual
+        updates are restricted to the ``touched`` rows; every other row's
+        alpha is frozen, but the primal-dual map still sums the full
+        dual, so the returned ``w`` is exact for the whole buffer.  The
+        gate is built on the solver's device, and the program cache is
+        on for the call: the observation buffer has a constant shape by
+        design.
+
+        Args:
+          loss_name, X, y, P, Q, cfg: see :meth:`solve`.  ``X`` is the
+            full observation buffer (a tensor, ideally already on the
+            solver's device, or a :class:`CSRMatrix` under
+            ``block_format="sparse"``).
+          touched: integer row indices that may move their dual.
+          warm_start: the previous iterates (required -- an incremental
+            update without a warm start is just a truncated cold solve).
+          passes: warm-started outer iterations over the touched rows.
+
+        Returns:
+          A :class:`SolveResult` whose ``w``/``alpha`` fold the new
+          observations into the previous model.
+
+        Raises:
+          ValueError: when this solver has no row-gate path
+            (``supports_row_gate`` is False) or ``warm_start`` is None.
+        """
+        if warm_start is None:
+            raise ValueError("incremental update needs warm_start=(w, "
+                             "alpha); for a cold model run solve()")
+        rows = torch.as_tensor(np.asarray(touched, dtype=np.int64),
+                               device=self.device)
+        gate = torch.zeros((X.shape[0],), dtype=DTYPE, device=self.device)
+        gate[rows] = 1.0
+        cfg = cfg if cfg is not None else self.config_cls()
+        cfg = dataclasses.replace(cfg, outer_iters=int(passes))
+        prev_cache = self.program_cache
+        self.program_cache = True
+        try:
+            return self.solve(loss_name, X, y, P=P, Q=Q, cfg=cfg, mesh=mesh,
+                              warm_start=warm_start, row_gate=gate,
+                              tracer=tracer, registry=registry,
+                              monitor=monitor,
+                              record_history=record_history)
+        finally:
+            self.program_cache = prev_cache
 
     def _solve_stage(self, loss_name: str, X, y, *, P, Q, cfg, mesh,
                      warm_start, tol, f_star, record_history, callback,
@@ -365,12 +452,15 @@ class D3CASolver(Solver):
     name = "d3ca"
     config_cls = D3CAConfig
     has_dual = True
+    supports_row_gate = True                   # incremental online updates
 
-    def _simulated_program(self, loss, data, cfg, w0, alpha0):
+    def _simulated_program(self, loss, data, cfg, w0, alpha0,
+                           row_gate=None, cache=None):
         return d3ca_simulated_program(loss, data, cfg,
                                       local_backend=self.local_backend,
                                       w0=w0, alpha0=alpha0,
-                                      index_source=self.index_source)
+                                      index_source=self.index_source,
+                                      row_gate=row_gate, cache=cache)
 
 
 @register_solver
@@ -378,11 +468,12 @@ class RADiSASolver(Solver):
     name = "radisa"
     config_cls = RADiSAConfig
 
-    def _simulated_program(self, loss, data, cfg, w0, alpha0):
+    def _simulated_program(self, loss, data, cfg, w0, alpha0, cache=None):
         return radisa_simulated_program(loss, data, cfg,
                                         local_backend=self.local_backend,
                                         w0=w0,
-                                        index_source=self.index_source)
+                                        index_source=self.index_source,
+                                        cache=cache)
 
 
 @register_solver
@@ -394,10 +485,11 @@ class SFKSolver(Solver):
     name = "sfk"
     config_cls = SFKConfig
 
-    def _simulated_program(self, loss, data, cfg, w0, alpha0):
+    def _simulated_program(self, loss, data, cfg, w0, alpha0, cache=None):
         return sfk_simulated_program(loss, data, cfg,
                                      local_backend=self.local_backend,
-                                     w0=w0, index_source=self.index_source)
+                                     w0=w0, index_source=self.index_source,
+                                     cache=cache)
 
 
 @register_solver
@@ -408,5 +500,5 @@ class ADMMSolver(Solver):
     name = "admm"
     config_cls = ADMMConfig
 
-    def _simulated_program(self, loss, data, cfg, w0, alpha0):
-        return admm_simulated_program(loss, data, cfg, w0=w0)
+    def _simulated_program(self, loss, data, cfg, w0, alpha0, cache=None):
+        return admm_simulated_program(loss, data, cfg, w0=w0, cache=cache)

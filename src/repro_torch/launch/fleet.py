@@ -20,6 +20,11 @@ once for all tenants' cells.
   PYTHONPATH=src python -m repro_torch.launch.fleet \\
       --tenants 8 --shape-mix --rounds 2 --device cpu
 
+  # --publish-snapshots pushes each tenant's iterates into its own online
+  # SnapshotBook + LinearScorer after every round
+  PYTHONPATH=src python -m repro_torch.launch.fleet \\
+      --tenants 4 --rounds 3 --publish-snapshots --device cpu
+
 Tenant i gets ``lam * 0.5 ** (i % 3)`` and seed ``seed + i``.  Dense
 tenants come from ``make_svm_data``; with ``--block-format sparse`` they
 are made as CSR by ``make_sparse_svm_csr`` and never densified.  Prints
@@ -37,11 +42,15 @@ import json
 import sys
 import time
 
+import torch
+
 from repro_torch.core import get_solver
 from repro_torch.core.solver import not_ported_message
 from repro_torch.data import (make_sparse_svm_csr, make_sparse_svm_data,
                                make_svm_data)
 from repro_torch.fleet import FleetProblem, FleetScheduler
+from repro_torch.online import SnapshotBook
+from repro_torch.serve.scoring import LinearScorer
 
 #: flags of the reference CLI whose layer is not ported: (flag, argparse
 #: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
@@ -49,7 +58,6 @@ from repro_torch.fleet import FleetProblem, FleetScheduler
 _NOT_PORTED_FLAGS = (
     ("--engine", "engine", "simulated"),
     ("--force-host-devices", "force_host_devices", None),
-    ("--publish-snapshots", "publish_snapshots", False),
     ("--trace", "trace", None),
     ("--metrics", "metrics", False),
     ("--min-tenants", "min_tenants", 2),
@@ -111,6 +119,10 @@ def build_parser():
     ap.add_argument("--shape-mix", action="store_true",
                     help="give every other tenant 50%% more rows, "
                          "exercising the scheduler's shape buckets")
+    ap.add_argument("--publish-snapshots", action="store_true",
+                    help="publish every tenant result into a per-tenant "
+                         "online SnapshotBook and refresh its "
+                         "LinearScorer (the serving hand-off)")
     ap.add_argument("--json-out", default=None,
                     help="write the summary JSON here as well")
     # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
@@ -123,7 +135,7 @@ def build_parser():
                     help=argparse.SUPPRESS)
     for flag in ("--trace", "--listen", "--flight-recorder"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--publish-snapshots", "--metrics", "--health"):
+    for flag in ("--metrics", "--health"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return ap
 
@@ -158,8 +170,31 @@ def make_tenants(args, *, count=None, lam_of=None, prefix="tenant"):
     return problems
 
 
-def report(problems, results, label=""):
-    """Print one line per tenant and return its summary entries."""
+class TenantSnapshots:
+    """``--publish-snapshots``: one online :class:`SnapshotBook` and one
+    :class:`LinearScorer` per tenant, on the device of its results, each
+    fed every result of its tenant (``publish`` is the scheduler's
+    ``on_result``)."""
+
+    def __init__(self, loss: str):
+        self.loss = loss
+        self.books, self.scorers = {}, {}
+
+    def publish(self, tid, res):
+        if tid not in self.books:
+            dev = res.w.device
+            self.books[tid] = SnapshotBook(torch.zeros_like(res.w),
+                                           device=dev)
+            self.scorers[tid] = LinearScorer(res.w, loss=self.loss,
+                                             device=dev)
+        snap = self.books[tid].publish(res.w, res.alpha,
+                                       trained_seq=res.iters)
+        self.scorers[tid].update_weights(snap.w, snap.version)
+
+
+def report(problems, results, label="", snapshots=None):
+    """Print one line per tenant and return its summary entries (with
+    the version of its published snapshot, given ``snapshots``)."""
     entries = []
     for p in problems:
         res = results[p.tenant_id]
@@ -167,6 +202,9 @@ def report(problems, results, label=""):
         entries.append({"tenant": p.tenant_id, "lam": p.lam, "seed": p.seed,
                         "n": p.n, "m": p.m, "iters": res.iters,
                         "converged": res.converged, "objective": obj})
+        if snapshots is not None:
+            entries[-1]["snapshot_version"] = \
+                snapshots.books[p.tenant_id].current().version
         print(f"  {label}{p.tenant_id:>10} lam={p.lam:<8g} seed={p.seed} "
               f"n={p.n} iters={res.iters} "
               + (f"f={obj:.6f}" if obj is not None else "f=?")
@@ -199,12 +237,14 @@ def parse_args(argv=None):
     return args
 
 
-def run(args, on_result=None):
+def run(args, on_result=None, snapshots=None):
     """The CLI's work on parsed flags: every round's fleet solves.
     ``on_result(problem, result)`` fires for every tenant of every round
     with its :class:`~repro_torch.fleet.FleetProblem` and its
-    ``SolveResult`` (``main`` passes none).  Returns the summary dict it
-    prints."""
+    ``SolveResult`` (``main`` passes none).  With
+    ``--publish-snapshots`` every result is published into ``snapshots``
+    (a :class:`TenantSnapshots`, made here when not given) first.
+    Returns the summary dict it prints."""
     cls = get_solver(args.solver)
     P, Q = args.mesh
     cfg_kw = {"lam": args.lam, "outer_iters": args.iters}
@@ -214,6 +254,16 @@ def run(args, on_result=None):
 
     problems = make_tenants(args)
     by_id = {p.tenant_id: p for p in problems}
+    if not args.publish_snapshots:
+        snapshots = None
+    elif snapshots is None:
+        snapshots = TenantSnapshots(args.loss)
+
+    def handle(tid, res):
+        if snapshots is not None:
+            snapshots.publish(tid, res)
+        if on_result is not None:
+            on_result(by_id[tid], res)
     try:
         # raises when the card is asked for (the default) and there is none
         sched = FleetScheduler(
@@ -221,8 +271,8 @@ def run(args, on_result=None):
             block_format=args.block_format, cfg=cfg, tol=args.tol,
             check_every=args.check_every, max_tenants=args.max_tenants,
             device=args.device,
-            on_result=(None if on_result is None else
-                       lambda tid, res: on_result(by_id[tid], res)))
+            on_result=(None if on_result is None and snapshots is None
+                       else handle))
     except ValueError as e:
         build_parser().error(str(e))
 
@@ -239,7 +289,8 @@ def run(args, on_result=None):
             sched.submit(p)
         buckets = len(sched.buckets())
         results = sched.run()
-        for e in report(problems, results, label=f"round={r} "):
+        for e in report(problems, results, label=f"round={r} ",
+                        snapshots=snapshots):
             entries[e["tenant"]] = e
     total_s = time.perf_counter() - t0
 

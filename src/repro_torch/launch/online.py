@@ -1,0 +1,222 @@
+"""CLI over the online learning service (:mod:`repro_torch.online`).
+
+Drives a synthetic observation stream through the full request
+lifecycle -- admission queue, grid store on the device, warm-started
+gated D3CA passes, snapshot publish, live scoring -- and prints a
+per-round staleness/throughput report plus a final JSON summary:
+
+  # the paper's Part 1 width on the card: a 7 x 4 grid of 2000 x 3003
+  # cells, a window of 14 000 rows that wraps at round 28
+  PYTHONPATH=src python -m repro_torch.launch.online \\
+      --m 12000 --capacity 14000 --mesh 7x4 --lam 1e-2 --passes 2 \\
+      --rounds 30 --batch 500 --score-batch 4096
+
+  # a small stream on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.online \\
+      --m 64 --capacity 512 --mesh 2x2 --rounds 20 --batch 32 --device cpu
+
+  # persist every published version and recover from the newest one
+  # (a directory either package wrote)
+  PYTHONPATH=src python -m repro_torch.launch.online --ckpt-dir CKPT ...
+
+The stream is the reference CLI's: numpy's generator seeded by
+``--seed``, rows normal, labels the sign of ``x . w*`` plus 0.1 noise
+with ``w*`` evenly spaced in [-1, 1].  The per-round objective over the
+filled rows is computed on the device, where the window lies.
+
+The flags of layers that are not ported yet (the mesh engines, staleness,
+compression and topology, tracing, metrics and the observability plane)
+are still parsed, so that asking for one fails by name instead of being
+ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import get_loss, get_solver
+from repro_torch.core.solver import not_ported_message
+from repro_torch.online import OnlineConfig, OnlineSolverService
+
+#: flags of the reference CLI whose layer is not ported: (flag, argparse
+#: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
+#: means "not asked for")
+_NOT_PORTED_FLAGS = (
+    ("--engine", "engine", "simulated"),
+    ("--force-host-devices", "force_host_devices", None),
+    ("--staleness", "staleness", 0),
+    ("--compression", "compression", None),
+    ("--topology", "topology", None),
+    ("--trace", "trace", None),
+    ("--metrics", "metrics", False),
+    ("--max-staleness", "max_staleness", 60.0),
+    ("--max-lag", "max_lag", 10_000),
+    ("--listen", "listen", None),
+    ("--health", "health", False),
+    ("--flight-recorder", "flight_recorder", None),
+    ("--flight-capacity", "flight_capacity", None),
+)
+
+
+def _parse_mesh(s: str):
+    try:
+        p, q = s.lower().split("x")
+        return int(p), int(q)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--mesh expects PxQ, got {s!r}")
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.online",
+        description="Streaming doubly distributed solver service CLI "
+                    "(PyTorch/CUDA port)")
+    ap.add_argument("--solver", default="d3ca",
+                    help="row-gate-capable solver (d3ca)")
+    ap.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
+                    help="cell-local solver backend: the CUDA kernels "
+                         "(plain PyTorch versions on the CPU) or the plain "
+                         "per-step loop")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a card) | cpu")
+    ap.add_argument("--block-format", default="dense",
+                    choices=["dense", "sparse"])
+    ap.add_argument("--mesh", type=_parse_mesh, default=(2, 2),
+                    metavar="PxQ", help="grid shape, e.g. 2x2")
+    ap.add_argument("--m", type=int, default=64, help="feature dimension")
+    ap.add_argument("--capacity", type=int, default=512,
+                    help="observation window (GridStore rows)")
+    ap.add_argument("--loss", default="hinge",
+                    choices=["hinge", "squared", "logistic"])
+    ap.add_argument("--lam", type=float, default=1e-2)
+    ap.add_argument("--passes", type=int, default=2,
+                    help="warm-started outer iterations per drained batch")
+    ap.add_argument("--rounds", type=int, default=20,
+                    help="stream rounds (each: submit, update, score)")
+    ap.add_argument("--batch", type=int, default=32,
+                    help="observations per stream round")
+    ap.add_argument("--score-batch", type=int, default=128,
+                    help="scoring requests per round")
+    ap.add_argument("--queue-capacity", type=int, default=4096)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="persist published versions here (and recover "
+                         "from the newest before streaming)")
+    ap.add_argument("--json-out", default=None)
+    # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
+    ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
+    for flag, typ, unset in (("--force-host-devices", int, None),
+                             ("--staleness", int, 0),
+                             ("--flight-capacity", int, None),
+                             ("--max-staleness", float, 60.0),
+                             ("--max-lag", float, 10_000)):
+        ap.add_argument(flag, type=typ, default=unset,
+                        help=argparse.SUPPRESS)
+    for flag in ("--compression", "--topology", "--trace", "--listen",
+                 "--flight-recorder"):
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--metrics", "--health"):
+        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    return ap
+
+
+def parse_args(argv=None):
+    """The CLI's flags; exits 2 naming the ROADMAP item of a flag whose
+    layer is not ported, or an unknown solver."""
+    ap = build_parser()
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    for flag, dest, unset in _NOT_PORTED_FLAGS:
+        if getattr(args, dest) != unset:
+            ap.error(not_ported_message(dest,
+                                        f"{flag} {getattr(args, dest)}"))
+    try:
+        get_solver(args.solver)
+    except KeyError as e:
+        ap.error(str(e.args[0]))
+    return args
+
+
+def run(args, on_start=None, on_round=None):
+    """The CLI's work on parsed flags.  ``on_start(service)`` fires once,
+    after recovery and before the first round; ``on_round(r, service,
+    record)`` after every round with that round's printed values
+    (``main`` passes neither).  Returns the summary dict it prints."""
+    P, Q = args.mesh
+    manager = (CheckpointManager(args.ckpt_dir, keep_n=3) if args.ckpt_dir
+               else None)
+    cls = get_solver(args.solver)
+    config = OnlineConfig(
+        m=args.m, capacity=args.capacity, P=P, Q=Q, loss=args.loss,
+        solver=args.solver, local_backend=args.backend,
+        block_format=args.block_format,
+        solver_cfg=cls.config_cls(lam=args.lam), passes=args.passes,
+        queue_capacity=args.queue_capacity)
+    # raises when the card is asked for (the default) and there is none
+    svc = OnlineSolverService(config, manager=manager, device=args.device)
+    recovered = svc.recover()
+    if recovered is not None:
+        print(f"[online] recovered snapshot version {recovered} from "
+              f"{args.ckpt_dir}")
+    if on_start is not None:
+        on_start(svc)
+
+    rng = np.random.default_rng(args.seed)
+    w_star = np.linspace(-1.0, 1.0, args.m).astype(np.float32)
+    loss = get_loss(args.loss)
+
+    def stream(b):
+        X = rng.normal(size=(b, args.m)).astype(np.float32)
+        y = np.sign(X @ w_star + 0.1 * rng.normal(size=b))
+        y = np.where(y == 0, 1.0, y).astype(np.float32)
+        return X, y
+
+    print(f"[online] {args.solver} engine=simulated "
+          f"backend={args.backend} device={svc.device} grid={P}x{Q} "
+          f"m={args.m} capacity={svc.store.capacity} passes={args.passes} "
+          f"loss={args.loss} lam={args.lam}")
+    f = float("nan")
+    for r in range(args.rounds):
+        svc.submit(*stream(args.batch))
+        version = svc.run_pending()
+        Xs, ys = stream(args.score_batch)
+        acc = float(np.mean(svc.predict(Xs) * ys > 0)) \
+            if args.loss != "logistic" else float("nan")
+        st = svc.store
+        f = float(loss.objective(st.X, st.y, svc.book.current().w,
+                                 args.lam, mask=st.filled_mask))
+        record = {"version": version, "filled": st.filled, "f": f,
+                  "acc": acc, "lag": svc.version_lag,
+                  "staleness_s": svc.staleness_s}
+        print(f"  round={r:3d} version={version} "
+              f"filled={st.filled}/{st.capacity} "
+              f"f={f:.5f} acc={acc:.3f} lag={record['lag']} "
+              f"staleness={record['staleness_s'] * 1e3:.1f}ms")
+        if on_round is not None:
+            on_round(r, svc, record)
+    if manager is not None:
+        svc.book.flush()
+
+    summary = dict(svc.stats())
+    summary.update(solver=args.solver, engine="simulated",
+                   backend=args.backend, device=str(svc.device),
+                   block_format=args.block_format, P=P, Q=Q, m=args.m,
+                   loss=args.loss, lam=args.lam, passes=args.passes,
+                   rounds=args.rounds, batch=args.batch, objective=f)
+    print(json.dumps(summary, indent=1))
+    if args.json_out:
+        with open(args.json_out, "w") as fh:
+            json.dump(summary, fh, indent=1)
+    return summary
+
+
+def main(argv=None):
+    """Run the CLI; returns the summary dict it prints."""
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

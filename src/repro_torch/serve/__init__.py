@@ -1,17 +1,19 @@
-"""Continuous-batching inference engine of the port (counterpart of
-``repro.serve``): the paged KV-cache pool (``cache``), the scheduler
-(``engine``) and per-request seeded sampling (``sampling``).  The
-doubly-distributed ``LinearScorer`` of the reference belongs to the online
-slice (ROADMAP queue A item 9)."""
+"""Serving of the port (counterpart of ``repro.serve``): the
+continuous-batching inference engine -- the paged KV-cache pool
+(``cache``), the scheduler (``engine``), per-request seeded sampling
+(``sampling``) -- and the linear models' ``LinearScorer`` (``scoring``),
+which the online service swaps published snapshots into."""
 from ..obs.metrics import percentiles
 from ..obs.serve import RequestMetrics
 from .cache import PagePool, PagedCacheConfig, make_paged_arenas
 from .engine import EngineConfig, InferenceEngine, Request
 from .sampling import SamplingParams, sample_tokens
+from .scoring import LinearScorer
 
 __all__ = [
     "PagePool", "PagedCacheConfig", "make_paged_arenas",
     "EngineConfig", "InferenceEngine", "Request",
     "RequestMetrics", "percentiles",
     "SamplingParams", "sample_tokens",
+    "LinearScorer",
 ]

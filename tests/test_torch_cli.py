@@ -138,7 +138,6 @@ def test_cli_rejects_unported_flags_by_name(flags, named, capsys):
     (dict(staleness=2), "staleness=2"),
     (dict(compression="int8"), "compression='int8'"),
     (dict(topology="pods=2"), "topology='pods=2'"),
-    (dict(program_cache=True), "program_cache=True"),
 ])
 def test_solver_rejects_unported_knobs_by_name(kw, named):
     with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
@@ -151,12 +150,9 @@ def test_solver_rejects_unported_calls_by_name():
     solver = get_solver("d3ca")(device="cpu")
     cfg = D3CAConfig(outer_iters=1)
     for kw in (dict(tracer=object()), dict(registry=object()),
-               dict(monitor=object()), dict(row_gate=np.ones(40)),
-               dict(mesh=object())):
+               dict(monitor=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             solver.solve("hinge", X, y, P=2, Q=2, cfg=cfg, **kw)
-    with pytest.raises(NotImplementedError, match="update"):
-        solver.update("hinge", X, y, touched=[0], warm_start=None)
     with pytest.raises(NotImplementedError, match="compression='int8'"):
         get_solver("admm")(device="cpu", compression="int8")
     with pytest.raises(KeyError, match="available"):
@@ -168,6 +164,28 @@ def test_solver_rejects_unported_calls_by_name():
     assert available_solvers() == ["admm", "d3ca", "radisa", "sfk"]
     assert issubclass(get_solver("radisa"), Solver)
     assert issubclass(get_solver("sfk"), Solver)
+
+
+@pytest.mark.parametrize("name", ["d3ca", "radisa"])
+def test_program_cache_equals_an_uncached_solve(name):
+    """``program_cache=True`` reuses the built step across solves of one
+    key and changes no number: every solve equals the uncached one, bit
+    for bit, and a second key (another shape) gets an entry of its own."""
+    X, y = make_problem(40, 12)
+    cfg = get_solver(name).config_cls(lam=0.1, outer_iters=3)
+    plain = get_solver(name)(device="cpu").solve("hinge", X, y, P=2, Q=2,
+                                                 cfg=cfg)
+    cached = get_solver(name)(device="cpu", program_cache=True)
+    for _ in range(2):
+        res = cached.solve("hinge", X, y, P=2, Q=2, cfg=cfg)
+        assert torch.equal(res.w, plain.w)
+        assert [h["objective"] for h in res.history] == \
+            [h["objective"] for h in plain.history]
+    assert len(cached._prog_cache) == 1
+    entry = next(iter(cached._prog_cache.values()))
+    assert set(entry) == {"step"}
+    cached.solve("hinge", X[:30], y[:30], P=2, Q=2, cfg=cfg)
+    assert len(cached._prog_cache) == 2
 
 
 def test_default_device_is_the_card_and_is_never_swapped_for_the_cpu():

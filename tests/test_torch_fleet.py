@@ -452,7 +452,6 @@ def test_fleet_cli_on_the_cpu(solver, block_format, capsys):
 @pytest.mark.parametrize("flags,named", [
     (["--engine", "shard_map"], "'Multi-device engines'"),
     (["--force-host-devices", "8"], "'Multi-device engines'"),
-    (["--publish-snapshots"], "'Row gate, online service"),
     (["--trace", "t.json"], "'Observability'"),
     (["--metrics"], "'Observability'"),
     (["--health"], "'Observability'"),
@@ -464,6 +463,32 @@ def test_fleet_cli_refuses_unported_flags_by_name(flags, named, capsys):
         fleet_cli.main([*flags, *FLEET_SMALL, "--device", "cpu"])
     assert exc.value.code == 2
     assert named in capsys.readouterr().err
+
+
+def test_fleet_cli_publishes_snapshots(capsys):
+    """``--publish-snapshots``: every tenant's book is at version = rounds
+    and its scorer holds that tenant's last w, at that version."""
+    got = {}
+    snaps = fleet_cli.TenantSnapshots("hinge")
+    argv = ["--rounds", "3", "--publish-snapshots", *FLEET_SMALL,
+            "--device", "cpu"]
+    summary = fleet_cli.run(fleet_cli.parse_args(argv),
+                            on_result=lambda p, r: got.update({p.tenant_id:
+                                                               r}),
+                            snapshots=snaps)
+    assert sorted(snaps.books) == sorted(got) and len(got) == 4
+    for entry in summary["results"]:
+        tid = entry["tenant"]
+        assert entry["snapshot_version"] == 3
+        snap = snaps.books[tid].current()
+        assert snap.version == 3 and snap.trained_seq == got[tid].iters
+        assert torch.equal(snap.w, got[tid].w)
+        assert torch.equal(snap.alpha, got[tid].alpha)
+        assert torch.equal(snaps.scorers[tid].w, got[tid].w)
+        assert snaps.scorers[tid].w_version == 3
+    assert "snapshot_version" not in fleet_cli.main(
+        [*FLEET_SMALL, "--device", "cpu"])["results"][0]
+    capsys.readouterr()
 
 
 def test_optimize_problems_fanout_on_the_cpu():

@@ -40,7 +40,10 @@ def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
     for m in ("repro_torch.kernels.flash.ops", "repro_torch.kernels.linattn"
               ".ops", "repro_torch.models.transformer",
               "repro_torch.serve.engine", "repro_torch.launch.serve",
-              "repro_torch.configs.qwen3_1_7b"):
+              "repro_torch.configs.qwen3_1_7b", "repro_torch.online.queue",
+              "repro_torch.online.store", "repro_torch.online.snapshot",
+              "repro_torch.online.service", "repro_torch.checkpoint.manager",
+              "repro_torch.serve.scoring", "repro_torch.launch.online"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
