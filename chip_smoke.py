@@ -73,10 +73,26 @@ JSON; any failure is an exception and a non-zero exit:
   online_sparse_full  ``Solver("d3ca", block_format="sparse")`` on the
                       news20 profile: a cold solve and a gated ``update``
                       of 1000 rows, 4 B3 launches against the plain version
+  comm_full           the comm policies through ``get_solver(...)(
+                      compression=, topology=).solve`` and the CLI's
+                      ``--compression`` / ``--topology``: D3CA at the
+                      dense instance under None, identity (bitwise None),
+                      int8, fp8, topk:0.1 (exact wire bytes, objective
+                      gap within its predicted band of None, every int8
+                      codec call held to the codec's definition), two
+                      controls without error feedback that those checks
+                      must refuse, the adaptive schedule against f*,
+                      RADiSA int8, pods=2 at Part 1 "4x2" (identity within
+                      1e-5 of flat, int8 converging, its pod codec calls
+                      held as above, B1's first and last launch of each
+                      solve against the plain version), sparse D3CA int8
+                      and RADiSA topk:0.1 on the news20 profile; ms per
+                      outer iteration under each codec
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       Qwen3 / RWKV6: port on the card (kernels) vs port on
                       the CPU, in float32, and a reduced Qwen3 prefill in
-                      bfloat16 at head dim 64 (the tensor-core route)
+                      bfloat16 at head dim 64 (the tensor-core route);
+                      D3CA under None / identity (bitwise) and int8
   timing              CUDA-event times per kernel (beside its plain version,
                       its roofline bound, the route it replaced on the main
                       path where it has two and, where one PyTorch call
@@ -149,7 +165,10 @@ from repro_torch.configs.svm_paper import REAL_DATASETS  # noqa: E402
 from repro_torch.core import (ArrayIndexSource, D3CAConfig,  # noqa: E402
                               GeneratorIndexSource, RADiSAConfig, SFKConfig,
                               ell_gather, ell_scatter_add, get_loss,
-                              get_solver, partition, partition_sparse)
+                              get_solver, objective, partition,
+                              partition_sparse, serial_sdca)
+from repro_torch.core.compress import (Codec, Int8Codec,  # noqa: E402
+                                       TopKCodec)
 from repro_torch.core.d3ca import d3ca_simulated_program  # noqa: E402
 from repro_torch.core.partition import (blocks_times_cols,  # noqa: E402
                                         rows_times_blocks)
@@ -191,7 +210,7 @@ from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
 MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
               "serve_rwkv6_full", "fleet_dense_full", "fleet_sparse_full",
-              "admm_full", "online_full", "online_sparse_full")
+              "admm_full", "online_full", "online_sparse_full", "comm_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -237,6 +256,41 @@ ONLINE_MIN_ACC = 0.65
 #: the sparse online update: this many consecutive rows from the middle of
 #: row partition 3 of the news20 profile
 ONLINE_SPARSE_ROWS = 1000
+
+# the comm policies at the Part 1 width (comm_full): the lossy codecs, and
+# the band (low, high) in which the relative objective gap of each must lie
+# after OUTER_ITERS D3CA iterations against the uncompressed solve
+# (PERF.md section 6, written before the runs: int8 / fp8 within 1 % either
+# way; top-k 10 % of each cell between +50 % and +125 %, which a top-k
+# without error feedback must leave)
+COMM_CODECS = ("int8", "fp8", "topk:0.1")
+COMM_GAP_BAND = {"int8": (-1e-2, 1e-2), "fp8": (-1e-2, 1e-2),
+                 "topk:0.1": (0.5, 1.25)}
+#: exact wire bytes an outer step, 28 cells x (dalpha of n_p = 2000 +
+#: w_contrib of m_q = 3003): f32 4 B an entry; int8 / fp8 1 B an entry + a
+#: 4 B scale a cell; top-k 8 B per kept entry (200 + 301 a cell)
+COMM_BYTES = {None: 560336, "identity": 560336, "int8": 140308,
+              "fp8": 140308, "topk:0.1": 112224}
+#: hierarchical reductions at Part 1 "4x2" (configs/svm_paper.py PART1[0],
+#: 8000 x 6000 at full block size 2000 x 3000): P = 7 admits no pods but
+#: 7 of one; flat against pods=2:identity within COMM_TOPO_TOL relative to
+#: the largest entry
+COMM_TOPO = (4, 2, 8000, 6000)
+COMM_TOPO_TOL = 1e-5
+#: pods=2:int8 against flat: the relative objective gap it may leave
+#: (predicted in PERF.md; RADiSA int8's gap against uncompressed RADiSA is
+#: reported, not bounded: ten iterations at gamma = 1 are far from its
+#: optimum, where a codec moves the trajectory either way)
+COMM_TOPO_GAP = 1e-2
+#: the 4 x 2 launches of each topology solve held against the plain
+#: version (MAIN_TOL relative to the largest entry): the first and last
+COMM_TOPO_CHECKED = (0, OUTER_ITERS - 1)
+#: wire bytes an outer step at 4 x 2 under pods=2:int8 -- dalpha (flat, over
+#: the model axis) 8 x 2000 x 4; w_contrib within pods 8 x 3000 x 4 and
+#: across pods 2 pods x 2 feature blocks x (3000 + 4)
+COMM_TOPO_BYTES = 64000 + 96000 + 12016
+#: D3CA / RADiSA outer steps timed under each codec (after one warm-up)
+COMM_TIMING_STEPS = 5
 
 SWEEP_TOL = 1e-5         # rtol = atol, as in the unit tests
 # At the main-path shape a launch chains 2000 dependent steps and the kernel
@@ -2271,6 +2325,367 @@ def phase_online_sparse_full():
     return {"sdca_epoch_sparse": 2 * cfg.outer_iters}
 
 
+def solve_counted(name, X, y, grid, cfg, f_star=None, **knobs):
+    """One solve through ``get_solver(name)(**knobs).solve`` on the card;
+    returns the result and the launches it made, by kernel and route."""
+    before = {k: route_counts(k) for k in WRAPPERS}
+    res = get_solver(name)(**knobs).solve("hinge", X, y, P=grid[0],
+                                          Q=grid[1], cfg=cfg, f_star=f_star)
+    torch.cuda.synchronize()
+    made = {}
+    for k in WRAPPERS:
+        by = {r: n - before[k][r] for r, n in route_counts(k).items()
+              if n != before[k][r]}
+        if by:
+            made[k] = by
+    return res, made
+
+
+def comm_checked(label, res, made, kernel, route, bytes_per_step=None,
+                 dual=False):
+    """A compressed solve's contract: OUTER_ITERS launches of its kernel on
+    the main route and no other launch, finite iterates, the cumulative
+    wire bytes of every history entry, a falling objective (and gap)."""
+    want = {kernel: {route: OUTER_ITERS}}
+    if made != want:
+        raise AssertionError(f"{label}: launches {made}; expected {want}")
+    acct = res.comm_bytes
+    if bytes_per_step is not None and acct["bytes_per_step"] != \
+            bytes_per_step:
+        raise AssertionError(f"{label}: {acct['bytes_per_step']} B a step; "
+                             f"expected {bytes_per_step}")
+    if [h["comm_bytes"] for h in res.history] != [
+            acct["bytes_per_step"] * t for t in range(1, OUTER_ITERS + 1)]:
+        raise AssertionError(f"{label}: cumulative wire bytes "
+                             f"{[h['comm_bytes'] for h in res.history]}")
+    vals = [h["objective"] for h in res.history]
+    if not (all(np.isfinite(vals)) and torch.isfinite(res.w).all()):
+        raise AssertionError(f"{label}: non-finite result {vals}")
+    check_descent(label, res.history, dual=dual)
+    return vals[-1]
+
+
+class Int8WithoutFeedback(Int8Codec):
+    """The int8 codec with its error feedback dropped: a faulty codec,
+    the control that comm_full's int8 codec check must refuse."""
+    name = "int8-no-ef"
+    stateful = False
+
+
+class TopKWithoutFeedback(TopKCodec):
+    """top-k with its error feedback dropped (the dropped 90 % never
+    travels): the control that the top-k objective band must refuse."""
+    stateful = False
+
+    @property
+    def name(self):
+        return f"topk:{self.frac:g}-no-ef"
+
+
+@contextlib.contextmanager
+def codec_tap(calls):
+    """Record every ``Codec.apply`` a solve makes (the policy codecs and
+    the cross-pod one; identity has its own ``apply``) as ``(value, err
+    in, decoded, err out)``, cloned.  Restored on exit."""
+    real = Codec.apply
+
+    def apply(self, value, err=None):
+        deq, new_err = real(self, value, err)
+        calls.append(tuple(None if v is None else v.clone()
+                           for v in (value, err, deq, new_err)))
+        return deq, new_err
+    Codec.apply = apply
+    try:
+        yield
+    finally:
+        Codec.apply = real
+
+
+def int8_codec_faults(calls):
+    """What the int8 codec calls of one solve (``codec_tap``) break of the
+    codec's definition, held per call and per cell of its blocked payload
+    ``(A, B, *cell)``: a residual comes out; the residual that goes in is
+    zero at a collective's first step and the previous step's after; the
+    decoded payload plus the new residual is the payload plus the old one;
+    every decoded cell is integer codes of |code| <= 127 times ONE scale,
+    max |payload + old residual| / 127 over the cell, and lies within half
+    that scale of payload + old residual.  Returns the faults, one line
+    each (empty for a sound codec)."""
+    faults, last = [], {}
+    for i, (value, err, deq, new) in enumerate(calls):
+        key = tuple(value.shape)
+        if new is None or err is None:
+            faults.append(f"call {i} {key}: no error-feedback residual")
+            continue
+        want = last.get(key, torch.zeros_like(err))
+        if not torch.equal(err, want):
+            faults.append(f"call {i} {key}: the residual in is not the "
+                          "last one out")
+        last[key] = new
+        t = value.to(torch.float32) + err
+        if float((deq + new - t).abs().max()) > 1e-6 * float(
+                t.abs().max()):
+            faults.append(f"call {i} {key}: decoded + residual is not "
+                          "payload + old residual")
+        scale = t.reshape(*key[:2], -1).abs().amax(-1) / 127 + 1e-12
+        scale = scale.reshape(*key[:2], *([1] * (t.dim() - 2)))
+        codes = deq / scale
+        off = float((codes - codes.round()).abs().max())
+        if off > 1e-3 or float(codes.abs().max()) > 127 + 1e-3:
+            faults.append(f"call {i} {key}: not integer codes of one scale "
+                          f"a cell (off by {off:.3e})")
+        over = float(((t - deq).abs() / scale).max())
+        if over > 0.5 + 1e-3:
+            faults.append(f"call {i} {key}: {over:.3e} scales from the "
+                          "payload")
+    return faults
+
+
+def objective_gap(f, f_base):
+    return (f - f_base) / abs(f_base)
+
+
+def rel_diff(a, b):
+    """Largest difference relative to the largest entry of ``b``."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def comm_timing(name, X, y, cfg, codecs):
+    """ms per outer iteration (CUDA events, COMM_TIMING_STEPS steps after
+    a warm-up step) of ``name`` under each codec, in the order given and
+    back again; each program is built, timed and dropped in turn."""
+    samples = {c: [] for c in codecs}
+    for c in (*codecs, *reversed(codecs)):
+        prog = get_solver(name)(compression=c).program(
+            "hinge", X, y, P=P, Q=Q, cfg=cfg)
+        samples[c].append(time_program(prog, iters=COMM_TIMING_STEPS))
+        del prog
+    ms = {str(c): statistics.median(v) for c, v in samples.items()}
+    base = ms[str(codecs[0])]
+    return {"ms": ms, "codec_ms": {c: v - base for c, v in ms.items()
+                                   if c != str(codecs[0])}}
+
+
+def phase_comm_full():
+    """The comm policies (compressed and hierarchical reductions) through
+    ``get_solver(...)(compression=, topology=).solve`` and the CLI, at the
+    Part 1 width (7 x 4, 14 000 x 12 000) and on the news20 profile: None
+    against identity bitwise, the exact wire bytes, each codec's objective
+    gap to the uncompressed solve within its predicted band, the int8
+    codec held to its definition call by call, two controls without error
+    feedback refused, the adaptive schedule's stages, pods=2 at 4 x 2
+    against flat with B1 at that shape against its plain version, and ms
+    per outer iteration under each codec."""
+    t0 = time.perf_counter()
+    out = {}
+    Xn, yn = make_svm_data(N, M, seed=0)
+    X, y = torch.as_tensor(Xn, device="cuda"), torch.as_tensor(yn,
+                                                                device="cuda")
+    del Xn, yn
+    cfg = D3CAConfig(lam=LAM, outer_iters=OUTER_ITERS)
+    runs, final, applied = {}, {}, []
+    for comp in (None, "identity", *COMM_CODECS):
+        with codec_tap(applied if comp == "int8" else []):
+            res, made = solve_counted("d3ca", X, y, (P, Q), cfg,
+                                      compression=comp)
+        final[str(comp)] = comm_checked(f"d3ca/{comp}", res, made,
+                                        "sdca_epoch", "cluster",
+                                        COMM_BYTES[comp], dual=True)
+        if res.comm_bytes["uncompressed_bytes_per_step"] != COMM_BYTES[None]:
+            raise AssertionError(f"d3ca/{comp}: uncompressed bytes "
+                                 f"{res.comm_bytes}")
+        runs[comp] = res
+    for f in ("w", "alpha"):
+        if not torch.equal(getattr(runs[None], f),
+                           getattr(runs["identity"], f)):
+            raise AssertionError(f"d3ca: {f} under identity is not bitwise "
+                                 "the uncompressed solve's")
+    gaps = {c: objective_gap(final[c], final["None"]) for c in COMM_CODECS}
+    for c, g in gaps.items():
+        lo, hi = COMM_GAP_BAND[c]
+        if not lo <= g <= hi:
+            raise AssertionError(f"d3ca/{c}: objective {final[c]} is "
+                                 f"{g:.3e} off the uncompressed "
+                                 f"{final['None']} (band {lo}, {hi})")
+    # int8 held to its definition on every call of the solve: 2
+    # collectives x OUTER_ITERS steps, each cell on its own scale
+    faults = int8_codec_faults(applied)
+    if len(applied) != 2 * OUTER_ITERS or faults:
+        raise AssertionError(f"d3ca/int8: {len(applied)} codec calls; "
+                             f"{faults[:4]}")
+    # the controls: without error feedback, int8 must fail the codec check
+    # and top-k must leave its objective band
+    control = {}
+    for codec, kind in ((Int8WithoutFeedback(), "int8"),
+                        (TopKWithoutFeedback(0.1), "topk:0.1")):
+        calls = []
+        with codec_tap(calls):
+            res, made = solve_counted("d3ca", X, y, (P, Q), cfg,
+                                      compression=codec)
+        if made != {"sdca_epoch": {"cluster": OUTER_ITERS}} or \
+                res.comm_bytes["bytes_per_step"] != COMM_BYTES[kind] or \
+                not torch.isfinite(res.w).all():
+            raise AssertionError(f"control {codec.name}: launches {made}, "
+                                 f"{res.comm_bytes['bytes_per_step']} B")
+        g = objective_gap(res.history[-1]["objective"], final["None"])
+        lo, hi = COMM_GAP_BAND[kind]
+        refused = int8_codec_faults(calls) if kind == "int8" else \
+            ([f"gap {g:.3e} off the band"] if not lo <= g <= hi else [])
+        if not refused:
+            raise AssertionError(f"control {codec.name}: passed the checks "
+                                 f"that must refuse it (gap {g:.3e})")
+        control[codec.name] = {"objective_last": res.history[-1][
+            "objective"], "gap": g, "refused_by": refused[0]}
+    out["d3ca"] = {"objective_last": final, "gap": gaps,
+                   "int8_codec_calls_checked": len(applied),
+                   "control": control,
+                   "bytes_per_step": {str(c): runs[c].comm_bytes[
+                       "bytes_per_step"] for c in runs}}
+    del runs, applied
+
+    # the adaptive schedule against f* (REF_EPOCHS serial epochs)
+    w_ref, _ = serial_sdca("hinge", X, y, lam=LAM, epochs=REF_EPOCHS,
+                           device="cuda")
+    f_star = float(objective("hinge", X, y, w_ref, LAM))
+    res, made = solve_counted("d3ca", X, y, (P, Q), cfg, f_star=f_star,
+                              compression="adaptive")
+    if made != {"sdca_epoch": {"cluster": OUTER_ITERS}} or \
+            res.iters != OUTER_ITERS:
+        raise AssertionError(f"d3ca/adaptive: {res.iters} iterations, "
+                             f"launches {made}")
+    check_descent("d3ca/adaptive", res.history, dual=True)
+    out["adaptive"] = {
+        "spec": res.compression, "f_star": f_star,
+        "stages": [[h["iter"], h["stage"], h["codec"]] for h in res.history],
+        "rel_opt_last": res.history[-1]["rel_opt"],
+        "comm_bytes_total": res.history[-1]["comm_bytes"]}
+
+    # RADiSA under int8 against uncompressed RADiSA
+    rcfg = RADiSAConfig(lam=LAM, outer_iters=OUTER_ITERS)
+    rfinal = {}
+    for comp in (None, "int8"):
+        res, made = solve_counted("radisa", X, y, (P, Q), rcfg,
+                                  compression=comp)
+        rfinal[str(comp)] = comm_checked(f"radisa/{comp}", res, made,
+                                         "svrg_inner", "ring")
+    out["radisa"] = {"objective_last": rfinal,
+                     "gap": objective_gap(rfinal["int8"], rfinal["None"])}
+
+    # timing: ms per outer iteration under each codec
+    out["timing"] = {
+        "d3ca": comm_timing("d3ca", X, y, cfg, (None, *COMM_CODECS)),
+        "radisa": comm_timing("radisa", X, y, rcfg, (None, "int8"))}
+    del X, y
+
+    # hierarchical reductions at Part 1 "4x2"
+    Pt, Qt, nt, mt = COMM_TOPO
+    Xn, yn = make_svm_data(nt, mt, seed=0)
+    X, y = torch.as_tensor(Xn, device="cuda"), torch.as_tensor(yn,
+                                                                device="cuda")
+    del Xn, yn
+    topo, checked, pod_calls = {}, [], []
+    seen = {"n": 0}
+
+    def on_launch(args, kw, got):
+        # B1 at the 4 x 2 shape (8 cells of 2000 x 3000) against its plain
+        # version on the same inputs, as the launch is made
+        i = seen["n"] % OUTER_ITERS
+        seen["n"] += 1
+        if i in COMM_TOPO_CHECKED:
+            checked.append({"launch": i, "shape": list(args[0].shape),
+                            **main_check(f"comm_full 4x2 launch {i}", got,
+                                         sdca_epoch_plain(*args, **kw))})
+    for spec in (None, "pods=2:identity", "pods=2:int8"):
+        with tap("sdca_epoch", on_launch), \
+                codec_tap(pod_calls if spec == "pods=2:int8" else []):
+            res, made = solve_counted("d3ca", X, y, (Pt, Qt), cfg,
+                                      topology=spec)
+        comm_checked(f"d3ca 4x2/{spec}", res, made, "sdca_epoch", "cluster",
+                     dual=True)
+        topo[str(spec)] = res
+    flat, ident, int8 = topo.values()
+    err = max(rel_diff(ident.w, flat.w), rel_diff(ident.alpha, flat.alpha))
+    if err > COMM_TOPO_TOL:
+        raise AssertionError(f"pods=2:identity against flat: {err:.3e}")
+    tgap = objective_gap(int8.history[-1]["objective"],
+                         flat.history[-1]["objective"])
+    if abs(tgap) > COMM_TOPO_GAP or \
+            int8.comm_bytes["bytes_per_step"] != COMM_TOPO_BYTES:
+        raise AssertionError(f"pods=2:int8: gap {tgap:.3e}, wire "
+                             f"{int8.comm_bytes['bytes_per_step']} B a step")
+    # the cross-pod codec: once a step, on the (pods, Q, m_q) partials
+    faults = int8_codec_faults(pod_calls)
+    if len(pod_calls) != OUTER_ITERS or faults:
+        raise AssertionError(f"pods=2:int8: {len(pod_calls)} codec calls; "
+                             f"{faults[:4]}")
+    if len(checked) != 3 * len(COMM_TOPO_CHECKED):
+        raise AssertionError(f"comm_full 4x2: {len(checked)} launches "
+                             "checked")
+    out["topology"] = {
+        "grid": f"{Pt}x{Qt}", "n": nt, "m": mt,
+        "identity_vs_flat_rel_err": err, "int8_gap": tgap,
+        "sdca_epoch_checked": checked,
+        "tiers": {str(s): {k: r.comm_bytes.get(k) for k in (
+            "bytes_per_step", "intra_bytes_per_step",
+            "inter_bytes_per_step")} for s, r in topo.items()}}
+    del X, y, topo, flat, ident, int8, pod_calls
+
+    # the CLI's --compression at 7 x 4 and --topology at 4 x 2
+    cli = {}
+    for flags, comp, topo_spec, want in (
+            (["--mesh", f"{P}x{Q}", "--n", str(N), "--m", str(M),
+              "--compression", "int8"], "int8", None, COMM_BYTES["int8"]),
+            (["--mesh", f"{Pt}x{Qt}", "--n", str(nt), "--m", str(mt),
+              "--topology", "pods=2:int8"], None, "pods=2:int8:ring",
+             COMM_TOPO_BYTES)):
+        before = route_counts("sdca_epoch")["cluster"]
+        summary = optimize.main(["--solver", "d3ca", "--lam", str(LAM),
+                                 "--iters", str(OUTER_ITERS),
+                                 "--ref-epochs", "0", *flags])
+        made = route_counts("sdca_epoch")["cluster"] - before
+        if (summary["compression"], summary["topology"]) != (comp, topo_spec) \
+                or summary["comm_bytes_per_step"] != want \
+                or summary["comm_bytes_total"] != OUTER_ITERS * want \
+                or made != OUTER_ITERS or summary["device"] != "cuda":
+            raise AssertionError(f"optimize {flags}: {summary}, {made} "
+                                 "launches")
+        cli[comp or topo_spec] = {k: summary[k] for k in (
+            "objective", "comm_bytes_per_step", "comm_bytes_total")}
+    out["cli"] = cli
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the news20 profile: sparse D3CA int8 (B3) and sparse RADiSA topk (B4)
+    torch.cuda.reset_peak_memory_stats()
+    csr, y20 = make_sparse_svm_csr(N20, M20, density=DENS20, seed=0)
+    sparse = {}
+    for name, cfg20, comp, kernel, route, dual in (
+            ("d3ca", D3CAConfig(lam=LAM20, outer_iters=OUTER_ITERS), "int8",
+             "sdca_epoch_sparse", "lookahead", True),
+            ("radisa", RADiSAConfig(lam=LAM20, outer_iters=OUTER_ITERS),
+             "topk:0.1", "svrg_inner_sparse", "cluster", False)):
+        res, made = solve_counted(name, csr, y20, (P, Q), cfg20,
+                                  compression=comp, block_format="sparse")
+        sparse[f"{name}/{comp}"] = {
+            "objective_first": res.history[0]["objective"],
+            "objective_last": comm_checked(f"{name} sparse/{comp}", res,
+                                           made, kernel, route, dual=dual),
+            "bytes_per_step": res.comm_bytes["bytes_per_step"],
+            "uncompressed_bytes_per_step":
+                res.comm_bytes["uncompressed_bytes_per_step"]}
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= SPARSE_PEAK_LIMIT:
+        raise AssertionError(f"comm_full sparse: peak device memory {peak} B")
+    out["news20"] = {**sparse, "peak_mem_bytes": peak}
+    emit("comm_full", **out, wall_s=time.perf_counter() - t0)
+    timed = len(COMM_CODECS) + 1
+    return {"sdca_epoch": (len(COMM_CODECS) + 2 + 2 + 1 + 3 + 2) * OUTER_ITERS
+            + REF_EPOCHS + 2 * timed * (COMM_TIMING_STEPS + 1),
+            "svrg_inner": 2 * OUTER_ITERS + 4 * (COMM_TIMING_STEPS + 1),
+            "sdca_epoch_sparse": OUTER_ITERS,
+            "svrg_inner_sparse": OUTER_ITERS}
+
+
 def phase_d3ca_sparse_full():
     return sparse_full("d3ca_sparse_full", "d3ca", "sdca_epoch_sparse", True)
 
@@ -2363,7 +2778,14 @@ SDCA_SHAPE_LAUNCHES = {
     "fleet_dense_full": {"d3ca_cells": OUTER_ITERS},
     # two passes an update over 30 + 2 rounds, and 2 + 2 iterations of the
     # all-ones gate against no gate
-    "online_full": {"d3ca_cells": ONLINE_PASSES * (ONLINE_ROUNDS + 2) + 4}}
+    "online_full": {"d3ca_cells": ONLINE_PASSES * (ONLINE_ROUNDS + 2) + 4},
+    # 5 codecs + 2 controls + adaptive at 7 x 4, 3 topologies at 4 x 2, 2
+    # CLI solves, and 2 x 4 timed programs of a warm-up and
+    # COMM_TIMING_STEPS steps; f* for the adaptive schedule
+    "comm_full": {"d3ca_cells": (len(COMM_CODECS) + 2 + 2 + 1 + 3 + 2)
+                  * OUTER_ITERS + 2 * (len(COMM_CODECS) + 1)
+                  * (COMM_TIMING_STEPS + 1),
+                  "serial": REF_EPOCHS}}
 
 
 #: what a main path is held against that must be made before its counted
@@ -2477,10 +2899,45 @@ def phase_cpu_vs_card():
                                       (4, 2), sparse_streams, "sparse")
                     for name, cfg in cfgs.items()}
     emit("cpu_vs_card", max_abs_err=worst, sparse_max_abs_err=worst_sparse,
-         tol=1e-5, lm=lm_card_vs_cpu(torch.device("cuda")),
+         tol=1e-5, comm=comm_card_vs_cpu(cfgs["d3ca"], X, y, dense_streams),
+         comm_tol=COMM_CARD_CPU_TOL, lm=lm_card_vs_cpu(torch.device("cuda")),
          lm_tol=LM_CARD_CPU_TOL,
          lm_bf16=lm_card_vs_cpu_bf16(torch.device("cuda")),
          lm_bf16_tol=LM_CARD_CPU_BF16_TOL)
+
+
+#: int8 D3CA on the card against the CPU, relative to the largest entry of
+#: w and alpha.  The codec's inputs differ by ~1e-7 relative between the
+#: kernels and their plain versions (other summation orders), so a code can
+#: land one quantum (1/127 of its cell's largest entry) apart where it sits
+#: on a rounding boundary; error feedback returns that quantum on the next
+#: step, so the iterates stay within about one quantum: two are allowed
+COMM_CARD_CPU_TOL = 2 / 127
+
+
+def comm_card_vs_cpu(cfg, X, y, streams):
+    """D3CA on the small dense case under ``compression=None``,
+    ``"identity"`` and ``"int8"``, on the card through the kernels and on
+    the CPU through their plain versions, with the same index streams:
+    None and identity bitwise on each device, int8 card against CPU within
+    COMM_CARD_CPU_TOL."""
+    res = {}
+    for dev in ("cuda", "cpu"):
+        for comp in (None, "identity", "int8"):
+            solver = get_solver("d3ca")(
+                device=dev, compression=comp,
+                index_source=ArrayIndexSource(device=dev, **streams))
+            res[dev, comp] = solver.solve("hinge", X, y, P=3, Q=2, cfg=cfg)
+        for f in ("w", "alpha"):
+            if not torch.equal(getattr(res[dev, None], f),
+                               getattr(res[dev, "identity"], f)):
+                raise AssertionError(f"cpu_vs_card: {f} under identity is "
+                                     f"not bitwise None's on {dev}")
+    err = max(rel_diff(getattr(res["cuda", "int8"], f).cpu(),
+                       getattr(res["cpu", "int8"], f)) for f in ("w", "alpha"))
+    if err > COMM_CARD_CPU_TOL:
+        raise AssertionError(f"cpu_vs_card: int8 card against CPU {err:.3e}")
+    return {"int8_rel_err": err, "none_vs_identity": "bitwise"}
 
 
 def lm_card_vs_cpu_bf16(dev):

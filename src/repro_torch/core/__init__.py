@@ -1,9 +1,14 @@
 """Core: the paper's doubly distributed optimization algorithms."""
 from .admm import ADMMConfig, admm_simulated, admm_simulated_program
 from .comm import Collective, Comm, CommSchedule, SyncComm
+from .comm_model import (LinkModel, Topology, as_topology, fit_link,
+                         overlap_split, predict_comm_s)
+from .compress import (CompressedComm, CompressionPolicy,
+                       CompressionSchedule, as_compression, as_policy,
+                       available_codecs, get_codec, wire_accounting)
 from .d3ca import D3CAConfig, d3ca_simulated, d3ca_simulated_program
 from .engines import (CellProgram, EngineProgram, drive, drive_with_callback,
-                      grid_program)
+                      grid_bind_state, grid_program)
 from .indices import (ArrayIndexSource, GeneratorIndexSource,
                       TenantIndexSource)
 from .losses import LOSSES, get_loss
@@ -21,9 +26,14 @@ from .util import resolve_device
 __all__ = [
     "ADMMConfig", "admm_simulated", "admm_simulated_program",
     "Collective", "Comm", "CommSchedule", "SyncComm",
+    "LinkModel", "Topology", "as_topology", "fit_link", "overlap_split",
+    "predict_comm_s",
+    "CompressedComm", "CompressionPolicy", "CompressionSchedule",
+    "as_compression", "as_policy", "available_codecs",
+    "get_codec", "wire_accounting",
     "D3CAConfig", "d3ca_simulated", "d3ca_simulated_program",
     "CellProgram", "EngineProgram", "drive", "drive_with_callback",
-    "grid_program",
+    "grid_bind_state", "grid_program",
     "ArrayIndexSource", "GeneratorIndexSource", "TenantIndexSource",
     "LOSSES", "get_loss",
     "DoublyPartitioned", "SparseDoublyPartitioned", "ell_gather",

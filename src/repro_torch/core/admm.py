@@ -41,7 +41,7 @@ import torch
 
 from .comm import CommSchedule
 from .engines import (CellProgram, EngineProgram, cached_build,
-                      drive_with_callback, grid_program)
+                      drive_with_callback, grid_bind_state, grid_program)
 from .losses import Loss, get_loss
 from .partition import (SparseDoublyPartitioned, cells_times_blocks,
                         ell_scatter_add)
@@ -130,9 +130,14 @@ def admm_cell_program(loss_name: str, cfg: ADMMConfig, *, n: int, m_q: int,
         u_new = u + s_new - blocks_times_w(x_parts, w_new, sparse)
         return s_new, u_new, w_new
 
+    def payload_shapes(data, state):
+        s, _, w = state              # (P, Q, [T,] n_p), _, (Q, [T,] m_q)
+        return {"v": tuple(s.shape[2:]), "rhs": tuple(w.shape[1:])}
+
     return CellProgram(admm_schedule(), cell,
                        state_specs=(("data", "model"), ("data", "model"),
-                                    ("model",)))
+                                    ("model",)),
+                       payload_shapes=payload_shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +170,13 @@ def admm_setup_simulated(data, cfg: ADMMConfig) -> torch.Tensor:
 
 
 def admm_simulated_program(loss: Loss, data, cfg: ADMMConfig, *,
-                           chol=None, w0=None, cache=None) -> EngineProgram:
+                           chol=None, w0=None, compression=None,
+                           topology=None, cache=None) -> EngineProgram:
     """Grid engine.  State: ``(s (P, Q, n_p), u (P, Q, n_p), w_blocks (Q,
-    m_q))``.  The Cholesky setup runs at build time unless ``chol`` is
-    given.  ``data`` may be dense or sparse (padded-ELL cells)."""
+    m_q))``, or ``(that, ef)`` under ``compression`` / ``topology`` (see
+    :func:`~repro_torch.core.engines.grid_program`).  The Cholesky setup
+    runs at build time unless ``chol`` is given.  ``data`` may be dense
+    or sparse (padded-ELL cells)."""
     sparse = isinstance(data, SparseDoublyPartitioned)
     Pn, Qn = data.P, data.Q
     dev = data.device
@@ -179,14 +187,22 @@ def admm_simulated_program(loss: Loss, data, cfg: ADMMConfig, *,
     x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
     gdata = (*x_parts, data.y_blocks, data.mask, chol)
     step = cached_build(cache, "step",
-                        lambda: grid_program(cellprog, Pn, Qn, device=dev))
+                        lambda: grid_program(cellprog, Pn, Qn,
+                                             compression=compression,
+                                             topology=topology, device=dev))
     w_init = (torch.zeros((Qn, data.m_q), device=dev) if w0 is None
               else data.w_to_blocks(w0))
     zeros_su = torch.zeros((Pn, Qn, data.n_p), device=dev)
+    state0 = (zeros_su, zeros_su.clone(), w_init)
+    full0, unwrap, acct = grid_bind_state(
+        cellprog, gdata, state0, Pn=Pn, Qn=Qn, compression=compression,
+        topology=topology, device=dev)
     return EngineProgram(
-        state=(zeros_su, zeros_su.clone(), w_init),
+        state=full0,
         step=lambda t, st: step(t, gdata, st),
-        w_of=lambda st: data.w_from_blocks(st[2]))
+        w_of=lambda st: data.w_from_blocks(unwrap(st)[2]),
+        comm_bytes=acct,
+        ef_of=(lambda st: st[1]) if full0 is not state0 else None)
 
 
 def admm_simulated(loss_name: str, data, cfg: ADMMConfig, callback=None,

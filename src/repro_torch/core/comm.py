@@ -16,11 +16,13 @@ the reduction points explicit:
         a_new = a + comm("dalpha", dalpha) / Pn
         w_new = comm("w_contrib", contrib) / (lam * n)
 
-  * the engine picks the executor.  This slice has one: :class:`SyncComm`
-    applies every reduction immediately.  The bounded-staleness,
-    overlapping, compressed and hierarchical executors of the reference
-    are not ported yet (ROADMAP queue A, comm policies); they slot in
-    here without touching the solvers.
+  * the engine picks the executor: :class:`SyncComm` applies every
+    reduction immediately, optionally as a two-level hierarchical
+    reduction over pods (``set_topology``), and
+    :class:`~repro_torch.core.compress.CompressedComm` wraps it to run
+    every payload through its codec first.  The bounded-staleness and
+    overlapping executors of the reference serve its mesh engines only
+    and come with them (ROADMAP queue A, multi-device engines).
 
 Axes are *logical* ("data" = observation partitions, "model" = feature
 partitions).  On the single-device grid engine the P x Q cells are
@@ -29,11 +31,18 @@ leading batch axes: a per-cell payload arrives as one blocked tensor
 "model" axis 1, and the result is returned once, without the replicas a
 per-cell execution would hold (``(P, Q, n_p)`` reduced over "model" is
 ``(P, n_p)``).
+
+Every executor records the exact bytes ONE cell put on the wire per
+executed point (``wire_bytes``), and, when the engine declares the
+per-cell payload shapes, refuses a payload whose trailing shape differs
+from the declared one -- the wire accounting and the error-feedback
+buffers are sized from those declarations before the first step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -119,17 +128,27 @@ class CommSchedule:
 class Comm:
     """Executor handed to a step: runs the declared collectives.
 
-    ``sizes`` gives the logical grid extents (P, Q) as static ints.
-    One instance serves one outer step; :meth:`finalize` then checks
-    that every declared point ran exactly once.
+    ``sizes`` gives the logical grid extents (P, Q) as static ints;
+    ``payload_shapes`` (optional) maps each collective to the per-cell
+    shape its payload must have (the shape without the grid axes).  One
+    instance serves one outer step; :meth:`finalize` then checks that
+    every declared point ran exactly once.
     """
 
     def __init__(self, schedule: CommSchedule, sizes: Dict[str, int],
-                 device="cuda"):
+                 device="cuda", payload_shapes: Optional[dict] = None):
         self.schedule = schedule
         self.sizes = dict(sizes)
         self.device = resolve_device(device)
+        self.payload_shapes = payload_shapes
         self._executed: set = set()
+        #: exact payload bytes one cell put on the wire, per collective
+        #: (executors that shrink the payload -- CompressedComm -- record
+        #: their own number; everyone else the uncompressed size).  The
+        #: solvers read the build-time ``wire_accounting``; this per-step
+        #: record's reader, the metrics registry, arrives with
+        #: observability (ROADMAP item 11)
+        self.wire_bytes: Dict[str, int] = {}
 
     # -- step-facing API -----------------------------------------------------
     def __call__(self, name: str, value):
@@ -139,7 +158,8 @@ class Comm:
         Raises:
           KeyError: when ``name`` was never declared in the schedule.
           ValueError: when the same point is executed twice in one outer
-            step, or the payload's leading axes are not the grid.
+            step, the payload's leading axes are not the grid, or its
+            per-cell shape is not the declared one.
         """
         point = self.schedule[name]
         if name in self._executed:
@@ -151,7 +171,18 @@ class Comm:
             raise ValueError(
                 f"reduction {name!r}: payload of shape {tuple(value.shape)} "
                 f"does not lead with the {grid[0]}x{grid[1]} grid")
-        return self._exec(point, value)
+        cell = tuple(value.shape[2:])
+        if self.payload_shapes is not None \
+                and cell != tuple(self.payload_shapes[name]):
+            raise ValueError(
+                f"reduction {name!r}: per-cell payload {cell} differs from "
+                f"the declared {tuple(self.payload_shapes[name])}; the "
+                "wire accounting and error-feedback buffers were sized "
+                "from the declaration")
+        out = self._exec(point, value)
+        if name not in self.wire_bytes:
+            self.wire_bytes[name] = math.prod(cell) * value.element_size()
+        return out
 
     def axis_index(self, axis: str) -> torch.Tensor:
         """Cell indices along a logical axis: ``arange(P)`` or
@@ -179,9 +210,51 @@ class Comm:
 class SyncComm(Comm):
     """Apply every reduction immediately (the paper's synchronous outer
     loop): a sum or mean over the block axis the collective's logical
-    axis maps to."""
+    axis maps to.
 
-    def _exec(self, point: Collective, value):
+    **Hierarchical reduction** (``set_topology``): with a
+    :class:`~repro_torch.core.comm_model.Topology` of ``pods = G > 1``, a
+    psum/pmean over the pod-split logical axis ("data") runs in two
+    levels.  Pods are contiguous ranges of P: the payload ``(P, Q, ...)``
+    is viewed as ``(G, P // G, Q, ...)`` and summed in full precision
+    over each pod's cells, each ``(pod, q)`` partial goes through the
+    cross-pod codec, and the decoded partials are summed over pods (then
+    divided by P for pmean) -- the cheap fat link carries full floats,
+    the thin link the codec payload.  Every cell of a pod would hold the
+    same partial and residual, so the codec runs once per pod, and a
+    stateful codec's residual is one ``(G, Q, *cell)`` buffer per
+    collective in ``hier_ef_in`` / ``hier_ef_out``, distinct from a
+    policy codec's (that one compresses each cell's payload before any
+    reduction; this one the intra-pod partial sum).  Allgathers and the
+    "model" collectives stay flat.
+    """
+
+    #: two-level reduction disabled until ``set_topology`` is called
+    topology = None
+
+    def set_topology(self, topology, codec, ef: Optional[dict] = None):
+        """Enable hierarchical reduction over ``topology.axis``.
+
+        ``codec`` is the cross-pod codec instance; ``ef`` maps collective
+        name -> its ``(G, Q, *cell)`` error-feedback residual (required
+        for stateful codecs)."""
+        pods = topology.pods
+        if self.sizes[topology.axis] % pods:
+            raise ValueError(f"topology pods={pods} does not divide "
+                             f"{topology.axis} extent "
+                             f"{self.sizes[topology.axis]}")
+        self.topology = topology
+        self._hier_codec = codec
+        self.hier_ef_in = dict(ef or {})
+        #: updated residuals, read by the engine after the step
+        self.hier_ef_out: Dict[str, torch.Tensor] = {}
+
+    def _reduce(self, point: Collective, value):
+        """The wire operation: fresh reduction of this step's value."""
+        topo = self.topology
+        if (topo is not None and topo.pods > 1 and point.axis == topo.axis
+                and point.op != "allgather"):
+            return self._reduce_hierarchical(point, value)
         dim = BLOCK_AXIS[point.axis]
         if point.op == "psum":
             return value.sum(dim=dim)
@@ -191,3 +264,43 @@ class SyncComm(Comm):
         # replicas dropped that is the payload with `dim` moved behind
         # the axis the result still varies over
         return value.movedim(dim, 1) if dim == 0 else value
+
+    def _reduce_hierarchical(self, point: Collective, value):
+        G = self.topology.pods
+        # intra-pod: full-precision sum over each pod's P // G cells
+        part = value.reshape(G, value.shape[0] // G,
+                             *value.shape[1:]).sum(dim=1)
+        codec = self._hier_codec
+        if codec.stateful:
+            try:
+                err = self.hier_ef_in[point.name]
+            except KeyError:
+                raise KeyError(
+                    f"no cross-pod error-feedback residual for reduction "
+                    f"{point.name!r}; the engine allocates one per "
+                    "pod-split collective at build time") from None
+            deq, new_err = codec.apply(part, err)
+            self.hier_ef_out[point.name] = new_err
+        else:
+            deq, _ = codec.apply(part)
+        # cross-pod: the decoded partials summed over pods
+        out = deq.to(part.dtype).sum(dim=0)
+        if point.op == "pmean":
+            out = out / self.sizes[point.axis]
+        return out
+
+    def _exec(self, point: Collective, value):
+        return self._reduce(point, value)
+
+
+def hier_ef_names(schedule: CommSchedule, topology) -> Tuple[str, ...]:
+    """Names of collectives that need a cross-pod error-feedback residual
+    under ``topology``: the psum/pmean points over the pod-split axis,
+    when the cross-pod codec is stateful."""
+    if topology is None or topology.pods <= 1:
+        return ()
+    from .compress import get_codec
+    if not get_codec(topology.codec).stateful:
+        return ()
+    return tuple(p.name for p in schedule
+                 if p.axis == topology.axis and p.op != "allgather")

@@ -24,7 +24,7 @@ import torch
 
 from .comm import CommSchedule
 from .engines import (CellProgram, EngineProgram, cached_build,
-                      drive_with_callback, grid_program)
+                      drive_with_callback, grid_bind_state, grid_program)
 from .indices import GeneratorIndexSource
 from .local import local_sdca, local_sdca_sparse
 from .losses import Loss, get_loss
@@ -112,8 +112,13 @@ def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
         w_new = comm("w_contrib", contrib) / lam_n
         return a_new, w_new
 
+    def payload_shapes(data, state):
+        a, w = state                     # (P, [T,] n_p), (Q, [T,] m_q)
+        return {"dalpha": tuple(a.shape[1:]), "w_contrib": tuple(w.shape[1:])}
+
     return CellProgram(d3ca_schedule(), cell,
-                       state_specs=(("data",), ("model",)))
+                       state_specs=(("data",), ("model",)),
+                       payload_shapes=payload_shapes)
 
 
 # ----------------------------------------------------------------------------
@@ -123,11 +128,17 @@ def d3ca_cell_program(loss: Loss, cfg: D3CAConfig, *, n: int,
 def d3ca_simulated_program(loss: Loss, data, cfg: D3CAConfig, *,
                            local_backend: str = "kernel",
                            w0=None, alpha0=None, index_source=None,
+                           compression=None, topology=None,
                            row_gate=None, cache=None) -> EngineProgram:
-    """Grid engine.  State: (alpha (P, n_p), w_blocks (Q, m_q)).
+    """Grid engine.  State: (alpha (P, n_p), w_blocks (Q, m_q)), or
+    ``(that, ef)`` under ``compression`` / ``topology`` (see
+    :func:`~repro_torch.core.engines.grid_program`).
 
     ``data`` may be a dense :class:`DoublyPartitioned` or a sparse
     :class:`SparseDoublyPartitioned` (padded-ELL cells).
+    ``compression`` (a CompressionPolicy or spec) routes both collectives
+    through their codecs; ``topology`` (``"pods=G[:codec]"``) reduces
+    ``w_contrib`` over pods.
     ``index_source=None`` draws the coordinate orders from a
     ``torch.Generator`` seeded from ``cfg.seed`` on the data's device.
     ``row_gate`` ((n,) of 0/1) builds the gated incremental program: dual
@@ -150,17 +161,25 @@ def d3ca_simulated_program(loss: Loss, data, cfg: D3CAConfig, *,
                   else (data.alpha_to_blocks(row_gate),))
     gdata = (*x_parts, data.y_blocks, data.mask, *gate_parts)
     step = cached_build(cache, "step",
-                        lambda: grid_program(cellprog, Pn, Qn, device=dev))
+                        lambda: grid_program(cellprog, Pn, Qn,
+                                             compression=compression,
+                                             topology=topology, device=dev))
 
     alpha_init = (torch.zeros((Pn, data.n_p), device=dev) if alpha0 is None
                   else data.alpha_to_blocks(alpha0))
     w_init = (torch.zeros((Qn, data.m_q), device=dev) if w0 is None
               else data.w_to_blocks(w0))
+    state0 = (alpha_init, w_init)
+    full0, unwrap, acct = grid_bind_state(
+        cellprog, gdata, state0, Pn=Pn, Qn=Qn, compression=compression,
+        topology=topology, device=dev)
     return EngineProgram(
-        state=(alpha_init, w_init),
+        state=full0,
         step=lambda t, s: step(t, gdata, s),
-        w_of=lambda s: data.w_from_blocks(s[1]),
-        alpha_of=lambda s: data.alpha_from_blocks(s[0] * data.mask))
+        w_of=lambda s: data.w_from_blocks(unwrap(s)[1]),
+        alpha_of=lambda s: data.alpha_from_blocks(unwrap(s)[0] * data.mask),
+        comm_bytes=acct,
+        ef_of=(lambda s: s[1]) if full0 is not state0 else None)
 
 
 def d3ca_simulated(loss_name: str, data, cfg: D3CAConfig,

@@ -10,6 +10,14 @@ reduction as a named collective.  This slice has one engine:
     collectives are reductions over those axes, and the cell-local
     kernels take all cells of one outer step in one launch.
 
+Orthogonally, a :class:`~repro_torch.core.compress.CompressionPolicy`
+(``compression=``) routes every declared collective's payload through a
+codec with error feedback, and a ``topology="pods=G[:codec]"`` runs the
+reductions over "data" in two levels (full precision within each pod,
+the pod codec across pods).  Every program reports its exact
+bytes-on-wire (``EngineProgram.comm_bytes``), computed at build time from
+the per-cell payload shapes each :class:`CellProgram` declares.
+
 The mesh engines of the reference (shard_map, async, overlap) are not
 ported yet (ROADMAP queue A, multi-device engines).
 
@@ -25,7 +33,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from .comm import CommSchedule, SyncComm
+from .comm import CommSchedule, SyncComm, hier_ef_names
+from .comm_model import Topology, hierarchical_accounting
+from .compress import CompressedComm, as_policy, get_codec, wire_accounting
 from .util import resolve_device
 
 
@@ -43,12 +53,22 @@ class EngineProgram:
         (trimmed of any grid padding).
       alpha_of: ``state -> (n,)`` global dual, or None for primal-only
         solvers.
+      comm_bytes: exact per-step wire accounting of the program's
+        declared collectives (see
+        ``repro_torch.core.compress.wire_accounting``), or None for a
+        program built outside the grid binding.
+      ef_of: ``state -> {collective: error-feedback residual}`` when the
+        program carries residuals (stateful codecs); None otherwise.  Its
+        reader outside the tests, the metrics registry, arrives with
+        observability (ROADMAP item 11).
     """
 
     state: Any
     step: Callable[[int, Any], Any]
     w_of: Callable[[Any], torch.Tensor]
     alpha_of: Optional[Callable[[Any], torch.Tensor]] = None
+    comm_bytes: Optional[dict] = None
+    ef_of: Optional[Callable[[Any], dict]] = None
 
 
 def drive(prog: EngineProgram, outer_iters: int, observe=None):
@@ -96,11 +116,19 @@ class CellProgram:
     ``("data",)``, ``("model",)`` or ``("data", "model")`` per leaf (a
     bare spec for a single-tensor state) -- which is where the fleet path
     (``repro_torch.fleet``) puts its tenant axis.
+
+    ``payload_shapes(data, state) -> {name: per-cell shape}`` declares
+    what each collective's payload looks like in one cell (without the
+    grid axes), from the data and state shapes alone: the engine sizes
+    the wire accounting and the error-feedback buffers from it before the
+    first step (running a probe step would launch the kernels), and the
+    executor refuses a payload that differs.  None skips both.
     """
 
     schedule: CommSchedule
     cell: Callable[..., Any]
     state_specs: Any = None
+    payload_shapes: Optional[Callable[[Any, Any], dict]] = None
 
 
 def cached_build(cache, key, build):
@@ -113,21 +141,139 @@ def cached_build(cache, key, build):
     return cache[key]
 
 
+#: error-feedback dict key prefix for the cross-pod (topology) codec
+#: residuals -- keeps them distinct from a CompressionPolicy residual on
+#: the same collective name inside the one ``ef`` dict
+POD_EF = "pod:"
+
+
+def _norm_topology(topology):
+    """None | spec | Topology -> Topology with pods > 1, else None."""
+    if topology is None:
+        return None
+    topo = Topology.from_spec(topology)
+    if topo.pods <= 1:
+        return None
+    if topo.axis != "data":
+        raise ValueError(f"topology splits axis {topo.axis!r}; the engines "
+                         "only pod-split the 'data' axis")
+    return topo
+
+
 def grid_program(cellprog: CellProgram, Pn: int, Qn: int, *,
-                 device="cuda"):
+                 compression=None, topology=None, device="cuda"):
     """Single-device grid executor.  Returns ``step(t, data, state) ->
     state`` where ``data``/``state`` are blocked: the P x Q grid is the
     leading axes of the operands and the declared collectives run as
     reductions over them, through a fresh :class:`SyncComm` per step whose
-    exactly-once contract is checked after the step."""
+    exactly-once contract is checked after the step.
+
+    With ``compression`` (a :class:`~repro_torch.core.compress.
+    CompressionPolicy` or its spec) every payload runs through its codec
+    under a :class:`~repro_torch.core.compress.CompressedComm`; with a
+    ``topology`` of ``pods > 1`` the reductions over "data" run in two
+    levels (see :class:`SyncComm`).  Either one changes the step to
+    ``step(t, data, (state, ef)) -> (state, ef)``, where ``ef`` maps each
+    stateful policy collective to its ``(P, Q, *cell)`` residual and each
+    pod-split collective under a stateful pod codec, keyed
+    ``"pod:<name>"``, to its ``(G, Q, *cell)`` one (allocate with
+    :func:`grid_bind_state`).  With both None the step and the state are
+    exactly the uncompressed program's.
+    """
     sizes = {"data": Pn, "model": Qn}
     sched = cellprog.schedule
     device = resolve_device(device)
+    topo = _norm_topology(topology)
+    if topo is not None and Pn % topo.pods:
+        raise ValueError(f"topology pods={topo.pods} does not divide "
+                         f"P={Pn}")
+    policy = as_policy(compression)
+    if policy is not None:
+        policy.validate(sched)
 
-    def step(t, data, state):
-        comm = SyncComm(sched, sizes, device=device)
+    # the declared per-cell payload shapes, taken once from the first
+    # step's operands: a built step (cached ones too) serves one problem
+    # shape, so every later step is held to the same declaration
+    declared = {}
+
+    def shapes_of(data, state):
+        if cellprog.payload_shapes is None:
+            return None
+        if not declared:
+            declared.update(cellprog.payload_shapes(data, state))
+        return declared
+
+    if policy is None and topo is None:
+        def step(t, data, state):
+            comm = SyncComm(sched, sizes, device=device,
+                            payload_shapes=shapes_of(data, state))
+            out = cellprog.cell(comm, t, data, state)
+            comm.finalize()
+            return out
+
+        return step
+
+    hier_codec = get_codec(topo.codec) if topo is not None else None
+
+    def step_c(t, data, full_state):
+        state, ef = full_state
+        inner = SyncComm(sched, sizes, device=device,
+                         payload_shapes=shapes_of(data, state))
+        if topo is not None:
+            inner.set_topology(
+                topo, hier_codec,
+                ef={k[len(POD_EF):]: v for k, v in ef.items()
+                    if k.startswith(POD_EF)})
+        comm = inner
+        if policy is not None:
+            comm = CompressedComm(
+                inner, policy,
+                ef={k: v for k, v in ef.items() if not k.startswith(POD_EF)})
         out = cellprog.cell(comm, t, data, state)
         comm.finalize()
-        return out
+        ef_out = dict(comm.ef_out) if policy is not None else {}
+        if topo is not None:
+            ef_out.update({POD_EF + k: v
+                           for k, v in inner.hier_ef_out.items()})
+        return out, ef_out
 
-    return step
+    return step_c
+
+
+def grid_bind_state(cellprog: CellProgram, data, state0, *, Pn: int, Qn: int,
+                    compression=None, topology=None, device="cuda"):
+    """Engine-state plumbing shared by the grid program constructors.
+
+    The per-cell payload shapes ``cellprog`` declares yield both the wire
+    accounting and (when the policy carries error feedback) the zero
+    residuals -- one ``(P, Q, *cell)`` f32 buffer per stateful-codec
+    collective, matching :func:`grid_program`'s ``ef`` operand.  With a
+    hierarchical ``topology`` the cross-pod codec's residuals join the
+    same dict under ``"pod:"``-prefixed keys, one ``(G, Q, *cell)``
+    buffer each (one per pod and feature block: the intra-pod partial sum
+    has the per-cell payload shape), and the accounting is rewritten
+    into intra/inter-pod tiers.  Returns ``(full_state0, unwrap, acct)``
+    where ``unwrap`` recovers the solver state from the full engine state
+    (identity when no comm state is carried, so the uncompressed state
+    layout is untouched)."""
+    device = resolve_device(device)
+    topo = _norm_topology(topology)
+    policy = as_policy(compression)
+    sizes = {"data": Pn, "model": Qn}
+    shapes = cellprog.payload_shapes(data, state0)
+    acct = wire_accounting(cellprog.schedule, shapes, sizes, policy)
+    acct = hierarchical_accounting(acct, topo, sizes)
+    if policy is None and topo is None:
+        return state0, (lambda s: s), acct
+
+    def zeros(lead, name):
+        return torch.zeros((*lead, *shapes[name]), dtype=torch.float32,
+                           device=device)
+
+    ef0 = {}
+    if policy is not None:
+        ef0.update({name: zeros((Pn, Qn), name)
+                    for name in policy.stateful_names(cellprog.schedule)})
+    for name in hier_ef_names(cellprog.schedule, topo):
+        ef0[POD_EF + name] = zeros((topo.pods, Qn), name)
+    return (state0, ef0), (lambda s: s[0]), acct

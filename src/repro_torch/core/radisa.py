@@ -40,7 +40,7 @@ import torch
 
 from .comm import CommSchedule
 from .engines import (CellProgram, EngineProgram, cached_build,
-                      drive_with_callback, grid_program)
+                      drive_with_callback, grid_bind_state, grid_program)
 from .indices import GeneratorIndexSource
 from .local import local_svrg, local_svrg_sparse
 from .losses import Loss, get_loss
@@ -138,6 +138,19 @@ def paste_windows(win, delta_sub, m_q: int):
                           delta_sub)
 
 
+def primal_payload_shapes(schedule: CommSchedule):
+    """The per-cell payload shapes of a primal (RADiSA / SFK) step: the
+    anchor products ``z`` have a row block's shape, every other
+    collective (the gradient, the recombined deltas or solutions) a
+    feature block's.  Blocked data ``(*x_parts, y (P, [T,] n_p), mask)``,
+    state ``w (Q, [T,] m_q)``."""
+    def payload_shapes(data, w):
+        rows, cols = tuple(data[-2].shape[1:]), tuple(w.shape[1:])
+        return {name: rows if name == "z" else cols
+                for name in schedule.names}
+    return payload_shapes
+
+
 def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
                         index_source, local_backend: str = "kernel",
                         sparse: bool = False,
@@ -200,7 +213,9 @@ def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
         return w + comm("dw", paste_windows(win, w_new - w_anchor, m_q))
 
     return CellProgram(radisa_schedule(cfg.variant), cell,
-                       state_specs=("model",))
+                       state_specs=("model",),
+                       payload_shapes=primal_payload_shapes(
+                           radisa_schedule(cfg.variant)))
 
 
 # ----------------------------------------------------------------------------
@@ -209,8 +224,11 @@ def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
 
 def radisa_simulated_program(loss: Loss, data, cfg: RADiSAConfig, *,
                              local_backend: str = "kernel", w0=None,
-                             index_source=None, cache=None) -> EngineProgram:
-    """Grid engine.  State: w_blocks (Q, m_q).
+                             index_source=None, compression=None,
+                             topology=None, cache=None) -> EngineProgram:
+    """Grid engine.  State: w_blocks (Q, m_q), or ``(w_blocks, ef)``
+    under ``compression`` / ``topology`` (see
+    :func:`~repro_torch.core.engines.grid_program`).
 
     ``data`` may be a dense :class:`DoublyPartitioned` or a sparse
     :class:`SparseDoublyPartitioned` (padded-ELL cells).  Requires
@@ -233,13 +251,28 @@ def radisa_simulated_program(loss: Loss, data, cfg: RADiSAConfig, *,
     x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
     gdata = (*x_parts, data.y_blocks, data.mask)
     step = cached_build(cache, "step",
-                        lambda: grid_program(cellprog, Pn, Qn, device=dev))
+                        lambda: grid_program(cellprog, Pn, Qn,
+                                             compression=compression,
+                                             topology=topology, device=dev))
     w_init = (torch.zeros((Qn, data.m_q), device=dev) if w0 is None
               else data.w_to_blocks(w0))
+    return bind_primal_program(cellprog, step, data, gdata, w_init,
+                               compression=compression, topology=topology)
+
+
+def bind_primal_program(cellprog, step, data, gdata, w_init, *,
+                        compression, topology) -> EngineProgram:
+    """The EngineProgram of a primal solver whose state is ``w_blocks``
+    (RADiSA, SFK), with its comm state and wire accounting bound."""
+    full0, unwrap, acct = grid_bind_state(
+        cellprog, gdata, w_init, Pn=data.P, Qn=data.Q,
+        compression=compression, topology=topology, device=data.device)
     return EngineProgram(
-        state=w_init,
+        state=full0,
         step=lambda t, s: step(t, gdata, s),
-        w_of=lambda s: data.w_from_blocks(s))
+        w_of=lambda s: data.w_from_blocks(unwrap(s)),
+        comm_bytes=acct,
+        ef_of=(lambda s: s[1]) if full0 is not w_init else None)
 
 
 def radisa_simulated(loss_name: str, data, cfg: RADiSAConfig, callback=None,

@@ -43,8 +43,9 @@ from .indices import GeneratorIndexSource
 from .local import local_svrg, local_svrg_sparse
 from .losses import Loss, get_loss
 from .partition import SparseDoublyPartitioned
-from .radisa import (_check_subblocks, blocks_times_w, cut_windows,
-                     paste_windows, rows_times_x)
+from .radisa import (_check_subblocks, bind_primal_program, blocks_times_w,
+                     cut_windows, paste_windows, primal_payload_shapes,
+                     rows_times_x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,7 +142,8 @@ def sfk_cell_program(loss: Loss, cfg: SFKConfig, *, n: int, m_q: int,
         # (5) concatenate disjoint sub-block deltas
         return w + comm("dw", paste_windows(win, w_new - w_anchor, m_q))
 
-    return CellProgram(sfk_schedule(), cell, state_specs=("model",))
+    return CellProgram(sfk_schedule(), cell, state_specs=("model",),
+                       payload_shapes=primal_payload_shapes(sfk_schedule()))
 
 
 # ----------------------------------------------------------------------------
@@ -150,8 +152,11 @@ def sfk_cell_program(loss: Loss, cfg: SFKConfig, *, n: int, m_q: int,
 
 def sfk_simulated_program(loss: Loss, data, cfg: SFKConfig, *,
                           local_backend: str = "kernel", w0=None,
-                          index_source=None, cache=None) -> EngineProgram:
-    """Grid engine.  State: w_blocks (Q, m_q).
+                          index_source=None, compression=None,
+                          topology=None, cache=None) -> EngineProgram:
+    """Grid engine.  State: w_blocks (Q, m_q), or ``(w_blocks, ef)``
+    under ``compression`` / ``topology`` (see
+    :func:`~repro_torch.core.engines.grid_program`).
 
     ``data`` may be a dense :class:`DoublyPartitioned` or a sparse
     :class:`SparseDoublyPartitioned`.  Requires P | m_q (pre-pad with
@@ -172,13 +177,13 @@ def sfk_simulated_program(loss: Loss, data, cfg: SFKConfig, *,
     x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
     gdata = (*x_parts, data.y_blocks, data.mask)
     step = cached_build(cache, "step",
-                        lambda: grid_program(cellprog, Pn, Qn, device=dev))
+                        lambda: grid_program(cellprog, Pn, Qn,
+                                             compression=compression,
+                                             topology=topology, device=dev))
     w_init = (torch.zeros((Qn, data.m_q), device=dev) if w0 is None
               else data.w_to_blocks(w0))
-    return EngineProgram(
-        state=w_init,
-        step=lambda t, s: step(t, gdata, s),
-        w_of=lambda s: data.w_from_blocks(s))
+    return bind_primal_program(cellprog, step, data, gdata, w_init,
+                               compression=compression, topology=topology)
 
 
 def sfk_simulated(loss_name: str, data, cfg: SFKConfig, callback=None,

@@ -22,21 +22,36 @@ story.  This module provides that story once:
       - ``index_source`` -- where the random coordinate orders come from
         (``core/indices.py``); ``None`` draws them from a
         ``torch.Generator`` seeded from the config;
+      - ``compression=...`` -- a codec spec / CompressionPolicy mapping
+        the solver's declared collectives to codecs (``"int8"``,
+        ``"fp8"``, ``"topk:0.1"``, or per collective
+        ``"w_contrib=int8,dalpha=identity"``) with error feedback; None
+        builds the exact uncompressed program, and the identity codec is
+        bit-identical to it.  ``"adaptive..."`` specs build a
+        :class:`~repro_torch.core.compress.CompressionSchedule`: staged
+        codecs switched by the observed ``rel_opt`` slope, each stage a
+        warm-started program build;
+      - ``topology="pods=G[:codec]"`` -- hierarchical reductions over the
+        data axis: full precision within each of G pods (contiguous row
+        partitions), the codec (with error feedback) across pods;
       - ``program_cache=True`` -- reuse the built step across program
-        builds of one key (always on inside :meth:`Solver.update`);
+        builds of one key (always on inside :meth:`Solver.update`;
+        bypassed under compression or topology, whose programs carry
+        per-build residuals);
       - ``row_gate`` -- the incremental online-update path: dual updates
         restricted to gated-on rows (D3CA only, ``supports_row_gate``);
         :meth:`Solver.update` builds the gate from the touched rows;
-  * a shared outer loop: objective / duality-gap history, early
-    stopping, warm starts from a previous ``w`` / ``alpha``.
+  * a shared outer loop: objective / duality-gap history (with the
+    cumulative exact ``comm_bytes``), early stopping, warm starts from a
+    previous ``w`` / ``alpha``.
 
 The port covers the single-device grid engine (``engine="simulated"``);
 many problems of one shape solve together through
-``repro_torch.fleet.FleetSolver``.  Every other knob of the reference's
-``Solver`` -- the mesh engines, ``staleness``, ``compression``,
-``topology``, tracer / registry / monitor -- raises
-``NotImplementedError`` naming the ROADMAP queue item that brings it;
-nothing is silently ignored.
+``repro_torch.fleet.FleetSolver``.  ``staleness > 0`` needs the async /
+overlap engines and is refused with the reference's ``ValueError``.
+Every other knob of the reference's ``Solver`` -- the mesh engines,
+tracer / registry / monitor -- raises ``NotImplementedError`` naming the
+ROADMAP queue item that brings it; nothing is silently ignored.
 
 Example::
 
@@ -64,6 +79,8 @@ import torch
 
 from ..data.sparse import CSRMatrix
 from .admm import ADMMConfig, admm_simulated_program
+from .comm_model import as_topology
+from .compress import CompressionSchedule, as_compression
 from .d3ca import D3CAConfig, d3ca_simulated_program
 from .engines import EngineProgram, drive
 from .local import LOCAL_BACKENDS
@@ -82,14 +99,11 @@ BLOCK_FORMATS = ("dense", "sparse")
 #: item that ports it
 _ITEMS = {
     "mesh": "'Multi-device engines'",
-    "comm": "'Comm policies on the grid engine'",
     "obs": "'Observability'",
 }
 NOT_PORTED = {
     "engine": _ITEMS["mesh"], "mesh": _ITEMS["mesh"],
-    "force_host_devices": _ITEMS["mesh"],
-    "staleness": _ITEMS["comm"], "compression": _ITEMS["comm"],
-    "topology": _ITEMS["comm"],
+    "force_host_devices": _ITEMS["mesh"], "staleness": _ITEMS["mesh"],
     "tracer": _ITEMS["obs"], "registry": _ITEMS["obs"],
     "monitor": _ITEMS["obs"], "trace": _ITEMS["obs"],
     "metrics": _ITEMS["obs"], "listen": _ITEMS["obs"],
@@ -124,6 +138,13 @@ class SolveResult:
     local_backend: str
     block_format: str = "dense"
     device: str = "cuda"
+    staleness: int = 0
+    compression: Optional[str] = None   # canonical policy/schedule spec
+    topology: Optional[str] = None      # canonical topology spec, or None
+    #: exact per-step wire accounting of the declared collectives (see
+    #: repro_torch.core.compress.wire_accounting); history entries carry
+    #: the cumulative "comm_bytes" derived from it
+    comm_bytes: Optional[Dict] = None
 
 
 def _unpack_warm_start(warm_start):
@@ -165,15 +186,30 @@ class Solver:
         if block_format not in BLOCK_FORMATS:
             raise ValueError(f"block_format={block_format!r}; expected one "
                              f"of {BLOCK_FORMATS}")
-        if int(staleness) != 0:
-            raise not_ported("staleness", staleness)
-        if compression is not None:
-            raise not_ported("compression", compression)
-        if topology is not None:
-            raise not_ported("topology", topology)
+        staleness = int(staleness)
+        if staleness < 0:
+            raise ValueError(f"staleness={staleness} must be >= 0 (the "
+                             "reduction delay tau of the async/overlap "
+                             "engines)")
+        if staleness > 0:
+            raise ValueError(
+                f"staleness={staleness} needs engine='async' or "
+                f"engine='overlap'; the {engine!r} engine applies every "
+                "reduction synchronously.  Pass engine='async' or "
+                "engine='overlap' (staleness=0 on either reproduces "
+                "'shard_map' exactly).")
         self.engine = engine
         self.local_backend = local_backend
         self.block_format = block_format
+        self.staleness = staleness
+        #: normalized CompressionPolicy or CompressionSchedule (None = no
+        #: compression machinery at all: the exact uncompressed program),
+        #: validated against the solver's CommSchedule at program build
+        self.compression = as_compression(compression)
+        #: hierarchical reduction topology (None = flat reductions)
+        self.topology = as_topology(topology)
+        #: current CompressionSchedule stage (policies are per stage)
+        self._stage = 0
         #: raises here, at construction, when the card is asked for and
         #: there is none
         self.device = resolve_device(device)
@@ -182,19 +218,45 @@ class Solver:
         #: shapes (always on inside :meth:`update`, where shapes are
         #: constant by design).  Keyed on (solver, engine, loss,
         #: cfg-minus-outer_iters, backend, format, gate-ness, shapes,
-        #: grid).
+        #: grid); bypassed under compression / topology, whose programs
+        #: carry per-build error-feedback residuals.
         self.program_cache = bool(program_cache)
         self._prog_cache: Dict = {}
+
+    @property
+    def compression_spec(self) -> Optional[str]:
+        return self.compression.spec if self.compression is not None else None
+
+    @property
+    def active_policy(self):
+        """The CompressionPolicy the *current* program runs under: the
+        schedule's current stage, or the fixed policy, or None."""
+        if isinstance(self.compression, CompressionSchedule):
+            return self.compression.stages[self._stage]
+        return self.compression
+
+    @property
+    def topology_spec(self) -> Optional[str]:
+        return self.topology.spec if self.topology is not None else None
 
     # ---- subclass hook ----------------------------------------------------
     def _simulated_program(self, loss, data, cfg, w0, alpha0,
                            cache=None) -> EngineProgram:
         raise NotImplementedError
 
+    def _comm_kw(self):
+        """The communication knobs every ``*_simulated_program`` takes."""
+        return {"compression": self.active_policy,
+                "topology": self.topology}
+
     def _build_cache(self, loss_name, cfg, X, P, Q, gated: bool):
         """The per-key dict in which the ``*_simulated_program``
-        functions memoize their steps, or None when caching is off."""
+        functions memoize their steps, or None when caching is off or
+        unsafe (compression and topology programs carry per-build
+        error-feedback residuals)."""
         if not self.program_cache:
+            return None
+        if self.active_policy is not None or self.topology is not None:
             return None
         key = (self.name, self.engine, loss_name,
                dataclasses.replace(cfg, outer_iters=0),
@@ -232,8 +294,8 @@ class Solver:
           An :class:`EngineProgram` ready for :func:`engines.drive`.
 
         Raises:
-          ValueError: on a missing grid spec or an unsupported
-            ``row_gate``.
+          ValueError: on a missing grid spec, an unsupported ``row_gate``
+            or a topology whose pod count does not divide P.
         """
         if mesh is not None:
             raise not_ported("mesh")
@@ -250,6 +312,9 @@ class Solver:
         w0, alpha0 = _unpack_warm_start(warm_start)
         if P is None or Q is None:
             raise ValueError("engine='simulated' needs P and Q")
+        pods = self.topology.pods if self.topology is not None else 1
+        if pods > 1 and P % pods:
+            raise ValueError(f"topology pods={pods} must divide P={P}")
         if self.block_format == "sparse":
             data = partition_sparse(X, y, P, Q, m_multiple=P * Q,
                                     device=self.device)
@@ -276,6 +341,12 @@ class Solver:
         (dual solvers); the relative objective change between iterates.
         ``callback(t, w, alpha)`` fires every iteration.
 
+        Under an adaptive :class:`CompressionSchedule` the solve runs as
+        a sequence of warm-started stages -- one program build per codec
+        stage, advanced when the convergence metric's log10 slope
+        flattens below the schedule's ``slope_tol`` -- and the merged
+        history tags every entry with ``stage`` and ``codec``.
+
         Args:
           loss_name, X, y, P, Q, cfg, warm_start: see :meth:`program`.
           tol: early-stopping tolerance (None disables early stopping).
@@ -294,12 +365,44 @@ class Solver:
             if val is not None:
                 raise not_ported(knob)
         cfg = cfg if cfg is not None else self.config_cls()
-        res = self._solve_stage(
-            loss_name, X, y, P=P, Q=Q, cfg=cfg, mesh=mesh,
-            warm_start=warm_start, tol=tol, f_star=f_star,
-            record_history=record_history, callback=callback,
-            row_gate=row_gate)
-        return res
+        common = dict(P=P, Q=Q, mesh=mesh, tol=tol, f_star=f_star,
+                      record_history=record_history, callback=callback,
+                      row_gate=row_gate)
+        sched = self.compression
+        if not isinstance(sched, CompressionSchedule):
+            res, _ = self._solve_stage(loss_name, X, y, cfg=cfg,
+                                       warm_start=warm_start, **common)
+            return res
+        history: List[Dict[str, float]] = []
+        warm = warm_start
+        iters_done = 0
+        time_off, bytes_off = 0.0, 0
+        res = None
+        try:
+            for si in range(len(sched.stages)):
+                remaining = cfg.outer_iters - iters_done
+                if remaining <= 0:
+                    break
+                self._stage = si
+                last = si == len(sched.stages) - 1
+                res, advanced = self._solve_stage(
+                    loss_name, X, y,
+                    cfg=dataclasses.replace(cfg, outer_iters=remaining),
+                    warm_start=warm, advance=None if last else sched,
+                    iter_offset=iters_done, time_offset=time_off,
+                    bytes_offset=bytes_off, stage=si, **common)
+                history.extend(res.history)
+                iters_done += res.iters
+                if res.history:
+                    time_off = res.history[-1]["time_s"]
+                    bytes_off = res.history[-1].get("comm_bytes", bytes_off)
+                warm = res
+                if res.converged or not advanced:
+                    break
+        finally:
+            self._stage = 0
+        return dataclasses.replace(res, history=history, iters=iters_done,
+                                   compression=sched.spec)
 
     def update(self, loss_name: str, X, y, *, touched, warm_start,
                P: int = None, Q: int = None, cfg=None, mesh=None,
@@ -355,9 +458,16 @@ class Solver:
 
     def _solve_stage(self, loss_name: str, X, y, *, P, Q, cfg, mesh,
                      warm_start, tol, f_star, record_history, callback,
-                     row_gate) -> SolveResult:
-        """One program build + outer loop."""
+                     row_gate, advance=None, iter_offset: int = 0,
+                     time_offset: float = 0.0, bytes_offset: int = 0,
+                     stage: Optional[int] = None):
+        """One program build + outer loop.  Returns ``(result,
+        advanced)`` where ``advanced`` reports an adaptive-schedule stage
+        switch (``advance.should_advance`` fired on the observed
+        convergence metric; the result is then a warm-start point, not a
+        converged solve)."""
         loss = get_loss(loss_name)
+        policy = self.active_policy
         # the objective is evaluated on the device, against the same
         # data the blocks were cut from (a CSR matrix stays one: its
         # products run on the device of the vector)
@@ -369,8 +479,11 @@ class Solver:
         lam = cfg.lam
         history: List[Dict[str, float]] = []
         need_obs = (record_history or callback is not None
-                    or tol is not None)
+                    or tol is not None or advance is not None)
         prev_f = [None]
+        advanced = [False]
+        metric_vals: List[float] = []
+        bytes_per_step = (prog.comm_bytes or {}).get("bytes_per_step")
         t0 = time.perf_counter()
 
         def observe(t, state):
@@ -379,8 +492,16 @@ class Solver:
             w = prog.w_of(state)
             alpha = prog.alpha_of(state) if prog.alpha_of else None
             f = float(loss.objective(X, y, w, lam))
-            entry = {"iter": t, "time_s": time.perf_counter() - t0,
+            entry = {"iter": t + iter_offset,
+                     "time_s": time.perf_counter() - t0 + time_offset,
                      "objective": f}
+            if stage is not None:
+                entry["stage"] = stage
+                entry["codec"] = policy.spec if policy is not None else None
+            if bytes_per_step is not None:
+                # cumulative bytes-on-wire after t outer steps (every
+                # declared collective runs once per step)
+                entry["comm_bytes"] = bytes_offset + bytes_per_step * t
             if alpha is not None:
                 entry["duality_gap"] = float(
                     f - loss.dual_objective(X, y, alpha, lam))
@@ -389,7 +510,7 @@ class Solver:
             if record_history:
                 history.append(entry)
             if callback is not None:
-                callback(t, w, alpha)
+                callback(t + iter_offset, w, alpha)
             stop = False
             if tol is not None:
                 if f_star is not None:
@@ -399,16 +520,26 @@ class Solver:
                 elif prev_f[0] is not None:
                     stop = abs(f - prev_f[0]) <= tol * max(1.0, abs(f))
             prev_f[0] = f
+            if advance is not None and not stop:
+                metric_vals.append(entry.get("rel_opt", f))
+                if advance.should_advance(metric_vals):
+                    advanced[0] = True
+                    stop = True
             return stop
 
         state, iters, stopped = drive(prog, cfg.outer_iters, observe)
-        return SolveResult(
+        res = SolveResult(
             w=prog.w_of(state),
             alpha=prog.alpha_of(state) if prog.alpha_of else None,
-            history=history, iters=iters, converged=stopped,
+            history=history, iters=iters,
+            converged=stopped and not advanced[0],
             solver=self.name, engine=self.engine,
             local_backend=self.local_backend,
-            block_format=self.block_format, device=str(self.device))
+            block_format=self.block_format, device=str(self.device),
+            staleness=self.staleness,
+            compression=policy.spec if policy is not None else None,
+            topology=self.topology_spec, comm_bytes=prog.comm_bytes)
+        return res, advanced[0]
 
 
 # ---------------------------------------------------------------------------
@@ -460,7 +591,8 @@ class D3CASolver(Solver):
                                       local_backend=self.local_backend,
                                       w0=w0, alpha0=alpha0,
                                       index_source=self.index_source,
-                                      row_gate=row_gate, cache=cache)
+                                      row_gate=row_gate, cache=cache,
+                                      **self._comm_kw())
 
 
 @register_solver
@@ -473,7 +605,7 @@ class RADiSASolver(Solver):
                                         local_backend=self.local_backend,
                                         w0=w0,
                                         index_source=self.index_source,
-                                        cache=cache)
+                                        cache=cache, **self._comm_kw())
 
 
 @register_solver
@@ -489,7 +621,7 @@ class SFKSolver(Solver):
         return sfk_simulated_program(loss, data, cfg,
                                      local_backend=self.local_backend,
                                      w0=w0, index_source=self.index_source,
-                                     cache=cache)
+                                     cache=cache, **self._comm_kw())
 
 
 @register_solver
@@ -501,4 +633,5 @@ class ADMMSolver(Solver):
     config_cls = ADMMConfig
 
     def _simulated_program(self, loss, data, cfg, w0, alpha0, cache=None):
-        return admm_simulated_program(loss, data, cfg, w0=w0, cache=cache)
+        return admm_simulated_program(loss, data, cfg, w0=w0, cache=cache,
+                                      **self._comm_kw())

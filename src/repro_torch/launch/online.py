@@ -24,10 +24,13 @@ The stream is the reference CLI's: numpy's generator seeded by
 with ``w*`` evenly spaced in [-1, 1].  The per-round objective over the
 filled rows is computed on the device, where the window lies.
 
-The flags of layers that are not ported yet (the mesh engines, staleness,
-compression and topology, tracing, metrics and the observability plane)
-are still parsed, so that asking for one fails by name instead of being
-ignored.
+``--compression SPEC`` and ``--topology SPEC`` go into every update's
+solve verbatim (each update starts from zero error feedback, as the
+reference's does).  The flags of layers that are not ported yet (the mesh
+engines, tracing, metrics and the observability plane) are still parsed,
+so that asking for one fails by name instead of being ignored;
+``--staleness N > 0`` needs the async engines and is refused as the
+optimizer CLI refuses it.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import numpy as np
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import get_loss, get_solver
 from repro_torch.core.solver import not_ported_message
+from repro_torch.launch.optimize import add_comm_flags, check_staleness
 from repro_torch.online import OnlineConfig, OnlineSolverService
 
 #: flags of the reference CLI whose layer is not ported: (flag, argparse
@@ -48,9 +52,6 @@ from repro_torch.online import OnlineConfig, OnlineSolverService
 _NOT_PORTED_FLAGS = (
     ("--engine", "engine", "simulated"),
     ("--force-host-devices", "force_host_devices", None),
-    ("--staleness", "staleness", 0),
-    ("--compression", "compression", None),
-    ("--topology", "topology", None),
     ("--trace", "trace", None),
     ("--metrics", "metrics", False),
     ("--max-staleness", "max_staleness", 60.0),
@@ -107,17 +108,16 @@ def build_parser():
                     help="persist published versions here (and recover "
                          "from the newest before streaming)")
     ap.add_argument("--json-out", default=None)
+    add_comm_flags(ap)
     # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
     ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
     for flag, typ, unset in (("--force-host-devices", int, None),
-                             ("--staleness", int, 0),
                              ("--flight-capacity", int, None),
                              ("--max-staleness", float, 60.0),
                              ("--max-lag", float, 10_000)):
         ap.add_argument(flag, type=typ, default=unset,
                         help=argparse.SUPPRESS)
-    for flag in ("--compression", "--topology", "--trace", "--listen",
-                 "--flight-recorder"):
+    for flag in ("--trace", "--listen", "--flight-recorder"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     for flag in ("--metrics", "--health"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -129,6 +129,7 @@ def parse_args(argv=None):
     layer is not ported, or an unknown solver."""
     ap = build_parser()
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    check_staleness(ap, args)
     for flag, dest, unset in _NOT_PORTED_FLAGS:
         if getattr(args, dest) != unset:
             ap.error(not_ported_message(dest,
@@ -152,7 +153,8 @@ def run(args, on_start=None, on_round=None):
     config = OnlineConfig(
         m=args.m, capacity=args.capacity, P=P, Q=Q, loss=args.loss,
         solver=args.solver, local_backend=args.backend,
-        block_format=args.block_format,
+        block_format=args.block_format, compression=args.compression,
+        topology=args.topology,
         solver_cfg=cls.config_cls(lam=args.lam), passes=args.passes,
         queue_capacity=args.queue_capacity)
     # raises when the card is asked for (the default) and there is none

@@ -30,9 +30,17 @@ Prints one line per outer iteration (objective, duality gap when the
 solver has a dual, relative optimality when --ref-epochs > 0) and a
 final JSON summary.
 
-The flags of layers that are not ported yet (mesh engines, staleness,
-compression, topology, tracing and the observability plane) are still
-parsed, so that asking for one fails by name instead of being ignored.
+  # compressed and hierarchical reductions (exact bytes-on-wire in the
+  # summary): int8 codecs with error feedback on every collective, and
+  # pods of 2 row partitions with an int8 codec across pods
+  PYTHONPATH=src python -m repro_torch.launch.optimize \\
+      --solver d3ca --mesh 4x2 --n 200 --m 60 --iters 4 \\
+      --compression int8 --topology pods=2:int8 --device cpu
+
+The flags of layers that are not ported yet (mesh engines, tracing and
+the observability plane) are still parsed, so that asking for one fails
+by name instead of being ignored; ``--staleness N > 0`` needs the async
+engines and is refused as the reference refuses it on the grid engine.
 """
 from __future__ import annotations
 
@@ -57,9 +65,6 @@ DENSE_REF_LIMIT = 20_000_000
 #: means "not asked for")
 _NOT_PORTED_FLAGS = (
     ("--engine", "engine", "simulated"),
-    ("--staleness", "staleness", 0),
-    ("--compression", "compression", None),
-    ("--topology", "topology", None),
     ("--force-host-devices", "force_host_devices", None),
     ("--trace", "trace", None),
     ("--metrics", "metrics", False),
@@ -119,18 +124,53 @@ def build_parser():
                     help="N > 1: solve N synthetic instances (seeds seed "
                          ".. seed + N - 1) in ONE batched fleet solve "
                          "(repro_torch.fleet.FleetSolver)")
+    add_comm_flags(ap)
     # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
     ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
-    ap.add_argument("--staleness", type=int, default=0,
-                    help=argparse.SUPPRESS)
     ap.add_argument("--force-host-devices", type=int, default=None,
                     help=argparse.SUPPRESS)
-    for flag in ("--compression", "--topology", "--trace", "--listen",
-                 "--flight-recorder"):
+    for flag in ("--trace", "--listen", "--flight-recorder"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     for flag in ("--metrics", "--health"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return ap
+
+
+def add_comm_flags(ap):
+    """``--staleness`` / ``--compression`` / ``--topology``, as the
+    reference's CLIs take them."""
+    ap.add_argument("--staleness", type=int, default=0, metavar="TAU",
+                    help="async/overlap engines only (not ported): apply "
+                         "every declared reduction with delay TAU outer "
+                         "iterations; 0 = synchronous")
+    ap.add_argument("--compression", default=None, metavar="SPEC",
+                    help="compress the declared collectives: a codec for "
+                         "all of them ('int8', 'fp8', 'topk:0.1', "
+                         "'identity'), per-collective "
+                         "('w_contrib=int8,dalpha=identity'), or an "
+                         "adaptive schedule "
+                         "('adaptive[:topk:0.25->int8][@slope=..]') that "
+                         "switches codec stages as convergence flattens; "
+                         "codecs carry error feedback, and the summary "
+                         "reports exact bytes-on-wire (default: no "
+                         "compression)")
+    ap.add_argument("--topology", default=None, metavar="SPEC",
+                    help="hierarchical reductions, e.g. 'pods=2:int8': "
+                         "full-precision sums within each pod, "
+                         "codec-compressed across pods (default: flat)")
+
+
+def check_staleness(ap, args):
+    """The reference's refusal of ``--staleness`` outside the async /
+    overlap engines (the only engine here is the synchronous grid)."""
+    if args.staleness < 0:
+        ap.error(f"--staleness {args.staleness} is negative; the reduction "
+                 "delay tau must be >= 0 (0 = synchronous)")
+    if args.staleness > 0 and args.engine not in ("async", "overlap"):
+        ap.error(f"--staleness {args.staleness} only works with "
+                 f"--engine async or --engine overlap; --engine "
+                 f"{args.engine} applies every reduction synchronously "
+                 "(pass --engine async/overlap, or drop --staleness)")
 
 
 def main(argv=None):
@@ -138,6 +178,7 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
 
+    check_staleness(ap, args)
     for flag, dest, unset in _NOT_PORTED_FLAGS:
         if getattr(args, dest) != unset:
             ap.error(not_ported_message(dest,
@@ -152,7 +193,8 @@ def main(argv=None):
         return _fanout(ap, args, cls, P, Q)
     # raises when the card is asked for (the default) and there is none
     solver = cls(local_backend=args.backend, device=args.device,
-                 block_format=args.block_format)
+                 block_format=args.block_format,
+                 compression=args.compression, topology=args.topology)
     sparse_fmt = args.block_format == "sparse"
 
     if args.dataset == "dense":
@@ -191,13 +233,25 @@ def main(argv=None):
                                      y, w_ref, args.lam))
 
     cfg = _config(cls, args)
-    print(f"[optimize] {args.solver} engine={solver.engine} "
+    comp = (f" compression={solver.compression_spec}"
+            if solver.compression is not None else "")
+    if solver.topology is not None:
+        comp += f" topology={solver.topology_spec}"
+    print(f"[optimize] {args.solver} engine={solver.engine}{comp} "
           f"backend={args.backend} device={solver.device} "
           f"block_format={solver.block_format} grid={P}x{Q} "
           f"{args.dataset}({X.shape[0]}x{X.shape[1]}) loss={args.loss} "
           f"lam={args.lam}")
     res = solver.solve(args.loss, X, y, P=P, Q=Q, cfg=cfg, tol=args.tol,
                        f_star=f_star)
+    if res.comm_bytes is not None:
+        acct = res.comm_bytes
+        detail = ", ".join(
+            f"{name}: {c['bytes_per_step']}B/step [{c['codec']}]"
+            for name, c in acct["collectives"].items())
+        print(f"[optimize] wire: {acct['bytes_per_step']} B/step "
+              f"(uncompressed {acct['uncompressed_bytes_per_step']}) -- "
+              f"{detail}")
     for h in res.history:
         line = (f"  t={h['iter']:3d}  {h['time_s']:7.2f}s  "
                 f"f={h['objective']:.6f}")
@@ -216,6 +270,12 @@ def main(argv=None):
         "objective": res.history[-1]["objective"] if res.history else None,
         "rel_opt": res.history[-1].get("rel_opt") if res.history else None,
         "total_s": res.history[-1]["time_s"] if res.history else None,
+        "staleness": res.staleness,
+        "compression": res.compression,
+        "topology": res.topology,
+        "comm_bytes_per_step": (res.comm_bytes or {}).get("bytes_per_step"),
+        "comm_bytes_total": (res.history[-1].get("comm_bytes")
+                             if res.history else None),
     }
     print(json.dumps(summary, indent=1))
     if args.json_out:
@@ -242,9 +302,15 @@ def _fanout(ap, args, cls, P, Q):
     if args.dataset == "libsvm":
         ap.error("--problems fans out synthetic instances; use --dataset "
                  "dense or sparse (one libsvm file is one problem)")
-    # raises when the card is asked for (the default) and there is none
-    fleet = FleetSolver(solver=args.solver, local_backend=args.backend,
-                        block_format=args.block_format, device=args.device)
+    try:
+        # raises when the card is asked for (the default) and there is
+        # none; refuses compression / topology as the reference does
+        fleet = FleetSolver(solver=args.solver, local_backend=args.backend,
+                            block_format=args.block_format,
+                            compression=args.compression,
+                            topology=args.topology, device=args.device)
+    except ValueError as e:
+        ap.error(str(e))
     probs = fleet_cli.make_tenants(args, count=args.problems,
                                    lam_of=lambda i: args.lam, prefix="p")
     cfg = _config(cls, args)

@@ -25,9 +25,13 @@ to finish before it reads the update's time and publishes, so that
 ``online/update_s`` and the snapshot's ``trained_at`` (the staleness
 zero point) count the work and not its launch.
 
-The reference's tracer spans and health monitor belong to ROADMAP queue A
-item 11 (observability), its mesh engines, staleness and compression to
-items 12 and 10; asking for any of them raises by name.
+``compression`` and ``topology`` go into every update's solve verbatim,
+as the reference threads them (the solver rebuilds its program under a
+codec, so each update starts from zero error feedback), and ``staleness``
+too (the solver refuses it on the grid engine with the reference's
+``ValueError``).  The reference's tracer spans and health monitor belong
+to ROADMAP queue A item 11 (observability), its mesh engines to item 12;
+asking for any of them raises by name.
 """
 from __future__ import annotations
 
@@ -59,8 +63,8 @@ class OnlineConfig:
       loss: loss name (see ``repro_torch.core.losses``).
       solver: registry name; must support row gating (``d3ca``).
       engine / local_backend / block_format / staleness / compression /
-        topology: the usual solver knobs (only ``engine="simulated"``,
-        no staleness, compression or topology in this port).
+        topology: the usual solver knobs, threaded verbatim (only
+        ``engine="simulated"`` in this port).
       solver_cfg: optional solver config (its ``outer_iters`` is
         overridden by ``passes`` for each update).
       passes: warm-started outer iterations per drained batch.
@@ -123,18 +127,17 @@ class OnlineSolverService:
                           ("monitor", monitor)):
             if val is not None:
                 raise not_ported(knob)
-        for knob, unset in (("engine", "simulated"), ("staleness", 0),
-                            ("compression", None), ("topology", None)):
-            if getattr(config, knob) != unset:
-                raise not_ported(knob, getattr(config, knob))
+        if config.engine != "simulated":
+            raise not_ported("engine", config.engine)
         self.config = config
         self.device = resolve_device(device)
         self.registry = registry if registry is not None else Registry()
         self.clock = clock
         self.solver = solver_cls(
             local_backend=config.local_backend,
-            block_format=config.block_format, device=self.device,
-            index_source=index_source)
+            block_format=config.block_format, staleness=config.staleness,
+            compression=config.compression, topology=config.topology,
+            device=self.device, index_source=index_source)
         self.queue = AdmissionQueue(capacity=config.queue_capacity)
         self.store = GridStore(config.m, config.capacity, config.P,
                                config.Q, device=self.device)

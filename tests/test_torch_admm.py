@@ -110,10 +110,11 @@ def test_admm_solver_matches_reference(block_format, backend):
 
 def test_admm_knobs_and_registry():
     assert get_solver("admm").config_cls is ADMMConfig
-    with pytest.raises(NotImplementedError, match="compression"):
-        get_solver("admm")(device="cpu", compression="int8")
-    with pytest.raises(NotImplementedError, match="topology"):
-        get_solver("admm")(device="cpu", topology="pods=2")
+    # the comm policies are ported: ADMM takes them as every solver does
+    s = get_solver("admm")(device="cpu", compression="int8",
+                           topology="pods=2")
+    assert (s.compression_spec, s.topology_spec) == ("int8",
+                                                     "pods=2:identity:ring")
     with pytest.raises(NotImplementedError, match="engine"):
         get_solver("admm")(engine="shard_map", device="cpu")
 

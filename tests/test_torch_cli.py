@@ -15,7 +15,10 @@ SMALL = ["--mesh", "3x2", "--n", "200", "--m", "60", "--iters", "3",
          "--device", "cpu"]
 SUMMARY_KEYS = {"solver", "engine", "local_backend", "device",
                 "block_format", "P", "Q", "n", "m", "loss", "lam", "iters",
-                "converged", "objective", "rel_opt", "total_s"}
+                "converged", "objective", "rel_opt", "total_s",
+                # the reference's comm fields (its summary has them too)
+                "staleness", "compression", "topology",
+                "comm_bytes_per_step", "comm_bytes_total"}
 
 
 
@@ -98,9 +101,15 @@ def test_cli_early_stop():
 @pytest.mark.parametrize("flags,named", [
     (["--engine", "shard_map"], "--engine"),
     (["--engine", "async", "--staleness", "2"], "--engine"),
-    (["--staleness", "1"], "--staleness"),
-    (["--compression", "int8"], "--compression"),
-    (["--topology", "pods=2:int8"], "--topology"),
+    # staleness needs the async engines: the reference's refusal
+    pytest.param(["--staleness", "1"],
+                 "--staleness 1 only works with --engine async",
+                 id="flags2---staleness"),
+    # the comm policies are ported; beside a mesh engine the engine is not
+    pytest.param(["--compression", "int8", "--engine", "async"], "--engine",
+                 id="flags3---compression"),
+    pytest.param(["--topology", "pods=2:int8", "--engine", "shard_map"],
+                 "--engine", id="flags4---topology"),
     (["--block-format", "sparse", "--engine", "shard_map"], "--engine"),
     (["--block-format", "csc"], "--block-format"),
     (["--dataset", "libsvm"], "--dataset libsvm needs --libsvm-path"),
@@ -112,9 +121,9 @@ def test_cli_early_stop():
     (["--listen", "127.0.0.1:0"], "--listen"),
     (["--health"], "--health"),
     (["--flight-recorder", "fr"], "--flight-recorder"),
-    # ADMM is ported; its comm and mesh knobs are not
-    pytest.param(["--solver", "admm", "--compression", "int8"],
-                 "--compression", id="flags15-admm"),
+    # ADMM and its comm policies are ported; its mesh knobs are not
+    pytest.param(["--solver", "admm", "--compression", "int8", "--engine",
+                  "shard_map"], "--engine", id="flags15-admm"),
     pytest.param(["--solver", "admm", "--block-format", "sparse",
                   "--engine", "shard_map"], "--engine", id="flags16-admm"),
     (["--solver", "nope"], "unknown solver"),
@@ -127,7 +136,8 @@ def test_cli_rejects_unported_flags_by_name(flags, named, capsys):
     err = capsys.readouterr().err
     assert named in err
     if named not in ("unknown solver", "--backend", "--block-format",
-                     "--dataset libsvm needs --libsvm-path", "--problems"):
+                     "--dataset libsvm needs --libsvm-path", "--problems",
+                     "--staleness 1 only works with --engine async"):
         assert "ROADMAP" in err
 
 
@@ -135,9 +145,13 @@ def test_cli_rejects_unported_flags_by_name(flags, named, capsys):
     (dict(engine="shard_map"), "engine='shard_map'"),
     (dict(engine="async"), "engine='async'"),
     (dict(block_format="sparse", engine="shard_map"), "engine='shard_map'"),
-    (dict(staleness=2), "staleness=2"),
-    (dict(compression="int8"), "compression='int8'"),
-    (dict(topology="pods=2"), "topology='pods=2'"),
+    # staleness and the comm policies beside an engine that is not ported
+    pytest.param(dict(staleness=2, engine="async"), "engine='async'",
+                 id="kw3-staleness=2"),
+    pytest.param(dict(compression="int8", engine="shard_map"),
+                 "engine='shard_map'", id="kw4-compression='int8'"),
+    pytest.param(dict(topology="pods=2", engine="overlap"),
+                 "engine='overlap'", id="kw5-topology='pods=2'"),
 ])
 def test_solver_rejects_unported_knobs_by_name(kw, named):
     with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
@@ -153,8 +167,9 @@ def test_solver_rejects_unported_calls_by_name():
                dict(monitor=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             solver.solve("hinge", X, y, P=2, Q=2, cfg=cfg, **kw)
-    with pytest.raises(NotImplementedError, match="compression='int8'"):
-        get_solver("admm")(device="cpu", compression="int8")
+    with pytest.raises(NotImplementedError, match="engine='async'"):
+        get_solver("admm")(device="cpu", engine="async",
+                           compression="int8")
     with pytest.raises(KeyError, match="available"):
         get_solver("nope")
     with pytest.raises(ValueError, match="local_backend"):

@@ -43,7 +43,11 @@ def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
               "repro_torch.configs.qwen3_1_7b", "repro_torch.online.queue",
               "repro_torch.online.store", "repro_torch.online.snapshot",
               "repro_torch.online.service", "repro_torch.checkpoint.manager",
-              "repro_torch.serve.scoring", "repro_torch.launch.online"):
+              "repro_torch.serve.scoring", "repro_torch.launch.online",
+              "repro_torch.core.compress", "repro_torch.core.compress.codecs",
+              "repro_torch.core.compress.policy",
+              "repro_torch.core.compress.executor",
+              "repro_torch.core.comm_model"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -419,9 +419,14 @@ def test_service_recover_after_restart(tmp_path):
     (dict(mesh=object()), "mesh"), (dict(tracer=object()), "tracer"),
     (dict(monitor=object()), "monitor"),
     (dict(engine="shard_map"), "engine='shard_map'"),
-    (dict(staleness=2), "staleness=2"),
-    (dict(compression="int8"), "compression='int8'"),
-    (dict(topology="pods=2"), "topology='pods=2'")])
+    # staleness and the comm policies are threaded to the solver; beside
+    # a mesh engine the engine is refused by name
+    pytest.param(dict(staleness=2, engine="async"), "engine='async'",
+                 id="kw4-staleness=2"),
+    pytest.param(dict(compression="int8", engine="shard_map"),
+                 "engine='shard_map'", id="kw5-compression='int8'"),
+    pytest.param(dict(topology="pods=2", engine="overlap"),
+                 "engine='overlap'", id="kw6-topology='pods=2'")])
 def test_service_refuses_unported_knobs_by_name(kw, named):
     svc_kw = {k: kw.pop(k) for k in ("mesh", "tracer", "monitor") if k in kw}
     with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
@@ -490,9 +495,13 @@ def test_online_cli_on_the_cpu_persists_and_recovers(tmp_path, capsys):
 @pytest.mark.parametrize("flags,named", [
     (["--engine", "shard_map"], "'Multi-device engines'"),
     (["--force-host-devices", "4"], "'Multi-device engines'"),
-    (["--staleness", "2"], "'Comm policies"),
-    (["--compression", "int8"], "'Comm policies"),
-    (["--topology", "pods=2"], "'Comm policies"),
+    pytest.param(["--staleness", "2"],
+                 "--staleness 2 only works with --engine async",
+                 id="flags2-'Comm policies"),
+    pytest.param(["--compression", "int8", "--engine", "async"],
+                 "'Multi-device engines'", id="flags3-'Comm policies"),
+    pytest.param(["--topology", "pods=2", "--engine", "shard_map"],
+                 "'Multi-device engines'", id="flags4-'Comm policies"),
     (["--trace", "t.json"], "'Observability'"),
     (["--metrics"], "'Observability'"),
     (["--health"], "'Observability'"),
