@@ -65,8 +65,11 @@ JSON; any failure is an exception and a non-zero exit:
                       the dense instance's width: a window of 14 000 x
                       12 000 on the card, 30 rounds of 500 rows (the ring
                       wraps at round 28), two gated D3CA passes an update
-                      (60 B1 launches, cluster at G = 1), the launches of
-                      three rounds against the plain version, frozen duals
+                      on the solver's timed path (the service's registry
+                      goes to ``Solver.update``, which calibrates first:
+                      30 x (2 + 8) B1 launches, cluster at G = 1), the
+                      passes of three rounds against the plain version,
+                      frozen duals
                       outside each batch, recovery from the checkpoints
                       bitwise; the all-ones gate bitwise the ungated solve;
                       update, swap, scoring and checkpoint times
@@ -88,6 +91,23 @@ JSON; any failure is an exception and a non-zero exit:
                       solve against the plain version), sparse D3CA int8
                       and RADiSA topk:0.1 on the news20 profile; ms per
                       outer iteration under each codec
+  obs_full            the observability slice at full width: D3CA at
+                      Part 1 through the CLI under --trace --metrics
+                      --health --flight-recorder --listen 127.0.0.1:0
+                      (/metrics parsed and /healthz read during the
+                      solve, the span tree, exact registry counts, w
+                      bitwise the untraced solve, B1's 10 + 8 + 20
+                      launches and its first and last cell launch
+                      against the plain version), RADiSA int8 with a
+                      tracer and a registry (B2's 18 ring launches, the
+                      error-feedback norms, codec times), the online CLI
+                      under its telemetry flags and again with untimed
+                      updates (update ms and staleness both ways), four
+                      dense D3CA fleet tenants under the fleet CLI's
+                      flags, and 4 Qwen3 requests through the serving CLI
+                      under --trace --health --flight-recorder beside an
+                      untraced run (28 flash launches a prefill span,
+                      tok/s both ways)
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       Qwen3 / RWKV6: port on the card (kernels) vs port on
                       the CPU, in float32, and a reduced Qwen3 prefill in
@@ -140,6 +160,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import gc
 import importlib
@@ -151,6 +172,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -164,7 +186,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.svm_paper import REAL_DATASETS  # noqa: E402
 from repro_torch.core import (ArrayIndexSource, D3CAConfig,  # noqa: E402
                               GeneratorIndexSource, RADiSAConfig, SFKConfig,
-                              ell_gather, ell_scatter_add, get_loss,
+                              Solver, ell_gather, ell_scatter_add, get_loss,
                               get_solver, objective, partition,
                               partition_sparse, serial_sdca)
 from repro_torch.core.compress import (Codec, Int8Codec,  # noqa: E402
@@ -203,6 +225,10 @@ from repro_torch.launch import online as online_cli  # noqa: E402
 from repro_torch.launch import optimize  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Transformer, reduced  # noqa: E402
+from repro_torch.obs import (HealthMonitor, ObsServer,  # noqa: E402
+                             Registry, Tracer, load_bundle,
+                             parse_prometheus_text)
+from repro_torch.serve import InferenceEngine  # noqa: E402
 from repro_torch.models.transformer import tree_map  # noqa: E402
 from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
                                      make_paged_arenas)
@@ -210,7 +236,8 @@ from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
 MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
               "serve_rwkv6_full", "fleet_dense_full", "fleet_sparse_full",
-              "admm_full", "online_full", "online_sparse_full", "comm_full")
+              "admm_full", "online_full", "online_sparse_full", "comm_full",
+              "obs_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -2073,13 +2100,15 @@ def phase_fleet_sparse_full(solos):
 
 
 @contextlib.contextmanager
-def tap(name, on_launch):
-    """Pass every call of the SDCA wrapper ``name`` that the cell-local
-    solvers make (``core/local.py`` takes it from
-    ``repro_torch.kernels.sdca`` at each call) on to the real wrapper,
-    then hand ``on_launch(args, kwargs, outputs)`` what it got and gave.
-    The wrapper's counters are untouched; restored on exit."""
-    pkg = importlib.import_module("repro_torch.kernels.sdca")
+def tap(name, on_launch, module="repro_torch.kernels.sdca"):
+    """Pass every call of the kernel wrapper ``name`` that its callers
+    take from ``module`` (``core/local.py`` takes the solver kernels from
+    ``repro_torch.kernels.sdca`` / ``.svrg`` at each call, the model
+    takes flash attention from ``repro_torch.models.attention``) on to
+    the real wrapper, then hand ``on_launch(args, kwargs, outputs)`` what
+    it got and gave.  The wrapper's counters are untouched; restored on
+    exit."""
+    pkg = importlib.import_module(module)
     real = getattr(pkg, name)
 
     def wrapper(*args, **kw):
@@ -2114,10 +2143,13 @@ def phase_online_full():
     window of N x M on the card, 7 x 4 cells of 2000 x 3003, batches of
     ONLINE_BATCH rows (the ring wraps at round N / ONLINE_BATCH, so the
     overwritten rows are gated on with a stale warm-start alpha), two
-    gated D3CA passes an update.  Checks: ONLINE_ROUNDS * ONLINE_PASSES B1
-    launches, all cluster at G = 1, each gating on exactly the batch's
-    rows; those of the rounds ONLINE_CHECKED against the plain version
-    (MAIN_TOL relative to the largest entry); alpha outside each update's
+    gated D3CA passes an update, each update on the solver's timed path
+    (the service's registry goes to ``Solver.update``, which calibrates
+    the update's program first: OBS_CALIB more launches).  Checks:
+    ONLINE_ROUNDS * (ONLINE_PASSES + OBS_CALIB) B1 launches, all cluster
+    at G = 1, each gating on exactly the batch's rows; the passes of the
+    rounds ONLINE_CHECKED against the plain version (MAIN_TOL relative to
+    the largest entry); alpha outside each update's
     touched rows equal to its warm start; objective over the filled rows
     below round 1's, accuracy over ONLINE_MIN_ACC; a second run on the
     same checkpoint directory recovers the last version with w bitwise;
@@ -2126,9 +2158,10 @@ def phase_online_full():
     state = {"round": 0}
 
     def check_taken():
-        # (b) each launch of a checked round against its plain version,
-        # after the round's update was timed
-        for r, args, kw, out in taken:
+        # (b) each pass of a checked round against its plain version,
+        # after the round's update was timed (the calibration's launches
+        # come first: the passes are the last ONLINE_PASSES)
+        for r, args, kw, out in taken[-ONLINE_PASSES:]:
             checked.append({"round": r, **main_check(
                 f"online_full round {r} sdca_epoch", out,
                 sdca_epoch_plain(*args, **kw))})
@@ -2185,7 +2218,7 @@ def phase_online_full():
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         check_taken()
-        want = ONLINE_ROUNDS * ONLINE_PASSES
+        want = ONLINE_ROUNDS * (ONLINE_PASSES + OBS_CALIB)
         launched = launch_counts()["sdca_epoch"] - c0["sdca_epoch"]
         at_g1 = sdca_epoch.launches_by_cluster[1] - g0[1]
         if launched != want or at_g1 != want:
@@ -2263,7 +2296,8 @@ def phase_online_full():
     del svc, X, y, plain, ones, last, rec, got
     gc.collect()
     torch.cuda.empty_cache()
-    return {"sdca_epoch": want + 2 * ONLINE_PASSES + 2 * cfg.outer_iters}
+    return {"sdca_epoch": want + 2 * (ONLINE_PASSES + OBS_CALIB)
+            + 2 * cfg.outer_iters}
 
 
 def phase_online_sparse_full():
@@ -2767,6 +2801,424 @@ def phase_serve_rwkv6_full():
     return {"rwkv_linattn": 32}
 
 
+# ---------------------------------------------------------------------------
+# obs_full: the timed (traced / registered) paths at full width
+# ---------------------------------------------------------------------------
+
+#: steps ``obs/phases.py::calibrate_phases`` makes from a program's initial
+#: state on the timed path: a warm-up and 3 timed calls of ``step``, then
+#: of ``local_step`` -- each one launch of the solver kernel
+OBS_CALIB = 2 * (1 + 3)
+#: the outer iteration of the traced CLI solve during which the endpoint
+#: is scraped (from inside the solve, through the monitor's poll)
+OBS_FETCH_AT = 5
+OBS_ONLINE_ROUNDS = 10
+#: scoring rows a round of the online runs (not a width: the stream's rows
+#: are made on the host, and 4096 a round would dominate the phase)
+OBS_SCORE_BATCH = 512
+OBS_SERVE_REQUESTS = 4
+OBS_SERVE_ARGV = [a if a != "16" else str(OBS_SERVE_REQUESTS)
+                  for a in QWEN3_ARGV]
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """Set ``owner.name`` to ``value`` for the block; restored on exit."""
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield real
+    finally:
+        setattr(owner, name, real)
+
+
+def first_last(keep):
+    """An ``on_launch`` for :func:`tap` keeping the first and the last
+    launch's (args, kwargs, outputs) in ``keep``."""
+    def on_launch(args, kw, out):
+        if not keep:
+            keep.append((args, kw, out))
+        keep[1:] = [(args, kw, out)]
+    return on_launch
+
+
+def held_first_last(label, keep, plain):
+    """The first and last kept launch against the plain version."""
+    if len(keep) != 2:
+        raise AssertionError(f"{label}: kept {len(keep)} launches")
+    return [main_check(f"{label} {which}", out, plain(*args, **kw))
+            for which, (args, kw, out) in zip(("first", "last"), keep)]
+
+
+def read_jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def fetch(url):
+    """(status, body) of one GET on the loopback endpoint."""
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.status, r.read().decode()
+
+
+def bitwise(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def obs_setup():
+    """What ``obs_full`` is held against, made before its counters go to
+    0: the untraced dense D3CA solve of the CLI's seed (its w, and ms per
+    outer iteration of its program by CUDA events) and f* of every fleet
+    tenant (serial SDCA, REF_EPOCHS epochs)."""
+    Xn, yn = make_svm_data(N, M, seed=0)
+    X, y = torch.as_tensor(Xn, device="cuda"), torch.as_tensor(
+        yn, device="cuda")
+    del Xn, yn
+    cfg = D3CAConfig(lam=LAM, outer_iters=OUTER_ITERS)
+    solver = get_solver("d3ca")()
+    w = solver.solve("hinge", X, y, P=P, Q=Q, cfg=cfg,
+                     record_history=False).w
+    ms = time_program(solver.program("hinge", X, y, P=P, Q=Q, cfg=cfg))
+    f_star = {}
+    for t in fleet_tenants(False):
+        Xt = torch.as_tensor(t.X, device="cuda")
+        yt = torch.as_tensor(t.y, device="cuda")
+        w_ref, _ = serial_sdca("hinge", Xt, yt, lam=t.lam,
+                               epochs=REF_EPOCHS)
+        f_star[t.tenant_id] = float(objective("hinge", Xt, yt, w_ref,
+                                              t.lam))
+        del Xt, yt, w_ref
+    torch.cuda.synchronize()
+    return {"X": X, "y": y, "w": w, "untraced_ms": ms, "f_star": f_star}
+
+
+def obs_d3ca_cli(setup, tmp):
+    """Dense D3CA at Part 1 through ``optimize.main`` under every
+    telemetry flag: the endpoint scraped during the solve, the span tree,
+    the registry, w bitwise the untraced solve, B1's launches exact and
+    its first and last cell launch against the plain version."""
+    trace = os.path.join(tmp, "d3ca.json")
+    bundle = os.path.join(tmp, "d3ca.bundle.json")
+    servers, scraped, results, keep = [], {}, [], []
+    polls = [0]
+
+    def start(self):
+        servers.append(self)
+        return real_start(self)
+
+    def poll(self):
+        status = real_poll(self)
+        polls[0] += 1
+        if polls[0] == OBS_FETCH_AT:
+            url = servers[0].url
+            code, text = fetch(url + "/metrics")
+            scraped["metrics"] = (code, parse_prometheus_text(text))
+            code, text = fetch(url + "/healthz")
+            scraped["healthz"] = (code, json.loads(text))
+        return status
+
+    def solve(self, *args, **kw):
+        res = real_solve(self, *args, **kw)
+        results.append(res)
+        return res
+
+    def on_launch(args, kw, out):
+        if tuple(args[0].shape[:2]) == (P, Q):    # the cells, not f*
+            first_last(keep)(args, kw, out)
+
+    g0 = dict(sdca_epoch.launches_by_cluster)
+    r0 = route_counts("sdca_epoch")
+    buf = io.StringIO()
+    with patched(ObsServer, "start", start) as real_start, \
+            patched(HealthMonitor, "poll", poll) as real_poll, \
+            patched(Solver, "solve", solve) as real_solve, \
+            tap("sdca_epoch", on_launch), contextlib.redirect_stdout(buf):
+        summary = optimize.main([
+            "--solver", "d3ca", "--mesh", f"{P}x{Q}", "--n", str(N),
+            "--m", str(M), "--lam", str(LAM), "--ref-epochs",
+            str(REF_EPOCHS), "--iters", str(OUTER_ITERS), "--trace", trace,
+            "--metrics", "--health", "--flight-recorder", bundle,
+            "--listen", "127.0.0.1:0"])
+    torch.cuda.synchronize()
+    labels = "{engine=simulated,solver=d3ca}"
+    # the endpoint, scraped from inside the solve
+    code, prom = scraped["metrics"]
+    hcode, health = scraped["healthz"]
+    if code != 200 or prom.get("solver_iters") is None or hcode != 200 \
+            or health["status"] != "ok":
+        raise AssertionError(f"obs_full d3ca: scrape {code} {prom}, "
+                             f"healthz {hcode} {health}")
+    # the span tree: 10 outer_iter, each with one step, one local_solve and
+    # one comm/<name> a collective, inside the step's interval
+    events = read_jsonl(os.path.splitext(trace)[0] + ".jsonl")
+    spans = [e for e in events if e["dur"] is not None]
+    outer = [e for e in spans if e["name"] == "outer_iter"]
+    if [e["args"]["iter"] for e in outer] != list(range(1, OUTER_ITERS + 1)):
+        raise AssertionError(f"obs_full d3ca: outer_iter spans {outer}")
+    colls = ("dalpha", "w_contrib")
+    for t in range(1, OUTER_ITERS + 1):
+        def of(name):
+            return [e for e in spans if e["name"] == name
+                    and e.get("args", {}).get("iter") == t]
+        (step,) = of("step")
+        inner = of("local_solve") + [c for n in colls for c in of(f"comm/{n}")]
+        if len(inner) != 1 + len(colls) or any(
+                e["ts"] < step["ts"] - 1e-9 or e["ts"] + e["dur"] >
+                step["ts"] + step["dur"] + 1e-9 for e in inner):
+            raise AssertionError(f"obs_full d3ca: iteration {t}: step "
+                                 f"{step}, inside it {inner}")
+    (calib,) = [e for e in spans if e["name"] == "calibrate"]
+    steps_ms = 1e3 * sum(e["dur"] for e in spans if e["name"] == "step")
+    # the registry
+    counters = summary["metrics"]["counters"]
+    per_step = summary["comm_bytes_per_step"]
+    if counters["solver/iters" + labels] != OUTER_ITERS \
+            or per_step != COMM_BYTES[None] \
+            or counters["solver/comm_bytes" + labels] != OUTER_ITERS \
+            * per_step:
+        raise AssertionError(f"obs_full d3ca: registry {counters}, "
+                             f"{per_step} B a step")
+    payload = load_bundle(bundle)
+    # bitwise the untraced solve; B1's launches exact
+    (res,) = results
+    if not bitwise(res.w, setup["w"]):
+        raise AssertionError("obs_full d3ca: the traced w is not bitwise "
+                             "the untraced solve's")
+    at = {g: sdca_epoch.launches_by_cluster[g] - g0[g] for g in g0}
+    by = {r: n - r0[r] for r, n in route_counts("sdca_epoch").items()}
+    want = {1: OUTER_ITERS + OBS_CALIB, 16: REF_EPOCHS}
+    if at != want or by["cluster"] != sum(want.values()):
+        raise AssertionError(f"obs_full d3ca: B1 by cluster size {at}, by "
+                             f"route {by}; expected {want}, all cluster")
+    checked = held_first_last("obs_full d3ca sdca_epoch", keep,
+                              sdca_epoch_plain)
+    h = res.history[0]
+    return {"local_frac": h["local_s"] / h["step_s"],
+            "calibration_s": calib["dur"],
+            "traced_ms_per_iter": steps_ms / OUTER_ITERS,
+            "untraced_ms_per_iter_cuda_events": setup["untraced_ms"],
+            "host_s_per_iter": statistics.median(
+                e["host_s"] for e in res.history),
+            "phases_line": [ln for ln in buf.getvalue().splitlines()
+                            if ln.startswith("[optimize] phases")],
+            "scrape": {"solver_iters_at_scrape": sum(
+                prom["solver_iters"].values()), "healthz": health["status"]},
+            "events": len(events),
+            # --trace wins over the recorder (``ObsPlane.tracer_or``, as
+            # in the reference): the exit bundle holds the metrics
+            "bundle_metrics": sorted(payload["metrics"]),
+            "comm_bytes": counters["solver/comm_bytes" + labels],
+            "w_bitwise_untraced": True, "launches_by_cluster": at,
+            "checked_launches": checked}
+
+
+def obs_radisa_int8(setup):
+    """RADiSA under int8 through ``get_solver`` with a tracer and a
+    registry: a comm span per collective and iteration, finite non-zero
+    error-feedback norms, the codec timings, B2 exact on ``ring``."""
+    tr, reg = Tracer(), Registry()
+    keep = []
+    r0 = route_counts("svrg_inner")
+    with tap("svrg_inner", first_last(keep), "repro_torch.kernels.svrg"):
+        res = get_solver("radisa")(compression="int8").solve(
+            "hinge", setup["X"], setup["y"], P=P, Q=Q,
+            cfg=RADiSAConfig(lam=LAM, outer_iters=OUTER_ITERS), tracer=tr,
+            registry=reg)
+    torch.cuda.synchronize()
+    by = {r: n - r0[r] for r, n in route_counts("svrg_inner").items()}
+    if by["ring"] != OUTER_ITERS + OBS_CALIB or sum(by.values()) != by["ring"]:
+        raise AssertionError(f"obs_full radisa: B2 by route {by}")
+    names = ("z", "grad", "dw")
+    spans = {n: len(tr.spans(f"comm/{n}")) for n in names}
+    gauges = reg.snapshot()["gauges"]
+    lab = "{engine=simulated,solver=radisa}"
+    ef = {n: gauges[f"compress/ef_norm/{n}{lab}"] for n in names}
+    codec_s = {n: gauges[f"compress/codec_s/{n}{lab}"] for n in names}
+    if set(spans.values()) != {OUTER_ITERS} or not all(
+            np.isfinite(v) and v > 0 for v in ef.values()):
+        raise AssertionError(f"obs_full radisa: comm spans {spans}, EF "
+                             f"norms {ef}")
+    h = res.history[0]
+    return {"comm_spans": spans, "ef_norm": ef, "codec_s": codec_s,
+            "local_frac": h["local_s"] / h["step_s"],
+            "traced_ms_per_iter": 1e3 * tr.total("step") / OUTER_ITERS,
+            "objective_last": res.history[-1]["objective"],
+            "launches_ring": by["ring"],
+            "checked_launches": held_first_last(
+                "obs_full radisa svrg_inner", keep, svrg_inner_plain)}
+
+
+def obs_online(tmp):
+    """The online CLI at the ``online_full`` width under ``--trace
+    --metrics --health --max-staleness 60 --max-lag 10000``: the spans of
+    every round, the monitor OK; then the same stream with ``update``
+    given no registry (nor tracer), the untimed path, to read both ways'
+    update ms (CUDA events) and staleness."""
+    argv = [a if a != "4096" else str(OBS_SCORE_BATCH) for a in ONLINE_ARGV]
+    argv += ["--rounds", str(OBS_ONLINE_ROUNDS)]
+    runs = {}
+    for way in ("registry", "none"):
+        events, stale = [], []
+        trace = os.path.join(tmp, f"online-{way}.json")
+
+        def on_start(svc, way=way, events=events):
+            real = svc.solver.update
+
+            def timed(*args, **kw):
+                if way == "none":
+                    kw = {**kw, "registry": None, "tracer": None}
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                res = real(*args, **kw)
+                e.record()
+                events.append((s, e))
+                return res
+            svc.solver.update = timed
+
+        def on_round(r, svc, rec, stale=stale):
+            stale.append(rec["staleness_s"])
+            svc.score(np.ones((4, M), np.float32))   # an online/score span
+
+        flags = ([] if way == "none" else
+                 ["--trace", trace, "--metrics", "--health",
+                  "--max-staleness", "60", "--max-lag", "10000"])
+        summary = run_online([*argv, *flags], on_start, on_round)
+        runs[way] = {"summary": summary,
+                     "update_ms": [s.elapsed_time(e) for s, e in events],
+                     "staleness_s": stale}
+    got = runs["registry"]
+    summary = got["summary"]
+    tops = [e["name"] for e in read_jsonl(os.path.join(
+        tmp, "online-registry.jsonl")) if e["depth"] == 0]
+    want = ["online/ingest", "online/update", "online/swap",
+            "online/score"] * OBS_ONLINE_ROUNDS
+    crit = {k: v for k, v in summary["metrics"]["counters"].items()
+            if k.startswith("health/transitions") and "status=crit" in k}
+    if tops != want or summary["obs"]["health"]["status"] != "ok" or crit:
+        raise AssertionError(f"obs_full online: spans {tops}, health "
+                             f"{summary['obs']['health']}, {crit}")
+    return {way: {"update_ms_p50": statistics.median(r["update_ms"]),
+                  "update_ms_all": r["update_ms"],
+                  "staleness_s_p50": statistics.median(r["staleness_s"])}
+            for way, r in runs.items()} | {
+        "health": summary["obs"]["health"]["status"]}
+
+
+def obs_fleet(setup, tmp):
+    """Four dense D3CA tenants through the fleet CLI under ``--trace
+    --metrics --health --min-tenants 2`` (each tenant given its f*): the
+    fleet spans, ``fleet/rel_opt`` per tenant, the monitor OK."""
+    trace = os.path.join(tmp, "fleet.json")
+    argv = [*fleet_argv("d3ca", False), "--trace", trace, "--metrics",
+            "--health", "--min-tenants", "2"]
+
+    def tenants(args, **kw):
+        return [dataclasses.replace(t, f_star=setup["f_star"][t.tenant_id])
+                for t in fleet_tenants(False)]
+    buf = io.StringIO()
+    with patched(fleet_cli, "make_tenants", tenants), \
+            contextlib.redirect_stdout(buf):
+        summary = fleet_cli.run(fleet_cli.parse_args(argv))
+    torch.cuda.synchronize()
+    names = [e["name"] for e in read_jsonl(os.path.splitext(trace)[0]
+                                           + ".jsonl")]
+    count = {n: names.count(n) for n in ("fleet/pack", "fleet/step",
+                                         "fleet/unpack")}
+    gauges = summary["metrics"]["gauges"]
+    rel = {k: v for k, v in gauges.items() if k.startswith("fleet/rel_opt")}
+    if count != {"fleet/pack": 1, "fleet/step": OUTER_ITERS,
+                 "fleet/unpack": OUTER_ITERS} \
+            or len(rel) != FLEET_T_DENSE \
+            or not all(np.isfinite(v) for v in rel.values()) \
+            or summary["obs"]["health"]["status"] != "ok":
+        raise AssertionError(f"obs_full fleet: spans {count}, rel_opt "
+                             f"{rel}, health {summary['obs']['health']}")
+    return {"spans": count, "rel_opt": rel,
+            "solves_per_s": summary["solves_per_s"]}
+
+
+def obs_serve(tmp):
+    """Qwen3-1.7B (all 28 layers) through the serving CLI under
+    ``--trace --health --flight-recorder``, the first OBS_SERVE_REQUESTS
+    requests of ``serve_qwen3_full``'s mix, between two untraced runs of
+    the same requests (the first one warms the process up; tok/s is
+    compared with the second): a prefill span per request with 28 flash
+    launches each, a finish instant per request, the first and last flash
+    launch of the traced run against the plain version."""
+    _, text, _ = run_serve(OBS_SERVE_ARGV)
+    cold = serve_json(text)
+    trace = os.path.join(tmp, "serve.json")
+    bundle = os.path.join(tmp, "serve.bundle.json")
+    per_prefill, keep = [], []
+
+    def prefill(self, *args, **kw):
+        n0 = flash_attention.launches
+        out = real_prefill(self, *args, **kw)
+        per_prefill.append(flash_attention.launches - n0)
+        return out
+    with patched(InferenceEngine, "_prefill", prefill) as real_prefill, \
+            tap("flash_attention", first_last(keep),
+                "repro_torch.models.attention"):
+        outputs, text, wall = run_serve([*OBS_SERVE_ARGV, "--trace", trace,
+                                         "--health", "--flight-recorder",
+                                         bundle])
+    traced = serve_json(text)
+    _, text, _ = run_serve(OBS_SERVE_ARGV)
+    plain = serve_json(text)
+    with open(trace) as fh:
+        evs = json.load(fh)["traceEvents"]
+    prefills = sum(e["name"] == "prefill" and e["ph"] == "X" for e in evs)
+    finishes = sum(e["name"] == "finish" and e["ph"] == "i" for e in evs)
+    n = OBS_SERVE_REQUESTS
+    if prefills != n or finishes != n or per_prefill != [28] * n \
+            or traced["requests_finished"] != n:
+        raise AssertionError(f"obs_full serve: {prefills} prefill spans, "
+                             f"{finishes} finish instants, flash launches "
+                             f"a prefill {per_prefill}")
+    checked = []
+    for which, (args, kw, out) in zip(("first", "last"), keep):
+        err = compare(f"obs_full serve flash {which}", [out],
+                      [flash_attention_plain(*args, **kw)],
+                      FLASH_TOL[torch.bfloat16])
+        checked.append({"max_abs_err": err, "shape": list(out.shape)})
+    return {"tokens_per_sec_traced": traced["tokens_per_sec"],
+            "tokens_per_sec_untraced": plain["tokens_per_sec"],
+            "tokens_per_sec_untraced_cold": cold["tokens_per_sec"],
+            "ttft_p50_s_traced": traced["ttft_s"]["p50"],
+            "ttft_p50_s_untraced": plain["ttft_s"]["p50"],
+            "prefill_spans": prefills, "finish_instants": finishes,
+            "bundle_schema_ok": bool(load_bundle(bundle)),
+            "checked_launches": checked, "wall_s": wall,
+            "prefills": cold["prefills"] + traced["prefills"]
+            + plain["prefills"]}
+
+
+def phase_obs_full(setup):
+    """The observability slice at full width, through the entry points a
+    user calls (see the docstrings of the ``obs_*`` parts)."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["d3ca_cli"] = obs_d3ca_cli(setup, tmp)
+        out["radisa_int8"] = obs_radisa_int8(setup)
+        setup.pop("X"), setup.pop("y")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["online"] = obs_online(tmp)
+        out["fleet"] = obs_fleet(setup, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve"] = obs_serve(tmp)
+    emit("obs_full", **out, wall_s=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sdca_epoch": sum(SDCA_SHAPE_LAUNCHES["obs_full"].values()),
+            "svrg_inner": OUTER_ITERS + OBS_CALIB,
+            "flash_attention": 28 * out["serve"]["prefills"]}
+
+
 #: B1's main-path shapes by the cluster size their launches take (counted
 #: by the wrapper where it launches): 1 CTA a D3CA cell, 16 a serial epoch
 SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
@@ -2778,20 +3230,31 @@ SDCA_SHAPE_LAUNCHES = {
     "fleet_dense_full": {"d3ca_cells": OUTER_ITERS},
     # two passes an update over 30 + 2 rounds, and 2 + 2 iterations of the
     # all-ones gate against no gate
-    "online_full": {"d3ca_cells": ONLINE_PASSES * (ONLINE_ROUNDS + 2) + 4},
+    # every update takes the timed path (the service's registry goes to
+    # Solver.update): two passes and a calibration of OBS_CALIB steps
+    # over 30 + 2 rounds, and 2 + 2 iterations of the all-ones gate
+    # against no gate
+    "online_full": {"d3ca_cells": (ONLINE_PASSES + OBS_CALIB)
+                    * (ONLINE_ROUNDS + 2) + 4},
     # 5 codecs + 2 controls + adaptive at 7 x 4, 3 topologies at 4 x 2, 2
     # CLI solves, and 2 x 4 timed programs of a warm-up and
     # COMM_TIMING_STEPS steps; f* for the adaptive schedule
     "comm_full": {"d3ca_cells": (len(COMM_CODECS) + 2 + 2 + 1 + 3 + 2)
                   * OUTER_ITERS + 2 * (len(COMM_CODECS) + 1)
                   * (COMM_TIMING_STEPS + 1),
-                  "serial": REF_EPOCHS}}
+                  "serial": REF_EPOCHS},
+    # the traced CLI solve (10 + a calibration; f* on 16), the online CLI
+    # twice (updates timed, then untimed), the fleet
+    "obs_full": {"d3ca_cells": OUTER_ITERS + OBS_CALIB + OBS_ONLINE_ROUNDS
+                 * (ONLINE_PASSES + OBS_CALIB) + OBS_ONLINE_ROUNDS
+                 * ONLINE_PASSES + OUTER_ITERS, "serial": REF_EPOCHS}}
 
 
 #: what a main path is held against that must be made before its counted
 #: window (the fleets' solo solves), handed to its phase
 PHASE_SETUP = {"fleet_dense_full": lambda: fleet_solos(False),
-               "fleet_sparse_full": lambda: fleet_solos(True)}
+               "fleet_sparse_full": lambda: fleet_solos(True),
+               "obs_full": obs_setup}
 
 
 def run_main_path(name, phase, results):

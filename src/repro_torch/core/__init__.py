@@ -1,6 +1,6 @@
 """Core: the paper's doubly distributed optimization algorithms."""
 from .admm import ADMMConfig, admm_simulated, admm_simulated_program
-from .comm import Collective, Comm, CommSchedule, SyncComm
+from .comm import Collective, Comm, CommSchedule, LocalComm, SyncComm
 from .comm_model import (LinkModel, Topology, as_topology, fit_link,
                          overlap_split, predict_comm_s)
 from .compress import (CompressedComm, CompressionPolicy,
@@ -25,7 +25,7 @@ from .util import resolve_device
 
 __all__ = [
     "ADMMConfig", "admm_simulated", "admm_simulated_program",
-    "Collective", "Comm", "CommSchedule", "SyncComm",
+    "Collective", "Comm", "CommSchedule", "LocalComm", "SyncComm",
     "LinkModel", "Topology", "as_topology", "fit_link", "overlap_split",
     "predict_comm_s",
     "CompressedComm", "CompressionPolicy", "CompressionSchedule",

@@ -190,6 +190,9 @@ def admm_simulated_program(loss: Loss, data, cfg: ADMMConfig, *,
                         lambda: grid_program(cellprog, Pn, Qn,
                                              compression=compression,
                                              topology=topology, device=dev))
+    local = cached_build(cache, "local",
+                         lambda: grid_program(cellprog, Pn, Qn,
+                                              comm_local=True, device=dev))
     w_init = (torch.zeros((Qn, data.m_q), device=dev) if w0 is None
               else data.w_to_blocks(w0))
     zeros_su = torch.zeros((Pn, Qn, data.n_p), device=dev)
@@ -202,7 +205,8 @@ def admm_simulated_program(loss: Loss, data, cfg: ADMMConfig, *,
         step=lambda t, st: step(t, gdata, st),
         w_of=lambda st: data.w_from_blocks(unwrap(st)[2]),
         comm_bytes=acct,
-        ef_of=(lambda st: st[1]) if full0 is not state0 else None)
+        ef_of=(lambda st: st[1]) if full0 is not state0 else None,
+        local_step=lambda t, st: local(t, gdata, unwrap(st)))
 
 
 def admm_simulated(loss_name: str, data, cfg: ADMMConfig, callback=None,

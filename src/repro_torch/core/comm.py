@@ -18,9 +18,10 @@ the reduction points explicit:
 
   * the engine picks the executor: :class:`SyncComm` applies every
     reduction immediately, optionally as a two-level hierarchical
-    reduction over pods (``set_topology``), and
+    reduction over pods (``set_topology``),
     :class:`~repro_torch.core.compress.CompressedComm` wraps it to run
-    every payload through its codec first.  The bounded-staleness and
+    every payload through its codec first, and :class:`LocalComm` runs
+    every point cell-locally (the timing twin of a step).  The bounded-staleness and
     overlapping executors of the reference serve its mesh engines only
     and come with them (ROADMAP queue A, multi-device engines).
 
@@ -145,9 +146,9 @@ class Comm:
         #: exact payload bytes one cell put on the wire, per collective
         #: (executors that shrink the payload -- CompressedComm -- record
         #: their own number; everyone else the uncompressed size).  The
-        #: solvers read the build-time ``wire_accounting``; this per-step
-        #: record's reader, the metrics registry, arrives with
-        #: observability (ROADMAP item 11)
+        #: solvers and the metrics registry (``solver/comm_bytes``) read
+        #: the build-time ``wire_accounting``, which the tests hold equal
+        #: to this per-step record
         self.wire_bytes: Dict[str, int] = {}
 
     # -- step-facing API -----------------------------------------------------
@@ -291,6 +292,30 @@ class SyncComm(Comm):
 
     def _exec(self, point: Collective, value):
         return self._reduce(point, value)
+
+
+class LocalComm(Comm):
+    """Collective-free executor for per-phase time attribution.
+
+    Every declared point runs CELL-LOCALLY with the result shape of
+    :meth:`SyncComm._reduce` and no reduction work: a psum or pmean over
+    a block axis returns the payload's first cell along it
+    (``value.select(dim, 0)``, made contiguous as a reduction's result
+    is: a copy of one cell's payload where the reduction reads all of
+    them), an allgather returns what ``SyncComm`` returns (a reordering
+    of the payload, which is no reduction).  The
+    numbers are wrong on purpose; a program built with this executor
+    (``EngineProgram.local_step``) is only ever timed, never consumed:
+    the difference between stepping the real program and this one is the
+    communication cost (:func:`repro_torch.obs.phases.calibrate_phases`).
+    The per-cell payload check of :class:`Comm` still applies.
+    """
+
+    def _exec(self, point: Collective, value):
+        dim = BLOCK_AXIS[point.axis]
+        if point.op == "allgather":
+            return value.movedim(dim, 1) if dim == 0 else value
+        return value.select(dim, 0).contiguous()
 
 
 def hier_ef_names(schedule: CommSchedule, topology) -> Tuple[str, ...]:

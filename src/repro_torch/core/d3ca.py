@@ -164,6 +164,9 @@ def d3ca_simulated_program(loss: Loss, data, cfg: D3CAConfig, *,
                         lambda: grid_program(cellprog, Pn, Qn,
                                              compression=compression,
                                              topology=topology, device=dev))
+    local = cached_build(cache, "local",
+                         lambda: grid_program(cellprog, Pn, Qn,
+                                              comm_local=True, device=dev))
 
     alpha_init = (torch.zeros((Pn, data.n_p), device=dev) if alpha0 is None
                   else data.alpha_to_blocks(alpha0))
@@ -179,7 +182,8 @@ def d3ca_simulated_program(loss: Loss, data, cfg: D3CAConfig, *,
         w_of=lambda s: data.w_from_blocks(unwrap(s)[1]),
         alpha_of=lambda s: data.alpha_from_blocks(unwrap(s)[0] * data.mask),
         comm_bytes=acct,
-        ef_of=(lambda s: s[1]) if full0 is not state0 else None)
+        ef_of=(lambda s: s[1]) if full0 is not state0 else None,
+        local_step=lambda t, s: local(t, gdata, unwrap(s)))
 
 
 def d3ca_simulated(loss_name: str, data, cfg: D3CAConfig,

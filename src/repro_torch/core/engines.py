@@ -29,11 +29,12 @@ in the shared outer loop (``drive`` / ``Solver.solve``).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional
 
 import torch
 
-from .comm import CommSchedule, SyncComm, hier_ef_names
+from .comm import CommSchedule, LocalComm, SyncComm, hier_ef_names
 from .comm_model import Topology, hierarchical_accounting
 from .compress import CompressedComm, as_policy, get_codec, wire_accounting
 from .util import resolve_device
@@ -58,9 +59,15 @@ class EngineProgram:
         ``repro_torch.core.compress.wire_accounting``), or None for a
         program built outside the grid binding.
       ef_of: ``state -> {collective: error-feedback residual}`` when the
-        program carries residuals (stateful codecs); None otherwise.  Its
-        reader outside the tests, the metrics registry, arrives with
-        observability (ROADMAP item 11).
+        program carries residuals (stateful codecs); None otherwise.  The
+        timed ``Solver.solve`` path reads it into the registry's
+        ``compress/ef_norm/<name>`` gauges.
+      local_step: ``(t, state) -> state``, the same cell program with
+        every collective run cell-locally
+        (:class:`~repro_torch.core.comm.LocalComm`), on the solver state
+        without any comm state; its result is wrong by design and only
+        ever timed (``repro_torch.obs.phases.calibrate_phases``).  None
+        for a program built outside the grid binding.
     """
 
     state: Any
@@ -69,19 +76,66 @@ class EngineProgram:
     alpha_of: Optional[Callable[[Any], torch.Tensor]] = None
     comm_bytes: Optional[dict] = None
     ef_of: Optional[Callable[[Any], dict]] = None
+    local_step: Optional[Callable[[int, Any], Any]] = None
 
 
-def drive(prog: EngineProgram, outer_iters: int, observe=None):
+def drive(prog: EngineProgram, outer_iters: int, observe=None, *,
+          tracer=None, on_step=None, monitor=None):
     """Run the outer loop.  ``observe(t, state) -> bool`` is called after
     every step; returning True stops early.  Returns
-    (final state, iterations run, stopped_early)."""
+    (final state, iterations run, stopped_early).
+
+    Telemetry (all optional, default off -- the untimed loop makes no
+    device sync and no launch beyond the steps' own):
+
+      * ``tracer`` -- a :class:`repro_torch.obs.Tracer`; each iteration
+        becomes an ``outer_iter`` span with ``step`` / ``observe``
+        children, and the step waits for the device inside its span, so
+        the span measures the step's device work, not its launches;
+      * ``on_step(t, t_begin, step_s)`` -- fires after every timed step
+        (the solver uses it to synthesize per-collective attribution
+        spans and per-iteration phase fields);
+      * ``monitor`` -- a :class:`repro_torch.obs.HealthMonitor`; its
+        rate-limited ``poll()`` runs once per iteration (health rules only
+        read the registry, so the iterates are untouched).
+    """
+    tracing = tracer is not None and getattr(tracer, "enabled", False)
     state = prog.state
     done = 0
+    if not tracing and on_step is None:
+        for t in range(1, outer_iters + 1):
+            state = prog.step(t, state)
+            done = t
+            if monitor is not None:
+                monitor.poll()
+            if observe is not None and observe(t, state):
+                return state, done, True
+        return state, done, False
+
+    from ..obs.phases import device_of, wait_for
+    from ..obs.trace import NULL_TRACER
+    tr = tracer if tracing else NULL_TRACER
+    clock = tracer.clock if tracing else time.perf_counter
+    dev = device_of(state)
     for t in range(1, outer_iters + 1):
-        state = prog.step(t, state)
-        done = t
-        if observe is not None and observe(t, state):
-            return state, done, True
+        with tr.span("outer_iter", iter=t):
+            with tr.span("step", iter=t):
+                # t0 taken INSIDE the span so the attribution spans
+                # on_step synthesizes at t0 nest within it
+                t0 = clock()
+                state = prog.step(t, state)
+                wait_for(dev)
+                step_s = clock() - t0
+            if on_step is not None:
+                on_step(t, t0, step_s)
+            done = t
+            if monitor is not None:
+                monitor.poll()
+            if observe is not None:
+                with tr.span("observe", iter=t):
+                    stop = observe(t, state)
+                if stop:
+                    return state, done, True
     return state, done, False
 
 
@@ -161,7 +215,8 @@ def _norm_topology(topology):
 
 
 def grid_program(cellprog: CellProgram, Pn: int, Qn: int, *,
-                 compression=None, topology=None, device="cuda"):
+                 compression=None, topology=None, comm_local: bool = False,
+                 device="cuda"):
     """Single-device grid executor.  Returns ``step(t, data, state) ->
     state`` where ``data``/``state`` are blocked: the P x Q grid is the
     leading axes of the operands and the declared collectives run as
@@ -179,11 +234,21 @@ def grid_program(cellprog: CellProgram, Pn: int, Qn: int, *,
     ``"pod:<name>"``, to its ``(G, Q, *cell)`` one (allocate with
     :func:`grid_bind_state`).  With both None the step and the state are
     exactly the uncompressed program's.
+
+    ``comm_local=True`` builds the timing twin of the uncompressed step
+    (``EngineProgram.local_step``): the same cell program under a
+    :class:`~repro_torch.core.comm.LocalComm`, every collective
+    cell-local, same shapes, no reduction.  It cannot compose with a
+    compression policy (a local program puts nothing on the wire), and a
+    topology is ignored (the twin runs no reduction at all).
     """
     sizes = {"data": Pn, "model": Qn}
     sched = cellprog.schedule
     device = resolve_device(device)
-    topo = _norm_topology(topology)
+    if comm_local and compression is not None:
+        raise ValueError("comm_local measures the collective-free step; "
+                         "it cannot compose with a compression policy")
+    topo = None if comm_local else _norm_topology(topology)
     if topo is not None and Pn % topo.pods:
         raise ValueError(f"topology pods={topo.pods} does not divide "
                          f"P={Pn}")
@@ -204,8 +269,10 @@ def grid_program(cellprog: CellProgram, Pn: int, Qn: int, *,
         return declared
 
     if policy is None and topo is None:
+        comm_cls = LocalComm if comm_local else SyncComm
+
         def step(t, data, state):
-            comm = SyncComm(sched, sizes, device=device,
+            comm = comm_cls(sched, sizes, device=device,
                             payload_shapes=shapes_of(data, state))
             out = cellprog.cell(comm, t, data, state)
             comm.finalize()

@@ -257,22 +257,30 @@ def radisa_simulated_program(loss: Loss, data, cfg: RADiSAConfig, *,
     w_init = (torch.zeros((Qn, data.m_q), device=dev) if w0 is None
               else data.w_to_blocks(w0))
     return bind_primal_program(cellprog, step, data, gdata, w_init,
-                               compression=compression, topology=topology)
+                               compression=compression, topology=topology,
+                               cache=cache)
 
 
 def bind_primal_program(cellprog, step, data, gdata, w_init, *,
-                        compression, topology) -> EngineProgram:
+                        compression, topology, cache=None) -> EngineProgram:
     """The EngineProgram of a primal solver whose state is ``w_blocks``
-    (RADiSA, SFK), with its comm state and wire accounting bound."""
+    (RADiSA, SFK), with its comm state, wire accounting and
+    collective-free timing twin (``local_step``, memoized in ``cache``
+    under ``"local"``) bound."""
     full0, unwrap, acct = grid_bind_state(
         cellprog, gdata, w_init, Pn=data.P, Qn=data.Q,
         compression=compression, topology=topology, device=data.device)
+    local = cached_build(cache, "local",
+                         lambda: grid_program(cellprog, data.P, data.Q,
+                                              comm_local=True,
+                                              device=data.device))
     return EngineProgram(
         state=full0,
         step=lambda t, s: step(t, gdata, s),
         w_of=lambda s: data.w_from_blocks(unwrap(s)),
         comm_bytes=acct,
-        ef_of=(lambda s: s[1]) if full0 is not w_init else None)
+        ef_of=(lambda s: s[1]) if full0 is not w_init else None,
+        local_step=lambda t, s: local(t, gdata, unwrap(s)))
 
 
 def radisa_simulated(loss_name: str, data, cfg: RADiSAConfig, callback=None,

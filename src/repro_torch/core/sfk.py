@@ -183,7 +183,8 @@ def sfk_simulated_program(loss: Loss, data, cfg: SFKConfig, *,
     w_init = (torch.zeros((Qn, data.m_q), device=dev) if w0 is None
               else data.w_to_blocks(w0))
     return bind_primal_program(cellprog, step, data, gdata, w_init,
-                               compression=compression, topology=topology)
+                               compression=compression, topology=topology,
+                               cache=cache)
 
 
 def sfk_simulated(loss_name: str, data, cfg: SFKConfig, callback=None,

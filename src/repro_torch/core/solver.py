@@ -41,6 +41,11 @@ story.  This module provides that story once:
       - ``row_gate`` -- the incremental online-update path: dual updates
         restricted to gated-on rows (D3CA only, ``supports_row_gate``);
         :meth:`Solver.update` builds the gate from the touched rows;
+      - ``tracer`` / ``registry`` / ``monitor`` (per call, see
+        :meth:`Solver.solve`) -- spans, metrics and health polling; a
+        tracer or a registry takes the timed path, which calibrates the
+        local / comm split of the program and waits for the device after
+        every step, with bitwise the same iterates;
   * a shared outer loop: objective / duality-gap history (with the
     cumulative exact ``comm_bytes``), early stopping, warm starts from a
     previous ``w`` / ``alpha``.
@@ -49,9 +54,9 @@ The port covers the single-device grid engine (``engine="simulated"``);
 many problems of one shape solve together through
 ``repro_torch.fleet.FleetSolver``.  ``staleness > 0`` needs the async /
 overlap engines and is refused with the reference's ``ValueError``.
-Every other knob of the reference's ``Solver`` -- the mesh engines,
-tracer / registry / monitor -- raises ``NotImplementedError`` naming the
-ROADMAP queue item that brings it; nothing is silently ignored.
+The mesh engines of the reference's ``Solver`` raise
+``NotImplementedError`` naming the ROADMAP queue item that brings them
+(``NOT_PORTED``); nothing is silently ignored.
 
 Example::
 
@@ -78,6 +83,8 @@ import numpy as np
 import torch
 
 from ..data.sparse import CSRMatrix
+from ..obs.phases import bench_codecs, calibrate_phases
+from ..obs.trace import as_tracer
 from .admm import ADMMConfig, admm_simulated_program
 from .comm_model import as_topology
 from .compress import CompressionSchedule, as_compression
@@ -94,22 +101,15 @@ from .util import DTYPE, as_tensor, resolve_device
 ENGINES = ("simulated",)
 BLOCK_FORMATS = ("dense", "sparse")
 
-#: what the reference offers and this slice does not (solver knobs, CLI
+#: what the reference offers and the port does not (solver knobs, CLI
 #: flags by their argparse dest), with the title of the ROADMAP queue-A
 #: item that ports it
 _ITEMS = {
     "mesh": "'Multi-device engines'",
-    "obs": "'Observability'",
 }
 NOT_PORTED = {
     "engine": _ITEMS["mesh"], "mesh": _ITEMS["mesh"],
     "force_host_devices": _ITEMS["mesh"], "staleness": _ITEMS["mesh"],
-    "tracer": _ITEMS["obs"], "registry": _ITEMS["obs"],
-    "monitor": _ITEMS["obs"], "trace": _ITEMS["obs"],
-    "metrics": _ITEMS["obs"], "listen": _ITEMS["obs"],
-    "health": _ITEMS["obs"], "flight_recorder": _ITEMS["obs"],
-    "flight_capacity": _ITEMS["obs"], "min_tenants": _ITEMS["obs"],
-    "max_staleness": _ITEMS["obs"], "max_lag": _ITEMS["obs"],
 }
 
 
@@ -354,19 +354,34 @@ class Solver:
             field and rel-opt early stopping.
           record_history: collect per-iteration history entries.
           callback: ``callback(t, w, alpha)`` per outer iteration.
+          tracer: a :class:`repro_torch.obs.Tracer`; the solve emits the
+            spans ``solve > data_prep / calibrate / outer_iter > step /
+            observe``, and ``local_solve`` plus one ``comm/<name>`` per
+            declared collective inside every measured step.
+          registry: a :class:`repro_torch.obs.Registry` receiving the
+            ``solver/*`` metrics (``iters``, ``objective``,
+            ``duality_gap``, ``rel_opt``, ``step_s``, ``local_s``,
+            ``comm_s``, ``host_s``, ``comm_bytes``) and, under a stateful
+            codec, ``compress/ef_norm/<name>`` and
+            ``compress/codec_s/<name>``, labelled ``{solver, engine}``.
+            A tracer or a registry switches the solve to its timed path:
+            the phase split is calibrated on the program (``2 * (1 +
+            3)`` extra steps from the initial state), every step waits for
+            the device, and the history gains ``step_s`` / ``local_s`` /
+            ``comm_s`` / ``host_s``; the iterates are bitwise those of
+            the untimed solve.
+          monitor: a :class:`repro_torch.obs.HealthMonitor` polled once per
+            outer iteration.
           row_gate: see :meth:`program`.
 
         Returns:
           A :class:`SolveResult` whose ``w`` / ``alpha`` are tensors on
           the solver's device.
         """
-        for knob, val in (("tracer", tracer), ("registry", registry),
-                          ("monitor", monitor)):
-            if val is not None:
-                raise not_ported(knob)
         cfg = cfg if cfg is not None else self.config_cls()
         common = dict(P=P, Q=Q, mesh=mesh, tol=tol, f_star=f_star,
                       record_history=record_history, callback=callback,
+                      tracer=tracer, registry=registry, monitor=monitor,
                       row_gate=row_gate)
         sched = self.compression
         if not isinstance(sched, CompressionSchedule):
@@ -458,88 +473,164 @@ class Solver:
 
     def _solve_stage(self, loss_name: str, X, y, *, P, Q, cfg, mesh,
                      warm_start, tol, f_star, record_history, callback,
-                     row_gate, advance=None, iter_offset: int = 0,
-                     time_offset: float = 0.0, bytes_offset: int = 0,
-                     stage: Optional[int] = None):
+                     tracer, registry, monitor, row_gate, advance=None,
+                     iter_offset: int = 0, time_offset: float = 0.0,
+                     bytes_offset: int = 0, stage: Optional[int] = None):
         """One program build + outer loop.  Returns ``(result,
         advanced)`` where ``advanced`` reports an adaptive-schedule stage
         switch (``advance.should_advance`` fired on the observed
         convergence metric; the result is then a warm-start point, not a
-        converged solve)."""
-        loss = get_loss(loss_name)
-        policy = self.active_policy
-        # the objective is evaluated on the device, against the same
-        # data the blocks were cut from (a CSR matrix stays one: its
-        # products run on the device of the vector)
-        if not isinstance(X, CSRMatrix):
-            X = as_tensor(X, self.device)
-        y = as_tensor(y, self.device)
-        prog = self.program(loss_name, X, y, P=P, Q=Q, cfg=cfg, mesh=mesh,
-                            warm_start=warm_start, row_gate=row_gate)
-        lam = cfg.lam
-        history: List[Dict[str, float]] = []
-        need_obs = (record_history or callback is not None
-                    or tol is not None or advance is not None)
-        prev_f = [None]
-        advanced = [False]
-        metric_vals: List[float] = []
-        bytes_per_step = (prog.comm_bytes or {}).get("bytes_per_step")
-        t0 = time.perf_counter()
+        converged solve).  A tracer or a registry takes the timed path
+        (see :meth:`solve`); without both the loop is the untimed one."""
+        tr = as_tracer(tracer)
+        with tr.span("solve", loss=loss_name, solver=self.name,
+                     engine=self.engine):
+            reg = registry
+            timed = tr.enabled or reg is not None
+            loss = get_loss(loss_name)
+            policy = self.active_policy
+            labels = {"solver": self.name, "engine": self.engine}
+            with tr.span("data_prep"):
+                # the objective is evaluated on the device, against the same
+                # data the blocks were cut from (a CSR matrix stays one: its
+                # products run on the device of the vector)
+                if not isinstance(X, CSRMatrix):
+                    X = as_tensor(X, self.device)
+                y = as_tensor(y, self.device)
+                prog = self.program(loss_name, X, y, P=P, Q=Q, cfg=cfg,
+                                    mesh=mesh, warm_start=warm_start,
+                                    row_gate=row_gate)
+            split = None
+            if timed:
+                with tr.span("calibrate"):
+                    split = calibrate_phases(prog)
+                if policy is not None:
+                    codec_s = bench_codecs(policy, prog.comm_bytes or {},
+                                           grid=(P, Q), device=self.device)
+                    for cname, secs in codec_s.items():
+                        if reg is not None:
+                            reg.gauge(f"compress/codec_s/{cname}",
+                                      **labels).set(secs)
+                    if codec_s:
+                        tr.instant("codec_bench", **codec_s)
+            lam = cfg.lam
+            history: List[Dict[str, float]] = []
+            need_obs = (record_history or callback is not None
+                        or tol is not None or advance is not None)
+            prev_f = [None]
+            advanced = [False]
+            metric_vals: List[float] = []
+            bytes_per_step = (prog.comm_bytes or {}).get("bytes_per_step")
+            t0 = time.perf_counter()
+            last_phase: Dict[str, float] = {}
 
-        def observe(t, state):
-            if not need_obs:
-                return False
-            w = prog.w_of(state)
-            alpha = prog.alpha_of(state) if prog.alpha_of else None
-            f = float(loss.objective(X, y, w, lam))
-            entry = {"iter": t + iter_offset,
-                     "time_s": time.perf_counter() - t0 + time_offset,
-                     "objective": f}
-            if stage is not None:
-                entry["stage"] = stage
-                entry["codec"] = policy.spec if policy is not None else None
-            if bytes_per_step is not None:
-                # cumulative bytes-on-wire after t outer steps (every
-                # declared collective runs once per step)
-                entry["comm_bytes"] = bytes_offset + bytes_per_step * t
-            if alpha is not None:
-                entry["duality_gap"] = float(
-                    f - loss.dual_objective(X, y, alpha, lam))
-            if f_star is not None:
-                entry["rel_opt"] = float(rel_opt(f, f_star))
-            if record_history:
-                history.append(entry)
-            if callback is not None:
-                callback(t + iter_offset, w, alpha)
-            stop = False
-            if tol is not None:
+            def on_step(t, t_begin, step_s):
+                last_phase.clear()
+                last_phase["step_s"] = step_s
+                if split is not None:
+                    att = split.attribute(step_s)
+                    last_phase["local_s"] = att["local_s"]
+                    last_phase["comm_s"] = att["comm_s"]
+                    tr.record("local_solve", t_begin, att["local_s"], iter=t)
+                    off = t_begin + att["local_s"]
+                    for name, secs in att["collectives"].items():
+                        tr.record(f"comm/{name}", off, secs, iter=t)
+                        off += secs
+                if reg is not None:
+                    reg.histogram("solver/step_s", **labels).observe(step_s)
+                    if split is not None:
+                        reg.histogram("solver/local_s", **labels).observe(
+                            last_phase["local_s"])
+                        reg.histogram("solver/comm_s", **labels).observe(
+                            last_phase["comm_s"])
+                    if bytes_per_step is not None:
+                        reg.counter("solver/comm_bytes", **labels).inc(
+                            bytes_per_step)
+
+            def observe(t, state):
+                if not need_obs:
+                    return False
+                th0 = time.perf_counter()
+                w = prog.w_of(state)
+                alpha = prog.alpha_of(state) if prog.alpha_of else None
+                f = float(loss.objective(X, y, w, lam))
+                entry = {"iter": t + iter_offset,
+                         "time_s": time.perf_counter() - t0 + time_offset,
+                         "objective": f}
+                if stage is not None:
+                    entry["stage"] = stage
+                    entry["codec"] = (policy.spec if policy is not None
+                                      else None)
+                if timed:
+                    entry.update(last_phase)
+                if bytes_per_step is not None:
+                    # cumulative bytes-on-wire after t outer steps (every
+                    # declared collective runs once per step)
+                    entry["comm_bytes"] = bytes_offset + bytes_per_step * t
+                if alpha is not None:
+                    entry["duality_gap"] = float(
+                        f - loss.dual_objective(X, y, alpha, lam))
                 if f_star is not None:
-                    stop = entry["rel_opt"] < tol
-                elif "duality_gap" in entry:
-                    stop = entry["duality_gap"] < tol
-                elif prev_f[0] is not None:
-                    stop = abs(f - prev_f[0]) <= tol * max(1.0, abs(f))
-            prev_f[0] = f
-            if advance is not None and not stop:
-                metric_vals.append(entry.get("rel_opt", f))
-                if advance.should_advance(metric_vals):
-                    advanced[0] = True
-                    stop = True
-            return stop
+                    entry["rel_opt"] = float(rel_opt(f, f_star))
+                if timed:
+                    # the objective / gap / rel_opt evaluation: host phase
+                    entry["host_s"] = time.perf_counter() - th0
+                if reg is not None:
+                    record_metrics(reg, labels, entry, prog, state)
+                if record_history:
+                    history.append(entry)
+                if callback is not None:
+                    callback(t + iter_offset, w, alpha)
+                stop = False
+                if tol is not None:
+                    if f_star is not None:
+                        stop = entry["rel_opt"] < tol
+                    elif "duality_gap" in entry:
+                        stop = entry["duality_gap"] < tol
+                    elif prev_f[0] is not None:
+                        stop = abs(f - prev_f[0]) <= tol * max(1.0, abs(f))
+                prev_f[0] = f
+                if advance is not None and not stop:
+                    metric_vals.append(entry.get("rel_opt", f))
+                    if advance.should_advance(metric_vals):
+                        advanced[0] = True
+                        stop = True
+                return stop
 
-        state, iters, stopped = drive(prog, cfg.outer_iters, observe)
-        res = SolveResult(
-            w=prog.w_of(state),
-            alpha=prog.alpha_of(state) if prog.alpha_of else None,
-            history=history, iters=iters,
-            converged=stopped and not advanced[0],
-            solver=self.name, engine=self.engine,
-            local_backend=self.local_backend,
-            block_format=self.block_format, device=str(self.device),
-            staleness=self.staleness,
-            compression=policy.spec if policy is not None else None,
-            topology=self.topology_spec, comm_bytes=prog.comm_bytes)
-        return res, advanced[0]
+            state, iters, stopped = drive(
+                prog, cfg.outer_iters, observe,
+                tracer=tr if tr.enabled else None,
+                on_step=on_step if timed else None, monitor=monitor)
+            res = SolveResult(
+                w=prog.w_of(state),
+                alpha=prog.alpha_of(state) if prog.alpha_of else None,
+                history=history, iters=iters,
+                converged=stopped and not advanced[0],
+                solver=self.name, engine=self.engine,
+                local_backend=self.local_backend,
+                block_format=self.block_format, device=str(self.device),
+                staleness=self.staleness,
+                compression=policy.spec if policy is not None else None,
+                topology=self.topology_spec, comm_bytes=prog.comm_bytes)
+            return res, advanced[0]
+
+
+def record_metrics(reg, labels, entry, prog, state):
+    """One observed iteration into the registry: ``solver/iters``, the
+    objective / gap / rel_opt gauges, the ``host_s`` histogram and the
+    error-feedback norms, every value a Python float."""
+    reg.counter("solver/iters", **labels).inc()
+    reg.gauge("solver/objective", **labels).set(entry["objective"])
+    if "duality_gap" in entry:
+        reg.gauge("solver/duality_gap", **labels).set(entry["duality_gap"])
+    if "rel_opt" in entry:
+        reg.gauge("solver/rel_opt", **labels).set(entry["rel_opt"])
+    if "host_s" in entry:
+        reg.histogram("solver/host_s", **labels).observe(entry["host_s"])
+    if prog.ef_of is not None:
+        for cname, buf in prog.ef_of(state).items():
+            reg.gauge(f"compress/ef_norm/{cname}", **labels).set(
+                float(torch.linalg.vector_norm(buf)))
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ from __future__ import annotations
 import collections
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.core.solver import SolveResult, not_ported
+from repro_torch.core.solver import SolveResult
 
 from .batch import FleetProblem, bucket_key
 from .solver import FleetSolver
@@ -37,8 +37,11 @@ class FleetScheduler:
         next submission from it.
       on_result: optional callback ``on_result(tenant_id, result)``
         fired per tenant as each batch completes.
-      tracer, registry, monitor: not ported yet (ROADMAP queue A,
-        observability); passing one raises.
+      tracer, registry: :mod:`repro_torch.obs` hooks, forwarded per
+        batch; the scheduler adds per-bucket ``fleet/bucket_tenants``
+        gauges.
+      monitor: a :class:`repro_torch.obs.HealthMonitor`, polled once per
+        drained batch.
     """
 
     def __init__(self, *, P: int, Q: int, solver: str = "d3ca",
@@ -50,10 +53,6 @@ class FleetScheduler:
                  on_result: Optional[Callable[[str, SolveResult], None]]
                  = None,
                  tracer=None, registry=None, monitor=None, device="cuda"):
-        for knob, val in (("tracer", tracer), ("registry", registry),
-                          ("monitor", monitor)):
-            if val is not None:
-                raise not_ported(knob)
         self.P, self.Q = P, Q
         self.fleet = FleetSolver(solver=solver, engine=engine,
                                  local_backend=local_backend,
@@ -64,6 +63,9 @@ class FleetScheduler:
         self.max_tenants = max_tenants
         self.warm_registry = warm_registry
         self.on_result = on_result
+        self.tracer = tracer
+        self.registry = registry
+        self.monitor = monitor
         self._queue: List[FleetProblem] = []
         self._warm: Dict[str, SolveResult] = {}
 
@@ -107,18 +109,26 @@ class FleetScheduler:
         results: Dict[str, SolveResult] = collections.OrderedDict()
         groups = self.buckets()
         self._queue = []
-        for probs in groups.values():
+        for key, probs in groups.items():
+            if self.registry is not None:
+                self.registry.gauge(
+                    "fleet/bucket_tenants", bucket="/".join(map(str, key)),
+                    solver=self.fleet.solver,
+                    engine=self.fleet.engine).set(len(probs))
             for chunk in self._chunks(probs):
                 warm = ([self._warm.get(p.tenant_id) for p in chunk]
                         if self.warm_registry else None)
                 batch = self.fleet.solve_batch(
                     chunk, P=self.P, Q=self.Q, cfg=self.cfg,
                     tol=self.tol, check_every=self.check_every,
-                    warm_starts=warm)
+                    warm_starts=warm, tracer=self.tracer,
+                    registry=self.registry)
                 for p, res in zip(chunk, batch):
                     if self.warm_registry:
                         self._warm[p.tenant_id] = res
                     results[p.tenant_id] = res
                     if self.on_result is not None:
                         self.on_result(p.tenant_id, res)
+                if self.monitor is not None:
+                    self.monitor.poll()
         return results

@@ -58,6 +58,7 @@ from repro_torch.core.solver import (BLOCK_FORMATS, SolveResult,
                                      not_ported)
 from repro_torch.core.util import as_tensor, resolve_device
 from repro_torch.data.sparse import CSRMatrix
+from repro_torch.obs.trace import as_tracer
 
 from .batch import FleetProblem, bucket_key, fleet_cell_program, stack_grid
 
@@ -302,31 +303,40 @@ class FleetSolver:
             w`` (None entries cold-start).
           record_history: collect per-tenant history entries at segment
             boundaries.
-          tracer / registry: not ported yet (ROADMAP queue A,
-            observability); passing one raises.
+          tracer / registry: :mod:`repro_torch.obs` hooks -- spans
+            ``fleet/pack`` (program build), ``fleet/step`` (each segment
+            of outer steps between convergence checks) and
+            ``fleet/unpack``; gauges ``fleet/tenants``, ``fleet/active``
+            and per-tenant ``fleet/rel_opt``.  Neither waits for the
+            device: a ``fleet/step`` span covers the launches of its
+            segment, and the objective evaluation that follows it waits.
 
         Returns:
           One :class:`~repro_torch.core.solver.SolveResult` per problem,
           in input order, its ``w`` / ``alpha`` tensors on the device.
         """
-        for knob, val in (("tracer", tracer), ("registry", registry)):
-            if val is not None:
-                raise not_ported(knob)
         problems = list(problems)
         if not problems:
             return []
+        tr = as_tracer(tracer)
+        reg = registry
+        labels = {"solver": self.solver, "engine": self.engine}
         cfg = self._config(cfg)
         loss = get_loss(problems[0].loss_name)
         check_every = max(1, int(check_every))
         T, dev = len(problems), self.device
-        # as a solo ``Solver.solve`` does: each tenant's data goes to the
-        # device once, is partitioned there, and the objective is evaluated
-        # on it (a CSR matrix stays one)
-        problems = [dataclasses.replace(
-            p, X=p.X if isinstance(p.X, CSRMatrix) else as_tensor(p.X, dev),
-            y=as_tensor(p.y, dev)) for p in problems]
-        prog = self.program(problems, P=P, Q=Q, cfg=cfg,
-                            warm_starts=warm_starts)
+        with tr.span("fleet/pack", tenants=T, **labels):
+            # as a solo ``Solver.solve`` does: each tenant's data goes to
+            # the device once, is partitioned there, and the objective is
+            # evaluated on it (a CSR matrix stays one)
+            problems = [dataclasses.replace(
+                p, X=p.X if isinstance(p.X, CSRMatrix)
+                else as_tensor(p.X, dev), y=as_tensor(p.y, dev))
+                for p in problems]
+            prog = self.program(problems, P=P, Q=Q, cfg=cfg,
+                                warm_starts=warm_starts)
+        if reg is not None:
+            reg.gauge("fleet/tenants", **labels).set(T)
         Xs = [p.X for p in problems]
         ys = [p.y for p in problems]
 
@@ -344,15 +354,17 @@ class FleetSolver:
         t0 = time.perf_counter()
         while t < outer:
             seg_end = outer if not observe else min(t + check_every, outer)
-            while t < seg_end:
-                t += 1
-                state = prog.step(t, active, state)
+            with tr.span("fleet/step", t0=t + 1, t1=seg_end, **labels):
+                while t < seg_end:
+                    t += 1
+                    state = prog.step(t, active, state)
             for i in range(T):
                 if not conv[i]:
                     iters[i] = t
             if not observe:
                 continue
-            ws, alphas = prog.unpack(state)
+            with tr.span("fleet/unpack", **labels):
+                ws, alphas = prog.unpack(state)
             now = time.perf_counter() - t0
             for i, p in enumerate(problems):
                 if conv[i]:
@@ -365,6 +377,9 @@ class FleetSolver:
                                                 p.lam))
                 if p.f_star is not None:
                     entry["rel_opt"] = float(rel_opt(f, p.f_star))
+                    if reg is not None:
+                        reg.gauge("fleet/rel_opt", tenant=p.tenant_id,
+                                  **labels).set(entry["rel_opt"])
                 if record_history:
                     hist[i].append(entry)
                 stop = False
@@ -379,6 +394,11 @@ class FleetSolver:
                 if stop:
                     conv[i] = True
                     active[i] = 0.0
+            if reg is not None:
+                # counted on the host: reading ``active`` back would wait
+                # for the device
+                reg.gauge("fleet/active", **labels).set(
+                    float(T - sum(conv)))
             if tol is not None and all(conv):
                 break
 

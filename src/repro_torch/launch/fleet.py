@@ -30,10 +30,14 @@ tenants come from ``make_svm_data``; with ``--block-format sparse`` they
 are made as CSR by ``make_sparse_svm_csr`` and never densified.  Prints
 one line per tenant per round and a final JSON summary.
 
-The flags of layers that are not ported yet (the mesh engine, tracing,
-metrics and the observability plane, publishing snapshots to the online
-service) are still parsed, so that asking for one fails by name instead
-of being ignored.
+  # telemetry: fleet/pack|step|unpack spans, the fleet gauges and the
+  # health verdicts (a bucket of fewer than --min-tenants tenants warns)
+  PYTHONPATH=src python -m repro_torch.launch.fleet \\
+      --tenants 4 --device cpu --trace /tmp/fleet.json --metrics \\
+      --health --min-tenants 2
+
+The flags of the mesh engine are still parsed, so that asking for one
+fails by name instead of being ignored.
 """
 from __future__ import annotations
 
@@ -46,11 +50,15 @@ import torch
 
 from repro_torch.core import get_solver
 from repro_torch.core.solver import not_ported_message
+from repro_torch.core.util import resolve_device
 from repro_torch.data import (make_sparse_svm_csr, make_sparse_svm_data,
                                make_svm_data)
 from repro_torch.fleet import FleetProblem, FleetScheduler
+from repro_torch.obs import fleet_rules
 from repro_torch.online import SnapshotBook
 from repro_torch.serve.scoring import LinearScorer
+
+from .obs import add_trace_metrics_flags, close_plane, open_plane
 
 #: flags of the reference CLI whose layer is not ported: (flag, argparse
 #: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
@@ -58,13 +66,6 @@ from repro_torch.serve.scoring import LinearScorer
 _NOT_PORTED_FLAGS = (
     ("--engine", "engine", "simulated"),
     ("--force-host-devices", "force_host_devices", None),
-    ("--trace", "trace", None),
-    ("--metrics", "metrics", False),
-    ("--min-tenants", "min_tenants", 2),
-    ("--listen", "listen", None),
-    ("--health", "health", False),
-    ("--flight-recorder", "flight_recorder", None),
-    ("--flight-capacity", "flight_capacity", None),
 )
 
 
@@ -125,18 +126,20 @@ def build_parser():
                          "LinearScorer (the serving hand-off)")
     ap.add_argument("--json-out", default=None,
                     help="write the summary JSON here as well")
+    ap.add_argument("--min-tenants", type=int, default=2,
+                    help="--health: WARN when a shape bucket runs with "
+                         "fewer tenants than this (starved bucket)")
+    add_trace_metrics_flags(
+        ap, trace_help="trace the run (fleet/pack, fleet/step, "
+                       "fleet/unpack spans) and write Chrome-trace JSON "
+                       "here",
+        metrics_help="record fleet gauges (tenants per bucket, active "
+                     "tenants, per-tenant rel_opt) and print the registry "
+                     "snapshot in the summary JSON")
     # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
     ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
     ap.add_argument("--force-host-devices", type=int, default=None,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--min-tenants", type=int, default=2,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--flight-capacity", type=int, default=None,
-                    help=argparse.SUPPRESS)
-    for flag in ("--trace", "--listen", "--flight-recorder"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--metrics", "--health"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return ap
 
 
@@ -264,6 +267,12 @@ def run(args, on_result=None, snapshots=None):
             snapshots.publish(tid, res)
         if on_result is not None:
             on_result(by_id[tid], res)
+    # a missing card raises here, before the plane starts an endpoint
+    resolve_device(args.device)
+    tracer, registry, plane = open_plane(
+        args, rules=lambda: fleet_rules(min_tenants=args.min_tenants),
+        meta={"cli": "fleet", "solver": args.solver,
+              "engine": args.engine, "tenants": args.tenants})
     try:
         # raises when the card is asked for (the default) and there is none
         sched = FleetScheduler(
@@ -272,8 +281,11 @@ def run(args, on_result=None, snapshots=None):
             check_every=args.check_every, max_tenants=args.max_tenants,
             device=args.device,
             on_result=(None if on_result is None and snapshots is None
-                       else handle))
+                       else handle),
+            tracer=plane.tracer_or(tracer), registry=registry,
+            monitor=plane.monitor)
     except ValueError as e:
+        plane.finalize()            # stop the endpoint before exiting
         build_parser().error(str(e))
 
     print(f"[fleet] {args.solver} engine=simulated "
@@ -284,18 +296,19 @@ def run(args, on_result=None, snapshots=None):
     entries = {}
     buckets = 0
     t0 = time.perf_counter()
-    for r in range(args.rounds):
-        for p in problems:
-            sched.submit(p)
-        buckets = len(sched.buckets())
-        results = sched.run()
-        for e in report(problems, results, label=f"round={r} ",
-                        snapshots=snapshots):
-            entries[e["tenant"]] = e
+    with plane.crash_guard():
+        for r in range(args.rounds):
+            for p in problems:
+                sched.submit(p)
+            buckets = len(sched.buckets())
+            results = sched.run()
+            for e in report(problems, results, label=f"round={r} ",
+                            snapshots=snapshots):
+                entries[e["tenant"]] = e
     total_s = time.perf_counter() - t0
 
     solves = args.tenants * args.rounds
-    return finish(args, {
+    return finish(args, close_plane({
         "solver": args.solver, "engine": "simulated",
         "local_backend": args.backend, "device": str(sched.fleet.device),
         "block_format": args.block_format, "P": P, "Q": Q,
@@ -303,7 +316,7 @@ def run(args, on_result=None, snapshots=None):
         "rounds": args.rounds, "buckets": buckets,
         "total_s": total_s, "solves_per_s": solves / total_s,
         "results": list(entries.values()),
-    })
+    }, tracer, registry, plane, args.trace, "fleet"))
 
 
 def main(argv=None):

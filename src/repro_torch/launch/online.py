@@ -26,11 +26,20 @@ filled rows is computed on the device, where the window lies.
 
 ``--compression SPEC`` and ``--topology SPEC`` go into every update's
 solve verbatim (each update starts from zero error feedback, as the
-reference's does).  The flags of layers that are not ported yet (the mesh
-engines, tracing, metrics and the observability plane) are still parsed,
-so that asking for one fails by name instead of being ignored;
-``--staleness N > 0`` needs the async engines and is refused as the
-optimizer CLI refuses it.
+reference's does).  Telemetry: ``--trace OUT.json`` writes the
+``online/ingest|update|swap|score`` spans (each update's solve tree
+inside), ``--metrics`` puts the service's registry snapshot in the
+summary, ``--health`` evaluates ``online_rules`` (``--max-staleness``
+seconds, ``--max-lag`` observations) and ``--listen`` /
+``--flight-recorder`` start the plane (``launch/obs.py``):
+
+  PYTHONPATH=src python -m repro_torch.launch.online \\
+      --m 64 --capacity 512 --mesh 2x2 --rounds 20 --batch 32 --device cpu \\
+      --trace /tmp/online.json --metrics --health --listen 127.0.0.1:0
+
+The flags of the mesh engines are still parsed, so that asking for one
+fails by name instead of being ignored; ``--staleness N > 0`` needs the
+async engines and is refused as the optimizer CLI refuses it.
 """
 from __future__ import annotations
 
@@ -43,8 +52,12 @@ import numpy as np
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import get_loss, get_solver
 from repro_torch.core.solver import not_ported_message
+from repro_torch.core.util import resolve_device
 from repro_torch.launch.optimize import add_comm_flags, check_staleness
+from repro_torch.obs import online_rules
 from repro_torch.online import OnlineConfig, OnlineSolverService
+
+from .obs import add_trace_metrics_flags, close_plane, open_plane
 
 #: flags of the reference CLI whose layer is not ported: (flag, argparse
 #: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
@@ -52,14 +65,6 @@ from repro_torch.online import OnlineConfig, OnlineSolverService
 _NOT_PORTED_FLAGS = (
     ("--engine", "engine", "simulated"),
     ("--force-host-devices", "force_host_devices", None),
-    ("--trace", "trace", None),
-    ("--metrics", "metrics", False),
-    ("--max-staleness", "max_staleness", 60.0),
-    ("--max-lag", "max_lag", 10_000),
-    ("--listen", "listen", None),
-    ("--health", "health", False),
-    ("--flight-recorder", "flight_recorder", None),
-    ("--flight-capacity", "flight_capacity", None),
 )
 
 
@@ -109,18 +114,23 @@ def build_parser():
                          "from the newest before streaming)")
     ap.add_argument("--json-out", default=None)
     add_comm_flags(ap)
+    ap.add_argument("--max-staleness", type=float, default=60.0,
+                    help="--health: CRIT when the served snapshot is "
+                         "older than this many seconds")
+    ap.add_argument("--max-lag", type=float, default=10_000,
+                    help="--health: CRIT when the served model trails "
+                         "the stream by more than this many admitted "
+                         "observations")
+    add_trace_metrics_flags(
+        ap, trace_help="write Chrome-trace JSON of the "
+                       "ingest/update/swap/score spans",
+        metrics_help="include the service's metrics snapshot (staleness "
+                     "gauge, update/swap histograms, throughput counters) "
+                     "in the summary JSON")
     # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
     ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
-    for flag, typ, unset in (("--force-host-devices", int, None),
-                             ("--flight-capacity", int, None),
-                             ("--max-staleness", float, 60.0),
-                             ("--max-lag", float, 10_000)):
-        ap.add_argument(flag, type=typ, default=unset,
-                        help=argparse.SUPPRESS)
-    for flag in ("--trace", "--listen", "--flight-recorder"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--metrics", "--health"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--force-host-devices", type=int, default=None,
+                    help=argparse.SUPPRESS)
     return ap
 
 
@@ -157,8 +167,17 @@ def run(args, on_start=None, on_round=None):
         topology=args.topology,
         solver_cfg=cls.config_cls(lam=args.lam), passes=args.passes,
         queue_capacity=args.queue_capacity)
+    # a missing card raises here, before the plane starts an endpoint
+    resolve_device(args.device)
+    tracer, registry, plane = open_plane(
+        args, rules=lambda: online_rules(max_staleness_s=args.max_staleness,
+                                         max_lag=args.max_lag),
+        meta={"cli": "online", "solver": args.solver,
+              "engine": args.engine})
     # raises when the card is asked for (the default) and there is none
-    svc = OnlineSolverService(config, manager=manager, device=args.device)
+    svc = OnlineSolverService(config, manager=manager, device=args.device,
+                              tracer=plane.tracer_or(tracer),
+                              registry=registry, monitor=plane.monitor)
     recovered = svc.recover()
     if recovered is not None:
         print(f"[online] recovered snapshot version {recovered} from "
@@ -181,24 +200,25 @@ def run(args, on_start=None, on_round=None):
           f"m={args.m} capacity={svc.store.capacity} passes={args.passes} "
           f"loss={args.loss} lam={args.lam}")
     f = float("nan")
-    for r in range(args.rounds):
-        svc.submit(*stream(args.batch))
-        version = svc.run_pending()
-        Xs, ys = stream(args.score_batch)
-        acc = float(np.mean(svc.predict(Xs) * ys > 0)) \
-            if args.loss != "logistic" else float("nan")
-        st = svc.store
-        f = float(loss.objective(st.X, st.y, svc.book.current().w,
-                                 args.lam, mask=st.filled_mask))
-        record = {"version": version, "filled": st.filled, "f": f,
-                  "acc": acc, "lag": svc.version_lag,
-                  "staleness_s": svc.staleness_s}
-        print(f"  round={r:3d} version={version} "
-              f"filled={st.filled}/{st.capacity} "
-              f"f={f:.5f} acc={acc:.3f} lag={record['lag']} "
-              f"staleness={record['staleness_s'] * 1e3:.1f}ms")
-        if on_round is not None:
-            on_round(r, svc, record)
+    with plane.crash_guard():
+        for r in range(args.rounds):
+            svc.submit(*stream(args.batch))
+            version = svc.run_pending()
+            Xs, ys = stream(args.score_batch)
+            acc = float(np.mean(svc.predict(Xs) * ys > 0)) \
+                if args.loss != "logistic" else float("nan")
+            st = svc.store
+            f = float(loss.objective(st.X, st.y, svc.book.current().w,
+                                     args.lam, mask=st.filled_mask))
+            record = {"version": version, "filled": st.filled, "f": f,
+                      "acc": acc, "lag": svc.version_lag,
+                      "staleness_s": svc.staleness_s}
+            print(f"  round={r:3d} version={version} "
+                  f"filled={st.filled}/{st.capacity} "
+                  f"f={f:.5f} acc={acc:.3f} lag={record['lag']} "
+                  f"staleness={record['staleness_s'] * 1e3:.1f}ms")
+            if on_round is not None:
+                on_round(r, svc, record)
     if manager is not None:
         svc.book.flush()
 
@@ -208,6 +228,7 @@ def run(args, on_start=None, on_round=None):
                    block_format=args.block_format, P=P, Q=Q, m=args.m,
                    loss=args.loss, lam=args.lam, passes=args.passes,
                    rounds=args.rounds, batch=args.batch, objective=f)
+    close_plane(summary, tracer, registry, plane, args.trace, "online")
     print(json.dumps(summary, indent=1))
     if args.json_out:
         with open(args.json_out, "w") as fh:

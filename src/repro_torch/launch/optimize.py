@@ -37,10 +37,19 @@ final JSON summary.
       --solver d3ca --mesh 4x2 --n 200 --m 60 --iters 4 \\
       --compression int8 --topology pods=2:int8 --device cpu
 
-The flags of layers that are not ported yet (mesh engines, tracing and
-the observability plane) are still parsed, so that asking for one fails
-by name instead of being ignored; ``--staleness N > 0`` needs the async
-engines and is refused as the reference refuses it on the grid engine.
+  # telemetry: Chrome-trace spans of the solve (data prep, calibration,
+  # every outer iteration, the local solve and one span per collective),
+  # the metrics snapshot and the health verdicts in the summary, a live
+  # /metrics /healthz /varz endpoint and a postmortem bundle on exit
+  PYTHONPATH=src python -m repro_torch.launch.optimize \\
+      --solver d3ca --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu \\
+      --trace /tmp/solve.json --metrics --health \\
+      --listen 127.0.0.1:0 --flight-recorder /tmp/solve.bundle.json
+
+The flags of the mesh engines are still parsed, so that asking for one
+fails by name instead of being ignored; ``--staleness N > 0`` needs the
+async engines and is refused as the reference refuses it on the grid
+engine.
 """
 from __future__ import annotations
 
@@ -55,6 +64,9 @@ from repro_torch.core.util import as_tensor
 from repro_torch.data import (CSRMatrix, load_libsvm, load_libsvm_csr,
                               make_sparse_svm_csr, make_sparse_svm_data,
                               make_svm_data)
+from repro_torch.obs import fleet_rules, solver_rules
+
+from .obs import add_trace_metrics_flags, close_plane, open_plane
 
 #: serial SDCA for f* densifies a CSR input; above this many entries the
 #: reference's rule skips it
@@ -66,11 +78,6 @@ DENSE_REF_LIMIT = 20_000_000
 _NOT_PORTED_FLAGS = (
     ("--engine", "engine", "simulated"),
     ("--force-host-devices", "force_host_devices", None),
-    ("--trace", "trace", None),
-    ("--metrics", "metrics", False),
-    ("--listen", "listen", None),
-    ("--health", "health", False),
-    ("--flight-recorder", "flight_recorder", None),
 )
 
 
@@ -125,14 +132,19 @@ def build_parser():
                          ".. seed + N - 1) in ONE batched fleet solve "
                          "(repro_torch.fleet.FleetSolver)")
     add_comm_flags(ap)
+    add_trace_metrics_flags(
+        ap, trace_help="trace the solve and write Chrome-trace JSON here "
+                       "(open in chrome://tracing or ui.perfetto.dev); "
+                       "spans cover data prep, every outer iteration, "
+                       "the cell-local solve and one span per declared "
+                       "collective.  OUT.jsonl is written next to it "
+                       "with the raw events",
+        metrics_help="record solver metrics into a registry and print "
+                     "its snapshot in the summary JSON")
     # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
     ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
     ap.add_argument("--force-host-devices", type=int, default=None,
                     help=argparse.SUPPRESS)
-    for flag in ("--trace", "--listen", "--flight-recorder"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--metrics", "--health"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return ap
 
 
@@ -242,8 +254,15 @@ def main(argv=None):
           f"block_format={solver.block_format} grid={P}x{Q} "
           f"{args.dataset}({X.shape[0]}x{X.shape[1]}) loss={args.loss} "
           f"lam={args.lam}")
-    res = solver.solve(args.loss, X, y, P=P, Q=Q, cfg=cfg, tol=args.tol,
-                       f_star=f_star)
+    tracer, registry, plane = open_plane(
+        args, rules=solver_rules,
+        meta={"cli": "optimize", "solver": args.solver,
+              "engine": solver.engine})
+    with plane.crash_guard():
+        res = solver.solve(args.loss, X, y, P=P, Q=Q, cfg=cfg,
+                           tol=args.tol, f_star=f_star,
+                           tracer=plane.tracer_or(tracer),
+                           registry=registry, monitor=plane.monitor)
     if res.comm_bytes is not None:
         acct = res.comm_bytes
         detail = ", ".join(
@@ -260,6 +279,15 @@ def main(argv=None):
         if "rel_opt" in h:
             line += f"  rel_opt={h['rel_opt']:.4f}"
         print(line)
+    phased = [h for h in res.history if "local_s" in h]
+    if phased:
+        tot = sum(h["step_s"] + h["host_s"] for h in phased)
+        loc = sum(h["local_s"] for h in phased)
+        com = sum(h["comm_s"] for h in phased)
+        hst = sum(h["host_s"] for h in phased)
+        print(f"[optimize] phases: local {100 * loc / tot:.1f}% / "
+              f"comm {100 * com / tot:.1f}% / host "
+              f"{100 * hst / tot:.1f}% of {tot:.3f}s measured")
 
     summary = {
         "solver": res.solver, "engine": res.engine,
@@ -277,6 +305,7 @@ def main(argv=None):
         "comm_bytes_total": (res.history[-1].get("comm_bytes")
                              if res.history else None),
     }
+    close_plane(summary, tracer, registry, plane, args.trace, "optimize")
     print(json.dumps(summary, indent=1))
     if args.json_out:
         with open(args.json_out, "w") as fh:
@@ -319,19 +348,26 @@ def _fanout(ap, args, cls, P, Q):
           f"block_format={args.block_format} grid={P}x{Q} "
           f"problems={args.problems} {args.dataset}({args.n}x{args.m}) "
           f"loss={args.loss} lam={args.lam} (fleet fan-out)")
+    tracer, registry, plane = open_plane(
+        args, rules=fleet_rules,
+        meta={"cli": "optimize", "solver": args.solver,
+              "engine": fleet.engine, "problems": args.problems})
     t0 = time.perf_counter()
-    results = fleet.solve_batch(probs, P=P, Q=Q, cfg=cfg, tol=args.tol)
+    with plane.crash_guard():
+        results = fleet.solve_batch(probs, P=P, Q=Q, cfg=cfg, tol=args.tol,
+                                    tracer=plane.tracer_or(tracer),
+                                    registry=registry)
     total_s = time.perf_counter() - t0
     entries = fleet_cli.report(
         probs, {p.tenant_id: r for p, r in zip(probs, results)})
-    return fleet_cli.finish(args, {
+    return fleet_cli.finish(args, close_plane({
         "solver": args.solver, "engine": fleet.engine,
         "local_backend": args.backend, "device": str(fleet.device),
         "block_format": args.block_format, "P": P, "Q": Q,
         "n": args.n, "m": args.m, "loss": args.loss, "lam": args.lam,
         "problems": args.problems, "total_s": total_s,
         "solves_per_s": args.problems / total_s, "results": entries,
-    })
+    }, tracer, registry, plane, args.trace, "optimize"))
 
 
 if __name__ == "__main__":

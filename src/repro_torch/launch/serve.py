@@ -16,9 +16,13 @@ refuses (recurrent mixers: RWKV-6) run the static loop
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --reduced --requests 2 --prompt-len 8 --gen 4 --device cpu
 
-The flags of the observability plane (--trace, --listen, --health,
---flight-recorder, --flight-capacity) are parsed so that asking for one
-fails by name: they are ROADMAP queue A item 11.
+  # telemetry: engine_step > admission / prefill / decode_step spans and
+  # reject / preempt / finish instants, the serving health rules, a live
+  # endpoint and a postmortem bundle on exit
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --reduced --requests 4 --slots 2 --prompt-len 8 --gen 8 \\
+      --page-size 8 --max-seq-len 64 --device cpu --trace /tmp/serve.json \\
+      --health --listen 127.0.0.1:0 --flight-recorder /tmp/serve.bundle.json
 """
 from __future__ import annotations
 
@@ -31,19 +35,9 @@ import torch
 from ..configs import get_config
 from ..core.util import resolve_device
 from ..models import Transformer, reduced
-from ..obs import Registry
+from ..obs import serve_rules
 from ..serve import EngineConfig, InferenceEngine, Request, SamplingParams
-
-OBS_ITEM = "ROADMAP queue A item 11 (observability)"
-#: flags of the reference CLI whose layer is not ported: (flag, dest,
-#: the value that means "not asked for")
-_NOT_PORTED_FLAGS = (
-    ("--trace", "trace", None),
-    ("--listen", "listen", None),
-    ("--health", "health", False),
-    ("--flight-recorder", "flight_recorder", None),
-    ("--flight-capacity", "flight_capacity", None),
-)
+from .obs import add_trace_metrics_flags, open_plane
 
 
 def build_trace(cfg, n_requests, plen_min, plen_max, gen_min, gen_max,
@@ -143,23 +137,19 @@ def build_parser():
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=256)
     ap.add_argument("--max-seq-len", type=int, default=512)
-    ap.add_argument("--metrics", action="store_true",
-                    help="print the metrics-registry snapshot after the run")
-    ap.add_argument("--trace", default=None, help="not ported")
-    ap.add_argument("--listen", default=None, help="not ported")
-    ap.add_argument("--health", action="store_true", help="not ported")
-    ap.add_argument("--flight-recorder", default=None, help="not ported")
-    ap.add_argument("--flight-capacity", type=int, default=None,
-                    help="not ported")
-    return ap
+    return add_trace_metrics_flags(
+        ap, trace_help="trace the serve loop and write Chrome-trace JSON "
+                       "here (engine_step > admission / prefill / "
+                       "decode_step spans, preempt/finish/reject "
+                       "instants); open in chrome://tracing or "
+                       "ui.perfetto.dev",
+        metrics_help="print the metrics-registry snapshot (the same "
+                     "schema solver telemetry uses) after the run")
 
 
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, dest, unset in _NOT_PORTED_FLAGS:
-        if getattr(args, dest) != unset:
-            ap.error(f"{flag} is not ported to repro_torch yet ({OBS_ITEM})")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -186,20 +176,24 @@ def main(argv=None):
     reqs = build_trace(cfg, args.requests, args.prompt_len, plen_max,
                        gen_min, args.gen, sampling, seed=args.seed)
 
-    registry = Registry() if args.metrics else None
+    tracer, registry, plane = open_plane(
+        args, rules=serve_rules, meta={"cli": "serve", "arch": args.arch})
     try:
         engine = InferenceEngine(model, params, EngineConfig(
             max_slots=args.slots, page_size=args.page_size,
             num_pages=args.num_pages, max_seq_len=args.max_seq_len),
-            registry=registry)
+            tracer=plane.tracer_or(tracer), registry=registry,
+            monitor=plane.monitor)
     except NotImplementedError as e:
+        plane.finalize()
         print(f"note: {e}")
         print("falling back to the static loop (greedy, fixed batch)")
         outputs = legacy_generate(cfg, model, params, args)
         print("generated token ids (first request):",
               outputs[min(outputs)][:16])
         return outputs
-    outputs = engine.run(reqs)
+    with plane.crash_guard():
+        outputs = engine.run(reqs)
 
     s = engine.metrics.summary()
     print(f"{len(outputs)} requests, {s['generated_tokens']} tokens in "
@@ -209,6 +203,11 @@ def main(argv=None):
     print(json.dumps(s, indent=1))
     if registry is not None:
         print(json.dumps(registry.snapshot(), indent=1))
+    if plane.active:
+        print(json.dumps({"obs": plane.finalize()}, indent=1))
+    if tracer is not None:
+        tracer.write_chrome_trace(args.trace)
+        print(f"trace: {len(tracer.events)} events -> {args.trace}")
     if s["rejections"]:
         print(f"{s['rejections']} request(s) rejected "
               f"(prompt + gen > --max-seq-len, or queue full)")

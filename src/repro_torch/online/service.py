@@ -29,9 +29,11 @@ zero point) count the work and not its launch.
 as the reference threads them (the solver rebuilds its program under a
 codec, so each update starts from zero error feedback), and ``staleness``
 too (the solver refuses it on the grid engine with the reference's
-``ValueError``).  The reference's tracer spans and health monitor belong
-to ROADMAP queue A item 11 (observability), its mesh engines to item 12;
-asking for any of them raises by name.
+``ValueError``).  The telemetry is the reference's: spans
+``online/ingest|update|swap|score``, health polls after every publish,
+ingest and scoring call, and the service's registry handed to every
+update (the solver's timed path, with its calibration).  The mesh engines
+are ROADMAP queue A item 12; asking for one raises by name.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import torch
 
 from ..core.solver import get_solver, not_ported
 from ..core.util import resolve_device
-from ..obs import Registry
+from ..obs import Registry, as_tracer
 from ..serve.scoring import LinearScorer
 from .queue import AdmissionQueue
 from .snapshot import SnapshotBook
@@ -105,13 +107,24 @@ class OnlineSolverService:
         ``online/version_lag`` (admitted observations the served model
         has not seen) and ``online/w_norm`` (L2 norm of the published
         weights), and histograms ``online/update_s`` / ``online/swap_s``.
+        The registry also goes to every ``Solver.update``, as the
+        reference's does, so every update takes the solver's timed path:
+        the ``solver/*`` metrics, and a calibration of the local / comm
+        split of the update's program (``2 * (1 + 3)`` extra steps).
+      tracer: a :class:`repro_torch.obs.Tracer` (or
+        :class:`~repro_torch.obs.FlightRecorder`); spans ``online/ingest``,
+        ``online/update`` (with the solver's ``solve`` tree inside),
+        ``online/swap`` and ``online/score``.
+      monitor: a :class:`repro_torch.obs.HealthMonitor`; its rate-limited
+        ``poll()`` runs after every publish, on every ingest and after
+        every scoring call.
       clock: injectable wall-clock for staleness math (tests freeze it).
       device: where the window, the solves, the snapshots and the scorer
         live (``"cuda"`` by default; raises without a card).
       index_source: the solver's coordinate orders (see
         ``repro_torch.core.indices``); None draws them from a generator
         seeded from the solver config.
-      mesh, tracer, monitor: not ported; anything but None raises.
+      mesh: not ported; anything but None raises.
     """
 
     def __init__(self, config: OnlineConfig, *, mesh=None, manager=None,
@@ -123,15 +136,15 @@ class OnlineSolverService:
             raise ValueError(
                 f"solver {config.solver!r} has no incremental row-gate "
                 "path; the online service needs one (use 'd3ca')")
-        for knob, val in (("mesh", mesh), ("tracer", tracer),
-                          ("monitor", monitor)):
-            if val is not None:
-                raise not_ported(knob)
+        if mesh is not None:
+            raise not_ported("mesh")
         if config.engine != "simulated":
             raise not_ported("engine", config.engine)
         self.config = config
         self.device = resolve_device(device)
+        self.tracer = as_tracer(tracer)
         self.registry = registry if registry is not None else Registry()
+        self.monitor = monitor
         self.clock = clock
         self.solver = solver_cls(
             local_backend=config.local_backend,
@@ -158,14 +171,17 @@ class OnlineSolverService:
         :class:`~repro_torch.online.queue.QueueFullError` -- callers retry
         or shed; the counters record either way)."""
         rows = int(np.shape(X)[0])
-        try:
-            seq = self.queue.submit(X, y)
-        except Exception:
-            self.registry.counter("online/rejected", **self._labels)\
-                .inc(rows)
-            raise
+        with self.tracer.span("online/ingest", rows=rows):
+            try:
+                seq = self.queue.submit(X, y)
+            except Exception:
+                self.registry.counter("online/rejected", **self._labels)\
+                    .inc(rows)
+                self._poll()
+                raise
         self.registry.counter("online/ingested", **self._labels).inc(rows)
         self._gauge_staleness()
+        self._poll()
         return seq
 
     # ------------------------------------------------------------------
@@ -191,21 +207,25 @@ class OnlineSolverService:
             return None
         Xb, yb, seq = batch
         cur = self.book.current()
-        t0 = self.clock()
-        touched = self.store.insert(Xb, yb)
-        res = self.solver.update(
-            self.config.loss, self.store.X, self.store.y,
-            touched=touched, warm_start=(cur.w, cur.alpha),
-            P=self.config.P, Q=self.config.Q, cfg=self.config.solver_cfg,
-            passes=self.config.passes, record_history=False)
-        self._wait_for_device()
-        self.registry.histogram("online/update_s", **self._labels)\
-            .observe(self.clock() - t0)
-        t0 = self.clock()
-        snap = self.book.publish(res.w, res.alpha, seq)
-        self.scorer.update_weights(snap.w, version=snap.version)
-        self.registry.histogram("online/swap_s", **self._labels)\
-            .observe(self.clock() - t0)
+        with self.tracer.span("online/update", rows=len(yb)):
+            t0 = self.clock()
+            touched = self.store.insert(Xb, yb)
+            res = self.solver.update(
+                self.config.loss, self.store.X, self.store.y,
+                touched=touched, warm_start=(cur.w, cur.alpha),
+                P=self.config.P, Q=self.config.Q,
+                cfg=self.config.solver_cfg, passes=self.config.passes,
+                tracer=self.tracer if self.tracer.enabled else None,
+                registry=self.registry, record_history=False)
+            self._wait_for_device()
+            self.registry.histogram("online/update_s", **self._labels)\
+                .observe(self.clock() - t0)
+        with self.tracer.span("online/swap"):
+            t0 = self.clock()
+            snap = self.book.publish(res.w, res.alpha, seq)
+            self.scorer.update_weights(snap.w, version=snap.version)
+            self.registry.histogram("online/swap_s", **self._labels)\
+                .observe(self.clock() - t0)
         self.registry.counter("online/updates", **self._labels).inc()
         # L2 norm of the published weights: NaN/inf anywhere in w makes
         # the norm non-finite (incremental updates run with
@@ -214,6 +234,7 @@ class OnlineSolverService:
             .set(float(torch.linalg.vector_norm(snap.w)))
         self.last_result = res
         self._gauge_staleness()
+        self._poll()
         return snap.version
 
     def drain_all(self) -> int:
@@ -230,10 +251,12 @@ class OnlineSolverService:
     def score(self, X) -> np.ndarray:
         """Margins under the currently served snapshot (never blocks on
         a concurrent update pass)."""
-        out = self.scorer.score(X)
+        with self.tracer.span("online/score", rows=int(np.shape(X)[0])):
+            out = self.scorer.score(X)
         self.registry.counter("online/scored", **self._labels)\
             .inc(int(np.shape(X)[0]))
         self._gauge_staleness()
+        self._poll()        # staleness grows while only scoring
         return out
 
     def predict(self, X) -> np.ndarray:
@@ -247,6 +270,10 @@ class OnlineSolverService:
     # ------------------------------------------------------------------
     # bookkeeping
     # ------------------------------------------------------------------
+    def _poll(self):
+        if self.monitor is not None:
+            self.monitor.poll()
+
     def _gauge_staleness(self):
         cur = self.book.current()
         self.registry.gauge("online/staleness_s", **self._labels)\

@@ -36,11 +36,10 @@ import numpy as np
 import torch
 
 from ..obs.serve import RequestMetrics
+from ..obs.trace import as_tracer
 from .cache import (PagePool, PagedCacheConfig, make_paged_arenas,
                     paged_kinds, write_prompt_pages)
 from .sampling import SamplingParams, params_arrays, sample_tokens
-
-OBS_ITEM = "ROADMAP queue A item 11 (observability)"
 
 
 @dataclasses.dataclass
@@ -84,15 +83,18 @@ class InferenceEngine:
     ``params`` is the model's tree in ``param_dtype``; the engine keeps
     ``model.compute_params(params)`` (the weights cast to the compute
     dtype once).  ``registry`` (a ``repro_torch.obs.Registry``) receives
-    the request metrics; ``tracer`` and ``monitor`` are not ported.
+    the request metrics.  ``tracer`` (a ``repro_torch.obs.Tracer``) spans
+    every ``engine_step`` with its ``admission`` (``prefill`` per
+    admitted request) and ``decode_step`` phases and marks ``reject`` /
+    ``preempt`` / ``finish`` instants; the prefill and decode spans close
+    after their tokens are read back to the host, so they cover the
+    device work.  ``monitor`` (a ``repro_torch.obs.HealthMonitor``) is
+    polled after every engine step (rate-limited inside the monitor).
     """
 
     def __init__(self, model, params, cfg: EngineConfig = EngineConfig(),
                  clock=time.perf_counter, tracer=None, registry=None,
                  monitor=None):
-        if tracer is not None or monitor is not None:
-            raise NotImplementedError(
-                f"tracer= / monitor= are not ported yet ({OBS_ITEM})")
         paged_kinds(model.cfg)      # raises for unsupported archs
         self.model = model
         self.device = model.device
@@ -103,6 +105,8 @@ class InferenceEngine:
         self.pool = PagePool(self.pc)
         self.arenas = make_paged_arenas(model.cfg, self.pc, self.device)
         self.metrics = RequestMetrics(clock, registry=registry)
+        self.tracer = as_tracer(tracer)
+        self.monitor = monitor
 
         self.queue: collections.deque = collections.deque()
         self.slots: List[Optional[_Slot]] = [None] * cfg.max_slots
@@ -143,8 +147,9 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
-    def _reject(self) -> bool:
+    def _reject(self, req: Request, reason: str) -> bool:
         self.metrics.rejections += 1
+        self.tracer.instant("reject", rid=str(req.rid), reason=reason)
         return False
 
     def submit(self, req: Request) -> bool:
@@ -152,13 +157,13 @@ class InferenceEngine:
         total = len(req.prompt) + req.max_new_tokens
         if total > self.cfg.max_seq_len or \
                 self.pc.pages_for(total) > self.cfg.num_pages:
-            return self._reject()           # too long
+            return self._reject(req, "too_long")
         if len(self.queue) >= self.cfg.max_queue:
-            return self._reject()           # queue full
+            return self._reject(req, "queue_full")
         # rids key the page pool and the output dict: a duplicate would
         # merge two requests' pages under one owner
         if req.rid in self._live or req.rid in self.outputs:
-            return self._reject()
+            return self._reject(req, "duplicate_rid")
         self._live.add(req.rid)
         self.queue.append(req)
         self.metrics.start_request(req.rid, len(req.prompt))
@@ -192,11 +197,16 @@ class InferenceEngine:
         self._bt[i] = bt_row
 
         plen = len(req.prompt)
-        toks = np.zeros((1, self._bucket(plen)), np.int32)
+        bucket = self._bucket(plen)
+        toks = np.zeros((1, bucket), np.int32)
         toks[0, :plen] = req.prompt
-        first = self._prefill(torch.as_tensor(toks, device=self.device),
-                              plen, bt_row,
-                              params_arrays([req.sampling], [0]))
+        with self.tracer.span("prefill", rid=str(req.rid), prompt_len=plen,
+                              bucket=bucket):
+            # the first token is read back to the host: the span closes
+            # after the prefill's device work
+            first = self._prefill(torch.as_tensor(toks, device=self.device),
+                                  plen, bt_row,
+                                  params_arrays([req.sampling], [0]))
         self.metrics.prefills += 1
         self.metrics.first_token(req.rid)
 
@@ -221,6 +231,7 @@ class InferenceEngine:
         self.slots[i] = None
         self.queue.appendleft(slot.request)
         self.metrics.preemptions += 1
+        self.tracer.instant("preempt", rid=str(slot.rid), slot=i)
 
     def _grow(self):
         """Ensure every active slot has a page for its next write."""
@@ -259,6 +270,8 @@ class InferenceEngine:
         self.outputs[slot.rid] = np.asarray(slot.generated, np.int32)
         self._live.discard(slot.rid)
         self.metrics.finish(slot.rid, len(slot.generated))
+        self.tracer.instant("finish", rid=str(slot.rid),
+                            n_generated=len(slot.generated))
         self.pool.free(slot.rid)
         if self.cfg.reserve_pages:
             self._reserved_pages -= self.pc.pages_for(
@@ -272,9 +285,17 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def step(self) -> bool:
         """Admit + grow + one decode step.  False when fully idle."""
-        while self._try_admit_one():
-            pass
-        self._grow()
+        with self.tracer.span("engine_step"):
+            out = self._step_inner()
+        if self.monitor is not None:
+            self.monitor.poll()
+        return out
+
+    def _step_inner(self) -> bool:
+        with self.tracer.span("admission"):
+            while self._try_admit_one():
+                pass
+            self._grow()
 
         active_idx = [i for i, s in enumerate(self.slots) if s is not None]
         if not active_idx:
@@ -296,8 +317,11 @@ class InferenceEngine:
 
         greedy = all(self.slots[i].request.sampling.temperature <= 0.0
                      for i in active_idx)
-        nxt = self._decode(tokens, lengths, active,
-                           None if greedy else params_arrays(sp_list, steps))
+        with self.tracer.span("decode_step", batch=len(active_idx)):
+            # the tokens come back to the host inside: the span covers
+            # the step's device work
+            nxt = self._decode(tokens, lengths, active, None if greedy
+                               else params_arrays(sp_list, steps))
         self.metrics.decode_steps += 1
 
         for i in active_idx:

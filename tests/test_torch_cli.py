@@ -9,10 +9,13 @@ from repro_torch.core import (D3CAConfig, Solver, available_solvers,
                               get_solver, partition, serial_sdca)
 from repro_torch.core.util import resolve_device
 from repro_torch.launch import optimize
+from repro_torch.obs import load_bundle
 from test_torch_common import make_problem
 
 SMALL = ["--mesh", "3x2", "--n", "200", "--m", "60", "--iters", "3",
          "--device", "cpu"]
+#: the expectation of a refusal case whose flag is now ported: it runs
+PORTED = object()
 SUMMARY_KEYS = {"solver", "engine", "local_backend", "device",
                 "block_format", "P", "Q", "n", "m", "loss", "lam", "iters",
                 "converged", "objective", "rel_opt", "total_s",
@@ -116,11 +119,14 @@ def test_cli_early_stop():
     # the fan-out is ported; it takes synthetic instances only
     (["--problems", "4", "--dataset", "libsvm"], "--problems"),
     (["--force-host-devices", "6"], "--force-host-devices"),
-    (["--trace", "t.json"], "--trace"),
-    (["--metrics"], "--metrics"),
-    (["--listen", "127.0.0.1:0"], "--listen"),
-    (["--health"], "--health"),
-    (["--flight-recorder", "fr"], "--flight-recorder"),
+    # the observability flags, once refused, run (PORTED: see below)
+    pytest.param(["--trace", "TRACE"], PORTED, id="flags10---trace"),
+    pytest.param(["--metrics"], PORTED, id="flags11---metrics"),
+    pytest.param(["--listen", "127.0.0.1:0"], PORTED,
+                 id="flags12---listen"),
+    pytest.param(["--health"], PORTED, id="flags13---health"),
+    pytest.param(["--flight-recorder", "BUNDLE"], PORTED,
+                 id="flags14---flight-recorder"),
     # ADMM and its comm policies are ported; its mesh knobs are not
     pytest.param(["--solver", "admm", "--compression", "int8", "--engine",
                   "shard_map"], "--engine", id="flags15-admm"),
@@ -129,7 +135,12 @@ def test_cli_early_stop():
     (["--solver", "nope"], "unknown solver"),
     (["--backend", "pallas"], "--backend"),
 ])
-def test_cli_rejects_unported_flags_by_name(flags, named, capsys):
+def test_cli_rejects_unported_flags_by_name(flags, named, capsys, tmp_path):
+    """A flag of a layer that is not ported exits 2 naming it; a flag
+    whose layer is now ported (``PORTED``) runs, and its case checks what
+    it made."""
+    if named is PORTED:
+        return _check_observability_flag(flags, tmp_path, capsys)
     with pytest.raises(SystemExit) as exc:
         optimize.main([*flags, *SMALL])
     assert exc.value.code == 2
@@ -159,14 +170,42 @@ def test_solver_rejects_unported_knobs_by_name(kw, named):
     assert named in str(exc.value)
 
 
+def _check_observability_flag(flags, tmp_path, capsys):
+    """An observability flag of the reference's CLI runs the solve under
+    it and reports what it made; the iterates are those of the plain
+    run."""
+    key = flags[0]
+    flags = [str(tmp_path / "t.json") if f == "TRACE" else
+             str(tmp_path / "b.json") if f == "BUNDLE" else f for f in flags]
+    plain = optimize.main(SMALL)
+    got = optimize.main([*flags, *SMALL])
+    assert got["objective"] == plain["objective"]
+    out = capsys.readouterr().out
+    if key == "--trace":
+        events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+        assert sum(e["name"] == "outer_iter" for e in events) == 3
+        assert (tmp_path / "t.jsonl").exists() and "[optimize] trace" in out
+        assert "[optimize] phases: local" in out
+    elif key == "--metrics":
+        assert got["metrics"]["counters"][
+            "solver/iters{engine=simulated,solver=d3ca}"] == 3.0
+    elif key == "--listen":
+        assert got["obs"]["listen"].startswith("http://127.0.0.1:")
+        assert "metrics" in got and "[obs] serving" in out
+    elif key == "--health":
+        assert got["obs"]["health"]["status"] in ("ok", "warn")
+    else:
+        assert got["obs"]["flight_recorder"]["bundle"] == \
+            str(tmp_path / "b.json")
+        assert load_bundle(str(tmp_path / "b.json"))["reason"] == "exit"
+
+
 def test_solver_rejects_unported_calls_by_name():
     X, y = make_problem(40, 12)
     solver = get_solver("d3ca")(device="cpu")
     cfg = D3CAConfig(outer_iters=1)
-    for kw in (dict(tracer=object()), dict(registry=object()),
-               dict(monitor=object()), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            solver.solve("hinge", X, y, P=2, Q=2, cfg=cfg, **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        solver.solve("hinge", X, y, P=2, Q=2, cfg=cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="engine='async'"):
         get_solver("admm")(device="cpu", engine="async",
                            compression="int8")
@@ -198,7 +237,8 @@ def test_program_cache_equals_an_uncached_solve(name):
             [h["objective"] for h in plain.history]
     assert len(cached._prog_cache) == 1
     entry = next(iter(cached._prog_cache.values()))
-    assert set(entry) == {"step"}
+    # the step and its collective-free timing twin, as in the reference
+    assert set(entry) == {"step", "local"}
     cached.solve("hinge", X[:30], y[:30], P=2, Q=2, cfg=cfg)
     assert len(cached._prog_cache) == 2
 

@@ -31,6 +31,7 @@ from repro_torch.fleet import (FleetProblem, FleetScheduler, FleetSolver,
                                stack_grid)
 from repro_torch.launch import fleet as fleet_cli
 from repro_torch.launch import optimize
+from repro_torch.obs import HealthMonitor, Registry, Tracer, fleet_rules
 from test_torch_common import (ceil_div, d3ca_rows, radisa_streams,
                                sfk_samples)
 
@@ -401,13 +402,6 @@ def test_fleet_knob_validation():
                            match="'Multi-device engines'"):
             FleetSolver(engine=engine, device="cpu")
     probs = make_problems(lams=(1.0,))
-    for knob in ("tracer", "registry"):
-        with pytest.raises(NotImplementedError, match="'Observability'"):
-            FleetSolver(device="cpu").solve_batch(
-                probs, P=P, Q=Q, **{knob: object()})
-    for knob in ("tracer", "registry", "monitor"):
-        with pytest.raises(NotImplementedError, match="'Observability'"):
-            FleetScheduler(P=P, Q=Q, device="cpu", **{knob: object()})
     with pytest.raises(ValueError, match="warm_starts"):
         FleetSolver(device="cpu").solve_batch(probs, P=P, Q=Q,
                                               warm_starts=[None, None])
@@ -449,16 +443,29 @@ def test_fleet_cli_on_the_cpu(solver, block_format, capsys):
     assert res.w.shape == (p.m,) and res.iters == 3
 
 
+#: the expectation of a refusal case whose flag is now ported: it runs
+PORTED = object()
+
+
 @pytest.mark.parametrize("flags,named", [
     (["--engine", "shard_map"], "'Multi-device engines'"),
     (["--force-host-devices", "8"], "'Multi-device engines'"),
-    (["--trace", "t.json"], "'Observability'"),
-    (["--metrics"], "'Observability'"),
-    (["--health"], "'Observability'"),
-    (["--listen", ":0"], "'Observability'"),
+    # the observability flags, once refused, run
+    pytest.param(["--trace", "TRACE"], PORTED, id="flags2-'Observability'"),
+    pytest.param(["--metrics"], PORTED, id="flags3-'Observability'"),
+    pytest.param(["--health", "--min-tenants", "8"], PORTED,
+                 id="flags4-'Observability'"),
+    pytest.param(["--listen", "127.0.0.1:0"], PORTED,
+                 id="flags5-'Observability'"),
     (["--solver", "nope"], "unknown solver"),
 ])
-def test_fleet_cli_refuses_unported_flags_by_name(flags, named, capsys):
+def test_fleet_cli_refuses_unported_flags_by_name(flags, named, capsys,
+                                                  tmp_path):
+    """A flag of a layer that is not ported exits 2 naming it; a flag
+    whose layer is now ported (``PORTED``) runs, and its case checks what
+    it made."""
+    if named is PORTED:
+        return _check_observability_flag(flags, tmp_path, capsys)
     with pytest.raises(SystemExit) as exc:
         fleet_cli.main([*flags, *FLEET_SMALL, "--device", "cpu"])
     assert exc.value.code == 2
@@ -552,3 +559,60 @@ def test_entry_points_need_the_card_or_the_cpu_by_name():
     with pytest.raises(RuntimeError, match="--device cpu"):
         optimize.main(["--problems", "3", "--mesh", "2x2", "--n", "64",
                        "--m", "24", "--iters", "1"])
+
+
+def test_fleet_observability_hooks_keep_the_results():
+    """``solve_batch(tracer=, registry=)`` and ``FleetScheduler(tracer=,
+    registry=, monitor=)`` run the batch under the hooks: the results are
+    bitwise those without, and the spans and gauges are recorded."""
+    probs = [dataclasses.replace(p, f_star=0.25)
+             for p in make_problems(lams=(1.0, 0.5))]
+    cfg = CFGS["d3ca"][0]
+    plain = FleetSolver(device="cpu").solve_batch(probs, P=P, Q=Q, cfg=cfg)
+    tr, reg = Tracer(), Registry()
+    got = FleetSolver(device="cpu").solve_batch(probs, P=P, Q=Q, cfg=cfg,
+                                                tracer=tr, registry=reg)
+    for a, b in zip(plain, got):
+        assert torch.equal(a.w, b.w) and torch.equal(a.alpha, b.alpha)
+    assert {e["name"] for e in tr.events} == {
+        "fleet/pack", "fleet/step", "fleet/unpack"}
+    gauges = reg.snapshot()["gauges"]
+    assert gauges["fleet/tenants{engine=simulated,solver=d3ca}"] == 2.0
+    assert gauges["fleet/active{engine=simulated,solver=d3ca}"] == 2.0
+    assert sum(k.startswith("fleet/rel_opt{") for k in gauges) == 2
+    mon = HealthMonitor(reg, fleet_rules(min_tenants=3), min_interval_s=0)
+    sched = FleetScheduler(P=P, Q=Q, device="cpu", cfg=cfg, tracer=tr,
+                           registry=reg, monitor=mon)
+    for p in probs:
+        sched.submit(p)
+    res = sched.run()
+    assert torch.equal(res[probs[0].tenant_id].w, plain[0].w)
+    assert mon.healthz(evaluate=False)["rules"]["fleet_starvation"][
+        "status"] == "warn"
+
+
+def _check_observability_flag(flags, tmp_path, capsys):
+    """An observability flag of the reference's fleet CLI runs the fleet
+    under it and reports what it made, with the results of the plain
+    run."""
+    key = flags[0]
+    flags = [str(tmp_path / "t.json") if f == "TRACE" else f for f in flags]
+    argv = [*FLEET_SMALL, "--device", "cpu"]
+    plain = fleet_cli.main(argv)
+    got = fleet_cli.main([*flags, *argv])
+    assert [r["objective"] for r in got["results"]] == \
+        [r["objective"] for r in plain["results"]]
+    if key == "--trace":
+        names = {e["name"] for e in json.loads(
+            (tmp_path / "t.json").read_text())["traceEvents"]}
+        assert names == {"fleet/pack", "fleet/step", "fleet/unpack"}
+        assert "[fleet] trace" in capsys.readouterr().out
+    elif key == "--metrics":
+        assert got["metrics"]["gauges"][
+            "fleet/tenants{engine=simulated,solver=d3ca}"] == 4.0
+    elif key == "--health":
+        # one bucket of 4 tenants under --min-tenants 8: a starved bucket
+        rule = got["obs"]["health"]["rules"]["fleet_starvation"]
+        assert rule["status"] == "warn"
+    else:
+        assert got["obs"]["listen"].startswith("http://127.0.0.1:")

@@ -26,6 +26,8 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import D3CAConfig, get_loss, get_solver
 from repro_torch.data import csr_from_dense
 from repro_torch.launch import online as online_cli
+from repro_torch.obs import (HealthMonitor, Registry, Tracer, load_bundle,
+                             solver_rules)
 from repro_torch.online import (AdmissionQueue, GridStore, OnlineConfig,
                                 OnlineSolverService, QueueFullError,
                                 SnapshotBook)
@@ -415,9 +417,15 @@ def test_service_recover_after_restart(tmp_path):
     assert svc2.run_pending() == 2
 
 
+#: the expectation of a refusal case whose knob is now ported: it runs
+PORTED = object()
+
+
 @pytest.mark.parametrize("kw,named", [
-    (dict(mesh=object()), "mesh"), (dict(tracer=object()), "tracer"),
-    (dict(monitor=object()), "monitor"),
+    (dict(mesh=object()), "mesh"),
+    # the tracer and the monitor, once refused, run
+    pytest.param(dict(tracer=True), PORTED, id="kw1-tracer"),
+    pytest.param(dict(monitor=True), PORTED, id="kw2-monitor"),
     (dict(engine="shard_map"), "engine='shard_map'"),
     # staleness and the comm policies are threaded to the solver; beside
     # a mesh engine the engine is refused by name
@@ -428,19 +436,66 @@ def test_service_recover_after_restart(tmp_path):
     pytest.param(dict(topology="pods=2", engine="overlap"),
                  "engine='overlap'", id="kw6-topology='pods=2'")])
 def test_service_refuses_unported_knobs_by_name(kw, named):
-    svc_kw = {k: kw.pop(k) for k in ("mesh", "tracer", "monitor") if k in kw}
+    """A knob of a layer that is not ported raises naming it; a knob
+    whose layer is now ported (``PORTED``) runs."""
+    if named is PORTED:
+        return _check_tracer_or_monitor(next(iter(kw)))
+    svc_kw = {k: kw.pop(k) for k in ("mesh",) if k in kw}
     with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
         OnlineSolverService(OnlineConfig(m=4, **kw), device="cpu", **svc_kw)
     assert named in str(exc.value)
 
 
+def _check_tracer_or_monitor(knob):
+    """The service runs under a tracer (spans of every phase) or a health
+    monitor (polled as the reference polls it), with the plain service's
+    snapshots."""
+    cfg = OnlineConfig(m=8, capacity=24, P=2, Q=2,
+                       solver_cfg=D3CAConfig(lam=0.1))
+    hook = (Tracer() if knob == "tracer" else
+            HealthMonitor(Registry(), [], min_interval_s=0.0))
+    kw = {knob: hook}
+    if knob == "monitor":
+        kw["registry"] = hook.registry
+    runs = []
+    for extra in ({}, kw):
+        svc = OnlineSolverService(cfg, device="cpu", **extra)
+        rng = np.random.default_rng(0)
+        for _ in range(3):
+            svc.submit(*_stream(rng, 6, 8))
+            svc.run_pending()
+            svc.score(_stream(rng, 4, 8)[0])
+        runs.append(svc.book.current().w)
+    assert torch.equal(runs[0], runs[1])
+    if knob == "tracer":
+        names = [e["name"] for e in hook.events if e["depth"] == 0]
+        assert names == ["online/ingest", "online/update", "online/swap",
+                         "online/score"] * 3
+        assert len(hook.spans("solve")) == 3
+    else:
+        # one poll after every ingest, publish and scoring call
+        assert hook.evaluations == 9
+
+
 def test_update_refuses_observability_knobs_by_name():
+    """``Solver.update(tracer=, registry=, monitor=)``, once refused by
+    name, now runs: the timed path (spans and metrics) with bitwise the
+    untimed update's iterates."""
     X, y = _sparse_problem(24, 8, seed=0)
     s = get_solver("d3ca")(device="cpu")
-    for knob in ("tracer", "registry", "monitor"):
-        with pytest.raises(NotImplementedError, match="'Observability'"):
-            s.update("hinge", X, y, touched=[0], warm_start=np.zeros(8),
-                     P=2, Q=2, **{knob: object()})
+    kw = dict(touched=[0, 5, 13], warm_start=np.zeros(8), P=2, Q=2,
+              cfg=D3CAConfig(lam=0.1), passes=2)
+    plain = s.update("hinge", X, y, **kw)
+    tr, reg = Tracer(), Registry()
+    mon = HealthMonitor(reg, solver_rules(), min_interval_s=0.0)
+    got = s.update("hinge", X, y, tracer=tr, registry=reg, monitor=mon, **kw)
+    assert torch.equal(plain.w, got.w) and torch.equal(plain.alpha,
+                                                       got.alpha)
+    assert len(tr.spans("outer_iter")) == 2 and len(tr.spans("calibrate")) \
+        == 1
+    assert reg.snapshot()["histograms"][
+        "solver/step_s{engine=simulated,solver=d3ca}"]["count"] == 2
+    assert mon.evaluations == 2
 
 
 def test_the_online_entry_points_default_to_the_card():
@@ -502,16 +557,59 @@ def test_online_cli_on_the_cpu_persists_and_recovers(tmp_path, capsys):
                  "'Multi-device engines'", id="flags3-'Comm policies"),
     pytest.param(["--topology", "pods=2", "--engine", "shard_map"],
                  "'Multi-device engines'", id="flags4-'Comm policies"),
-    (["--trace", "t.json"], "'Observability'"),
-    (["--metrics"], "'Observability'"),
-    (["--health"], "'Observability'"),
-    (["--max-lag", "5"], "'Observability'"),
-    (["--listen", ":0"], "'Observability'"),
-    (["--flight-recorder", "fr.json"], "'Observability'"),
+    # the observability flags, once refused, run
+    pytest.param(["--trace", "TRACE"], PORTED, id="flags5-'Observability'"),
+    pytest.param(["--metrics"], PORTED, id="flags6-'Observability'"),
+    pytest.param(["--health"], PORTED, id="flags7-'Observability'"),
+    pytest.param(["--health", "--max-lag", "5"], PORTED,
+                 id="flags8-'Observability'"),
+    pytest.param(["--listen", "127.0.0.1:0"], PORTED,
+                 id="flags9-'Observability'"),
+    pytest.param(["--flight-recorder", "BUNDLE"], PORTED,
+                 id="flags10-'Observability'"),
     (["--solver", "nope"], "unknown solver"),
 ])
-def test_online_cli_refuses_unported_flags_by_name(flags, named, capsys):
+def test_online_cli_refuses_unported_flags_by_name(flags, named, capsys,
+                                                   tmp_path):
+    """A flag of a layer that is not ported exits 2 naming it; a flag
+    whose layer is now ported (``PORTED``) runs, and its case checks what
+    it made."""
+    if named is PORTED:
+        return _check_observability_flag(flags, tmp_path, capsys)
     with pytest.raises(SystemExit) as exc:
         online_cli.main([*flags, *SMALL])
     assert exc.value.code == 2
     assert named in capsys.readouterr().err
+
+
+def _check_observability_flag(flags, tmp_path, capsys):
+    """An observability flag of the reference's online CLI runs the
+    stream under it and reports what it made, with the snapshots of the
+    plain run."""
+    key = "--max-lag" if "--max-lag" in flags else flags[0]
+    flags = [str(tmp_path / "t.json") if f == "TRACE" else
+             str(tmp_path / "b.json") if f == "BUNDLE" else f for f in flags]
+    plain = online_cli.main([*SMALL, "--rounds", "3"])
+    got = online_cli.main([*flags, *SMALL, "--rounds", "3"])
+    assert got["objective"] == plain["objective"]
+    if key == "--trace":
+        events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+        tops = [e["name"] for e in events if e["name"].startswith("online/")]
+        assert tops == ["online/ingest", "online/update", "online/swap"] * 3
+        assert "[online] trace" in capsys.readouterr().out
+    elif key == "--metrics":
+        assert got["metrics"]["counters"][
+            "online/updates{engine=simulated,solver=d3ca}"] == 3.0
+    elif key == "--health":
+        assert got["obs"]["health"]["status"] == "ok"
+    elif key == "--max-lag":
+        # a lag bound below one batch: the first ingest breaches it until
+        # the update lands (later ones may fall inside the monitor's rate
+        # limit), and the last verdict (after the publish) is OK
+        rule = got["obs"]["health"]["rules"]["version_lag"]
+        assert rule["status"] == "ok" and got["metrics"]["counters"][
+            "health/transitions{rule=version_lag,status=crit}"] >= 1.0
+    elif key == "--listen":
+        assert got["obs"]["listen"].startswith("http://127.0.0.1:")
+    else:
+        assert load_bundle(str(tmp_path / "b.json"))["reason"] == "exit"

@@ -7,6 +7,7 @@ page-pool invariants), sampling filters against the reference's, and the
 CLI."""
 import contextlib
 import io
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,8 @@ from repro.serve import InferenceEngine as RefEngine
 from repro.serve import Request as RefRequest
 from repro.serve.sampling import _filter_logits as ref_filter_logits
 from repro_torch.launch import serve as cli
-from repro_torch.obs import Registry
+from repro_torch.obs import (HealthMonitor, Registry, Tracer, load_bundle,
+                             serve_rules)
 from repro_torch.serve import (EngineConfig, InferenceEngine, PagePool,
                                PagedCacheConfig, Request, RequestMetrics,
                                SamplingParams)
@@ -251,8 +253,18 @@ def test_engine_stop_token_sampling_and_registry():
     snap = reg.snapshot()
     assert snap["counters"]["serve/prefills"] == 2
     assert snap["histograms"]["serve/latency_s"]["count"] == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        InferenceEngine(model, params, ecfg, tracer=object())
+    # under a tracer and a monitor the engine serves the same tokens and
+    # records the reference's spans and instants
+    tr = Tracer()
+    mon = HealthMonitor(reg, serve_rules(), min_interval_s=0.0)
+    traced = InferenceEngine(model, params, ecfg, tracer=tr,
+                             monitor=mon).run(sampled)
+    for rid in one:
+        np.testing.assert_array_equal(one[rid], traced[rid])
+    assert len(tr.spans("prefill")) == 2 and len(tr.spans("decode_step")) \
+        == len(tr.spans("engine_step")) - 1 == mon.evaluations - 1
+    assert [e["name"] for e in tr.events if e["dur"] is None] == \
+        ["finish", "finish"]
 
 
 # ---------------------------------------------------------------------------
@@ -294,16 +306,53 @@ def test_cli_needs_device_cpu_without_a_card():
         cli.main(["--arch", "qwen3-1.7b", "--reduced"])
 
 
+def _check_observability_flag(flags, tmp_path):
+    """An observability flag of the reference's serving CLI serves the
+    trace under it, token for token the plain run, and reports what it
+    made."""
+    key = flags[0]
+    flags = [str(tmp_path / "t.json") if f == "TRACE" else
+             str(tmp_path / "b.json") if f == "BUNDLE" else f for f in flags]
+    argv = ["--arch", "qwen3-1.7b", "--reduced", "--requests", "3",
+            "--slots", "2", "--prompt-len", "8", "--gen", "4",
+            "--page-size", "8", "--max-seq-len", "32", "--device", "cpu"]
+    plain, _ = _run_cli(argv)
+    got, text = _run_cli([*flags, *argv])
+    for rid in plain:
+        np.testing.assert_array_equal(plain[rid], got[rid])
+    if key == "--trace":
+        events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+        assert sum(e["name"] == "prefill" for e in events) == 3
+        assert sum(e["name"] == "finish" for e in events) == 3
+    elif key == "--listen":
+        assert "[obs] serving /metrics" in text and '"listen"' in text
+    elif key == "--health":
+        assert '"status": "ok"' in text
+    else:
+        assert load_bundle(str(tmp_path / "b.json"))["reason"] == "exit"
+
+
+#: the expectation of a refusal case whose flag is now ported: it runs
+PORTED = object()
+
+
 @pytest.mark.parametrize("argv,named", [
-    (["--arch", "qwen3-1.7b", "--trace", "t.json"], "--trace"),
-    (["--arch", "qwen3-1.7b", "--listen", ":0"], "--listen"),
-    (["--arch", "qwen3-1.7b", "--health"], "--health"),
-    (["--arch", "qwen3-1.7b", "--flight-recorder", "f.json"],
-     "--flight-recorder"),
+    # the observability flags, once refused, run
+    pytest.param(["--trace", "TRACE"], PORTED, id="argv0---trace"),
+    pytest.param(["--listen", "127.0.0.1:0"], PORTED, id="argv1---listen"),
+    pytest.param(["--health"], PORTED, id="argv2---health"),
+    pytest.param(["--flight-recorder", "BUNDLE"], PORTED,
+                 id="argv3---flight-recorder"),
     (["--arch", "mixtral-8x7b"], "MoE"),
     (["--arch", "recurrentgemma-9b"], "rglru"),
     (["--arch", "musicgen-large"], "embeddings")])
-def test_cli_refuses_unported_flags_and_archs_by_name(argv, named, capsys):
+def test_cli_refuses_unported_flags_and_archs_by_name(argv, named, capsys,
+                                                      tmp_path):
+    """An arch the port does not serve exits 2 naming it; a flag whose
+    layer is now ported (``PORTED``) runs, and its case checks what it
+    made."""
+    if named is PORTED:
+        return _check_observability_flag(argv, tmp_path)
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--reduced", "--device", "cpu"])
     assert e.value.code == 2
