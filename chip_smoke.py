@@ -172,6 +172,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -184,14 +185,16 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.svm_paper import REAL_DATASETS  # noqa: E402
-from repro_torch.core import (ArrayIndexSource, D3CAConfig,  # noqa: E402
-                              GeneratorIndexSource, RADiSAConfig, SFKConfig,
-                              Solver, ell_gather, ell_scatter_add, get_loss,
+from repro_torch.core import (ADMMConfig, ArrayIndexSource,  # noqa: E402
+                              D3CAConfig, GeneratorIndexSource, RADiSAConfig,
+                              SFKConfig,
+                              Solver, SyncComm, ell_gather, ell_scatter_add, get_loss,
                               get_solver, objective, partition,
                               partition_sparse, serial_sdca)
 from repro_torch.core.compress import (Codec, Int8Codec,  # noqa: E402
                                        TopKCodec)
-from repro_torch.core.d3ca import d3ca_simulated_program  # noqa: E402
+from repro_torch.core.d3ca import (d3ca_cell_program,  # noqa: E402
+                                   d3ca_simulated_program)
 from repro_torch.core.partition import (blocks_times_cols,  # noqa: E402
                                         rows_times_blocks)
 from repro_torch.core.radisa import (cut_windows,  # noqa: E402
@@ -224,10 +227,12 @@ from repro_torch.launch import fleet as fleet_cli  # noqa: E402
 from repro_torch.launch import online as online_cli  # noqa: E402
 from repro_torch.launch import optimize  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import close_grids, process_grid  # noqa: E402
 from repro_torch.models import Transformer, reduced  # noqa: E402
 from repro_torch.obs import (HealthMonitor, ObsServer,  # noqa: E402
                              Registry, Tracer, load_bundle,
                              parse_prometheus_text)
+from repro_torch.obs.phases import calibrate_phases  # noqa: E402
 from repro_torch.serve import InferenceEngine  # noqa: E402
 from repro_torch.models.transformer import tree_map  # noqa: E402
 from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
@@ -237,7 +242,7 @@ MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
               "serve_rwkv6_full", "fleet_dense_full", "fleet_sparse_full",
               "admm_full", "online_full", "online_sparse_full", "comm_full",
-              "obs_full")
+              "obs_full", "mesh_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -1794,13 +1799,31 @@ def linattn_main_check(rng, dev):
             "reference": "float64 recurrence", "draws": len(draws)}
 
 
+#: the process grids a main path drives: their workers' launches
+#: (``ProcessGrid.worker_launches``) count with this process's own
+MESH_GRIDS = []
+
+
 def launch_counts():
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: fn.launches + sum(
+        g.worker_launches.get(name, {}).get("launches", 0)
+        for g in MESH_GRIDS) for name, fn in WRAPPERS.items()}
+
+
+def counts_by(name, counter):
+    """Launches of one wrapper per route (``launches_by_route``) or
+    cluster size (``launches_by_cluster``), this process's and the
+    MESH_GRIDS workers'."""
+    out = dict(getattr(WRAPPERS[name], counter))
+    for g in MESH_GRIDS:
+        for r, n in g.worker_launches.get(name, {}).get(counter, {}).items():
+            out[r] = out.get(r, 0) + n
+    return out
 
 
 def route_counts(name):
     """Launches of one wrapper per route."""
-    return dict(WRAPPERS[name].launches_by_route)
+    return counts_by(name, "launches_by_route")
 
 
 def reset_counts():
@@ -1809,6 +1832,8 @@ def reset_counts():
         for by in ("launches_by_route", "launches_by_cluster"):
             for r in getattr(fn, by, {}):
                 getattr(fn, by)[r] = 0
+    for g in MESH_GRIDS:
+        g.worker_launches = {}
 
 
 def run_solver_full(solver: str, expect_dual: bool, sparse: bool = False,
@@ -3219,6 +3244,467 @@ def phase_obs_full(setup):
             "flash_attention": 28 * out["serve"]["prefills"]}
 
 
+# ---------------------------------------------------------------------------
+# mesh_full: the mesh engines, one process grid of P x Q ranks on the card
+# ---------------------------------------------------------------------------
+
+#: the reduction delay of the async and overlap solves
+MESH_TAU = 2
+#: async tau = 2's duality gap after OUTER_ITERS at Part 1, two-sided,
+#: written before the first run: the delay rule emulated on the grid
+#: engine at 1/5 and 1/10 of the Part 1 width (7 x 4) ended within 3 % of
+#: the synchronous gap, which d3ca_full reads as 0.346
+MESH_TAU2_GAP = (0.25, 0.45)
+#: the mesh's iterates against the grid engine's, relative to the largest
+#: entry (summation order: gloo's all-reduce against a blocked sum)
+MESH_TOL = 1e-5
+#: the ranks whose first and last B1 launch of each session are held
+#: against the plain version on their own device: cells (0, 0), (6, 3)
+MESH_TAPPED = (0, P * Q - 1)
+MESH_TIMING_STEPS = 5
+#: each gloo collective's support of a CUDA tensor, probed in a process of
+#: its own (one rank)
+GLOO_CUDA_PROBE = r"""
+import datetime, json, torch, torch.distributed as dist
+store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                      wait_for_workers=False)
+dist.init_process_group("gloo", store=store, rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=60))
+x = torch.ones(4, device="cuda")
+calls = {
+    "all_reduce": lambda: dist.all_reduce(x),
+    "all_reduce_async": lambda: dist.all_reduce(x, async_op=True).wait(),
+    "broadcast": lambda: dist.broadcast(x, 0),
+    "all_gather": lambda: dist.all_gather([torch.empty_like(x)], x),
+    "gather": lambda: dist.gather(x, [torch.empty_like(x)], dst=0)}
+out = {}
+for name, call in calls.items():
+    try:
+        call()
+        torch.cuda.synchronize()
+        out[name] = True
+    except Exception as e:
+        out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+print(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+
+@contextlib.contextmanager
+def wire_clock(spent):
+    """Host seconds this rank spends in the process wire: copying each
+    payload to its pinned host buffer (a wait for the device: the
+    context's turn on the card) and in each gloo all-reduce call (the
+    dispatch alone when it is asynchronous); counts in ``spent``.
+    Restored on exit."""
+    from repro_torch.core import comm as comm_mod
+    wire = comm_mod.ProcessWire
+    to_host = wire.__dict__["_to_host"]            # the staticmethod
+    all_reduce = comm_mod.dist.all_reduce
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[f"{key}_s"] += time.perf_counter() - t0
+            spent[f"{key}_calls"] += 1
+            return out
+        return call
+    spent.update(to_host_s=0.0, to_host_calls=0, all_reduce_s=0.0,
+                 all_reduce_calls=0)
+    wire._to_host = staticmethod(timed(to_host.__func__, "to_host"))
+    comm_mod.dist.all_reduce = timed(all_reduce, "all_reduce")
+    try:
+        yield
+    finally:
+        wire._to_host = to_host
+        comm_mod.dist.all_reduce = all_reduce
+
+
+@contextlib.contextmanager
+def mesh_rank_hook(rank):
+    """The rank hook of mesh_full's grids (``ProcessGrid.rank_hook``): each
+    rank's peak device memory in a session and its time in the wire
+    (:func:`wire_clock`), and on the MESH_TAPPED ranks B1's first and last
+    launch of the session held against the plain version on the rank's
+    device (through :func:`tap`)."""
+    report, keep = {"wire": {}}, []
+    torch.cuda.reset_peak_memory_stats()
+    watch = (tap("sdca_epoch", first_last(keep)) if rank in MESH_TAPPED
+             else contextlib.nullcontext())
+    with watch, wire_clock(report["wire"]):
+        yield report
+    torch.cuda.synchronize()
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if keep:
+        report["held"] = held_first_last(f"mesh rank {rank}", keep,
+                                         sdca_epoch_plain)
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def mesh_held(label, got, want, fields=("w", "alpha")):
+    """A mesh solve's iterates against the grid engine's, MESH_TOL
+    relative to the largest entry."""
+    out = {}
+    for f in fields:
+        g, w = getattr(got, f), getattr(want, f)
+        if g is None and w is None:
+            continue
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: bad {f} {tuple(g.shape)}")
+        out[f] = rel_err(g, w)
+        if out[f] > MESH_TOL:
+            raise AssertionError(f"{label}: {f} is {out[f]:.3e} off the "
+                                 f"grid engine's (relative to its largest "
+                                 f"entry; tol {MESH_TOL})")
+    return out
+
+
+@functools.lru_cache(maxsize=2)
+def mesh_dense_data(n, m, seed=0):
+    """The dense instance, made once for mesh_full's solves (the CLI's
+    ``make_svm_data`` is handed this while the phase runs)."""
+    return make_svm_data(n, m, seed=seed)
+
+
+@functools.lru_cache(maxsize=1)
+def mesh_sparse_data(n, m, density, seed=0):
+    """The news20 profile, made once (the CLI's ``make_sparse_svm_csr``)."""
+    return make_sparse_svm_csr(n, m, density=density, seed=seed)
+
+
+def mesh_cli(flags, grid=(P, Q), sparse=False, ref_epochs=0):
+    """One mesh solve through the CLI's ``main`` on the card; returns its
+    summary, history, the SolveResult the CLI got and the wall time."""
+    if sparse:
+        data = ["--dataset", "sparse", "--block-format", "sparse", "--n",
+                str(N20), "--m", str(M20), "--density", str(DENS20),
+                "--lam", str(LAM20)]
+    else:
+        data = ["--n", str(N), "--m", str(M), "--lam", str(LAM),
+                "--ref-epochs", str(ref_epochs)]
+    got = []
+    real = Solver.solve
+
+    def solve(self, *a, **kw):
+        res = real(self, *a, **kw)
+        got.append(res)
+        return res
+    err = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mesh.json")
+        t0 = time.perf_counter()
+        with patched(Solver, "solve", solve), \
+                patched(optimize, "make_svm_data", mesh_dense_data), \
+                patched(optimize, "make_sparse_svm_csr", mesh_sparse_data), \
+                contextlib.redirect_stderr(err):
+            summary = optimize.main([*flags, "--mesh", f"{grid[0]}x{grid[1]}",
+                                     *data, "--iters", str(OUTER_ITERS),
+                                     "--json-out", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(out) as fh:
+            history = json.load(fh)["history"]
+    sys.stderr.write(err.getvalue())
+    if (summary["device"], summary["local_backend"], summary["iters"],
+            len(got)) != ("cuda", "kernel", OUTER_ITERS, 1):
+        raise AssertionError(f"mesh {flags}: {summary}")
+    return summary, history, got[0], wall
+
+
+def mps_active():
+    """Whether the card runs an MPS server (its compute apps list one)."""
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    return "mps-server" in apps
+
+
+def grid_ms_per_iter(X, y, steps=MESH_TIMING_STEPS):
+    """The grid engine's D3CA ms per outer iteration at Part 1, by the host
+    clock around a step and a device wait, the median after a warm-up."""
+    prog = get_solver("d3ca")().program("hinge", X, y, P=P, Q=Q,
+                                        cfg=D3CAConfig(lam=LAM))
+    state = prog.step(1, prog.state)
+    torch.cuda.synchronize()
+    ms = []
+    for t in range(2, steps + 2):
+        t0 = time.perf_counter()
+        state = prog.step(t, state)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ms), ms
+
+
+class DelayRule(SyncComm):
+    """The bounded-staleness rule emulated in one process on the grid
+    engine's blocked reductions: the value applied at step t is the one
+    computed at step max(1, t - tau), looked up in the whole history of
+    reductions (``past[name][s - 1]`` is step s's)."""
+
+    def __init__(self, *a, tau, t, past, **kw):
+        super().__init__(*a, **kw)
+        self.tau, self.t, self.past = tau, t, past
+
+    def _exec(self, point, value):
+        self.past.setdefault(point.name, []).append(
+            self._reduce(point, value))
+        return self.past[point.name][max(1, self.t - self.tau) - 1]
+
+
+def d3ca_delay_rule(X, y, tau):
+    """Dense D3CA at Part 1 on the card's grid engine under
+    :class:`DelayRule`, with the grid engine's own orders and kernels:
+    what async tau's iterates must be, up to summation order."""
+    cfg = D3CAConfig(lam=LAM, outer_iters=OUTER_ITERS)
+    data = partition(X, y, P, Q, m_multiple=P * Q, device="cuda")
+    source = GeneratorIndexSource(cfg.seed, P=P, Q=Q, n_p=data.n_p,
+                                  device="cuda")
+    prog = d3ca_cell_program(get_loss("hinge"), cfg, n=data.n,
+                             index_source=source, m_q=data.m_q)
+    gdata = (data.x_blocks, data.y_blocks, data.mask)
+    state = (torch.zeros(P, data.n_p, device="cuda"),
+             torch.zeros(Q, data.m_q, device="cuda"))
+    past = {}
+    for t in range(1, OUTER_ITERS + 1):
+        comm = DelayRule(prog.schedule, {"data": P, "model": Q}, tau=tau,
+                         t=t, past=past, device="cuda")
+        state = prog.cell(comm, t, gdata, state)
+        comm.finalize()
+    return types.SimpleNamespace(
+        w=data.w_from_blocks(state[1]),
+        alpha=data.alpha_from_blocks(state[0] * data.mask))
+
+
+def mesh_setup():
+    """What mesh_full is held against, made before its counted window: the
+    gloo probe (started now, read at the end), the 7 x 4 grid (its spawn),
+    the grid engine's solves of the same problems on the card (and dense
+    D3CA under the delay rule at tau = MESH_TAU), its ms per outer
+    iteration, and one mesh program's block distribution (no step)."""
+    t0 = time.perf_counter()
+    probe = subprocess.Popen([sys.executable, "-c", GLOO_CUDA_PROBE],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    close_grids()
+    grid = process_grid(P, Q, device="cuda")
+    grid.rank_hook = mesh_rank_hook
+    MESH_GRIDS.append(grid)
+    # the CLI's own call, so that its solves find the arrays made here
+    Xn, yn = mesh_dense_data(N, M, seed=0)
+    X, y = torch.as_tensor(Xn, device="cuda"), torch.as_tensor(yn,
+                                                                device="cuda")
+    ref = {
+        "d3ca": get_solver("d3ca")().solve(
+            "hinge", X, y, P=P, Q=Q,
+            cfg=D3CAConfig(lam=LAM, outer_iters=OUTER_ITERS)),
+        "radisa": get_solver("radisa")().solve(
+            "hinge", X, y, P=P, Q=Q,
+            cfg=RADiSAConfig(lam=LAM, outer_iters=OUTER_ITERS)),
+        "admm": get_solver("admm")().solve(
+            "hinge", X, y, P=P, Q=Q,
+            cfg=ADMMConfig(lam=LAM, rho=LAM, outer_iters=OUTER_ITERS))}
+    csr, y20 = mesh_sparse_data(N20, M20, density=DENS20, seed=0)
+    ref["d3ca_sparse"] = get_solver("d3ca")(block_format="sparse").solve(
+        "hinge", csr, y20, P=P, Q=Q,
+        cfg=D3CAConfig(lam=LAM20, outer_iters=OUTER_ITERS))
+    ref["d3ca_async2"] = d3ca_delay_rule(X, y, MESH_TAU)
+    tP, tQ, tN, tM = COMM_TOPO
+    Xt, yt = make_svm_data(tN, tM, seed=0)
+    ref["flat_4x2"] = get_solver("d3ca")().solve(
+        "hinge", Xt, yt, P=tP, Q=tQ,
+        cfg=D3CAConfig(lam=LAM, outer_iters=OUTER_ITERS))
+    grid_ms, grid_steps = grid_ms_per_iter(X, y)
+    torch.cuda.synchronize()
+    # the blocks reach every rank's device: a program built, its
+    # iterates gathered once (every rank holds its block), no step
+    t1 = time.perf_counter()
+    prog = get_solver("d3ca")(engine="shard_map").program(
+        "hinge", X, y, P=P, Q=Q, cfg=D3CAConfig(lam=LAM))
+    prog.w_of(prog.state)
+    distribute_s = time.perf_counter() - t1
+    prog.close()
+    return {"grid": grid, "ref": ref, "X": X, "y": y, "Xt": Xt, "yt": yt,
+            "probe": probe, "grid_ms": grid_ms, "grid_steps": grid_steps,
+            "distribute_s": distribute_s, "setup_s": time.perf_counter() - t0}
+
+
+def phase_mesh_full(setup):
+    """The mesh engines at Part 1's full width: one process grid of 7 x 4
+    ranks on the card (gloo, pinned host staging), D3CA through the CLI
+    under ``--engine shard_map`` (f* on the controller), ``async`` at tau =
+    0 (bitwise shard_map) and 2 (not bitwise shard_map, within MESH_TOL of
+    the delay rule emulated on the grid engine, its gap in MESH_TAU2_GAP),
+    ``overlap`` at tau = 2 (bitwise async), RADiSA, sparse D3CA on the news20 profile and
+    ADMM, each held against the grid engine's solve within MESH_TOL;
+    B1's first and last launch of ranks (0, 0) and (6, 3) against the
+    plain version; ms per outer iteration between barriers beside the grid
+    engine's, the exchange's share by the LocalComm calibration; then
+    pods=2:identity at 4 x 2 against the flat solve."""
+    t0 = time.perf_counter()
+    grid, ref = setup["grid"], setup["ref"]
+    out = {"grid": f"{P}x{Q}", "ranks": P * Q, "spawn_s": grid.spawn_s,
+           "spawn_start_s": grid.start_s,
+           "distribute_s": setup["distribute_s"],
+           "setup_s": setup["setup_s"]}
+    peaks, held = {}, {}
+
+    def reports(label, tapped):
+        """Each rank's report of the last session: its peak memory, and
+        on a dense D3CA session the tapped ranks' held launches."""
+        for r, rep in grid.reports.items():
+            peaks[r] = max(peaks.get(r, 0), rep.get("peak_bytes", 0))
+            if "held" in rep:
+                held[f"{label} rank {r}"] = [h["rel_err"]
+                                             for h in rep["held"]]
+        got = sorted(r for r, rep in grid.reports.items() if "held" in rep)
+        if len(grid.reports) != P * Q or \
+                got != (sorted(MESH_TAPPED) if tapped else []):
+            raise AssertionError(f"{label}: reports of ranks "
+                                 f"{sorted(grid.reports)}, held on {got}")
+
+    runs, walls = {}, {}
+    for label, flags, kw in (
+            ("d3ca", ["--engine", "shard_map"], dict(ref_epochs=REF_EPOCHS)),
+            ("d3ca_async0", ["--engine", "async", "--staleness", "0"], {}),
+            ("d3ca_async2", ["--engine", "async", "--staleness",
+                             str(MESH_TAU)], {}),
+            ("d3ca_overlap2", ["--engine", "overlap", "--staleness",
+                               str(MESH_TAU)], {}),
+            ("radisa", ["--solver", "radisa", "--engine", "shard_map"], {}),
+            ("d3ca_sparse", ["--engine", "shard_map"], dict(sparse=True)),
+            ("admm", ["--solver", "admm", "--engine", "shard_map"], {})):
+        summary, history, res, walls[label] = mesh_cli(flags, **kw)
+        runs[label] = (summary, history, res)
+        reports(label, tapped=label in ("d3ca", "d3ca_async0",
+                                        "d3ca_async2", "d3ca_overlap2"))
+    err = {name: mesh_held(f"mesh {name}", runs[name][2], ref[name])
+           for name in ("d3ca", "radisa", "d3ca_sparse", "admm")}
+    if "rel_opt" not in runs["d3ca"][1][-1]:
+        raise AssertionError("mesh d3ca: no f* through the CLI")
+    sync, a0 = runs["d3ca"][2], runs["d3ca_async0"][2]
+    a2, o2 = runs["d3ca_async2"][2], runs["d3ca_overlap2"][2]
+    for label, (x, y_) in {"async tau 0 vs shard_map": (a0, sync),
+                           f"overlap vs async tau {MESH_TAU}": (o2, a2)
+                           }.items():
+        if not (bitwise(x.w, y_.w) and bitwise(x.alpha, y_.alpha)):
+            raise AssertionError(f"mesh d3ca: {label} is not bitwise")
+    # the delay is real: tau = 2 is not the synchronous trajectory, and it
+    # is the delay rule's
+    if bitwise(a2.w, sync.w):
+        raise AssertionError(f"mesh d3ca: async tau {MESH_TAU} is bitwise "
+                             "shard_map: no reduction was delayed")
+    err["d3ca_async2_vs_delay_rule"] = mesh_held(
+        f"mesh d3ca async tau {MESH_TAU} against the delay rule", a2,
+        ref["d3ca_async2"])
+    gap2 = a2.history[-1]["duality_gap"]
+    lo, hi = MESH_TAU2_GAP
+    if not (lo <= gap2 <= hi and gap2 < a2.history[0]["duality_gap"]):
+        raise AssertionError(f"mesh d3ca async tau {MESH_TAU}: gap {gap2} "
+                             f"after {OUTER_ITERS} iterations (band {lo}, "
+                             f"{hi})")
+    for label, (summary, history, res) in runs.items():
+        check_descent(f"mesh {label}", history,
+                      dual=label.startswith("d3ca") and "async2" not in label
+                      and "overlap" not in label)
+
+    # ms per outer iteration between barriers, and the exchange's share by
+    # the calibration against the LocalComm twin
+    prog = get_solver("d3ca")(engine="shard_map").program(
+        "hinge", setup["X"], setup["y"], P=P, Q=Q, cfg=D3CAConfig(lam=LAM))
+    split = calibrate_phases(prog)
+    state = prog.step(1, prog.state)
+    grid.barrier()
+    steps = []
+    for t in range(2, MESH_TIMING_STEPS + 2):
+        t1 = time.perf_counter()
+        state = prog.step(t, state)
+        grid.barrier()
+        steps.append(1e3 * (time.perf_counter() - t1))
+    prog.close()
+    reports("d3ca_timing", tapped=True)
+    # where a rank's exchange goes, over the calibration's 4 steps and the
+    # 6 timed ones (2 all-reduces a step): mean ms a call, over the ranks
+    wire = [rep["wire"] for rep in grid.reports.values()]
+    out["wire_ms_per_call"] = {
+        k: {"mean": 1e3 * statistics.mean(w[f"{k}_s"] / w[f"{k}_calls"]
+                                          for w in wire),
+            "max": 1e3 * max(w[f"{k}_s"] / w[f"{k}_calls"] for w in wire),
+            "calls_per_rank": wire[0][f"{k}_calls"]}
+        for k in ("to_host", "all_reduce")}
+    free, total = torch.cuda.mem_get_info()
+    out.update(
+        ms_per_outer_iter={"mesh": statistics.median(steps),
+                           "mesh_steps": steps, "grid": setup["grid_ms"],
+                           "grid_steps": setup["grid_steps"],
+                           "method": "host clock between grid barriers "
+                                     "(grid engine: around a device wait), "
+                                     f"median of {MESH_TIMING_STEPS} after "
+                                     "a warm-up"},
+        calibration={"step_s": split.step_s, "local_s": split.local_s,
+                     "local_frac": split.local_frac,
+                     "exchange_share": 1.0 - split.local_frac},
+        card_total_bytes=total, card_used_bytes_with_grid=total - free,
+        mps_active=mps_active())
+
+    # pods=2:identity on Part 1 "4x2", against the flat solve
+    close_grids()
+    tP, tQ, tN, tM = COMM_TOPO
+    t1 = time.perf_counter()
+    g4 = process_grid(tP, tQ, device="cuda")
+    g4.rank_hook = mesh_rank_hook
+    MESH_GRIDS.append(g4)
+    out["spawn_4x2_s"] = time.perf_counter() - t1
+    pods = get_solver("d3ca")(engine="shard_map",
+                              topology="pods=2:identity").solve(
+        "hinge", setup["Xt"], setup["yt"], P=tP, Q=tQ,
+        cfg=D3CAConfig(lam=LAM, outer_iters=OUTER_ITERS))
+    err["pods=2:identity_4x2"] = mesh_held("mesh pods=2 4x2", pods,
+                                           ref["flat_4x2"])
+    held.update({f"pods rank {r}": [h["rel_err"] for h in rep["held"]]
+                 for r, rep in g4.reports.items() if "held" in rep})
+    close_grids()
+    mesh_dense_data.cache_clear()
+    mesh_sparse_data.cache_clear()
+
+    probe_out, probe_err = setup["probe"].communicate(timeout=120)
+    try:
+        gloo_cuda = json.loads(probe_out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        gloo_cuda = {"probe_failed": probe_err[-400:]}
+    out.update(
+        rel_err=err, held_first_last=held,
+        tau={"async0_bitwise_shard_map": True,
+             f"overlap{MESH_TAU}_bitwise_async{MESH_TAU}": True,
+             f"async{MESH_TAU}_bitwise_shard_map": False,
+             f"async{MESH_TAU}_gap_last": gap2,
+             f"async{MESH_TAU}_gap_band": list(MESH_TAU2_GAP),
+             "shard_map_gap_last": sync.history[-1]["duality_gap"]},
+        objective_last={k: v[0]["objective"] for k, v in runs.items()},
+        wall_s_by_solve=walls,
+        peak_bytes_by_rank=[peaks.get(r, 0) for r in range(P * Q)],
+        gloo_cuda=gloo_cuda, wall_s=time.perf_counter() - t0)
+    emit("mesh_full", **out)
+    # 4 dense D3CA solves, the calibration and the timed steps on 28
+    # ranks, the 4 x 2 solve on 8; f* on the controller; RADiSA and sparse
+    # D3CA on 28 ranks
+    return {"sdca_epoch": MESH_D3CA_CELLS + REF_EPOCHS,
+            "svrg_inner": P * Q * OUTER_ITERS,
+            "sdca_epoch_sparse": P * Q * OUTER_ITERS}
+
+
+#: B1's launches on mesh_full's cells, summed over the ranks: 4 solves of
+#: OUTER_ITERS, a calibration (OBS_CALIB) and a warm-up + the timed steps
+#: on the 7 x 4 grid, one solve on the 4 x 2 grid
+MESH_D3CA_CELLS = (P * Q * (4 * OUTER_ITERS + OBS_CALIB + 1
+                            + MESH_TIMING_STEPS)
+                   + COMM_TOPO[0] * COMM_TOPO[1] * OUTER_ITERS)
+
+
 #: B1's main-path shapes by the cluster size their launches take (counted
 #: by the wrapper where it launches): 1 CTA a D3CA cell, 16 a serial epoch
 SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
@@ -3247,14 +3733,16 @@ SDCA_SHAPE_LAUNCHES = {
     # twice (updates timed, then untimed), the fleet
     "obs_full": {"d3ca_cells": OUTER_ITERS + OBS_CALIB + OBS_ONLINE_ROUNDS
                  * (ONLINE_PASSES + OBS_CALIB) + OBS_ONLINE_ROUNDS
-                 * ONLINE_PASSES + OUTER_ITERS, "serial": REF_EPOCHS}}
+                 * ONLINE_PASSES + OUTER_ITERS, "serial": REF_EPOCHS},
+    # every rank launches for its own cell (1 CTA): summed over the ranks
+    "mesh_full": {"d3ca_cells": MESH_D3CA_CELLS, "serial": REF_EPOCHS}}
 
 
 #: what a main path is held against that must be made before its counted
 #: window (the fleets' solo solves), handed to its phase
 PHASE_SETUP = {"fleet_dense_full": lambda: fleet_solos(False),
                "fleet_sparse_full": lambda: fleet_solos(True),
-               "obs_full": obs_setup}
+               "obs_full": obs_setup, "mesh_full": mesh_setup}
 
 
 def run_main_path(name, phase, results):
@@ -3285,14 +3773,14 @@ def run_main_path(name, phase, results):
     # B1 runs at two shapes, told apart by the cluster size each launch
     # took: OUTER_ITERS D3CA iterations on 1 CTA a cell and REF_EPOCHS
     # serial epochs for f* on 16
-    by_shape = {SDCA_SHAPE_OF_CLUSTER[g]: v
-                for g, v in sdca_epoch.launches_by_cluster.items()}
+    by_cluster = counts_by("sdca_epoch", "launches_by_cluster")
+    by_shape = {SDCA_SHAPE_OF_CLUSTER[g]: v for g, v in by_cluster.items()}
     want = {shape: SDCA_SHAPE_LAUNCHES.get(name, {}).get(shape, 0)
             for shape in SDCA_SHAPE_OF_CLUSTER.values()}
     if by_shape != want:
         raise AssertionError(f"{name}: sdca_epoch launches by shape "
                              f"{by_shape}, by cluster size "
-                             f"{sdca_epoch.launches_by_cluster}; expected "
+                             f"{by_cluster}; expected "
                              f"{want}")
     for shape, n in by_shape.items():
         results["sdca_epoch"]["shapes"][shape]["launches"] += n

@@ -17,7 +17,8 @@ tensors or numpy arrays) is one directory:
   * ``keep_n`` garbage-collects old steps, never touching the newest.
 
 Re-sharding on restore (the reference's ``shardings=``) belongs to the
-multi-device engines and raises by name.
+mesh halves of the multi-device engines (ROADMAP queue A item 12b) and
+raises by name.
 """
 from __future__ import annotations
 

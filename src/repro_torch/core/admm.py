@@ -30,8 +30,9 @@ All three loss proxes are provided (hinge / squared / logistic-Newton).
 ADMM has no stochastic local solver and no kernel: its inner solve is the
 cached factor's back-substitution (``torch.cholesky_solve``), so the
 ``local_backend`` knob of the solver framework is accepted and ignored.
-The mesh engines of the reference's ADMM are not ported (ROADMAP queue A,
-multi-device engines).
+``admm_shard_map_program`` binds the same program to a process grid: each
+rank's Gram matrix is summed over its column of the grid and factored on
+the rank once, at setup (``admm_setup_distributed``).
 """
 from __future__ import annotations
 
@@ -40,8 +41,10 @@ import dataclasses
 import torch
 
 from .comm import CommSchedule
-from .engines import (CellProgram, EngineProgram, cached_build,
-                      drive_with_callback, grid_bind_state, grid_program)
+from .comm import ProcessWire
+from .engines import (CELL, COL, ROW, CellProgram, EngineProgram,
+                      bind_mesh_program, cached_build, drive_with_callback,
+                      grid_bind_state, grid_program)
 from .losses import Loss, get_loss
 from .partition import (SparseDoublyPartitioned, cells_times_blocks,
                         ell_scatter_add)
@@ -144,29 +147,61 @@ def admm_cell_program(loss_name: str, cfg: ADMMConfig, *, n: int, m_q: int,
 # single-device grid engine
 # ---------------------------------------------------------------------------
 
+def admm_gram(x_parts, m_q: int, sparse: bool) -> torch.Tensor:
+    """``(Q', m_q, m_q)``: each column block's sum over its cells of
+    A_pq^T A_pq, from blocked ``x_parts`` (dense ``(x,)`` or ELL ``(cols,
+    vals)``, ``(P', Q', ...)``).  The dense gram is each cell's own
+    product summed over the data axis -- what the reference's mesh setup
+    computes (a psum of per-cell grams), so the grid engine and a process
+    grid sum the same cell grams and differ only in the order of that
+    short sum.  The sum runs in place, one row of cells at a time, so no
+    ``(P', Q', m_q, m_q)`` array is made.  The sparse gram is a
+    scatter-add of each ELL row's outer products (padding slots are (0,
+    0.0) and add nothing)."""
+    if not sparse:
+        x, = x_parts
+        gram = torch.matmul(x[0].transpose(-1, -2), x[0])
+        for xp in x[1:]:
+            gram += torch.matmul(xp.transpose(-1, -2), xp)
+        return gram
+    cols, vals = x_parts
+    Qn = cols.shape[1]
+    cols = cols.long()
+    flat = (cols[..., :, None] * m_q + cols[..., None, :])
+    outer = vals[..., :, None] * vals[..., None, :]
+    # (P', Q', n_p, k, k) -> one row per column block q
+    flat = flat.permute(1, 0, 2, 3, 4).reshape(Qn, -1)
+    outer = outer.permute(1, 0, 2, 3, 4).reshape(Qn, -1)
+    gram = torch.zeros((Qn, m_q * m_q), dtype=vals.dtype,
+                       device=vals.device).scatter_add_(1, flat, outer)
+    return gram.reshape(Qn, m_q, m_q)
+
+
+def admm_factor(gram, cfg: ADMMConfig) -> torch.Tensor:
+    """The lower Cholesky factor of (lam / rho) I + gram, per block."""
+    eye = torch.eye(gram.shape[-1], dtype=gram.dtype, device=gram.device)
+    return torch.linalg.cholesky(gram + (cfg.lam / cfg.rho) * eye)
+
+
 def admm_setup_simulated(data, cfg: ADMMConfig) -> torch.Tensor:
     """The per-column-block Cholesky factors ``(Q, m_q, m_q)`` (lower) of
     M_q = (lam / rho) I + sum_p A_pq^T A_pq, computed once per build.
+    ``data`` may be dense or sparse."""
+    sparse = isinstance(data, SparseDoublyPartitioned)
+    x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
+    return admm_factor(admm_gram(x_parts, data.m_q, sparse), cfg)
 
-    ``data`` may be dense (the gram by one ``einsum``) or sparse (the
-    gram by a scatter-add of each ELL row's outer products; padding slots
-    are (0, 0.0) and add nothing)."""
-    m_q = data.m_q
-    if isinstance(data, SparseDoublyPartitioned):
-        Pn, Qn, n_p, k = data.cols.shape
-        cols = data.cols.long()
-        flat = (cols[..., :, None] * m_q + cols[..., None, :])
-        outer = data.vals[..., :, None] * data.vals[..., None, :]
-        # (P, Q, n_p, k, k) -> one row per column block q
-        flat = flat.permute(1, 0, 2, 3, 4).reshape(Qn, -1)
-        outer = outer.permute(1, 0, 2, 3, 4).reshape(Qn, -1)
-        gram = torch.zeros((Qn, m_q * m_q), dtype=data.vals.dtype,
-                           device=data.device).scatter_add_(1, flat, outer)
-        gram = gram.reshape(Qn, m_q, m_q)
-    else:
-        gram = torch.einsum("pqnm,pqnk->qmk", data.x_blocks, data.x_blocks)
-    eye = torch.eye(m_q, dtype=gram.dtype, device=gram.device)
-    return torch.linalg.cholesky(gram + (cfg.lam / cfg.rho) * eye)
+
+def admm_setup_distributed(ctx, data, *, cfg: ADMMConfig, m_q: int,
+                           sparse: bool):
+    """A rank's setup on a process grid: its cell's A_pq^T A_pq summed
+    over its column of the grid (an all-reduce over the "data" group),
+    then factored once on the rank.  Returns the data tuple with the
+    rank's ``chol (1, m_q, m_q)`` appended."""
+    *x_parts, y, mask = data
+    gram = ProcessWire(ctx).all_reduce(admm_gram(x_parts, m_q, sparse),
+                                       "data")
+    return (*x_parts, y, mask, admm_factor(gram, cfg))
 
 
 def admm_simulated_program(loss: Loss, data, cfg: ADMMConfig, *,
@@ -207,6 +242,39 @@ def admm_simulated_program(loss: Loss, data, cfg: ADMMConfig, *,
         comm_bytes=acct,
         ef_of=(lambda st: st[1]) if full0 is not state0 else None,
         local_step=lambda t, st: local(t, gdata, unwrap(st)))
+
+
+def admm_shard_map_program(loss: Loss, data, cfg: ADMMConfig, grid, *,
+                           w0=None, staleness: int = 0, compression=None,
+                           overlap: bool = False,
+                           topology=None) -> EngineProgram:
+    """Mesh engines: the ADMM program on process grid ``grid``
+    (``repro_torch.launch.mesh``), one block per rank.  ``data`` is the
+    grid engine's blocked view of the problem on the host (dense or
+    sparse); each rank factors its column block's normal matrix at setup
+    (:func:`admm_setup_distributed`).  ``staleness=tau > 0`` delays every
+    reduction by tau steps (``overlap=True``: dispatched asynchronously);
+    ``compression`` and ``topology`` as on the grid engine."""
+    sparse = isinstance(data, SparseDoublyPartitioned)
+    Pn, Qn = data.P, data.Q
+    x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
+    w_init = (torch.zeros((Qn, data.m_q)) if w0 is None
+              else data.w_to_blocks(w0))
+    zeros_su = torch.zeros((Pn, Qn, data.n_p))
+    return bind_mesh_program(
+        grid, make_cell="repro_torch.core.admm:admm_cell_program",
+        cell_kw=dict(loss_name=loss.name, cfg=cfg, n=data.n, m_q=data.m_q,
+                     sparse=sparse),
+        index_source=None,
+        data=(*x_parts, data.y_blocks, data.mask),
+        data_specs=(CELL,) * len(x_parts) + (ROW, ROW),
+        state0=(zeros_su, zeros_su.clone(), w_init),
+        state_specs=(CELL, CELL, COL),
+        w_of=lambda st: data.w_from_blocks(st[2]),
+        setup="repro_torch.core.admm:admm_setup_distributed",
+        setup_kw=dict(cfg=cfg, m_q=data.m_q, sparse=sparse),
+        staleness=staleness, compression=compression, overlap=overlap,
+        topology=topology)
 
 
 def admm_simulated(loss_name: str, data, cfg: ADMMConfig, callback=None,

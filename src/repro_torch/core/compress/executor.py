@@ -1,15 +1,19 @@
 """CompressedComm: a Comm executor that compresses collective payloads.
 
-Wraps a :class:`~repro_torch.core.comm.SyncComm`: every cell's
-contribution is encoded/decoded by the collective's codec *before* the
-inner executor reduces it -- the order a real bandwidth-saving all-reduce
-imposes (quantize, put on the wire, reduce).  On the grid engine the
-payload is blocked ``(P, Q, *cell)`` and the codec codes each cell on its
-own (one scale or one top-k per cell).
+Wraps a :class:`~repro_torch.core.comm.SyncComm` or one of its
+bounded-staleness subclasses (:class:`~repro_torch.core.comm.StaleComm`,
+:class:`~repro_torch.core.comm.OverlapComm`): every cell's contribution
+is encoded/decoded by the collective's codec *before* the inner executor
+reduces it -- the order a real bandwidth-saving all-reduce imposes
+(quantize, put on the wire, reduce) -- so the residual of a step belongs
+to the payload that step dispatched, whenever the inner executor
+consumes the reduction.  The payload is blocked ``(P', Q', *cell)`` (all
+cells on the grid engine, the rank's one cell on a process grid) and the
+codec codes each cell on its own (one scale or one top-k per cell).
 
 Error feedback: each stateful codec's residual enters through ``ef``
-(one ``(P, Q, *cell)`` f32 buffer per compressed collective, carried in
-the engine state) and the updated residuals come back out via
+(one ``(P', Q', *cell)`` f32 buffer per compressed collective, carried
+in the engine state) and the updated residuals come back out via
 :attr:`CompressedComm.ef_out`.
 
 Wire accounting: every Comm executor records the exact payload bytes one
@@ -38,7 +42,8 @@ class CompressedComm(Comm):
     def __init__(self, inner: Comm, policy: CompressionPolicy,
                  ef: Optional[dict] = None):
         super().__init__(inner.schedule, inner.sizes, device=inner.device,
-                         payload_shapes=inner.payload_shapes)
+                         payload_shapes=inner.payload_shapes,
+                         wire=inner.wire)
         self.inner = inner
         self.policy = policy
         self.ef_in = dict(ef or {})

@@ -11,8 +11,9 @@ step math plus a CommSchedule declaring its two reductions::
 ``d3ca_simulated_program`` binds it to the single-device grid engine, on
 dense blocks or on padded-ELL sparse cells (``local.local_sdca_sparse``,
 and step 9's primal-dual map as ``partition.ell_scatter_add``);
-``d3ca_simulated`` is a thin convenience wrapper.  The outer loop lives
-once in ``engines.drive`` / ``solver.Solver.solve``.
+``d3ca_shard_map_program`` binds it to a process grid, one block per rank
+(the mesh engines); ``d3ca_simulated`` is a thin convenience wrapper.
+The outer loop lives once in ``engines.drive`` / ``solver.Solver.solve``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ import numpy as np
 import torch
 
 from .comm import CommSchedule
-from .engines import (CellProgram, EngineProgram, cached_build,
-                      drive_with_callback, grid_bind_state, grid_program)
+from .engines import (CELL, COL, ROW, CellProgram, EngineProgram,
+                      bind_mesh_program, cached_build, drive_with_callback,
+                      grid_bind_state, grid_program)
 from .indices import GeneratorIndexSource
 from .local import local_sdca, local_sdca_sparse
 from .losses import Loss, get_loss
@@ -184,6 +186,52 @@ def d3ca_simulated_program(loss: Loss, data, cfg: D3CAConfig, *,
         comm_bytes=acct,
         ef_of=(lambda s: s[1]) if full0 is not state0 else None,
         local_step=lambda t, s: local(t, gdata, unwrap(s)))
+
+
+# ----------------------------------------------------------------------------
+# mesh engines: one block per rank of a process grid
+# ----------------------------------------------------------------------------
+
+def d3ca_shard_map_program(loss: Loss, data, cfg: D3CAConfig, grid, *,
+                           local_backend: str = "kernel", w0=None,
+                           alpha0=None, index_source=None,
+                           staleness: int = 0, compression=None,
+                           overlap: bool = False, topology=None,
+                           row_gate=None) -> EngineProgram:
+    """Mesh engines: the D3CA program on process grid ``grid``
+    (``repro_torch.launch.mesh``), rank (p, q) holding block (p, q) of
+    ``data`` -- the grid engine's blocked view of the problem on the host,
+    dense or sparse.  ``staleness=tau > 0`` delays every reduction by tau
+    steps (``overlap=True``: dispatched asynchronously and awaited when
+    consumed); ``compression`` / ``topology`` / ``row_gate`` as on the
+    grid engine.  ``index_source=None`` makes the grid engine's default
+    source, which every rank draws on its own device and cuts to its
+    cell, so the mesh solve consumes the grid engine's orders."""
+    sparse = isinstance(data, SparseDoublyPartitioned)
+    if index_source is None:
+        index_source = GeneratorIndexSource(
+            cfg.seed, P=data.P, Q=data.Q, n_p=data.n_p,
+            steps=cfg.local_steps or data.n_p, device=data.device)
+    x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
+    gate_parts = (() if row_gate is None
+                  else (data.alpha_to_blocks(row_gate),))
+    alpha_init = (torch.zeros((data.P, data.n_p)) if alpha0 is None
+                  else data.alpha_to_blocks(alpha0))
+    w_init = (torch.zeros((data.Q, data.m_q)) if w0 is None
+              else data.w_to_blocks(w0))
+    return bind_mesh_program(
+        grid, make_cell="repro_torch.core.d3ca:d3ca_cell_program",
+        cell_kw=dict(loss=loss, cfg=cfg, n=data.n,
+                     local_backend=local_backend, sparse=sparse,
+                     m_q=data.m_q, gated=row_gate is not None),
+        index_source=index_source,
+        data=(*x_parts, data.y_blocks, data.mask, *gate_parts),
+        data_specs=(CELL,) * len(x_parts) + (ROW,) * (2 + len(gate_parts)),
+        state0=(alpha_init, w_init), state_specs=(ROW, COL),
+        w_of=lambda st: data.w_from_blocks(st[1]),
+        alpha_of=lambda st: data.alpha_from_blocks(st[0] * data.mask),
+        staleness=staleness, compression=compression, overlap=overlap,
+        topology=topology)
 
 
 def d3ca_simulated(loss_name: str, data, cfg: D3CAConfig,

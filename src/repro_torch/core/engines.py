@@ -3,12 +3,24 @@
 An *engine* is how the P x Q block grid of the paper is executed.  Each
 solver contributes ONE :class:`CellProgram` -- its step math plus a
 :class:`~repro_torch.core.comm.CommSchedule` declaring every cross-cell
-reduction as a named collective.  This slice has one engine:
+reduction as a named collective.  Two executors run it:
 
   * ``"simulated"`` -- :func:`grid_program`: the grid is the leading
     (P, Q) axes of blocked tensors on one device, the declared
     collectives are reductions over those axes, and the cell-local
-    kernels take all cells of one outer step in one launch.
+    kernels take all cells of one outer step in one launch;
+  * ``"shard_map"`` (alias ``"sync"``), ``"async"`` and ``"overlap"`` --
+    :func:`mesh_program`: one block per rank of a process grid
+    (:mod:`repro_torch.launch.mesh`), the same cell program run by every
+    rank on its one cell (blocked tensors leading with ``(1, 1)``), the
+    declared collectives all-reduces over the rank's row or column of the
+    grid (:class:`~repro_torch.core.comm.ProcessWire`).  ``"async"``
+    applies them with bounded staleness tau
+    (:class:`~repro_torch.core.comm.StaleComm`), ``"overlap"`` with the
+    same delays and asynchronous dispatch
+    (:class:`~repro_torch.core.comm.OverlapComm`).  The controller (rank
+    0) drives the grid through :func:`bind_mesh_program`'s
+    :class:`EngineProgram`, like any other program.
 
 Orthogonally, a :class:`~repro_torch.core.compress.CompressionPolicy`
 (``compression=``) routes every declared collective's payload through a
@@ -18,9 +30,6 @@ the pod codec across pods).  Every program reports its exact
 bytes-on-wire (``EngineProgram.comm_bytes``), computed at build time from
 the per-cell payload shapes each :class:`CellProgram` declares.
 
-The mesh engines of the reference (shard_map, async, overlap) are not
-ported yet (ROADMAP queue A, multi-device engines).
-
 The executor produces an :class:`EngineProgram` -- initial state, outer
 step, extractors for the global primal (and dual) iterates.  Everything
 else (the outer loop, history, early stopping, warm starts) lives once
@@ -29,14 +38,18 @@ in the shared outer loop (``drive`` / ``Solver.solve``).
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import time
 from typing import Any, Callable, Optional
 
 import torch
 
-from .comm import CommSchedule, LocalComm, SyncComm, hier_ef_names
+from .comm import (BLOCK_AXIS, CommSchedule, LocalComm, OverlapComm,
+                   ProcessWire, Ready, StaleComm, SyncComm, drain,
+                   hier_ef_names)
 from .comm_model import Topology, hierarchical_accounting
 from .compress import CompressedComm, as_policy, get_codec, wire_accounting
+from .indices import CellIndexSource
 from .util import resolve_device
 
 
@@ -68,6 +81,18 @@ class EngineProgram:
         without any comm state; its result is wrong by design and only
         ever timed (``repro_torch.obs.phases.calibrate_phases``).  None
         for a program built outside the grid binding.
+      staleness: the reduction delay tau the program was built with (0 =
+        synchronous).
+      overlap: True for the overlap engine at tau > 0: reductions are
+        dispatched and awaited tau steps later, so the driver waits only
+        for the iterates between steps.
+      sync_of: ``state -> the substate that must be complete at an
+        observation`` (the iterates, without the reductions in flight);
+        None means the whole state.
+      close: ``close()``, set on a process grid's program: ends the
+        grid's session and collects the ranks' launch counts and hook
+        reports.  ``Solver.solve`` calls it when the solve ends; a session
+        left open is ended when the grid opens its next one.
     """
 
     state: Any
@@ -77,6 +102,10 @@ class EngineProgram:
     comm_bytes: Optional[dict] = None
     ef_of: Optional[Callable[[Any], dict]] = None
     local_step: Optional[Callable[[int, Any], Any]] = None
+    staleness: int = 0
+    overlap: bool = False
+    sync_of: Optional[Callable[[Any], Any]] = None
+    close: Optional[Callable[[], Any]] = None
 
 
 def drive(prog: EngineProgram, outer_iters: int, observe=None, *,
@@ -116,7 +145,10 @@ def drive(prog: EngineProgram, outer_iters: int, observe=None, *,
     from ..obs.trace import NULL_TRACER
     tr = tracer if tracing else NULL_TRACER
     clock = tracer.clock if tracing else time.perf_counter
-    dev = device_of(state)
+    # the overlap engine's iterates alone are waited for, never the
+    # reductions in flight (sync_of); every other program waits for all
+    sync = prog.sync_of if prog.sync_of is not None else (lambda s: s)
+    dev = device_of(sync(state))
     for t in range(1, outer_iters + 1):
         with tr.span("outer_iter", iter=t):
             with tr.span("step", iter=t):
@@ -344,3 +376,407 @@ def grid_bind_state(cellprog: CellProgram, data, state0, *, Pn: int, Qn: int,
     for name in hier_ef_names(cellprog.schedule, topo):
         ef0[POD_EF + name] = zeros((topo.pods, Qn), name)
     return (state0, ef0), (lambda s: s[0]), acct
+
+
+# ---------------------------------------------------------------------------
+# mesh engines: one block per rank of a process grid
+# ---------------------------------------------------------------------------
+
+#: the grid axes a leaf of blocked data or state leads with
+CELL, ROW, COL = ("data", "model"), ("data",), ("model",)
+
+
+def _resolve(path: str):
+    """``"module:function"`` -> the function."""
+    module, name = path.split(":")
+    return getattr(importlib.import_module(module), name)
+
+
+def _leaves(tree, specs):
+    """``[(leaf, spec), ...]`` of a state or data tuple (a bare tensor
+    with a bare spec is one leaf)."""
+    if torch.is_tensor(tree):
+        return [(tree, specs)]
+    return list(zip(tree, specs))
+
+
+def _rebuild(tree, leaves):
+    return leaves[0] if torch.is_tensor(tree) else tuple(leaves)
+
+
+def cell_of(leaf, spec, p: int, q: int):
+    """Cell (p, q)'s part of a blocked leaf that leads with the grid axes
+    ``spec``, keeping those axes (extent 1)."""
+    if spec == CELL:
+        return leaf[p:p + 1, q:q + 1]
+    if spec == ROW:
+        return leaf[p:p + 1]
+    if spec == COL:
+        return leaf[q:q + 1]
+    return leaf
+
+
+def _ring_zeros(point, lead, sizes, cell, device):
+    """A zero slot of a staleness ring: the result shape of ``point`` on a
+    payload ``(*lead, *cell)``."""
+    other = lead[1 - BLOCK_AXIS[point.axis]]
+    extra = (sizes[point.axis],) if point.op == "allgather" else ()
+    return torch.zeros((other, *extra, *cell), device=device)
+
+
+@dataclasses.dataclass
+class MeshJob:
+    """What one rank of a process grid needs to build its part of a mesh
+    program (picklable: it travels to the worker processes).
+
+    Attributes:
+      make_cell: ``"module:function"`` building the solver's
+        :class:`CellProgram` from ``cell_kw`` (plus ``index_source=``).
+      cell_kw: the keyword arguments of ``make_cell``, with the GLOBAL n
+        and m_q (the cell program's math reads the global extents).
+      index_source: the whole-grid index source (None when the solver
+        draws none); each rank consumes its cell's view of it
+        (:class:`~repro_torch.core.indices.CellIndexSource`).
+      data, state: the rank's cell of the blocked data tuple and of the
+        initial solver state, each leaf keeping its grid axes (extent 1).
+      state_specs: the grid axes of each state leaf (``CellProgram``'s).
+      setup, setup_kw: optional ``"module:function"`` run once on the
+        rank as ``setup(ctx, data, **setup_kw) -> data`` before the first
+        step (ADMM's factorization).
+      staleness, compression, overlap, topology: the engine knobs.
+      hook: the grid's ``rank_hook`` (see ``launch/mesh.py``).
+    """
+
+    make_cell: str
+    cell_kw: dict
+    index_source: Any
+    data: tuple
+    state: Any
+    state_specs: Any
+    setup: Optional[str] = None
+    setup_kw: Optional[dict] = None
+    staleness: int = 0
+    compression: Any = None
+    overlap: bool = False
+    topology: Any = None
+    hook: Any = None
+
+
+@dataclasses.dataclass
+class RankProgram:
+    """One rank's part of a mesh program: ``state = (solver state, comm
+    state)``, ``step(t, state)``, the collective-free twin
+    ``local_step(t, state)``, ``export(state, what)`` -- the iterates
+    (``what=0``) or the error-feedback residuals (``what=1``) as one flat
+    float32 tensor, in the order every rank uses -- and ``drain(state)``,
+    which waits for the reductions still in flight."""
+
+    state: Any
+    step: Callable[[int, Any], Any]
+    local_step: Callable[[int, Any], Any]
+    export: Callable[[Any, int], torch.Tensor]
+    drain: Callable[[Any], None]
+
+
+def _on(tree, device):
+    if torch.is_tensor(tree):
+        return tree.to(device).contiguous()
+    return tuple(_on(leaf, device) for leaf in tree)
+
+
+def mesh_step_fn(cellprog: CellProgram, ctx, *, staleness: int = 0,
+                 compression=None, overlap: bool = False, topology=None,
+                 comm_local: bool = False):
+    """Rank-local executor of a mesh program.  Returns ``step(t, data,
+    (state, cbufs)) -> (state, cbufs)`` for the rank ``ctx`` (a
+    :class:`repro_torch.launch.mesh.RankContext`), whose ``data`` and
+    ``state`` are the rank's one cell (leading grid axes of extent 1).
+    ``cbufs`` is the communication state -- ``{}`` when no policy needs
+    one, else up to three dicts:
+
+      * ``"stale"`` (``staleness = tau > 0``): one FIFO ring of tau
+        reduction results per collective (:class:`StaleComm`, or
+        :class:`OverlapComm` under ``overlap=True``, whose slots hold the
+        dispatched reductions);
+      * ``"ef"`` (a policy with stateful codecs): one ``(1, 1, *cell)``
+        error-feedback residual per compressed collective;
+      * ``"hier_ef"`` (a topology with pods > 1 and a stateful pod codec):
+        the rank's ``(1, 1, *cell)`` cross-pod residual per pod-split
+        collective.
+
+    ``comm_local=True`` builds the timing twin: every collective
+    cell-local (:class:`LocalComm`), on the solver state alone, returning
+    the solver state."""
+    sizes = dict(ctx.sizes)
+    sched = cellprog.schedule
+    wire = ProcessWire(ctx)
+    device = ctx.device
+    if comm_local and (staleness or compression is not None):
+        raise ValueError("comm_local measures the collective-free step; "
+                         "it cannot compose with staleness or compression")
+    topo = None if comm_local else _norm_topology(topology)
+    if topo is not None and sizes["data"] % topo.pods:
+        raise ValueError(f"topology pods={topo.pods} does not divide "
+                         f"P={sizes['data']}")
+    policy = as_policy(compression)
+    if policy is not None:
+        policy.validate(sched)
+    hier_codec = get_codec(topo.codec) if topo is not None else None
+    hnames = hier_ef_names(sched, topo)
+    ef_names = policy.stateful_names(sched) if policy is not None else ()
+    declared = {}
+
+    def shapes_of(data, state):
+        if cellprog.payload_shapes is None:
+            return None
+        if not declared:
+            declared.update(cellprog.payload_shapes(data, state))
+        return declared
+
+    if comm_local:
+        def local(t, data, state):
+            comm = LocalComm(sched, sizes, device=device,
+                             payload_shapes=shapes_of(data, state),
+                             wire=wire)
+            out = cellprog.cell(comm, t, data, state)
+            comm.finalize()
+            return out
+        return local
+
+    def step(t, data, full_state):
+        state, cbufs = full_state
+        shapes = shapes_of(data, state)
+        if staleness:
+            inner = (OverlapComm if overlap else StaleComm)(
+                sched, sizes, tau=staleness, t=t, bufs=cbufs["stale"],
+                device=device, payload_shapes=shapes, wire=wire)
+        else:
+            inner = SyncComm(sched, sizes, device=device,
+                             payload_shapes=shapes, wire=wire)
+        if topo is not None:
+            inner.set_topology(topo, hier_codec,
+                               ef=cbufs.get("hier_ef", {}))
+        comm = inner
+        if policy is not None:
+            comm = CompressedComm(inner, policy, ef=cbufs.get("ef", {}))
+        out = cellprog.cell(comm, t, data, state)
+        comm.finalize()
+        cb = {}
+        if staleness:
+            cb["stale"] = dict(inner.bufs_out)
+        if ef_names:
+            cb["ef"] = dict(comm.ef_out)
+        if hnames:
+            cb["hier_ef"] = dict(inner.hier_ef_out)
+        return out, cb
+
+    return step
+
+
+def mesh_comm_state(cellprog: CellProgram, ctx, data, state, *,
+                    staleness: int = 0, compression=None,
+                    overlap: bool = False, topology=None) -> dict:
+    """The zero communication state of a rank's mesh program (see
+    :func:`mesh_step_fn`), sized from the declared payload shapes."""
+    sched = cellprog.schedule
+    shapes = cellprog.payload_shapes(data, state)
+    lead, dev = (1, 1), ctx.device
+    comm0 = {}
+    if staleness:
+        comm0["stale"] = {}
+        for point in sched:
+            zero = _ring_zeros(point, lead, ctx.sizes, shapes[point.name],
+                               dev)
+            comm0["stale"][point.name] = (
+                (Ready(zero),) if overlap else (zero,)) * staleness
+    policy = as_policy(compression)
+    if policy is not None and policy.stateful_names(sched):
+        comm0["ef"] = {name: torch.zeros((*lead, *shapes[name]),
+                                         device=dev)
+                       for name in policy.stateful_names(sched)}
+    hnames = hier_ef_names(sched, _norm_topology(topology))
+    if hnames:
+        comm0["hier_ef"] = {name: torch.zeros((*lead, *shapes[name]),
+                                              device=dev)
+                            for name in hnames}
+    return comm0
+
+
+def build_rank_program(ctx, job: MeshJob) -> RankProgram:
+    """Build rank ``ctx``'s part of a mesh program from its job, on its
+    device (what every rank of a session runs, the controller too)."""
+    dev = ctx.device
+    kw = dict(job.cell_kw)
+    if job.index_source is not None:
+        kw["index_source"] = CellIndexSource(job.index_source, ctx.p, ctx.q,
+                                             device=dev)
+    cellprog = _resolve(job.make_cell)(**kw)
+    data = _on(job.data, dev)
+    if job.setup is not None:
+        data = _resolve(job.setup)(ctx, data, **(job.setup_kw or {}))
+    state0 = _on(job.state, dev)
+    knobs = dict(staleness=job.staleness, compression=job.compression,
+                 overlap=job.overlap, topology=job.topology)
+    step = mesh_step_fn(cellprog, ctx, **knobs)
+    local = mesh_step_fn(cellprog, ctx, comm_local=True)
+    comm0 = mesh_comm_state(cellprog, ctx, data, state0, **knobs)
+    specs = job.state_specs
+
+    def export(full_state, what):
+        state, cbufs = full_state
+        if what == 0:
+            leaves = [leaf for leaf, _ in _leaves(state, specs)]
+        else:
+            leaves = [cbufs[kind][name] for kind in ("ef", "hier_ef")
+                      for name in sorted(cbufs.get(kind, {}))]
+        if not leaves:
+            return torch.zeros((0,), device=dev)
+        return torch.cat([leaf.reshape(-1).float() for leaf in leaves])
+
+    def drain_state(full_state):
+        if job.overlap:
+            drain(full_state[1].get("stale", {}))
+
+    return RankProgram(
+        state=(state0, comm0),
+        step=lambda t, s: step(t, data, s),
+        local_step=lambda t, s: local(t, data, s[0]),
+        export=export, drain=drain_state)
+
+
+def _assemble(parts, template, specs, P: int, Q: int):
+    """The blocked global state from every rank's exported iterates
+    (``parts[r]``, rank ``r = p * Q + q``): a leaf led by "data" comes
+    from the ranks (p, 0), one led by "model" from the ranks (0, q), a
+    cell leaf from every rank."""
+    out, off = [], 0
+    for leaf, spec in _leaves(template, specs):
+        size = leaf.numel()
+        cell = [part[off:off + size].reshape(leaf.shape) for part in parts]
+        off += size
+        if spec == ROW:
+            out.append(torch.cat([cell[p * Q] for p in range(P)]))
+        elif spec == COL:
+            out.append(torch.cat(cell[:Q]))
+        else:
+            out.append(torch.cat(cell).reshape(P, Q, *leaf.shape[2:]))
+    return _rebuild(template, out)
+
+
+def _assemble_ef(parts, template: dict, P: int, Q: int, pods: int):
+    """The grid engine's ``ef`` dict from every rank's residuals: a policy
+    residual ``(P, Q, *cell)`` from every rank, a pod residual ``(G, Q,
+    *cell)`` (key ``"pod:<name>"``) from the first rank of each pod."""
+    out, off = {}, 0
+    for kind in ("ef", "hier_ef"):
+        for name in sorted(template.get(kind, {})):
+            shape = template[kind][name].shape
+            size = template[kind][name].numel()
+            cell = [part[off:off + size].reshape(shape[2:]) for part in parts]
+            off += size
+            if kind == "ef":
+                out[name] = torch.stack(cell).reshape(P, Q, *shape[2:])
+            else:
+                per = P // pods
+                out[POD_EF + name] = torch.stack(
+                    [cell[g * per * Q + q] for g in range(pods)
+                     for q in range(Q)]).reshape(pods, Q, *shape[2:])
+    return out
+
+
+def bind_mesh_program(grid, *, make_cell: str, cell_kw: dict, index_source,
+                      data, data_specs, state0, state_specs, w_of,
+                      alpha_of=None, setup: Optional[str] = None,
+                      setup_kw: Optional[dict] = None, staleness: int = 0,
+                      compression=None, overlap: bool = False,
+                      topology=None) -> EngineProgram:
+    """The controller's :class:`EngineProgram` of a mesh program on
+    process grid ``grid``.
+
+    ``data`` / ``state0`` are the GLOBAL blocked data tuple and initial
+    solver state (host tensors, the grid engine's layout), ``data_specs``
+    / ``state_specs`` their leaves' grid axes; rank (p, q) receives cell
+    (p, q) of each (:func:`cell_of`).  ``w_of`` / ``alpha_of`` read the
+    global iterates from the blocked solver state, as the grid engine's
+    extractors do; here they run on the state gathered from the ranks,
+    and their results are moved to the grid's device.
+
+    The program's state is a :class:`repro_torch.launch.mesh.MeshState`
+    handle; ``step`` broadcasts one outer step to the grid and runs rank
+    0's part; ``comm_bytes`` is the grid engine's exact wire accounting
+    of the same schedule, payloads and knobs (every rank puts one payload
+    per collective on the wire per step, whatever the staleness)."""
+    from ..launch.mesh import ITERATES, RESIDUALS, MeshState, OP_GATHER, \
+        OP_LOCAL, OP_STEP
+    P, Q = grid.P, grid.Q
+    sizes = {"data": P, "model": Q}
+    topo = _norm_topology(topology)
+    if topo is not None and topo.pods not in grid.pods:
+        raise ValueError(f"topology pods={topo.pods} must divide P={P}")
+    policy = as_policy(compression)
+    cell_kw = dict(cell_kw)
+    src_kw = {} if index_source is None else {"index_source": index_source}
+    probe = _resolve(make_cell)(**cell_kw, **src_kw)
+    if policy is not None:
+        policy.validate(probe.schedule)
+    acct = wire_accounting(probe.schedule,
+                           probe.payload_shapes(data, state0), sizes,
+                           policy)
+    acct = hierarchical_accounting(acct, topo, sizes)
+    overlap = bool(overlap) and staleness > 0
+
+    jobs = []
+    for r in range(P * Q):
+        p, q = divmod(r, Q)
+        cell_data = tuple(cell_of(leaf, spec, p, q)
+                          for leaf, spec in zip(data, data_specs))
+        cell_state = _rebuild(state0, [cell_of(leaf, spec, p, q)
+                                       for leaf, spec
+                                       in _leaves(state0, state_specs)])
+        jobs.append(MeshJob(
+            make_cell=make_cell, cell_kw=cell_kw, index_source=index_source,
+            data=cell_data, state=cell_state, state_specs=state_specs,
+            setup=setup, setup_kw=setup_kw, staleness=staleness,
+            compression=policy, overlap=overlap, topology=topo,
+            hook=grid.rank_hook))
+    session = grid.open_session(jobs)
+    template = session.rank.states[0]
+    dev = grid.device
+    gathered = {}
+
+    def gather(s, what):
+        key = (s.sid, what)
+        if key not in gathered:
+            _, parts = session.command(OP_GATHER, src=s.sid, what=what)
+            if what == ITERATES:
+                got = _assemble(parts, template[0], state_specs, P, Q)
+            else:
+                got = _assemble_ef(parts, template[1], P, Q,
+                                   topo.pods if topo is not None else 1)
+            gathered.clear()
+            gathered[key] = got
+        return gathered[key]
+
+    def step(t, s):
+        sid, local = session.command(OP_STEP, t, s.sid)
+        return MeshState(local, sid)
+
+    def local_step(t, s):
+        session.command(OP_LOCAL, t, s.sid)
+        return s
+
+    has_ef = bool(template[1].get("ef") or template[1].get("hier_ef"))
+    return EngineProgram(
+        state=MeshState(template, 0),
+        step=step,
+        w_of=lambda s: w_of(gather(s, ITERATES)).to(dev),
+        alpha_of=(None if alpha_of is None else
+                  (lambda s: alpha_of(gather(s, ITERATES)).to(dev))),
+        comm_bytes=acct,
+        ef_of=((lambda s: {k: v.to(dev) for k, v
+                           in gather(s, RESIDUALS).items()})
+               if has_ef else None),
+        local_step=local_step,
+        staleness=int(staleness), overlap=overlap,
+        sync_of=(lambda s: s.local[0]) if overlap else None,
+        close=session.close)

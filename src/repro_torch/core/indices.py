@@ -19,10 +19,14 @@ for the four streams the algorithms need, per outer iteration ``t``
 the solver config's seed (a device generator on a CUDA device);
 ``ArrayIndexSource`` replays arrays it was given, which is how a caller
 reproduces another implementation's exact streams; ``TenantIndexSource``
-stacks one source per tenant on the tenant axis of the fleet path.
+stacks one source per tenant on the tenant axis of the fleet path;
+``CellIndexSource`` is one cell's view of a whole-grid source, for a rank
+of a process grid (``repro_torch.launch.mesh``), which draws exactly what
+that cell of the grid engine consumes.
 """
 from __future__ import annotations
 
+import copy
 from typing import Mapping, Optional
 
 import torch
@@ -49,6 +53,22 @@ class GeneratorIndexSource:
         self.sample_frac = float(sample_frac)
         self.device = resolve_device(device)
         self._gen = torch.Generator(device=self.device)
+
+    def __getstate__(self):
+        # a generator is re-made, not sent: every draw re-seeds it anyway
+        state = dict(self.__dict__)
+        del state["_gen"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._gen = torch.Generator(device=self.device)
+
+    def to(self, device) -> "GeneratorIndexSource":
+        """The same streams drawn on ``device`` (a copy)."""
+        return GeneratorIndexSource(
+            self.seed, P=self.P, Q=self.Q, n_p=self.n_p, steps=self.steps,
+            L=self.L, sample_frac=self.sample_frac, device=device)
 
     def _reseed(self, t: int, stream: int) -> torch.Generator:
         self._gen.manual_seed((self.seed * 1_000_003 + int(t)) * 4 + stream)
@@ -84,6 +104,12 @@ class ArrayIndexSource:
         self._streams = {"sdca_rows": sdca, "svrg_rows": svrg,
                          "radisa_perm": perm, "sfk_sample": sample}
         self.device = resolve_device(device)
+
+    def to(self, device) -> "ArrayIndexSource":
+        """The same streams, returned on ``device`` (a copy)."""
+        out = copy.copy(self)
+        out.device = resolve_device(device)
+        return out
 
     def _get(self, name: str, t: int, dtype) -> torch.Tensor:
         stream = self._streams[name]
@@ -142,3 +168,29 @@ class TenantIndexSource:
 
     def sfk_sample(self, t: int) -> torch.Tensor:
         return self._stack("sfk_sample", t)
+
+
+class CellIndexSource:
+    """Cell (p, q)'s view of a whole-grid source: each stream keeps the
+    grid axes it varies over, cut to that cell -- ``sdca_rows -> (1,
+    steps)``, ``svrg_rows -> (1, 1, L)``, ``radisa_perm -> (1,)``,
+    ``sfk_sample -> (1, n_p)`` -- so a rank holding that one cell
+    consumes exactly what the grid engine's cell (p, q) consumes.  The
+    whole source is drawn on ``device`` and cut."""
+
+    def __init__(self, source, p: int, q: int, device="cuda"):
+        self.source = source.to(device)
+        self.p, self.q = int(p), int(q)
+
+    def sdca_rows(self, t: int) -> torch.Tensor:
+        return self.source.sdca_rows(t)[self.p:self.p + 1].contiguous()
+
+    def svrg_rows(self, t: int) -> torch.Tensor:
+        return self.source.svrg_rows(t)[self.p:self.p + 1,
+                                        self.q:self.q + 1].contiguous()
+
+    def radisa_perm(self, t: int) -> torch.Tensor:
+        return self.source.radisa_perm(t)[self.p:self.p + 1].contiguous()
+
+    def sfk_sample(self, t: int) -> torch.Tensor:
+        return self.source.sfk_sample(t)[self.p:self.p + 1].contiguous()

@@ -39,8 +39,9 @@ import numpy as np
 import torch
 
 from .comm import CommSchedule
-from .engines import (CellProgram, EngineProgram, cached_build,
-                      drive_with_callback, grid_bind_state, grid_program)
+from .engines import (CELL, COL, ROW, CellProgram, EngineProgram,
+                      bind_mesh_program, cached_build, drive_with_callback,
+                      grid_bind_state, grid_program)
 from .indices import GeneratorIndexSource
 from .local import local_svrg, local_svrg_sparse
 from .losses import Loss, get_loss
@@ -197,9 +198,12 @@ def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
         # (3) sub-block assignment (shared permutation) + local SVRG
         idx = index_source.svrg_rows(t)                      # (P, Q, L)
         if avg:
+            # one anchor per row partition HELD (P on the grid engine, the
+            # rank's one on a process grid); Pn stays the global P
+            held = y.shape[0]
             lo = None
-            w_anchor = w.unsqueeze(0).expand(Pn, *w.shape).contiguous()
-            mu_sub = mu.unsqueeze(0).expand(Pn, *mu.shape).contiguous()
+            w_anchor = w.unsqueeze(0).expand(held, *w.shape).contiguous()
+            mu_sub = mu.unsqueeze(0).expand(held, *mu.shape).contiguous()
         else:
             lo, win, w_anchor, mu_sub = cut_windows(
                 w, mu, index_source.radisa_perm(t), m_sub)
@@ -281,6 +285,49 @@ def bind_primal_program(cellprog, step, data, gdata, w_init, *,
         comm_bytes=acct,
         ef_of=(lambda s: s[1]) if full0 is not w_init else None,
         local_step=lambda t, s: local(t, gdata, unwrap(s)))
+
+
+def primal_shard_map_program(make_cell: str, cell_kw: dict, data, grid, *,
+                             w0, index_source, staleness: int = 0,
+                             compression=None, overlap: bool = False,
+                             topology=None) -> EngineProgram:
+    """The mesh program of a primal solver whose state is ``w_blocks``
+    (RADiSA, SFK) on process grid ``grid``: rank (p, q) holds block (p,
+    q) of ``data`` (the grid engine's blocked view, on the host)."""
+    sparse = isinstance(data, SparseDoublyPartitioned)
+    x_parts = (data.cols, data.vals) if sparse else (data.x_blocks,)
+    w_init = (torch.zeros((data.Q, data.m_q)) if w0 is None
+              else data.w_to_blocks(w0))
+    return bind_mesh_program(
+        grid, make_cell=make_cell,
+        cell_kw=dict(cell_kw, n=data.n, m_q=data.m_q, sparse=sparse),
+        index_source=index_source,
+        data=(*x_parts, data.y_blocks, data.mask),
+        data_specs=(CELL,) * len(x_parts) + (ROW, ROW),
+        state0=w_init, state_specs=COL,
+        w_of=data.w_from_blocks, staleness=staleness,
+        compression=compression, overlap=overlap, topology=topology)
+
+
+def radisa_shard_map_program(loss: Loss, data, cfg: RADiSAConfig, grid, *,
+                             local_backend: str = "kernel", w0=None,
+                             index_source=None, staleness: int = 0,
+                             compression=None, overlap: bool = False,
+                             topology=None) -> EngineProgram:
+    """Mesh engines: the RADiSA program (either variant) on process grid
+    ``grid``, one block per rank; the knobs as in
+    :func:`repro_torch.core.d3ca.d3ca_shard_map_program`.  Requires P |
+    m_q unless ``variant="avg"``."""
+    _check_subblocks(data.m_q, data.P, cfg.variant == "avg")
+    if index_source is None:
+        index_source = GeneratorIndexSource(
+            cfg.seed, P=data.P, Q=data.Q, n_p=data.n_p,
+            L=cfg.L or data.n_p, device=data.device)
+    return primal_shard_map_program(
+        "repro_torch.core.radisa:radisa_cell_program",
+        dict(loss=loss, cfg=cfg, local_backend=local_backend), data, grid,
+        w0=w0, index_source=index_source, staleness=staleness,
+        compression=compression, overlap=overlap, topology=topology)
 
 
 def radisa_simulated(loss_name: str, data, cfg: RADiSAConfig, callback=None,

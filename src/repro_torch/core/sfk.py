@@ -45,7 +45,7 @@ from .losses import Loss, get_loss
 from .partition import SparseDoublyPartitioned
 from .radisa import (_check_subblocks, bind_primal_program, blocks_times_w,
                      cut_windows, paste_windows, primal_payload_shapes,
-                     rows_times_x)
+                     primal_shard_map_program, rows_times_x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +185,28 @@ def sfk_simulated_program(loss: Loss, data, cfg: SFKConfig, *,
     return bind_primal_program(cellprog, step, data, gdata, w_init,
                                compression=compression, topology=topology,
                                cache=cache)
+
+
+def sfk_shard_map_program(loss: Loss, data, cfg: SFKConfig, grid, *,
+                          local_backend: str = "kernel", w0=None,
+                          index_source=None, staleness: int = 0,
+                          compression=None, overlap: bool = False,
+                          topology=None) -> EngineProgram:
+    """Mesh engines: the SFK program on process grid ``grid``, one block
+    per rank; the knobs as in
+    :func:`repro_torch.core.d3ca.d3ca_shard_map_program`.  Requires P |
+    m_q."""
+    _check_subblocks(data.m_q, data.P, False)
+    if index_source is None:
+        index_source = GeneratorIndexSource(
+            cfg.seed, P=data.P, Q=data.Q, n_p=data.n_p,
+            L=cfg.L or data.n_p, sample_frac=cfg.sample_frac,
+            device=data.device)
+    return primal_shard_map_program(
+        "repro_torch.core.sfk:sfk_cell_program",
+        dict(loss=loss, cfg=cfg, local_backend=local_backend), data, grid,
+        w0=w0, index_source=index_source, staleness=staleness,
+        compression=compression, overlap=overlap, topology=topology)
 
 
 def sfk_simulated(loss_name: str, data, cfg: SFKConfig, callback=None,

@@ -7,9 +7,18 @@ story.  This module provides that story once:
     ``get_solver("d3ca" | "radisa" | "sfk" | "admm")`` returns the solver
     class;
   * knobs threaded end-to-end:
-      - ``device="cuda" | "cpu"`` -- where the grid lives.  The default
-        is the card; without one the solver raises rather than carrying
-        on on the CPU, which has to be asked for by name;
+      - ``engine="simulated" | "shard_map" | "sync" | "async" |
+        "overlap"`` -- the single-device grid engine, or a process grid
+        of P x Q ranks, one block each (``repro_torch.launch.mesh``):
+        synchronous reductions (``"shard_map"``, alias ``"sync"``),
+        reductions applied ``staleness`` = tau steps late (``"async"``)
+        or dispatched asynchronously with the same delays
+        (``"overlap"``); tau = 0 on either is ``"shard_map"`` bit for
+        bit;
+      - ``device="cuda" | "cpu"`` -- where the grid lives (every rank of
+        a process grid on the card(s), or on the CPU).  The default is
+        the card; without one the solver raises rather than carrying on
+        on the CPU, which has to be asked for by name;
       - ``local_backend="kernel" | "ref"`` -- the hand-written CUDA
         kernels (their plain PyTorch versions for tensors on the CPU) vs
         the plain per-step loop of ``core/local.py`` (ADMM, whose inner
@@ -50,13 +59,13 @@ story.  This module provides that story once:
     cumulative exact ``comm_bytes``), early stopping, warm starts from a
     previous ``w`` / ``alpha``.
 
-The port covers the single-device grid engine (``engine="simulated"``);
-many problems of one shape solve together through
-``repro_torch.fleet.FleetSolver``.  ``staleness > 0`` needs the async /
-overlap engines and is refused with the reference's ``ValueError``.
-The mesh engines of the reference's ``Solver`` raise
-``NotImplementedError`` naming the ROADMAP queue item that brings them
-(``NOT_PORTED``); nothing is silently ignored.
+Many problems of one shape solve together through
+``repro_torch.fleet.FleetSolver`` (grid engine only).  ``staleness > 0``
+needs the async / overlap engines and is refused with the reference's
+``ValueError`` elsewhere.  What the reference offers and the port does
+not yet -- the mesh halves of the fleet, the online service and scoring
+-- raises ``NotImplementedError`` naming the ROADMAP queue item that
+brings it (``NOT_PORTED``); nothing is silently ignored.
 
 Example::
 
@@ -85,31 +94,38 @@ import torch
 from ..data.sparse import CSRMatrix
 from ..obs.phases import bench_codecs, calibrate_phases
 from ..obs.trace import as_tracer
-from .admm import ADMMConfig, admm_simulated_program
+from .admm import (ADMMConfig, admm_shard_map_program,
+                   admm_simulated_program)
 from .comm_model import as_topology
 from .compress import CompressionSchedule, as_compression
-from .d3ca import D3CAConfig, d3ca_simulated_program
+from .d3ca import D3CAConfig, d3ca_shard_map_program, d3ca_simulated_program
 from .engines import EngineProgram, drive
 from .local import LOCAL_BACKENDS
 from .losses import get_loss
 from .partition import partition, partition_sparse
-from .radisa import RADiSAConfig, radisa_simulated_program
+from .radisa import (RADiSAConfig, radisa_shard_map_program,
+                     radisa_simulated_program)
 from .reference import rel_opt
-from .sfk import SFKConfig, sfk_simulated_program
+from .sfk import SFKConfig, sfk_shard_map_program, sfk_simulated_program
 from .util import DTYPE, as_tensor, resolve_device
 
-ENGINES = ("simulated",)
+ENGINES = ("simulated", "shard_map", "async", "overlap")
+#: "sync" names the synchronous mesh policy explicitly (the CommSchedule
+#: terminology); it is the same engine as "shard_map"
+ENGINE_ALIASES = {"sync": "shard_map"}
 BLOCK_FORMATS = ("dense", "sparse")
 
-#: what the reference offers and the port does not (solver knobs, CLI
-#: flags by their argparse dest), with the title of the ROADMAP queue-A
-#: item that ports it
+#: what the reference offers and the port does not (the mesh halves of
+#: the fleet, the online service and scoring: knobs, and CLI flags by
+#: their argparse dest), with the title of the ROADMAP queue-A item that
+#: ports it
 _ITEMS = {
-    "mesh": "'Multi-device engines'",
+    "mesh": "'Multi-device engines' (item 12b: the fleet, online and "
+            "scoring halves)",
 }
 NOT_PORTED = {
     "engine": _ITEMS["mesh"], "mesh": _ITEMS["mesh"],
-    "force_host_devices": _ITEMS["mesh"], "staleness": _ITEMS["mesh"],
+    "force_host_devices": _ITEMS["mesh"],
 }
 
 
@@ -178,8 +194,9 @@ class Solver:
                  staleness: int = 0, compression=None, topology=None,
                  program_cache: bool = False, *, device="cuda",
                  index_source=None):
+        engine = ENGINE_ALIASES.get(engine, engine)
         if engine not in ENGINES:
-            raise not_ported("engine", engine)
+            raise ValueError(f"engine={engine!r}; expected one of {ENGINES}")
         if local_backend not in LOCAL_BACKENDS:
             raise ValueError(f"local_backend={local_backend!r}; expected one "
                              f"of {LOCAL_BACKENDS}")
@@ -191,7 +208,7 @@ class Solver:
             raise ValueError(f"staleness={staleness} must be >= 0 (the "
                              "reduction delay tau of the async/overlap "
                              "engines)")
-        if staleness > 0:
+        if staleness > 0 and engine not in ("async", "overlap"):
             raise ValueError(
                 f"staleness={staleness} needs engine='async' or "
                 f"engine='overlap'; the {engine!r} engine applies every "
@@ -249,12 +266,22 @@ class Solver:
         return {"compression": self.active_policy,
                 "topology": self.topology}
 
+    def _shard_map_program(self, loss, data, cfg, w0, alpha0,
+                           grid) -> EngineProgram:
+        raise NotImplementedError
+
+    def _mesh_kw(self):
+        """The engine knobs every ``*_shard_map_program`` takes."""
+        return {"staleness": self.staleness,
+                "overlap": self.engine == "overlap", **self._comm_kw()}
+
     def _build_cache(self, loss_name, cfg, X, P, Q, gated: bool):
         """The per-key dict in which the ``*_simulated_program``
         functions memoize their steps, or None when caching is off or
         unsafe (compression and topology programs carry per-build
-        error-feedback residuals)."""
-        if not self.program_cache:
+        error-feedback residuals; a process grid builds its ranks'
+        programs anew for every session)."""
+        if not self.program_cache or self.engine != "simulated":
             return None
         if self.active_policy is not None or self.topology is not None:
             return None
@@ -281,8 +308,12 @@ class Solver:
           X, y: the (n, m) training matrix and (n,) labels (numpy arrays,
             tensors or, for X, a :class:`CSRMatrix`; the blocks are made
             on the solver's device).
-          P, Q: observation/feature partition counts.
+          P, Q: observation/feature partition counts (required unless a
+            ``mesh`` is given).
           cfg: the solver's config dataclass (``config_cls()`` default).
+          mesh: a :class:`repro_torch.launch.mesh.ProcessGrid` for the
+            mesh engines; by default the memoized grid of P x Q ranks on
+            the solver's device (``process_grid``).
           warm_start: a :class:`SolveResult`, a ``(w, alpha)`` tuple, or
             a bare ``w`` to initialize the iterates from.
           row_gate: optional (n,) 0/1 per-row activity gate restricting
@@ -294,11 +325,10 @@ class Solver:
           An :class:`EngineProgram` ready for :func:`engines.drive`.
 
         Raises:
-          ValueError: on a missing grid spec, an unsupported ``row_gate``
-            or a topology whose pod count does not divide P.
+          ValueError: on a missing grid spec, a mesh / grid mismatch, an
+            unsupported ``row_gate`` or a topology whose pod count does
+            not divide P.
         """
-        if mesh is not None:
-            raise not_ported("mesh")
         loss = get_loss(loss_name)
         cfg = cfg if cfg is not None else self.config_cls()
         if row_gate is not None and not self.supports_row_gate:
@@ -310,21 +340,56 @@ class Solver:
         cache = self._build_cache(loss_name, cfg, X, P, Q,
                                   row_gate is not None)
         w0, alpha0 = _unpack_warm_start(warm_start)
-        if P is None or Q is None:
-            raise ValueError("engine='simulated' needs P and Q")
+        grid = None
+        if self.engine == "simulated":
+            if mesh is not None:
+                raise ValueError("engine='simulated' runs on one device; "
+                                 "mesh= needs engine='shard_map', 'async' "
+                                 "or 'overlap'")
+            if P is None or Q is None:
+                raise ValueError("engine='simulated' needs P and Q")
+        else:
+            grid = self._grid(mesh, P, Q)
+            P, Q = grid.P, grid.Q
         pods = self.topology.pods if self.topology is not None else 1
         if pods > 1 and P % pods:
             raise ValueError(f"topology pods={pods} must divide P={P}")
+        # the mesh engines cut the blocks on the host and hand each rank
+        # its own; the grid engine cuts them on its device
+        where = self.device if grid is None else "cpu"
         if self.block_format == "sparse":
             data = partition_sparse(X, y, P, Q, m_multiple=P * Q,
-                                    device=self.device)
+                                    device=where)
         else:
             if isinstance(X, CSRMatrix):
                 X = X.toarray()   # CSR input under block_format="dense"
-            data = partition(X, y, P, Q, m_multiple=P * Q,
-                             device=self.device)
+            data = partition(X, y, P, Q, m_multiple=P * Q, device=where)
+        if grid is not None:
+            return self._shard_map_program(loss, data, cfg, w0, alpha0,
+                                           grid, **gate_kw)
         return self._simulated_program(loss, data, cfg, w0, alpha0,
                                        cache=cache, **gate_kw)
+
+    def _grid(self, mesh, P, Q):
+        """The process grid of a mesh engine: ``mesh`` (checked against P
+        and Q) or the memoized P x Q grid on the solver's device."""
+        from ..launch.mesh import ProcessGrid, process_grid
+        if mesh is None:
+            if P is None or Q is None:
+                raise ValueError(f"engine={self.engine!r} needs a mesh "
+                                 "or P and Q")
+            return process_grid(P, Q, device=self.device)
+        if not isinstance(mesh, ProcessGrid):
+            raise TypeError(f"mesh={mesh!r}: the mesh engines take a "
+                            "repro_torch.launch.mesh.ProcessGrid")
+        if (P is not None and P != mesh.P) or (Q is not None
+                                               and Q != mesh.Q):
+            raise ValueError(f"mesh is {mesh.P}x{mesh.Q} but P={P}, Q={Q} "
+                             "requested")
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"mesh runs on {mesh.device}, the solver on "
+                             f"{self.device}")
+        return mesh
 
     # ---- the shared outer loop --------------------------------------------
     def solve(self, loss_name: str, X, y, *, P: int = None, Q: int = None,
@@ -505,8 +570,11 @@ class Solver:
                 with tr.span("calibrate"):
                     split = calibrate_phases(prog)
                 if policy is not None:
+                    # the codec codes the cells this process holds: all
+                    # of them on the grid engine, one on a process grid
+                    cells = (P, Q) if self.engine == "simulated" else (1, 1)
                     codec_s = bench_codecs(policy, prog.comm_bytes or {},
-                                           grid=(P, Q), device=self.device)
+                                           grid=cells, device=self.device)
                     for cname, secs in codec_s.items():
                         if reg is not None:
                             reg.gauge(f"compress/codec_s/{cname}",
@@ -531,6 +599,9 @@ class Solver:
                     att = split.attribute(step_s)
                     last_phase["local_s"] = att["local_s"]
                     last_phase["comm_s"] = att["comm_s"]
+                    for key in ("comm_exposed_s", "comm_hidden_s"):
+                        if key in att:
+                            last_phase[key] = att[key]
                     tr.record("local_solve", t_begin, att["local_s"], iter=t)
                     off = t_begin + att["local_s"]
                     for name, secs in att["collectives"].items():
@@ -543,6 +614,10 @@ class Solver:
                             last_phase["local_s"])
                         reg.histogram("solver/comm_s", **labels).observe(
                             last_phase["comm_s"])
+                        if "comm_exposed_s" in last_phase:
+                            reg.histogram("solver/comm_exposed_s",
+                                          **labels).observe(
+                                last_phase["comm_exposed_s"])
                     if bytes_per_step is not None:
                         reg.counter("solver/comm_bytes", **labels).inc(
                             bytes_per_step)
@@ -577,6 +652,11 @@ class Solver:
                     entry["host_s"] = time.perf_counter() - th0
                 if reg is not None:
                     record_metrics(reg, labels, entry, prog, state)
+                    if self.staleness > 0:
+                        # filled FIFO slots / ring capacity (the rings are
+                        # seeded full at t = 1, so occupancy ramps once)
+                        reg.gauge("async/ring_occupancy", **labels).set(
+                            min(t, self.staleness) / self.staleness)
                 if record_history:
                     history.append(entry)
                 if callback is not None:
@@ -612,6 +692,8 @@ class Solver:
                 staleness=self.staleness,
                 compression=policy.spec if policy is not None else None,
                 topology=self.topology_spec, comm_bytes=prog.comm_bytes)
+            if prog.close is not None:
+                prog.close()     # a process grid's session: collect
             return res, advanced[0]
 
 
@@ -685,6 +767,14 @@ class D3CASolver(Solver):
                                       row_gate=row_gate, cache=cache,
                                       **self._comm_kw())
 
+    def _shard_map_program(self, loss, data, cfg, w0, alpha0, grid,
+                           row_gate=None):
+        return d3ca_shard_map_program(loss, data, cfg, grid,
+                                      local_backend=self.local_backend,
+                                      w0=w0, alpha0=alpha0,
+                                      index_source=self.index_source,
+                                      row_gate=row_gate, **self._mesh_kw())
+
 
 @register_solver
 class RADiSASolver(Solver):
@@ -697,6 +787,13 @@ class RADiSASolver(Solver):
                                         w0=w0,
                                         index_source=self.index_source,
                                         cache=cache, **self._comm_kw())
+
+    def _shard_map_program(self, loss, data, cfg, w0, alpha0, grid):
+        return radisa_shard_map_program(loss, data, cfg, grid,
+                                        local_backend=self.local_backend,
+                                        w0=w0,
+                                        index_source=self.index_source,
+                                        **self._mesh_kw())
 
 
 @register_solver
@@ -714,6 +811,12 @@ class SFKSolver(Solver):
                                      w0=w0, index_source=self.index_source,
                                      cache=cache, **self._comm_kw())
 
+    def _shard_map_program(self, loss, data, cfg, w0, alpha0, grid):
+        return sfk_shard_map_program(loss, data, cfg, grid,
+                                     local_backend=self.local_backend,
+                                     w0=w0, index_source=self.index_source,
+                                     **self._mesh_kw())
+
 
 @register_solver
 class ADMMSolver(Solver):
@@ -726,3 +829,7 @@ class ADMMSolver(Solver):
     def _simulated_program(self, loss, data, cfg, w0, alpha0, cache=None):
         return admm_simulated_program(loss, data, cfg, w0=w0, cache=cache,
                                       **self._comm_kw())
+
+    def _shard_map_program(self, loss, data, cfg, w0, alpha0, grid):
+        return admm_shard_map_program(loss, data, cfg, grid, w0=w0,
+                                      **self._mesh_kw())

@@ -29,7 +29,8 @@ Per-tenant semantics preserved relative to a solo
 
 The fleet runs on the single-device grid engine (``engine="simulated"``).
 The synchronous mesh of the reference (``"shard_map"`` / ``"sync"``) is
-not ported yet (ROADMAP queue A, multi-device engines); the async and
+not ported for fleets yet (ROADMAP queue A item 12b, the mesh halves of
+the multi-device engines); the async and
 overlap engines, staleness, compression and topology carry per-build
 state with no tenant axis and are rejected with ``ValueError``, as in the
 reference.
@@ -65,7 +66,8 @@ from .batch import FleetProblem, bucket_key, fleet_cell_program, stack_grid
 #: engines the fleet path runs on in the port
 FLEET_ENGINES = ("simulated",)
 FLEET_SOLVERS = ("d3ca", "radisa", "sfk", "admm")
-#: the reference's synchronous mesh engine (and its alias): not ported
+#: the reference's synchronous mesh engine (and its alias): not ported for
+#: fleets
 MESH_ENGINES = ("shard_map", "sync")
 BLOCKS, ROWS, COLS = ("data", "model"), ("data",), ("model",)
 

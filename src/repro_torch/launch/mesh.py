@@ -1,0 +1,672 @@
+"""Process grids: the paper's P x Q grid as P*Q processes, one cell each.
+
+The reference runs its mesh engines as one program over a ``jax`` mesh of
+P x Q devices (``launch/mesh.py::make_mesh`` / ``make_grid_mesh``).  The
+port runs them as a ``torch.distributed`` program over a *process grid*:
+
+  * rank ``r = p * Q + q`` owns cell (p, q) -- the block x_[p,q] that cell
+    (p, q) of the grid engine sees -- on device ``cuda:(r % cards)`` (every
+    rank on the one card of a one-card machine) or on the CPU;
+  * rank 0 is the calling process, the controller: it holds (X, y), cuts
+    the blocks, evaluates the objective and the gap from the iterates it
+    gathers, and tells the other ranks what to do next; ranks 1..P*Q-1 are
+    worker processes forked from one parent process, itself started with
+    the ``spawn`` method: it imports the program once and never
+    initializes CUDA (a fork after CUDA initialization is invalid), so
+    a rank costs a fork, not an import of torch;
+  * the process groups: the whole grid, every row (the ranks of one p: the
+    "model" reductions), every column (one q: the "data" reductions) and,
+    for every pod count G that divides P, every pod (the ranks of one
+    column in one of G contiguous ranges of p) and every cross-pod group
+    (the ranks of one column at the same place in their pods);
+  * the collectives run on gloo: NCCL refuses two ranks of one
+    communicator on one card, and the ranks of a one-card machine share
+    it.
+
+A grid is memoized like the reference's ``make_grid_mesh``
+(:func:`process_grid`), so repeated solves reuse the same ranks; a
+process holds one live grid at a time (one default process group), and
+asking for another shape closes the current one.
+
+**Sessions.**  A solve opens a session: the controller hands every worker
+its job (its cell of the blocked data and initial state, the recipe of
+the cell program, the engine knobs) through a ``torch.multiprocessing``
+queue -- CPU tensors travel as shared memory, so no rank regenerates or
+copies the whole matrix -- and every rank builds the same rank program
+(``core/engines.py::build_rank_program``).  Then the controller drives it
+by commands broadcast to the grid, which every rank executes in the same
+order: ``STEP t src dst`` (one outer step from held state ``src`` into
+``dst``), ``LOCAL t src`` (the collective-free timing twin, ended when
+every rank's device has finished it), ``GATHER src what`` (the iterates
+or the error-feedback residuals of every rank to the controller),
+``BARRIER`` (every rank waits for its device, then for the others) and
+``STOP``.  Each rank holds
+the initial state and the last two it made, so the timed path's
+calibration can re-step from the initial state.  At ``STOP`` each worker
+returns the launches its kernel wrappers counted in that session (summed
+into the grid's ``worker_launches``; the controller's wrappers count only
+the controller's own launches) and the report of the grid's
+``rank_hook``.
+
+**Failures.**  A worker that raises sends its traceback and exits at
+once, which breaks its peers out of their collectives; the controller
+then raises with that traceback and closes the grid, as it does when a
+command fails on the controller.  An exception on the controller between
+commands (in the caller's own code) leaves the ranks waiting for the next
+command: the session is ended when the grid opens its next one.  Every
+collective and every wait is bounded by the grid's ``timeout``.
+"""
+from __future__ import annotations
+
+import atexit
+import contextlib
+import dataclasses
+import datetime
+import importlib
+import os
+import queue
+import signal
+import time
+import traceback
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from ..core.util import resolve_device
+
+#: seconds any collective or wait of a grid may take before it fails
+DEFAULT_TIMEOUT_S = 300.0
+
+OP_STEP, OP_LOCAL, OP_GATHER, OP_BARRIER, OP_STOP = range(5)
+#: what a GATHER collects
+ITERATES, RESIDUALS = 0, 1
+
+#: the kernel wrappers whose launches the ranks count (module, name)
+COUNTED = (("repro_torch.kernels.sdca.ops", "sdca_epoch"),
+           ("repro_torch.kernels.sdca.sparse", "sdca_epoch_sparse"),
+           ("repro_torch.kernels.svrg.ops", "svrg_inner"),
+           ("repro_torch.kernels.svrg.sparse", "svrg_inner_sparse"))
+_COUNTERS = ("launches_by_route", "launches_by_cluster")
+
+
+def _pod_counts(P: int):
+    return [G for G in range(2, P + 1) if P % G == 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """What a worker needs to join its grid (picklable)."""
+
+    P: int
+    Q: int
+    port: int
+    device_type: str
+    timeout_s: float
+    controller: int           # the pid of rank 0
+
+    @property
+    def world(self) -> int:
+        return self.P * self.Q
+
+
+class RankContext:
+    """One rank's view of its grid: its cell (p, q), its device, the
+    global extents and its process groups (see the module docstring)."""
+
+    def __init__(self, spec: GridSpec, rank: int, device: torch.device):
+        self.P, self.Q = spec.P, spec.Q
+        self.rank = rank
+        self.p, self.q = divmod(rank, spec.Q)
+        self.device = device
+        self.sizes = {"data": spec.P, "model": spec.Q}
+        self._groups = _make_groups(spec.P, spec.Q)
+
+    def group(self, axis: str):
+        """The group a reduction over ``axis`` runs on: the rank's column
+        for "data", its row for "model"."""
+        if axis == "data":
+            return self._groups["col"][self.q]
+        return self._groups["row"][self.p]
+
+    def pod_group(self, G: int):
+        return self._groups["pod"][(G, self.p // (self.P // G), self.q)]
+
+    def cross_group(self, G: int):
+        return self._groups["cross"][(G, self.p % (self.P // G), self.q)]
+
+    def barrier(self):
+        dist.barrier()
+
+    def gather(self, flat: torch.Tensor):
+        """Every rank's ``flat`` (float32, the same size on every rank) to
+        the controller: a list in rank order there, None elsewhere."""
+        host = flat.detach().to("cpu").contiguous()
+        parts = ([torch.empty_like(host) for _ in range(self.P * self.Q)]
+                 if self.rank == 0 else None)
+        dist.gather(host, parts, dst=0)
+        return parts
+
+
+def _make_groups(P: int, Q: int) -> dict:
+    """Every process group of a P x Q grid, made in the same order on
+    every rank (``dist.new_group`` is collective)."""
+    groups = {"row": {}, "col": {}, "pod": {}, "cross": {}}
+    for p in range(P):
+        groups["row"][p] = dist.new_group([p * Q + q for q in range(Q)])
+    for q in range(Q):
+        groups["col"][q] = dist.new_group([p * Q + q for p in range(P)])
+    for G in _pod_counts(P):
+        per = P // G
+        for q in range(Q):
+            for g in range(G):
+                groups["pod"][(G, g, q)] = dist.new_group(
+                    [(g * per + i) * Q + q for i in range(per)])
+            for i in range(per):
+                groups["cross"][(G, i, q)] = dist.new_group(
+                    [(g * per + i) * Q + q for g in range(G)])
+    return groups
+
+
+def _rank_device(device_type: str, rank: int) -> torch.device:
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        return dev
+    return torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# launch counts and the rank hook
+# ---------------------------------------------------------------------------
+
+def launch_counts() -> dict:
+    """This process's counts of the counted kernel wrappers: ``{name:
+    {"launches": n, "launches_by_route": {...}, ...}}``."""
+    out = {}
+    for module, name in COUNTED:
+        fn = getattr(importlib.import_module(module), name)
+        out[name] = {"launches": fn.launches}
+        out[name].update({k: dict(getattr(fn, k)) for k in _COUNTERS
+                          if hasattr(fn, k)})
+    return out
+
+
+def add_counts(a: dict, b: dict, sign: int = 1) -> dict:
+    """``a + sign * b``, counter by counter, of two :func:`launch_counts`
+    dicts (a new dict)."""
+    out = {}
+    for name in a.keys() | b.keys():
+        ca, cb = a.get(name, {}), b.get(name, {})
+        out[name] = {}
+        for k in ca.keys() | cb.keys():
+            if k == "launches":
+                out[name][k] = ca.get(k, 0) + sign * cb.get(k, 0)
+            else:
+                ka, kb = ca.get(k, {}), cb.get(k, {})
+                out[name][k] = {r: ka.get(r, 0) + sign * kb.get(r, 0)
+                                for r in ka.keys() | kb.keys()}
+    return out
+
+
+def _hook_of(hook, rank: int):
+    return hook(rank) if hook is not None else contextlib.nullcontext({})
+
+
+# ---------------------------------------------------------------------------
+# one rank's side of a session
+# ---------------------------------------------------------------------------
+
+class RankSession:
+    """A rank's program and the states it holds, by id: the initial state
+    (id 0) and the last two states made (the controller keeps the same
+    book, so it knows what every rank holds)."""
+
+    KEEP = 2
+
+    def __init__(self, ctx: RankContext, prog):
+        self.ctx, self.prog = ctx, prog
+        self.states = {0: prog.state}
+        self._made = []
+
+    def holds(self, sid: int) -> bool:
+        return sid in self.states
+
+    def execute(self, op: int, t: int, src: int, dst: int, what: int):
+        if op == OP_STEP:
+            self.states[dst] = self.prog.step(t, self.states[src])
+            self._made.append(dst)
+            for old in self._made[:-self.KEEP]:
+                if old != src:
+                    self.states.pop(old, None)
+            self._made = self._made[-self.KEEP:]
+            return self.states[dst]
+        if op == OP_LOCAL:
+            self.prog.local_step(t, self.states[src])
+            self._wait_all()
+            return None
+        if op == OP_GATHER:
+            return self.ctx.gather(self.prog.export(self.states[src], what))
+        if op == OP_BARRIER:
+            self._wait_all()
+            return None
+        raise ValueError(f"unknown grid command {op}")
+
+    def _wait_all(self):
+        """This rank's device work done, then every rank's."""
+        if self.ctx.device.type == "cuda":
+            torch.cuda.synchronize(self.ctx.device)
+        self.ctx.barrier()
+
+    def finish(self):
+        """End of session: wait for every reduction still in flight."""
+        for state in self.states.values():
+            self.prog.drain(state)
+
+
+def _serve(ctx: RankContext, job) -> dict:
+    """A worker's session: build the rank program, execute commands until
+    STOP, return the launches counted and the hook's report."""
+    from ..core.engines import build_rank_program
+    before = launch_counts()
+    with _hook_of(job.hook, ctx.rank) as report:
+        session = RankSession(ctx, build_rank_program(ctx, job))
+        cmd = torch.zeros(5, dtype=torch.int64)
+        while True:
+            dist.broadcast(cmd, src=0)
+            op, t, src, dst, what = (int(v) for v in cmd)
+            if op == OP_STOP:
+                break
+            session.execute(op, t, src, dst, what)
+        session.finish()
+    return {"counts": add_counts(launch_counts(), before, -1),
+            "report": report}
+
+
+def _join(spec: GridSpec, rank: int) -> RankContext:
+    device = _rank_device(spec.device_type, rank)
+    timeout = datetime.timedelta(seconds=spec.timeout_s)
+    store = (None if rank == 0 else
+             dist.TCPStore("127.0.0.1", spec.port, spec.world,
+                           is_master=False, timeout=timeout))
+    if rank != 0:
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=spec.world, timeout=timeout)
+    return RankContext(spec, rank, device)
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        pass
+    return True
+
+
+def _next_job(jobs, controller: int):
+    """The next job, or None to stop: when the controller says so, or
+    when it has died without saying so."""
+    while True:
+        try:
+            return jobs.get(timeout=1.0)
+        except queue.Empty:
+            if not _alive(controller):
+                return None
+
+
+def _worker(rank: int, spec: GridSpec, jobs, results):
+    """Entry point of ranks 1..P*Q-1."""
+    try:
+        results.put((rank, "started", None))
+        ctx = _join(spec, rank)
+        results.put((rank, "ready", None))
+        while True:
+            job = _next_job(jobs, spec.controller)
+            if job is None:
+                break
+            results.put((rank, "done", _serve(ctx, job)))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        results.close()
+        results.join_thread()
+        os._exit(1)          # breaks the peers out of their collectives
+    dist.destroy_process_group()
+
+
+def _forker(spec: GridSpec, jobs, results):
+    """The parent of ranks 1..P*Q-1 (started with the ``spawn`` method, so
+    it has imported the program and this module and never touches a
+    device): leads a process group of its own, forks every rank into it,
+    reports each rank's exit code as it ends, and ends when they all
+    have."""
+    os.setpgrp()               # the controller ends the grid by its group
+    ctx = mp.get_context("fork")
+    ranks = {}
+    for r in range(1, spec.world):
+        proc = ctx.Process(target=_worker, args=(r, spec, jobs[r], results),
+                           name=f"grid-rank-{r}")
+        proc.start()
+        ranks[proc.pid] = r
+    while ranks:
+        pid, status = os.waitpid(-1, 0)
+        if pid in ranks:
+            results.put((ranks.pop(pid), "exited",
+                         os.waitstatus_to_exitcode(status)))
+
+
+# ---------------------------------------------------------------------------
+# the controller
+# ---------------------------------------------------------------------------
+
+class MeshState(NamedTuple):
+    """The controller's handle of a state the grid holds: rank 0's own
+    state (``local``) and the id every rank keeps it under."""
+
+    local: Any
+    sid: int
+
+
+class GridError(RuntimeError):
+    """A process grid failed; the message holds the failing rank's
+    traceback.  The grid is closed."""
+
+
+class ProcessGrid:
+    """A P x Q grid of processes (see the module docstring); build with
+    :func:`process_grid`.
+
+    Attributes:
+      rank_hook: None, or a picklable ``hook(rank)`` returning a context
+        manager that every rank enters around its side of each session;
+        the dict it yields is that rank's report, collected in
+        ``reports`` when the session ends.
+      reports: ``{rank: report}`` of the last finished session.
+      worker_launches: the launches of the counted kernel wrappers that
+        ranks 1..PQ-1 reported at the end of their sessions, summed over
+        ranks and sessions since the grid started (a
+        :func:`launch_counts` dict).  Rank 0's launches are in the
+        controller's wrappers' own counters.
+      spawn_s: seconds from the first spawn to every rank joined;
+        ``start_s`` of them until every worker had imported what it runs
+        (the rest: devices, the process group and its subgroups).
+    """
+
+    def __init__(self, P: int, Q: int, *, device="cuda",
+                 timeout: float = DEFAULT_TIMEOUT_S):
+        self.P, self.Q = int(P), int(Q)
+        self.world = self.P * self.Q
+        self.device = resolve_device(device)
+        self.timeout = float(timeout)
+        self.rank_hook: Optional[Callable] = None
+        self.reports: Dict[int, dict] = {}
+        self.worker_launches: Dict[str, dict] = {}
+        self.closed = False
+        self._session = None
+        if self.device.type == "cuda":
+            # build the kernels once, before any rank could start nvcc
+            from ..kernels import load_library
+            load_library()
+        if dist.is_initialized():
+            raise RuntimeError("this process already belongs to a process "
+                               "group; one process grid at a time")
+        t0 = time.perf_counter()
+        td = datetime.timedelta(seconds=self.timeout)
+        store = dist.TCPStore("127.0.0.1", 0, self.world, is_master=True,
+                              timeout=td, wait_for_workers=False)
+        spec = GridSpec(self.P, self.Q, store.port, self.device.type,
+                        self.timeout, os.getpid())
+        ctx = mp.get_context("spawn")
+        self._results = ctx.Queue()
+        self._jobs = {r: ctx.Queue() for r in range(1, self.world)}
+        self._forker = ctx.Process(target=_forker, name="grid-ranks",
+                                   args=(spec, self._jobs, self._results))
+        workers = range(1, self.world)
+        try:
+            self._forker.start()
+            # every worker alive before rank 0 blocks in the rendezvous (a
+            # worker that dies there is seen at once)
+            self._await({r: "started" for r in workers})
+            self.start_s = time.perf_counter() - t0
+            dist.init_process_group("gloo", store=store, rank=0,
+                                    world_size=self.world, timeout=td)
+            self.ctx = RankContext(spec, 0, self.device)
+            self._await({r: "ready" for r in workers})
+        except BaseException:
+            self._kill()
+            raise
+        self.spawn_s = time.perf_counter() - t0
+
+    @property
+    def pods(self):
+        """The pod counts this grid has groups for."""
+        return tuple(_pod_counts(self.P))
+
+    def __repr__(self):
+        return (f"ProcessGrid({self.P}x{self.Q}, device={self.device}, "
+                f"ranks={self.world})")
+
+    # -- results from the workers ---------------------------------------------
+    def _await(self, want: Dict[int, str]) -> Dict[int, Any]:
+        """Wait for one message of kind ``want[rank]`` from each rank;
+        raise GridError on a worker's error, death or the timeout."""
+        got: Dict[int, Any] = {}
+        deadline = time.monotonic() + self.timeout
+        while len(got) < len(want):
+            try:
+                rank, kind, payload = self._results.get(timeout=0.5)
+            except queue.Empty:
+                if not self._forker.is_alive():
+                    raise GridError(f"{self}: the ranks' parent process "
+                                    f"exited (code {self._forker.exitcode})")
+                if time.monotonic() > deadline:
+                    raise GridError(f"{self}: no word from ranks "
+                                    f"{sorted(set(want) - set(got))} in "
+                                    f"{self.timeout:g} s")
+                continue
+            if kind == "error":
+                raise GridError(f"{self}: rank {rank} "
+                                f"(cell {divmod(rank, self.Q)}) failed:\n"
+                                f"{payload}")
+            elif kind == "exited" and rank in want and rank not in got:
+                raise GridError(f"{self}: rank {rank} exited (code "
+                                f"{payload}) without reporting")
+            elif want.get(rank) == kind:
+                got[rank] = payload
+        return got
+
+    def _worker_errors(self, wait_s: float = 2.0) -> str:
+        """The tracebacks workers sent (after a failed collective)."""
+        msgs = []
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline:
+            try:
+                rank, kind, payload = self._results.get(timeout=0.1)
+            except queue.Empty:
+                if msgs:
+                    break
+                continue
+            if kind == "error":
+                msgs.append(f"rank {rank} (cell {divmod(rank, self.Q)}):\n"
+                            f"{payload}")
+        return "\n".join(msgs)
+
+    # -- sessions ---------------------------------------------------------------
+    def open_session(self, jobs) -> "MeshSession":
+        """Hand ``jobs[r]`` to rank r, build rank 0's program and return
+        the controller's session.  A session still open is closed
+        first."""
+        if self.closed:
+            raise GridError(f"{self} is closed")
+        self.close_session()
+        from ..core.engines import build_rank_program
+        try:
+            for r in range(1, self.world):
+                self._jobs[r].put(jobs[r])
+            hook = _hook_of(jobs[0].hook, 0)
+            report = hook.__enter__()
+            prog = build_rank_program(self.ctx, jobs[0])
+        except BaseException as e:
+            self.fail(e)
+        self._session = MeshSession(self, prog, hook, report)
+        return self._session
+
+    def close_session(self):
+        if self._session is not None:
+            self._session.close()
+
+    def barrier(self):
+        """Wait until every rank of the open session has finished what it
+        was given, on its device too (a clock read after this one is a
+        step of the whole grid)."""
+        if self._session is None:
+            raise GridError(f"{self} has no open session")
+        self._session.command(OP_BARRIER)
+
+    def fail(self, exc: BaseException):
+        """Close the grid after a failure and raise GridError with what
+        the workers reported (an interrupt is re-raised as it is)."""
+        if isinstance(exc, GridError) or not isinstance(exc, Exception):
+            self.close(force=True)
+            raise exc
+        told = self._worker_errors()
+        self.close(force=True)
+        detail = f"\n{told}" if told else ""
+        raise GridError(f"{self} failed: {exc!r}{detail}") from exc
+
+    # -- shutdown ---------------------------------------------------------------
+    def _kill(self):
+        """Kill the ranks' parent (so it forks no more), then its process
+        group: every rank."""
+        if self._forker.pid is not None:
+            self._forker.kill()
+            self._forker.join(timeout=5)
+            try:
+                os.killpg(self._forker.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def close(self, force: bool = False):
+        """Stop every worker and leave the process group."""
+        if self.closed:
+            return
+        self.closed = True
+        _GRIDS.pop(_key(self.P, self.Q, self.device), None)
+        if force:
+            self._session = None
+            self._kill()
+            return
+        try:
+            self.close_session()
+        finally:
+            for jobs in self._jobs.values():
+                jobs.put(None)
+            # the ranks end, their parent reports it and ends; read what it
+            # writes while waiting, so it never blocks on a full pipe
+            deadline = time.monotonic() + min(self.timeout, 30.0)
+            while self._forker.is_alive() and time.monotonic() < deadline:
+                try:
+                    self._results.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            self._kill()
+
+
+class MeshSession:
+    """The controller's side of a session (see the module docstring)."""
+
+    def __init__(self, grid: ProcessGrid, prog, hook, report):
+        self.grid = grid
+        self.rank = RankSession(grid.ctx, prog)
+        self._hook, self._report = hook, report
+        self._next = 1
+        self._cmd = torch.zeros(5, dtype=torch.int64)
+        self.open = True
+
+    def command(self, op: int, t: int = 0, src: int = 0, what: int = 0):
+        """Broadcast one command and execute rank 0's part of it; returns
+        ``(sid, rank 0's result)``."""
+        if not self.open:
+            raise GridError("this session of the process grid has ended "
+                            "(a later program opened another)")
+        if not self.rank.holds(src):
+            raise ValueError(
+                f"the process grid no longer holds state {src}: its ranks "
+                f"keep the initial state and the last {RankSession.KEEP} "
+                "they made, so a mesh program steps forward from those")
+        dst = 0
+        if op == OP_STEP:
+            dst, self._next = self._next, self._next + 1
+        try:
+            self._cmd.copy_(torch.tensor([op, t, src, dst, what]))
+            dist.broadcast(self._cmd, src=0)
+            return dst, self.rank.execute(op, t, src, dst, what)
+        except BaseException as e:
+            self.open = False
+            self.grid.fail(e)
+
+    def close(self):
+        """End the session: STOP, collect every worker's launches (into
+        the grid's ``worker_launches``) and hook report."""
+        if not self.open:
+            return
+        self.open = False
+        self.grid._session = None
+        try:
+            self._cmd.copy_(torch.tensor([OP_STOP, 0, 0, 0, 0]))
+            dist.broadcast(self._cmd, src=0)
+            self.rank.finish()
+            done = self.grid._await({r: "done"
+                                     for r in range(1, self.grid.world)})
+            self._hook.__exit__(None, None, None)
+        except BaseException as e:
+            self.grid.fail(e)
+        reports = {0: self._report}
+        for r, res in done.items():
+            self.grid.worker_launches = add_counts(
+                self.grid.worker_launches, res["counts"])
+            reports[r] = res["report"]
+        self.grid.reports = reports
+
+
+# ---------------------------------------------------------------------------
+# the memo
+# ---------------------------------------------------------------------------
+
+_GRIDS: Dict[tuple, ProcessGrid] = {}
+
+
+def _key(P, Q, device):
+    return (int(P), int(Q), str(device))
+
+
+def process_grid(P: int, Q: int, *, device="cuda",
+                 timeout: float = DEFAULT_TIMEOUT_S) -> ProcessGrid:
+    """The P x Q process grid on ``device`` (``"cuda"``: every card of the
+    machine, round robin; ``"cpu"``: P*Q CPU processes), started at first
+    use and reused after.  A live grid of another shape or device is
+    closed first (one default process group per process).  ``timeout``
+    applies when the grid is started."""
+    device = resolve_device(device)
+    key = _key(P, Q, device)
+    grid = _GRIDS.get(key)
+    if grid is not None and not grid.closed:
+        return grid
+    close_grids()
+    grid = ProcessGrid(P, Q, device=device, timeout=timeout)
+    _GRIDS[key] = grid
+    return grid
+
+
+def close_grids():
+    """Close every live process grid of this process."""
+    for grid in list(_GRIDS.values()):
+        grid.close()
+    _GRIDS.clear()
+
+
+atexit.register(close_grids)

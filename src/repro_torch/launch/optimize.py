@@ -1,7 +1,8 @@
 """CLI over the unified solver framework (``repro_torch.core.solver``).
 
 Run D3CA, RADiSA, SFK or ADMM on a synthetic dataset (or a LIBSVM file)
-on the single-device grid engine:
+on the single-device grid engine, or on a process grid of P x Q ranks,
+one block each (``--engine shard_map|sync|async|overlap``):
 
   # the paper's Part 1 instance at full width, on the card, through the
   # CUDA kernels (the defaults: --device cuda --backend kernel)
@@ -46,10 +47,19 @@ final JSON summary.
       --trace /tmp/solve.json --metrics --health \\
       --listen 127.0.0.1:0 --flight-recorder /tmp/solve.bundle.json
 
-The flags of the mesh engines are still parsed, so that asking for one
-fails by name instead of being ignored; ``--staleness N > 0`` needs the
-async engines and is refused as the reference refuses it on the grid
-engine.
+  # the mesh engines: P x Q ranks over gloo, one block each (on the CPU
+  # here; --force-host-devices N asks for N CPU ranks, N >= P * Q), with
+  # synchronous reductions, or reductions applied 2 steps late, or
+  # dispatched asynchronously with the same delay
+  PYTHONPATH=src python -m repro_torch.launch.optimize \\
+      --solver d3ca --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu \\
+      --engine shard_map
+  PYTHONPATH=src python -m repro_torch.launch.optimize \\
+      --solver d3ca --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu \\
+      --engine overlap --staleness 2 --force-host-devices 6
+
+``--staleness N > 0`` needs ``--engine async`` or ``overlap`` and is
+refused elsewhere with the reference's message.
 """
 from __future__ import annotations
 
@@ -59,7 +69,6 @@ import sys
 import time
 
 from repro_torch.core import get_solver, objective, serial_sdca
-from repro_torch.core.solver import not_ported_message
 from repro_torch.core.util import as_tensor
 from repro_torch.data import (CSRMatrix, load_libsvm, load_libsvm_csr,
                               make_sparse_svm_csr, make_sparse_svm_data,
@@ -71,14 +80,6 @@ from .obs import add_trace_metrics_flags, close_plane, open_plane
 #: serial SDCA for f* densifies a CSR input; above this many entries the
 #: reference's rule skips it
 DENSE_REF_LIMIT = 20_000_000
-
-#: flags of the reference CLI whose layer is not ported: (flag, argparse
-#: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
-#: means "not asked for")
-_NOT_PORTED_FLAGS = (
-    ("--engine", "engine", "simulated"),
-    ("--force-host-devices", "force_host_devices", None),
-)
 
 
 def _parse_mesh(s: str):
@@ -95,6 +96,16 @@ def build_parser():
         description="Doubly distributed solver CLI (PyTorch/CUDA port)")
     ap.add_argument("--solver", default="d3ca",
                     help="d3ca | radisa | sfk | admm (see get_solver)")
+    ap.add_argument("--engine", default="simulated",
+                    choices=["simulated", "shard_map", "sync", "async",
+                             "overlap"],
+                    help="simulated = the grid on one device; shard_map "
+                         "(alias: sync) = a process grid of P x Q ranks, "
+                         "one block each, synchronous reductions over "
+                         "gloo; async = the same grid with "
+                         "bounded-staleness reductions (--staleness); "
+                         "overlap = async dispatch, each reduction awaited "
+                         "when it is consumed")
     ap.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
                     help="cell-local solver backend: the CUDA kernels "
                          "(plain PyTorch versions on the CPU) or the plain "
@@ -141,10 +152,10 @@ def build_parser():
                        "with the raw events",
         metrics_help="record solver metrics into a registry and print "
                      "its snapshot in the summary JSON")
-    # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
-    ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
     ap.add_argument("--force-host-devices", type=int, default=None,
-                    help=argparse.SUPPRESS)
+                    metavar="N",
+                    help="N CPU ranks for the mesh engines (needs --device "
+                         "cpu; a P x Q mesh needs N >= P * Q)")
     return ap
 
 
@@ -152,9 +163,9 @@ def add_comm_flags(ap):
     """``--staleness`` / ``--compression`` / ``--topology``, as the
     reference's CLIs take them."""
     ap.add_argument("--staleness", type=int, default=0, metavar="TAU",
-                    help="async/overlap engines only (not ported): apply "
-                         "every declared reduction with delay TAU outer "
-                         "iterations; 0 = synchronous")
+                    help="async/overlap engines only: apply every declared "
+                         "reduction with delay TAU outer iterations (0 = "
+                         "synchronous, identical to shard_map)")
     ap.add_argument("--compression", default=None, metavar="SPEC",
                     help="compress the declared collectives: a codec for "
                          "all of them ('int8', 'fp8', 'topk:0.1', "
@@ -174,7 +185,7 @@ def add_comm_flags(ap):
 
 def check_staleness(ap, args):
     """The reference's refusal of ``--staleness`` outside the async /
-    overlap engines (the only engine here is the synchronous grid)."""
+    overlap engines."""
     if args.staleness < 0:
         ap.error(f"--staleness {args.staleness} is negative; the reduction "
                  "delay tau must be >= 0 (0 = synchronous)")
@@ -191,22 +202,20 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     check_staleness(ap, args)
-    for flag, dest, unset in _NOT_PORTED_FLAGS:
-        if getattr(args, dest) != unset:
-            ap.error(not_ported_message(dest,
-                                        f"{flag} {getattr(args, dest)}"))
-
     try:
         cls = get_solver(args.solver)
     except KeyError as e:
         ap.error(str(e.args[0]))
     P, Q = args.mesh
+    check_host_devices(ap, args, P, Q)
     if args.problems > 1:
         return _fanout(ap, args, cls, P, Q)
-    # raises when the card is asked for (the default) and there is none
-    solver = cls(local_backend=args.backend, device=args.device,
-                 block_format=args.block_format,
-                 compression=args.compression, topology=args.topology)
+    # raises when the card is asked for (the default) and there is none,
+    # before any rank of a mesh engine starts
+    solver = cls(engine=args.engine, local_backend=args.backend,
+                 device=args.device, block_format=args.block_format,
+                 staleness=args.staleness, compression=args.compression,
+                 topology=args.topology)
     sparse_fmt = args.block_format == "sparse"
 
     if args.dataset == "dense":
@@ -245,11 +254,13 @@ def main(argv=None):
                                      y, w_ref, args.lam))
 
     cfg = _config(cls, args)
+    stale = (f" staleness={args.staleness}"
+             if args.engine in ("async", "overlap") else "")
     comp = (f" compression={solver.compression_spec}"
             if solver.compression is not None else "")
     if solver.topology is not None:
         comp += f" topology={solver.topology_spec}"
-    print(f"[optimize] {args.solver} engine={solver.engine}{comp} "
+    print(f"[optimize] {args.solver} engine={solver.engine}{stale}{comp} "
           f"backend={args.backend} device={solver.device} "
           f"block_format={solver.block_format} grid={P}x{Q} "
           f"{args.dataset}({X.shape[0]}x{X.shape[1]}) loss={args.loss} "
@@ -285,9 +296,15 @@ def main(argv=None):
         loc = sum(h["local_s"] for h in phased)
         com = sum(h["comm_s"] for h in phased)
         hst = sum(h["host_s"] for h in phased)
-        print(f"[optimize] phases: local {100 * loc / tot:.1f}% / "
-              f"comm {100 * com / tot:.1f}% / host "
-              f"{100 * hst / tot:.1f}% of {tot:.3f}s measured")
+        line = (f"[optimize] phases: local {100 * loc / tot:.1f}% / "
+                f"comm {100 * com / tot:.1f}% / host "
+                f"{100 * hst / tot:.1f}% of {tot:.3f}s measured")
+        if any("comm_exposed_s" in h for h in phased):
+            exp = sum(h.get("comm_exposed_s", 0.0) for h in phased)
+            hid = sum(h.get("comm_hidden_s", 0.0) for h in phased)
+            line += (f" (comm exposed {100 * exp / tot:.1f}% / "
+                     f"hidden {100 * hid / tot:.1f}%)")
+        print(line)
 
     summary = {
         "solver": res.solver, "engine": res.engine,
@@ -314,6 +331,21 @@ def main(argv=None):
     return summary
 
 
+def check_host_devices(ap, args, P, Q):
+    """``--force-host-devices N``: N CPU ranks, so it needs ``--device
+    cpu``, and a mesh engine's P x Q grid needs N >= P * Q (the
+    reference's mesh fails the same way with too few host devices)."""
+    n = args.force_host_devices
+    if n is None:
+        return
+    if args.device != "cpu":
+        ap.error(f"--force-host-devices {n} makes {n} CPU ranks; it needs "
+                 f"--device cpu (got --device {args.device})")
+    if args.engine != "simulated" and n < P * Q:
+        ap.error(f"--force-host-devices {n}: the {P}x{Q} mesh of --engine "
+                 f"{args.engine} needs {P * Q} ranks, one per block")
+
+
 def _config(cls, args):
     cfg_kw = {"lam": args.lam, "outer_iters": args.iters}
     if args.solver == "admm":
@@ -334,11 +366,12 @@ def _fanout(ap, args, cls, P, Q):
     try:
         # raises when the card is asked for (the default) and there is
         # none; refuses compression / topology as the reference does
-        fleet = FleetSolver(solver=args.solver, local_backend=args.backend,
+        fleet = FleetSolver(solver=args.solver, engine=args.engine,
+                            local_backend=args.backend,
                             block_format=args.block_format,
                             compression=args.compression,
                             topology=args.topology, device=args.device)
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     probs = fleet_cli.make_tenants(args, count=args.problems,
                                    lam_of=lambda i: args.lam, prefix="p")

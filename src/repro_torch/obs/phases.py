@@ -24,10 +24,25 @@ measured ``step_s`` alone.  On a CUDA device each timed call is bracketed
 by two CUDA events on the current stream and waited for; on the CPU the
 operations are synchronous and the host clock reads them.
 
+Overlap-aware attribution: programs of the overlap engine
+(``EngineProgram.overlap`` with ``staleness = tau > 0``) consume each
+reduction tau steps after dispatch, so up to tau steps of local solve can
+hide the wire.  For those programs :meth:`PhaseSplit.attribute` further
+splits ``comm_s`` into ``comm_hidden_s`` (up to ``tau * local_s``) and
+``comm_exposed_s`` (the rest, which extends the critical path) by
+:func:`repro_torch.core.comm_model.overlap_split`.
+
+On a process grid (``repro_torch.launch.mesh``) the controller times its
+own rank: a step ends when rank 0's reductions are complete, and the
+collective-free twin ends when every rank's device has finished it (a
+device wait on each rank, then a barrier of the grid), so ``local_s`` is
+the slowest rank's local solve.
+
 :func:`bench_codecs` times each compressed collective's codec on a zero
-payload of the blocked shape ``(P, Q, *cell)`` the engine hands it: the
-port codes all P x Q cells of a collective in one call, so that call is
-what one step of the codec costs.
+payload of the blocked shape ``(P', Q', *cell)`` the engine hands it: the
+grid engine codes all P x Q cells of a collective in one call, a rank of a
+process grid its one cell, so that call is what one step of the codec
+costs.
 """
 from __future__ import annotations
 
@@ -92,19 +107,30 @@ class PhaseSplit:
     #: calibration measurements, for provenance
     step_s: float
     local_s: float
+    #: reduction delay tau of the program (0 = synchronous)
+    staleness: int = 0
+    #: True for overlap-engine programs: comm_s further splits into
+    #: hidden (overlapped with the local solve) and exposed shares
+    overlap: bool = False
 
     def attribute(self, step_s: float) -> dict:
         """Split one measured step duration into phases::
 
-            {"local_s": ..., "comm_s": ..., "collectives": {name: seconds}}
+            {"local_s": ..., "comm_s": ...,
+             ["comm_hidden_s": ..., "comm_exposed_s": ...,]
+             "collectives": {name: seconds}}
 
         ``comm_s`` is clamped at 0 (a local twin measured slower than the
         step reads as no communication, not a negative one)."""
         local = step_s * self.local_frac
         comm = max(step_s - local, 0.0)
-        return {"local_s": local, "comm_s": comm,
-                "collectives": {name: comm * share
-                                for name, share in self.comm_shares.items()}}
+        out = {"local_s": local, "comm_s": comm,
+               "collectives": {name: comm * share
+                               for name, share in self.comm_shares.items()}}
+        if self.overlap and self.staleness > 0:
+            from ..core.comm_model import overlap_split
+            out.update(overlap_split(comm, local, self.staleness))
+        return out
 
 
 def calibrate_phases(prog, *, reps: int = 3) -> Optional[PhaseSplit]:
@@ -142,7 +168,9 @@ def calibrate_phases(prog, *, reps: int = 3) -> Optional[PhaseSplit]:
     else:
         shares = {}
     return PhaseSplit(local_frac=local_frac, comm_shares=shares,
-                      step_s=step_s, local_s=local_s)
+                      step_s=step_s, local_s=local_s,
+                      staleness=int(getattr(prog, "staleness", 0)),
+                      overlap=bool(getattr(prog, "overlap", False)))
 
 
 def bench_codecs(policy, acct: dict, *, grid, device="cuda",

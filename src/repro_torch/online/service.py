@@ -32,8 +32,9 @@ too (the solver refuses it on the grid engine with the reference's
 ``ValueError``).  The telemetry is the reference's: spans
 ``online/ingest|update|swap|score``, health polls after every publish,
 ingest and scoring call, and the service's registry handed to every
-update (the solver's timed path, with its calibration).  The mesh engines
-are ROADMAP queue A item 12; asking for one raises by name.
+update (the solver's timed path, with its calibration).  The service on
+the mesh engines is ROADMAP queue A item 12b; asking for it raises by
+name.
 """
 from __future__ import annotations
 

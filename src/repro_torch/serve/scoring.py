@@ -11,8 +11,9 @@ scored there, and the margins come back with one synchronisation per
 ``score`` call.
 
 The reference's grid-sharded scoring (``mesh=``, ``make_score_fn``: a
-(data, model) mesh with one psum over the model axis) belongs to the
-multi-device engines and raises by name.
+(data, model) mesh with one psum over the model axis) belongs to the mesh
+halves of the multi-device engines (ROADMAP queue A item 12b) and raises
+by name.
 """
 from __future__ import annotations
 

@@ -17,12 +17,27 @@ from repro_torch.core import get_solver, partition, partition_sparse
 from repro_torch.core.admm import (ADMMConfig, admm_setup_simulated,
                                    admm_simulated, prox_loss)
 from repro_torch.launch import optimize
-from test_torch_common import make_problem
+from repro_torch.launch.mesh import close_grids, process_grid
+from test_torch_common import (MESH_GRID_TIMEOUT, bounded,  # noqa: F401
+                               make_problem)
 
 #: end-to-end iterates vs the reference, as the port's other solver tests
 TOL = dict(rtol=1e-5, atol=1e-5)
 P, Q, N, M = 3, 2, 96, 40
 LOSSES = ["hinge", "squared", "logistic"]
+
+
+pytestmark = pytest.mark.usefixtures("bounded")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _process_grid():
+    """The mesh cases of this module run on the memoized CPU process grid
+    of 3 x 2 ranks, started here with the short MESH_GRID_TIMEOUT; its
+    ranks stop when the module ends."""
+    process_grid(3, 2, device="cpu", timeout=MESH_GRID_TIMEOUT)
+    yield
+    close_grids()
 
 
 def _data(sparse, seed=5):
@@ -115,8 +130,18 @@ def test_admm_knobs_and_registry():
                            topology="pods=2")
     assert (s.compression_spec, s.topology_spec) == ("int8",
                                                      "pods=2:identity:ring")
-    with pytest.raises(NotImplementedError, match="engine"):
-        get_solver("admm")(engine="shard_map", device="cpu")
+    # the mesh engines are ported: ADMM runs on a CPU process grid, its
+    # column Gram summed over the grid's columns, within 1e-5 of the grid
+    # engine
+    X, y = make_problem(60, 20, seed=5)
+    cfg = ADMMConfig(lam=0.1, rho=0.1, outer_iters=3)
+    mesh = get_solver("admm")(engine="shard_map", device="cpu").solve(
+        "hinge", X, y, P=3, Q=2, cfg=cfg)
+    flat = get_solver("admm")(device="cpu").solve("hinge", X, y, P=3, Q=2,
+                                                  cfg=cfg)
+    assert mesh.engine == "shard_map"
+    np.testing.assert_allclose(mesh.w.numpy(), flat.w.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_admm_cli_on_the_cpu(capsys):

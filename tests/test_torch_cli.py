@@ -1,4 +1,5 @@
-"""The port's CLI and its device / not-ported rules (CPU)."""
+"""The port's CLI and its device / not-ported rules (CPU); the cases of
+the mesh engines run on CPU process grids over gloo."""
 import json
 
 import numpy as np
@@ -9,8 +10,10 @@ from repro_torch.core import (D3CAConfig, Solver, available_solvers,
                               get_solver, partition, serial_sdca)
 from repro_torch.core.util import resolve_device
 from repro_torch.launch import optimize
+from repro_torch.launch.mesh import close_grids, process_grid
 from repro_torch.obs import load_bundle
-from test_torch_common import make_problem
+from test_torch_common import (MESH_GRID_TIMEOUT, bounded,  # noqa: F401
+                               make_problem)
 
 SMALL = ["--mesh", "3x2", "--n", "200", "--m", "60", "--iters", "3",
          "--device", "cpu"]
@@ -23,6 +26,18 @@ SUMMARY_KEYS = {"solver", "engine", "local_backend", "device",
                 "staleness", "compression", "topology",
                 "comm_bytes_per_step", "comm_bytes_total"}
 
+
+pytestmark = pytest.mark.usefixtures("bounded")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _process_grid():
+    """The mesh cases of this module run on the memoized CPU process grid
+    of 3 x 2 ranks, started here with the short MESH_GRID_TIMEOUT; its
+    ranks stop when the module ends."""
+    process_grid(3, 2, device="cpu", timeout=MESH_GRID_TIMEOUT)
+    yield
+    close_grids()
 
 
 @pytest.mark.parametrize("solver", ["d3ca", "radisa", "sfk"])
@@ -101,24 +116,35 @@ def test_cli_early_stop():
     assert summary["converged"] and summary["iters"] == 1
 
 
+#: the expectation of a refusal case whose mesh engine is now ported: it
+#: runs on a CPU process grid
+MESH = object()
+
+
 @pytest.mark.parametrize("flags,named", [
-    (["--engine", "shard_map"], "--engine"),
-    (["--engine", "async", "--staleness", "2"], "--engine"),
+    # the mesh engines are ported: these run on a CPU process grid (MESH)
+    pytest.param(["--engine", "shard_map"], MESH, id="flags0---engine"),
+    pytest.param(["--engine", "async", "--staleness", "2"], MESH,
+                 id="flags1---engine"),
     # staleness needs the async engines: the reference's refusal
     pytest.param(["--staleness", "1"],
                  "--staleness 1 only works with --engine async",
                  id="flags2---staleness"),
-    # the comm policies are ported; beside a mesh engine the engine is not
-    pytest.param(["--compression", "int8", "--engine", "async"], "--engine",
+    pytest.param(["--compression", "int8", "--engine", "async"], MESH,
                  id="flags3---compression"),
+    # pods=2 does not divide the 3 rows of SMALL's grid: the reference's
+    # ValueError, on the mesh as on the grid engine
     pytest.param(["--topology", "pods=2:int8", "--engine", "shard_map"],
-                 "--engine", id="flags4---topology"),
-    (["--block-format", "sparse", "--engine", "shard_map"], "--engine"),
+                 (ValueError, "topology pods=2 must divide P=3"),
+                 id="flags4---topology"),
+    pytest.param(["--block-format", "sparse", "--engine", "shard_map"], MESH,
+                 id="flags5---engine"),
     (["--block-format", "csc"], "--block-format"),
     (["--dataset", "libsvm"], "--dataset libsvm needs --libsvm-path"),
     # the fan-out is ported; it takes synthetic instances only
     (["--problems", "4", "--dataset", "libsvm"], "--problems"),
-    (["--force-host-devices", "6"], "--force-host-devices"),
+    pytest.param(["--force-host-devices", "6"], MESH,
+                 id="flags9---force-host-devices"),
     # the observability flags, once refused, run (PORTED: see below)
     pytest.param(["--trace", "TRACE"], PORTED, id="flags10---trace"),
     pytest.param(["--metrics"], PORTED, id="flags11---metrics"),
@@ -127,20 +153,27 @@ def test_cli_early_stop():
     pytest.param(["--health"], PORTED, id="flags13---health"),
     pytest.param(["--flight-recorder", "BUNDLE"], PORTED,
                  id="flags14---flight-recorder"),
-    # ADMM and its comm policies are ported; its mesh knobs are not
+    # ADMM, its comm policies and its mesh engines are ported
     pytest.param(["--solver", "admm", "--compression", "int8", "--engine",
-                  "shard_map"], "--engine", id="flags15-admm"),
+                  "shard_map"], MESH, id="flags15-admm"),
     pytest.param(["--solver", "admm", "--block-format", "sparse",
-                  "--engine", "shard_map"], "--engine", id="flags16-admm"),
+                  "--engine", "shard_map"], MESH, id="flags16-admm"),
     (["--solver", "nope"], "unknown solver"),
     (["--backend", "pallas"], "--backend"),
 ])
 def test_cli_rejects_unported_flags_by_name(flags, named, capsys, tmp_path):
     """A flag of a layer that is not ported exits 2 naming it; a flag
-    whose layer is now ported (``PORTED``) runs, and its case checks what
-    it made."""
+    whose layer is now ported (``PORTED``, ``MESH``) runs, and its case
+    checks what it made; a flag the reference refuses with a
+    ``ValueError`` for this input (``(ValueError, text)``) raises it."""
     if named is PORTED:
         return _check_observability_flag(flags, tmp_path, capsys)
+    if named is MESH:
+        return _check_mesh_flag(flags)
+    if isinstance(named, tuple):
+        with pytest.raises(named[0], match=named[1]):
+            optimize.main([*flags, *SMALL])
+        return
     with pytest.raises(SystemExit) as exc:
         optimize.main([*flags, *SMALL])
     assert exc.value.code == 2
@@ -152,22 +185,69 @@ def test_cli_rejects_unported_flags_by_name(flags, named, capsys, tmp_path):
         assert "ROADMAP" in err
 
 
+def _check_mesh_flag(flags):
+    """A flag of the mesh engines runs the solve on a CPU process grid of
+    SMALL's 3 x 2 ranks: its engine and staleness in the summary, the
+    grid engine's exact wire bytes a step, and (at staleness 0) the grid
+    engine's objective within 1e-5."""
+    got = optimize.main([*flags, *SMALL])
+    opts = dict(zip(flags[::2], flags[1::2]))
+    engine = opts.pop("--engine", "simulated")
+    tau = int(opts.pop("--staleness", 0))
+    opts.pop("--force-host-devices", None)
+    plain = optimize.main([*(a for kv in opts.items() for a in kv), *SMALL])
+    assert (got["engine"], got["staleness"]) == (engine, tau)
+    assert got["comm_bytes_per_step"] == plain["comm_bytes_per_step"]
+    assert got["block_format"] == plain["block_format"]
+    if tau:
+        assert np.isfinite(got["objective"])
+    else:
+        np.testing.assert_allclose(got["objective"], plain["objective"],
+                                   rtol=1e-5)
+
+
 @pytest.mark.parametrize("kw,named", [
-    (dict(engine="shard_map"), "engine='shard_map'"),
-    (dict(engine="async"), "engine='async'"),
-    (dict(block_format="sparse", engine="shard_map"), "engine='shard_map'"),
-    # staleness and the comm policies beside an engine that is not ported
-    pytest.param(dict(staleness=2, engine="async"), "engine='async'",
+    # the mesh engines are ported: each knob runs on a CPU process grid
+    pytest.param(dict(engine="shard_map"), MESH,
+                 id="kw0-engine='shard_map'"),
+    pytest.param(dict(engine="async"), MESH, id="kw1-engine='async'"),
+    pytest.param(dict(block_format="sparse", engine="shard_map"), MESH,
+                 id="kw2-engine='shard_map'"),
+    pytest.param(dict(staleness=2, engine="async"), MESH,
                  id="kw3-staleness=2"),
-    pytest.param(dict(compression="int8", engine="shard_map"),
-                 "engine='shard_map'", id="kw4-compression='int8'"),
+    pytest.param(dict(compression="int8", engine="shard_map"), MESH,
+                 id="kw4-compression='int8'"),
+    # pods=2 does not divide P=3: the reference's ValueError
     pytest.param(dict(topology="pods=2", engine="overlap"),
-                 "engine='overlap'", id="kw5-topology='pods=2'"),
+                 "topology pods=2 must divide P=3",
+                 id="kw5-topology='pods=2'"),
 ])
 def test_solver_rejects_unported_knobs_by_name(kw, named):
-    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        get_solver("d3ca")(device="cpu", **kw)
-    assert named in str(exc.value)
+    """The knobs of the mesh engines, once refused by name, run on a CPU
+    process grid of 3 x 2 ranks (``MESH``): the grid engine's wire bytes,
+    and at staleness 0 its iterates within 1e-5; a knob the reference
+    refuses for this input raises its ``ValueError``."""
+    X, y = make_problem(60, 20, seed=5)
+    cfg = D3CAConfig(lam=0.1, outer_iters=3)
+    solver = get_solver("d3ca")(device="cpu", **kw)
+    if named is not MESH:
+        with pytest.raises(ValueError, match=named):
+            solver.solve("hinge", X, y, P=3, Q=2, cfg=cfg)
+        return
+    got = solver.solve("hinge", X, y, P=3, Q=2, cfg=cfg)
+    grid_kw = {k: v for k, v in kw.items() if k not in ("engine",
+                                                       "staleness")}
+    want = get_solver("d3ca")(device="cpu", **grid_kw).solve(
+        "hinge", X, y, P=3, Q=2, cfg=cfg)
+    assert (got.engine, got.staleness) == (kw["engine"],
+                                           kw.get("staleness", 0))
+    assert got.comm_bytes == want.comm_bytes
+    if not got.staleness:
+        np.testing.assert_allclose(got.w, want.w, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got.alpha, want.alpha, rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert torch.isfinite(got.w).all()
 
 
 def _check_observability_flag(flags, tmp_path, capsys):
@@ -204,11 +284,19 @@ def test_solver_rejects_unported_calls_by_name():
     X, y = make_problem(40, 12)
     solver = get_solver("d3ca")(device="cpu")
     cfg = D3CAConfig(outer_iters=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh is for the mesh engines, and it is a process grid
+    with pytest.raises(ValueError, match="mesh= needs engine="):
         solver.solve("hinge", X, y, P=2, Q=2, cfg=cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="engine='async'"):
-        get_solver("admm")(device="cpu", engine="async",
+    with pytest.raises(TypeError, match="ProcessGrid"):
+        get_solver("d3ca")(device="cpu", engine="shard_map").solve(
+            "hinge", X, y, P=2, Q=2, cfg=cfg, mesh=object())
+    # the mesh engines take the comm policies; an unknown engine is the
+    # reference's ValueError
+    s = get_solver("admm")(device="cpu", engine="async",
                            compression="int8")
+    assert (s.engine, s.compression_spec) == ("async", "int8")
+    with pytest.raises(ValueError, match="engine='nope'; expected one of"):
+        get_solver("admm")(device="cpu", engine="nope")
     with pytest.raises(KeyError, match="available"):
         get_solver("nope")
     with pytest.raises(ValueError, match="local_backend"):

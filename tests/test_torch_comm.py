@@ -465,11 +465,18 @@ def test_solver_staleness_validation_as_the_reference():
             cls(device="cpu", engine=engine, staleness=1)
         with pytest.raises(ValueError, match="needs engine='async'"):
             j_get_solver("d3ca")(engine=engine, staleness=1)
-    # the async / overlap engines themselves come with the mesh engines
-    for engine in ("async", "overlap", "sync", "shard_map"):
-        with pytest.raises(NotImplementedError,
-                           match="'Multi-device engines'"):
+    # the async / overlap engines take a delay, as the reference's; the
+    # synchronous mesh engine refuses one with the reference's text
+    for engine in ("async", "overlap"):
+        s = cls(device="cpu", engine=engine, staleness=3)
+        j = j_get_solver("d3ca")(engine=engine, staleness=3)
+        assert (s.engine, s.staleness) == (j.engine, j.staleness)
+    for engine in ("sync", "shard_map"):
+        with pytest.raises(ValueError, match="needs engine='async'") as e:
             cls(device="cpu", engine=engine, staleness=3)
+        with pytest.raises(ValueError) as je:
+            j_get_solver("d3ca")(engine=engine, staleness=3)
+        assert str(e.value) == str(je.value)
 
 
 def test_solver_topology_validation_as_the_reference():

@@ -6,10 +6,31 @@ the helpers here compute those exact streams with the reference's own
 formulas so that the tests can inject them into the port through an
 ``ArrayIndexSource``.
 """
+import signal
+
 import jax
 import numpy as np
+import pytest
 
 from repro_torch.core import ArrayIndexSource
+
+#: seconds a test of a module that starts a CPU process grid is given, and
+#: the grid's bound on each of its collectives and waits
+MESH_TEST_LIMIT, MESH_GRID_TIMEOUT = 120, 60
+
+
+@pytest.fixture
+def bounded():
+    """Fail a test that outlives MESH_TEST_LIMIT seconds (an alarm), so a
+    hung process grid fails its test, never the whole run.  A module
+    imports it and applies it with ``pytest.mark.usefixtures``."""
+    def expire(signum, frame):
+        raise TimeoutError(f"test exceeded {MESH_TEST_LIMIT} s")
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(MESH_TEST_LIMIT)
+    yield
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, old)
 
 
 def make_problem(n, m, seed=0):

@@ -47,7 +47,7 @@ def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
               "repro_torch.core.compress", "repro_torch.core.compress.codecs",
               "repro_torch.core.compress.policy",
               "repro_torch.core.compress.executor",
-              "repro_torch.core.comm_model"):
+              "repro_torch.core.comm_model", "repro_torch.launch.mesh"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
