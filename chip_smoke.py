@@ -108,6 +108,24 @@ JSON; any failure is an exception and a non-zero exit:
                       under --trace --health --flight-recorder beside an
                       untraced run (28 flash launches a prefill span,
                       tok/s both ways)
+  mesh_full           the solvers' mesh engines: one process grid of 7 x 4
+                      ranks on the card (gloo), D3CA / RADiSA / ADMM /
+                      news20 D3CA under shard_map, async and overlap,
+                      each within 1e-5 of the grid engine's solve
+  fleet_mesh_full     the fleet, the online service and scoring on that
+                      grid: the fleets of fleet_dense_full and
+                      fleet_sparse_full through the fleet CLI under
+                      ``--engine shard_map`` (one launch a rank an outer
+                      step for all tenants, every tenant within 1e-5 of
+                      the grid-engine fleet's, tenant 0 of its solo mesh
+                      solve, each kernel's first and last launch on ranks
+                      (0, 0) and (6, 3) against its plain version), the
+                      online CLI under ``--engine shard_map`` for 5
+                      rounds of online_full's window (each version within
+                      1e-5 of the grid engine's stream, duals outside the
+                      batch unmoved) and its scorer on the grid (margins
+                      within 1e-5 of X @ w); ms per outer iteration,
+                      distribution, update and scoring times
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       Qwen3 / RWKV6: port on the card (kernels) vs port on
                       the CPU, in float32, and a reduced Qwen3 prefill in
@@ -234,6 +252,7 @@ from repro_torch.obs import (HealthMonitor, ObsServer,  # noqa: E402
                              parse_prometheus_text)
 from repro_torch.obs.phases import calibrate_phases  # noqa: E402
 from repro_torch.serve import InferenceEngine  # noqa: E402
+from repro_torch.serve.scoring import LinearScorer  # noqa: E402
 from repro_torch.models.transformer import tree_map  # noqa: E402
 from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
                                      make_paged_arenas)
@@ -242,7 +261,7 @@ MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
               "serve_rwkv6_full", "fleet_dense_full", "fleet_sparse_full",
               "admm_full", "online_full", "online_sparse_full", "comm_full",
-              "obs_full", "mesh_full")
+              "obs_full", "mesh_full", "fleet_mesh_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -3364,16 +3383,18 @@ def mesh_held(label, got, want, fields=("w", "alpha")):
     return out
 
 
-@functools.lru_cache(maxsize=2)
+@functools.lru_cache(maxsize=4)
 def mesh_dense_data(n, m, seed=0):
-    """The dense instance, made once for mesh_full's solves (the CLI's
-    ``make_svm_data`` is handed this while the phase runs)."""
+    """A dense instance, made once for mesh_full's solves and
+    fleet_mesh_full's tenants (the CLIs' ``make_svm_data`` is handed this
+    while those phases run)."""
     return make_svm_data(n, m, seed=seed)
 
 
-@functools.lru_cache(maxsize=1)
+@functools.lru_cache(maxsize=2)
 def mesh_sparse_data(n, m, density, seed=0):
-    """The news20 profile, made once (the CLI's ``make_sparse_svm_csr``)."""
+    """A news20-profile instance, made once (the CLIs'
+    ``make_sparse_svm_csr``)."""
     return make_sparse_svm_csr(n, m, density=density, seed=seed)
 
 
@@ -3705,6 +3726,362 @@ MESH_D3CA_CELLS = (P * Q * (4 * OUTER_ITERS + OBS_CALIB + 1
                    + COMM_TOPO[0] * COMM_TOPO[1] * OUTER_ITERS)
 
 
+# ---------------------------------------------------------------------------
+# fleet_mesh_full: the fleet, the online service and scoring on the mesh
+# ---------------------------------------------------------------------------
+
+#: the fleets of fleet_mesh_full: (sparse, solver, its kernel) -- the
+#: fleet phases' configurations, on the 7 x 4 process grid
+FLEET_MESH = ((False, "d3ca", "sdca_epoch"), (False, "radisa", "svrg_inner"),
+              (False, "admm", None), (True, "d3ca", "sdca_epoch_sparse"),
+              (True, "radisa", "svrg_inner_sparse"))
+#: online_full's window and batches on the mesh, depth cut to these rounds
+FLEET_MESH_ROUNDS = 5
+#: request rows a grid scoring call takes, and the calls timed
+SCORE_ROWS, SCORE_CALLS = 4096, 3
+#: the wrapper module core/local.py takes each solver kernel from
+KERNEL_MODULES = {"sdca_epoch": "repro_torch.kernels.sdca",
+                  "sdca_epoch_sparse": "repro_torch.kernels.sdca",
+                  "svrg_inner": "repro_torch.kernels.svrg",
+                  "svrg_inner_sparse": "repro_torch.kernels.svrg"}
+
+
+@contextlib.contextmanager
+def fleet_mesh_rank_hook(rank):
+    """The rank hook of fleet_mesh_full's grid: each rank's peak device
+    memory in a session and, on the MESH_TAPPED ranks, the first and last
+    launch of every solver kernel the session made held against its plain
+    version on the rank's device (a failing check fails the rank, and so
+    the phase)."""
+    report, keeps = {}, {name: [] for name in KERNEL_MODULES}
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as taps:
+        if rank in MESH_TAPPED:
+            for name, module in KERNEL_MODULES.items():
+                taps.enter_context(tap(name, first_last(keeps[name]),
+                                       module))
+        yield report
+    torch.cuda.synchronize()
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    report["held"] = {
+        name: [h["rel_err"] for h in held_first_last(
+            f"fleet_mesh rank {rank} {name}", keep, PLAINS[name])]
+        for name, keep in keeps.items() if keep}
+
+
+def fleet_mesh_key(sparse, solver):
+    return solver + ("_sparse" if sparse else "")
+
+
+def timed_steps(step, barrier, steps_ms):
+    """``step`` that waits for a barrier of the grid (every rank's device
+    done) after each outer step and appends the step's ms, by the host
+    clock, to ``steps_ms``."""
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        barrier()
+        steps_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    return timed
+
+
+def step_ms(steps_ms):
+    """The median ms of the timed steps after the first (a warm-up)."""
+    return statistics.median(steps_ms[1:])
+
+
+@contextlib.contextmanager
+def cached_tenant_data():
+    """The fleet CLI makes each tenant's data from its seed in every run;
+    inside this block it takes the copy made first (the same arrays)."""
+    with patched(fleet_cli, "make_svm_data", mesh_dense_data), \
+            patched(fleet_cli, "make_sparse_svm_csr", mesh_sparse_data):
+        yield
+
+
+def fleet_mesh_setup():
+    """What fleet_mesh_full is held against, made before its counted
+    window: the 7 x 4 grid (its spawn), each fleet on the grid engine and
+    its ms per outer iteration there, tenant 0's solo mesh solve (a
+    program stepped OUTER_ITERS times, its steps timed as the fleet's),
+    and the online stream of fleet_mesh_full on the grid engine (every
+    version's w)."""
+    t0 = time.perf_counter()
+    close_grids()
+    grid = process_grid(P, Q, device="cuda")
+    grid.rank_hook = fleet_mesh_rank_hook
+    MESH_GRIDS.append(grid)
+    ref = {}
+    with cached_tenant_data():
+        for sparse, solver, _ in FLEET_MESH:
+            problems = fleet_tenants(sparse)
+            p0 = problems[0]
+            bf = "sparse" if sparse else "dense"
+            cfg = fleet_config(solver, LAM20 if sparse else LAM)
+            fleet = FleetSolver(solver=solver, block_format=bf)
+            flat = fleet.solve_batch(problems, P=P, Q=Q, cfg=cfg,
+                                     record_history=False)
+            grid_fleet_ms = time_fleet(fleet.program(problems, P=P, Q=Q,
+                                                     cfg=cfg))
+            prog = get_solver(solver)(engine="shard_map", block_format=bf)\
+                .program(p0.loss_name, p0.X, p0.y, mesh=grid,
+                         cfg=solo_config(cfg, p0))
+            steps, state = [], prog.state
+            step = timed_steps(prog.step, grid.barrier, steps)
+            for t in range(1, OUTER_ITERS + 1):
+                state = step(t, state)
+            solo = (prog.w_of(state),
+                    prog.alpha_of(state) if prog.alpha_of else None)
+            prog.close()
+            ref[fleet_mesh_key(sparse, solver)] = {
+                "grid": [(r.w, r.alpha) for r in flat], "solo": solo,
+                "grid_fleet_ms": grid_fleet_ms, "solo_mesh_ms": step_ms(steps),
+                "solo_peaks": {r: rep["peak_bytes"]
+                               for r, rep in grid.reports.items()}}
+            del flat, solo, prog, state
+            gc.collect()
+            torch.cuda.empty_cache()
+    online = []
+    run_online([*ONLINE_ARGV, "--rounds", str(FLEET_MESH_ROUNDS)],
+               on_round=lambda r, svc, rec: online.append(
+                   svc.book.current().w))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"grid": grid, "ref": ref, "online": online,
+            "setup_s": time.perf_counter() - t0}
+
+
+def fleet_mesh_reports(grid, label, peaks, held, kernel):
+    """The last session's rank reports: peak memory per rank into
+    ``peaks``, and the tapped ranks' held launches of ``kernel`` (which
+    both tapped ranks must have made) into ``held``."""
+    if len(grid.reports) != P * Q:
+        raise AssertionError(f"{label}: reports of ranks "
+                             f"{sorted(grid.reports)}")
+    for r, rep in grid.reports.items():
+        peaks[r] = max(peaks.get(r, 0), rep["peak_bytes"])
+        for name, errs in rep["held"].items():
+            held[f"{label} rank {r} {name}"] = errs
+    tapped = sorted(r for r, rep in grid.reports.items()
+                    if kernel in rep["held"])
+    if kernel is not None and tapped != sorted(MESH_TAPPED):
+        raise AssertionError(f"{label}: {kernel} held on ranks {tapped}")
+
+
+def run_fleet_mesh(grid, sparse, solver, kernel, ref, peaks, held):
+    """One fleet through the fleet CLI under ``--engine shard_map``: its
+    launches summed over the ranks (one a rank per outer step for all the
+    tenants), every tenant within MESH_TOL of the grid-engine fleet's,
+    tenant 0 within MESH_TOL of its solo mesh solve.  Timed inside the
+    CLI's run (``FleetSolver.program`` wrapped): the pack and the block
+    distribution (the program built, then every rank's iterates gathered
+    once, so every rank holds its blocks) and each outer step up to a
+    barrier of the grid, beside the grid engine's fleet and T x the solo
+    mesh step."""
+    label = f"fleet_mesh {fleet_mesh_key(sparse, solver)}"
+    times, steps = {}, []
+    real_program = FleetSolver.program
+
+    def program(self, *a, **kw):
+        t0 = time.perf_counter()
+        prog = real_program(self, *a, **kw)
+        times["pack_s"] = time.perf_counter() - t0
+        prog.unpack(prog.state)
+        times["pack_and_distribution_s"] = time.perf_counter() - t0
+        return dataclasses.replace(
+            prog, step=timed_steps(prog.step, grid.barrier, steps))
+
+    def snap():
+        return (launch_counts(), {k: route_counts(k) for k in WRAPPERS},
+                counts_by("sdca_epoch", "launches_by_cluster"))
+    got = []
+    c0, r0, g0 = snap()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), cached_tenant_data(), \
+            patched(FleetSolver, "program", program):
+        summary = fleet_cli.run(
+            fleet_cli.parse_args([*fleet_argv(solver, sparse), "--engine",
+                                  "shard_map"]),
+            on_result=lambda p, r: got.append((p, r)))
+    torch.cuda.synchronize()
+    c1, r1, g1 = snap()
+    T = FLEET_T_SPARSE if sparse else FLEET_T_DENSE
+    if (summary["device"], summary["engine"], summary["local_backend"],
+            len(got), summary["buckets"], len(steps)) != (
+                "cuda", "shard_map", "kernel", T, 1, OUTER_ITERS):
+        raise AssertionError(f"{label}: {summary}, {len(steps)} steps")
+    want = {k: (P * Q * OUTER_ITERS if k == kernel else 0) for k in WRAPPERS}
+    launched = {k: c1[k] - c0[k] for k in WRAPPERS}
+    if launched != want:
+        raise AssertionError(f"{label}: launches {launched}; expected "
+                             f"{want}")
+    if kernel is not None:
+        main = MAIN_ROUTES[kernel]
+        if r1[kernel][main] - r0[kernel][main] != want[kernel]:
+            raise AssertionError(f"{label}: {kernel} by route {r1[kernel]}")
+    if kernel == "sdca_epoch" and g1.get(1, 0) - g0.get(1, 0) != \
+            want[kernel]:
+        raise AssertionError(f"{label}: B1 by cluster size {g1}")
+    fleet_mesh_reports(grid, label, peaks, held, kernel)
+    errs = []
+    for i, (p, res) in enumerate(got):
+        hist = [h["objective"] for h in res.history]
+        if len(hist) != OUTER_ITERS or not all(np.isfinite(hist)) \
+                or not hist[-1] < hist[0]:
+            raise AssertionError(f"{label} {p.tenant_id}: objective {hist}")
+        errs.append(mesh_held(f"{label} {p.tenant_id} against the grid "
+                              "engine's fleet", res, types.SimpleNamespace(
+                                  w=ref["grid"][i][0],
+                                  alpha=ref["grid"][i][1])))
+    solo_err = mesh_held(f"{label} tenant 0 against its solo mesh solve",
+                         got[0][1], types.SimpleNamespace(
+                             w=ref["solo"][0], alpha=ref["solo"][1]))
+    return {"tenants": T, "rel_err_vs_grid_fleet": errs,
+            "tenant0_rel_err_vs_solo_mesh": solo_err,
+            "launches": launched[kernel] if kernel else 0,
+            "solves_per_s": summary["solves_per_s"],
+            "solve_wall_s": summary["total_s"],
+            "objective_last": [r.history[-1]["objective"] for _, r in got],
+            **times, "ms_per_outer_iter": step_ms(steps),
+            "steps_ms": steps, "grid_engine_fleet_ms": ref["grid_fleet_ms"],
+            "solo_mesh_ms": ref["solo_mesh_ms"],
+            "T_x_solo_mesh_ms": T * ref["solo_mesh_ms"]}
+
+
+def phase_fleet_mesh_full(setup):
+    """The fleet, the online service and scoring on the mesh at full width:
+    one process grid of 7 x 4 ranks on the card.  The fleets of
+    fleet_dense_full (T = 4 Part 1 tenants: D3CA, RADiSA, ADMM with rho =
+    lambda) and fleet_sparse_full (T = 2 news20 tenants: D3CA, RADiSA)
+    through the fleet CLI under ``--engine shard_map``: one launch a rank
+    an outer step for all the tenants (28 x 10 a solver, summed from the
+    ranks), every tenant within MESH_TOL of the same tenant of the
+    grid-engine fleet, tenant 0 within MESH_TOL of its solo mesh solve,
+    the first and last launch of each kernel on ranks (0, 0) and (6, 3)
+    against its plain version; each fleet's pack and block distribution
+    and ms per outer iteration beside the grid engine's fleet and T x the
+    solo mesh step.  Then the online CLI under ``--engine shard_map`` at
+    online_full's window for FLEET_MESH_ROUNDS rounds, its scorer on the
+    grid: every version's w within MESH_TOL of the same stream on the
+    grid engine, the duals outside each batch unmoved, the update's ms
+    and the share of it that partitions the window and hands the blocks
+    to the ranks; the grid scorer's margins within 1e-5 of X @ w on the
+    card (relative to the largest), its rows/s against one device's."""
+    t0 = time.perf_counter()
+    grid, ref = setup["grid"], setup["ref"]
+    peaks, held, fleets = {}, {}, {}
+    for sparse, solver, kernel in FLEET_MESH:
+        key = fleet_mesh_key(sparse, solver)
+        fleets[key] = run_fleet_mesh(grid, sparse, solver, kernel, ref[key],
+                                     peaks, held)
+        gc.collect()
+        torch.cuda.empty_cache()
+    fleet_tenants.cache_clear()
+    mesh_dense_data.cache_clear()
+    mesh_sparse_data.cache_clear()
+
+    # the online service on the mesh, its scorer on the grid
+    state, rounds, update_s, program_s = {}, [], [], []
+
+    def on_start(svc):
+        state["svc"] = svc
+        state["alpha"] = svc.book.current().alpha
+        solver, real_update = svc.solver, svc.solver.update
+        real_program = solver.program
+
+        def update(*a, **kw):
+            t1 = time.perf_counter()
+            res = real_update(*a, **kw)
+            update_s.append(time.perf_counter() - t1)
+            return res
+
+        def program(*a, **kw):
+            t1 = time.perf_counter()
+            prog = real_program(*a, **kw)
+            program_s.append(time.perf_counter() - t1)
+            return prog
+        solver.update, solver.program = update, program
+
+    def on_round(r, svc, rec):
+        cur = svc.book.current()
+        rows = torch.from_numpy((r * ONLINE_BATCH + np.arange(ONLINE_BATCH))
+                                % N).to(svc.device)
+        off = torch.ones(N, dtype=torch.bool, device=svc.device)
+        off[rows] = False
+        if cur.version != r + 1 or not torch.equal(cur.alpha[off],
+                                                   state["alpha"][off]):
+            raise AssertionError(f"fleet_mesh online round {r}: version "
+                                 f"{cur.version}, or a dual outside the "
+                                 "batch's rows moved")
+        err = rel_err(cur.w, setup["online"][r])
+        if not (torch.isfinite(cur.w).all() and err <= MESH_TOL):
+            raise AssertionError(f"fleet_mesh online round {r}: w is "
+                                 f"{err:.3e} off the grid engine's stream")
+        rounds.append({"version": cur.version, "rel_err_w": err,
+                       "f": rec["f"], "acc": rec["acc"]})
+        state["alpha"] = cur.alpha
+        fleet_mesh_reports(grid, f"fleet_mesh online round {r}", peaks,
+                           held, "sdca_epoch")
+
+    c0 = launch_counts()["sdca_epoch"]
+    t1 = time.perf_counter()
+    summary = run_online([*ONLINE_ARGV, "--rounds", str(FLEET_MESH_ROUNDS),
+                          "--engine", "shard_map"], on_start, on_round)
+    online_wall = time.perf_counter() - t1
+    want = P * Q * FLEET_MESH_ROUNDS * (ONLINE_PASSES + OBS_CALIB)
+    online_launches = launch_counts()["sdca_epoch"] - c0
+    if online_launches != want or summary["engine"] != "shard_map":
+        raise AssertionError(f"fleet_mesh online: {online_launches} B1 "
+                             f"launches (expected {want}); {summary}")
+    svc = state.pop("svc")
+    if svc.scorer.mesh is not grid:
+        raise AssertionError("fleet_mesh online: the scorer is not on the "
+                             "grid")
+    # the grid scorer against X @ w on the card, and against one device
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    Xs = torch.randn(SCORE_ROWS, M, device="cuda", generator=gen)
+    w = svc.scorer.w
+    margins = torch.from_numpy(svc.scorer.score(Xs))
+    score_err = rel_err(margins, (Xs @ w).cpu())
+    if score_err > 1e-5:
+        raise AssertionError(f"fleet_mesh scoring: margins {score_err:.3e} "
+                             "off X @ w (relative to the largest)")
+    one = LinearScorer(w, loss="hinge")
+    one.score(Xs)
+    rates = {}
+    for label, sc in (("grid", svc.scorer), ("one_device", one)):
+        t1 = time.perf_counter()
+        for _ in range(SCORE_CALLS):
+            sc.score(Xs)
+        rates[label] = SCORE_CALLS * SCORE_ROWS / (time.perf_counter() - t1)
+    del svc, Xs, one, margins
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("fleet_mesh_full", grid=f"{P}x{Q}", ranks=P * Q,
+         spawn_s=grid.spawn_s, setup_s=setup["setup_s"], fleets=fleets,
+         held_first_last=held,
+         peak_bytes_by_rank=[peaks.get(r, 0) for r in range(P * Q)],
+         solo_mesh_peak_bytes_by_rank={k: [v["solo_peaks"].get(r, 0)
+                                           for r in range(P * Q)]
+                                       for k, v in ref.items()},
+         online={"rounds": rounds, "launches": online_launches,
+                 "update_s": {"p50": statistics.median(update_s),
+                              "all": update_s},
+                 "partition_and_handoff_s": {
+                     "p50": statistics.median(program_s),
+                     "all": program_s},
+                 "wall_s": online_wall},
+         scoring={"rows": SCORE_ROWS, "rel_err": score_err,
+                  "rows_per_s": rates},
+         wall_s=time.perf_counter() - t0)
+    close_grids()
+    per_fleet = P * Q * OUTER_ITERS
+    return {"sdca_epoch": per_fleet + want, "svrg_inner": per_fleet,
+            "sdca_epoch_sparse": per_fleet, "svrg_inner_sparse": per_fleet}
+
+
 #: B1's main-path shapes by the cluster size their launches take (counted
 #: by the wrapper where it launches): 1 CTA a D3CA cell, 16 a serial epoch
 SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
@@ -3735,14 +4112,19 @@ SDCA_SHAPE_LAUNCHES = {
                  * (ONLINE_PASSES + OBS_CALIB) + OBS_ONLINE_ROUNDS
                  * ONLINE_PASSES + OUTER_ITERS, "serial": REF_EPOCHS},
     # every rank launches for its own cell (1 CTA): summed over the ranks
-    "mesh_full": {"d3ca_cells": MESH_D3CA_CELLS, "serial": REF_EPOCHS}}
+    "mesh_full": {"d3ca_cells": MESH_D3CA_CELLS, "serial": REF_EPOCHS},
+    # a rank's T = 4 tenant cells in one launch (1 CTA each): the fleet
+    # and the online updates (passes and calibration)
+    "fleet_mesh_full": {"d3ca_cells": P * Q * (
+        OUTER_ITERS + FLEET_MESH_ROUNDS * (ONLINE_PASSES + OBS_CALIB))}}
 
 
 #: what a main path is held against that must be made before its counted
 #: window (the fleets' solo solves), handed to its phase
 PHASE_SETUP = {"fleet_dense_full": lambda: fleet_solos(False),
                "fleet_sparse_full": lambda: fleet_solos(True),
-               "obs_full": obs_setup, "mesh_full": mesh_setup}
+               "obs_full": obs_setup, "mesh_full": mesh_setup,
+               "fleet_mesh_full": fleet_mesh_setup}
 
 
 def run_main_path(name, phase, results):

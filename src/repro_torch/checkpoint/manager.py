@@ -16,9 +16,9 @@ tensors or numpy arrays) is one directory:
     default) with the dtype of the template's leaf;
   * ``keep_n`` garbage-collects old steps, never touching the newest.
 
-Re-sharding on restore (the reference's ``shardings=``) belongs to the
-mesh halves of the multi-device engines (ROADMAP queue A item 12b) and
-raises by name.
+Re-sharding on restore (the reference's ``shardings=``, whose only
+caller there is the LM trainer) belongs to the LM training stack
+(ROADMAP queue A item 13) and raises by name.
 """
 from __future__ import annotations
 
@@ -115,7 +115,7 @@ def restore_tree(path: str, like: Any, shardings: Optional[Any] = None, *,
       ValueError: when a leaf's shape differs from ``like``'s.
     """
     if shardings is not None:
-        raise not_ported("mesh")
+        raise not_ported("shardings")
     device = resolve_device(device)
     with open(os.path.join(path, "index.json")) as fh:
         index = json.load(fh)

@@ -93,6 +93,11 @@ class EngineProgram:
         grid's session and collects the ranks' launch counts and hook
         reports.  ``Solver.solve`` calls it when the solve ends; a session
         left open is ended when the grid opens its next one.
+      set_data: ``set_data(leaf, value)``, set on a process grid's
+        program: leaf ``leaf`` (its index, or its name when the program
+        was bound with ``data_names``) of the blocked data tuple becomes
+        ``value``, a global tensor of the leaf's layout, every rank
+        taking its cell (one DATA command).  The next step reads it.
     """
 
     state: Any
@@ -106,6 +111,7 @@ class EngineProgram:
     overlap: bool = False
     sync_of: Optional[Callable[[Any], Any]] = None
     close: Optional[Callable[[], Any]] = None
+    set_data: Optional[Callable[[Any, torch.Tensor], None]] = None
 
 
 def drive(prog: EngineProgram, outer_iters: int, observe=None, *,
@@ -386,7 +392,7 @@ def grid_bind_state(cellprog: CellProgram, data, state0, *, Pn: int, Qn: int,
 CELL, ROW, COL = ("data", "model"), ("data",), ("model",)
 
 
-def _resolve(path: str):
+def resolve(path: str):
     """``"module:function"`` -> the function."""
     module, name = path.split(":")
     return getattr(importlib.import_module(module), name)
@@ -468,14 +474,17 @@ class RankProgram:
     state)``, ``step(t, state)``, the collective-free twin
     ``local_step(t, state)``, ``export(state, what)`` -- the iterates
     (``what=0``) or the error-feedback residuals (``what=1``) as one flat
-    float32 tensor, in the order every rank uses -- and ``drain(state)``,
-    which waits for the reductions still in flight."""
+    float32 tensor, in the order every rank uses --, ``drain(state)``,
+    which waits for the reductions still in flight, and ``set_data(i,
+    cell)``, which replaces leaf i of the rank's data tuple (after the
+    setup hook) with its new cell."""
 
     state: Any
     step: Callable[[int, Any], Any]
     local_step: Callable[[int, Any], Any]
     export: Callable[[Any, int], torch.Tensor]
     drain: Callable[[Any], None]
+    set_data: Callable[[int, torch.Tensor], None]
 
 
 def _on(tree, device):
@@ -610,16 +619,17 @@ def build_rank_program(ctx, job: MeshJob) -> RankProgram:
     if job.index_source is not None:
         kw["index_source"] = CellIndexSource(job.index_source, ctx.p, ctx.q,
                                              device=dev)
-    cellprog = _resolve(job.make_cell)(**kw)
+    cellprog = resolve(job.make_cell)(**kw)
     data = _on(job.data, dev)
     if job.setup is not None:
-        data = _resolve(job.setup)(ctx, data, **(job.setup_kw or {}))
+        data = resolve(job.setup)(ctx, data, **(job.setup_kw or {}))
+    data = list(data)        # a DATA command replaces a leaf in place
     state0 = _on(job.state, dev)
     knobs = dict(staleness=job.staleness, compression=job.compression,
                  overlap=job.overlap, topology=job.topology)
     step = mesh_step_fn(cellprog, ctx, **knobs)
     local = mesh_step_fn(cellprog, ctx, comm_local=True)
-    comm0 = mesh_comm_state(cellprog, ctx, data, state0, **knobs)
+    comm0 = mesh_comm_state(cellprog, ctx, tuple(data), state0, **knobs)
     specs = job.state_specs
 
     def export(full_state, what):
@@ -637,11 +647,14 @@ def build_rank_program(ctx, job: MeshJob) -> RankProgram:
         if job.overlap:
             drain(full_state[1].get("stale", {}))
 
+    def set_data(i, cell):
+        data[i] = cell.contiguous()
+
     return RankProgram(
         state=(state0, comm0),
-        step=lambda t, s: step(t, data, s),
-        local_step=lambda t, s: local(t, data, s[0]),
-        export=export, drain=drain_state)
+        step=lambda t, s: step(t, tuple(data), s),
+        local_step=lambda t, s: local(t, tuple(data), s[0]),
+        export=export, drain=drain_state, set_data=set_data)
 
 
 def _assemble(parts, template, specs, P: int, Q: int):
@@ -689,7 +702,7 @@ def bind_mesh_program(grid, *, make_cell: str, cell_kw: dict, index_source,
                       alpha_of=None, setup: Optional[str] = None,
                       setup_kw: Optional[dict] = None, staleness: int = 0,
                       compression=None, overlap: bool = False,
-                      topology=None) -> EngineProgram:
+                      topology=None, data_names=None) -> EngineProgram:
     """The controller's :class:`EngineProgram` of a mesh program on
     process grid ``grid``.
 
@@ -705,7 +718,9 @@ def bind_mesh_program(grid, *, make_cell: str, cell_kw: dict, index_source,
     handle; ``step`` broadcasts one outer step to the grid and runs rank
     0's part; ``comm_bytes`` is the grid engine's exact wire accounting
     of the same schedule, payloads and knobs (every rank puts one payload
-    per collective on the wire per step, whatever the staleness)."""
+    per collective on the wire per step, whatever the staleness);
+    ``set_data`` replaces a data leaf on every rank, by index or by its
+    name in ``data_names`` (one name per leaf of ``data``)."""
     from ..launch.mesh import ITERATES, RESIDUALS, MeshState, OP_GATHER, \
         OP_LOCAL, OP_STEP
     P, Q = grid.P, grid.Q
@@ -716,7 +731,7 @@ def bind_mesh_program(grid, *, make_cell: str, cell_kw: dict, index_source,
     policy = as_policy(compression)
     cell_kw = dict(cell_kw)
     src_kw = {} if index_source is None else {"index_source": index_source}
-    probe = _resolve(make_cell)(**cell_kw, **src_kw)
+    probe = resolve(make_cell)(**cell_kw, **src_kw)
     if policy is not None:
         policy.validate(probe.schedule)
     acct = wire_accounting(probe.schedule,
@@ -765,6 +780,12 @@ def bind_mesh_program(grid, *, make_cell: str, cell_kw: dict, index_source,
         session.command(OP_LOCAL, t, s.sid)
         return s
 
+    names = list(data_names) if data_names is not None else []
+
+    def set_data(leaf, value):
+        i = names.index(leaf) if isinstance(leaf, str) else int(leaf)
+        session.put(i, value, data_specs[i])
+
     has_ef = bool(template[1].get("ef") or template[1].get("hier_ef"))
     return EngineProgram(
         state=MeshState(template, 0),
@@ -779,4 +800,4 @@ def bind_mesh_program(grid, *, make_cell: str, cell_kw: dict, index_source,
         local_step=local_step,
         staleness=int(staleness), overlap=overlap,
         sync_of=(lambda s: s.local[0]) if overlap else None,
-        close=session.close)
+        close=session.close, set_data=set_data)

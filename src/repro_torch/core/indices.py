@@ -22,7 +22,9 @@ reproduces another implementation's exact streams; ``TenantIndexSource``
 stacks one source per tenant on the tenant axis of the fleet path;
 ``CellIndexSource`` is one cell's view of a whole-grid source, for a rank
 of a process grid (``repro_torch.launch.mesh``), which draws exactly what
-that cell of the grid engine consumes.
+that cell of the grid engine consumes -- of a ``TenantIndexSource`` too,
+whose streams keep the grid axes first, so a rank of a fleet on the mesh
+draws what cell (p, q) of every tenant draws in the grid-engine fleet.
 """
 from __future__ import annotations
 
@@ -152,6 +154,12 @@ class TenantIndexSource:
 
     def __init__(self, sources):
         self.sources = list(sources)
+
+    def to(self, device) -> "TenantIndexSource":
+        """The same streams drawn on ``device`` (every tenant's source
+        moved; a copy) -- what a rank of a process grid draws from, cut
+        to its cell by :class:`CellIndexSource`."""
+        return TenantIndexSource([s.to(device) for s in self.sources])
 
     def _stack(self, name: str, t: int) -> torch.Tensor:
         return torch.stack([getattr(s, name)(t) for s in self.sources],

@@ -139,14 +139,17 @@ def paste_windows(win, delta_sub, m_q: int):
                           delta_sub)
 
 
-def primal_payload_shapes(schedule: CommSchedule):
+def primal_payload_shapes(schedule: CommSchedule, per_problem: bool = False):
     """The per-cell payload shapes of a primal (RADiSA / SFK) step: the
     anchor products ``z`` have a row block's shape, every other
     collective (the gradient, the recombined deltas or solutions) a
-    feature block's.  Blocked data ``(*x_parts, y (P, [T,] n_p), mask)``,
-    state ``w (Q, [T,] m_q)``."""
+    feature block's.  Blocked data ``(*x_parts, y (P, [T,] n_p), mask)``
+    (``per_problem``: followed by ``lam (T,)`` and ``n (T,)``), state ``w
+    (Q, [T,] m_q)``."""
+    y_at = -4 if per_problem else -2
+
     def payload_shapes(data, w):
-        rows, cols = tuple(data[-2].shape[1:]), tuple(w.shape[1:])
+        rows, cols = tuple(data[y_at].shape[1:]), tuple(w.shape[1:])
         return {name: rows if name == "z" else cols
                 for name in schedule.names}
     return payload_shapes
@@ -219,7 +222,7 @@ def radisa_cell_program(loss: Loss, cfg: RADiSAConfig, *, n: int, m_q: int,
     return CellProgram(radisa_schedule(cfg.variant), cell,
                        state_specs=("model",),
                        payload_shapes=primal_payload_shapes(
-                           radisa_schedule(cfg.variant)))
+                           radisa_schedule(cfg.variant), per_problem))
 
 
 # ----------------------------------------------------------------------------

@@ -143,7 +143,8 @@ def sfk_cell_program(loss: Loss, cfg: SFKConfig, *, n: int, m_q: int,
         return w + comm("dw", paste_windows(win, w_new - w_anchor, m_q))
 
     return CellProgram(sfk_schedule(), cell, state_specs=("model",),
-                       payload_shapes=primal_payload_shapes(sfk_schedule()))
+                       payload_shapes=primal_payload_shapes(sfk_schedule(),
+                                                            per_problem))
 
 
 # ----------------------------------------------------------------------------

@@ -60,12 +60,12 @@ story.  This module provides that story once:
     previous ``w`` / ``alpha``.
 
 Many problems of one shape solve together through
-``repro_torch.fleet.FleetSolver`` (grid engine only).  ``staleness > 0``
-needs the async / overlap engines and is refused with the reference's
-``ValueError`` elsewhere.  What the reference offers and the port does
-not yet -- the mesh halves of the fleet, the online service and scoring
--- raises ``NotImplementedError`` naming the ROADMAP queue item that
-brings it (``NOT_PORTED``); nothing is silently ignored.
+``repro_torch.fleet.FleetSolver`` (on the grid engine or the synchronous
+mesh).  ``staleness > 0`` needs the async / overlap engines and is
+refused with the reference's ``ValueError`` elsewhere.  What the
+reference offers and the port does not yet -- re-sharding a restored
+checkpoint -- raises ``NotImplementedError`` naming the ROADMAP queue
+item that brings it (``NOT_PORTED``); nothing is silently ignored.
 
 Example::
 
@@ -115,18 +115,16 @@ ENGINES = ("simulated", "shard_map", "async", "overlap")
 ENGINE_ALIASES = {"sync": "shard_map"}
 BLOCK_FORMATS = ("dense", "sparse")
 
-#: what the reference offers and the port does not (the mesh halves of
-#: the fleet, the online service and scoring: knobs, and CLI flags by
-#: their argparse dest), with the title of the ROADMAP queue-A item that
-#: ports it
+#: what the reference offers and the port does not (knobs, and CLI flags
+#: by their argparse dest), with the title of the ROADMAP queue-A item
+#: that ports it: ``restore_tree(shardings=)``, whose only caller in the
+#: reference is the LM trainer, waits for the way that item shards an LM
+#: parameter tree
 _ITEMS = {
-    "mesh": "'Multi-device engines' (item 12b: the fleet, online and "
-            "scoring halves)",
+    "lm": "'LM side stack, training' (item 13: a sharding describes the "
+          "trainer's parameter tree)",
 }
-NOT_PORTED = {
-    "engine": _ITEMS["mesh"], "mesh": _ITEMS["mesh"],
-    "force_host_devices": _ITEMS["mesh"],
-}
+NOT_PORTED = {"shardings": _ITEMS["lm"]}
 
 
 def not_ported_message(knob: str, shown: Optional[str] = None) -> str:
@@ -373,23 +371,8 @@ class Solver:
     def _grid(self, mesh, P, Q):
         """The process grid of a mesh engine: ``mesh`` (checked against P
         and Q) or the memoized P x Q grid on the solver's device."""
-        from ..launch.mesh import ProcessGrid, process_grid
-        if mesh is None:
-            if P is None or Q is None:
-                raise ValueError(f"engine={self.engine!r} needs a mesh "
-                                 "or P and Q")
-            return process_grid(P, Q, device=self.device)
-        if not isinstance(mesh, ProcessGrid):
-            raise TypeError(f"mesh={mesh!r}: the mesh engines take a "
-                            "repro_torch.launch.mesh.ProcessGrid")
-        if (P is not None and P != mesh.P) or (Q is not None
-                                               and Q != mesh.Q):
-            raise ValueError(f"mesh is {mesh.P}x{mesh.Q} but P={P}, Q={Q} "
-                             "requested")
-        if mesh.device.type != self.device.type:
-            raise ValueError(f"mesh runs on {mesh.device}, the solver on "
-                             f"{self.device}")
-        return mesh
+        from ..launch.mesh import grid_for
+        return grid_for(mesh, P, Q, device=self.device, engine=self.engine)
 
     # ---- the shared outer loop --------------------------------------------
     def solve(self, loss_name: str, X, y, *, P: int = None, Q: int = None,

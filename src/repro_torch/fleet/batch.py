@@ -17,7 +17,11 @@ Three pieces live here:
     all T x P x Q cells of an outer step in one launch.
   * :func:`fleet_cell_program` -- wraps a solver's ``per_problem=True``
     cell program (which already runs every tenant at once) with the
-    ``active`` mask that freezes converged tenants exactly.
+    ``active`` mask that freezes converged tenants exactly;
+    :func:`tenant_cell_program` builds it for a solver by name (the
+    ``make_cell`` a rank of a process grid resolves), and
+    :func:`admm_setup_tenants` factors every tenant's ADMM normal matrix
+    on a rank.
 """
 from __future__ import annotations
 
@@ -26,8 +30,13 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core.admm import admm_cell_program, admm_factor, admm_gram
+from repro_torch.core.comm import ProcessWire
+from repro_torch.core.d3ca import d3ca_cell_program
 from repro_torch.core.engines import CellProgram
 from repro_torch.core.partition import _ceil_to
+from repro_torch.core.radisa import radisa_cell_program
+from repro_torch.core.sfk import sfk_cell_program
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,4 +138,47 @@ def fleet_cell_program(base: CellProgram) -> CellProgram:
         return tuple(_freeze(active, o, s, ds)
                      for o, s, ds in zip(out, state, specs))
 
-    return CellProgram(base.schedule, cell, state_specs=specs)
+    def payload_shapes(data, state):
+        return base.payload_shapes(tuple(data[1:]), state)
+
+    return CellProgram(base.schedule, cell, state_specs=specs,
+                       payload_shapes=payload_shapes)
+
+
+def tenant_cell_program(*, solver: str, loss, cfg, n: int, m_q: int,
+                        sparse: bool, local_backend: str = "kernel",
+                        index_source=None) -> CellProgram:
+    """The fleet's program of ``solver`` (``d3ca | radisa | sfk |
+    admm``): its ``per_problem=True`` cell program behind
+    :func:`fleet_cell_program`.  ``index_source`` is the tenants' streams
+    (a :class:`~repro_torch.core.indices.TenantIndexSource`, or a rank's
+    cell of one); ADMM draws none.  A process grid's ranks build it from
+    the path ``"repro_torch.fleet.batch:tenant_cell_program"``."""
+    kw = dict(n=n, m_q=m_q, sparse=sparse, per_problem=True)
+    if solver == "admm":
+        base = admm_cell_program(loss.name, cfg, **kw)
+    else:
+        make = {"d3ca": d3ca_cell_program, "radisa": radisa_cell_program,
+                "sfk": sfk_cell_program}[solver]
+        base = make(loss, cfg, index_source=index_source,
+                    local_backend=local_backend, **kw)
+    return fleet_cell_program(base)
+
+
+def admm_setup_tenants(ctx, data, *, cfg, lams, m_q: int, sparse: bool):
+    """A rank's ADMM setup for a fleet on a process grid: for each tenant
+    t, its cell's A^T A summed over the rank's column of the grid (an
+    all-reduce over the "data" group) and factored with that tenant's
+    ``lams[t]`` -- the per-tenant counterpart of
+    ``core/admm.py::admm_setup_distributed``.  ``data`` is the rank's
+    ``(active, *x_parts, y, mask, n)``; returns it with the factors
+    ``chol (1, T, m_q, m_q)`` before ``n``, the layout the fleet's ADMM
+    program reads."""
+    active, *x_parts, y, mask, n_t = data
+    wire = ProcessWire(ctx)
+    chols = []
+    for t, lam in enumerate(lams):
+        gram = admm_gram(tuple(x[:, :, t] for x in x_parts), m_q, sparse)
+        chols.append(admm_factor(wire.all_reduce(gram, "data"),
+                                 dataclasses.replace(cfg, lam=lam)))
+    return (active, *x_parts, y, mask, torch.stack(chols, dim=1), n_t)

@@ -26,7 +26,10 @@ class FleetScheduler:
     Args:
       P, Q: the block grid every batch runs on.
       solver, engine, local_backend, block_format, device: forwarded to
-        :class:`FleetSolver` (the default device is the card).
+        :class:`FleetSolver` (the default device is the card); on the
+        mesh engines every bucket runs on the memoized P x Q process
+        grid, and the buckets and the warm registry work as on the grid
+        engine.
       cfg: shared solver config template (per-tenant ``lam`` / ``seed``
         come from each problem).
       tol, check_every: per-tenant convergence policy (see

@@ -5,18 +5,23 @@ into tenant-major tensors (:func:`~repro_torch.fleet.batch.stack_grid`:
 the tenant axis right after the grid axes of every array), builds the
 solver's ``per_problem=True`` cell program behind
 :func:`~repro_torch.fleet.batch.fleet_cell_program`'s ``active`` mask,
-and drives it through the *existing* grid executor
-(:func:`~repro_torch.core.engines.grid_program`).  One outer step of the
-batch reduces every collective once and launches each solver kernel once
-for all T x P x Q cells, each cell with its tenant's ``lam``, ``n`` (and
-D3CA's ``beta``) as per-cell scalars.
+and drives it through the *existing* executors: the single-device grid
+(:func:`~repro_torch.core.engines.grid_program`, ``engine="simulated"``)
+or a process grid of P x Q ranks, one block of every tenant per rank
+(:func:`~repro_torch.core.engines.bind_mesh_program`,
+``engine="shard_map"``, alias ``"sync"``).  One outer step of the batch
+reduces every collective once and launches each solver kernel once for
+all T x P x Q cells -- on the mesh, once per rank for its T cells --,
+each cell with its tenant's ``lam``, ``n`` (and D3CA's ``beta``) as
+per-cell scalars.
 
 Per-tenant semantics preserved relative to a solo
 :meth:`repro_torch.core.solver.Solver.solve` of the same problem:
 
   * block extents, padding and every index draw are identical (the
     bucket key uses the framework's natural padded shapes, and each
-    tenant draws from its own index source, seeded by its own ``seed``);
+    tenant draws from its own index source, seeded by its own ``seed``;
+    a rank of the mesh draws its cell of every tenant's streams);
   * ``lam_t`` / ``n_t`` ride through the data tuple as float32 tensors
     instead of Python numbers, so per-tenant results are bit-identical
     to the solo solve exactly when the products the solo path forms in
@@ -27,13 +32,15 @@ Per-tenant semantics preserved relative to a solo
     iterations), and warm starts accept the same
     ``SolveResult | (w, alpha) | w`` forms as the solo API.
 
-The fleet runs on the single-device grid engine (``engine="simulated"``).
-The synchronous mesh of the reference (``"shard_map"`` / ``"sync"``) is
-not ported for fleets yet (ROADMAP queue A item 12b, the mesh halves of
-the multi-device engines); the async and
+On the mesh every tenant is partitioned on the host, as a solo mesh
+solve is, and each rank receives its cell of the stacked blocks once per
+batch; the ``active`` mask reaches the ranks by the grid's DATA command
+when it changes (at a segment boundary); ADMM factors each tenant's
+normal matrix on the ranks with that tenant's ``lam``
+(:func:`~repro_torch.fleet.batch.admm_setup_tenants`).  The async and
 overlap engines, staleness, compression and topology carry per-build
-state with no tenant axis and are rejected with ``ValueError``, as in the
-reference.
+state with no tenant axis and are rejected with ``ValueError``, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -41,35 +48,33 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.core.admm import admm_cell_program, admm_setup_simulated
-from repro_torch.core.d3ca import d3ca_cell_program
-from repro_torch.core.engines import grid_program
+from repro_torch.core.admm import admm_setup_simulated
+from repro_torch.core.engines import bind_mesh_program, grid_program
 from repro_torch.core.indices import GeneratorIndexSource, TenantIndexSource
 from repro_torch.core.local import LOCAL_BACKENDS
 from repro_torch.core.losses import get_loss
 from repro_torch.core.partition import (SparseDoublyPartitioned, partition,
                                         partition_sparse)
-from repro_torch.core.radisa import _check_subblocks, radisa_cell_program
+from repro_torch.core.radisa import _check_subblocks
 from repro_torch.core.reference import rel_opt
-from repro_torch.core.sfk import sfk_cell_program
-from repro_torch.core.solver import (BLOCK_FORMATS, SolveResult,
-                                     _unpack_warm_start, get_solver,
-                                     not_ported)
+from repro_torch.core.solver import (BLOCK_FORMATS, ENGINE_ALIASES,
+                                     SolveResult, _unpack_warm_start,
+                                     get_solver)
 from repro_torch.core.util import as_tensor, resolve_device
 from repro_torch.data.sparse import CSRMatrix
+from repro_torch.launch.mesh import grid_for
 from repro_torch.obs.trace import as_tracer
 
-from .batch import FleetProblem, bucket_key, fleet_cell_program, stack_grid
+from .batch import (FleetProblem, bucket_key, stack_grid,
+                    tenant_cell_program)
 
-#: engines the fleet path runs on in the port
-FLEET_ENGINES = ("simulated",)
+#: engines the fleet path supports (``"sync"`` aliases ``"shard_map"``)
+FLEET_ENGINES = ("simulated", "shard_map")
 FLEET_SOLVERS = ("d3ca", "radisa", "sfk", "admm")
-#: the reference's synchronous mesh engine (and its alias): not ported for
-#: fleets
-MESH_ENGINES = ("shard_map", "sync")
-BLOCKS, ROWS, COLS = ("data", "model"), ("data",), ("model",)
+BLOCKS, ROWS, COLS, TENANTS = ("data", "model"), ("data",), ("model",), ()
 
 
 @dataclasses.dataclass
@@ -78,12 +83,14 @@ class FleetProgram:
     advances every tenant whose ``active`` entry is 1 by one outer
     iteration (``active`` a (T,) float tensor on the device);
     ``unpack(state) -> (ws, alphas | None)`` gives each tenant's global
-    iterates."""
+    iterates; ``close()``, set on a process grid's program, ends the
+    grid's session (``solve_batch`` calls it when the batch is done)."""
 
     step: Callable[[int, torch.Tensor, Any], Any]
     state: Any
     unpack: Callable[[Any], Any]
     n_tenants: int
+    close: Optional[Callable[[], Any]] = None
 
 
 class FleetSolver:
@@ -91,26 +98,33 @@ class FleetSolver:
 
     Args:
       solver: one of ``d3ca | radisa | sfk | admm``.
-      engine: ``simulated`` (the single-device grid).
+      engine: ``simulated`` (the single-device grid) or ``shard_map`` /
+        ``sync`` (a process grid of P x Q ranks, one block of every
+        tenant per rank).
       local_backend, block_format, device: as in
         :class:`repro_torch.core.solver.Solver`; the default device is the
         card, and without one the constructor raises.
       staleness, compression, topology, overlap: rejected (see the module
         docstring).
+      mesh: the :class:`repro_torch.launch.mesh.ProcessGrid` of the mesh
+        engine; by default the memoized P x Q grid on the solver's device
+        (``process_grid``).
     """
 
     def __init__(self, solver: str = "d3ca", engine: str = "simulated",
                  local_backend: str = "kernel", block_format: str = "dense",
                  staleness: int = 0, compression=None, topology=None,
-                 overlap: bool = False, *, device="cuda"):
+                 overlap: bool = False, *, device="cuda", mesh=None):
         if solver not in FLEET_SOLVERS:
             raise ValueError(f"solver={solver!r}; expected one of "
                              f"{FLEET_SOLVERS}")
-        if engine not in FLEET_ENGINES + MESH_ENGINES:
+        engine = ENGINE_ALIASES.get(engine, engine)
+        if engine not in FLEET_ENGINES:
             raise ValueError(
                 f"engine={engine!r}: the fleet path runs the simulated "
-                "grid or the synchronous mesh; async/overlap programs "
-                "carry per-build ring state that cannot hold a tenant axis")
+                f"grid or the synchronous mesh ({FLEET_ENGINES}); "
+                "async/overlap programs carry per-build ring state that "
+                "cannot hold a tenant axis")
         if staleness:
             raise ValueError("fleet solves are synchronous; staleness="
                              f"{staleness} is not supported")
@@ -119,8 +133,9 @@ class FleetSolver:
                              "topology or overlap: their error-feedback/"
                              "ring buffers are per-build device state "
                              "with no tenant axis")
-        if engine in MESH_ENGINES:
-            raise not_ported("engine", engine)
+        if mesh is not None and engine == "simulated":
+            raise ValueError("engine='simulated' runs on one device; mesh= "
+                             "needs engine='shard_map'")
         if local_backend not in LOCAL_BACKENDS:
             raise ValueError(f"local_backend={local_backend!r}; expected "
                              f"one of {LOCAL_BACKENDS}")
@@ -134,6 +149,7 @@ class FleetSolver:
         #: raises here, at construction, when the card is asked for and
         #: there is none
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     # ------------------------------------------------------------------
     # shared pieces
@@ -171,21 +187,6 @@ class FleetSolver:
                 device=self.device)
             for p in problems])
 
-    def _cell_program(self, loss, cfg, source, *, n, m_q, P, sparse):
-        kw = dict(n=n, m_q=m_q, index_source=source,
-                  local_backend=self.local_backend, sparse=sparse,
-                  per_problem=True)
-        if self.solver == "d3ca":
-            return d3ca_cell_program(loss, cfg, **kw)
-        if self.solver == "radisa":
-            _check_subblocks(m_q, P, cfg.variant == "avg")
-            return radisa_cell_program(loss, cfg, **kw)
-        if self.solver == "sfk":
-            _check_subblocks(m_q, P, False)
-            return sfk_cell_program(loss, cfg, **kw)
-        return admm_cell_program(loss.name, cfg, n=n, m_q=m_q,
-                                 sparse=sparse, per_problem=True)
-
     # ------------------------------------------------------------------
     # grid packing
     # ------------------------------------------------------------------
@@ -193,11 +194,12 @@ class FleetSolver:
     def program(self, problems: Sequence[FleetProblem], *, P: int, Q: int,
                 cfg=None, warm_starts: Optional[Sequence] = None
                 ) -> FleetProgram:
-        """Pack one shape bucket into a :class:`FleetProgram` on the
-        solver's device: every tenant partitioned as its solo solve would
-        be, the blocks stacked once (tenant axis after the grid axes), the
-        per-tenant scalars ``lam (T,)`` / ``n (T,)`` and -- for ADMM --
-        each tenant's Cholesky factors alongside."""
+        """Pack one shape bucket into a :class:`FleetProgram`: every tenant
+        partitioned as its solo solve would be (on the solver's device for
+        the grid engine, on the host for the mesh), the blocks stacked once
+        (tenant axis after the grid axes), the per-tenant scalars ``lam
+        (T,)`` / ``n (T,)`` and -- for ADMM -- each tenant's Cholesky
+        factors alongside (on the mesh, made by the ranks at setup)."""
         problems = list(problems)
         keys = {bucket_key(p, P, Q) for p in problems}
         if len(keys) != 1:
@@ -207,12 +209,17 @@ class FleetSolver:
                 "(FleetScheduler does this)")
         cfg = self._config(cfg)
         loss = get_loss(problems[0].loss_name)
-        T, dev = len(problems), self.device
+        T = len(problems)
         warm = list(warm_starts) if warm_starts is not None else [None] * T
         if len(warm) != T:
             raise ValueError(f"warm_starts has {len(warm)} entries for "
                              f"{T} problems")
         w0s, a0s = zip(*[_unpack_warm_start(w) for w in warm])
+        grid = (grid_for(self.mesh, P, Q, device=self.device,
+                         engine=self.engine)
+                if self.engine == "shard_map" else None)
+        # the mesh cuts the blocks on the host and hands each rank its own
+        dev = self.device if grid is None else torch.device("cpu")
         sparse = self.block_format == "sparse"
         if sparse:
             parts = [partition_sparse(p.X, p.y, P, Q, m_multiple=P * Q,
@@ -233,47 +240,104 @@ class FleetSolver:
         n_arr = torch.tensor([float(pt.n) for pt in parts],
                              dtype=torch.float32, device=dev)
         n_p, m_q = parts[0].n_p, parts[0].m_q
+        if self.solver in ("radisa", "sfk"):
+            _check_subblocks(m_q, P, self.solver == "radisa"
+                             and cfg.variant == "avg")
         w_st = stack_grid([torch.zeros((Q, m_q), device=dev) if w is None
                            else pt.w_to_blocks(w)
                            for pt, w in zip(parts, w0s)], COLS)
-        base = self._cell_program(
-            loss, cfg, self._index_source(problems, cfg, P, Q, n_p),
-            n=parts[0].n, m_q=m_q, P=P, sparse=sparse)
+        source = (None if self.solver == "admm" else
+                  self._index_source(problems, cfg, P, Q, n_p))
+        cell_kw = dict(solver=self.solver, loss=loss, cfg=cfg, n=parts[0].n,
+                       m_q=m_q, sparse=sparse,
+                       local_backend=self.local_backend)
+        x_specs = (BLOCKS,) * len(x_st)
         if self.solver == "d3ca":
             data_core = (*x_st, y_st, mask_st, lam_arr, n_arr)
+            specs = (*x_specs, ROWS, ROWS, TENANTS, TENANTS)
             a_st = stack_grid([torch.zeros((P, n_p), device=dev)
                                if a is None else pt.alpha_to_blocks(a)
                                for pt, a in zip(parts, a0s)], ROWS)
-            state = (a_st, w_st)
+            state, state_specs = (a_st, w_st), (ROWS, COLS)
         elif self.solver == "admm":
-            chol_st = stack_grid([admm_setup_simulated(
-                pt, dataclasses.replace(cfg, lam=p.lam))
-                for pt, p in zip(parts, problems)], COLS)
-            data_core = (*x_st, y_st, mask_st, chol_st, n_arr)
             zeros_su = torch.zeros((P, Q, T, n_p), device=dev)
             state = (zeros_su, zeros_su.clone(), w_st)
+            state_specs = (BLOCKS, BLOCKS, COLS)
+            if grid is None:
+                chol_st = stack_grid([admm_setup_simulated(
+                    pt, dataclasses.replace(cfg, lam=p.lam))
+                    for pt, p in zip(parts, problems)], COLS)
+                data_core = (*x_st, y_st, mask_st, chol_st, n_arr)
+            else:
+                # the factors are made on the ranks (admm_setup_tenants)
+                data_core = (*x_st, y_st, mask_st, n_arr)
+                specs = (*x_specs, ROWS, ROWS, TENANTS)
         else:
             data_core = (*x_st, y_st, mask_st, lam_arr, n_arr)
-            state = w_st
+            specs = (*x_specs, ROWS, ROWS, TENANTS, TENANTS)
+            state, state_specs = w_st, COLS
         # the per-tenant blocks are in the stacked tensors now: keep only
         # what unpacking needs
         sizes = [(pt.n, pt.m) for pt in parts]
         del parts
-        gstep = grid_program(fleet_cell_program(base), P, Q, device=dev)
 
-        def unpack(st):
-            w_b = st[1] if self.solver == "d3ca" else (
-                st[2] if self.solver == "admm" else st)
+        def unpack_blocks(w_b, am):
             ws = [w_b[:, i].reshape(-1)[:m] for i, (_, m) in enumerate(sizes)]
-            if self.solver != "d3ca":
+            if am is None:
                 return ws, None
-            am = st[0] * mask_st
             return ws, [am[:, i].reshape(-1)[:n]
                         for i, (n, _) in enumerate(sizes)]
 
-        return FleetProgram(
-            step=lambda t, active, st: gstep(t, (active, *data_core), st),
-            state=state, unpack=unpack, n_tenants=T)
+        def w_blocks(st):
+            return st[1] if self.solver == "d3ca" else (
+                st[2] if self.solver == "admm" else st)
+
+        if grid is None:
+            gstep = grid_program(tenant_cell_program(index_source=source,
+                                                     **cell_kw),
+                                 P, Q, device=dev)
+
+            def unpack(st):
+                return unpack_blocks(
+                    w_blocks(st),
+                    st[0] * mask_st if self.solver == "d3ca" else None)
+
+            return FleetProgram(
+                step=lambda t, active, st: gstep(t, (active, *data_core),
+                                                 st),
+                state=state, unpack=unpack, n_tenants=T)
+
+        active0 = torch.ones((T,))
+        setup = {}
+        if self.solver == "admm":
+            setup = dict(setup="repro_torch.fleet.batch:admm_setup_tenants",
+                         setup_kw=dict(cfg=cfg, m_q=m_q, sparse=sparse,
+                                       lams=[float(p.lam) for p in problems]))
+        prog = bind_mesh_program(
+            grid, make_cell="repro_torch.fleet.batch:tenant_cell_program",
+            cell_kw=cell_kw, index_source=source,
+            data=(active0, *data_core), data_specs=(TENANTS, *specs),
+            data_names=("active",), state0=state, state_specs=state_specs,
+            w_of=w_blocks,
+            alpha_of=((lambda st: st[0] * mask_st)
+                      if self.solver == "d3ca" else None), **setup)
+        # what the ranks' ``active`` holds: sent again only when it changes
+        sent = {"obj": None, "value": active0}
+
+        def step(t, active, st):
+            if active is not sent["obj"]:
+                host = active.detach().to("cpu", copy=True)
+                if not torch.equal(host, sent["value"]):
+                    prog.set_data("active", host)
+                sent.update(obj=active, value=host)
+            return prog.step(t, st)
+
+        def unpack(st):
+            return unpack_blocks(prog.w_of(st), prog.alpha_of(st)
+                                 if prog.alpha_of is not None else None)
+
+        return FleetProgram(step=step, state=prog.state, unpack=unpack,
+                            n_tenants=T, close=prog.close)
 
     # ------------------------------------------------------------------
     # the batched drive loop
@@ -342,7 +406,9 @@ class FleetSolver:
         Xs = [p.X for p in problems]
         ys = [p.y for p in problems]
 
-        active = torch.ones((T,), dtype=torch.float32, device=dev)
+        # on the host: the segment's mask is made from it once per
+        # segment, so reading it never waits for the device
+        active = np.ones((T,), np.float32)
         conv = [False] * T
         iters = [0] * T
         hist: List[List[Dict[str, float]]] = [[] for _ in range(T)]
@@ -356,10 +422,11 @@ class FleetSolver:
         t0 = time.perf_counter()
         while t < outer:
             seg_end = outer if not observe else min(t + check_every, outer)
+            act = torch.tensor(active, device=dev)      # a copy
             with tr.span("fleet/step", t0=t + 1, t1=seg_end, **labels):
                 while t < seg_end:
                     t += 1
-                    state = prog.step(t, active, state)
+                    state = prog.step(t, act, state)
             for i in range(T):
                 if not conv[i]:
                     iters[i] = t
@@ -397,14 +464,13 @@ class FleetSolver:
                     conv[i] = True
                     active[i] = 0.0
             if reg is not None:
-                # counted on the host: reading ``active`` back would wait
-                # for the device
-                reg.gauge("fleet/active", **labels).set(
-                    float(T - sum(conv)))
-            if tol is not None and all(conv):
+                reg.gauge("fleet/active", **labels).set(float(active.sum()))
+            if tol is not None and not active.any():
                 break
 
         ws, alphas = prog.unpack(state)
+        if prog.close is not None:
+            prog.close()        # a process grid's session: collect
         return [SolveResult(
             w=ws[i], alpha=alphas[i] if alphas is not None else None,
             history=hist[i], iters=iters[i], converged=conv[i],

@@ -1,8 +1,10 @@
 """Multi-tenant fleet CLI over :mod:`repro_torch.fleet`.
 
-Solve many independent tenant problems in one batched program on the
-single-device grid engine: every outer step launches each solver kernel
-once for all tenants' cells.
+Solve many independent tenant problems in one batched program: on the
+single-device grid engine every outer step launches each solver kernel
+once for all tenants' cells; on the mesh (``--engine shard_map``, alias
+``sync``) a process grid of P x Q ranks holds one block of every tenant
+per rank, and each rank launches each kernel once a step for its cells.
 
   # the paper's Part 1 instance, four tenants, on the card
   PYTHONPATH=src python -m repro_torch.launch.fleet \\
@@ -36,8 +38,11 @@ one line per tenant per round and a final JSON summary.
       --tenants 4 --device cpu --trace /tmp/fleet.json --metrics \\
       --health --min-tenants 2
 
-The flags of the mesh engine are still parsed, so that asking for one
-fails by name instead of being ignored.
+  # the mesh: one block of every tenant per rank, all tenants sharing
+  # each step's collectives (on the CPU: N >= P * Q ranks)
+  PYTHONPATH=src python -m repro_torch.launch.fleet \\
+      --engine shard_map --mesh 2x2 --tenants 4 --device cpu \\
+      --force-host-devices 4
 """
 from __future__ import annotations
 
@@ -49,7 +54,6 @@ import time
 import torch
 
 from repro_torch.core import get_solver
-from repro_torch.core.solver import not_ported_message
 from repro_torch.core.util import resolve_device
 from repro_torch.data import (make_sparse_svm_csr, make_sparse_svm_data,
                                make_svm_data)
@@ -59,14 +63,7 @@ from repro_torch.online import SnapshotBook
 from repro_torch.serve.scoring import LinearScorer
 
 from .obs import add_trace_metrics_flags, close_plane, open_plane
-
-#: flags of the reference CLI whose layer is not ported: (flag, argparse
-#: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
-#: means "not asked for")
-_NOT_PORTED_FLAGS = (
-    ("--engine", "engine", "simulated"),
-    ("--force-host-devices", "force_host_devices", None),
-)
+from .optimize import check_host_devices
 
 
 def _parse_mesh(s: str):
@@ -85,6 +82,13 @@ def build_parser():
                     "outer step, for T tenants")
     ap.add_argument("--solver", default="d3ca",
                     help="d3ca | radisa | sfk | admm")
+    ap.add_argument("--engine", default="simulated",
+                    choices=["simulated", "shard_map", "sync"],
+                    help="simulated = the grid on one device; shard_map "
+                         "(alias: sync) = a process grid of P x Q ranks, "
+                         "one block of every tenant each.  The "
+                         "async/overlap engines are rejected by the fleet "
+                         "path (per-build ring state has no tenant axis)")
     ap.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
                     help="cell-local solver backend: the CUDA kernels "
                          "(plain PyTorch versions on the CPU) or the plain "
@@ -136,10 +140,10 @@ def build_parser():
         metrics_help="record fleet gauges (tenants per bucket, active "
                      "tenants, per-tenant rel_opt) and print the registry "
                      "snapshot in the summary JSON")
-    # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
-    ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
     ap.add_argument("--force-host-devices", type=int, default=None,
-                    help=argparse.SUPPRESS)
+                    metavar="N",
+                    help="N CPU ranks for --engine shard_map (needs "
+                         "--device cpu; a P x Q mesh needs N >= P * Q)")
     return ap
 
 
@@ -225,14 +229,11 @@ def finish(args, summary):
 
 
 def parse_args(argv=None):
-    """The CLI's flags; exits 2 naming the ROADMAP item of a flag whose
-    layer is not ported, or an unknown solver."""
+    """The CLI's flags; exits 2 on an unknown solver or a
+    ``--force-host-devices`` the mesh cannot use."""
     ap = build_parser()
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
-    for flag, dest, unset in _NOT_PORTED_FLAGS:
-        if getattr(args, dest) != unset:
-            ap.error(not_ported_message(dest,
-                                        f"{flag} {getattr(args, dest)}"))
+    check_host_devices(ap, args, *args.mesh)
     try:
         get_solver(args.solver)
     except KeyError as e:
@@ -276,7 +277,8 @@ def run(args, on_result=None, snapshots=None):
     try:
         # raises when the card is asked for (the default) and there is none
         sched = FleetScheduler(
-            P=P, Q=Q, solver=args.solver, local_backend=args.backend,
+            P=P, Q=Q, solver=args.solver, engine=args.engine,
+            local_backend=args.backend,
             block_format=args.block_format, cfg=cfg, tol=args.tol,
             check_every=args.check_every, max_tenants=args.max_tenants,
             device=args.device,
@@ -288,7 +290,7 @@ def run(args, on_result=None, snapshots=None):
         plane.finalize()            # stop the endpoint before exiting
         build_parser().error(str(e))
 
-    print(f"[fleet] {args.solver} engine=simulated "
+    print(f"[fleet] {args.solver} engine={sched.fleet.engine} "
           f"backend={args.backend} device={sched.fleet.device} "
           f"block_format={args.block_format} grid={P}x{Q} "
           f"tenants={args.tenants} loss={args.loss} rounds={args.rounds}")
@@ -309,7 +311,7 @@ def run(args, on_result=None, snapshots=None):
 
     solves = args.tenants * args.rounds
     return finish(args, close_plane({
-        "solver": args.solver, "engine": "simulated",
+        "solver": args.solver, "engine": sched.fleet.engine,
         "local_backend": args.backend, "device": str(sched.fleet.device),
         "block_format": args.block_format, "P": P, "Q": Q,
         "loss": args.loss, "tenants": args.tenants,

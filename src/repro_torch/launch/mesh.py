@@ -39,14 +39,34 @@ order: ``STEP t src dst`` (one outer step from held state ``src`` into
 ``dst``), ``LOCAL t src`` (the collective-free timing twin, ended when
 every rank's device has finished it), ``GATHER src what`` (the iterates
 or the error-feedback residuals of every rank to the controller),
-``BARRIER`` (every rank waits for its device, then for the others) and
-``STOP``.  Each rank holds
+``BARRIER`` (every rank waits for its device, then for the others),
+``DATA leaf`` (a new value of one leaf of the program's data tuple, each
+rank receiving its cell of it -- how the fleet changes which tenants are
+active between segments), ``CALL`` (a named function run on every rank
+on the cells it receives and the rank's *resident* store, see below) and
+``STOP``.  DATA and CALL carry tensors: the controller cuts the global
+tensor into every rank's cell (``core/engines.py::cell_of``), broadcasts
+their shapes and scatters them, one cell a rank.  Each rank holds
 the initial state and the last two it made, so the timed path's
 calibration can re-step from the initial state.  At ``STOP`` each worker
 returns the launches its kernel wrappers counted in that session (summed
 into the grid's ``worker_launches``; the controller's wrappers count only
 the controller's own launches) and the report of the grid's
 ``rank_hook``.
+
+**Resident state and the command lock.**  Each rank keeps a dict,
+``RankContext.resident``, that outlives sessions: what a CALL stores there
+(the scorer's weight blocks, ``serve/scoring.py``) stays on the rank while
+solver sessions come and go.  A CALL runs in whatever session is open --
+a solve's, between two of its steps -- or, when none is, in an *idle*
+session the grid opens for that one command and closes after it (a rank
+waits for commands only inside a session; between sessions it waits on its
+job queue, where no collective can time out).  Every command, and every
+opening and closing of a session, holds the grid's ``lock`` (re-entrant)
+while it runs: threads that share a grid -- a scoring thread beside an
+update in flight -- interleave whole commands, never parts of one, and
+every rank sees the commands in the same order.  A caller that needs two
+commands to see nothing in between holds ``lock`` around both.
 
 **Failures.**  A worker that raises sends its traceback and exits at
 once, which breaks its peers out of their collectives; the controller
@@ -66,6 +86,7 @@ import importlib
 import os
 import queue
 import signal
+import threading
 import time
 import traceback
 from typing import Any, Callable, Dict, NamedTuple, Optional
@@ -79,7 +100,8 @@ from ..core.util import resolve_device
 #: seconds any collective or wait of a grid may take before it fails
 DEFAULT_TIMEOUT_S = 300.0
 
-OP_STEP, OP_LOCAL, OP_GATHER, OP_BARRIER, OP_STOP = range(5)
+OP_STEP, OP_LOCAL, OP_GATHER, OP_BARRIER, OP_STOP, OP_DATA, OP_CALL = \
+    range(7)
 #: what a GATHER collects
 ITERATES, RESIDUALS = 0, 1
 
@@ -121,6 +143,8 @@ class RankContext:
         self.p, self.q = divmod(rank, spec.Q)
         self.device = device
         self.sizes = {"data": spec.P, "model": spec.Q}
+        #: what CALLs keep on this rank across sessions, by key
+        self.resident: Dict[str, Any] = {}
         self._groups = _make_groups(spec.P, spec.Q)
 
     def group(self, axis: str):
@@ -214,6 +238,58 @@ def _hook_of(hook, rank: int):
     return hook(rank) if hook is not None else contextlib.nullcontext({})
 
 
+class IdleJob:
+    """The job of an idle session: no program, no hook -- the ranks only
+    execute CALLs (and BARRIERs) until STOP."""
+
+    hook = None
+
+
+def _build(ctx, job):
+    """A rank's program for ``job`` (None for an idle session)."""
+    if isinstance(job, IdleJob):
+        return None
+    from ..core.engines import build_rank_program
+    return build_rank_program(ctx, job)
+
+
+def _share(obj):
+    """Move every CPU tensor of a job into shared memory now, on the
+    calling thread.  A queue pickles what it is given later, on its
+    feeder thread, and moving a storage there swaps its memory under any
+    reader -- rank 0 reads the same storages while it builds its own
+    program (ADMM's setup computes its gram from them)."""
+    if torch.is_tensor(obj):
+        if obj.device.type == "cpu":
+            obj.share_memory_()
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            _share(v)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _share(v)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _share(getattr(obj, f.name))
+
+
+def _exchange(ctx, payload):
+    """The tensors of a DATA or CALL command: rank 0 broadcasts the head
+    (a picklable dict whose ``"cells"`` lists each tensor's cell shape and
+    dtype) and scatters every rank its cell of each tensor (``payload =
+    (head, [[cell of rank r for r in ranks] per tensor])`` on rank 0, None
+    elsewhere).  Returns ``(head, this rank's cells on its device)``."""
+    box = [payload[0] if ctx.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    head = box[0]
+    cells = []
+    for i, (shape, dtype) in enumerate(head["cells"]):
+        buf = torch.empty(shape, dtype=dtype)
+        dist.scatter(buf, payload[1][i] if ctx.rank == 0 else None, src=0)
+        cells.append(buf.to(ctx.device))
+    return head, cells
+
+
 # ---------------------------------------------------------------------------
 # one rank's side of a session
 # ---------------------------------------------------------------------------
@@ -221,19 +297,37 @@ def _hook_of(hook, rank: int):
 class RankSession:
     """A rank's program and the states it holds, by id: the initial state
     (id 0) and the last two states made (the controller keeps the same
-    book, so it knows what every rank holds)."""
+    book, so it knows what every rank holds).  An idle session has no
+    program (``prog`` None) and holds no state."""
 
     KEEP = 2
 
     def __init__(self, ctx: RankContext, prog):
         self.ctx, self.prog = ctx, prog
-        self.states = {0: prog.state}
+        self.states = {0: prog.state} if prog is not None else {0: None}
         self._made = []
 
     def holds(self, sid: int) -> bool:
         return sid in self.states
 
-    def execute(self, op: int, t: int, src: int, dst: int, what: int):
+    def execute(self, op: int, t: int, src: int, dst: int, what: int,
+                payload=None):
+        """Rank's part of one command; ``payload`` is rank 0's tensors of
+        a DATA or CALL command (see :func:`_exchange`)."""
+        if op == OP_CALL:
+            from ..core.engines import resolve
+            head, cells = _exchange(self.ctx, payload)
+            return resolve(head["fn"])(self.ctx, *cells, **head["kw"])
+        if op == OP_BARRIER:
+            self._wait_all()
+            return None
+        if self.prog is None:
+            raise ValueError(f"grid command {op} needs a program; this "
+                             "session is idle")
+        if op == OP_DATA:
+            _, (cell,) = _exchange(self.ctx, payload)
+            self.prog.set_data(what, cell)
+            return None
         if op == OP_STEP:
             self.states[dst] = self.prog.step(t, self.states[src])
             self._made.append(dst)
@@ -248,9 +342,6 @@ class RankSession:
             return None
         if op == OP_GATHER:
             return self.ctx.gather(self.prog.export(self.states[src], what))
-        if op == OP_BARRIER:
-            self._wait_all()
-            return None
         raise ValueError(f"unknown grid command {op}")
 
     def _wait_all(self):
@@ -261,6 +352,8 @@ class RankSession:
 
     def finish(self):
         """End of session: wait for every reduction still in flight."""
+        if self.prog is None:
+            return
         for state in self.states.values():
             self.prog.drain(state)
 
@@ -268,10 +361,9 @@ class RankSession:
 def _serve(ctx: RankContext, job) -> dict:
     """A worker's session: build the rank program, execute commands until
     STOP, return the launches counted and the hook's report."""
-    from ..core.engines import build_rank_program
     before = launch_counts()
     with _hook_of(job.hook, ctx.rank) as report:
-        session = RankSession(ctx, build_rank_program(ctx, job))
+        session = RankSession(ctx, _build(ctx, job))
         cmd = torch.zeros(5, dtype=torch.int64)
         while True:
             dist.broadcast(cmd, src=0)
@@ -404,6 +496,9 @@ class ProcessGrid:
         self.reports: Dict[int, dict] = {}
         self.worker_launches: Dict[str, dict] = {}
         self.closed = False
+        #: held by every command and session change (see the module
+        #: docstring)
+        self.lock = threading.RLock()
         self._session = None
         if self.device.type == "cuda":
             # build the kernels once, before any rank could start nvcc
@@ -498,32 +593,56 @@ class ProcessGrid:
         """Hand ``jobs[r]`` to rank r, build rank 0's program and return
         the controller's session.  A session still open is closed
         first."""
-        if self.closed:
-            raise GridError(f"{self} is closed")
-        self.close_session()
-        from ..core.engines import build_rank_program
-        try:
-            for r in range(1, self.world):
-                self._jobs[r].put(jobs[r])
-            hook = _hook_of(jobs[0].hook, 0)
-            report = hook.__enter__()
-            prog = build_rank_program(self.ctx, jobs[0])
-        except BaseException as e:
-            self.fail(e)
-        self._session = MeshSession(self, prog, hook, report)
-        return self._session
+        with self.lock:
+            if self.closed:
+                raise GridError(f"{self} is closed")
+            self.close_session()
+            try:
+                for r in range(1, self.world):
+                    _share(jobs[r])
+                    self._jobs[r].put(jobs[r])
+                hook = _hook_of(jobs[0].hook, 0)
+                report = hook.__enter__()
+                prog = _build(self.ctx, jobs[0])
+            except BaseException as e:
+                self.fail(e)
+            self._session = MeshSession(self, prog, hook, report,
+                                        idle=isinstance(jobs[0], IdleJob))
+            return self._session
 
     def close_session(self):
-        if self._session is not None:
-            self._session.close()
+        with self.lock:
+            if self._session is not None:
+                self._session.close()
 
     def barrier(self):
         """Wait until every rank of the open session has finished what it
         was given, on its device too (a clock read after this one is a
         step of the whole grid)."""
-        if self._session is None:
-            raise GridError(f"{self} has no open session")
-        self._session.command(OP_BARRIER)
+        with self.lock:
+            if self._session is None:
+                raise GridError(f"{self} has no open session")
+            self._session.command(OP_BARRIER)
+
+    def call(self, fn: str, leaves=(), **kw):
+        """Run ``fn(ctx, *cells, **kw)`` on every rank (one CALL command)
+        and return rank 0's result.  ``fn`` is a ``"module:function"``
+        path; ``leaves`` are ``(tensor, spec)`` pairs -- a global tensor
+        and the grid axes it leads with (``core/engines.py::cell_of``) --
+        of which each rank receives its cell, on its device; ``kw`` must
+        be picklable.  ``ctx`` is the rank's :class:`RankContext`, whose
+        ``resident`` dict outlives sessions.  The call runs in the open
+        session, or in an idle one opened and closed around it."""
+        with self.lock:
+            if self.closed:
+                raise GridError(f"{self} is closed")
+            if self._session is not None:
+                return self._session.call(fn, leaves, **kw)
+            session = self.open_session([IdleJob()] * self.world)
+            try:
+                return session.call(fn, leaves, **kw)
+            finally:
+                session.close()
 
     def fail(self, exc: BaseException):
         """Close the grid after a failure and raise GridError with what
@@ -577,60 +696,95 @@ class ProcessGrid:
 
 
 class MeshSession:
-    """The controller's side of a session (see the module docstring)."""
+    """The controller's side of a session (see the module docstring).
+    An ``idle`` session runs no program; its end leaves the grid's
+    ``reports`` as they were."""
 
-    def __init__(self, grid: ProcessGrid, prog, hook, report):
+    def __init__(self, grid: ProcessGrid, prog, hook, report,
+                 idle: bool = False):
         self.grid = grid
         self.rank = RankSession(grid.ctx, prog)
         self._hook, self._report = hook, report
+        self.idle = idle
         self._next = 1
         self._cmd = torch.zeros(5, dtype=torch.int64)
         self.open = True
 
-    def command(self, op: int, t: int = 0, src: int = 0, what: int = 0):
+    def command(self, op: int, t: int = 0, src: int = 0, what: int = 0,
+                payload=None):
         """Broadcast one command and execute rank 0's part of it; returns
-        ``(sid, rank 0's result)``."""
-        if not self.open:
-            raise GridError("this session of the process grid has ended "
-                            "(a later program opened another)")
-        if not self.rank.holds(src):
-            raise ValueError(
-                f"the process grid no longer holds state {src}: its ranks "
-                f"keep the initial state and the last {RankSession.KEEP} "
-                "they made, so a mesh program steps forward from those")
-        dst = 0
-        if op == OP_STEP:
-            dst, self._next = self._next, self._next + 1
-        try:
-            self._cmd.copy_(torch.tensor([op, t, src, dst, what]))
-            dist.broadcast(self._cmd, src=0)
-            return dst, self.rank.execute(op, t, src, dst, what)
-        except BaseException as e:
-            self.open = False
-            self.grid.fail(e)
+        ``(sid, rank 0's result)``.  ``payload``: the tensors of a DATA or
+        CALL command (see :func:`_exchange`)."""
+        with self.grid.lock:
+            if not self.open:
+                raise GridError("this session of the process grid has "
+                                "ended (a later program opened another)")
+            if not self.rank.holds(src):
+                raise ValueError(
+                    f"the process grid no longer holds state {src}: its "
+                    f"ranks keep the initial state and the last "
+                    f"{RankSession.KEEP} they made, so a mesh program "
+                    "steps forward from those")
+            dst = 0
+            if op == OP_STEP:
+                dst, self._next = self._next, self._next + 1
+            try:
+                self._cmd.copy_(torch.tensor([op, t, src, dst, what]))
+                dist.broadcast(self._cmd, src=0)
+                return dst, self.rank.execute(op, t, src, dst, what,
+                                              payload)
+            except BaseException as e:
+                self.open = False
+                self.grid.fail(e)
+
+    def _payload(self, leaves, **head):
+        """Rank 0's side of :func:`_exchange`: every rank's cell of each
+        ``(tensor, spec)`` leaf, on the host."""
+        from ..core.engines import cell_of
+        cells = []
+        for value, spec in leaves:
+            host = value.detach().to("cpu")
+            cells.append([cell_of(host, spec, *divmod(r, self.grid.Q))
+                          .contiguous() for r in range(self.grid.world)])
+        head["cells"] = [(tuple(c[0].shape), c[0].dtype) for c in cells]
+        return head, cells
+
+    def put(self, leaf: int, value, spec):
+        """DATA: leaf ``leaf`` of the program's data tuple becomes each
+        rank's cell of ``value`` (a global tensor leading with the grid
+        axes ``spec``)."""
+        self.command(OP_DATA, what=int(leaf),
+                     payload=self._payload([(value, spec)]))
+
+    def call(self, fn: str, leaves=(), **kw):
+        """CALL (see :meth:`ProcessGrid.call`); rank 0's result."""
+        return self.command(OP_CALL,
+                            payload=self._payload(leaves, fn=fn, kw=kw))[1]
 
     def close(self):
         """End the session: STOP, collect every worker's launches (into
         the grid's ``worker_launches``) and hook report."""
-        if not self.open:
-            return
-        self.open = False
-        self.grid._session = None
-        try:
-            self._cmd.copy_(torch.tensor([OP_STOP, 0, 0, 0, 0]))
-            dist.broadcast(self._cmd, src=0)
-            self.rank.finish()
-            done = self.grid._await({r: "done"
-                                     for r in range(1, self.grid.world)})
-            self._hook.__exit__(None, None, None)
-        except BaseException as e:
-            self.grid.fail(e)
-        reports = {0: self._report}
-        for r, res in done.items():
-            self.grid.worker_launches = add_counts(
-                self.grid.worker_launches, res["counts"])
-            reports[r] = res["report"]
-        self.grid.reports = reports
+        with self.grid.lock:
+            if not self.open:
+                return
+            self.open = False
+            self.grid._session = None
+            try:
+                self._cmd.copy_(torch.tensor([OP_STOP, 0, 0, 0, 0]))
+                dist.broadcast(self._cmd, src=0)
+                self.rank.finish()
+                done = self.grid._await({r: "done"
+                                         for r in range(1, self.grid.world)})
+                self._hook.__exit__(None, None, None)
+            except BaseException as e:
+                self.grid.fail(e)
+            reports = {0: self._report}
+            for r, res in done.items():
+                self.grid.worker_launches = add_counts(
+                    self.grid.worker_launches, res["counts"])
+                reports[r] = res["report"]
+            if not self.idle:
+                self.grid.reports = reports
 
 
 # ---------------------------------------------------------------------------
@@ -660,6 +814,25 @@ def process_grid(P: int, Q: int, *, device="cuda",
     grid = ProcessGrid(P, Q, device=device, timeout=timeout)
     _GRIDS[key] = grid
     return grid
+
+
+def grid_for(mesh, P, Q, *, device, engine: str) -> ProcessGrid:
+    """The process grid a mesh engine runs on: ``mesh`` (checked against
+    P, Q and the device type) or, without one, the memoized P x Q grid on
+    ``device``."""
+    if mesh is None:
+        if P is None or Q is None:
+            raise ValueError(f"engine={engine!r} needs a mesh or P and Q")
+        return process_grid(P, Q, device=device)
+    if not isinstance(mesh, ProcessGrid):
+        raise TypeError(f"mesh={mesh!r}: the mesh engines take a "
+                        "repro_torch.launch.mesh.ProcessGrid")
+    if (P is not None and P != mesh.P) or (Q is not None and Q != mesh.Q):
+        raise ValueError(f"mesh is {mesh.P}x{mesh.Q} but P={P}, Q={Q} "
+                         "requested")
+    if mesh.device.type != torch.device(device).type:
+        raise ValueError(f"mesh runs on {mesh.device}, not on {device}")
+    return mesh
 
 
 def close_grids():

@@ -37,9 +37,17 @@ seconds, ``--max-lag`` observations) and ``--listen`` /
       --m 64 --capacity 512 --mesh 2x2 --rounds 20 --batch 32 --device cpu \\
       --trace /tmp/online.json --metrics --health --listen 127.0.0.1:0
 
-The flags of the mesh engines are still parsed, so that asking for one
-fails by name instead of being ignored; ``--staleness N > 0`` needs the
-async engines and is refused as the optimizer CLI refuses it.
+The mesh engines (``--engine shard_map | sync | async | overlap``) run
+every update on a process grid of P x Q ranks, and the live scorer on the
+same grid; on the CPU, ``--force-host-devices N`` (N >= P * Q) with
+``--device cpu``:
+
+  PYTHONPATH=src python -m repro_torch.launch.online \\
+      --m 64 --capacity 512 --mesh 2x2 --rounds 20 --batch 32 --device cpu \\
+      --engine shard_map --force-host-devices 4
+
+``--staleness N > 0`` needs the async engines and is refused as the
+optimizer CLI refuses it.
 """
 from __future__ import annotations
 
@@ -51,21 +59,14 @@ import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import get_loss, get_solver
-from repro_torch.core.solver import not_ported_message
 from repro_torch.core.util import resolve_device
-from repro_torch.launch.optimize import add_comm_flags, check_staleness
+from repro_torch.launch.optimize import (add_comm_flags, check_host_devices,
+                                         check_staleness)
 from repro_torch.obs import online_rules
 from repro_torch.online import OnlineConfig, OnlineSolverService
 
+from .mesh import process_grid
 from .obs import add_trace_metrics_flags, close_plane, open_plane
-
-#: flags of the reference CLI whose layer is not ported: (flag, argparse
-#: dest -- the key into ``core.solver.NOT_PORTED`` --, the value that
-#: means "not asked for")
-_NOT_PORTED_FLAGS = (
-    ("--engine", "engine", "simulated"),
-    ("--force-host-devices", "force_host_devices", None),
-)
 
 
 def _parse_mesh(s: str):
@@ -83,6 +84,13 @@ def build_parser():
                     "(PyTorch/CUDA port)")
     ap.add_argument("--solver", default="d3ca",
                     help="row-gate-capable solver (d3ca)")
+    ap.add_argument("--engine", default="simulated",
+                    choices=["simulated", "shard_map", "sync", "async",
+                             "overlap"],
+                    help="simulated = the grid on one device; the others "
+                         "run every update on a process grid of P x Q "
+                         "ranks (see repro_torch.launch.optimize) and "
+                         "score on it")
     ap.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
                     help="cell-local solver backend: the CUDA kernels "
                          "(plain PyTorch versions on the CPU) or the plain "
@@ -127,23 +135,21 @@ def build_parser():
         metrics_help="include the service's metrics snapshot (staleness "
                      "gauge, update/swap histograms, throughput counters) "
                      "in the summary JSON")
-    # parsed only to be refused by name (see _NOT_PORTED_FLAGS)
-    ap.add_argument("--engine", default="simulated", help=argparse.SUPPRESS)
     ap.add_argument("--force-host-devices", type=int, default=None,
-                    help=argparse.SUPPRESS)
+                    metavar="N",
+                    help="N CPU ranks for the mesh engines (needs --device "
+                         "cpu; a P x Q mesh needs N >= P * Q)")
     return ap
 
 
 def parse_args(argv=None):
-    """The CLI's flags; exits 2 naming the ROADMAP item of a flag whose
-    layer is not ported, or an unknown solver."""
+    """The CLI's flags; exits 2 on an unknown solver, a ``--staleness``
+    outside the async engines or a ``--force-host-devices`` the mesh
+    cannot use."""
     ap = build_parser()
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     check_staleness(ap, args)
-    for flag, dest, unset in _NOT_PORTED_FLAGS:
-        if getattr(args, dest) != unset:
-            ap.error(not_ported_message(dest,
-                                        f"{flag} {getattr(args, dest)}"))
+    check_host_devices(ap, args, *args.mesh)
     try:
         get_solver(args.solver)
     except KeyError as e:
@@ -162,9 +168,9 @@ def run(args, on_start=None, on_round=None):
     cls = get_solver(args.solver)
     config = OnlineConfig(
         m=args.m, capacity=args.capacity, P=P, Q=Q, loss=args.loss,
-        solver=args.solver, local_backend=args.backend,
-        block_format=args.block_format, compression=args.compression,
-        topology=args.topology,
+        solver=args.solver, engine=args.engine, local_backend=args.backend,
+        block_format=args.block_format, staleness=args.staleness,
+        compression=args.compression, topology=args.topology,
         solver_cfg=cls.config_cls(lam=args.lam), passes=args.passes,
         queue_capacity=args.queue_capacity)
     # a missing card raises here, before the plane starts an endpoint
@@ -175,7 +181,10 @@ def run(args, on_start=None, on_round=None):
         meta={"cli": "online", "solver": args.solver,
               "engine": args.engine})
     # raises when the card is asked for (the default) and there is none
-    svc = OnlineSolverService(config, manager=manager, device=args.device,
+    mesh = (None if args.engine == "simulated"
+            else process_grid(P, Q, device=args.device))
+    svc = OnlineSolverService(config, mesh=mesh, manager=manager,
+                              device=args.device,
                               tracer=plane.tracer_or(tracer),
                               registry=registry, monitor=plane.monitor)
     recovered = svc.recover()
@@ -195,7 +204,7 @@ def run(args, on_start=None, on_round=None):
         y = np.where(y == 0, 1.0, y).astype(np.float32)
         return X, y
 
-    print(f"[online] {args.solver} engine=simulated "
+    print(f"[online] {args.solver} engine={args.engine} "
           f"backend={args.backend} device={svc.device} grid={P}x{Q} "
           f"m={args.m} capacity={svc.store.capacity} passes={args.passes} "
           f"loss={args.loss} lam={args.lam}")
@@ -223,7 +232,7 @@ def run(args, on_start=None, on_round=None):
         svc.book.flush()
 
     summary = dict(svc.stats())
-    summary.update(solver=args.solver, engine="simulated",
+    summary.update(solver=args.solver, engine=args.engine,
                    backend=args.backend, device=str(svc.device),
                    block_format=args.block_format, P=P, Q=Q, m=args.m,
                    loss=args.loss, lam=args.lam, passes=args.passes,

@@ -27,6 +27,11 @@ one block each (``--engine shard_map|sync|async|overlap``):
   PYTHONPATH=src python -m repro_torch.launch.optimize \\
       --problems 3 --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu
 
+  # the same fan-out on the mesh: one block of every instance a rank
+  PYTHONPATH=src python -m repro_torch.launch.optimize \\
+      --problems 3 --mesh 3x2 --n 200 --m 60 --iters 4 --device cpu \\
+      --engine shard_map
+
 Prints one line per outer iteration (objective, duality gap when the
 solver has a dual, relative optimality when --ref-epochs > 0) and a
 final JSON summary.
@@ -59,7 +64,9 @@ final JSON summary.
       --engine overlap --staleness 2 --force-host-devices 6
 
 ``--staleness N > 0`` needs ``--engine async`` or ``overlap`` and is
-refused elsewhere with the reference's message.
+refused elsewhere with the reference's message; ``--problems N`` takes
+``--engine simulated`` or ``shard_map`` / ``sync`` (the fleet refuses the
+async engines with the reference's ``ValueError``).
 """
 from __future__ import annotations
 
@@ -371,7 +378,7 @@ def _fanout(ap, args, cls, P, Q):
                             block_format=args.block_format,
                             compression=args.compression,
                             topology=args.topology, device=args.device)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(str(e))
     probs = fleet_cli.make_tenants(args, count=args.problems,
                                    lam_of=lambda i: args.lam, prefix="p")

@@ -32,9 +32,18 @@ too (the solver refuses it on the grid engine with the reference's
 ``ValueError``).  The telemetry is the reference's: spans
 ``online/ingest|update|swap|score``, health polls after every publish,
 ingest and scoring call, and the service's registry handed to every
-update (the solver's timed path, with its calibration).  The service on
-the mesh engines is ROADMAP queue A item 12b; asking for it raises by
-name.
+update (the solver's timed path, with its calibration).
+
+**On the mesh engines** (``OnlineConfig(engine="shard_map" | "sync" |
+"async" | "overlap")``) every update is a solve on a process grid of P x
+Q ranks: ``mesh=`` (a :class:`repro_torch.launch.mesh.ProcessGrid`) or,
+without one, the memoized grid of the config's P x Q on the service's
+device.  As in the reference, every update partitions the window afresh
+on the host and opens a session, which hands every rank its block of the
+window: the window is not kept resident on the ranks between updates.
+With ``mesh=`` the live scorer runs on the same grid (its weight blocks
+resident on the ranks, ``serve/scoring.py``), and a score call runs
+between two commands of an update in flight rather than after it.
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.solver import get_solver, not_ported
+from ..core.solver import get_solver
 from ..core.util import resolve_device
 from ..obs import Registry, as_tracer
 from ..serve.scoring import LinearScorer
@@ -66,8 +75,9 @@ class OnlineConfig:
       loss: loss name (see ``repro_torch.core.losses``).
       solver: registry name; must support row gating (``d3ca``).
       engine / local_backend / block_format / staleness / compression /
-        topology: the usual solver knobs, threaded verbatim (only
-        ``engine="simulated"`` in this port).
+        topology: the usual solver knobs, threaded verbatim (``engine``:
+        ``simulated``, or a mesh engine ``shard_map | sync | async |
+        overlap``).
       solver_cfg: optional solver config (its ``outer_iters`` is
         overridden by ``passes`` for each update).
       passes: warm-started outer iterations per drained batch.
@@ -125,7 +135,10 @@ class OnlineSolverService:
       index_source: the solver's coordinate orders (see
         ``repro_torch.core.indices``); None draws them from a generator
         seeded from the solver config.
-      mesh: not ported; anything but None raises.
+      mesh: a :class:`repro_torch.launch.mesh.ProcessGrid` for the mesh
+        engines and the grid-sharded scorer; None runs the updates on the
+        memoized grid of P x Q ranks (a mesh engine) or on the grid engine
+        (``simulated``), and the scorer on one device.
     """
 
     def __init__(self, config: OnlineConfig, *, mesh=None, manager=None,
@@ -137,18 +150,15 @@ class OnlineSolverService:
             raise ValueError(
                 f"solver {config.solver!r} has no incremental row-gate "
                 "path; the online service needs one (use 'd3ca')")
-        if mesh is not None:
-            raise not_ported("mesh")
-        if config.engine != "simulated":
-            raise not_ported("engine", config.engine)
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.tracer = as_tracer(tracer)
         self.registry = registry if registry is not None else Registry()
         self.monitor = monitor
         self.clock = clock
         self.solver = solver_cls(
-            local_backend=config.local_backend,
+            engine=config.engine, local_backend=config.local_backend,
             block_format=config.block_format, staleness=config.staleness,
             compression=config.compression, topology=config.topology,
             device=self.device, index_source=index_source)
@@ -159,8 +169,8 @@ class OnlineSolverService:
         self.book = SnapshotBook(torch.zeros(config.m),
                                  torch.zeros(cap), manager=manager,
                                  clock=clock, device=self.device)
-        self.scorer = LinearScorer(torch.zeros(config.m), loss=config.loss,
-                                   device=self.device)
+        self.scorer = LinearScorer(torch.zeros(config.m), mesh,
+                                   loss=config.loss, device=self.device)
         self._labels = {"solver": config.solver, "engine": config.engine}
         self.last_result = None
 
@@ -215,7 +225,8 @@ class OnlineSolverService:
                 self.config.loss, self.store.X, self.store.y,
                 touched=touched, warm_start=(cur.w, cur.alpha),
                 P=self.config.P, Q=self.config.Q,
-                cfg=self.config.solver_cfg, passes=self.config.passes,
+                cfg=self.config.solver_cfg, mesh=self.mesh,
+                passes=self.config.passes,
                 tracer=self.tracer if self.tracer.enabled else None,
                 registry=self.registry, record_history=False)
             self._wait_for_device()

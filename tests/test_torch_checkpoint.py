@@ -107,7 +107,7 @@ def test_restore_rejects_shape_mismatch_and_refuses_shardings(tmp_path):
     with pytest.raises(ValueError):
         restore_tree(str(tmp_path / "ck"), {"x": torch.zeros(4)},
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="'Multi-device engines'"):
+    with pytest.raises(NotImplementedError, match="'LM side stack, training'"):
         restore_tree(str(tmp_path / "ck"), {"x": torch.zeros(3)},
                      shardings={"x": object()}, device="cpu")
     with pytest.raises(FileNotFoundError):

@@ -32,8 +32,9 @@ from repro_torch.fleet import (FleetProblem, FleetScheduler, FleetSolver,
 from repro_torch.launch import fleet as fleet_cli
 from repro_torch.launch import optimize
 from repro_torch.obs import HealthMonitor, Registry, Tracer, fleet_rules
-from test_torch_common import (ceil_div, d3ca_rows, radisa_streams,
-                               sfk_samples)
+from repro_torch.launch.mesh import close_grids
+from test_torch_common import (bounded, ceil_div, d3ca_rows,  # noqa: F401
+                               radisa_streams, sfk_samples)
 
 #: end-to-end iterates vs the reference, as the port's other solver tests
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -396,11 +397,12 @@ def test_fleet_knob_validation():
         FleetSolver(local_backend="triton", device="cpu")
     with pytest.raises(ValueError, match="block_format"):
         FleetSolver(block_format="csr", device="cpu")
-    # what is not ported yet fails by its ROADMAP item
+    # the synchronous mesh runs (tests/test_torch_mesh_fleet.py): "sync"
+    # names it, and a process grid is refused by the grid engine
     for engine in ("shard_map", "sync"):
-        with pytest.raises(NotImplementedError,
-                           match="'Multi-device engines'"):
-            FleetSolver(engine=engine, device="cpu")
+        assert FleetSolver(engine=engine, device="cpu").engine == "shard_map"
+    with pytest.raises(ValueError, match="mesh= needs engine='shard_map'"):
+        FleetSolver(mesh=object(), device="cpu")
     probs = make_problems(lams=(1.0,))
     with pytest.raises(ValueError, match="warm_starts"):
         FleetSolver(device="cpu").solve_batch(probs, P=P, Q=Q,
@@ -445,11 +447,24 @@ def test_fleet_cli_on_the_cpu(solver, block_format, capsys):
 
 #: the expectation of a refusal case whose flag is now ported: it runs
 PORTED = object()
+#: the same, for a flag of the mesh engine: it runs on a CPU process grid
+MESH_PORTED = object()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _close_grids():
+    """The mesh cases start the memoized 2 x 2 CPU grid; end it with the
+    module."""
+    yield
+    close_grids()
+
+
+@pytest.mark.usefixtures("bounded")
 @pytest.mark.parametrize("flags,named", [
-    (["--engine", "shard_map"], "'Multi-device engines'"),
-    (["--force-host-devices", "8"], "'Multi-device engines'"),
+    pytest.param(["--engine", "shard_map"], MESH_PORTED,
+                 id="flags0-'Multi-device engines'"),
+    pytest.param(["--force-host-devices", "8"], MESH_PORTED,
+                 id="flags1-'Multi-device engines'"),
     # the observability flags, once refused, run
     pytest.param(["--trace", "TRACE"], PORTED, id="flags2-'Observability'"),
     pytest.param(["--metrics"], PORTED, id="flags3-'Observability'"),
@@ -466,6 +481,8 @@ def test_fleet_cli_refuses_unported_flags_by_name(flags, named, capsys,
     it made."""
     if named is PORTED:
         return _check_observability_flag(flags, tmp_path, capsys)
+    if named is MESH_PORTED:
+        return _check_mesh_flag(flags)
     with pytest.raises(SystemExit) as exc:
         fleet_cli.main([*flags, *FLEET_SMALL, "--device", "cpu"])
     assert exc.value.code == 2
@@ -589,6 +606,24 @@ def test_fleet_observability_hooks_keep_the_results():
     assert torch.equal(res[probs[0].tenant_id].w, plain[0].w)
     assert mon.healthz(evaluate=False)["rules"]["fleet_starvation"][
         "status"] == "warn"
+
+
+def _check_mesh_flag(flags):
+    """A flag of the reference's fleet CLI for the mesh runs the fleet:
+    ``--engine shard_map`` on the 2 x 2 process grid, every tenant's
+    objective within 1e-6 (relative) of the grid engine's (gloo's
+    reductions against a blocked sum); ``--force-host-devices 8`` with the
+    grid engine (8 >= P * Q CPU ranks), the same results bitwise."""
+    argv = [*FLEET_SMALL, "--device", "cpu"]
+    plain = fleet_cli.main(argv)
+    got = fleet_cli.main([*flags, *argv])
+    want = [r["objective"] for r in plain["results"]]
+    have = [r["objective"] for r in got["results"]]
+    if flags[0] == "--engine":
+        assert got["engine"] == "shard_map" and got["buckets"] == 1
+        np.testing.assert_allclose(have, want, rtol=1e-6)
+    else:
+        assert got["engine"] == "simulated" and have == want
 
 
 def _check_observability_flag(flags, tmp_path, capsys):

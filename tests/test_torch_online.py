@@ -31,8 +31,10 @@ from repro_torch.obs import (HealthMonitor, Registry, Tracer, load_bundle,
 from repro_torch.online import (AdmissionQueue, GridStore, OnlineConfig,
                                 OnlineSolverService, QueueFullError,
                                 SnapshotBook)
+from repro_torch.launch.mesh import close_grids, process_grid
 from repro_torch.serve import LinearScorer
-from test_torch_common import d3ca_source
+from test_torch_common import (MESH_GRID_TIMEOUT, bounded,  # noqa: F401
+                               d3ca_source)
 
 LAM = 1e-2
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -419,31 +421,76 @@ def test_service_recover_after_restart(tmp_path):
 
 #: the expectation of a refusal case whose knob is now ported: it runs
 PORTED = object()
+#: the same, for a knob or flag of the mesh engines: it runs on a CPU
+#: process grid
+MESH_PORTED = object()
 
 
+@pytest.mark.usefixtures("bounded")
 @pytest.mark.parametrize("kw,named", [
-    (dict(mesh=object()), "mesh"),
+    # the mesh knobs, once refused, run on a CPU process grid
+    pytest.param(dict(mesh=True), MESH_PORTED, id="kw0-mesh"),
     # the tracer and the monitor, once refused, run
     pytest.param(dict(tracer=True), PORTED, id="kw1-tracer"),
     pytest.param(dict(monitor=True), PORTED, id="kw2-monitor"),
-    (dict(engine="shard_map"), "engine='shard_map'"),
-    # staleness and the comm policies are threaded to the solver; beside
-    # a mesh engine the engine is refused by name
-    pytest.param(dict(staleness=2, engine="async"), "engine='async'",
+    pytest.param(dict(engine="shard_map"), MESH_PORTED,
+                 id="kw3-engine='shard_map'"),
+    # staleness and the comm policies are threaded to the solver on the
+    # mesh engines too
+    pytest.param(dict(staleness=2, engine="async"), MESH_PORTED,
                  id="kw4-staleness=2"),
-    pytest.param(dict(compression="int8", engine="shard_map"),
-                 "engine='shard_map'", id="kw5-compression='int8'"),
-    pytest.param(dict(topology="pods=2", engine="overlap"),
-                 "engine='overlap'", id="kw6-topology='pods=2'")])
+    pytest.param(dict(compression="int8", engine="shard_map"), MESH_PORTED,
+                 id="kw5-compression='int8'"),
+    pytest.param(dict(topology="pods=2", engine="overlap"), MESH_PORTED,
+                 id="kw6-topology='pods=2'")])
 def test_service_refuses_unported_knobs_by_name(kw, named):
-    """A knob of a layer that is not ported raises naming it; a knob
-    whose layer is now ported (``PORTED``) runs."""
+    """A knob whose layer is now ported runs: the tracer and the monitor
+    (``PORTED``) and the mesh knobs (``MESH_PORTED``)."""
     if named is PORTED:
         return _check_tracer_or_monitor(next(iter(kw)))
-    svc_kw = {k: kw.pop(k) for k in ("mesh",) if k in kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        OnlineSolverService(OnlineConfig(m=4, **kw), device="cpu", **svc_kw)
-    assert named in str(exc.value)
+    return _check_mesh_knob(kw)
+
+
+def _check_mesh_knob(kw):
+    """The service under a mesh knob runs three rounds on the 2 x 2 CPU
+    process grid (``mesh=True``: a grid handed in, so that the scorer
+    runs on it too; otherwise the memoized grid of the updates), held
+    against the same service on the grid engine: every published w within
+    1e-5 (gloo's reductions against a blocked sum; under int8 within two
+    int8 quanta of the largest entry).  Under async tau = 2 one pass an
+    update applies the first step's own reductions, so the grid engine's
+    synchronous service is its counterpart."""
+    kw = dict(kw)
+    svc_kw = {}
+    if kw.pop("mesh", False):
+        svc_kw["mesh"] = process_grid(2, 2, device="cpu",
+                                      timeout=MESH_GRID_TIMEOUT)
+        kw["engine"] = "shard_map"
+    flat_kw = {k: v for k, v in kw.items()
+               if k not in ("engine", "staleness")}
+    runs = []
+    for cfg_kw, extra in ((flat_kw, {}), (kw, svc_kw)):
+        cfg = OnlineConfig(m=8, capacity=24, P=2, Q=2,
+                           solver_cfg=D3CAConfig(lam=0.1), **cfg_kw)
+        svc = OnlineSolverService(cfg, device="cpu", **extra)
+        rng = np.random.default_rng(0)
+        ws, margins = [], []
+        for _ in range(3):
+            svc.submit(*_stream(rng, 6, 8))
+            svc.run_pending()
+            ws.append(svc.book.current().w)
+            margins.append(svc.score(_stream(rng, 4, 8)[0]))
+        runs.append((ws, margins, svc))
+    (flat_w, flat_m, _), (mesh_w, mesh_m, svc) = runs
+    assert svc.solver.engine == kw["engine"]
+    assert (svc.scorer.mesh is not None) == ("mesh" in svc_kw)
+    big = max(float(w.abs().max()) for w in flat_w)
+    atol = 2 * big / 127 if "compression" in kw else 1e-5
+    for a, b in zip(mesh_w, flat_w):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(np.concatenate(mesh_m),
+                               np.concatenate(flat_m), rtol=1e-5,
+                               atol=10 * atol)
 
 
 def _check_tracer_or_monitor(knob):
@@ -547,16 +594,27 @@ def test_online_cli_on_the_cpu_persists_and_recovers(tmp_path, capsys):
     assert CheckpointManager(ck).all_steps() == [4, 5, 6]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _close_grids():
+    """The mesh cases start the memoized 2 x 2 CPU grid; end it with the
+    module."""
+    yield
+    close_grids()
+
+
+@pytest.mark.usefixtures("bounded")
 @pytest.mark.parametrize("flags,named", [
-    (["--engine", "shard_map"], "'Multi-device engines'"),
-    (["--force-host-devices", "4"], "'Multi-device engines'"),
+    pytest.param(["--engine", "shard_map"], MESH_PORTED,
+                 id="flags0-'Multi-device engines'"),
+    pytest.param(["--force-host-devices", "4"], MESH_PORTED,
+                 id="flags1-'Multi-device engines'"),
     pytest.param(["--staleness", "2"],
                  "--staleness 2 only works with --engine async",
                  id="flags2-'Comm policies"),
     pytest.param(["--compression", "int8", "--engine", "async"],
-                 "'Multi-device engines'", id="flags3-'Comm policies"),
+                 MESH_PORTED, id="flags3-'Comm policies"),
     pytest.param(["--topology", "pods=2", "--engine", "shard_map"],
-                 "'Multi-device engines'", id="flags4-'Comm policies"),
+                 MESH_PORTED, id="flags4-'Comm policies"),
     # the observability flags, once refused, run
     pytest.param(["--trace", "TRACE"], PORTED, id="flags5-'Observability'"),
     pytest.param(["--metrics"], PORTED, id="flags6-'Observability'"),
@@ -576,10 +634,38 @@ def test_online_cli_refuses_unported_flags_by_name(flags, named, capsys,
     it made."""
     if named is PORTED:
         return _check_observability_flag(flags, tmp_path, capsys)
+    if named is MESH_PORTED:
+        return _check_mesh_flag(flags)
     with pytest.raises(SystemExit) as exc:
         online_cli.main([*flags, *SMALL])
     assert exc.value.code == 2
     assert named in capsys.readouterr().err
+
+
+def _check_mesh_flag(flags):
+    """A flag of the reference's online CLI for the mesh runs the stream:
+    ``--engine E`` (with the knobs beside it) every update on the 2 x 2
+    process grid and the scorer on it, against the same flags on the grid
+    engine -- the objective within 1e-5 (relative; gloo's reductions
+    against a blocked sum), and under int8 within 1e-3 (a payload a
+    rounding away from a quantum's edge may round the other way);
+    ``--force-host-devices 4`` with the grid engine, the same run
+    bitwise."""
+    plain_flags = [f for i, f in enumerate(flags)
+                   if f != "--engine" and (i == 0 or flags[i - 1]
+                                           != "--engine")]
+    plain = online_cli.main([*plain_flags, *SMALL, "--rounds", "3"])
+    got = online_cli.main([*flags, *SMALL, "--rounds", "3"])
+    assert got["version"] == plain["version"] == 3
+    if "--engine" not in flags:
+        assert got["engine"] == "simulated"
+        assert got["objective"] == plain["objective"]
+        return
+    assert got["engine"] == flags[flags.index("--engine") + 1]
+    rtol = 1e-3 if "int8" in flags else 1e-5
+    np.testing.assert_allclose(got["objective"], plain["objective"],
+                               rtol=rtol)
+    assert got["rows_scored"] == plain["rows_scored"] == 3 * 32
 
 
 def _check_observability_flag(flags, tmp_path, capsys):
