@@ -32,7 +32,11 @@ JSON; any failure is an exception and a non-zero exit:
                       (``linattn_draws`` line), and each SDCA kernel on
                       every route with a row gate as its mask (one row
                       partition on, 5 % of rows on, all off -- all off
-                      must leave dalpha 0 and w bitwise w0) -- the first
+                      must leave dalpha 0 and w bitwise w0), and B5 and
+                      B6 as training calls them (their autograd Functions
+                      at the training shapes: forward against the plain
+                      version, gradients bitwise the plain version's) --
+                      the first
                       call to make after touching a ``.cu`` file
                       (``--phases kernels``)
   d3ca_full           ``repro_torch.launch.optimize.main`` -- D3CA, dense
@@ -48,6 +52,25 @@ JSON; any failure is an exception and a non-zero exit:
                       recurrent mixer and the static loop runs 8 prompts of
                       512 tokens; every prefill time mix is the linear
                       attention kernel
+  train_qwen3_full    Qwen3-1.7B training (bf16 compute, random weights
+                      from seed 0, batch 8 x 128 tokens in 8 microbatches,
+                      remat "nothing"): 3 steps of the train step the CLI
+                      builds at full width and depth (28 layers: the
+                      four float32 copies on the card), then
+                      ``repro_torch.launch.train.main`` at 4 layers (a
+                      checkpoint of all 28 would outgrow the machine's
+                      disk budget): 2 steps, a checkpoint, --resume for 2
+                      more; every layer of every microbatch launches the
+                      flash attention kernel twice (forward and the
+                      checkpoint's recompute) and differentiates its
+                      plain version once.  Before the counted run the
+                      first step is taken through the kernels and again
+                      with the plain versions tapped in: loss, gradient
+                      norm and every leaf's gradient compared, none zero
+  train_rwkv6_full    the same with RWKV6-3B (32 layers): the linear
+                      attention kernel in every time mix; its bf16
+                      gradients are compared, and held in float32 at 4
+                      layers (see TRAIN_BF16_GRADS_HELD)
   fleet_dense_full    ``repro_torch.launch.fleet`` (``main``'s ``parse_args``
                       and ``run``) -- 4 tenants of the dense instance
                       (seeds 0-3, lambda 1e-2 * 0.5^(t mod 3)) with D3CA,
@@ -128,7 +151,8 @@ JSON; any failure is an exception and a non-zero exit:
                       distribution, update and scoring times
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       Qwen3 / RWKV6: port on the card (kernels) vs port on
-                      the CPU, in float32, and a reduced Qwen3 prefill in
+                      the CPU, in float32 (prefill, decode and one train
+                      step), and a reduced Qwen3 prefill in
                       bfloat16 at head dim 64 (the tensor-core route);
                       D3CA under None / identity (bitwise) and int8
   timing              CUDA-event times per kernel (beside its plain version,
@@ -152,7 +176,9 @@ Each full-width phase is a main path: every launch counter is set to 0
 just before it and read just after, and it must have launched exactly the
 kernels it names as often as it says: the solvers once per outer
 iteration (plus serial-SDCA epochs for f* where the dense phases compute
-it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times.  All
+it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times,
+training twice per layer and microbatch (its backward calls through the
+plain versions are counted apart and must be half that).  All
 six wrappers have two routes and count launches per route too, and every
 main-path launch must take the new route: flash attention and RWKV6
 linear attention the tensor-core route (``tc``), the dense SDCA epoch
@@ -185,6 +211,7 @@ import importlib
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -245,8 +272,18 @@ from repro_torch.launch import fleet as fleet_cli  # noqa: E402
 from repro_torch.launch import online as online_cli  # noqa: E402
 from repro_torch.launch import optimize  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.steps import (_largest_divisor_leq,  # noqa: E402
+                                      clear_grads, loss_and_grads,
+                                      make_train_step)
 from repro_torch.launch.mesh import close_grids, process_grid  # noqa: E402
 from repro_torch.models import Transformer, reduced  # noqa: E402
+from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models import rwkv as lm_rwkv  # noqa: E402
+from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
+                               global_norm, warmup_cosine)
+from repro_torch.core.util import tree_leaves as tree_leaves_sorted  # noqa: E402
+from repro_torch.data import synthetic_token_batch  # noqa: E402
 from repro_torch.obs import (HealthMonitor, ObsServer,  # noqa: E402
                              Registry, Tracer, load_bundle,
                              parse_prometheus_text)
@@ -259,7 +296,8 @@ from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
 
 MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
-              "serve_rwkv6_full", "fleet_dense_full", "fleet_sparse_full",
+              "serve_rwkv6_full", "train_qwen3_full", "train_rwkv6_full",
+              "fleet_dense_full", "fleet_sparse_full",
               "admm_full", "online_full", "online_sparse_full", "comm_full",
               "obs_full", "mesh_full", "fleet_mesh_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
@@ -386,6 +424,59 @@ LM_CARD_CPU_TOL = 1e-4
 # the same in bfloat16 (prefill logits relative to the largest logit), the
 # bf16 tolerance of tests/test_torch_lm_model.py
 LM_CARD_CPU_BF16_TOL = 5e-2
+
+# LM training (train_*_full), at the reference CLI's defaults -- batch 8 of
+# 128 tokens, the config's train_accum 8 (8 microbatches of 1),
+# remat_policy "nothing", bf16 compute: the training CLI's ``main`` for
+# TRAIN_FULL_STEPS steps and a checkpoint, then --resume for
+# TRAIN_RESUME_STEPS.  A checkpoint (parameters, mu, nu in float32) of
+# Qwen3-1.7B is 24.4 GB and of RWKV6-3B 36.8 GB, and the resume's save
+# is written before the first is deleted; they go to a folder in
+# TRAIN_CKPT_ROOT, a tmpfs (the machine that runs this script takes at
+# most 45 GiB of disk writes a run), so they live in host memory: Qwen3's
+# two (48.8 GB) fit beside the process, RWKV6's (73.6 GB) would not.  So
+# RWKV6's CLI runs at full width and TRAIN_CLI_DEPTH layers, for
+# TRAIN_STEPS steps and the resume, after TRAIN_FULL_STEPS steps of the
+# same ``make_train_step`` at full width and depth
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_FULL_STEPS = 3
+TRAIN_STEPS, TRAIN_RESUME_STEPS = 2, 2
+TRAIN_CLI_DEPTH = 4
+TRAIN_CLI_FULL_DEPTH = {"train_qwen3_full": True, "train_rwkv6_full": False}
+TRAIN_CKPT_ROOT = "/dev/shm"
+#: (arch, its kernel, the Function's main-path inputs): per layer and
+#: microbatch B5 gets q (1, 128, 16, 128) / kv (1, 128, 8, 128) bf16, B6
+#: r, k, v, logw (40, 128, 64) float32 and u (40, 64)
+TRAIN_PATHS = {"train_qwen3_full": ("qwen3-1.7b", "flash_attention"),
+               "train_rwkv6_full": ("rwkv6-3b", "rwkv_linattn")}
+#: the first step on the card through the kernels against the same step
+#: with the plain versions tapped in, in bfloat16 compute: the loss and the
+#: gradient norm relative to their value, each leaf's gradient relative to
+#: its largest entry (the bf16 tolerance of the LM card-vs-CPU check)
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 5e-2
+#: where the bf16 gradients are held to TRAIN_GRAD_TOL, and where they
+#: cannot be: RWKV6-3B at full depth and random init amplifies any
+#: rounding-level change of its forward into O(1) changes of its bf16
+#: gradients (bf16 roundings flip and the gradient grows through the 32
+#: layers), so two forwards that differ only in rounding -- the kernel and
+#: the plain recurrence, or the plain recurrence in float32 and in float64
+#: (the control) -- give bf16 gradients that differ as much as they are
+#: large; in float32 at full depth the same holds, less so (PERF.md §6
+#: keeps those readings).  Its bf16 loss is held to TRAIN_LOSS_TOL, and
+#: its gradients in float32 compute at full width and the depth
+#: TRAIN_F32_DEPTH (the first layers of the same weights), where a
+#: rounding-level change of the forward moves them by about 4e-4 (the
+#: control, printed beside it), on the first microbatch, to
+#: TRAIN_GRAD_TOL_F32 -- far below the O(1) error of a missing gradient.
+TRAIN_BF16_GRADS_HELD = {"train_qwen3_full": True, "train_rwkv6_full": False}
+TRAIN_F32_DEPTH = 4
+TRAIN_GRAD_TOL_F32 = 1e-2
+#: peak device memory of a training phase over the four float32 copies of
+#: the parameters (parameters, gradients, AdamW's mu and nu), at most:
+#: the backward's per-leaf temporaries and a microbatch's activations on
+#: top (PERF.md's prediction: 1.05-1.2)
+TRAIN_PEAK_FACTOR = 1.3
 
 KERNEL_META = {
     "sdca_epoch": {
@@ -1580,6 +1671,7 @@ def phase_kernels(dev, results):
     tenant_kernel_checks(rng, dev, checks)
     gated = gated_sweep(rng, dev, checks)
     lm_kernel_checks(rng, dev, checks, main_err)
+    train_function_checks(rng, dev, checks)
 
     summary = []
     for name in KERNEL_META:
@@ -1773,6 +1865,50 @@ def lm_kernel_checks(rng, dev, checks, main_err):
     torch.cuda.synchronize()
 
 
+def train_function_checks(rng, dev, checks):
+    """B5 and B6 as training calls them, at the training main-path shapes:
+    the autograd Function's forward (the kernel, on its main route)
+    against the plain version, and its gradients against the plain
+    version's own autograd gradients for the same output gradient --
+    bitwise, since the Function's backward is autograd through that very
+    plain version, recomputed from the saved inputs."""
+    for kernel, plain in (("flash_attention", plain_flash),
+                          ("rwkv_linattn", plain_linattn)):
+        fn = WRAPPERS[kernel]
+        ins = train_function_inputs(rng, kernel, dev)
+        by_route = dict(fn.launches_by_route)
+        out = fn(*ins)
+        out = out if torch.is_tensor(out) else out[0]
+        if fn.launches_by_route[MAIN_ROUTES[kernel]] != \
+                by_route[MAIN_ROUTES[kernel]] + 1:
+            raise AssertionError(f"{kernel}: the training call left the "
+                                 f"{MAIN_ROUTES[kernel]!r} route")
+        want = plain(*ins)
+        want = want if torch.is_tensor(want) else want[0]
+        if out.grad_fn is None or "Backward" not in type(out.grad_fn).__name__:
+            raise AssertionError(f"{kernel}: no autograd Function in the "
+                                 f"graph ({out.grad_fn})")
+        tol = (FLASH_TOL[torch.bfloat16] if kernel == "flash_attention"
+               else LINATTN_TOL)
+        err = compare(f"{kernel} training forward {tuple(out.shape)}",
+                      [out.detach().float()], [want.detach().float()], tol)
+        dout = torch.randn_like(out)
+        before = fn.plain_backwards
+        got = torch.autograd.grad(out, ins, dout)
+        ref = torch.autograd.grad(want, ins, dout)
+        if fn.plain_backwards != before + 1:
+            raise AssertionError(f"{kernel}: backward not counted")
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if not torch.equal(g, r):
+                raise AssertionError(
+                    f"{kernel}: gradient {i} of the Function differs from "
+                    f"the plain version's by "
+                    f"{float((g.float() - r.float()).abs().max()):.3e}")
+        checks.append((kernel, err))
+        emit("train_function", kernel=kernel, shape=list(out.shape),
+             forward_max_abs_err=err, tol=tol, grads_bitwise=True)
+
+
 def linattn_main_check(rng, dev):
     """B6 at the main-path shape, at LINATTN_DRAWS input draws: the kernel
     and the plain recurrence in float32 each against the plain recurrence
@@ -1848,6 +1984,8 @@ def route_counts(name):
 def reset_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "plain_backwards"):
+            fn.plain_backwards = 0
         for by in ("launches_by_route", "launches_by_cluster"):
             for r in getattr(fn, by, {}):
                 getattr(fn, by)[r] = 0
@@ -2843,6 +2981,305 @@ def phase_serve_rwkv6_full():
          peak_mem_bytes=torch.cuda.max_memory_allocated(),
          first_tokens=[int(t) for t in outputs[0][:8]])
     return {"rwkv_linattn": 32}
+
+
+# ---------------------------------------------------------------------------
+# train_*_full: LM training at full width and depth through the train CLI
+# ---------------------------------------------------------------------------
+
+def plain_flash(q, k, v, *, causal=True, window=None, scale=None):
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+
+
+def plain_linattn(r, k, v, logw, u, *, chunk=64):
+    out, state = rwkv_linattn_ref(r, k, v, logw, u)
+    return out.to(r.dtype), state
+
+
+def leaf_paths(tree, prefix=""):
+    """Leaf paths in the sorted order of ``tree_leaves_sorted``."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def train_function_inputs(rng, kernel, dev, requires_grad=True):
+    """One training call's inputs of B5 or B6 at the main-path shape."""
+    if kernel == "flash_attention":
+        ins = flash_inputs(rng, 1, TRAIN_SEQ, 16, 8, 128, torch.bfloat16,
+                           dev)
+    else:
+        ins = linattn_inputs(rng, 40, TRAIN_SEQ, 64, dev, heads=40)
+    return [t.requires_grad_(requires_grad) for t in ins]
+
+
+def function_backward_ms(rng, kernel, dev):
+    """CUDA-event ms of one forward of the kernel's autograd Function
+    (the kernel) and of one backward (autograd through the plain
+    version) at the training main-path shape."""
+    fn = WRAPPERS[kernel]
+    ins = train_function_inputs(rng, kernel, dev)
+    out = fn(*ins)
+    out = out if torch.is_tensor(out) else out[0]
+    dout = torch.randn_like(out)
+    fwd = cuda_ms(lambda: fn(*ins), reps=10)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, ins, dout,
+                                              retain_graph=True), reps=5)
+    return {"forward_ms": fwd, "backward_ms": bwd}
+
+
+def f64_linattn(r, k, v, logw, u, *, chunk=64):
+    """The plain recurrence in float64, cast back: a forward that differs
+    from ``plain_linattn`` by rounding alone (the conditioning control)."""
+    out, state = rwkv_linattn_ref(r, k, v, logw, u, dtype=torch.float64)
+    return out.to(r.dtype), state.float()
+
+
+def grad_diffs(grads, ref):
+    """Each leaf's largest gradient difference relative to the largest
+    entry of ``ref``'s leaf, and the worst (relative error, path)."""
+    out, worst = {}, (-1.0, None)
+    for path, g, r in zip(leaf_paths(grads), tree_leaves_sorted(grads),
+                          tree_leaves_sorted(ref)):
+        rel = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        out[path] = rel
+        worst = max(worst, (rel, path))
+    return out, worst
+
+
+def step_compare(model, params, batch, tap_a, tap_b):
+    """One step's (loss, gradients) with the model's B5 / B6 calls taken by
+    ``tap_a`` and by ``tap_b`` (None: the kernels), compared."""
+    res = []
+    for tap in (tap_a, tap_b):
+        with contextlib.ExitStack() as stack:
+            if tap is not None:
+                stack.enter_context(patched(lm_attention, "flash_attention",
+                                            tap[0]))
+                stack.enter_context(patched(lm_rwkv, "rwkv_linattn",
+                                            tap[1]))
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(model, params, batch)
+            gn = float(global_norm(grads))
+            torch.cuda.synchronize()
+            res.append((float(loss), grads, gn, time.perf_counter() - t0))
+            clear_grads(params)
+    (la, ga, na, sa), (lb, gb, nb, sb) = res
+    leaves_out, worst = grad_diffs(ga, gb)
+    return ga, {"loss": la, "loss_ref": lb,
+                "loss_rel_err": abs(la - lb) / abs(lb), "grad_norm": na,
+                "grad_norm_ref": nb, "grad_norm_rel_err": abs(na - nb) / nb,
+                "worst_leaf": worst[1], "worst_leaf_rel_err": worst[0],
+                "leaf_rel_err": leaves_out, "step_s": [sa, sb]}
+
+
+PLAIN = (plain_flash, plain_linattn)
+
+
+def train_setup(name):
+    """Before the counted window: the main path's first step (init(0), the
+    pipeline's batch 0, bf16) on the card through the kernels, and again
+    with the plain versions tapped in -- loss, gradient norm and every
+    leaf's gradient compared, no leaf's gradient zero or not finite on
+    the kernels' path (RWKV6: the loss, and its gradients in float32 at
+    TRAIN_F32_DEPTH layers on the first microbatch, beside the rounding
+    control; see TRAIN_BF16_GRADS_HELD).  Then one Function call's forward and
+    backward timed at the main-path shape."""
+    arch, kernel = TRAIN_PATHS[name]
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    model = Transformer(cfg, device=dev)
+    params = model.init(0)
+    n_params = sum(p.numel() for p in tree_leaves_sorted(params))
+    batch = synthetic_token_batch(0, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                  vocab=cfg.vocab)
+    grads, first = step_compare(model, params, batch, None, PLAIN)
+    for path, g in zip(leaf_paths(grads), tree_leaves_sorted(grads)):
+        if not torch.isfinite(g).all() or float(g.abs().max()) == 0.0:
+            raise AssertionError(f"{name}: the gradient of {path} is zero "
+                                 "or not finite on the kernels' path")
+    del grads
+    first.update(leaves=len(first["leaf_rel_err"]), dtype=cfg.compute_dtype,
+                 tol={"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL})
+    bad = first["loss_rel_err"] > TRAIN_LOSS_TOL
+    if TRAIN_BF16_GRADS_HELD[name]:
+        bad |= (first["grad_norm_rel_err"] > TRAIN_LOSS_TOL
+                or first["worst_leaf_rel_err"] > TRAIN_GRAD_TOL)
+    else:
+        # the first microbatch in float32 at TRAIN_F32_DEPTH layers: the
+        # kernel against the plain recurrence (held), and the plain
+        # recurrence in float32 against float64 (the rounding control)
+        mb = {k: v[:1] for k, v in batch.items()}
+        cut = Transformer(dataclasses.replace(
+            cfg, compute_dtype="float32", n_layers=TRAIN_F32_DEPTH),
+            device=dev)
+        cut_params = dict(params, periods=[
+            tree_map(lambda a: a[:TRAIN_F32_DEPTH].clone(), t)
+            for t in params["periods"]])
+        for key, a, b in (
+                (f"float32_depth{TRAIN_F32_DEPTH}", None, PLAIN),
+                (f"float32_depth{TRAIN_F32_DEPTH}_control", PLAIN,
+                 (plain_flash, f64_linattn))):
+            _, first[key + "_first_microbatch"] = step_compare(
+                cut, cut_params, mb, a, b)
+        held = first[f"float32_depth{TRAIN_F32_DEPTH}_first_microbatch"]
+        held["tol"] = TRAIN_GRAD_TOL_F32
+        bad |= held["worst_leaf_rel_err"] > TRAIN_GRAD_TOL_F32
+        del cut_params
+    # where a microbatch's time goes: its forward, recompute and backward
+    # (no optimizer), CUDA-event ms beside the device's busy time
+    mb = {k: v[:1] for k, v in batch.items()}
+
+    def microbatch():
+        loss_and_grads(model, params, mb)
+        clear_grads(params)
+    mb_ms = cuda_ms(microbatch, reps=3)
+    first["microbatch"] = {"ms": mb_ms,
+                           **with_idle(mb_ms, device_busy(microbatch, 2))}
+    emit(f"{name}_first_step", **first)
+    if bad:
+        raise AssertionError(f"{name}: first step through the kernels and "
+                             "through the plain versions disagree (see "
+                             f"the {name}_first_step line)")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing = function_backward_ms(np.random.default_rng(12), kernel, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"first": first, "n_params": n_params, "function": timing}
+
+
+def phase_train_full(name, setup):
+    """LM training on the card through the training CLI's ``main``:
+    TRAIN_FULL_STEPS steps and a checkpoint, then ``--resume`` for
+    TRAIN_RESUME_STEPS more -- at full width and depth for Qwen3; for
+    RWKV6 TRAIN_FULL_STEPS steps of the train step the CLI builds
+    (``make_train_step``, AdamW at the CLI's schedule) at full width and
+    depth, then the CLI at TRAIN_CLI_DEPTH layers (TRAIN_STEPS steps, the
+    resume; see TRAIN_CKPT_ROOT).  The first full-depth step is the one
+    the set-up held against the plain versions.  Every layer of every
+    microbatch launches the kernel twice (the forward and the checkpoint's
+    recompute, "nothing" remat) and runs its backward once through the
+    plain version."""
+    arch, kernel = TRAIN_PATHS[name]
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    acc = _largest_divisor_leq(TRAIN_BATCH, cfg.train_accum)
+    cli_full = TRAIN_CLI_FULL_DEPTH[name]
+
+    full = []
+    if not cli_full:
+        # full width and depth: the four float32 copies live on the card
+        model = Transformer(cfg, device=dev)
+        params = model.init(0)
+        opt = adamw_init(params)
+        train_step = make_train_step(model, AdamWConfig(lr=warmup_cosine(
+            3e-3, 20, TRAIN_FULL_STEPS)))
+        for s in range(TRAIN_FULL_STEPS):
+            batch = synthetic_token_batch(s, batch=TRAIN_BATCH,
+                                          seq=TRAIN_SEQ, vocab=cfg.vocab)
+            t0 = time.perf_counter()
+            params, opt, m = train_step(params, opt, batch)
+            full.append({"step": s, "loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "time_s": time.perf_counter() - t0})
+        del model, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the CLI: steps, a checkpoint, --resume
+    cli_layers = cfg.n_layers if cli_full else TRAIN_CLI_DEPTH
+    first_steps = TRAIN_FULL_STEPS if cli_full else TRAIN_STEPS
+
+    def cli_config(arch_name):
+        return dataclasses.replace(get_config(arch_name), n_layers=cli_layers)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=TRAIN_CKPT_ROOT)
+    argv = ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--ckpt-dir", ckpt, "--ckpt-every", "1000"]
+    try:
+        walls = []
+        with contextlib.redirect_stdout(io.StringIO()), \
+                patched(train_cli, "get_config", cli_config):
+            for extra in (["--steps", str(first_steps)],
+                          ["--steps", str(TRAIN_RESUME_STEPS), "--resume"]):
+                t0 = time.perf_counter()
+                hist = train_cli.main(argv + extra)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0, hist))
+                gc.collect()
+                torch.cuda.empty_cache()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(b, f))
+                         for b, _, fs in os.walk(ckpt) for f in fs)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    (wall1, h1), (wall2, h2) = walls
+    if cli_full:
+        full = h1
+    steps = [h["step"] for h in h1 + h2]
+    if steps != list(range(first_steps + TRAIN_RESUME_STEPS)):
+        raise AssertionError(f"{name}: CLI steps {steps}; the resume must "
+                             f"continue at {first_steps}")
+    for h in full + h1 + h2:
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            raise AssertionError(f"{name}: step {h['step']}: {h}")
+    first = setup["first"]
+    if abs(full[0]["loss"] - first["loss"]) > 1e-5 * first["loss"] or \
+            abs(full[0]["grad_norm"] - first["grad_norm"]) > \
+            1e-5 * first["grad_norm"]:
+        raise AssertionError(f"{name}: the first step {full[0]} is not the "
+                             f"checked one ({first['loss']}, "
+                             f"{first['grad_norm']})")
+
+    launches = acc * 2 * (cfg.n_layers * TRAIN_FULL_STEPS * (not cli_full)
+                          + cli_layers * (first_steps + TRAIN_RESUME_STEPS))
+    backwards = WRAPPERS[kernel].plain_backwards
+    if backwards != launches // 2:
+        raise AssertionError(f"{name}: {backwards} plain backward calls, "
+                             f"expected {launches // 2}")
+    reckoned = 4 * 4 * setup["n_params"]
+    if not reckoned <= peak <= TRAIN_PEAK_FACTOR * reckoned:
+        raise AssertionError(f"{name}: peak {peak} B against the four "
+                             f"float32 copies' {reckoned} B")
+    step_s = statistics.median(h["time_s"] for h in full[1:])
+    fn = setup["function"]
+    emit(name, arch=arch, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         microbatches=acc, remat=cfg.remat_policy, layers=cfg.n_layers,
+         n_params=setup["n_params"], step_ms=1e3 * step_s,
+         step_ms_each=[1e3 * h["time_s"] for h in full],
+         tokens_per_sec=TRAIN_BATCH * TRAIN_SEQ / step_s,
+         losses=[h["loss"] for h in full],
+         grad_norms=[h["grad_norm"] for h in full],
+         peak_mem_bytes=peak, reckoned_bytes=reckoned,
+         peak_over_reckoned=peak / reckoned, launches=launches,
+         plain_backwards=backwards, function=fn,
+         plain_backward_share=fn["backward_ms"] * cfg.n_layers * acc
+         / (1e3 * step_s),
+         kernel_forward_share=fn["forward_ms"] * 2 * cfg.n_layers * acc
+         / (1e3 * step_s),
+         cli={"layers": cli_layers, "steps": steps,
+              "losses": [h["loss"] for h in h1 + h2],
+              "step_ms": [1e3 * h["time_s"] for h in h1 + h2],
+              "wall_s": [wall1, wall2],
+              # the walls outside the steps: build, init, restore, save
+              "outside_steps_s": [wall1 - sum(h["time_s"] for h in h1),
+                                  wall2 - sum(h["time_s"] for h in h2)],
+              "ckpt_bytes": ckpt_bytes})
+    return {kernel: launches}
+
+
+def phase_train_qwen3_full(setup):
+    return phase_train_full("train_qwen3_full", setup)
+
+
+def phase_train_rwkv6_full(setup):
+    return phase_train_full("train_rwkv6_full", setup)
 
 
 # ---------------------------------------------------------------------------
@@ -4121,7 +4558,9 @@ SDCA_SHAPE_LAUNCHES = {
 
 #: what a main path is held against that must be made before its counted
 #: window (the fleets' solo solves), handed to its phase
-PHASE_SETUP = {"fleet_dense_full": lambda: fleet_solos(False),
+PHASE_SETUP = {"train_qwen3_full": lambda: train_setup("train_qwen3_full"),
+               "train_rwkv6_full": lambda: train_setup("train_rwkv6_full"),
+               "fleet_dense_full": lambda: fleet_solos(False),
                "fleet_sparse_full": lambda: fleet_solos(True),
                "obs_full": obs_setup, "mesh_full": mesh_setup,
                "fleet_mesh_full": fleet_mesh_setup}
@@ -4236,7 +4675,41 @@ def phase_cpu_vs_card():
          comm_tol=COMM_CARD_CPU_TOL, lm=lm_card_vs_cpu(torch.device("cuda")),
          lm_tol=LM_CARD_CPU_TOL,
          lm_bf16=lm_card_vs_cpu_bf16(torch.device("cuda")),
-         lm_bf16_tol=LM_CARD_CPU_BF16_TOL)
+         lm_bf16_tol=LM_CARD_CPU_BF16_TOL,
+         train=train_card_vs_cpu(torch.device("cuda")),
+         train_tol=LM_CARD_CPU_TOL)
+
+
+def train_card_vs_cpu(dev):
+    """Reduced Qwen3 and RWKV6, float32 compute, the same weights and batch
+    on both sides: one train step (batch 4 of 32 tokens, 4 microbatches,
+    AdamW) on the card through the kernels (their CUDA-core routes at head
+    dim 16) and on the CPU through the plain versions: loss, gradient norm
+    and every parameter after the step, relative to their largest entry."""
+    out = {}
+    for arch in ("qwen3-1.7b", "rwkv6-3b"):
+        cfg = reduced(get_config(arch), compute_dtype="float32")
+        batch = synthetic_token_batch(0, batch=4, seq=32, vocab=cfg.vocab)
+        res = {}
+        for d, device in (("cpu", torch.device("cpu")), ("card", dev)):
+            model = Transformer(cfg, device=device)
+            params = tree_map(lambda t: t.to(device),
+                              Transformer(cfg, device="cpu").init(0))
+            step = make_train_step(model, AdamWConfig(lr=1e-3), 4)
+            params, _, m = step(params, adamw_init(params), batch)
+            res[d] = ([m["loss"], m["grad_norm"]]
+                      + tree_leaves_sorted(params))
+        worst = 0.0
+        for a, b in zip(res["cpu"], res["card"]):
+            b = b.cpu()
+            err = float((a - b).abs().max())
+            scale = max(1.0, float(a.abs().max()))
+            if not torch.isfinite(b).all() or err > LM_CARD_CPU_TOL * scale:
+                raise AssertionError(f"{arch} train step: card vs CPU "
+                                     f"differ by {err:.3e}")
+            worst = max(worst, err / scale)
+        out[arch] = worst
+    return out
 
 
 #: int8 D3CA on the card against the CPU, relative to the largest entry of

@@ -16,9 +16,12 @@ tensors or numpy arrays) is one directory:
     default) with the dtype of the template's leaf;
   * ``keep_n`` garbage-collects old steps, never touching the newest.
 
+  * ``into=True`` writes each leaf into ``like``'s own tensor (the
+    trainer's restore: no second copy of the model on the device).
+
 Re-sharding on restore (the reference's ``shardings=``, whose only
-caller there is the LM trainer) belongs to the LM training stack
-(ROADMAP queue A item 13) and raises by name.
+caller there is the LM trainer) belongs to LM sharding (ROADMAP queue A
+item 13c) and raises by name.
 """
 from __future__ import annotations
 
@@ -107,9 +110,11 @@ def save_tree(path: str, tree: Any):
 
 
 def restore_tree(path: str, like: Any, shardings: Optional[Any] = None, *,
-                 device="cuda"):
+                 device="cuda", into: bool = False):
     """Restore into the structure of ``like``: every leaf a tensor on
-    ``device`` with the dtype of ``like``'s leaf.
+    ``device`` with the dtype of ``like``'s leaf.  ``into``: a leaf of
+    ``like`` that is a tensor is overwritten in place and returned (on its
+    own device) instead.
 
     Raises:
       ValueError: when a leaf's shape differs from ``like``'s.
@@ -128,6 +133,11 @@ def restore_tree(path: str, like: Any, shardings: Optional[Any] = None, *,
         if list(arr.shape) != list(np.shape(leaf)):
             raise ValueError(f"shape mismatch for {p}: ckpt {arr.shape} "
                              f"vs target {tuple(np.shape(leaf))}")
+        if into and isinstance(leaf, torch.Tensor):
+            with torch.no_grad():
+                leaf.copy_(torch.from_numpy(arr))
+            out.append(leaf)
+            continue
         out.append(torch.from_numpy(arr).to(device=device,
                                             dtype=_dtype_of(leaf)))
     return _unflatten(like, iter(out))
@@ -191,14 +201,15 @@ class CheckpointManager:
             raise e
 
     def restore(self, like: Any, step: Optional[int] = None,
-                shardings: Optional[Any] = None, *, device="cuda"):
+                shardings: Optional[Any] = None, *, device="cuda",
+                into: bool = False):
         """``(step, tree)`` of ``step`` (the newest by default), leaves on
-        ``device``."""
+        ``device`` (or written into ``like``'s tensors: ``into``)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         return step, restore_tree(self._step_dir(step), like, shardings,
-                                  device=device)
+                                  device=device, into=into)
 
     def _gc(self):
         steps = self.all_steps()

@@ -4,7 +4,7 @@ Everything here takes plain numpy arrays -- what ``numpy.asarray`` makes of
 the reference's arrays -- and imports neither the reference package nor its
 array library, so a caller that holds results of the reference can continue
 in the port (and the parity tests can hand one side's state to the other):
-solver partitions and warm starts, and LM parameter trees.
+solver partitions and warm starts, LM parameter trees and AdamW states.
 """
 from __future__ import annotations
 
@@ -99,3 +99,15 @@ def lm_params_from_reference(tree, device="cuda"):
             return [walk(v) for v in t]
         return torch.from_numpy(np.array(t, copy=True)).to(device)
     return walk(tree)
+
+
+def adamw_state_from_reference(tree, device="cuda"):
+    """A reference AdamW state (``adamw_init`` / ``adamw_update``'s
+    ``{"mu", "nu", "count"}``) whose leaves were made numpy arrays, as
+    the port's: ``mu`` and ``nu`` trees of tensors on ``device`` (dtypes
+    kept), ``count`` a 0-d int32 tensor there."""
+    device = resolve_device(device)
+    return {"mu": lm_params_from_reference(tree["mu"], device),
+            "nu": lm_params_from_reference(tree["nu"], device),
+            "count": torch.tensor(int(np.asarray(tree["count"])),
+                                  dtype=torch.int32, device=device)}

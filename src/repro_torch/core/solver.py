@@ -121,8 +121,8 @@ BLOCK_FORMATS = ("dense", "sparse")
 #: reference is the LM trainer, waits for the way that item shards an LM
 #: parameter tree
 _ITEMS = {
-    "lm": "'LM side stack, training' (item 13: a sharding describes the "
-          "trainer's parameter tree)",
+    "lm": "'LM side stack, training' (item 13c, LM sharding: a sharding "
+          "describes the trainer's parameter tree over a device mesh)",
 }
 NOT_PORTED = {"shardings": _ITEMS["lm"]}
 

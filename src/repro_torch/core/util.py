@@ -31,3 +31,41 @@ def as_tensor(a, device, dtype=DTYPE) -> torch.Tensor:
     if isinstance(a, np.ndarray) and not a.flags.writeable:
         a = a.copy()
     return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def tree_map(fn, *trees, leaf=()):
+    """Map ``fn`` over the leaves of nested dicts / lists / tuples (the
+    parameter trees of the LM stack); values of a type in ``leaf`` count
+    as leaves too."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees), leaf=leaf)
+                for k in t0}
+    if isinstance(t0, (list, tuple)) and not isinstance(t0, leaf):
+        return type(t0)(tree_map(fn, *xs, leaf=leaf) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict / list tree in the reference's order
+    (``jax.tree.leaves``: dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure with its leaves taken, in :func:`tree_leaves`'s
+    order, from the iterable ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    return build(like)

@@ -1,0 +1,101 @@
+"""Deterministic LM token pipeline (the port of ``repro/data/tokens.py``).
+
+Every host generates only its shard of the global batch, determined by
+(step, shard index): row r of the global batch comes from numpy's
+``SeedSequence([seed, step, r])`` alone, so the batches are the
+reference's bit for bit and re-sharding replays identical data.  The
+source stands in for a tokenized corpus; a real reader only changes
+:func:`synthetic_token_batch`.
+
+:class:`TokenPipeline` prefetches batches in a background thread (depth 2
+by default) and, given ``device=``, puts each on the device through pinned
+host memory, so the copy overlaps the previous step's compute.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+import torch
+
+
+def synthetic_token_batch(step: int, *, batch: int, seq: int, vocab: int,
+                          seed: int = 0, shard: tuple[int, int] = (0, 1)):
+    """Deterministic batch for global ``step``; returns this host's rows
+    as int32 numpy arrays ``{"tokens": (rows, seq), "labels": (rows,
+    seq)}``, labels the tokens shifted by one.
+
+    shard = (shard_index, shard_count).
+    """
+    idx, count = shard
+    rows = batch // count
+    lo = idx * rows
+    out = np.empty((rows, seq + 1), dtype=np.int32)
+    for r in range(rows):
+        rng = np.random.default_rng(
+            np.random.SeedSequence([seed, step, lo + r]))
+        out[r] = rng.integers(0, vocab, size=(seq + 1,), dtype=np.int32)
+    return {"tokens": out[:, :-1], "labels": out[:, 1:]}
+
+
+def to_device(batch, device):
+    """A batch of numpy arrays / tensors as tensors on ``device``; a CUDA
+    copy goes through pinned host memory and does not block the host."""
+    device = torch.device(device)
+    out = {}
+    for k, a in batch.items():
+        if isinstance(a, torch.Tensor):
+            out[k] = a.to(device)
+            continue
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out[k] = t
+    return out
+
+
+class TokenPipeline:
+    """Background prefetcher with a bounded buffer (depth 2 by default);
+    yields ``(step, batch)`` in step order from ``start_step``.
+    ``device``: put each batch there (:func:`to_device`); None leaves it
+    as ``make_batch`` made it."""
+
+    def __init__(self, make_batch, start_step: int = 0, depth: int = 2,
+                 device=None):
+        self._make = make_batch
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._device = device
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self._make(step)
+            if self._device is not None:
+                batch = to_device(batch, self._device)
+            try:
+                self._q.put((step, batch), timeout=0.5)
+            except queue.Full:
+                continue
+            step += 1
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)

@@ -5,7 +5,16 @@ Two routes, chosen by :func:`flash_route` from (dtype, head dim) alone:
 ``"tc"`` -- bfloat16 at D 64 / 128, the tensor-core kernel
 (``csrc/flash_attention_tc.cu``: wgmma, TMA, P rounded to bf16 before
 P V); ``"simt"`` -- everything else (float32, D 16 / 32), the CUDA-core
-kernel (``csrc/flash_attention.cu``, float32 inside)."""
+kernel (``csrc/flash_attention.cu``, float32 inside).
+
+Training: when q, k or v requires a gradient, :func:`flash_attention`
+runs as the autograd Function :class:`FlashAttention`, on the CPU too.
+Its forward is the kernel (the plain version on the CPU); its backward is
+``torch.autograd.grad`` through the plain version recomputed from the
+saved q, k, v -- the reference differentiates its pure-JAX
+``chunked_attention`` and has no backward kernel either.  Backward calls
+are counted in ``flash_attention.plain_backwards``, apart from the
+forward launches."""
 from __future__ import annotations
 
 import torch
@@ -84,20 +93,56 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     check_tensor("q", q, (B, S, H, D), q.dtype, dev)
     check_tensor("k", k, (B, Skv, KV, D), q.dtype, dev)
     check_tensor("v", v, (B, Skv, KV, D), q.dtype, dev)
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"flash_attention has no path for {dev}")
-    if D not in HEAD_DIMS:
+    if dev.type == "cuda" and D not in HEAD_DIMS:
         raise NotImplementedError(
             f"the flash attention kernel is compiled for head dims "
             f"{HEAD_DIMS}, not {D}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)
+
+
+def _forward(q, k, v, causal, window, scale):
+    """The kernel of :func:`flash_route`'s route on checked CUDA arguments
+    (the plain version on the CPU)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    D = q.shape[3]
     route = flash_route(q.dtype, D)
     if route == "tc":
         check_tma_alignment(q, k, v)
     return _launch(q, k, v, causal, window,
                    float(scale if scale is not None else D ** -0.5), route)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (:func:`_forward`).  Backward: autograd through
+    :func:`flash_attention_plain` recomputed from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale)
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        flash_attention.plain_backwards += 1
+        causal, window, scale = ctx.args
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = flash_attention_plain(*ins, causal=causal, window=window,
+                                        scale=scale)
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, dout))
+        return (*(next(got) if n else None for n in need), None, None,
+                None)
 
 
 def check_tma_alignment(q, k, v):
@@ -113,9 +158,11 @@ def check_tma_alignment(q, k, v):
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
-#: in all and per route
+#: in all and per route; and of backward calls (autograd through the
+#: plain version, on any device)
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention.plain_backwards = 0
 
 
 def _launch(q, k, v, causal, window, scale, route):

@@ -7,6 +7,15 @@ terms on the tensor cores in 3xTF32, 16-token sub-chunks for the scores --
 at head dim 64 with chunks of 64 tokens, which is every RWKV6 prefill;
 ``"simt"`` (``csrc/rwkv_linattn.cu``) -- float32 FMAs on the CUDA cores --
 for head dims 16 / 32 or smaller chunks.  Both compute the same function.
+
+Training: when an input requires a gradient, :func:`rwkv_linattn` runs as
+the autograd Function :class:`RwkvLinattn`, on the CPU too.  Its forward
+is the kernel (the plain version on the CPU); its backward is
+``torch.autograd.grad`` through the exact recurrence
+(:func:`rwkv_linattn_ref`, the reference's ``rwkv_scan``) recomputed from
+the saved inputs, so gradients reach r, k, v, logw and u.  Backward calls
+are counted in ``rwkv_linattn.plain_backwards``, apart from the forward
+launches.
 """
 from __future__ import annotations
 
@@ -67,15 +76,26 @@ def rwkv_linattn(r, k, v, logw, u, *, chunk=64):
         raise ValueError(f"u must be (D,) or (H, D), got {tuple(u.shape)}")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
-    if dev.type == "cpu":
-        out, state = rwkv_linattn_ref(r, k, v, logw, u)
-        return out.to(r.dtype), state
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"rwkv_linattn has no path for {dev}")
-    if D not in HEAD_DIMS:
+    if dev.type == "cuda" and D not in HEAD_DIMS:
         raise NotImplementedError(
             f"the linear-attention kernel is compiled for head dims "
             f"{HEAD_DIMS}, not {D}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u)):
+        return RwkvLinattn.apply(r, k, v, logw, u, chunk)
+    return _forward(r, k, v, logw, u, chunk)
+
+
+def _forward(r, k, v, logw, u, chunk):
+    """The route's kernel on checked CUDA arguments (the plain version on
+    the CPU); returns (out in r's dtype, state)."""
+    if r.device.type == "cpu":
+        out, state = rwkv_linattn_ref(r, k, v, logw, u)
+        return out.to(r.dtype), state
+    BH, S, D = r.shape
+    H = u.shape[0] if u.dim() == 2 else 1
     route = linattn_route(D, chunk)
     out, state = _launch(*(t.float().contiguous() for t in (r, k, v, logw)),
                          u.float().reshape(H, D).contiguous(), H,
@@ -83,10 +103,43 @@ def rwkv_linattn(r, k, v, logw, u, *, chunk=64):
     return out.to(r.dtype), state
 
 
+class RwkvLinattn(torch.autograd.Function):
+    """Forward: the kernel (:func:`_forward`).  Backward: autograd through
+    :func:`rwkv_linattn_ref` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, chunk):
+        ctx.save_for_backward(r, k, v, logw, u)
+        ctx.set_materialize_grads(False)
+        return _forward(r, k, v, logw, u, chunk)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        rwkv_linattn.plain_backwards += 1
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out, state = rwkv_linattn_ref(*ins)
+            outs, douts = zip(*[(o, d) for o, d in ((out.to(ins[0].dtype),
+                                                     dout), (state, dstate))
+                                if d is not None])
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(outs, wrt, douts,
+                                           allow_unused=True))
+        grads = []
+        for t, n in zip(ins, need):
+            g = next(got) if n else None
+            grads.append(torch.zeros_like(t) if n and g is None else g)
+        return (*grads, None)
+
+
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
-#: in all and per route
+#: in all and per route; and of backward calls (autograd through the
+#: exact recurrence, on any device)
 rwkv_linattn.launches = 0
 rwkv_linattn.launches_by_route = dict.fromkeys(ROUTES, 0)
+rwkv_linattn.plain_backwards = 0
 
 
 def _launch(r, k, v, logw, u, H, C, route):

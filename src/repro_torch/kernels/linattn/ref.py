@@ -23,11 +23,21 @@ def per_row_u(u, BH):
     return u.repeat(BH // H, 1)
 
 
+#: tokens whose outputs one batched product forms
+BLOCK = 64
+
+
 def rwkv_linattn_ref(r, k, v, logw, u, state0=None, dtype=torch.float32):
     """r, k, v, logw: (BH, S, D); u: (D,) or (H, D).  Returns (out
     (BH, S, D), state (BH, D, D)), computed and returned in ``dtype``
     (float32, as the kernel; float64 gives a reference for the rounding
-    of both)."""
+    of both).
+
+    The loop over tokens carries only the state, S_t = w_t S_{t-1} +
+    k_t^T v_t; the outputs o_t = r_t (S_{t-1} + diag(u) k_t^T v_t) of
+    ``BLOCK`` tokens at a time are one batched product over their states
+    (the same sums as token by token, and far fewer operations for
+    autograd to record and replay)."""
     BH, S, D = r.shape
     rt, kt, vt = r.to(dtype), k.to(dtype), v.to(dtype)
     wt = torch.exp(logw.to(dtype))
@@ -35,11 +45,15 @@ def rwkv_linattn_ref(r, k, v, logw, u, state0=None, dtype=torch.float32):
     st = (torch.zeros((BH, D, D), dtype=dtype, device=r.device)
           if state0 is None else state0.to(dtype))
     outs = []
-    for t in range(S):
-        kv = kt[:, t, :, None] * vt[:, t, None, :]           # (BH, D, D)
-        outs.append(torch.einsum("bd,bde->be", rt[:, t],
-                                 st + uf[:, :, None] * kv))
-        st = wt[:, t, :, None] * st + kv
-    out = (torch.stack(outs, dim=1) if outs
+    for t0 in range(0, S, BLOCK):
+        kv = kt[:, t0:t0 + BLOCK, :, None] * vt[:, t0:t0 + BLOCK, None, :]
+        prev = []
+        for i in range(kv.shape[1]):
+            prev.append(st)
+            st = wt[:, t0 + i, :, None] * st + kv[:, i]
+        outs.append(torch.einsum(
+            "btd,btde->bte", rt[:, t0:t0 + BLOCK],
+            torch.stack(prev, dim=1) + uf[:, None, :, None] * kv))
+    out = (torch.cat(outs, dim=1) if outs
            else torch.zeros((BH, 0, D), dtype=dtype, device=r.device))
     return out, st

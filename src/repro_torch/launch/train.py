@@ -1,0 +1,111 @@
+"""End-to-end LM training driver (the port of ``repro/launch/train.py``).
+
+    # reduced Qwen3 on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --reduced --steps 40 --batch 4 --seq 64 --lr 5e-3 --device cpu \\
+        --ckpt-dir "$(mktemp -d)"
+
+    # Qwen3-1.7B at full width and depth on the card (random weights)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --steps 3 --batch 8 --seq 128 --ckpt-dir "$(mktemp -d)"
+
+The whole stack on one device: the deterministic token pipeline -> the
+train step (gradient accumulation over microbatches, remat, chunked cross
+entropy; flash attention / RWKV6 linear attention kernels in the forward)
+-> AdamW -> the fault-tolerant trainer (async checkpoints, NaN rollback,
+preemption save, straggler log).  ``--device`` defaults to ``cuda`` and
+raises without a card.  A ``--mesh`` of more than one device waits for
+LM sharding (ROADMAP queue A item 13c); the families the port does not
+have yet exit 2 naming item 13b.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+import tempfile
+
+from ..configs import get_config
+from ..core.util import resolve_device
+from ..data.tokens import synthetic_token_batch
+from ..models import Transformer, reduced
+from ..optim import AdamWConfig, adamw_init, warmup_cosine
+from ..runtime import Trainer, TrainerConfig
+from .steps import make_train_step
+
+MESH_ITEM = "ROADMAP queue A item 13c (LM sharding over the process grid)"
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.train",
+        description="LM training CLI (PyTorch/CUDA port)")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU friendly)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_ckpt"),
+                    help="checkpoint folder (default: repro_ckpt under the "
+                         "temporary directory, which follows TMPDIR)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. '4,2' for a 4x2 (data, model) mesh; the "
+                         "port trains on one device only")
+    ap.add_argument("--resume", action="store_true")
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        if math.prod(shape) > 1:
+            ap.error(f"--mesh {args.mesh}: training over a mesh is not "
+                     f"ported to repro_torch yet ({MESH_ITEM}); the port "
+                     "trains on one device")
+    device = resolve_device(args.device)
+    try:
+        model = Transformer(cfg, device=device)
+    except NotImplementedError as e:
+        ap.error(str(e))
+    opt_cfg = AdamWConfig(lr=warmup_cosine(args.lr, 20, args.steps))
+
+    params = model.init(0)
+    opt_state = adamw_init(params)
+    step_fn = make_train_step(model, opt_cfg)
+
+    def make_batch(step):
+        return synthetic_token_batch(step, batch=args.batch, seq=args.seq,
+                                     vocab=cfg.vocab)
+
+    trainer = Trainer(
+        TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
+        step_fn, make_batch, params, opt_state)
+    del params, opt_state
+    if args.resume:
+        print("resumed at step", trainer.restore())
+    history = trainer.run(args.steps)
+
+    losses = [h["loss"] for h in history]
+    print(f"steps={len(history)} first_loss={losses[0]:.4f} "
+          f"last_loss={losses[-1]:.4f} stragglers={trainer.stragglers[:5]}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

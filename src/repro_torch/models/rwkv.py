@@ -7,10 +7,11 @@ State recurrence per head (D = head dim):
     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 with w_t = exp(-exp(wx_t)) data-dependent, u a learned per-head "bonus".
 
-Prefill (``rwkv_scan`` from a zero state) is the chunked linear-attention
-kernel: on a CUDA tensor the hand-written kernel (``kernels/linattn``,
-``csrc/rwkv_linattn.cu``), on a CPU tensor its plain version, the exact
-recurrence.  Decode (one token from a carried state) is the plain
+Prefill and training (``rwkv_scan`` from a zero state) run the chunked
+linear-attention kernel: on a CUDA tensor the hand-written kernel
+(``kernels/linattn``, ``csrc/rwkv_linattn_tc.cu``), on a CPU tensor its
+plain version, the exact recurrence; in training through the kernel's
+autograd Function, whose backward is autograd through that recurrence.  Decode (one token from a carried state) is the plain
 recurrence, as in the reference.
 """
 from __future__ import annotations
@@ -76,7 +77,7 @@ def rwkv_scan(r, k, v, logw, u, state0=None):
     B, S, H, D = r.shape
 
     def rows(a):                                     # (B*H, S, D) float32
-        return a.float().transpose(1, 2).reshape(B * H, S, D)
+        return a.float().transpose(1, 2).reshape(B * H, S, D).contiguous()
 
     if state0 is None:
         out, state = rwkv_linattn(rows(r), rows(k), rows(v), rows(logw), u)

@@ -1,12 +1,15 @@
-"""Decoder stack for serving: prefill, ring-buffer decode and paged decode
-(counterpart of ``repro/models/transformer.py`` for the ATTN and RWKV
-mixer kinds).
+"""Decoder stack for training and serving (counterpart of
+``repro/models/transformer.py`` for the ATTN and RWKV mixer kinds):
+``train_loss`` (full-sequence forward, mean token cross entropy, remat
+and chunked cross entropy), prefill, ring-buffer decode and paged decode.
 
 The parameter tree is the reference's: ``embed``, ``head``,
 ``final_norm``, ``periods`` (one dict per pattern position whose tensors
 carry a leading layer axis) and ``remainder`` (single layers).  Where the
 reference runs the periods under ``lax.scan``, the port loops over the
-layer index i in Python and reads slice i of the same stacked tensors.
+layer index i in Python and reads slice i of the same stacked tensors
+(in training through one ``unbind`` a leaf, so the backward stacks the
+layers' gradients once).
 
 Weights stay in ``param_dtype`` (float32) and every use casts to the
 compute dtype, as in the reference; :meth:`Transformer.compute_params`
@@ -18,10 +21,10 @@ Caches follow the reference's trees and are updated IN PLACE by the
 decode functions, which return the same tensors (the reference donates
 the buffers instead); ``cache["pos"]`` is a Python int.
 
-Mixers, frontends and cache formats of the reference that this slice does
-not port raise ``NotImplementedError`` at ``Transformer(cfg)``: MoE,
+Mixers, frontends and cache formats of the reference that the port does
+not have yet raise ``NotImplementedError`` at ``Transformer(cfg)``: MoE,
 RG-LRU, LOCAL and XATTN mixers, ``embed_input="embeddings"`` and the int8
-KV cache (ROADMAP queue A item 13, with training).
+KV cache (ROADMAP queue A item 13b).
 """
 from __future__ import annotations
 
@@ -29,15 +32,18 @@ from typing import Any, Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from ..core.util import resolve_device
+from ..core.util import resolve_device, tree_map
 from .attention import chunked_attention, decode_attention, full_attention
 from .config import ATTN, RWKV, ModelConfig
 from .layers import apply_rope, head_rms_norm, rms_norm, trunc_normal
 from .rwkv import (init_rwkv, init_rwkv_channel_mix, rwkv_channel_mix,
                    rwkv_time_mix)
 
-NOT_PORTED_ITEM = "ROADMAP queue A item 13 (LM stack and training)"
+NOT_PORTED_ITEM = ("ROADMAP queue A item 13b (the other LM families: MoE, "
+                   "RG-LRU, LOCAL / XATTN, embeddings, int8 KV cache)")
 
 #: parameter leaves the reference only ever uses cast to the compute dtype
 COMPUTE_CAST_LEAVES = frozenset({
@@ -46,14 +52,20 @@ COMPUTE_CAST_LEAVES = frozenset({
     "ln_x"})
 
 
-def tree_map(fn, *trees):
-    """Map ``fn`` over the tensor leaves of nested dicts / lists."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
+#: the matrix products whose outputs the "save_dots" policy keeps (the
+#: reference's ``dots_saveable``)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 def _index(tree, i):
@@ -61,7 +73,7 @@ def _index(tree, i):
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise ``NotImplementedError`` for what the port does not have."""
     what = []
     if cfg.moe is not None:
         what.append("MoE feed-forward")
@@ -203,15 +215,136 @@ class Transformer:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return (x @ params["head"].to(cfg.cdtype)).float()
 
+    # ---- train ----
+    def _attn_train(self, p, x, positions):
+        cfg, cdt = self.cfg, self.cfg.cdtype
+        B, S, _ = x.shape
+        q, k, v = self._qkv(p, x)
+        attn = (chunked_attention if cfg.attn_impl == "chunked"
+                else full_attention)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        out = attn(q, k, v, causal=True, window=cfg.swa_window)
+        return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(cdt)
+
+    def _mixer_train(self, p, x, kind, positions):
+        """ln1 and the mixer: the residual branch of the first half."""
+        h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
+        if kind == RWKV:
+            return rwkv_time_mix(p["mixer"], h, self.cfg)[0]
+        return self._attn_train(p["mixer"], h, positions)
+
+    def _mlp_train(self, p, x, kind):
+        """ln2 and the MLP: the residual branch of the second half."""
+        return self._mlp(p["mlp"], rms_norm(x, p["ln2"], self.cfg.norm_eps),
+                         kind)
+
+    def _layer_train(self, p, x, kind, positions):
+        x = x + self._mixer_train(p, x, kind, positions)
+        return x + self._mlp_train(p, x, kind)
+
+    def _backbone_train(self, params, x, positions):
+        """The layers over the whole sequence.  Each full period runs under
+        the config's ``remat_policy`` (the reference's ``jax.checkpoint``
+        of its scan body), the remainder layers without:
+
+          * ``"nothing"``: the period under one checkpoint -- only its
+            input is saved, the backward re-runs it;
+          * ``"save_boundaries"``: the mixer and the MLP each under a
+            checkpoint of its own, so the residual stream between them
+            (their outputs added in) is what is saved;
+          * ``"save_dots"``: the period under a selective checkpoint that
+            saves every matrix product's output and recomputes the rest.
+
+        The reference's ``unroll`` (a scan's unrolling) has no meaning
+        here: the periods are a Python loop either way."""
+        cfg = self.cfg
+        kp = len(cfg.pattern)
+        if params["periods"]:
+            # one unbind a stacked leaf: slice i of every leaf, whose
+            # gradients the backward stacks in one go
+            layers = [tree_map(lambda a: a.unbind(0), t)
+                      for t in params["periods"]]
+            n_full = len(params["periods"][0]["ln1"])
+            for i in range(n_full):
+                ps = [tree_map(lambda a: a[i], t, leaf=tuple)
+                      for t in layers]
+                x = self._period_train(ps, x, positions)
+        for r, p in enumerate(params["remainder"]):
+            x = self._layer_train(p, x, cfg.pattern[r % kp], positions)
+        return x
+
+    def _period_train(self, ps, x, positions):
+        cfg = self.cfg
+        kinds = cfg.pattern
+
+        def body(xc):
+            for p, kind in zip(ps, kinds):
+                xc = self._layer_train(p, xc, kind, positions)
+            return xc
+
+        if not torch.is_grad_enabled():
+            return body(x)
+        if cfg.remat_policy == "save_boundaries":
+            for p, kind in zip(ps, kinds):
+                x = x + checkpoint(self._mixer_train, p, x, kind, positions,
+                                   use_reentrant=False)
+                x = x + checkpoint(self._mlp_train, p, x, kind,
+                                   use_reentrant=False)
+            return x
+        if cfg.remat_policy == "save_dots":
+            return checkpoint(body, x, use_reentrant=False,
+                              context_fn=_save_dots_context)
+        if cfg.remat_policy != "nothing":
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        return checkpoint(body, x, use_reentrant=False)
+
+    def _hidden_fn(self, params, batch):
+        """Backbone forward up to (and including) the final norm."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        positions = torch.arange(x.shape[1], device=self.device)
+        x = self._backbone_train(params, x, positions)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
     def logits_fn(self, params, batch):
         """Logits (B, S, V) float32 of every position of ``batch``."""
-        x = self._embed(params, batch)
-        for p, kind in self._layers(params):
-            x, _ = self._layer_prefill(p, x, kind,
-                                       torch.arange(x.shape[1],
-                                                    device=self.device),
-                                       x.shape[1], linear_cache=True)
-        return self._final_logits(params, x)
+        x = self._hidden_fn(params, batch)
+        return (x @ params["head"].to(self.cfg.cdtype)).float()
+
+    def train_loss(self, params, batch):
+        """Mean next-token cross entropy of ``batch`` ({"tokens",
+        "labels"}: (B, S) integers), a 0-d float32 tensor.
+
+        With ``loss_chunk`` = C, S > C and C dividing S, the head and the
+        cross entropy run C tokens at a time, each chunk under a
+        checkpoint: the (B, C, vocab) float32 logits exist for one chunk
+        at a time and the backward recomputes them chunk by chunk;
+        otherwise in one pass -- the reference's condition."""
+        cfg = self.cfg
+        x = self._hidden_fn(params, batch)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        head = params["head"]
+        B, S = labels.shape
+        C = cfg.loss_chunk
+
+        def chunk_nll(xc, lc):
+            logits = (xc @ head.to(cfg.cdtype)).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+            return torch.sum(logz - gold)
+
+        if not C or S <= C or S % C:
+            return chunk_nll(x, labels) / (B * S)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(S // C):
+            sl = slice(i * C, (i + 1) * C)
+            if torch.is_grad_enabled():
+                total = total + checkpoint(chunk_nll, x[:, sl], labels[:, sl],
+                                           use_reentrant=False)
+            else:
+                total = total + chunk_nll(x[:, sl], labels[:, sl])
+        return total / (B * S)
 
     def _layers(self, params):
         """(layer params, kind) in order: periods, then remainder."""

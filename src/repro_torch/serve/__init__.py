@@ -2,7 +2,8 @@
 continuous-batching inference engine -- the paged KV-cache pool
 (``cache``), the scheduler (``engine``), per-request seeded sampling
 (``sampling``) -- and the linear models' ``LinearScorer`` (``scoring``),
-which the online service swaps published snapshots into."""
+which the online service swaps published snapshots into.  ``metrics`` is
+the deprecation shim of ``ServeMetrics`` over ``obs.serve``."""
 from ..obs.metrics import percentiles
 from ..obs.serve import RequestMetrics
 from .cache import PagePool, PagedCacheConfig, make_paged_arenas
@@ -15,5 +16,14 @@ __all__ = [
     "EngineConfig", "InferenceEngine", "Request",
     "RequestMetrics", "percentiles",
     "SamplingParams", "sample_tokens",
-    "LinearScorer",
+    "LinearScorer", "ServeMetrics",
 ]
+
+
+def __getattr__(name):
+    # lazy: importing repro_torch.serve stays silent; touching the legacy
+    # name (not the package) is what warns
+    if name == "ServeMetrics":
+        from .metrics import ServeMetrics
+        return ServeMetrics
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
