@@ -10,10 +10,12 @@ entry points on the card, at the full width of two instances of the paper
 m = 12 000, hinge, lambda = 1e-2) and the sparse news20 profile of Part 2
 (``configs/svm_paper.py`` REAL_DATASETS["news20"]: n = 19 996,
 m = 1 355 191 at density 3.4e-4, lambda = 1e-4, padded-ELL cells on the
-same 7 x 4 grid) -- and of two LM architectures served through the serving
+same 7 x 4 grid) -- and of the LM architectures served through the serving
 CLI's ``main`` with random weights from a seed: Qwen3-1.7B (all 28 layers)
-on the continuous-batching engine with its paged KV cache, and RWKV6-3B
-(all 32 layers) on the static loop.  Phases, each printing one line of
+on the continuous-batching engine with its paged KV cache, RWKV6-3B (all 32
+layers) on the static loop, and the other families (Mixtral, RecurrentGemma,
+Llama-3.2-Vision, MusicGen, the int8 cache), depth cut only where one card's
+memory forces it.  Phases, each printing one line of
 JSON; any failure is an exception and a non-zero exit:
 
   env                 a CUDA device or an error; card name and power limit;
@@ -35,7 +37,11 @@ JSON; any failure is an exception and a non-zero exit:
                       must leave dalpha 0 and w bitwise w0), and B5 and
                       B6 as training calls them (their autograd Functions
                       at the training shapes: forward against the plain
-                      version, gradients bitwise the plain version's) --
+                      version, gradients bitwise the plain version's), and
+                      B5 at the other families' shapes (head dim 256 on
+                      both routes, non-causal XATTN, window 4096) at unit
+                      and peaked q, each query row also held to its own
+                      scale (``row_check``) --
                       the first
                       call to make after touching a ``.cu`` file
                       (``--phases kernels``)
@@ -54,23 +60,60 @@ JSON; any failure is an exception and a non-zero exit:
                       attention kernel
   train_qwen3_full    Qwen3-1.7B training (bf16 compute, random weights
                       from seed 0, batch 8 x 128 tokens in 8 microbatches,
-                      remat "nothing"): 3 steps of the train step the CLI
-                      builds at full width and depth (28 layers: the
-                      four float32 copies on the card), then
-                      ``repro_torch.launch.train.main`` at 4 layers (a
-                      checkpoint of all 28 would outgrow the machine's
-                      disk budget): 2 steps, a checkpoint, --resume for 2
-                      more; every layer of every microbatch launches the
-                      flash attention kernel twice (forward and the
-                      checkpoint's recompute) and differentiates its
-                      plain version once.  Before the counted run the
-                      first step is taken through the kernels and again
-                      with the plain versions tapped in: loss, gradient
-                      norm and every leaf's gradient compared, none zero
-  train_rwkv6_full    the same with RWKV6-3B (32 layers): the linear
-                      attention kernel in every time mix; its bf16
-                      gradients are compared, and held in float32 at 4
-                      layers (see TRAIN_BF16_GRADS_HELD)
+                      remat "nothing") through
+                      ``repro_torch.launch.train.main`` at full width and
+                      depth (28 layers: the four float32 copies on the
+                      card): 3 steps and a checkpoint (24.4 GB, in a
+                      tmpfs), then --resume for 2 more; every layer of
+                      every microbatch launches the flash attention
+                      kernel twice (forward and the checkpoint's
+                      recompute) and differentiates its plain version
+                      once.  Before the counted run the first step is
+                      taken through the kernels and again with the plain
+                      versions tapped in: loss, gradient norm and every
+                      leaf's gradient compared, none zero, and every
+                      flash call of the kernels' step held against the
+                      plain version on its own inputs
+  train_rwkv6_full    RWKV6-3B at 8 of its 32 layers (see TRAIN_PATHS): 3
+                      steps of the train step the CLI builds, then the
+                      CLI at 4 layers (2 steps, a checkpoint, --resume
+                      for 2); the linear attention kernel in every time
+                      mix; its bf16 gradients are compared, and held in
+                      float32 at 4 layers beside a rounding control
+  serve_mixtral_full  the serving CLI's ``main`` (``get_config`` patched to
+                      cut depth) -- Mixtral-8x7B at 4 of 32 layers (MoE,
+                      sliding window 4096) on the paged engine with the
+                      Qwen3 trace: 4 flash launches a prefill
+  serve_recurrentgemma_full
+                      RecurrentGemma-9B, all 38 layers (RG-LRU + LOCAL):
+                      the static loop, 4 prompts of 3072 tokens (the 2048
+                      window wraps in prefill and in the ring decode); 12
+                      flash launches at head dim 256, every one `tc`
+  serve_vlm_full      Llama-3.2-Vision-90B at one period (5 of 100 layers:
+                      4 ATTN + 1 XATTN) over 1024 stub encoder states, 4
+                      prompts of 512: 4 causal launches, 1 non-causal
+  serve_musicgen_full MusicGen-large, all 48 layers, through the embedding
+                      frontend: 8 x 512 frames, 48 launches at head dim 64
+  serve_qwen3_int8_full
+                      Qwen3-1.7B with the int8 KV cache (static loop),
+                      then the bf16 cache's static loop on the same
+                      weights: first greedy tokens equal, agreement after
+  train_mixtral_full  3 steps of the train step the CLI builds (its
+                      batches, AdamW, batch 8 x 128 in 8 microbatches,
+                      remat "nothing") for Mixtral at 2 of 32 layers;
+                      before the counted window the first step through
+                      the kernels and through the plain versions (loss and
+                      grad norm; every leaf in float32, since its routing
+                      flips with bf16 rounding; every flash call of the
+                      bf16 step held against the plain version on its own
+                      inputs; every leaf's gradient -- the router's too --
+                      non-zero); peak against the four float32 copies
+  train_recurrentgemma_full
+                      the same for RecurrentGemma at 5 of 38 layers (a
+                      period and the RG-LRU remainder; lam's gradient),
+                      every leaf held in bf16
+  train_musicgen_full the same for MusicGen at full depth (frame
+                      embeddings in), every leaf held in bf16
   fleet_dense_full    ``repro_torch.launch.fleet`` (``main``'s ``parse_args``
                       and ``run``) -- 4 tenants of the dense instance
                       (seeds 0-3, lambda 1e-2 * 0.5^(t mod 3)) with D3CA,
@@ -143,14 +186,15 @@ JSON; any failure is an exception and a non-zero exit:
                       the grid-engine fleet's, tenant 0 of its solo mesh
                       solve, each kernel's first and last launch on ranks
                       (0, 0) and (6, 3) against its plain version), the
-                      online CLI under ``--engine shard_map`` for 5
+                      online CLI under ``--engine shard_map`` for 3
                       rounds of online_full's window (each version within
                       1e-5 of the grid engine's stream, duals outside the
                       batch unmoved) and its scorer on the grid (margins
                       within 1e-5 of X @ w); ms per outer iteration,
                       distribution, update and scoring times
   cpu_vs_card         small cases, dense and sparse solvers and reduced
-                      Qwen3 / RWKV6: port on the card (kernels) vs port on
+                      LM configs of every family (and the int8 cache):
+                      port on the card (kernels) vs port on
                       the CPU, in float32 (prefill, decode and one train
                       step), and a reduced Qwen3 prefill in
                       bfloat16 at head dim 64 (the tensor-core route);
@@ -170,15 +214,21 @@ JSON; any failure is an exception and a non-zero exit:
                       share in a step, and solves per second); peak
                       device memory of the
                       sparse path; Qwen3 prefill and decode step, RWKV6
-                      prefill
+                      prefill; B5 at the other families' shapes
+                      (RecurrentGemma's head dim 256 on both routes,
+                      Vision's non-causal XATTN, Mixtral's window 4096)
+                      beside SDPA with the same mask
 
 Each full-width phase is a main path: every launch counter is set to 0
 just before it and read just after, and it must have launched exactly the
 kernels it names as often as it says: the solvers once per outer
 iteration (plus serial-SDCA epochs for f* where the dense phases compute
 it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times,
-training twice per layer and microbatch (its backward calls through the
-plain versions are counted apart and must be half that).  All
+the other families once per attention layer of a prefill, training
+twice per period layer and microbatch and once per remainder layer (its
+backward calls through the plain versions are counted apart).  B5 also
+counts its launches per route and head dim; none at head dim 256 may take
+the CUDA-core route on a main path.  All
 six wrappers have two routes and count launches per route too, and every
 main-path launch must take the new route: flash attention and RWKV6
 linear attention the tensor-core route (``tc``), the dense SDCA epoch
@@ -203,6 +253,7 @@ summary lines then hold what those phases measured.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -283,7 +334,8 @@ from repro_torch.models import rwkv as lm_rwkv  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
                                global_norm, warmup_cosine)
 from repro_torch.core.util import tree_leaves as tree_leaves_sorted  # noqa: E402
-from repro_torch.data import synthetic_token_batch  # noqa: E402
+from repro_torch.data import (synthetic_lm_batch,  # noqa: E402
+                              synthetic_token_batch)
 from repro_torch.obs import (HealthMonitor, ObsServer,  # noqa: E402
                              Registry, Tracer, load_bundle,
                              parse_prometheus_text)
@@ -297,6 +349,10 @@ from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
 MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
               "serve_rwkv6_full", "train_qwen3_full", "train_rwkv6_full",
+              "serve_mixtral_full", "serve_recurrentgemma_full",
+              "serve_vlm_full", "serve_musicgen_full",
+              "serve_qwen3_int8_full", "train_mixtral_full",
+              "train_recurrentgemma_full", "train_musicgen_full",
               "fleet_dense_full", "fleet_sparse_full",
               "admm_full", "online_full", "online_sparse_full", "comm_full",
               "obs_full", "mesh_full", "fleet_mesh_full")
@@ -411,6 +467,21 @@ RWKV6_ARGV = ["--arch", "rwkv6-3b", "--requests", "8", "--prompt-len", "512",
 FLASH_MAIN = (1, 1024, 16, 8, 128)
 # RWKV6 prefill of 8 prompts of 512 tokens: (B, S, H, D), u per head
 LINATTN_MAIN = (8, 512, 40, 64)
+#: B5's main-path shapes in the other families, (B, S, Skv, H, KV, D,
+#: causal, window): RecurrentGemma's LOCAL layers in the 4 x 3072 prefill
+#: (head dim 256, one KV head, window 2048), Llama-3.2-Vision's XATTN
+#: layer (4 x 512 queries over 1024 encoder states, non-causal), and
+#: Mixtral's sliding window of 4096 where it bites (one 8192-token prompt)
+FLASH_FAMILY_SHAPES = {
+    "recurrentgemma_local": (4, 3072, 3072, 16, 1, 256, True, 2048),
+    "vlm_xattn": (4, 512, 1024, 64, 8, 128, False, None),
+    "mixtral_window": (1, 8192, 8192, 32, 8, 128, True, 4096),
+}
+#: the scale of q in the peaked draw at those shapes: scaled scores of
+#: standard deviation 3, so a few keys carry each row's weight and the
+#: running maximum moves from tile to tile (the unit draw spreads a row's
+#: weight over hundreds of keys, where each output is a few hundredths)
+FLASH_PEAKED_Q = 3.0
 # tests/test_kernels.py's tolerances (rtol = atol): flash f32 / bf16, and
 # the chunked linear attention against the exact recurrence
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -427,49 +498,32 @@ LM_CARD_CPU_BF16_TOL = 5e-2
 
 # LM training (train_*_full), at the reference CLI's defaults -- batch 8 of
 # 128 tokens, the config's train_accum 8 (8 microbatches of 1),
-# remat_policy "nothing", bf16 compute: the training CLI's ``main`` for
-# TRAIN_FULL_STEPS steps and a checkpoint, then --resume for
-# TRAIN_RESUME_STEPS.  A checkpoint (parameters, mu, nu in float32) of
-# Qwen3-1.7B is 24.4 GB and of RWKV6-3B 36.8 GB, and the resume's save
-# is written before the first is deleted; they go to a folder in
-# TRAIN_CKPT_ROOT, a tmpfs (the machine that runs this script takes at
-# most 45 GiB of disk writes a run), so they live in host memory: Qwen3's
-# two (48.8 GB) fit beside the process, RWKV6's (73.6 GB) would not.  So
-# RWKV6's CLI runs at full width and TRAIN_CLI_DEPTH layers, for
-# TRAIN_STEPS steps and the resume, after TRAIN_FULL_STEPS steps of the
-# same ``make_train_step`` at full width and depth
+# remat_policy "nothing", bf16 compute: TRAIN_FULL_STEPS counted steps at
+# full width and the depth of the phase's ``TrainPath``, and, where it
+# names one, the training CLI's ``main``: steps and a checkpoint, then
+# --resume for TRAIN_RESUME_STEPS (see ``TrainPath``).  A checkpoint
+# (parameters, mu, nu in float32) of Qwen3-1.7B is 24.4 GB and of RWKV6-3B
+# 36.8 GB, and the resume's save is written before the first is deleted;
+# they go to a folder in TRAIN_CKPT_ROOT, a tmpfs (the machine that runs
+# this script takes at most 45 GiB of disk writes a run), so they live in
+# host memory: Qwen3's two (48.8 GB) fit beside the process, RWKV6's
+# (73.6 GB) would not
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_FULL_STEPS = 3
 TRAIN_STEPS, TRAIN_RESUME_STEPS = 2, 2
-TRAIN_CLI_DEPTH = 4
-TRAIN_CLI_FULL_DEPTH = {"train_qwen3_full": True, "train_rwkv6_full": False}
 TRAIN_CKPT_ROOT = "/dev/shm"
-#: (arch, its kernel, the Function's main-path inputs): per layer and
-#: microbatch B5 gets q (1, 128, 16, 128) / kv (1, 128, 8, 128) bf16, B6
-#: r, k, v, logw (40, 128, 64) float32 and u (40, 64)
-TRAIN_PATHS = {"train_qwen3_full": ("qwen3-1.7b", "flash_attention"),
-               "train_rwkv6_full": ("rwkv6-3b", "rwkv_linattn")}
 #: the first step on the card through the kernels against the same step
 #: with the plain versions tapped in, in bfloat16 compute: the loss and the
 #: gradient norm relative to their value, each leaf's gradient relative to
 #: its largest entry (the bf16 tolerance of the LM card-vs-CPU check)
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 5e-2
-#: where the bf16 gradients are held to TRAIN_GRAD_TOL, and where they
-#: cannot be: RWKV6-3B at full depth and random init amplifies any
-#: rounding-level change of its forward into O(1) changes of its bf16
-#: gradients (bf16 roundings flip and the gradient grows through the 32
-#: layers), so two forwards that differ only in rounding -- the kernel and
-#: the plain recurrence, or the plain recurrence in float32 and in float64
-#: (the control) -- give bf16 gradients that differ as much as they are
-#: large; in float32 at full depth the same holds, less so (PERF.md §6
-#: keeps those readings).  Its bf16 loss is held to TRAIN_LOSS_TOL, and
-#: its gradients in float32 compute at full width and the depth
-#: TRAIN_F32_DEPTH (the first layers of the same weights), where a
-#: rounding-level change of the forward moves them by about 4e-4 (the
-#: control, printed beside it), on the first microbatch, to
-#: TRAIN_GRAD_TOL_F32 -- far below the O(1) error of a missing gradient.
-TRAIN_BF16_GRADS_HELD = {"train_qwen3_full": True, "train_rwkv6_full": False}
+#: where the bf16 gradients cannot be held leaf by leaf (``TrainPath``'s
+#: ``bf16_grads``), the gradients in float32 compute at full width and the
+#: depth TRAIN_F32_DEPTH (the first layers of the same weights; all of
+#: them where the phase has fewer) on the first microbatch, the kernels
+#: against the plain versions, to TRAIN_GRAD_TOL_F32 -- far below the O(1)
+#: error of a missing gradient
 TRAIN_F32_DEPTH = 4
 TRAIN_GRAD_TOL_F32 = 1e-2
 #: peak device memory of a training phase over the four float32 copies of
@@ -649,6 +703,19 @@ def compare(name, got, want, tol, relative_to_max=False):
                 f"{float(err.max()):.3e} (tol {tol}, max |ref| "
                 f"{float(w.abs().max()):.3e})")
     return worst
+
+
+def row_check(got, want, tol):
+    """B5's output (B, S, H, D) against its plain version one query row
+    (a position of a head) at a time, each row's largest error over
+    ``tol`` times that row's largest entry: the rows' scale differs by
+    orders (a row that sees one key copies it, one that sees thousands
+    averages them), so a limit of the output's own scale in every row.
+    Returns (max abs error, the worst row's share of its limit), as
+    0-d tensors on the device (no synchronisation)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    limit = (tol * want.float().abs().amax(-1)).clamp_min(1e-30)
+    return err.max(), (err / limit).max()
 
 
 def main_check(label, got, want):
@@ -1697,6 +1764,7 @@ def phase_kernels(dev, results):
             "max_abs_err_vs_plain_f32", "reference", "draws", "tol",
             "tenant_main", "sweep_cases", "sweep_max_abs_err",
             "sweep_tol", "checked_launches_by_route", "ok")}})
+    results["flash_attention"]["shapes"] = main_err["flash_shapes"]
     emit("kernels", checks=summary,
          main_shape={"cells": P * Q, "n_p": data.n_p, "m_q": data.m_q,
                      "steps": data.n_p, "m_sub": data.m_q // P},
@@ -1770,6 +1838,17 @@ def linattn_inputs(rng, BH, S, D, dev, heads=None, logw=None):
     return [torch.from_numpy(a).to(dev) for a in (r, k, v, lw, u)]
 
 
+def plain_by_heads(q, k, v, *, causal=True, window=None, group=2):
+    """B5's plain version ``group`` KV heads (and their query heads) at a
+    time: the same numbers as one call, a fraction of its float32
+    scores."""
+    KV, G = k.shape[2], q.shape[2] // k.shape[2]
+    return torch.cat([flash_attention_plain(
+        q[:, :, i * G:(i + group) * G].contiguous(),
+        k[:, :, i:i + group].contiguous(), v[:, :, i:i + group].contiguous(),
+        causal=causal, window=window) for i in range(0, KV, group)], dim=2)
+
+
 def lm_kernel_checks(rng, dev, checks, main_err):
     """B5 and B6 against their plain versions on the card: the unit
     tests' sweeps (tests/test_kernels.py), ragged lengths, head dim 128,
@@ -1825,6 +1904,49 @@ def lm_kernel_checks(rng, dev, checks, main_err):
         [flash_attention(q, k, v).float()],
         [flash_attention_plain(q, k, v).float()], FLASH_TOL[torch.bfloat16])
     del q, k, v
+    # the other families' main-path shapes: bf16 on the tensor-core route
+    # (the main path's) and float32 on the CUDA-core route at head dim 256;
+    # the plain version a KV head group at a time (the same function: heads
+    # are independent), so its float32 scores fit beside the inputs.  Two
+    # draws each, unit q (flat rows) and q at FLASH_PEAKED_Q (peaked rows),
+    # held elementwise to FLASH_TOL and row by row to FLASH_TOL of the
+    # row's largest entry (``row_check``)
+    shapes = {}
+    for label, (B, S, Skv, H, KV, D, causal, window) in \
+            FLASH_FAMILY_SHAPES.items():
+        shapes[label] = {"shape": dict(zip(
+            "B S Skv H KV D causal window".split(),
+            (B, S, Skv, H, KV, D, causal, window)))}
+        for dtype in ((torch.bfloat16, torch.float32) if D == 256
+                      else (torch.bfloat16,)):
+            route = flash_route(dtype, D)
+            for draw, q_scale in (("unit", 1.0), ("peaked", FLASH_PEAKED_Q)):
+                q, k, v = flash_inputs(rng, B, S, H, KV, D, torch.float32,
+                                       dev, Skv=Skv)
+                q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+                kw = dict(causal=causal, window=window)
+                name = f"flash_attention {label} {dtype} {route} {draw} q"
+                got = flash_attention(q, k, v, **kw)
+                want = plain_by_heads(q, k, v, **kw)
+                err = compare(name, [got.float()], [want.float()],
+                              FLASH_TOL[dtype])
+                _, ratio = row_check(got, want, FLASH_TOL[dtype])
+                ratio = float(ratio)
+                if ratio > 1.0:
+                    raise AssertionError(
+                        f"{name}: a row's error is {ratio:.3f} of "
+                        f"{FLASH_TOL[dtype]} x its largest entry")
+                checks.append(("flash_attention", err))
+                shapes[label][f"{route}_{draw}"] = {
+                    "max_abs_err": err, "row_ratio": ratio,
+                    "max_abs_ref": float(want.float().abs().max())}
+                del q, k, v, got, want
+                torch.cuda.empty_cache()
+            shapes[label][f"{route}_tol"] = FLASH_TOL[dtype]
+            shapes[label][f"{route}_max_abs_err"] = max(
+                shapes[label][f"{route}_{d}"]["max_abs_err"]
+                for d in ("unit", "peaked"))
+    main_err["flash_shapes"] = shapes
 
     # the unit tests' sweep (the two D 64 / chunk 64 cases now on the
     # tensor-core route, and on the CUDA-core route they took before)
@@ -1872,10 +1994,11 @@ def train_function_checks(rng, dev, checks):
     version's own autograd gradients for the same output gradient --
     bitwise, since the Function's backward is autograd through that very
     plain version, recomputed from the saved inputs."""
-    for kernel, plain in (("flash_attention", plain_flash),
-                          ("rwkv_linattn", plain_linattn)):
+    for kernel, plain, arch in (
+            ("flash_attention", plain_flash, "qwen3-1.7b"),
+            ("rwkv_linattn", plain_linattn, "rwkv6-3b")):
         fn = WRAPPERS[kernel]
-        ins = train_function_inputs(rng, kernel, dev)
+        ins = train_function_inputs(rng, get_config(arch), kernel, dev)
         by_route = dict(fn.launches_by_route)
         out = fn(*ins)
         out = out if torch.is_tensor(out) else out[0]
@@ -1986,7 +2109,8 @@ def reset_counts():
         fn.launches = 0
         if hasattr(fn, "plain_backwards"):
             fn.plain_backwards = 0
-        for by in ("launches_by_route", "launches_by_cluster"):
+        for by in ("launches_by_route", "launches_by_cluster",
+                   "launches_by_head_dim"):
             for r in getattr(fn, by, {}):
                 getattr(fn, by)[r] = 0
     for g in MESH_GRIDS:
@@ -3008,22 +3132,26 @@ def leaf_paths(tree, prefix=""):
     return [prefix]
 
 
-def train_function_inputs(rng, kernel, dev, requires_grad=True):
-    """One training call's inputs of B5 or B6 at the main-path shape."""
+def train_function_inputs(rng, cfg, kernel, dev, requires_grad=True):
+    """One training call's inputs of B5 or B6 at ``cfg``'s training shape
+    (one microbatch: a sequence of TRAIN_SEQ tokens): B5 q (1, TRAIN_SEQ,
+    heads, head dim) and k / v at the KV heads in bf16, B6 r, k, v, logw
+    (heads, TRAIN_SEQ, head dim) float32 and u per head."""
     if kernel == "flash_attention":
-        ins = flash_inputs(rng, 1, TRAIN_SEQ, 16, 8, 128, torch.bfloat16,
-                           dev)
+        ins = flash_inputs(rng, 1, TRAIN_SEQ, cfg.n_heads, cfg.n_kv, cfg.hd,
+                           torch.bfloat16, dev)
     else:
-        ins = linattn_inputs(rng, 40, TRAIN_SEQ, 64, dev, heads=40)
+        ins = linattn_inputs(rng, cfg.rwkv_heads, TRAIN_SEQ,
+                             cfg.rwkv_head_dim, dev, heads=cfg.rwkv_heads)
     return [t.requires_grad_(requires_grad) for t in ins]
 
 
-def function_backward_ms(rng, kernel, dev):
+def function_backward_ms(rng, cfg, kernel, dev):
     """CUDA-event ms of one forward of the kernel's autograd Function
     (the kernel) and of one backward (autograd through the plain
-    version) at the training main-path shape."""
+    version) at ``cfg``'s training shape."""
     fn = WRAPPERS[kernel]
-    ins = train_function_inputs(rng, kernel, dev)
+    ins = train_function_inputs(rng, cfg, kernel, dev)
     out = fn(*ins)
     out = out if torch.is_tensor(out) else out[0]
     dout = torch.randn_like(out)
@@ -3081,109 +3209,180 @@ def step_compare(model, params, batch, tap_a, tap_b):
 PLAIN = (plain_flash, plain_linattn)
 
 
+def held_flash(record):
+    """B5 as the model calls it (the kernel), each call's output also
+    held against the plain version on the same q, k, v, row by row
+    (``row_check`` at FLASH_TOL of bf16): (max abs error, the worst row's
+    share of its limit) appended to ``record``.  The plain version
+    launches nothing, so the counts are those of the kernel alone."""
+    def call(q, k, v, *, causal=True, window=None, scale=None):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              scale=scale)
+        with torch.no_grad():
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, scale=scale)
+            record.append(row_check(out, want, FLASH_TOL[torch.bfloat16]))
+        return out
+    return call
+
+
+#: a training phase: its arch at ``depth`` layers (None: all); the kernel
+#: its layers launch; ``cli``, the training CLI's part -- None (none),
+#: "counted" (the CLI at the phase's depth: its TRAIN_FULL_STEPS steps and
+#: a checkpoint are the counted steps, then --resume for
+#: TRAIN_RESUME_STEPS), or a depth (TRAIN_FULL_STEPS steps of
+#: ``make_train_step``, then the CLI at that many layers for TRAIN_STEPS
+#: steps and the resume); ``bf16_grads``, what of the first step's bf16
+#: gradients is held against the plain versions -- "leaves" (each leaf to
+#: TRAIN_GRAD_TOL, the norm to TRAIN_LOSS_TOL), "norm" (the norm alone;
+#: the leaves in float32, see TRAIN_F32_DEPTH) or None (neither; the
+#: leaves in float32); ``f32_control``, the taps of a float32 rounding
+#: control printed beside the float32 check, or None
+TrainPath = collections.namedtuple(
+    "TrainPath", "arch depth kernel cli bf16_grads f32_control")
+#: Qwen3-1.7B all through the CLI at full depth (two checkpoints of 24.4
+#: GB); RWKV6-3B at 8 of its 32 layers, cut to keep the script inside its
+#: time limit (at 32 its steps, first-step comparison and profile took 276
+#: s of a 1411-s run on NVIDIA H100 80GB HBM3, 700.00 W), and its CLI at 4
+#: (two full checkpoints, 73.6 GB, do not fit host memory beside the
+#: process); its bf16 gradients at random init move by as much as they
+#: are large under forwards that differ by rounding alone (the plain
+#: recurrence in float32 or float64), so they are held in float32 beside
+#: that control.  Mixtral-8x7B at 2 of 32 layers (23.2 GB of float32
+#: copies a layer): its top-2 routing is discontinuous, and where the
+#: tensor-core route's rounding of P to bf16 moves a token's router logits
+#: across a tie the token changes experts and the bf16 gradients move by
+#: O(0.1) of their largest entry (0.33 at w_gate, same card), so its
+#: leaves are held in float32 and its B5 calls one by one (``held_flash``).
+#: RecurrentGemma-9B at 5 of 38 (one (rglru, rglru, local) period and the
+#: two remainder layers); MusicGen-large at full depth
+TRAIN_PATHS = {
+    "train_qwen3_full": TrainPath("qwen3-1.7b", None, "flash_attention",
+                                  "counted", "leaves", None),
+    "train_rwkv6_full": TrainPath("rwkv6-3b", 8, "rwkv_linattn", 4, None,
+                                  (plain_flash, f64_linattn)),
+    "train_mixtral_full": TrainPath("mixtral-8x7b", 2, "flash_attention",
+                                    None, "norm", None),
+    "train_recurrentgemma_full": TrainPath(
+        "recurrentgemma-9b", 5, "flash_attention", None, "leaves", None),
+    "train_musicgen_full": TrainPath("musicgen-large", None,
+                                     "flash_attention", None, "leaves",
+                                     None),
+}
+
+
 def train_setup(name):
     """Before the counted window: the main path's first step (init(0), the
-    pipeline's batch 0, bf16) on the card through the kernels, and again
-    with the plain versions tapped in -- loss, gradient norm and every
-    leaf's gradient compared, no leaf's gradient zero or not finite on
-    the kernels' path (RWKV6: the loss, and its gradients in float32 at
-    TRAIN_F32_DEPTH layers on the first microbatch, beside the rounding
-    control; see TRAIN_BF16_GRADS_HELD).  Then one Function call's forward and
-    backward timed at the main-path shape."""
-    arch, kernel = TRAIN_PATHS[name]
+    CLI's batch 0, bf16) on the card through the kernels, and again with
+    the plain versions tapped in -- loss, gradient norm and every leaf's
+    gradient compared as ``TrainPath.bf16_grads`` says, no leaf's
+    gradient (the router's and RG-LRU's lam included) zero or not finite
+    on the kernels' path, and every B5 call of the kernels' step held
+    against the plain version on its own inputs (``held_flash``).  Then a
+    microbatch's time and the device's busy share, and one Function
+    call's forward and backward timed at the phase's shape."""
+    path = TRAIN_PATHS[name]
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = family_config(path.arch, path.depth)
     model = Transformer(cfg, device=dev)
     params = model.init(0)
     n_params = sum(p.numel() for p in tree_leaves_sorted(params))
-    batch = synthetic_token_batch(0, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                                  vocab=cfg.vocab)
-    grads, first = step_compare(model, params, batch, None, PLAIN)
-    for path, g in zip(leaf_paths(grads), tree_leaves_sorted(grads)):
-        if not torch.isfinite(g).all() or float(g.abs().max()) == 0.0:
-            raise AssertionError(f"{name}: the gradient of {path} is zero "
-                                 "or not finite on the kernels' path")
+    batch = synthetic_lm_batch(cfg, 0, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    calls = []
+    grads, first = step_compare(model, params, batch,
+                                (held_flash(calls), rwkv_linattn), PLAIN)
+    bad_leaves = [p for p, g in zip(leaf_paths(grads),
+                                    tree_leaves_sorted(grads))
+                  if not torch.isfinite(g).all() or float(g.abs().max()) == 0]
     del grads
-    first.update(leaves=len(first["leaf_rel_err"]), dtype=cfg.compute_dtype,
-                 tol={"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL})
-    bad = first["loss_rel_err"] > TRAIN_LOSS_TOL
-    if TRAIN_BF16_GRADS_HELD[name]:
-        bad |= (first["grad_norm_rel_err"] > TRAIN_LOSS_TOL
-                or first["worst_leaf_rel_err"] > TRAIN_GRAD_TOL)
-    else:
-        # the first microbatch in float32 at TRAIN_F32_DEPTH layers: the
-        # kernel against the plain recurrence (held), and the plain
-        # recurrence in float32 against float64 (the rounding control)
-        mb = {k: v[:1] for k, v in batch.items()}
+    bad = bool(bad_leaves) or first["loss_rel_err"] > TRAIN_LOSS_TOL
+    if path.bf16_grads:
+        bad |= first["grad_norm_rel_err"] > TRAIN_LOSS_TOL
+    if path.bf16_grads == "leaves":
+        bad |= first["worst_leaf_rel_err"] > TRAIN_GRAD_TOL
+    if calls:
+        errs, ratios = (torch.stack(c) for c in zip(*calls))
+        first["flash_calls"] = {"calls": len(calls),
+                                "max_abs_err": float(errs.max()),
+                                "row_ratio": float(ratios.max()),
+                                "tol": FLASH_TOL[torch.bfloat16]}
+        bad |= first["flash_calls"]["row_ratio"] > 1.0
+    mb = {k: v[:1] for k, v in batch.items()}
+    if path.bf16_grads != "leaves":
+        # the first microbatch in float32 at TRAIN_F32_DEPTH layers (of a
+        # one-kind pattern): the kernels against the plain versions
+        depth = min(TRAIN_F32_DEPTH, cfg.n_layers)
         cut = Transformer(dataclasses.replace(
-            cfg, compute_dtype="float32", n_layers=TRAIN_F32_DEPTH),
-            device=dev)
-        cut_params = dict(params, periods=[
-            tree_map(lambda a: a[:TRAIN_F32_DEPTH].clone(), t)
-            for t in params["periods"]])
-        for key, a, b in (
-                (f"float32_depth{TRAIN_F32_DEPTH}", None, PLAIN),
-                (f"float32_depth{TRAIN_F32_DEPTH}_control", PLAIN,
-                 (plain_flash, f64_linattn))):
-            _, first[key + "_first_microbatch"] = step_compare(
-                cut, cut_params, mb, a, b)
-        held = first[f"float32_depth{TRAIN_F32_DEPTH}_first_microbatch"]
-        held["tol"] = TRAIN_GRAD_TOL_F32
-        bad |= held["worst_leaf_rel_err"] > TRAIN_GRAD_TOL_F32
-        del cut_params
+            cfg, compute_dtype="float32", n_layers=depth), device=dev)
+        cut_params = params if depth == cfg.n_layers else dict(
+            params, periods=[tree_map(lambda a: a[:depth].clone(), t)
+                             for t in params["periods"]])
+        key = f"float32_depth{depth}_first_microbatch"
+        _, first[key] = step_compare(cut, cut_params, mb, None, PLAIN)
+        first[key]["tol"] = TRAIN_GRAD_TOL_F32
+        bad |= first[key]["worst_leaf_rel_err"] > TRAIN_GRAD_TOL_F32
+        if path.f32_control:
+            _, first[f"float32_depth{depth}_control_first_microbatch"] = \
+                step_compare(cut, cut_params, mb, PLAIN, path.f32_control)
+        del cut, cut_params
+
     # where a microbatch's time goes: its forward, recompute and backward
     # (no optimizer), CUDA-event ms beside the device's busy time
-    mb = {k: v[:1] for k, v in batch.items()}
-
     def microbatch():
         loss_and_grads(model, params, mb)
         clear_grads(params)
     mb_ms = cuda_ms(microbatch, reps=3)
-    first["microbatch"] = {"ms": mb_ms,
-                           **with_idle(mb_ms, device_busy(microbatch, 2))}
+    first.update(leaves=len(first["leaf_rel_err"]), dtype=cfg.compute_dtype,
+                 tol={"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL},
+                 bf16_grads_held=path.bf16_grads,
+                 zero_or_nonfinite_leaves=bad_leaves,
+                 microbatch={"ms": mb_ms, **with_idle(
+                     mb_ms, device_busy(microbatch, 1))})
     emit(f"{name}_first_step", **first)
     if bad:
         raise AssertionError(f"{name}: first step through the kernels and "
-                             "through the plain versions disagree (see "
-                             f"the {name}_first_step line)")
+                             "through the plain versions disagree, or a "
+                             f"gradient is zero (see the {name}_first_step "
+                             "line)")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    timing = function_backward_ms(np.random.default_rng(12), kernel, dev)
+    timing = function_backward_ms(np.random.default_rng(12), cfg,
+                                  path.kernel, dev)
     gc.collect()
     torch.cuda.empty_cache()
     return {"first": first, "n_params": n_params, "function": timing}
 
 
-def phase_train_full(name, setup):
-    """LM training on the card through the training CLI's ``main``:
-    TRAIN_FULL_STEPS steps and a checkpoint, then ``--resume`` for
-    TRAIN_RESUME_STEPS more -- at full width and depth for Qwen3; for
-    RWKV6 TRAIN_FULL_STEPS steps of the train step the CLI builds
-    (``make_train_step``, AdamW at the CLI's schedule) at full width and
-    depth, then the CLI at TRAIN_CLI_DEPTH layers (TRAIN_STEPS steps, the
-    resume; see TRAIN_CKPT_ROOT).  The first full-depth step is the one
-    the set-up held against the plain versions.  Every layer of every
-    microbatch launches the kernel twice (the forward and the checkpoint's
-    recompute, "nothing" remat) and runs its backward once through the
-    plain version."""
-    arch, kernel = TRAIN_PATHS[name]
+def phase_train(name, setup):
+    """LM training on the card at full width and the depth of the phase's
+    ``TrainPath``: TRAIN_FULL_STEPS steps of the train step the CLI builds
+    (``make_train_step``, AdamW at the CLI's schedule, the CLI's batches:
+    frame embeddings for MusicGen), or of the CLI itself, and the CLI's
+    checkpoint and --resume where the path names it (see TRAIN_CKPT_ROOT).
+    The first step is the one the set-up held against the plain versions.
+    Every kernel layer of a period launches the kernel twice a microbatch
+    (the forward and the checkpoint's recompute, "nothing" remat), a
+    remainder layer once, and each runs its backward once through the
+    plain version.  Peak device memory against the four float32 copies
+    (gate TRAIN_PEAK_FACTOR)."""
+    path = TRAIN_PATHS[name]
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = family_config(path.arch, path.depth)
     acc = _largest_divisor_leq(TRAIN_BATCH, cfg.train_accum)
-    cli_full = TRAIN_CLI_FULL_DEPTH[name]
+    in_periods, in_rem = kernel_layers(cfg, path.kernel)
+    launches = backwards = 0
 
     full = []
-    if not cli_full:
-        # full width and depth: the four float32 copies live on the card
+    if path.cli != "counted":
         model = Transformer(cfg, device=dev)
         params = model.init(0)
         opt = adamw_init(params)
         train_step = make_train_step(model, AdamWConfig(lr=warmup_cosine(
             3e-3, 20, TRAIN_FULL_STEPS)))
         for s in range(TRAIN_FULL_STEPS):
-            batch = synthetic_token_batch(s, batch=TRAIN_BATCH,
-                                          seq=TRAIN_SEQ, vocab=cfg.vocab)
+            batch = synthetic_lm_batch(cfg, s, batch=TRAIN_BATCH,
+                                       seq=TRAIN_SEQ)
             t0 = time.perf_counter()
             params, opt, m = train_step(params, opt, batch)
             full.append({"step": s, "loss": float(m["loss"]),
@@ -3192,41 +3391,58 @@ def phase_train_full(name, setup):
         del model, params, opt
         gc.collect()
         torch.cuda.empty_cache()
+        launches += acc * TRAIN_FULL_STEPS * (2 * in_periods + in_rem)
+        backwards += acc * TRAIN_FULL_STEPS * (in_periods + in_rem)
 
-    # the CLI: steps, a checkpoint, --resume
-    cli_layers = cfg.n_layers if cli_full else TRAIN_CLI_DEPTH
-    first_steps = TRAIN_FULL_STEPS if cli_full else TRAIN_STEPS
-
-    def cli_config(arch_name):
-        return dataclasses.replace(get_config(arch_name), n_layers=cli_layers)
-    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=TRAIN_CKPT_ROOT)
-    argv = ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq",
-            str(TRAIN_SEQ), "--ckpt-dir", ckpt, "--ckpt-every", "1000"]
-    try:
-        walls = []
-        with contextlib.redirect_stdout(io.StringIO()), \
-                patched(train_cli, "get_config", cli_config):
-            for extra in (["--steps", str(first_steps)],
-                          ["--steps", str(TRAIN_RESUME_STEPS), "--resume"]):
-                t0 = time.perf_counter()
-                hist = train_cli.main(argv + extra)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0, hist))
-                gc.collect()
-                torch.cuda.empty_cache()
-        ckpt_bytes = sum(os.path.getsize(os.path.join(b, f))
-                         for b, _, fs in os.walk(ckpt) for f in fs)
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    cli = None
+    if path.cli is not None:
+        # the CLI: steps, a checkpoint, --resume
+        counted = path.cli == "counted"
+        cli_cfg = cfg if counted else family_config(path.arch, path.cli)
+        first_steps = TRAIN_FULL_STEPS if counted else TRAIN_STEPS
+        ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=TRAIN_CKPT_ROOT)
+        argv = ["--arch", path.arch, "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--ckpt-dir", ckpt, "--ckpt-every", "1000"]
+        try:
+            walls = []
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    patched(train_cli, "get_config", lambda a: cli_cfg):
+                for extra in (["--steps", str(first_steps)],
+                              ["--steps", str(TRAIN_RESUME_STEPS),
+                               "--resume"]):
+                    t0 = time.perf_counter()
+                    hist = train_cli.main(argv + extra)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0, hist))
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            ckpt_bytes = sum(os.path.getsize(os.path.join(b, f))
+                             for b, _, fs in os.walk(ckpt) for f in fs)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        (wall1, h1), (wall2, h2) = walls
+        if counted:
+            full = h1
+        steps = [h["step"] for h in h1 + h2]
+        if steps != list(range(first_steps + TRAIN_RESUME_STEPS)):
+            raise AssertionError(f"{name}: CLI steps {steps}; the resume "
+                                 f"must continue at {first_steps}")
+        for h in h1 + h2:
+            if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+                raise AssertionError(f"{name}: CLI step {h['step']}: {h}")
+        p, r = kernel_layers(cli_cfg, path.kernel)
+        launches += acc * len(steps) * (2 * p + r)
+        backwards += acc * len(steps) * (p + r)
+        cli = {"layers": cli_cfg.n_layers, "steps": steps,
+               "losses": [h["loss"] for h in h1 + h2],
+               "step_ms": [1e3 * h["time_s"] for h in h1 + h2],
+               "wall_s": [wall1, wall2],
+               # the walls outside the steps: build, init, restore, save
+               "outside_steps_s": [wall1 - sum(h["time_s"] for h in h1),
+                                   wall2 - sum(h["time_s"] for h in h2)],
+               "ckpt_bytes": ckpt_bytes}
     peak = torch.cuda.max_memory_allocated()
-    (wall1, h1), (wall2, h2) = walls
-    if cli_full:
-        full = h1
-    steps = [h["step"] for h in h1 + h2]
-    if steps != list(range(first_steps + TRAIN_RESUME_STEPS)):
-        raise AssertionError(f"{name}: CLI steps {steps}; the resume must "
-                             f"continue at {first_steps}")
-    for h in full + h1 + h2:
+    for h in full:
         if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
             raise AssertionError(f"{name}: step {h['step']}: {h}")
     first = setup["first"]
@@ -3236,21 +3452,19 @@ def phase_train_full(name, setup):
         raise AssertionError(f"{name}: the first step {full[0]} is not the "
                              f"checked one ({first['loss']}, "
                              f"{first['grad_norm']})")
-
-    launches = acc * 2 * (cfg.n_layers * TRAIN_FULL_STEPS * (not cli_full)
-                          + cli_layers * (first_steps + TRAIN_RESUME_STEPS))
-    backwards = WRAPPERS[kernel].plain_backwards
-    if backwards != launches // 2:
-        raise AssertionError(f"{name}: {backwards} plain backward calls, "
-                             f"expected {launches // 2}")
+    got = WRAPPERS[path.kernel].plain_backwards
+    if got != backwards:
+        raise AssertionError(f"{name}: {got} plain backward calls, "
+                             f"expected {backwards}")
     reckoned = 4 * 4 * setup["n_params"]
     if not reckoned <= peak <= TRAIN_PEAK_FACTOR * reckoned:
         raise AssertionError(f"{name}: peak {peak} B against the four "
                              f"float32 copies' {reckoned} B")
     step_s = statistics.median(h["time_s"] for h in full[1:])
     fn = setup["function"]
-    emit(name, arch=arch, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    emit(name, arch=path.arch, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
          microbatches=acc, remat=cfg.remat_policy, layers=cfg.n_layers,
+         full_layers=get_config(path.arch).n_layers,
          n_params=setup["n_params"], step_ms=1e3 * step_s,
          step_ms_each=[1e3 * h["time_s"] for h in full],
          tokens_per_sec=TRAIN_BATCH * TRAIN_SEQ / step_s,
@@ -3259,27 +3473,191 @@ def phase_train_full(name, setup):
          peak_mem_bytes=peak, reckoned_bytes=reckoned,
          peak_over_reckoned=peak / reckoned, launches=launches,
          plain_backwards=backwards, function=fn,
-         plain_backward_share=fn["backward_ms"] * cfg.n_layers * acc
-         / (1e3 * step_s),
-         kernel_forward_share=fn["forward_ms"] * 2 * cfg.n_layers * acc
-         / (1e3 * step_s),
-         cli={"layers": cli_layers, "steps": steps,
-              "losses": [h["loss"] for h in h1 + h2],
-              "step_ms": [1e3 * h["time_s"] for h in h1 + h2],
-              "wall_s": [wall1, wall2],
-              # the walls outside the steps: build, init, restore, save
-              "outside_steps_s": [wall1 - sum(h["time_s"] for h in h1),
-                                  wall2 - sum(h["time_s"] for h in h2)],
-              "ckpt_bytes": ckpt_bytes})
-    return {kernel: launches}
+         plain_backward_share=fn["backward_ms"] * (in_periods + in_rem)
+         * acc / (1e3 * step_s),
+         kernel_forward_share=fn["forward_ms"] * (2 * in_periods + in_rem)
+         * acc / (1e3 * step_s), cli=cli)
+    return {path.kernel: launches}
 
 
-def phase_train_qwen3_full(setup):
-    return phase_train_full("train_qwen3_full", setup)
+# ---------------------------------------------------------------------------
+# the other LM families (MoE, RG-LRU + LOCAL, XATTN, the embedding frontend,
+# the int8 KV cache): serving and training at full width, depth cut only
+# where one card's 80 GB forces it
+# ---------------------------------------------------------------------------
+
+#: the mixer kinds whose layers call each LM kernel over a sequence
+KERNEL_KINDS = {"flash_attention": ("attn", "local", "xattn"),
+                "rwkv_linattn": ("rwkv",)}
 
 
-def phase_train_rwkv6_full(setup):
-    return phase_train_full("train_rwkv6_full", setup)
+def family_config(arch, depth=None, **kw):
+    """``get_config(arch)`` at ``depth`` layers (None: its own), with
+    ``kw`` replaced."""
+    cfg = get_config(arch)
+    if depth:
+        kw["n_layers"] = depth
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def kernel_layers(cfg, kernel="flash_attention"):
+    """(the kernel's layers in full periods, its layers in the remainder)
+    of ``cfg``: a prefill launches it once a layer; a training microbatch
+    twice a period layer (the forward and the checkpoint's recompute,
+    remat "nothing") and once a remainder layer."""
+    kinds = KERNEL_KINDS[kernel]
+    n_full, n_rem = cfg.n_periods()
+    kp = len(cfg.pattern)
+    return (n_full * sum(k in kinds for k in cfg.pattern),
+            sum(cfg.pattern[r % kp] in kinds for r in range(n_rem)))
+
+
+#: the serving phases of the other families: (the serving CLI's argv,
+#: depth (None: full), config overrides, whether the CLI must take the
+#: static loop).  Mixtral at 4 of its 32 layers on the paged engine with
+#: the Qwen3 trace (16 requests of 128-1024 tokens, 32 new, 8 slots);
+#: RecurrentGemma at full depth on the static loop, 4 prompts of 3072 so
+#: that its LOCAL layers' 2048-token window bites in prefill and in the
+#: ring decode; Llama-3.2-Vision at one period (5 of 100 layers: 4 ATTN +
+#: 1 XATTN) over 1024 stub encoder states, 4 prompts of 512; MusicGen at
+#: full depth through the embedding frontend, 8 x 512 frames; Qwen3-1.7B
+#: with the int8 KV cache (the engine refuses int8 pages: static loop)
+SERVE_FAMILIES = {
+    "serve_mixtral_full": (["--arch", "mixtral-8x7b", *QWEN3_ARGV[2:]], 4,
+                           {}, False),
+    "serve_recurrentgemma_full": (
+        ["--arch", "recurrentgemma-9b", "--requests", "4", "--prompt-len",
+         "3072", "--gen", "32", "--max-seq-len", "3104"], None, {}, True),
+    "serve_vlm_full": (
+        ["--arch", "llama-3.2-vision-90b", "--requests", "4",
+         "--prompt-len", "512", "--gen", "32", "--max-seq-len", "544"], 5,
+        {}, True),
+    "serve_musicgen_full": (
+        ["--arch", "musicgen-large", "--requests", "8", "--prompt-len",
+         "512", "--gen", "32", "--max-seq-len", "544"], None, {}, True),
+    "serve_qwen3_int8_full": (
+        ["--arch", "qwen3-1.7b", "--requests", "8", "--prompt-len", "512",
+         "--gen", "32", "--max-seq-len", "544"], None,
+        {"kv_cache_dtype": "int8"}, True),
+}
+
+
+def serve_family(name):
+    """One of ``SERVE_FAMILIES`` through the serving CLI's ``main``, its
+    config cut as the table says (``get_config`` patched in the CLI):
+    every request served with ``--gen`` tokens in the vocabulary, every
+    prefill's logits finite, and the static loop taken where it must be.
+    Returns (outputs, B5 launches, the emitted fields)."""
+    argv, depth, over, static = SERVE_FAMILIES[name]
+    arch = argv[1]
+    n, gen = int(argv[argv.index("--requests") + 1]), 32
+    finite = {"prefill": [], "decode": []}
+    real = {"prefill": Transformer.prefill,
+            "decode": Transformer.decode_step,
+            "paged": Transformer.decode_step_paged}
+
+    def watched(kind):
+        def call(self, *a, **kw):
+            out = real[kind](self, *a, **kw)
+            finite["prefill" if kind == "prefill" else "decode"].append(
+                bool(torch.isfinite(out[0]).all()))
+            return out
+        return call
+    with patched(serve, "get_config",
+                 lambda a: family_config(a, depth, **over)), \
+            patched(Transformer, "prefill", watched("prefill")), \
+            patched(Transformer, "decode_step", watched("decode")), \
+            patched(Transformer, "decode_step_paged", watched("paged")):
+        outputs, text, wall = run_serve(argv)
+    cfg = family_config(arch, depth, **over)
+    took_static = "falling back to the static loop" in text
+    if took_static != static or not all(finite["prefill"] +
+                                        finite["decode"]):
+        raise AssertionError(f"{name}: static loop {took_static} (expected "
+                             f"{static}), logits finite {finite}")
+    check_outputs(name, outputs, n, gen, cfg.vocab)
+    per_prefill = sum(kernel_layers(cfg))
+    fields = {"arch": arch, "layers": cfg.n_layers,
+              "full_layers": get_config(arch).n_layers,
+              "path": "static loop" if static else "paged engine",
+              "wall_s": wall, "peak_mem_bytes":
+              torch.cuda.max_memory_allocated(),
+              "first_tokens": [int(t) for t in outputs[0][:8]],
+              "distinct_tokens": len({int(t) for o in outputs.values()
+                                      for t in o}),
+              "logit_calls": {k: len(v) for k, v in finite.items()}}
+    if static:
+        prefills = 1
+        fields.update(generated_tokens=n * gen,
+                      tokens_per_sec=n * gen / wall)
+    else:
+        summ = serve_json(text)
+        if summ["requests_finished"] != n or summ["rejections"]:
+            raise AssertionError(f"{name}: {summ}")
+        prefills = summ["prefills"]
+        fields.update(tokens_per_sec=summ["tokens_per_sec"],
+                      ttft_p50_s=summ["ttft_s"]["p50"],
+                      latency_p99_s=summ["latency_s"]["p99"],
+                      generated_tokens=summ["generated_tokens"],
+                      elapsed_s=summ["elapsed_s"],
+                      decode_steps=summ["decode_steps"],
+                      preemptions=summ["preemptions"])
+    fields.update(prefills=prefills, flash_per_prefill=per_prefill)
+    return outputs, per_prefill * prefills, fields
+
+
+def phase_serve_mixtral_full():
+    _, launches, fields = serve_family("serve_mixtral_full")
+    emit("serve_mixtral_full", **fields)
+    return {"flash_attention": launches}
+
+
+def phase_serve_recurrentgemma_full():
+    _, launches, fields = serve_family("serve_recurrentgemma_full")
+    emit("serve_recurrentgemma_full", **fields)
+    return {"flash_attention": launches}
+
+
+def phase_serve_vlm_full():
+    _, launches, fields = serve_family("serve_vlm_full")
+    emit("serve_vlm_full", **fields)
+    return {"flash_attention": launches}
+
+
+def phase_serve_musicgen_full():
+    _, launches, fields = serve_family("serve_musicgen_full")
+    emit("serve_musicgen_full", **fields)
+    return {"flash_attention": launches}
+
+
+def phase_serve_qwen3_int8_full():
+    """Qwen3-1.7B with the int8 KV cache through the CLI (the static
+    loop), then the same loop (``legacy_generate``, the same weights and
+    prompts) with the bf16 cache: the greedy tokens compared.  The first
+    token of each request comes from the prefill's logits, which the
+    cache does not touch, so it must agree; later ones read the cache."""
+    outputs, launches, fields = serve_family("serve_qwen3_int8_full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = SERVE_FAMILIES["serve_qwen3_int8_full"][0]
+    args = serve.build_parser().parse_args(argv)
+    cfg = get_config("qwen3-1.7b")
+    model = Transformer(cfg, device=torch.device("cuda"))
+    bf16 = serve.legacy_generate(cfg, model, model.init(0), args)
+    del model
+    a = np.stack([outputs[i] for i in sorted(outputs)])
+    b = np.stack([bf16[i] for i in sorted(bf16)])
+    if not np.array_equal(a[:, 0], b[:, 0]):
+        raise AssertionError(f"serve_qwen3_int8_full: first tokens {a[:, 0]}"
+                             f" against the bf16 cache's {b[:, 0]}")
+    same = a == b
+    diverge = [int(np.argmin(r)) if not r.all() else int(r.size)
+               for r in same]
+    emit("serve_qwen3_int8_full", **fields,
+         agree_share=float(same.mean()),
+         agree_share_by_position=[float(x) for x in same.mean(0)],
+         first_divergence=diverge)
+    return {"flash_attention": launches + sum(kernel_layers(cfg))}
 
 
 # ---------------------------------------------------------------------------
@@ -4173,7 +4551,8 @@ FLEET_MESH = ((False, "d3ca", "sdca_epoch"), (False, "radisa", "svrg_inner"),
               (False, "admm", None), (True, "d3ca", "sdca_epoch_sparse"),
               (True, "radisa", "svrg_inner_sparse"))
 #: online_full's window and batches on the mesh, depth cut to these rounds
-FLEET_MESH_ROUNDS = 5
+#: (cut from 5 to keep the script inside its time limit)
+FLEET_MESH_ROUNDS = 3
 #: request rows a grid scoring call takes, and the calls timed
 SCORE_ROWS, SCORE_CALLS = 4096, 3
 #: the wrapper module core/local.py takes each solver kernel from
@@ -4558,8 +4937,8 @@ SDCA_SHAPE_LAUNCHES = {
 
 #: what a main path is held against that must be made before its counted
 #: window (the fleets' solo solves), handed to its phase
-PHASE_SETUP = {"train_qwen3_full": lambda: train_setup("train_qwen3_full"),
-               "train_rwkv6_full": lambda: train_setup("train_rwkv6_full"),
+PHASE_SETUP = {**{name: functools.partial(train_setup, name)
+                  for name in TRAIN_PATHS},
                "fleet_dense_full": lambda: fleet_solos(False),
                "fleet_sparse_full": lambda: fleet_solos(True),
                "obs_full": obs_setup, "mesh_full": mesh_setup,
@@ -4591,6 +4970,16 @@ def run_main_path(name, phase, results):
         results[k]["launches"] += v
         for r, n in route_counts(k).items():
             results[k]["routes"][r] += n
+    # B5 by head dim: every launch at D = 256 (RecurrentGemma's LOCAL
+    # layers) on the tensor-core route, as every other main-path launch
+    by_dim = counts_by("flash_attention", "launches_by_head_dim")
+    if by_dim.get("simt/256"):
+        raise AssertionError(f"{name}: flash_attention at head dim 256 on "
+                             f"the simt route: {by_dim}")
+    dims = results["flash_attention"].setdefault("launches_by_head_dim", {})
+    for key, n in by_dim.items():
+        if n:
+            dims[key] = dims.get(key, 0) + n
     # B1 runs at two shapes, told apart by the cluster size each launch
     # took: OUTER_ITERS D3CA iterations on 1 CTA a cell and REF_EPOCHS
     # serial epochs for f* on 16
@@ -4775,23 +5164,47 @@ def lm_card_vs_cpu_bf16(dev):
     return err / scale
 
 
+#: the reduced configs held card against CPU: (arch, overrides)
+LM_CARD_CPU = [("qwen3-1.7b", {}), ("rwkv6-3b", {}), ("mixtral-8x7b", {}),
+               ("moonshot-v1-16b-a3b", {}),
+               ("recurrentgemma-9b", {"n_layers": 5}),
+               ("llama-3.2-vision-90b", {}), ("musicgen-large", {}),
+               ("qwen3-1.7b", {"kv_cache_dtype": "int8"})]
+
+
+def lm_inputs(cfg, rng, B, S):
+    """A prefill batch of ``cfg``'s frontend on the CPU: tokens or frame
+    embeddings, and stub encoder states for XATTN layers."""
+    b = {}
+    if cfg.embed_input == "tokens":
+        b["tokens"] = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)))
+    else:
+        b["embeds"] = torch.as_tensor(rng.normal(
+            size=(B, S, cfg.d_model)).astype(np.float32))
+    if cfg.encoder_len:
+        b["encoder"] = torch.as_tensor(rng.normal(
+            size=(B, cfg.encoder_len, cfg.d_model)).astype(np.float32))
+    return b
+
+
 def lm_card_vs_cpu(dev):
-    """Reduced Qwen3 and RWKV6, float32 compute, the same weights on both
-    sides: prefill of 2 prompts of 40 tokens (the kernels on the card, not
-    a multiple of their 64-token tiles) then 4 greedy decode steps; logits
-    and every cache leaf relative to their largest entry, and the greedy
-    tokens equal."""
+    """The reduced configs of ``LM_CARD_CPU`` (every family, the int8
+    cache), float32 compute, the same weights and inputs on both sides:
+    prefill of 2 prompts of 40 positions (the kernels on the card, not a
+    multiple of their 64-token tiles; the 16-token windows wrap) then 4
+    greedy decode steps; logits and every cache leaf relative to their
+    largest entry (int8 cache values within one quantum: the k / v they
+    quantize differ by rounding), and the greedy tokens equal."""
     out = {}
-    for arch in ("qwen3-1.7b", "rwkv6-3b"):
-        cfg = reduced(get_config(arch), compute_dtype="float32")
+    for arch, over in LM_CARD_CPU:
+        cfg = reduced(get_config(arch), compute_dtype="float32", **over)
         models = {"cpu": Transformer(cfg, device="cpu"),
                   "card": Transformer(cfg, device=dev)}
         params = {"cpu": models["cpu"].init(0)}
         params["card"] = tree_map(lambda t: t.to(dev), params["cpu"])
-        toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 40))
-        res = {d: models[d].prefill(params[d],
-                                    {"tokens": torch.as_tensor(toks)}, 48)
-               for d in models}
+        rng = np.random.default_rng(5)
+        batch = lm_inputs(cfg, rng, 2, 40)
+        res = {d: models[d].prefill(params[d], batch, 48) for d in models}
         worst = 0.0
         for step in range(5):
             (lc, cc), (lg, cg) = res["cpu"], res["card"]
@@ -4800,21 +5213,30 @@ def lm_card_vs_cpu(dev):
                 for a, b in zip(tree_leaves(cc[key]), tree_leaves(cg[key]))]
             for a, b in leaves:
                 b = b.cpu()
+                if a.dtype == torch.int8:
+                    if int((a.int() - b.int()).abs().max()) > 1:
+                        raise AssertionError(f"{arch} step {step}: int8 "
+                                             "cache values differ by more "
+                                             "than one quantum")
+                    continue
                 err = float((a - b).abs().max())
                 scale = max(1.0, float(a.abs().max()))
                 if not torch.isfinite(b).all() or err > LM_CARD_CPU_TOL * scale:
-                    raise AssertionError(f"{arch} step {step}: card vs CPU "
-                                         f"differ by {err:.3e}")
+                    raise AssertionError(f"{arch} {over} step {step}: card "
+                                         f"vs CPU differ by {err:.3e}")
                 worst = max(worst, err / scale)
             nxt = {d: torch.argmax(res[d][0][:, -1], dim=-1) for d in res}
             if not torch.equal(nxt["cpu"], nxt["card"].cpu()):
                 raise AssertionError(f"{arch} step {step}: greedy tokens "
                                      f"{nxt['cpu']} vs {nxt['card']}")
             if step < 4:
-                res = {d: models[d].decode_step(
-                    params[d], res[d][1], {"tokens": nxt[d][:, None]})
-                    for d in res}
-        out[arch] = worst
+                step_in = ({"tokens": nxt["cpu"][:, None]}
+                           if cfg.embed_input == "tokens" else
+                           lm_inputs(cfg, rng, 2, 1))
+                res = {d: models[d].decode_step(params[d], res[d][1],
+                                                dict(step_in))
+                       for d in res}
+        out[arch + "".join(f" {k}={v}" for k, v in over.items())] = worst
     return out
 
 
@@ -5240,13 +5662,24 @@ def phase_timing(dev, results):
                   for k, v in results.items()})
 
 
-def flash_bound(B, S, H, KV, D, nbytes_el):
-    """Least time of one causal flash attention call: q, k, v read once
-    and out written once; 4 D flops (q.k and p.v) per unmasked (query,
-    key) pair, S (S + 1) / 2 pairs per head, at the bf16 tensor-core
-    peak."""
-    nbytes = nbytes_el * B * S * D * (2 * H + 2 * KV)
-    flops = 4 * D * (S * (S + 1) // 2) * B * H
+def flash_pairs(S, Skv, causal, window):
+    """Unmasked (query, key) pairs of one head: query i sees keys
+    [max(0, i - window + 1), i] (causal) or up to Skv - 1 (not)."""
+    i = np.arange(S)
+    hi = np.minimum(i + 1, Skv) if causal else np.full(S, Skv)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(B, S, H, KV, D, nbytes_el, Skv=None, causal=True,
+                window=None):
+    """Least time of one flash attention call: q, k, v read once and out
+    written once; 4 D flops (q.k and p.v) per unmasked (query, key) pair
+    (``flash_pairs``: S (S + 1) / 2 a head when causal without a window),
+    at the bf16 tensor-core peak."""
+    Skv = S if Skv is None else Skv
+    nbytes = nbytes_el * B * D * (2 * S * H + 2 * Skv * KV)
+    flops = 4 * D * flash_pairs(S, Skv, causal, window) * B * H
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -5317,6 +5750,55 @@ def with_idle(ms, busy):
     return busy
 
 
+def flash_family_timing(rng, dev, results):
+    """B5 at the other families' main-path shapes (``FLASH_FAMILY_SHAPES``):
+    kernel, forced CUDA-core route (D 256), plain version (a KV head group
+    at a time), SDPA on the expanded heads with the same mask, and the
+    bound of this shape's unmasked pairs."""
+    for label, (B, S, Skv, H, KV, D, causal, window) in \
+            FLASH_FAMILY_SHAPES.items():
+        q, k, v = flash_inputs(rng, B, S, H, KV, D, torch.bfloat16, dev,
+                               Skv=Skv)
+        G = H // KV
+        qs, ks, vs = (q.transpose(1, 2),
+                      k.repeat_interleave(G, 2).transpose(1, 2),
+                      v.repeat_interleave(G, 2).transpose(1, 2))
+        qp = torch.arange(S, device=dev)[:, None]
+        kp = torch.arange(Skv, device=dev)[None, :]
+        mask = None
+        if window is not None:
+            mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+        kw = dict(causal=causal, window=window)
+
+        def kernel():
+            return flash_attention(q, k, v, **kw)
+
+        def library():
+            if mask is None:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=causal)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask)
+        kern = [both_ms(kernel, reps=10)]
+        lib = [both_ms(library, reps=10), both_ms(library, reps=10)]
+        kern.append(both_ms(kernel, reps=10))
+        plain = cuda_ms(lambda: plain_by_heads(q, k, v, **kw), reps=2)
+        row = {**medians(kern, "ms"), "plain_ms": plain,
+               **medians(lib, "library_ms"),
+               **flash_bound(B, S, H, KV, D, 2, Skv=Skv, causal=causal,
+                             window=window)}
+        if D == 256:
+            def simt_route():
+                return flash_ops._launch(q, k, v, causal, window,
+                                         D ** -0.5, "simt")
+            row.update(medians([both_ms(simt_route, reps=3)],
+                               "simt_route_ms"))
+        results["flash_attention"].setdefault("shapes", {}).setdefault(
+            label, {}).update(row)
+        del q, k, v, qs, ks, vs, mask
+        torch.cuda.empty_cache()
+
+
 def lm_timing(dev, results):
     """B5 and B6 at their main-path shapes (kernel, plain version and, for
     B5, ``F.scaled_dot_product_attention`` on the expanded heads -- timed
@@ -5353,6 +5835,8 @@ def lm_timing(dev, results):
         **medians(prev, "prev_route_ms"),
         **flash_bound(B, S, H, KV, D, 2))
     del q, k, v, qs, ks, vs
+
+    flash_family_timing(rng, dev, results)
 
     Bl, Sl, Hl, Dl = LINATTN_MAIN
     r, k, v, lw, u = linattn_inputs(rng, Bl * Hl, Sl, Dl, dev, heads=Hl)
@@ -5447,22 +5931,32 @@ def main(argv=None):
                for name, meta in KERNEL_META.items()}
     results["sdca_epoch"]["shapes"] = {"d3ca_cells": {"launches": 0},
                                        "serial": {"launches": 0}}
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        fn(*a)
+        emit("phase_time", of=name, seconds=time.perf_counter() - t0,
+             since_start_s=time.perf_counter() - t_start)
+
     if "kernels" in phases:
-        phase_kernels(dev, results)
+        timed("kernels", phase_kernels, dev, results)
 
     # the main paths: every count to 0 just before each, read just after
     for name in MAIN_PATHS:
         if name in phases:
-            run_main_path(name, globals()[f"phase_{name}"], results)
+            phase = (functools.partial(phase_train, name)
+                     if name in TRAIN_PATHS else globals()[f"phase_{name}"])
+            timed(name, run_main_path, name, phase, results)
     if set(phases) >= set(MAIN_PATHS):
         for name, res in results.items():
             if res["launches"] < 1:
                 raise AssertionError(f"the main path never launched {name}")
 
     if "cpu_vs_card" in phases:
-        phase_cpu_vs_card()
+        timed("cpu_vs_card", phase_cpu_vs_card)
     if "timing" in phases:
-        phase_timing(dev, results)
+        timed("timing", phase_timing, dev, results)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)

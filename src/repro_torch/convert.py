@@ -89,7 +89,10 @@ def lm_params_from_reference(tree, device="cuda"):
     """A reference LM parameter tree (``Transformer.init(key)[0]``, in
     ``param_dtype``) whose leaves were made numpy arrays -- nested dicts
     and lists of arrays -- as the port's tree of tensors on ``device``,
-    dtypes kept."""
+    dtypes kept.  Every family's tree has the port's layout as it is:
+    MoE routers and (E, ...) expert stacks, RG-LRU's leaves (``lam``
+    included), XATTN layers, and the embedding frontend's tree without
+    ``embed``."""
     device = resolve_device(device)
 
     def walk(t):

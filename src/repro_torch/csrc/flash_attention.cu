@@ -36,8 +36,10 @@
 // launched first.
 //
 // This is the `simt` route: float32 (whose 2e-5 tolerance TF32 products
-// would not hold), and head dims 16 / 32 in either type.  bfloat16 at
-// head dims 64 / 128 -- every prefill of the serving path -- takes the
+// would not hold), and head dims 16 / 32 in either type.  At head dim 256
+// (RecurrentGemma's LOCAL layers in float32) the tiles take 215 296 bytes
+// of shared memory, one block an SM.  bfloat16 at head dims 64 / 128 /
+// 256 -- every prefill of the serving path -- takes the
 // tensor-core kernel of flash_attention_tc.cu (the `tc` route); the
 // wrapper picks the route from (dtype, D) alone
 // (kernels/flash/ops.py::flash_route).
@@ -238,6 +240,7 @@ int launch_dim(const void* q, const void* k, const void* v, void* out,
     case 32: return launch_typed<T, 32>(q, k, v, out, B, S, Skv, H, KV, scale, causal, window, stream);
     case 64: return launch_typed<T, 64>(q, k, v, out, B, S, Skv, H, KV, scale, causal, window, stream);
     case 128: return launch_typed<T, 128>(q, k, v, out, B, S, Skv, H, KV, scale, causal, window, stream);
+    case 256: return launch_typed<T, 256>(q, k, v, out, B, S, Skv, H, KV, scale, causal, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -247,7 +250,7 @@ int launch_dim(const void* q, const void* k, const void* v, void* out,
 // Launch on `stream`; allocates nothing, does not synchronise, returns
 // cudaGetLastError().  q, out: (B, S, H, D) and k, v: (B, Skv, KV, D),
 // contiguous, all of `dtype` (0 float32, 1 bfloat16); H a multiple of KV;
-// D one of 16, 32, 64, 128; window < 0 means no window.
+// D one of 16, 32, 64, 128, 256; window < 0 means no window.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int Skv, int H, int KV, int D, float scale, int causal, int window,

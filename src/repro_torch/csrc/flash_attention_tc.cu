@@ -1,9 +1,9 @@
 // Causal / sliding-window softmax attention with grouped-query heads on
 // Hopper's tensor cores: the `tc` route of flash attention, bfloat16 at
-// head dims 64 and 128 (every prefill of the serving path).  float32, and
-// head dims 16 / 32, take the `simt` route (flash_attention.cu); the
-// wrapper picks the route from (dtype, D) alone
-// (kernels/flash/ops.py::flash_route).
+// head dims 64, 128 (every dense prefill of the serving path) and 256
+// (RecurrentGemma's LOCAL layers).  float32, and head dims 16 / 32, take
+// the `simt` route (flash_attention.cu); the wrapper picks the route from
+// (dtype, D) alone (kernels/flash/ops.py::flash_route).
 //
 // Replaces the TPU kernel src/repro/kernels/flash/flash.py::
 // flash_attention_pallas, with its semantics: causal and sliding-window
@@ -51,6 +51,17 @@
 //     query tiles are launched first and the shortest fill the SMs' second
 //     slots, so the longest sweeps share their SM least.
 //
+// Head dim 256: the O accumulator of 64 x 256 float32 would be 128
+// registers a thread of one warpgroup, beside Q's 64 and the S / P
+// fragments -- past the 255 a thread may hold.  So at D = 256 a CTA is
+// two warpgroups: each owns 128 columns of O (an m64n128 P V, 64
+// registers), and both form the same S = Q K^T over the whole head dim
+// (the product is formed twice: 1.5 x the tensor-core work of one pass,
+// which a later redesign may split); Q is read by TMA into shared memory
+// once per CTA and is the A operand of Q K^T from there (wgmma with both
+// operands in shared memory), so no thread holds Q's fragments.  The K
+// and V rings have two stages (Q 32 KB + 2 x 2 x 32 KB of 227 KB).
+//
 // Rounding: Q K^T is formed from the bf16 operands and P is rounded to
 // bf16 before P V (the Pallas kernel keeps both in float32): one bf16
 // rounding, inside the bf16 tolerance 3e-2 of tests/test_kernels.py that
@@ -70,22 +81,33 @@ namespace {
 
 constexpr int kBlockM = 64;               // query rows per CTA
 constexpr int kBlockN = 64;               // keys per KV tile
-constexpr int kStages = 3;                // depth of the K and V rings
-constexpr int kThreads = 128;             // one warpgroup
 constexpr int kBox = 64;                  // head-dim columns per TMA box (128 B)
 constexpr int kBoxBytes = kBox * kBlockN * 2;   // 8 KB: a 64 x 64 bf16 box
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// shared memory of one CTA: k[kStages] | v[kStages] | mbarriers
-// (kfull[kStages], vfull[kStages])
+// the shape of a CTA at head dim D: warpgroups (each owning kOD columns
+// of O), depth of the K and V rings, and where Q's A operand lives
+template <int D>
+struct Cfg {
+  static constexpr int kWG = D == 256 ? 2 : 1;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kOD = D / kWG;
+  static constexpr bool kQSmem = D == 256;   // else Q in registers
+};
+
+// shared memory of one CTA: [q] | k[kStages] | v[kStages] | mbarriers
+// (kfull[kStages], vfull[kStages], qfull)
 template <int D>
 struct Layout {
-  static constexpr int kTile = (D / kBox) * kBoxBytes;  // 64 rows of k or v
-  static constexpr int kK = 0;
+  static constexpr int kTile = (D / kBox) * kBoxBytes;  // 64 rows of q, k or v
+  static constexpr int kStages = Cfg<D>::kStages;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + (Cfg<D>::kQSmem ? kTile : 0);
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;
-  static constexpr int kBytes = kBar + 16 * kStages + 1024;  // + alignment
+  static constexpr int kBytes = kBar + 16 * kStages + 8 + 1024;  // + alignment
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -221,6 +243,53 @@ __device__ __forceinline__ void wgmma_rs_m64n64_kmajor_first(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
 }
 
+// S (64 x 64, f32) += A (64 x 16, K-major smem) B (16 x 64, K-major
+// smem): Q K^T with Q in shared memory (head dim 256)
+__device__ __forceinline__ void wgmma_ss_m64n64_kmajor(float (&d)[32],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// the same, overwriting S (scale-d false)
+__device__ __forceinline__ void wgmma_ss_m64n64_kmajor_first(float (&d)[32],
+                                                             uint64_t da,
+                                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // O (64 x 64) += P (64 x 16, registers) V (16 x 64, MN-major smem)
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
                                                  const uint32_t (&a)[4],
@@ -297,20 +366,25 @@ __device__ __forceinline__ void wgmma_rs_o<128>(float (&o)[64],
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(
+__global__ void __launch_bounds__(Cfg<D>::kThreads) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tk,   // k (B, Skv, KV, D)
     const __grid_constant__ CUtensorMap tv,   // v (B, Skv, KV, D)
+    const __grid_constant__ CUtensorMap tq,   // q (B, S, H, D), if kQSmem
     const __nv_bfloat16* __restrict__ q,      // (B, S, H, D)
     __nv_bfloat16* __restrict__ out,          // (B, S, H, D)
     int S, int Skv, int H, int KV, float scale_log2, int causal,
     int window) {
   using L = Layout<D>;
   constexpr int kNB = D / kBox;
+  constexpr int kStages = Cfg<D>::kStages;
+  constexpr int kOD = Cfg<D>::kOD;                   // O columns of a warpgroup
+  constexpr bool kQSmem = Cfg<D>::kQSmem;
   extern __shared__ unsigned char smem_tc[];
   const uint32_t base = (smem_u32(smem_tc) + 1023u) & ~1023u;
-  const uint32_t sk = base + L::kK, sv = base + L::kV;
+  const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
   const uint32_t kfull0 = base + L::kBar;            // kfull[s] = kfull0 + 8 s
   const uint32_t vfull0 = kfull0 + 8 * kStages;      // vfull[s]
+  const uint32_t qfull = vfull0 + 8 * kStages;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -355,26 +429,37 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(
       mbar_init(kfull0 + 8 * s, 1);
       mbar_init(vfull0 + 8 * s, 1);
     }
+    mbar_init(qfull, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (kQSmem) {
+      // the query tile, rows past S zero-filled by the hardware
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&tq)) : "memory");
+      mbar_expect_tx(qfull, L::kTile);
+      for (int nb = 0; nb < kNB; ++nb)
+        tma_load_4d(sq + nb * kBoxBytes, &tq, qfull, nb * kBox, h, q0, b);
+    }
     for (int j = 0; j < min(kStages, ntiles); ++j) {
       load(&tk, sk, kfull0, j);
       load(&tv, sv, vfull0, j);
     }
   }
 
-  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = tid >> 7;                       // O columns wg kOD ..
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int qa = q0 + warp * 16 + (lane >> 2);   // rows qa and qa + 8
   const int qb = qa + 8;
   const int cq = 2 * (lane & 3);                 // columns cq, cq + 1 of each n8
-  float o[D / 2];
+  float o[kOD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kOD / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // raw-score max
 
-  // q as the A operand of Q K^T, held in registers for the whole sweep:
-  // k-step t covers columns 16 t .. 16 t + 15 (rows past S are zeros)
-  uint32_t qf[D / 16][4];
-  {
+  // q as the A operand of Q K^T, held in registers for the whole sweep
+  // (D 64 / 128): k-step t covers columns 16 t .. 16 t + 15 (rows past S
+  // are zeros); at D 256 it is read from shared memory instead
+  uint32_t qf[kQSmem ? 1 : D / 16][4];
+  if constexpr (!kQSmem) {
     const long long row = static_cast<long long>(H) * D;
     const __nv_bfloat16* qra =
         q + (static_cast<long long>(b) * S * H + h) * D + qa * row;
@@ -389,6 +474,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(
     }
   }
   __syncthreads();                               // the mbarriers are set up
+  if constexpr (kQSmem) mbar_wait(qfull, 0);
 
   // S = Q K^T of tile j (issued and committed, not waited for): D / 16
   // k-steps of 32 bytes inside 128-byte swizzled K rows; the first
@@ -397,21 +483,29 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(
     const uint32_t kt = sk + (j % kStages) * L::kTile;
 #pragma unroll
     for (int t = 0; t < D / 16; ++t) {
-      const uint64_t db = make_desc(kt + (t / 4) * kBoxBytes + (t % 4) * 32,
-                                    16, 1024);
-      if (t == 0) wgmma_rs_m64n64_kmajor_first(sc, qf[0], db);
-      else wgmma_rs_m64n64_kmajor(sc, qf[t], db);
+      const uint32_t off = (t / 4) * kBoxBytes + (t % 4) * 32;
+      const uint64_t db = make_desc(kt + off, 16, 1024);
+      if constexpr (kQSmem) {
+        const uint64_t da = make_desc(sq + off, 16, 1024);
+        if (t == 0) wgmma_ss_m64n64_kmajor_first(sc, da, db);
+        else wgmma_ss_m64n64_kmajor(sc, da, db);
+      } else {
+        if (t == 0) wgmma_rs_m64n64_kmajor_first(sc, qf[0], db);
+        else wgmma_rs_m64n64_kmajor(sc, qf[t], db);
+      }
     }
     wgmma_commit();
   };
   // O += P V of tile j (issued and committed, not waited for): V rows are
   // keys (K), its head-dim columns N, MN-major; 8-key groups 1024 B apart,
-  // 64-column boxes kBoxBytes apart
+  // 64-column boxes kBoxBytes apart; warpgroup wg reads the boxes of its
+  // kOD columns
   auto issue_pv = [&](const uint32_t (&pa)[4][4], int j) {
-    const uint32_t vt = sv + (j % kStages) * L::kTile;
+    const uint32_t vt = sv + (j % kStages) * L::kTile +
+                        wg * (kOD / kBox) * kBoxBytes;
 #pragma unroll
     for (int t = 0; t < 4; ++t)
-      wgmma_rs_o<D>(o, pa[t], make_desc(vt + t * 16 * 128, kBoxBytes, 1024));
+      wgmma_rs_o<kOD>(o, pa[t], make_desc(vt + t * 16 * 128, kBoxBytes, 1024));
     wgmma_commit();
   };
   // online softmax of the tile at key k0, on the S fragments (read only):
@@ -509,7 +603,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(
   auto rescale = [&](float c0, float c1) {
     if (__all_sync(0xffffffffu, c0 == 1.f && c1 == 1.f)) return;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kOD / 8; ++j) {
       o[4 * j + 0] *= c0;
       o[4 * j + 1] *= c0;
       o[4 * j + 2] *= c1;
@@ -606,8 +700,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(
   const long long row = static_cast<long long>(H) * D;
   __nv_bfloat16* ob = out + (static_cast<long long>(b) * S * H + h) * D;
 #pragma unroll
-  for (int jj = 0; jj < D / 8; ++jj) {
-    const int col = 8 * jj + cq;
+  for (int jj = 0; jj < kOD / 8; ++jj) {
+    const int col = wg * kOD + 8 * jj + cq;
     if (qa < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + qa * row + col) =
           __floats2bfloat162_rn(o[4 * jj + 0] / den0, o[4 * jj + 1] / den0);
@@ -657,8 +751,9 @@ template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
               int S, int Skv, int H, int KV, float scale, int causal,
               int window, cudaStream_t stream) {
-  CUtensorMap tk, tv;
-  if (!make_map(&tk, k, D, KV, Skv, B) || !make_map(&tv, v, D, KV, Skv, B))
+  CUtensorMap tk, tv, tq;
+  if (!make_map(&tk, k, D, KV, Skv, B) || !make_map(&tv, v, D, KV, Skv, B) ||
+      !make_map(&tq, q, D, H, S, B))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_attention_tc_kernel<D>;
   const int smem = Layout<D>::kBytes;
@@ -666,8 +761,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kBlockM - 1) / kBlockM);
-  kern<<<grid, kThreads, smem, stream>>>(
-      tk, tv, static_cast<const __nv_bfloat16*>(q),
+  kern<<<grid, Cfg<D>::kThreads, smem, stream>>>(
+      tk, tv, tq, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(out), S, Skv, H, KV, scale * kLog2e, causal,
       window);
   return static_cast<int>(cudaGetLastError());
@@ -678,7 +773,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 // The tensor-core route.  Launch on `stream`; allocates nothing, does not
 // synchronise, returns cudaGetLastError().  q, out: (B, S, H, D) and k, v:
 // (B, Skv, KV, D), contiguous bfloat16 with 16-byte aligned bases; H a
-// multiple of KV; D 64 or 128; window < 0 means no window.
+// multiple of KV; D 64, 128 or 256; window < 0 means no window.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int Skv, int H, int KV, int D, float scale, int causal, int window,
@@ -693,5 +788,7 @@ extern "C" int flash_attention_tc_launch(
     return launch_tc<64>(q, k, v, out, B, S, Skv, H, KV, scale, causal, window, st);
   if (D == 128)
     return launch_tc<128>(q, k, v, out, B, S, Skv, H, KV, scale, causal, window, st);
+  if (D == 256)
+    return launch_tc<256>(q, k, v, out, B, S, Skv, H, KV, scale, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

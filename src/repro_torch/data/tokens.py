@@ -39,6 +39,27 @@ def synthetic_token_batch(step: int, *, batch: int, seq: int, vocab: int,
     return {"tokens": out[:, :-1], "labels": out[:, 1:]}
 
 
+def synthetic_lm_batch(cfg, step: int, *, batch: int, seq: int):
+    """The training CLI's batch for global ``step`` of a model config, as
+    the reference's CLI builds it: :func:`synthetic_token_batch`, whose
+    tokens an embedding frontend replaces by frame embeddings (numpy
+    ``default_rng(step)`` normals, (batch, seq, d_model) float32), plus
+    stub encoder states for XATTN layers (``default_rng(10_000 + step)``,
+    (batch, encoder_len, d_model) float32).  The model casts both to its
+    compute dtype."""
+    b = synthetic_token_batch(step, batch=batch, seq=seq, vocab=cfg.vocab)
+    if cfg.embed_input != "tokens":
+        rng = np.random.default_rng(step)
+        b = {"embeds": rng.normal(size=(batch, seq, cfg.d_model)
+                                  ).astype("float32"),
+             "labels": b["labels"]}
+    if cfg.encoder_len:
+        rng = np.random.default_rng(10_000 + step)
+        b["encoder"] = rng.normal(size=(batch, cfg.encoder_len, cfg.d_model)
+                                  ).astype("float32")
+    return b
+
+
 def to_device(batch, device):
     """A batch of numpy arrays / tensors as tensors on ``device``; a CUDA
     copy goes through pinned host memory and does not block the host."""

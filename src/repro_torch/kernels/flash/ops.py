@@ -2,7 +2,7 @@
 ``repro/kernels/flash/ops.py``).
 
 Two routes, chosen by :func:`flash_route` from (dtype, head dim) alone:
-``"tc"`` -- bfloat16 at D 64 / 128, the tensor-core kernel
+``"tc"`` -- bfloat16 at D 64 / 128 / 256, the tensor-core kernel
 (``csrc/flash_attention_tc.cu``: wgmma, TMA, P rounded to bf16 before
 P V); ``"simt"`` -- everything else (float32, D 16 / 32), the CUDA-core
 kernel (``csrc/flash_attention.cu``, float32 inside).
@@ -24,16 +24,16 @@ from .._launch import check_tensor
 from .ref import mha_ref
 
 #: head dims the kernel is compiled for (csrc/flash_attention.cu)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: head dims of the tensor-core route (csrc/flash_attention_tc.cu)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128, 256)
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("tc", "simt")
 
 
 def flash_route(dtype, head_dim: int) -> str:
     """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bfloat16
-    at head dims 64 and 128, ``"simt"`` (CUDA cores, float32 inside)
+    at head dims 64, 128 and 256, ``"simt"`` (CUDA cores, float32 inside)
     otherwise -- TF32 products would not hold float32's tolerance."""
     return ("tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
             else "simt")
@@ -158,10 +158,11 @@ def check_tma_alignment(q, k, v):
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
-#: in all and per route; and of backward calls (autograd through the
-#: plain version, on any device)
+#: in all, per route and per "route/head dim"; and of backward calls
+#: (autograd through the plain version, on any device)
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention.launches_by_head_dim = {}
 flash_attention.plain_backwards = 0
 
 
@@ -191,4 +192,6 @@ def _launch(q, k, v, causal, window, scale, route):
     _build.check_launch(lib, code, f"flash_attention ({route} route)")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
+    by_dim = flash_attention.launches_by_head_dim
+    by_dim[f"{route}/{D}"] = by_dim.get(f"{route}/{D}", 0) + 1
     return out

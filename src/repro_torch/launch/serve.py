@@ -3,16 +3,19 @@ of ``repro/launch/serve.py``).
 
 Builds a synthetic mixed-length request trace and drives
 ``repro_torch.serve.InferenceEngine`` (paged KV cache, prefill/decode
-interleave, per-request sampling).  Architectures the paged engine
-refuses (recurrent mixers: RWKV-6) run the static loop
-``legacy_generate``, as in the reference.
+interleave, per-request sampling; dense and MoE attention archs).
+Architectures the paged engine refuses -- recurrent mixers (RWKV-6,
+RG-LRU), cross attention, the embedding frontend, the int8 KV cache --
+run the static loop ``legacy_generate``, as in the reference.
 
   # Qwen3-1.7B at full width on the card (random weights from a seed)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --requests 16 --slots 8 --prompt-len 128 --prompt-len-max 1024 \\
       --gen 32 --num-pages 1024 --max-seq-len 2048
 
-  # a reduced config on the CPU (plain versions of the kernels)
+  # a reduced config on the CPU (plain versions of the kernels); the same
+  # for recurrentgemma-9b, llama-3.2-vision-90b, musicgen-large (static
+  # loop) and mixtral-8x7b, moonshot-v1-16b-a3b (engine)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --reduced --requests 2 --prompt-len 8 --gen 4 --device cpu
 
@@ -93,23 +96,40 @@ def static_batch_generate(model, params, requests, batch_size):
 
 def legacy_generate(cfg, model, params, args):
     """The static loop for archs the paged engine can't serve (recurrent
-    mixers): one fixed batch of ``args.requests`` random prompts of
-    ``args.prompt_len`` tokens (a ``torch.Generator`` seeded with 1),
-    contiguous cache, ``args.gen`` greedy steps.  Returns {index:
-    generated tokens} like the engine path."""
+    mixers, XATTN encoders, embedding frontends, the int8 cache): one
+    fixed batch of ``args.requests`` random inputs of ``args.prompt_len``
+    positions, contiguous ring-buffer cache, ``args.gen`` greedy steps.
+    Inputs come from a ``torch.Generator`` seeded with 1, drawn on the
+    host: token prompts, or frame embeddings (then fresh ones each decode
+    step, as the reference feeds its stub frontend), and stub encoder
+    states (B, encoder_len, d_model) where the pattern has XATTN layers.
+    Returns {index: generated tokens} like the engine path."""
     params = model.compute_params(params)
     B, S = args.requests, args.prompt_len
+    dev, cdt = model.device, cfg.cdtype
     gen = torch.Generator()
     gen.manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen)
-    logits, cache = model.prefill(
-        params, {"tokens": tokens.to(model.device)}, S + args.gen)
-    toks = []
-    for _ in range(args.gen):
-        nxt = torch.argmax(logits[:, -1], dim=-1)
-        toks.append(nxt.cpu().numpy())
-        logits, cache = model.decode_step(params, cache,
-                                          {"tokens": nxt[:, None]})
+    if cfg.embed_input == "tokens":
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S),
+                                         generator=gen).to(dev)}
+    else:
+        batch = {"embeds": torch.randn((B, S, cfg.d_model),
+                                       generator=gen).to(dev, cdt)}
+    if cfg.encoder_len:
+        batch["encoder"] = torch.randn((B, cfg.encoder_len, cfg.d_model),
+                                       generator=gen).to(dev)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, batch, S + args.gen)
+        toks = []
+        for _ in range(args.gen):
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+            toks.append(nxt.cpu().numpy())
+            if cfg.embed_input == "tokens":
+                step_in = {"tokens": nxt[:, None]}
+            else:
+                step_in = {"embeds": torch.randn(
+                    (B, 1, cfg.d_model), generator=gen).to(dev, cdt)}
+            logits, cache = model.decode_step(params, cache, step_in)
     out = np.stack(toks, axis=1).astype(np.int32)
     return {i: out[i] for i in range(B)}
 
@@ -155,10 +175,7 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     device = resolve_device(args.device)
-    try:
-        model = Transformer(cfg, device=device)
-    except NotImplementedError as e:
-        ap.error(str(e))
+    model = Transformer(cfg, device=device)
     params = model.init(0)
 
     sampling = SamplingParams(temperature=args.temperature,

@@ -9,14 +9,22 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 3 --batch 8 --seq 128 --ckpt-dir "$(mktemp -d)"
 
+    # the other families the same way: mixtral-8x7b / moonshot-v1-16b-a3b
+    # (MoE), recurrentgemma-9b (RG-LRU + LOCAL), llama-3.2-vision-90b
+    # (XATTN on stub encoder states), musicgen-large (frame embeddings)
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-9b --reduced --steps 4 --batch 2 --seq 32 \\
+        --device cpu --ckpt-dir "$(mktemp -d)"
+
 The whole stack on one device: the deterministic token pipeline -> the
 train step (gradient accumulation over microbatches, remat, chunked cross
 entropy; flash attention / RWKV6 linear attention kernels in the forward)
 -> AdamW -> the fault-tolerant trainer (async checkpoints, NaN rollback,
-preemption save, straggler log).  ``--device`` defaults to ``cuda`` and
-raises without a card.  A ``--mesh`` of more than one device waits for
-LM sharding (ROADMAP queue A item 13c); the families the port does not
-have yet exit 2 naming item 13b.
+preemption save, straggler log).  Batches carry frame embeddings and stub
+encoder states where the config asks for them, as the reference's CLI
+makes them (``data.tokens.synthetic_lm_batch``).  ``--device`` defaults
+to ``cuda`` and raises without a card.  A ``--mesh`` of more than one
+device waits for LM sharding (ROADMAP queue A item 13c).
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import tempfile
 
 from ..configs import get_config
 from ..core.util import resolve_device
-from ..data.tokens import synthetic_token_batch
+from ..data.tokens import synthetic_lm_batch
 from ..models import Transformer, reduced
 from ..optim import AdamWConfig, adamw_init, warmup_cosine
 from ..runtime import Trainer, TrainerConfig
@@ -79,10 +87,7 @@ def main(argv=None):
                      f"ported to repro_torch yet ({MESH_ITEM}); the port "
                      "trains on one device")
     device = resolve_device(args.device)
-    try:
-        model = Transformer(cfg, device=device)
-    except NotImplementedError as e:
-        ap.error(str(e))
+    model = Transformer(cfg, device=device)
     opt_cfg = AdamWConfig(lr=warmup_cosine(args.lr, 20, args.steps))
 
     params = model.init(0)
@@ -90,8 +95,7 @@ def main(argv=None):
     step_fn = make_train_step(model, opt_cfg)
 
     def make_batch(step):
-        return synthetic_token_batch(step, batch=args.batch, seq=args.seq,
-                                     vocab=cfg.vocab)
+        return synthetic_lm_batch(cfg, step, batch=args.batch, seq=args.seq)
 
     trainer = Trainer(
         TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),

@@ -1,6 +1,7 @@
-"""The LM stack of the port, serving half: config, layers, attention (the
-flash kernel in prefill), RWKV-6 (the linear-attention kernel in prefill)
-and the decoder with its ring-buffer and paged caches."""
+"""The LM stack of the port: config, layers, attention (the flash kernel
+in prefill and training), RWKV-6 (the linear-attention kernel), MoE,
+RG-LRU and the decoder with its ring-buffer (bfloat16 or int8) and paged
+caches."""
 from .config import (ATTN, LOCAL, RGLRU, RWKV, XATTN, ModelConfig,
                      MoEConfig, reduced)
 from .transformer import Transformer

@@ -4,7 +4,7 @@
 calls -- is the flash attention kernel (in training through its autograd
 Function: the kernel forward, autograd through the plain version
 backward): on a CUDA tensor it launches a hand-written
-kernel (``kernels/flash``: bfloat16 at head dims 64 / 128 on the tensor
+kernel (``kernels/flash``: bfloat16 at head dims 64 / 128 / 256 on the tensor
 cores, ``csrc/flash_attention_tc.cu``, which rounds p to bfloat16 before
 p @ v; everything else float32 inside, ``csrc/flash_attention.cu``), on a
 CPU tensor it runs the kernel's plain version (float32 inside, as the

@@ -67,7 +67,8 @@ class ModelConfig:
     train_accum: int = 8
     loss_chunk: Optional[int] = 1024
     remat_policy: str = "nothing"
-    # decode KV-cache storage dtype: "bfloat16" or "int8" (not ported)
+    # decode KV-cache storage dtype: "bfloat16" or "int8" (a scale per
+    # position and KV head)
     kv_cache_dtype: str = "bfloat16"
     notes: str = ""
 

@@ -3,7 +3,8 @@
 across by ``convert.lm_params_from_reference``, and the same numpy tokens
 through ``prefill`` (logits, ring-buffer and linear caches),
 ``decode_step`` and ``decode_step_paged``, for Qwen3 (GQA, qk-norm) and
-RWKV-6.  Float32 compute at 1e-5; one bfloat16 case at a stated looser
+RWKV-6; the init trees of all ten archs (the other families' numbers are
+in tests/test_torch_lm_families.py).  Float32 compute at 1e-5; one bfloat16 case at a stated looser
 tolerance."""
 import dataclasses
 
@@ -49,7 +50,10 @@ def _tokens(seed, B, S, vocab=256):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-3b", "granite-20b",
-                                  "stablelm-12b", "mistral-nemo-12b"])
+                                  "stablelm-12b", "mistral-nemo-12b",
+                                  "mixtral-8x7b", "moonshot-v1-16b-a3b",
+                                  "recurrentgemma-9b",
+                                  "llama-3.2-vision-90b", "musicgen-large"])
 def test_init_tree_matches_the_reference(arch):
     """Same tree, shapes and dtypes as the reference's init (the numbers
     differ: torch.Generator vs jax.random)."""
@@ -67,7 +71,10 @@ def test_init_tree_matches_the_reference(arch):
     assert n == len(jax.tree.leaves(mine))
     # ones stay ones; random leaves are drawn truncated at 2 sigma
     assert torch.all(mine["final_norm"] == 1)
-    assert float(mine["embed"].abs().max()) <= 2.0
+    if "embed" in mine:
+        assert float(mine["embed"].abs().max()) <= 2.0
+    else:
+        assert "embed" not in rparams           # the embedding frontend
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-3b"])
@@ -228,16 +235,57 @@ def test_layers_match_the_reference():
     ("recurrentgemma-9b", "rglru"), ("llama-3.2-vision-90b", "xattn"),
     ("musicgen-large", "embeddings")])
 def test_unported_archs_raise_by_name(arch, named):
-    with pytest.raises(NotImplementedError, match=named) as e:
-        Transformer(reduced(get_config(arch)), device="cpu")
-    assert "item 13" in str(e.value)
+    """These families were refused by name (ROADMAP item 13b) until the
+    port had them; each case now builds the family, checks that the
+    feature once named is there, and runs a prefill and a decode step
+    (tests/test_torch_lm_families.py holds them against the
+    reference)."""
+    cfg = reduced(get_config(arch), compute_dtype="float32")
+    model = Transformer(cfg, device="cpu")
+    params = model.init(0)
+    rng = np.random.default_rng(0)
+    if cfg.embed_input == "tokens":
+        batch = {"tokens": torch.from_numpy(_tokens(0, 2, 6))}
+        step = {"tokens": torch.zeros((2, 1), dtype=torch.long)}
+    else:
+        batch = {"embeds": torch.from_numpy(
+            rng.normal(size=(2, 6, cfg.d_model)).astype(np.float32))}
+        step = {"embeds": batch["embeds"][:, :1]}
+    if cfg.encoder_len:
+        batch["encoder"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.encoder_len, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        _, cache = model.prefill(params, batch, 10)
+        logits, cache = model.decode_step(params, cache, step)
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert torch.isfinite(logits).all()
+    layers = params["periods"] + params["remainder"]
+    caches = cache["periods"] + cache["remainder"]
+    if named == "MoE":
+        assert all(p["mlp"]["router"].shape[-1] == cfg.moe.n_experts
+                   for p in layers)
+    elif named == "rglru":
+        assert any("lam" in p["mixer"] for p in layers)
+        assert any(set(c) == {"h"} for c in caches)
+    elif named == "xattn":
+        assert any(c["k"].shape[-3] == cfg.encoder_len for c in caches)
+    else:
+        assert "embed" not in params
 
 
 def test_int8_kv_cache_raises_and_no_card_default_raises():
+    """The int8 KV cache, once refused, builds: its caches hold int8
+    values and float32 scales (tests/test_torch_lm_families.py holds them
+    against the reference).  Without a card the default device raises."""
     cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")),
                               kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        Transformer(cfg, device="cpu")
+    model = Transformer(cfg, device="cpu")
+    params = model.init(0)
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": torch.from_numpy(
+            _tokens(1, 2, 6))}, 8)
+    c = cache["periods"][0]
+    assert c["k"].dtype == torch.int8 and c["k_scale"].dtype == torch.float32
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the rule under test is "
                     "what happens without one")

@@ -289,6 +289,16 @@ def test_cli_engine_path_on_the_cpu():
     assert "tok/s" in text and '"serve/prefills": 4.0' in text
 
 
+def test_cli_static_loop_for_cross_attention_on_the_cpu():
+    """Llama-3.2-Vision (XATTN over stub encoder states) takes the static
+    loop, as in the reference, and serves every request."""
+    out, text = _run_cli(["--arch", "llama-3.2-vision-90b", "--reduced",
+                          "--requests", "2", "--prompt-len", "12", "--gen",
+                          "5", "--device", "cpu"])
+    assert "falling back to the static loop" in text
+    assert sorted(out) == [0, 1] and all(len(v) == 5 for v in out.values())
+
+
 def test_cli_static_loop_for_rwkv_on_the_cpu():
     out, text = _run_cli(["--arch", "rwkv6-3b", "--reduced", "--requests",
                           "3", "--prompt-len", "10", "--gen", "4",
@@ -336,6 +346,20 @@ def _check_observability_flag(flags, tmp_path):
 PORTED = object()
 
 
+def _check_ported_arch(argv):
+    """A family the CLI once refused serves 3 requests of 8 positions, 4
+    new tokens each: through the paged engine where it is pageable (MoE),
+    else through the static loop."""
+    out, text = _run_cli(argv + ["--reduced", "--device", "cpu",
+                                 "--requests", "3", "--prompt-len", "8",
+                                 "--gen", "4", "--page-size", "8",
+                                 "--max-seq-len", "32"])
+    static = argv[1] != "mixtral-8x7b"
+    assert ("falling back to the static loop" in text) == static
+    assert sorted(out) == [0, 1, 2] and all(len(v) == 4
+                                            for v in out.values())
+
+
 @pytest.mark.parametrize("argv,named", [
     # the observability flags, once refused, run
     pytest.param(["--trace", "TRACE"], PORTED, id="argv0---trace"),
@@ -343,14 +367,20 @@ PORTED = object()
     pytest.param(["--health"], PORTED, id="argv2---health"),
     pytest.param(["--flight-recorder", "BUNDLE"], PORTED,
                  id="argv3---flight-recorder"),
-    (["--arch", "mixtral-8x7b"], "MoE"),
-    (["--arch", "recurrentgemma-9b"], "rglru"),
-    (["--arch", "musicgen-large"], "embeddings")])
+    # the families once refused by name (ROADMAP item 13b) serve: MoE on
+    # the paged engine, RG-LRU and the embedding frontend on the static
+    # loop, as in the reference
+    pytest.param(["--arch", "mixtral-8x7b"], PORTED, id="argv4-MoE"),
+    pytest.param(["--arch", "recurrentgemma-9b"], PORTED, id="argv5-rglru"),
+    pytest.param(["--arch", "musicgen-large"], PORTED,
+                 id="argv6-embeddings")])
 def test_cli_refuses_unported_flags_and_archs_by_name(argv, named, capsys,
                                                       tmp_path):
-    """An arch the port does not serve exits 2 naming it; a flag whose
-    layer is now ported (``PORTED``) runs, and its case checks what it
-    made."""
+    """A flag or an arch whose layer is now ported (``PORTED``) runs, and
+    its case checks what it made; what is still refused would exit 2
+    naming its ROADMAP item."""
+    if named is PORTED and argv[0] == "--arch":
+        return _check_ported_arch(argv)
     if named is PORTED:
         return _check_observability_flag(argv, tmp_path)
     with pytest.raises(SystemExit) as e:

@@ -19,7 +19,7 @@ from repro.models import rwkv as ref_rwkv
 from repro.optim import AdamWConfig as RefAdamWConfig
 from repro.optim import adamw_init as ref_adamw_init
 from repro.optim import warmup_cosine as ref_warmup_cosine
-from repro_torch.data import synthetic_token_batch
+from repro_torch.data import synthetic_lm_batch
 from repro_torch.kernels.flash import flash_attention
 from repro_torch.kernels.linattn import rwkv_linattn
 from repro_torch.launch.steps import (_largest_divisor_leq, loss_and_grads,
@@ -35,6 +35,11 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-5
 PARAM_TOL = 1e-4
 ARCHS = ["qwen3-1.7b", "rwkv6-3b"]
+#: the other families (MoE, RG-LRU + LOCAL, XATTN, the embedding frontend)
+#: and the overrides that make their reduced configs reach every path
+FAMILY_ARCHS = ["mixtral-8x7b", "moonshot-v1-16b-a3b", "recurrentgemma-9b",
+                "llama-3.2-vision-90b", "musicgen-large"]
+FAMILY_OVERRIDES = {"recurrentgemma-9b": {"n_layers": 5}}
 
 
 def _batch(seed, B=2, S=32, vocab=256):
@@ -98,23 +103,33 @@ def test_train_loss_without_grad_and_logits_fn():
                                rtol=LOSS_TOL, atol=LOSS_TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 @pytest.mark.parametrize("accum", [1, 4])
 def test_train_step_trajectory_matches_reference(arch, accum):
     """Three steps of make_train_step (warmup_cosine(3e-3, 2, 10), batch
-    4, seq 32, the synthetic token pipeline): losses and grad norms at
-    1e-5, every parameter and AdamW moment after the third step at
-    1e-4."""
-    rmodel, rparams, pmodel, pparams = lm_pair(arch)
+    4, seq 32, the training CLI's synthetic batches -- tokens, or frame
+    embeddings, and stub encoder states): losses and grad norms at 1e-5,
+    every parameter and AdamW moment after the third step at 1e-4.
+
+    The other families run with AdamW's eps at 1e-6 in both packages:
+    at the default 1e-8, an entry whose first gradient is at float32
+    rounding level (Vision's ``w_down`` has one at -8.4e-9 against a
+    largest entry of 3.4e-2, -6.7e-9 in the port) moves by
+    g / (|g| + eps) of the learning rate, a fraction that rounding
+    decides (2.1e-4 apart after the first step)."""
+    rmodel, rparams, pmodel, pparams = lm_pair(
+        arch, **FAMILY_OVERRIDES.get(arch, {}))
+    eps = 1e-6 if arch in FAMILY_ARCHS else 1e-8
     r_step = jax.jit(ref_make_train_step(
-        rmodel, RefAdamWConfig(lr=ref_warmup_cosine(3e-3, 2, 10)), accum))
-    step = make_train_step(pmodel, AdamWConfig(lr=warmup_cosine(3e-3, 2,
-                                                                10)), accum)
+        rmodel, RefAdamWConfig(lr=ref_warmup_cosine(3e-3, 2, 10), eps=eps),
+        accum))
+    step = make_train_step(pmodel, AdamWConfig(
+        lr=warmup_cosine(3e-3, 2, 10), eps=eps), accum)
     rp, ro = rparams, ref_adamw_init(rparams)
     params = _clone(pparams)
     opt = adamw_init(params)
     for s in range(3):
-        b = synthetic_token_batch(s, batch=4, seq=32, vocab=256)
+        b = synthetic_lm_batch(pmodel.cfg, s, batch=4, seq=32)
         rp, ro, rm = r_step(rp, ro, {k: jnp.asarray(v) for k, v in b.items()})
         params, opt, m = step(params, opt, b)
         np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]),
