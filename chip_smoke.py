@@ -60,11 +60,11 @@ JSON; any failure is an exception and a non-zero exit:
                       attention kernel
   train_qwen3_full    Qwen3-1.7B training (bf16 compute, random weights
                       from seed 0, batch 8 x 128 tokens in 8 microbatches,
-                      remat "nothing") through
-                      ``repro_torch.launch.train.main`` at full width and
-                      depth (28 layers: the four float32 copies on the
-                      card): 3 steps and a checkpoint (24.4 GB, in a
-                      tmpfs), then --resume for 2 more; every layer of
+                      remat "nothing") at full width and depth (28
+                      layers: the four float32 copies on the card): 3
+                      steps of the train step the CLI builds (the CLI
+                      itself, its checkpoint and --resume run in
+                      train_mesh_full); every layer of
                       every microbatch launches the flash attention
                       kernel twice (forward and the checkpoint's
                       recompute) and differentiates its plain version
@@ -74,12 +74,12 @@ JSON; any failure is an exception and a non-zero exit:
                       leaf's gradient compared, none zero, and every
                       flash call of the kernels' step held against the
                       plain version on its own inputs
-  train_rwkv6_full    RWKV6-3B at 8 of its 32 layers (see TRAIN_PATHS): 3
+  train_rwkv6_full    RWKV6-3B at 2 of its 32 layers (see TRAIN_PATHS): 3
                       steps of the train step the CLI builds, then the
-                      CLI at 4 layers (2 steps, a checkpoint, --resume
+                      CLI at 2 layers (2 steps, a checkpoint, --resume
                       for 2); the linear attention kernel in every time
                       mix; its bf16 gradients are compared, and held in
-                      float32 at 4 layers beside a rounding control
+                      float32 at 2 layers beside a rounding control
   serve_mixtral_full  the serving CLI's ``main`` (``get_config`` patched to
                       cut depth) -- Mixtral-8x7B at 4 of 32 layers (MoE,
                       sliding window 4096) on the paged engine with the
@@ -112,7 +112,7 @@ JSON; any failure is an exception and a non-zero exit:
                       the same for RecurrentGemma at 5 of 38 layers (a
                       period and the RG-LRU remainder; lam's gradient),
                       every leaf held in bf16
-  train_musicgen_full the same for MusicGen at full depth (frame
+  train_musicgen_full the same for MusicGen at 12 of 48 layers (frame
                       embeddings in), every leaf held in bf16
   fleet_dense_full    ``repro_torch.launch.fleet`` (``main``'s ``parse_args``
                       and ``run``) -- 4 tenants of the dense instance
@@ -192,6 +192,27 @@ JSON; any failure is an exception and a non-zero exit:
                       batch unmoved) and its scorer on the grid (margins
                       within 1e-5 of X @ w); ms per outer iteration,
                       distribution, update and scoring times
+  train_mesh_full     Qwen3-1.7B at full width (4 of 28 layers, see
+                      MESH_TRAIN_DEPTH) trained over a
+                      2 x 2 (data, model) grid of 4 ranks sharing the card
+                      (``make_train_step`` on a sharded model: FSDP over
+                      "data", heads / d_ff / vocabulary over "model"):
+                      the first step against the one-device step from the
+                      same weights in bf16 and (before the counted window,
+                      at 2 layers) in float32 -- loss, gradient norm, the
+                      share of parameter entries whose step went another
+                      way, overall and in the worst leaf, each within
+                      MESH_TRAIN_LIMITS; a one-device control with B5's
+                      plain version beside it -- and every rank's B5 calls
+                      of the first step against the plain version on
+                      their own q / k / v; 2 steps (step ms, tokens/s,
+                      each rank's peak against its share of the four
+                      float32 copies, wire bytes equal to the count from
+                      the specs), every rank's attention on 8 of the 16
+                      query heads; then the training CLI with --mesh 2,2
+                      at 2 layers (a step, a checkpoint in a tmpfs) and
+                      --resume on one device, whose restored parameters
+                      must equal the grid's bitwise
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       LM configs of every family (and the int8 cache):
                       port on the card (kernels) vs port on
@@ -261,6 +282,7 @@ import gc
 import importlib
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -273,6 +295,8 @@ import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the grid's ranks call this script's rank-side functions by module name
+sys.modules.setdefault("chip_smoke", sys.modules[__name__])
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -327,10 +351,13 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.steps import (_largest_divisor_leq,  # noqa: E402
                                       clear_grads, loss_and_grads,
                                       make_train_step)
-from repro_torch.launch.mesh import close_grids, process_grid  # noqa: E402
+from repro_torch.launch import mesh_train  # noqa: E402
+from repro_torch.launch.mesh import (close_grids, make_mesh,  # noqa: E402
+                                     process_grid)
 from repro_torch.models import Transformer, reduced  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models import rwkv as lm_rwkv  # noqa: E402
+from repro_torch.sharding import resident  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
                                global_norm, warmup_cosine)
 from repro_torch.core.util import tree_leaves as tree_leaves_sorted  # noqa: E402
@@ -355,7 +382,7 @@ MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "train_recurrentgemma_full", "train_musicgen_full",
               "fleet_dense_full", "fleet_sparse_full",
               "admm_full", "online_full", "online_sparse_full", "comm_full",
-              "obs_full", "mesh_full", "fleet_mesh_full")
+              "obs_full", "mesh_full", "fleet_mesh_full", "train_mesh_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -3240,12 +3267,16 @@ def held_flash(record):
 #: control printed beside the float32 check, or None
 TrainPath = collections.namedtuple(
     "TrainPath", "arch depth kernel cli bf16_grads f32_control")
-#: Qwen3-1.7B all through the CLI at full depth (two checkpoints of 24.4
-#: GB); RWKV6-3B at 8 of its 32 layers, cut to keep the script inside its
-#: time limit (at 32 its steps, first-step comparison and profile took 276
-#: s of a 1411-s run on NVIDIA H100 80GB HBM3, 700.00 W), and its CLI at 4
-#: (two full checkpoints, 73.6 GB, do not fit host memory beside the
-#: process); its bf16 gradients at random init move by as much as they
+#: Qwen3-1.7B's 3 counted steps at full depth; its training CLI, with a
+#: checkpoint and --resume on one device, runs in train_mesh_full (at full
+#: depth, with two checkpoints of 24.4 GB, this phase took 101.4 s of a
+#: 967.7-s run of the script on NVIDIA H100 80GB HBM3, 700.00 W); RWKV6-3B
+#: at 2 of its 32 layers and its CLI at 2, cut to keep the script inside
+#: its time limit (at 32 its steps, first-step comparison and profile took
+#: 276 s of a 1411-s run, at 8 the phase 79.3 s of a 1268.9-s one, at 4
+#: with its CLI at 4 57.6 s of a 1230.6-s one, on NVIDIA H100 80GB HBM3,
+#: 700.00 W; two full checkpoints, 73.6 GB, do not fit host memory beside
+#: the process); its bf16 gradients at random init move by as much as they
 #: are large under forwards that differ by rounding alone (the plain
 #: recurrence in float32 or float64), so they are held in float32 beside
 #: that control.  Mixtral-8x7B at 2 of 32 layers (23.2 GB of float32
@@ -3255,17 +3286,19 @@ TrainPath = collections.namedtuple(
 #: O(0.1) of their largest entry (0.33 at w_gate, same card), so its
 #: leaves are held in float32 and its B5 calls one by one (``held_flash``).
 #: RecurrentGemma-9B at 5 of 38 (one (rglru, rglru, local) period and the
-#: two remainder layers); MusicGen-large at full depth
+#: two remainder layers); MusicGen-large at 12 of its 48 layers (at 48 the
+#: phase took 42.4 s of a 1210.9-s run, at 24 24.0 s of a 1230.6-s one,
+#: same card)
 TRAIN_PATHS = {
     "train_qwen3_full": TrainPath("qwen3-1.7b", None, "flash_attention",
-                                  "counted", "leaves", None),
-    "train_rwkv6_full": TrainPath("rwkv6-3b", 8, "rwkv_linattn", 4, None,
+                                  None, "leaves", None),
+    "train_rwkv6_full": TrainPath("rwkv6-3b", 2, "rwkv_linattn", 2, None,
                                   (plain_flash, f64_linattn)),
     "train_mixtral_full": TrainPath("mixtral-8x7b", 2, "flash_attention",
                                     None, "norm", None),
     "train_recurrentgemma_full": TrainPath(
         "recurrentgemma-9b", 5, "flash_attention", None, "leaves", None),
-    "train_musicgen_full": TrainPath("musicgen-large", None,
+    "train_musicgen_full": TrainPath("musicgen-large", 12,
                                      "flash_attention", None, "leaves",
                                      None),
 }
@@ -4900,6 +4933,350 @@ def phase_fleet_mesh_full(setup):
 
 #: B1's main-path shapes by the cluster size their launches take (counted
 #: by the wrapper where it launches): 1 CTA a D3CA cell, 16 a serial epoch
+# ---------------------------------------------------------------------------
+# LM training over a (data, model) grid of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: Qwen3-1.7B at full width on a 2 x 2 (data, model) grid, at
+#: MESH_TRAIN_DEPTH of its 28 layers: MESH_TRAIN_STEPS steps, then the
+#: training CLI with --mesh 2,2 at MESH_TRAIN_CLI_DEPTH layers (a step and
+#: a checkpoint) and --resume on one device.  Depth cut for the script's
+#: time limit: at 28 layers a step took 19.7 s (NVIDIA H100 80GB HBM3,
+#: 700.00 W): gloo moves every view through host memory.
+MESH_TRAIN_GRID = (2, 2)
+MESH_TRAIN_DEPTH, MESH_TRAIN_STEPS = 4, 2
+MESH_TRAIN_CLI_DEPTH = 2
+#: the grid's float32 first step (before the counted window: float32 B5
+#: calls take the ``simt`` route) at MESH_TRAIN_F32_DEPTH layers
+MESH_TRAIN_F32_DEPTH = 2
+#: the grid's first step against the one-device step from the same
+#: weights, by compute dtype: the relative error of the loss and of the
+#: gradient norm, and the share of parameter entries whose first AdamW
+#: step went another way than one device's (they differ by more than the
+#: step's rate: a gradient entry near zero whose sign rounding decided),
+#: over all entries and in the worst leaf -- each at most its limit.  In
+#: bfloat16 the 2-way model split rounds the partial products of wo and
+#: w_down before their sum where one device rounds the sum once; in
+#: float32 only the order of sums differs.  Each limit lies between the
+#: sound grid's reading and the least reading of the planted faults of
+#: ``tools/mesh_train_faults.py`` (a skipped data-axis reduce-scatter, a
+#: wrong KV head pick), both taken on the card (NVIDIA H100 80GB HBM3,
+#: 700.00 W; PERF.md, section 6): bf16 sound 2.6e-5 / 1.2e-5 / 9.4e-4 /
+#: 7.8e-3, the faults' least 5.3e-4 (the KV pick; a skipped reduce-scatter
+#: leaves the forward's loss as it is) / 1.1e-3 / 0.15 / 0.25; float32
+#: sound 7.8e-8 / 0 / 0 / 0, the faults' least 1.2e-3 / 3.6e-4 / 0.13 /
+#: 0.27
+MESH_TRAIN_LIMITS = {
+    "bfloat16": {"loss": 1e-4, "grad_norm": 1e-4, "share": 0.01,
+                 "worst_leaf_share": 0.05},
+    "float32": {"loss": 1e-5, "grad_norm": 1e-5, "share": 1e-4,
+                "worst_leaf_share": 1e-3}}
+
+
+def mesh_train_opt():
+    return AdamWConfig(lr=warmup_cosine(3e-3, 20, MESH_TRAIN_STEPS))
+
+
+def host_leaves(params):
+    return [t.detach().to("cpu", copy=True) for t in
+            tree_leaves_sorted(params)]
+
+
+def flip_share(got, want, rate):
+    """Share of entries (and the worst leaf's) differing by more than
+    ``rate``, and the largest difference (host leaves compared on the
+    card, a leaf at a time)."""
+    n = flips = 0
+    worst, big = 0.0, 0.0
+    for g, w in zip(got, want):
+        d = (g.to("cuda").float() - w.to("cuda").float()).abs()
+        f = int((d > rate).sum())
+        n += d.numel()
+        flips += f
+        worst = max(worst, f / d.numel())
+        big = max(big, float(d.max()))
+    return {"share": flips / n, "worst_leaf_share": worst,
+            "max_abs_diff": big}
+
+
+def one_device_first_steps(cfg, batch, control=True):
+    """The one-device first step from init(0) (B5's kernel) and, with
+    ``control``, its control (B5's plain version: a correct attention
+    that rounds otherwise): loss, gradient norm and the parameters after
+    the step (host memory; the control's compared at once)."""
+    model = Transformer(cfg, device=torch.device("cuda"))
+    out = {}
+    runs = (("one", None), ("control", plain_flash))[:2 if control else 1]
+    for name, attn in runs:
+        params = model.init(0)
+        opt = adamw_init(params)
+        with contextlib.ExitStack() as stack:
+            if attn is not None:
+                stack.enter_context(patched(lm_attention, "flash_attention",
+                                            attn))
+            params, opt, m = make_train_step(model, mesh_train_opt())(
+                params, opt, batch)
+        out[name] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "params": host_leaves(params)}
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    if control:
+        out["control"]["flips"] = flip_share(out["control"].pop("params"),
+                                             out["one"]["params"],
+                                             float(mesh_train_opt().lr(1)))
+    return out
+
+
+def held_first_step(got, one, control, limits):
+    """The grid's first step (loss, gradient norm, parameters) against the
+    one-device step, the control's distances beside (None: no control);
+    ``over``: the readings above their ``limits``."""
+    rate = float(mesh_train_opt().lr(1))
+
+    def rel(a, b):
+        return abs(a - b) / b
+    held = {"loss": rel(got["loss"], one["loss"]),
+            "grad_norm": rel(got["grad_norm"], one["grad_norm"]),
+            **flip_share(got["params"], one["params"], rate)}
+    held["control"] = control and {
+        "loss": rel(control["loss"], one["loss"]),
+        "grad_norm": rel(control["grad_norm"], one["grad_norm"]),
+        **control["flips"]}
+    held.update(rate=rate, limits=limits,
+                over=sorted(k for k, v in limits.items() if held[k] > v))
+    return held
+
+
+def _rank_hold_flash(ctx, mesh, on: bool):
+    """On a rank: from ``on``, every B5 call held against its plain
+    version (``held_flash``); then (``on`` False) the calls put back and
+    every rank's (calls, max abs error, worst row's share of its limit)
+    gathered to rank 0."""
+    if on:
+        calls = []
+        ctx.resident["held_flash"] = (calls, lm_attention.flash_attention)
+        lm_attention.flash_attention = held_flash(calls)
+        return None
+    calls, real = ctx.resident.pop("held_flash")
+    lm_attention.flash_attention = real
+    mine = [len(calls), 0.0, 0.0]
+    if calls:
+        errs, ratios = (torch.stack(c) for c in zip(*calls))
+        mine[1:] = float(errs.max()), float(ratios.max())
+    got = ([None] * torch.distributed.get_world_size() if ctx.rank == 0
+           else None)
+    torch.distributed.gather_object(mine, got, dst=0)
+    return got
+
+
+def grid_steps(cfg, steps, hold_flash=False):
+    """``steps`` steps of Qwen3 at ``cfg`` on the grid from init(0), on the
+    CLI's batches: each step's loss, gradient norm, seconds and wire bytes
+    (checked against ``mesh_train.wire_bytes``), the parameters after the
+    first (host memory), the ranks' peaks and attention heads; with
+    ``hold_flash``, every rank's B5 calls of the first step held against
+    the plain version (``rank_flash``)."""
+    mesh = make_mesh(MESH_TRAIN_GRID, ("data", "model"))
+    model = Transformer(cfg, device=torch.device("cuda"), mesh=mesh)
+    t0 = time.perf_counter()
+    params, opt = mesh_train.init_on_mesh(model, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"init_s": time.perf_counter() - t0, "hist": []}
+    mesh_train.memory_peaks(mesh, reset=True)
+    step = make_train_step(model, mesh_train_opt())
+    want = mesh_train.wire_bytes(model, TRAIN_BATCH, TRAIN_SEQ)
+    hold = "chip_smoke:_rank_hold_flash"
+    for s in range(steps):
+        batch = synthetic_lm_batch(cfg, s, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+        if hold_flash and s == 0:
+            resident.call(mesh, hold, on=True)
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        out["hist"].append({"loss": float(m["loss"]),
+                            "grad_norm": float(m["grad_norm"]),
+                            "time_s": time.perf_counter() - t1})
+        if hold_flash and s == 0:
+            out["rank_flash"] = resident.call(mesh, hold, on=False)
+        if step.last["wire"] != want:
+            raise AssertionError(f"train_mesh_full: step {s} wire bytes "
+                                 f"{step.last['wire']}, counted from the "
+                                 f"specs {want}")
+        if s == 0:
+            t1 = time.perf_counter()
+            out["first_params"] = [torch.from_numpy(a) for a in
+                                   tree_leaves_sorted(
+                                       resident.gather_tree(params))]
+            out["gather_s"] = time.perf_counter() - t1
+    out.update(wire=want, peaks=mesh_train.memory_peaks(mesh, reset=True),
+               heads=mesh_train.attention_heads(model))
+    resident.free(params)
+    resident.free(opt)
+    return out
+
+
+def grid_first_step(cfg, one_device, dtype):
+    """The grid's first step at ``cfg`` held against ``one_device`` (from
+    :func:`one_device_first_steps`) at ``MESH_TRAIN_LIMITS[dtype]``, with
+    the seconds of its init, step and gather."""
+    run = grid_steps(cfg, 1)
+    held = held_first_step({**run["hist"][0],
+                            "params": run.pop("first_params")},
+                           one_device["one"], one_device.get("control"),
+                           MESH_TRAIN_LIMITS[dtype])
+    held["grid_s"] = {"init": run["init_s"], "step": run["hist"][0]["time_s"],
+                      "gather": run["gather_s"]}
+    return held
+
+
+def mesh_train_setup():
+    """Before the counted window: the 2 x 2 grid's spawn; the float32
+    first step at MESH_TRAIN_F32_DEPTH layers on one device and on the
+    grid, held (float32 B5 calls take the ``simt`` route, so not on the
+    main path; no control: in float32 the grid reads one device's step
+    but for the order of its sums); the one-device bf16 first step at
+    MESH_TRAIN_DEPTH layers and its control, to host memory."""
+    t0 = time.perf_counter()
+    close_grids()
+    grid = process_grid(*MESH_TRAIN_GRID, device="cuda")
+    MESH_GRIDS.append(grid)
+    spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg32 = family_config("qwen3-1.7b", MESH_TRAIN_F32_DEPTH,
+                          compute_dtype="float32")
+    f32 = one_device_first_steps(cfg32, synthetic_lm_batch(
+        cfg32, 0, batch=TRAIN_BATCH, seq=TRAIN_SEQ), control=False)
+    one_device32_s = time.perf_counter() - t0
+    held32 = grid_first_step(cfg32, f32, "float32")
+    held32["one_device_s"] = one_device32_s
+    del f32
+    f32_s = time.perf_counter() - t0
+    cfg = family_config("qwen3-1.7b", MESH_TRAIN_DEPTH)
+    batch = synthetic_lm_batch(cfg, 0, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    bf16 = one_device_first_steps(cfg, batch)
+    return {"cfg": cfg, **bf16, "one_device_s": time.perf_counter() - t0,
+            "spawn_s": spawn_s, "float32": held32, "float32_s": f32_s,
+            "n_params": sum(t.numel() for t in bf16["one"]["params"])}
+
+
+def phase_train_mesh_full(setup):
+    """Qwen3-1.7B at full width trained over the 2 x 2 (data, model) grid
+    of ranks on the card (``make_train_step`` on a sharded model): the
+    first step against the one-device step of the set-up (loss, gradient
+    norm, every parameter; the control beside) and every rank's B5 calls
+    of it against the plain version on their own q / k / v, step s and
+    tokens/s, each rank's peak memory against its share of the four
+    float32 copies, the wire bytes of every step against the count made
+    from the specs, every rank's attention on H / M = 8 query heads; then
+    the training CLI with --mesh 2,2 (a checkpoint in TRAIN_CKPT_ROOT) and
+    --resume on one device, whose restored parameters must be the grid's,
+    bitwise.  Every B5 call is counted on the ranks (``worker_launches``):
+    a rank runs its 4 rows as 4 microbatch pieces, each launching B5 twice
+    a layer (forward and recompute).  The set-up's float32 first step is
+    judged here too."""
+    cfg = setup["cfg"]
+    world = math.prod(MESH_TRAIN_GRID)
+    run = grid_steps(cfg, MESH_TRAIN_STEPS, hold_flash=True)
+    if run["heads"] != [(cfg.n_heads // 2, cfg.n_kv // 2)] * world:
+        raise AssertionError(f"train_mesh_full: ranks' attention heads "
+                             f"{run['heads']}")
+    acc = _largest_divisor_leq(TRAIN_BATCH, cfg.train_accum)
+    pieces = len(mesh_train.pieces(TRAIN_BATCH // MESH_TRAIN_GRID[0], 0, acc,
+                                   TRAIN_BATCH // acc))
+    held = held_first_step({**run["hist"][0],
+                            "params": run.pop("first_params")},
+                           setup["one"], setup["control"],
+                           MESH_TRAIN_LIMITS["bfloat16"])
+    del setup["one"]["params"]
+    # each rank: a forward and a recompute a layer of each of its pieces
+    rank_flash = {"calls": [c for c, _, _ in run["rank_flash"]],
+                  "max_abs_err": max(e for _, e, _ in run["rank_flash"]),
+                  "row_ratio": max(r for _, _, r in run["rank_flash"]),
+                  "tol": FLASH_TOL[torch.bfloat16]}
+    flash_bad = (rank_flash["calls"] != [2 * pieces * cfg.n_layers] * world
+                 or rank_flash["row_ratio"] > 1.0)
+
+    # the CLI: --mesh 2,2 with a checkpoint, --resume on one device
+    cli_cfg = family_config("qwen3-1.7b", MESH_TRAIN_CLI_DEPTH)
+    ckpt = tempfile.mkdtemp(prefix="mesh_ckpt_", dir=TRAIN_CKPT_ROOT)
+    seen = []
+
+    class Seen(train_cli.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.append(self)
+
+        def restore(self, shardings=None):
+            step = super().restore(shardings)
+            self.restored = host_leaves(self.params)
+            return step
+    argv = ["--arch", "qwen3-1.7b", "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--ckpt-dir", ckpt, "--ckpt-every", "1000",
+            "--steps", "1"]
+    try:
+        walls = []
+        with contextlib.redirect_stdout(io.StringIO()), \
+                patched(train_cli, "get_config", lambda a: cli_cfg), \
+                patched(train_cli, "Trainer", Seen):
+            for extra in (["--mesh", "2,2"], ["--resume"]):
+                t1 = time.perf_counter()
+                hist = train_cli.main(argv + extra)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1, hist))
+                if len(seen) == 1:
+                    saved = [torch.from_numpy(a) for a in tree_leaves_sorted(
+                        resident.gather_tree(seen[0].params))]
+                    resident.free(seen[0].params)
+                    resident.free(seen[0].opt_state)
+                gc.collect()
+                torch.cuda.empty_cache()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(b, f))
+                         for b, _, fs in os.walk(ckpt) for f in fs)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(saved, seen[1].restored))
+    steps = [h["step"] for _, hist in walls for h in hist]
+    if not same or steps != [0, 1]:
+        raise AssertionError(f"train_mesh_full: CLI steps {steps}, restored "
+                             f"parameters equal to the grid's: {same}")
+    del saved, seen
+
+    reckoned = 16 * setup["n_params"] / world
+    step_s = statistics.median(h["time_s"] for h in run["hist"][1:])
+    emit("train_mesh_full", arch="qwen3-1.7b", grid=list(MESH_TRAIN_GRID),
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=acc,
+         pieces_per_rank=pieces, layers=cfg.n_layers,
+         full_layers=get_config("qwen3-1.7b").n_layers,
+         n_params=setup["n_params"],
+         one_device_steps_s=setup["one_device_s"], spawn_s=setup["spawn_s"],
+         init_s=run["init_s"], first_step_gather_s=run["gather_s"],
+         step_ms=1e3 * step_s, tokens_per_sec=TRAIN_BATCH * TRAIN_SEQ
+         / step_s, step_ms_each=[1e3 * h["time_s"] for h in run["hist"]],
+         losses=[h["loss"] for h in run["hist"]],
+         grad_norms=[h["grad_norm"] for h in run["hist"]],
+         peak_bytes=run["peaks"], share_bytes=reckoned,
+         peak_over_share=[p / reckoned for p in run["peaks"]],
+         wire_bytes_per_step=run["wire"], rank_heads=run["heads"],
+         first_step=held, rank_flash=rank_flash,
+         float32_first_step={**setup["float32"],
+                              "layers": MESH_TRAIN_F32_DEPTH,
+                              "seconds": setup["float32_s"]},
+         cli={"layers": cli_cfg.n_layers, "steps": steps,
+              "wall_s": [w for w, _ in walls], "ckpt_bytes": ckpt_bytes,
+              "restored_equal": same})
+    if held["over"] or setup["float32"]["over"] or flash_bad:
+        raise AssertionError(
+            "train_mesh_full: the grid's first step is not the one-device "
+            f"step: bfloat16 {held}, float32 {setup['float32']}, the ranks' "
+            f"B5 calls {rank_flash}")
+    return {"flash_attention": 2 * world * pieces * (
+        cfg.n_layers * MESH_TRAIN_STEPS + cli_cfg.n_layers)
+            + 2 * acc * cli_cfg.n_layers}
+
+
 SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
 #: B1's launches on each main path, by shape
 SDCA_SHAPE_LAUNCHES = {
@@ -4942,7 +5319,8 @@ PHASE_SETUP = {**{name: functools.partial(train_setup, name)
                "fleet_dense_full": lambda: fleet_solos(False),
                "fleet_sparse_full": lambda: fleet_solos(True),
                "obs_full": obs_setup, "mesh_full": mesh_setup,
-               "fleet_mesh_full": fleet_mesh_setup}
+               "fleet_mesh_full": fleet_mesh_setup,
+               "train_mesh_full": mesh_train_setup}
 
 
 def run_main_path(name, phase, results):

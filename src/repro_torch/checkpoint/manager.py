@@ -19,9 +19,12 @@ tensors or numpy arrays) is one directory:
   * ``into=True`` writes each leaf into ``like``'s own tensor (the
     trainer's restore: no second copy of the model on the device).
 
-Re-sharding on restore (the reference's ``shardings=``, whose only
-caller there is the LM trainer) belongs to LM sharding (ROADMAP queue A
-item 13c) and raises by name.
+Trees on a mesh (``sharding/resident.py::ShardedLeaf`` leaves) are saved
+in the same full-array format -- each leaf gathered from the ranks'
+blocks -- so a checkpoint written on a grid restores on one device, in
+the reference, or on a grid of another shape.  ``restore_tree``'s
+``shardings=`` (the reference's elastic re-scale) puts each leaf's block
+on each rank of a mesh; a tree of handles restores into its own blocks.
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..core.solver import not_ported
 from ..core.util import resolve_device
+from ..sharding.layout import NamedSharding, ShapeDtypeStruct
+from ..sharding.resident import ShardedLeaf, alloc_leaves
 
 
 def _flatten(tree, prefix=()):
@@ -72,7 +76,10 @@ def _unflatten(like, leaves):
 
 def _host(leaf, copy: bool = False) -> np.ndarray:
     """A leaf as a numpy array; ``copy``: one that shares no memory with
-    the leaf (a device tensor's is a copy already)."""
+    the leaf (a device tensor's is a copy already, as is a mesh leaf's,
+    gathered from its ranks)."""
+    if isinstance(leaf, ShardedLeaf):
+        return leaf.numpy()
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         if leaf.device.type != "cpu":
@@ -82,7 +89,9 @@ def _host(leaf, copy: bool = False) -> np.ndarray:
 
 
 def _dtype_of(leaf) -> torch.dtype:
-    if isinstance(leaf, torch.Tensor):
+    """A leaf's torch dtype (a tensor's, a struct's or a mesh leaf's, or
+    a numpy array's)."""
+    if isinstance(getattr(leaf, "dtype", None), torch.dtype):
         return leaf.dtype
     return torch.from_numpy(np.zeros((), np.asarray(leaf).dtype)).dtype
 
@@ -109,37 +118,90 @@ def save_tree(path: str, tree: Any):
     os.rename(tmp, path)
 
 
+def _as_sharding(s):
+    """A sharding leaf -- ``NamedSharding``, a struct or a mesh leaf with
+    one, or None -- as a ``NamedSharding`` or None."""
+    if s is None or isinstance(s, NamedSharding):
+        return s
+    if isinstance(s, ShardedLeaf):
+        return s.struct.sharding
+    return s.sharding
+
+
+def _aligned_shardings(like, shardings):
+    """One sharding (or None) per leaf of ``like``, in ``_flatten``'s
+    order; ``shardings`` mirrors ``like``, or a subtree of it is one
+    sharding (or None) for every leaf below."""
+    if like is None:
+        return []
+    one = not isinstance(shardings, (dict, list))
+    if isinstance(like, dict):
+        return [s for k in sorted(like) for s in _aligned_shardings(
+            like[k], shardings if one else shardings.get(k))]
+    if isinstance(like, (list, tuple)):
+        return [s for i, v in enumerate(like) for s in _aligned_shardings(
+            v, shardings if one else shardings[i])]
+    return [_as_sharding(shardings)]
+
+
 def restore_tree(path: str, like: Any, shardings: Optional[Any] = None, *,
                  device="cuda", into: bool = False):
     """Restore into the structure of ``like``: every leaf a tensor on
     ``device`` with the dtype of ``like``'s leaf.  ``into``: a leaf of
-    ``like`` that is a tensor is overwritten in place and returned (on its
-    own device) instead.
+    ``like`` that is a tensor, or a mesh leaf, is overwritten in place and
+    returned (on its own device, or its own ranks) instead.
+
+    ``shardings`` (the reference's elastic re-scale): a tree mirroring
+    ``like`` (or a prefix of it) of ``NamedSharding`` s -- or structs from
+    ``launch/steps.py::param_shardings`` / ``opt_shardings``, or None for
+    a plain tensor.  A leaf whose sharding names a mesh of more than one
+    device is placed on that mesh's ranks, each holding its block, and
+    restored as a ``ShardedLeaf``; a mesh leaf of ``like`` on the same
+    mesh and spec is written in place when ``into``.
 
     Raises:
       ValueError: when a leaf's shape differs from ``like``'s.
     """
-    if shardings is not None:
-        raise not_ported("shardings")
     device = resolve_device(device)
     with open(os.path.join(path, "index.json")) as fh:
         index = json.load(fh)
     paths, leaves = _flatten(like)
+    shards = _aligned_shardings(like, shardings)
     by_path = {e["path"]: e for e in index["leaves"]}
     out = []
-    for p, leaf in zip(paths, leaves):
+    placed = {}                     # mesh -> [(leaf number, struct)]
+    for i, (p, leaf, sh) in enumerate(zip(paths, leaves, shards)):
         e = by_path[p]
-        arr = np.load(os.path.join(path, e["file"]))
-        if list(arr.shape) != list(np.shape(leaf)):
-            raise ValueError(f"shape mismatch for {p}: ckpt {arr.shape} "
+        shape = tuple(e["shape"])
+        if list(shape) != list(np.shape(leaf)):
+            raise ValueError(f"shape mismatch for {p}: ckpt {shape} "
                              f"vs target {tuple(np.shape(leaf))}")
+        if isinstance(leaf, ShardedLeaf) and (sh is None or sh == leaf.struct.sharding):
+            sh = leaf.struct.sharding
+            if into:
+                leaf.put(np.load(os.path.join(path, e["file"])))
+                out.append(leaf)
+                continue
+        if sh is not None and sh.mesh.size > 1:
+            placed.setdefault(sh.mesh, []).append(
+                (i, ShapeDtypeStruct(shape, _dtype_of(leaf), sh)))
+            out.append(None)
+            continue
+        arr = np.load(os.path.join(path, e["file"]))
         if into and isinstance(leaf, torch.Tensor):
             with torch.no_grad():
                 leaf.copy_(torch.from_numpy(arr))
             out.append(leaf)
             continue
-        out.append(torch.from_numpy(arr).to(device=device,
+        dev = device if sh is None else resolve_device(sh.mesh.device)
+        out.append(torch.from_numpy(arr).to(device=dev,
                                             dtype=_dtype_of(leaf)))
+    for mesh, items in placed.items():
+        # a fresh store on the ranks, filled a leaf at a time
+        hs = alloc_leaves(mesh, [s for _, s in items])
+        for (i, _), h in zip(items, hs):
+            h.put(np.load(os.path.join(path, by_path[paths[i]]["file"])))
+            out[i] = h
     return _unflatten(like, iter(out))
 
 

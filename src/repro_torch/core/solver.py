@@ -62,10 +62,11 @@ story.  This module provides that story once:
 Many problems of one shape solve together through
 ``repro_torch.fleet.FleetSolver`` (on the grid engine or the synchronous
 mesh).  ``staleness > 0`` needs the async / overlap engines and is
-refused with the reference's ``ValueError`` elsewhere.  What the
-reference offers and the port does not yet -- re-sharding a restored
-checkpoint -- raises ``NotImplementedError`` naming the ROADMAP queue
-item that brings it (``NOT_PORTED``); nothing is silently ignored.
+refused with the reference's ``ValueError`` elsewhere.  A knob the
+reference offers and the port does not yet would raise
+``NotImplementedError`` naming the ROADMAP queue item that brings it
+(``NOT_PORTED``, empty since re-sharding a restored checkpoint was
+ported); nothing is silently ignored.
 
 Example::
 
@@ -117,14 +118,8 @@ BLOCK_FORMATS = ("dense", "sparse")
 
 #: what the reference offers and the port does not (knobs, and CLI flags
 #: by their argparse dest), with the title of the ROADMAP queue-A item
-#: that ports it: ``restore_tree(shardings=)``, whose only caller in the
-#: reference is the LM trainer, waits for the way that item shards an LM
-#: parameter tree
-_ITEMS = {
-    "lm": "'LM side stack, training' (item 13c, LM sharding: a sharding "
-          "describes the trainer's parameter tree over a device mesh)",
-}
-NOT_PORTED = {"shardings": _ITEMS["lm"]}
+#: that ports it -- nothing since ``restore_tree(shardings=)`` (item 13c)
+NOT_PORTED: dict = {}
 
 
 def not_ported_message(knob: str, shown: Optional[str] = None) -> str:

@@ -9,7 +9,9 @@ source stands in for a tokenized corpus; a real reader only changes
 
 :class:`TokenPipeline` prefetches batches in a background thread (depth 2
 by default) and, given ``device=``, puts each on the device through pinned
-host memory, so the copy overlaps the previous step's compute.
+host memory, so the copy overlaps the previous step's compute; given
+``sharding=``, it hands a rank of a mesh its rows of the global batch
+(:func:`shard_batch`).
 """
 from __future__ import annotations
 
@@ -78,14 +80,31 @@ def to_device(batch, device):
     return out
 
 
+def shard_batch(batch, specs, coords):
+    """The rows of a global batch that the device at ``coords`` holds:
+    each entry cut by its struct in ``specs`` (``launch/steps.py::
+    batch_specs``: the batch dimension over the batch axes, or whole)."""
+    from ..sharding.layout import shard_of
+    return {k: shard_of(v, specs[k].spec, specs[k].sharding.mesh, coords)
+            for k, v in batch.items()}
+
+
 class TokenPipeline:
     """Background prefetcher with a bounded buffer (depth 2 by default);
     yields ``(step, batch)`` in step order from ``start_step``.
     ``device``: put each batch there (:func:`to_device`); None leaves it
-    as ``make_batch`` made it."""
+    as ``make_batch`` made it.  ``sharding``: ``(specs, coords)`` -- the
+    ``batch_specs`` of the global batch and a rank's coordinates on their
+    mesh: each batch is that rank's rows (:func:`shard_batch`)."""
 
     def __init__(self, make_batch, start_step: int = 0, depth: int = 2,
-                 device=None):
+                 device=None, sharding=None):
+        if sharding is not None:
+            specs, coords = sharding
+            whole = make_batch
+
+            def make_batch(step):
+                return shard_batch(whole(step), specs, coords)
         self._make = make_batch
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._step = start_step

@@ -83,6 +83,7 @@ import contextlib
 import dataclasses
 import datetime
 import importlib
+import math
 import os
 import queue
 import signal
@@ -109,8 +110,11 @@ ITERATES, RESIDUALS = 0, 1
 COUNTED = (("repro_torch.kernels.sdca.ops", "sdca_epoch"),
            ("repro_torch.kernels.sdca.sparse", "sdca_epoch_sparse"),
            ("repro_torch.kernels.svrg.ops", "svrg_inner"),
-           ("repro_torch.kernels.svrg.sparse", "svrg_inner_sparse"))
-_COUNTERS = ("launches_by_route", "launches_by_cluster")
+           ("repro_torch.kernels.svrg.sparse", "svrg_inner_sparse"),
+           ("repro_torch.kernels.flash.ops", "flash_attention"),
+           ("repro_torch.kernels.linattn.ops", "rwkv_linattn"))
+_COUNTERS = ("launches_by_route", "launches_by_cluster",
+             "launches_by_head_dim")
 
 
 def _pod_counts(P: int):
@@ -843,3 +847,150 @@ def close_grids():
 
 
 atexit.register(close_grids)
+
+
+# ---------------------------------------------------------------------------
+# named meshes (the reference's make_mesh / make_production_mesh)
+# ---------------------------------------------------------------------------
+
+#: the axes a named mesh may have, in the only order the rules read them
+MESH_AXES = ("pod", "data", "model")
+
+
+class Mesh:
+    """A named device mesh: axis names and sizes, the counterpart of
+    ``jax.make_mesh``'s result as the sharding rules read it (``shape``,
+    ``axis_names``, ``size``).  It *describes* a layout; it starts no
+    process.  :meth:`grid` launches the ranks a step runs on -- a
+    :class:`ProcessGrid` of ``B x M`` ranks, B the product of the batch
+    axes ("pod", "data") and M the "model" size, rank ``r = b * M + m``
+    (b = pod * data_size + data): the "model" groups are the grid's rows,
+    the "data" groups its columns, a "pod" axis the grid's cross-pod
+    groups.  ``launchable=False`` (the production meshes) makes
+    :meth:`grid` raise."""
+
+    def __init__(self, shape, axes, *, device="cuda",
+                 launchable: bool = True):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} do not "
+                             "match")
+        bad = [a for a in axes if a not in MESH_AXES]
+        if bad or list(axes) != sorted(axes, key=MESH_AXES.index):
+            raise ValueError(f"mesh axes {axes}: a mesh has axes among "
+                             f"{MESH_AXES}, in that order")
+        if any(s < 1 for s in shape):
+            raise ValueError(f"mesh shape {shape} has an empty axis")
+        self.shape = dict(zip(axes, shape))
+        self.axis_names = axes
+        self.device = torch.device(device)
+        self.launchable = launchable
+
+    @property
+    def size(self) -> int:
+        return int(math.prod(self.shape.values()))
+
+    @property
+    def batch_size(self) -> int:
+        """B: the ranks along the batch axes ("pod" x "data")."""
+        return self.shape.get("pod", 1) * self.shape.get("data", 1)
+
+    @property
+    def model_size(self) -> int:
+        return self.shape.get("model", 1)
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s index along every axis."""
+        b, m = divmod(int(rank), self.model_size)
+        data = self.shape.get("data", 1)
+        out = {"pod": b // data, "data": b % data, "model": m}
+        return {a: out[a] for a in self.axis_names}
+
+    def grid(self) -> "ProcessGrid":
+        """The process grid of this mesh (started at first use, memoized
+        as :func:`process_grid` memoizes)."""
+        if not self.launchable:
+            raise RuntimeError(
+                f"{self!r} describes a layout of {self.size} devices "
+                "(spec trees, the dry run); it does not launch")
+        return process_grid(self.batch_size, self.model_size,
+                            device=resolve_device(self.device))
+
+    def __eq__(self, other):
+        return (isinstance(other, Mesh) and self.shape == other.shape
+                and self.axis_names == other.axis_names
+                and self.device == other.device)
+
+    def __hash__(self):
+        return hash((tuple(self.shape.items()), str(self.device)))
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, device={self.device})"
+
+
+def make_mesh(shape, axes, *, device="cuda") -> Mesh:
+    """A mesh of ``shape`` over ``axes`` (``("data", "model")`` or
+    ``("pod", "data", "model")``, or a prefix of those) whose ranks run on
+    ``device`` when a step launches it."""
+    return Mesh(shape, axes, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 single pod (256 chips) or 2x16x16 two pods (512 chips): a
+    description for spec trees; launching it raises."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, launchable=False)
+
+
+def mesh_context(mesh):
+    """The reference's ``jax.set_mesh(mesh)`` context: the port's steps
+    read their mesh from the model, so the context only yields it."""
+    return contextlib.nullcontext(mesh)
+
+
+class RankMesh:
+    """One rank's view of a :class:`Mesh` on its :class:`ProcessGrid`:
+    the mesh's ``shape`` / ``axis_names`` (so the rules read it as the
+    mesh), the rank's ``coords``, its device, and the process group of
+    any set of axes (:meth:`group`)."""
+
+    def __init__(self, mesh: Mesh, ctx: RankContext):
+        if (ctx.P, ctx.Q) != (mesh.batch_size, mesh.model_size):
+            raise ValueError(f"{mesh!r} does not run on a {ctx.P}x{ctx.Q} "
+                             "grid")
+        self.mesh, self.ctx = mesh, ctx
+        self.shape, self.axis_names = mesh.shape, mesh.axis_names
+        self.size = mesh.size
+        self.rank = ctx.rank
+        self.coords = mesh.coords(ctx.rank)
+        self.device = ctx.device
+
+    def group(self, axes):
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (None for no axis of extent > 1)."""
+        axes = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+        if not axes:
+            return None
+        if axes == ("model",):
+            return self.ctx.group("model")
+        if "model" in axes:
+            raise ValueError(f"no process group spans {axes}")
+        if "pod" not in self.shape or set(axes) == {"pod", "data"} or (
+                axes == ("pod",) and self.shape.get("data", 1) == 1) or (
+                axes == ("data",) and self.shape["pod"] == 1):
+            return self.ctx.group("data")
+        G = self.shape["pod"]
+        return (self.ctx.cross_group(G) if axes == ("pod",)
+                else self.ctx.pod_group(G))
+
+    def group_size(self, axes) -> int:
+        return int(math.prod(self.shape.get(a, 1) for a in axes))
+
+    def index(self, axes) -> int:
+        """This rank's place among the ranks of :meth:`group` (``axes``
+        major first)."""
+        i = 0
+        for a in axes:
+            i = i * self.shape.get(a, 1) + self.coords.get(a, 0)
+        return i

@@ -23,8 +23,18 @@ entropy; flash attention / RWKV6 linear attention kernels in the forward)
 preemption save, straggler log).  Batches carry frame embeddings and stub
 encoder states where the config asks for them, as the reference's CLI
 makes them (``data.tokens.synthetic_lm_batch``).  ``--device`` defaults
-to ``cuda`` and raises without a card.  A ``--mesh`` of more than one
-device waits for LM sharding (ROADMAP queue A item 13c).
+to ``cuda`` and raises without a card.
+
+``--mesh d,m`` trains over a (data, model) mesh: d x m ranks of a process
+grid on ``--device`` (every rank on the one card of a one-card machine),
+the parameters and AdamW's state laid out by the sharding rules, the
+step split by ``launch/mesh_train.py``; checkpoints are full arrays, so
+``--resume`` continues on any mesh (one device included).  The
+dense-attention family only; the others name ``MESH_ITEM``::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --reduced --steps 4 --batch 4 --seq 32 --mesh 2,2 --device cpu \
+        --ckpt-dir "$(mktemp -d)"
 """
 from __future__ import annotations
 
@@ -38,11 +48,12 @@ from ..configs import get_config
 from ..core.util import resolve_device
 from ..data.tokens import synthetic_lm_batch
 from ..models import Transformer, reduced
+from ..models.transformer import MESH_ITEM, mesh_trainable
 from ..optim import AdamWConfig, adamw_init, warmup_cosine
 from ..runtime import Trainer, TrainerConfig
+from .mesh import make_mesh
+from .mesh_train import init_on_mesh
 from .steps import make_train_step
-
-MESH_ITEM = "ROADMAP queue A item 13c (LM sharding over the process grid)"
 
 
 def build_parser():
@@ -64,8 +75,8 @@ def build_parser():
                          "temporary directory, which follows TMPDIR)")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default=None,
-                    help="e.g. '4,2' for a 4x2 (data, model) mesh; the "
-                         "port trains on one device only")
+                    help="e.g. '4,2' for a 4x2 (data, model) mesh of ranks "
+                         "on --device")
     ap.add_argument("--resume", action="store_true")
     return ap
 
@@ -80,18 +91,27 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    mesh = None
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.split(","))
+        if len(shape) > 2:
+            ap.error(f"--mesh {args.mesh}: at most (data, model)")
         if math.prod(shape) > 1:
-            ap.error(f"--mesh {args.mesh}: training over a mesh is not "
-                     f"ported to repro_torch yet ({MESH_ITEM}); the port "
-                     "trains on one device")
+            if not mesh_trainable(cfg):
+                ap.error(f"--mesh {args.mesh}: {cfg.name} over a mesh is not "
+                         f"ported to repro_torch yet ({MESH_ITEM}); it "
+                         "trains on one device")
+            mesh = make_mesh(shape, ("data", "model")[:len(shape)],
+                             device=args.device)
     device = resolve_device(args.device)
-    model = Transformer(cfg, device=device)
+    model = Transformer(cfg, device=device, mesh=mesh)
     opt_cfg = AdamWConfig(lr=warmup_cosine(args.lr, 20, args.steps))
 
-    params = model.init(0)
-    opt_state = adamw_init(params)
+    if mesh is None:
+        params = model.init(0)
+        opt_state = adamw_init(params)
+    else:
+        params, opt_state = init_on_mesh(model, 0)
     step_fn = make_train_step(model, opt_cfg)
 
     def make_batch(step):

@@ -101,6 +101,23 @@ class ModelConfig:
         return self.n_layers // k, self.n_layers % k
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq: int            # sequence length (train) or KV-cache length (decode)
+    batch: int          # global batch
+    kind: str           # "train" | "prefill" | "decode"
+
+
+#: the reference's input shapes of the LM cells
+LM_SHAPES = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (the reference's
     sizes, so a reduced config names the same shapes in both packages)."""

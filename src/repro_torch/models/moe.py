@@ -25,6 +25,15 @@ from .config import ModelConfig
 from .layers import trunc_normal
 
 
+#: the logical axes of one layer's MoE leaves (the reference's ``init_moe``)
+MOE_LOGICAL = {
+    "router": ("fsdp", "experts"),
+    "w_gate": ("experts", "fsdp", "ff"),
+    "w_up": ("experts", "fsdp", "ff"),
+    "w_down": ("experts", "ff", "fsdp"),
+}
+
+
 def init_moe(gen, cfg: ModelConfig, n: int, device):
     """``n`` stacked layers' router and expert weights (leading axis n)."""
     E, dm, dff = cfg.moe.n_experts, cfg.d_model, cfg.d_ff

@@ -31,6 +31,13 @@ from .layers import trunc_normal
 SCAN_CHUNK = 64
 
 
+#: the logical axes of one layer's RG-LRU leaves (the reference's
+#: ``init_rglru``)
+RGLRU_LOGICAL = {"w_x": ("fsdp", "ff"), "w_r": ("fsdp", "ff"),
+                 "w_i": ("fsdp", "ff"), "w_o": ("ff", "fsdp"),
+                 "lam": ("ff",)}
+
+
 def init_rglru(gen, cfg: ModelConfig, n: int, device):
     """``n`` stacked layers (leading axis n); ``lam`` such that a^c lies in
     [0.9, 0.999] at r = 1 (the paper's init), the same in every layer."""

@@ -24,6 +24,19 @@ from .config import ModelConfig
 from .layers import rms_norm, trunc_normal
 
 
+#: the logical axes of one layer's time-mix leaves (the reference's
+#: ``init_rwkv``)
+RWKV_LOGICAL = {
+    "w_r": ("fsdp", "heads"), "w_k": ("fsdp", "heads"),
+    "w_v": ("fsdp", "heads"), "w_g": ("fsdp", "heads"),
+    "w_w": ("fsdp", "heads"), "w_o": ("heads", "fsdp"),
+    "u": ("heads", None), "mix": (None, "fsdp"), "ln_x": ("fsdp",),
+}
+#: ... and of its channel-mix leaves (``init_rwkv_channel_mix``)
+CHANNEL_MIX_LOGICAL = {"w_in": ("fsdp", "ff"), "w_out": ("ff", "fsdp"),
+                       "mix": ("fsdp",)}
+
+
 def init_rwkv(gen, cfg: ModelConfig, n: int, device):
     """Time-mix parameters of ``n`` stacked layers (leading axis n)."""
     dm = cfg.d_model

@@ -34,6 +34,7 @@ entries; RG-LRU layers keep ``{"h"}``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List
 
 import torch
@@ -42,13 +43,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..core.util import resolve_device, tree_map
+from ..sharding import collectives as coll
+from ..sharding.rules import PartitionSpec, spec_tree
 from .attention import chunked_attention, decode_attention, full_attention
 from .config import ATTN, LOCAL, RGLRU, RWKV, XATTN, ModelConfig
 from .layers import apply_rope, head_rms_norm, rms_norm, trunc_normal
-from .moe import init_moe, moe_ffn
-from .rglru import init_rglru, rglru_block, rglru_decode
-from .rwkv import (init_rwkv, init_rwkv_channel_mix, rwkv_channel_mix,
-                   rwkv_time_mix)
+from .moe import MOE_LOGICAL, init_moe, moe_ffn
+from .rglru import RGLRU_LOGICAL, init_rglru, rglru_block, rglru_decode
+from .rwkv import (CHANNEL_MIX_LOGICAL, RWKV_LOGICAL, init_rwkv,
+                   init_rwkv_channel_mix, rwkv_channel_mix, rwkv_time_mix)
 
 #: parameter leaves the reference only ever uses cast to the compute dtype
 #: (RG-LRU's ``lam`` is read in float32 and is not among them)
@@ -154,6 +157,133 @@ def _init_mlp(gen, cfg: ModelConfig, n: int, device):
     }
 
 
+def _attn_logical(cfg: ModelConfig):
+    lg = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+          "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp")}
+    if cfg.qk_norm:
+        lg["q_norm"] = (None,)
+        lg["k_norm"] = (None,)
+    return lg
+
+
+MLP_LOGICAL = {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
+               "w_down": ("ff", "fsdp")}
+
+
+def layer_logical(cfg: ModelConfig, kind: str):
+    """The logical axes of one layer of ``kind`` (the reference's
+    ``_init_layer``'s second result): a tuple of names a dimension."""
+    lg: Dict[str, Any] = {"ln1": ("fsdp",), "ln2": ("fsdp",)}
+    lg["mixer"] = dict(RWKV_LOGICAL if kind == RWKV else RGLRU_LOGICAL
+                       if kind == RGLRU else _attn_logical(cfg))
+    lg["mlp"] = dict(CHANNEL_MIX_LOGICAL if kind == RWKV else MOE_LOGICAL
+                     if cfg.moe is not None else MLP_LOGICAL)
+    return lg
+
+
+def logical_tree(cfg: ModelConfig):
+    """The reference's ``logical`` tree of ``Transformer.init`` for a
+    config: ``embed`` ("vocab", "fsdp"), ``head`` ("fsdp", "vocab"),
+    ``final_norm``, every layer's names, with a leading None on the
+    stacked leaves of ``periods``."""
+    n_full, n_rem = cfg.n_periods()
+    lg: Dict[str, Any] = {}
+    if cfg.embed_input == "tokens":
+        lg["embed"] = ("vocab", "fsdp")
+    lg["head"] = ("fsdp", "vocab")
+    lg["final_norm"] = ("fsdp",)
+    lg["periods"] = [tree_map(lambda ax: (None,) + ax,
+                              layer_logical(cfg, kind), leaf=tuple)
+                     for kind in cfg.pattern] if n_full else []
+    lg["remainder"] = [layer_logical(cfg, cfg.pattern[r % len(cfg.pattern)])
+                       for r in range(n_rem)]
+    return lg
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree of ``cfg`` as meta tensors: every leaf's shape
+    and dtype, nothing allocated (Llama-3.2-Vision-90B's tree included)."""
+    return Transformer(cfg, device="meta").init(0)
+
+
+#: where the families without sharded compute wait
+MESH_ITEM = ("ROADMAP queue A item 13d (sharded compute of the MoE, RWKV-6, "
+             "RG-LRU / LOCAL, XATTN and embedding-frontend families; "
+             "prefill and decode on a mesh)")
+
+
+def mesh_size(mesh) -> int:
+    return int(math.prod(mesh.shape.values()))
+
+
+def mesh_trainable(cfg: ModelConfig) -> bool:
+    """Whether a mesh of more than one device trains ``cfg``: the
+    dense-attention family (ATTN layers with their window and qk-norm, a
+    dense MLP, token input) -- qwen3, granite, stablelm, mistral-nemo."""
+    return (tuple(cfg.pattern) == (ATTN,) and cfg.moe is None
+            and cfg.embed_input == "tokens" and not cfg.encoder_len)
+
+
+def tp_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """How "model" splits the work of the dense-attention family on
+    ``mesh``, read off the specs of the rules:
+
+      * ``embed_vp`` / ``head_vp``: the vocabulary split over "model"
+        (a vocab-parallel lookup and cross entropy);
+      * ``heads_local``: ``wq`` / ``wo`` split over "model" at a head
+        boundary (H % M == 0): each rank runs its H / M query heads;
+      * ``kv_local``: ``wk`` / ``wv`` likewise (KV % M == 0); with heads
+        local but KV heads not (granite's single KV head), the KV
+        projection runs on every rank from ``wk`` / ``wv`` gathered over
+        "model" -- a spec that splits inside a head is never used split;
+      * ``ff_local``: ``w_gate`` / ``w_up`` / ``w_down`` split over
+        "model" (column- then row-parallel);
+      * ``uses``: every leaf's :class:`~repro_torch.sharding.collectives.
+        ViewPlan` use, in the parameter tree's structure."""
+    M = mesh.shape.get("model", 1)
+    specs = spec_tree(logical_tree(cfg), param_shapes(cfg), mesh)
+
+    def split(spec, dim):
+        return "model" in spec.axes(dim)
+    layer = (specs["periods"][0] if specs["periods"]
+             else {k: tree_map(lambda sp: PartitionSpec(None, *sp), v,
+                               leaf=PartitionSpec)
+                   for k, v in specs["remainder"][0].items()})
+    attn, mlp = layer["mixer"], layer["mlp"]
+    plan = {
+        "M": M,
+        "embed_vp": "embed" in specs and split(specs["embed"], 0),
+        "head_vp": split(specs["head"], 1),
+        "heads_local": split(attn["wq"], 2) and cfg.n_heads % M == 0,
+        "kv_local": split(attn["wk"], 2) and cfg.n_kv % M == 0,
+        "ff_local": split(mlp["w_gate"], 2),
+    }
+    plan["kv_local"] &= plan["heads_local"]
+    hq = "local" if plan["heads_local"] else "replicated"
+    hkv = ("local" if plan["kv_local"] else "partial"
+           if plan["heads_local"] else "replicated")
+    ff = "local" if plan["ff_local"] else "replicated"
+    norm = "partial" if plan["heads_local"] else "replicated"
+    one = {"ln1": "replicated", "ln2": "replicated",
+           "mixer": {"wq": hq, "wk": hkv, "wv": hkv, "wo": hq,
+                     "q_norm": norm, "k_norm": norm},
+           "mlp": {"w_gate": ff, "w_up": ff, "w_down": ff}}
+
+    top = {"embed": "local" if plan["embed_vp"] else "replicated",
+           "head": "local" if plan["head_vp"] else "replicated",
+           "final_norm": "replicated"}
+
+    def layer_uses(t):
+        return {k: ({n: one[k][n] for n in v} if isinstance(v, dict)
+                    else one[k]) for k, v in t.items()}
+    plan["uses"] = {**{k: top[k] for k in specs
+                       if k not in ("periods", "remainder")},
+                    "periods": [layer_uses(t) for t in specs["periods"]],
+                    "remainder": [layer_uses(t) for t in specs["remainder"]]}
+    plan["specs"] = specs
+    return plan
+
+
 def _init_layers(gen, cfg: ModelConfig, kind: str, n: int, device):
     """``n`` stacked layers of ``kind`` (leading axis n)."""
     dt = cfg.pdtype
@@ -176,16 +306,102 @@ def _init_layers(gen, cfg: ModelConfig, kind: str, n: int, device):
 
 
 class Transformer:
-    """The decoder for one ``ModelConfig`` on one device.
+    """The decoder for one ``ModelConfig`` on one device, or one rank's
+    part of it on a mesh.
 
     ``device`` defaults to ``"cuda"`` and raises without a card; pass
     ``device="cpu"`` to run the plain versions of the kernels there.
+
+    ``mesh`` (the reference's ``Transformer(cfg, mesh=)``): a mesh of
+    more than one device makes the model *sharded*.  With a
+    ``launch.mesh.Mesh`` it describes the layout (spec trees,
+    ``launch/steps.py::make_train_step`` drives the ranks); with a rank's
+    ``launch.mesh.RankMesh`` it computes that rank's part of a training
+    forward: the parameters it takes are the rank's views of its blocks,
+    each made by the leaf's
+    :class:`~repro_torch.sharding.collectives.ViewPlan` in
+    ``view_plans`` (gathered over the batch axes; over "model" only where
+    the split is not the work's -- :func:`tp_plan`) once a step by
+    ``launch/mesh_train.py``.  "model" splits the work Megatron's way: the query / KV
+    heads of a rank (column-parallel ``wq`` / ``wk`` / ``wv``, row-parallel
+    ``wo``, an all-reduce), the MLP's ``d_ff`` (column-parallel ``w_gate``
+    / ``w_up``, row-parallel ``w_down``), the vocabulary of ``embed`` (a
+    masked lookup, an all-reduce) and of ``head`` (the vocab-parallel
+    cross entropy); the activations keep the reference's ("batch", None,
+    None) layout.  Only the dense-attention family trains on a mesh
+    (:func:`mesh_trainable`); the others, and prefill / decode on a
+    mesh, raise naming ``MESH_ITEM``.
     """
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", mesh=None):
         check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        from ..launch.mesh import RankMesh
+        on_rank = isinstance(mesh, RankMesh)
+        self.device = mesh.device if on_rank else resolve_device(device)
+        self.mesh = mesh
+        self.sharded = mesh is not None and mesh_size(mesh) > 1
+        self.tp = (tp_plan(cfg, mesh) if self.sharded and mesh_trainable(cfg)
+                   else None)
+        #: on a rank: every leaf's ViewPlan, in the parameters' structure
+        self.view_plans = (self._view_plans() if self.tp is not None
+                           and on_rank else None)
+
+    # ---- the mesh ----
+    def check_mesh_compute(self, what: str = "training"):
+        """Raise unless this model can run ``what`` where it is: a sharded
+        model computes only training, only on a rank, only for the
+        dense-attention family."""
+        if not self.sharded:
+            return
+        if what != "training" or self.tp is None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} over a mesh of "
+                f"{mesh_size(self.mesh)} devices is not ported to repro_torch "
+                f"yet ({MESH_ITEM}); it runs on one device")
+        if self.view_plans is None:
+            raise RuntimeError(
+                f"{self.cfg.name} over {self.mesh!r}: this model describes "
+                "the layout; its training runs on the mesh's ranks "
+                "(launch.steps.make_train_step)")
+
+    def _view_plans(self):
+        mesh, tp = self.mesh, self.tp
+        return tree_map(lambda s, sp, u: coll.ViewPlan(s.shape, sp, u, mesh),
+                        param_shapes(self.cfg), tp["specs"], tp["uses"],
+                        leaf=PartitionSpec)
+
+    def _group(self, axes=("model",)):
+        return self.mesh.group(axes)
+
+    def _sum_model(self, x):
+        """Megatron's exit: the rank's partial product summed over "model"
+        (in float32 on the wire, back in ``x``'s dtype)."""
+        return coll.reduce_from(x.float(), self._group()).to(x.dtype)
+
+    def _enter_model(self, x):
+        """Megatron's entry: identity forward, dL/dx summed over "model"
+        backward."""
+        return coll.copy_to(x, self._group())
+
+    def _heads(self):
+        """(query heads, KV heads of the projection, KV heads to pick
+        per query group or None) of this rank's attention."""
+        cfg, tp = self.cfg, self.tp
+        H, KV = cfg.n_heads, cfg.n_kv
+        if tp is None or not tp["heads_local"]:
+            return H, KV, None
+        M = tp["M"]
+        if tp["kv_local"]:
+            return H // M, KV // M, None
+        h_loc, G = H // M, H // KV
+        q0 = self.mesh.coords["model"] * h_loc
+        of = [(q0 + i) // G for i in range(h_loc)]
+        u = sorted(set(of))
+        if h_loc % len(u) == 0 and of == [k for k in u
+                                          for _ in range(h_loc // len(u))]:
+            return h_loc, KV, u
+        return h_loc, KV, of
 
     # ---- init ----
     def init(self, seed: int = 0) -> Dict[str, Any]:
@@ -194,7 +410,8 @@ class Transformer:
         differ from the reference's ``jax.random``; the tree and the
         distributions are the same)."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev)
+        # a meta tree (``param_shapes``) draws nothing: a host generator
+        gen = torch.Generator(device=dev if dev.type != "meta" else "cpu")
         gen.manual_seed(int(seed))
         n_full, n_rem = cfg.n_periods()
         dt = cfg.pdtype
@@ -236,7 +453,17 @@ class Transformer:
         dtype either way."""
         if self.cfg.embed_input == "tokens":
             tokens = torch.as_tensor(batch["tokens"], device=self.device)
-            return params["embed"][tokens.long()].to(self.cfg.cdtype)
+            E = params["embed"]
+            if self.tp is None or not self.tp["embed_vp"]:
+                return E[tokens.long()].to(self.cfg.cdtype)
+            # vocab-parallel: this rank's rows, zeros elsewhere, summed
+            lo = self.mesh.coords["model"] * E.shape[0]
+            local = tokens.long() - lo
+            hit = (local >= 0) & (local < E.shape[0])
+            rows = E[torch.where(hit, local, torch.zeros_like(local))]
+            rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+            return coll.reduce_from(rows.float(), self._group()).to(
+                self.cfg.cdtype)
         return torch.as_tensor(batch["embeds"], device=self.device).to(
             self.cfg.cdtype)
 
@@ -254,8 +481,12 @@ class Transformer:
         if self.cfg.moe is not None:
             return moe_ffn(p, x, self.cfg)
         cdt = self.cfg.cdtype
+        split = self.tp is not None and self.tp["ff_local"]
+        if split:
+            x = self._enter_model(x)
         h = F.silu(x @ p["w_gate"].to(cdt)) * (x @ p["w_up"].to(cdt))
-        return h @ p["w_down"].to(cdt)
+        out = h @ p["w_down"].to(cdt)
+        return self._sum_model(out) if split else out
 
     def _qkv(self, p, h, src=None):
         """q of ``h``, k and v of ``src`` (XATTN's encoder states; ``h``
@@ -264,13 +495,17 @@ class Transformer:
         src = h if src is None else src
         B, S, _ = h.shape
         Skv = src.shape[1]
-        H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+        H, KV, pick = self._heads()
+        hd = cfg.hd
         k = (src @ p["wk"].to(cdt)).reshape(B, Skv, KV, hd)
         v = (src @ p["wv"].to(cdt)).reshape(B, Skv, KV, hd)
         q = (h @ p["wq"].to(cdt)).reshape(B, S, H, hd)
         if cfg.qk_norm:
             q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
             k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if pick is not None:
+            # the KV heads this rank's query heads read, in their order
+            k, v = k[:, :, pick], v[:, :, pick]
         return q, k, v
 
     def _window(self, kind):
@@ -289,6 +524,9 @@ class Transformer:
         q, k, v = self._qkv(p, h)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        #: the query / KV heads of the last sequence attention (on a
+        #: mesh: this rank's)
+        self.last_heads = (q.shape[2], k.shape[2])
         return attn(q, k, v, causal=True, window=self._window(kind)), k, v
 
     def _final_logits(self, params, x):
@@ -300,8 +538,12 @@ class Transformer:
     def _attn_train(self, p, x, kind, positions, enc):
         cfg, cdt = self.cfg, self.cfg.cdtype
         B, S, _ = x.shape
+        split = self.tp is not None and self.tp["heads_local"]
+        if split:
+            x = self._enter_model(x)
         out = self._attn_seq(p, x, kind, positions, enc)[0]
-        return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(cdt)
+        out = out.reshape(B, S, out.shape[2] * cfg.hd) @ p["wo"].to(cdt)
+        return self._sum_model(out) if split else out
 
     def _mixer_train(self, p, x, kind, positions, enc=None):
         """ln1 and the mixer: the residual branch of the first half."""
@@ -385,33 +627,47 @@ class Transformer:
 
     def logits_fn(self, params, batch):
         """Logits (B, S, V) float32 of every position of ``batch``."""
+        self.check_mesh_compute("logits")
         x = self._hidden_fn(params, batch)
         return (x @ params["head"].to(self.cfg.cdtype)).float()
 
-    def train_loss(self, params, batch):
+    def train_loss(self, params, batch, tokens=None):
         """Mean next-token cross entropy of ``batch`` ({"tokens",
-        "labels"}: (B, S) integers), a 0-d float32 tensor.
+        "labels"}: (B, S) integers), a 0-d float32 tensor: the sum over
+        its tokens divided by ``tokens`` (default B * S; a rank of a mesh
+        divides its rows' sum by its whole microbatch's count).
 
         With ``loss_chunk`` = C, S > C and C dividing S, the head and the
         cross entropy run C tokens at a time, each chunk under a
         checkpoint: the (B, C, vocab) float32 logits exist for one chunk
         at a time and the backward recomputes them chunk by chunk;
-        otherwise in one pass -- the reference's condition."""
+        otherwise in one pass -- the reference's condition.  With the
+        vocabulary split over "model", a rank's chunk holds its (B, C,
+        V / M) logits only (``VocabParallelNLL``)."""
         cfg = self.cfg
+        self.check_mesh_compute()
         x = self._hidden_fn(params, batch)
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         head = params["head"]
         B, S = labels.shape
         C = cfg.loss_chunk
+        tokens = B * S if tokens is None else tokens
+        vp = self.tp is not None and self.tp["head_vp"]
+        if vp:
+            x = self._enter_model(x)
+            lo = self.mesh.coords["model"] * head.shape[1]
 
         def chunk_nll(xc, lc):
             logits = (xc @ head.to(cfg.cdtype)).float()
+            if vp:
+                return torch.sum(coll.VocabParallelNLL.apply(
+                    logits, lc, lo, self._group()))
             logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, lc[..., None])[..., 0]
             return torch.sum(logz - gold)
 
         if not C or S <= C or S % C:
-            return chunk_nll(x, labels) / (B * S)
+            return chunk_nll(x, labels) / tokens
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(S // C):
             sl = slice(i * C, (i + 1) * C)
@@ -420,7 +676,7 @@ class Transformer:
                                            use_reentrant=False)
             else:
                 total = total + chunk_nll(x[:, sl], labels[:, sl])
-        return total / (B * S)
+        return total / tokens
 
     def _layers(self, params):
         """(layer params, kind) in order: periods, then remainder."""
@@ -546,6 +802,7 @@ class Transformer:
         length, so the real last token sits mid-way.  ``linear_cache``:
         raw full-length k/v per attention layer (see ``_layer_prefill``).
         Returns (logits (B, 1, V) float32, cache)."""
+        self.check_mesh_compute("prefill")
         cfg = self.cfg
         x = self._embed(params, batch)
         enc = self._encoder(batch)
@@ -645,6 +902,7 @@ class Transformer:
         """batch: {"tokens": (B, 1)} (or {"embeds": (B, 1, d_model)}).
         Returns (logits (B, 1, V), cache) with the cache updated in place
         and ``cache["pos"]`` advanced."""
+        self.check_mesh_compute("decode")
         x = self._embed(params, batch)
         pos = int(cache["pos"])
         for (p, kind), c in zip(self._layers(params),
@@ -698,6 +956,7 @@ class Transformer:
         token); ``active``: (B,) bool.  Returns (logits (B, 1, V), arenas)
         with the arenas updated in place.  Attention mixers only (see
         ``serve.cache.paged_kinds``)."""
+        self.check_mesh_compute("decode")
         dev = self.device
         x = self._embed(params, batch)
         bt = torch.as_tensor(block_tables, device=dev).long()

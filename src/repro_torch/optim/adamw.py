@@ -39,20 +39,36 @@ def init(params):
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree):
-    """sqrt of the sum of squares of every leaf, in float32 (0-d tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+def global_norm(tree, counted=None, reduce=None):
+    """sqrt of the sum of squares of every leaf, in float32 (0-d tensor).
+
+    On a mesh, where ``tree`` holds a rank's blocks: ``counted`` (one bool
+    a leaf) says which blocks this rank counts -- a block held by several
+    ranks (its leaf replicated over an axis) is counted by one of them --
+    and ``reduce`` sums the rank's part over the mesh, so that every
+    element is counted once."""
+    gs = leaves(tree)
+    counted = [True] * len(gs) if counted is None else counted
+    dev = gs[0].device if gs else None
+    total = sum((torch.sum(torch.square(g.float()))
+                 for g, c in zip(gs, counted) if c),
+                torch.zeros((), dtype=torch.float32, device=dev)
+                if reduce is not None else 0)
+    if reduce is not None:
+        total = reduce(total)
+    return torch.sqrt(total)
 
 
-def update(cfg: AdamWConfig, grads, state, params):
+def update(cfg: AdamWConfig, grads, state, params, *, counted=None,
+           reduce=None):
     """One AdamW step; returns ``(params, state, grad_norm)`` -- the norm
     before clipping -- with ``params``, ``state["mu"]``, ``state["nu"]``
-    (and ``grads``) updated in place."""
+    (and ``grads``) updated in place.  ``counted`` / ``reduce``: the
+    global norm over a mesh's blocks (:func:`global_norm`)."""
     count = state["count"] + 1
     lr = cfg.lr(count) if callable(cfg.lr) else cfg.lr
 
-    gn = global_norm(grads)
+    gn = global_norm(grads, counted, reduce)
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-12),
                             max=1.0)

@@ -12,8 +12,15 @@
   * straggler surveillance: per-step wall times feed an EMA; steps slower
     than ``straggler_factor`` x EMA are logged with their step index;
   * ``restore`` reads the newest checkpoint back into the trainer's own
-    tensors, on their device.  Re-sharding onto a mesh (the reference's
-    ``shardings=``) raises by name (ROADMAP queue A item 13c).
+    tensors, on their device; ``shardings=`` (the reference's elastic
+    re-scale) lays the restored tree over a mesh instead
+    (``checkpoint.restore_tree``).
+
+The parameters and optimizer state may be trees resident on a mesh
+(``sharding/resident.py::ShardedLeaf`` handles, the step of
+``make_train_step`` on a sharded model): checkpoints gather them to the
+full-array format, restores (the NaN rollback's too) scatter the blocks
+back into the ranks' own tensors, and a preemption saves the same way.
 """
 from __future__ import annotations
 
@@ -97,8 +104,10 @@ class Trainer:
             self.ckpt.save(self.step, self._tree())
 
     def restore(self, shardings=None):
-        """Load the newest checkpoint into the trainer's tensors; returns
-        its step."""
+        """Load the newest checkpoint into the trainer's tensors (or, with
+        ``shardings`` -- a tree mirroring ``{"params", "opt", "step"}``,
+        or a prefix of it -- onto a mesh by those shardings); returns its
+        step."""
         step, tree = self.ckpt.restore(self._tree(), shardings=shardings,
                                        device=self.device, into=True)
         self.params, self.opt_state = tree["params"], tree["opt"]

@@ -103,13 +103,26 @@ def test_atomic_no_partial_dirs(tmp_path):
 
 
 def test_restore_rejects_shape_mismatch_and_refuses_shardings(tmp_path):
-    save_tree(str(tmp_path / "ck"), {"x": torch.zeros(3)})
+    """A shape mismatch raises; ``shardings=`` re-shards (it once raised
+    naming ROADMAP item 13c): a leaf whose sharding names a one-device
+    mesh lands on that mesh's device, a None sharding on ``device`` --
+    the multi-device re-shard is ``test_torch_mesh_train.py``'s."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.layout import NamedSharding
+    from repro_torch.sharding.rules import PartitionSpec
+    save_tree(str(tmp_path / "ck"), {"x": torch.arange(3.0),
+                                     "y": torch.ones(2)})
     with pytest.raises(ValueError):
-        restore_tree(str(tmp_path / "ck"), {"x": torch.zeros(4)},
+        restore_tree(str(tmp_path / "ck"), {"x": torch.zeros(4),
+                                            "y": torch.zeros(2)},
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="'LM side stack, training'"):
-        restore_tree(str(tmp_path / "ck"), {"x": torch.zeros(3)},
-                     shardings={"x": object()}, device="cpu")
+    one = NamedSharding(make_mesh((1, 1), ("data", "model"), device="cpu"),
+                        PartitionSpec(None))
+    got = restore_tree(str(tmp_path / "ck"), {"x": torch.zeros(3),
+                                              "y": torch.zeros(2)},
+                       shardings={"x": one, "y": None}, device="cpu")
+    torch.testing.assert_close(got["x"], torch.arange(3.0), rtol=0, atol=0)
+    torch.testing.assert_close(got["y"], torch.ones(2), rtol=0, atol=0)
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).restore(
             {"x": torch.zeros(3)}, device="cpu")

@@ -123,8 +123,14 @@ def test_restore_writes_into_the_trainers_tensors(tmp_path):
     assert tr2.restore() == 3
     assert tr2.params["w"] is w
     torch.testing.assert_close(w, tr.params["w"])
-    with pytest.raises(NotImplementedError, match="LM side stack, training"):
-        tr2.restore(shardings={"w": None})
+    # shardings= (once refused, naming ROADMAP item 13c): a None sharding
+    # restores into the trainer's own tensor as before; the re-shard onto
+    # a grid is test_torch_mesh_train.py's
+    w.zero_()
+    assert tr2.restore(shardings={"params": {"w": None}, "opt": {},
+                                  "step": None}) == 3
+    assert tr2.params["w"] is w
+    torch.testing.assert_close(w, tr.params["w"])
 
 
 # ---------------------------------------------------------------------------
