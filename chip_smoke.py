@@ -181,13 +181,14 @@ JSON; any failure is an exception and a non-zero exit:
   fleet_mesh_full     the fleet, the online service and scoring on that
                       grid: the fleets of fleet_dense_full and
                       fleet_sparse_full through the fleet CLI under
-                      ``--engine shard_map`` (one launch a rank an outer
-                      step for all tenants, every tenant within 1e-5 of
-                      the grid-engine fleet's, tenant 0 of its solo mesh
-                      solve, each kernel's first and last launch on ranks
-                      (0, 0) and (6, 3) against its plain version), the
-                      online CLI under ``--engine shard_map`` for 3
-                      rounds of online_full's window (each version within
+                      ``--engine shard_map`` for 2 outer iterations (one
+                      launch a rank an outer step for all tenants, every
+                      tenant within 1e-5 of the grid-engine fleet's,
+                      tenant 0 of its solo mesh solve, each kernel's
+                      first and last launch on ranks (0, 0) and (6, 3)
+                      against its plain version), the online CLI under
+                      ``--engine shard_map`` for 1 round of
+                      online_full's window (each version within
                       1e-5 of the grid engine's stream, duals outside the
                       batch unmoved) and its scorer on the grid (margins
                       within 1e-5 of X @ w); ms per outer iteration,
@@ -213,6 +214,18 @@ JSON; any failure is an exception and a non-zero exit:
                       at 2 layers (a step, a checkpoint in a tmpfs) and
                       --resume on one device, whose restored parameters
                       must equal the grid's bitwise
+  train_mesh_families_full
+                      the other families at full width on the same grid
+                      (see MESH_FAMILIES): Mixtral-8x7B at 1 layer (4
+                      experts a rank), RWKV6-3B at 2 (B6 on 20 of 40 heads)
+                      and MusicGen-large at 4 (frame embeddings): each
+                      family's float32 first step against one device
+                      (before the counted window, MESH_TRAIN_LIMITS), then
+                      2 bf16 steps from there with every rank's B5 / B6
+                      calls of the first held against the plain version,
+                      wire bytes equal to the count from the specs, the
+                      ranks' heads and (Mixtral) routing, each rank's peak
+                      against its share, step ms and tokens/s
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       LM configs of every family (and the int8 cache):
                       port on the card (kernels) vs port on
@@ -267,6 +280,11 @@ every kernel's launches on the main paths, error against its plain
 version, times, bound, launches and source per route and, for the dense
 SDCA epoch, the same per main-path shape.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+Every synthetic instance (``make_svm_data`` and the sparse generators) is
+made once a run and handed again to every later phase or CLI that asks
+for the same arguments (``DataMemo``); a ``data_memo`` line after the
+phases says how many seconds that saved.
 
 ``--phases a,b`` runs a subset (``env`` and ``build`` always run); the
 summary lines then hold what those phases measured.
@@ -382,7 +400,8 @@ MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "train_recurrentgemma_full", "train_musicgen_full",
               "fleet_dense_full", "fleet_sparse_full",
               "admm_full", "online_full", "online_sparse_full", "comm_full",
-              "obs_full", "mesh_full", "fleet_mesh_full", "train_mesh_full")
+              "obs_full", "mesh_full", "fleet_mesh_full", "train_mesh_full",
+              "train_mesh_families_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -2254,8 +2273,9 @@ def phase_admm_full():
     return {}
 
 
-def fleet_argv(solver, sparse):
-    """The fleet CLI's flags at a fleet phase's configuration."""
+def fleet_argv(solver, sparse, iters=OUTER_ITERS):
+    """The fleet CLI's flags at a fleet phase's configuration (``iters``
+    outer iterations)."""
     if sparse:
         size = ["--block-format", "sparse", "--tenants", str(FLEET_T_SPARSE),
                 "--n", str(N20), "--m", str(M20), "--density", str(DENS20),
@@ -2264,12 +2284,12 @@ def fleet_argv(solver, sparse):
         size = ["--tenants", str(FLEET_T_DENSE), "--n", str(N), "--m",
                 str(M), "--lam", str(LAM)]
     return ["--solver", solver, "--mesh", f"{P}x{Q}", *size, "--iters",
-            str(OUTER_ITERS), "--check-every", "1", "--seed", "0"]
+            str(iters), "--check-every", "1", "--seed", "0"]
 
 
-def fleet_config(solver, lam):
+def fleet_config(solver, lam, iters=OUTER_ITERS):
     cls = get_solver(solver).config_cls
-    kw = {"lam": lam, "outer_iters": OUTER_ITERS}
+    kw = {"lam": lam, "outer_iters": iters}
     if solver == "admm":
         kw["rho"] = lam
     return cls(**kw)
@@ -3724,6 +3744,49 @@ def patched(owner, name, value):
         setattr(owner, name, real)
 
 
+class DataMemo:
+    """The port's synthetic data generators, each instance made once a run:
+    a call with arguments seen before hands back the arrays made then (no
+    consumer writes into them), and adds the seconds that making them took
+    to ``saved_s``.  Installed in ``main`` into every module that calls a
+    generator; the phases' timers (and the CLIs') start after their data
+    is made, so only the phases' wall times move."""
+    MAKERS = ("make_svm_data", "make_sparse_svm_csr", "make_sparse_svm_data")
+
+    def __init__(self):
+        self.made, self.hits, self.saved_s, self.made_s = {}, 0, 0.0, 0.0
+
+    def wrap(self, fn):
+        def call(*a, **kw):
+            key = (fn.__name__, a, tuple(sorted(kw.items())))
+            if key in self.made:
+                out, took = self.made[key]
+                self.hits += 1
+                self.saved_s += took
+                return out
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            took = time.perf_counter() - t0
+            self.made[key] = (out, took)
+            self.made_s += took
+            return out
+        return call
+
+    def install(self):
+        owners = (sys.modules[__name__], sys.modules["repro_torch.data"],
+                  optimize, fleet_cli)
+        real = {name: getattr(owners[0], name) for name in self.MAKERS}
+        wrapped = {name: self.wrap(fn) for name, fn in real.items()}
+        for owner in owners:
+            for name in self.MAKERS:
+                if hasattr(owner, name):
+                    setattr(owner, name, wrapped[name])
+
+    def report(self):
+        return {"instances": len(self.made), "made_s": self.made_s,
+                "hits": self.hits, "saved_s": self.saved_s}
+
+
 def first_last(keep):
     """An ``on_launch`` for :func:`tap` keeping the first and the last
     launch's (args, kwargs, outputs) in ``keep``."""
@@ -4231,21 +4294,6 @@ def mesh_held(label, got, want, fields=("w", "alpha")):
     return out
 
 
-@functools.lru_cache(maxsize=4)
-def mesh_dense_data(n, m, seed=0):
-    """A dense instance, made once for mesh_full's solves and
-    fleet_mesh_full's tenants (the CLIs' ``make_svm_data`` is handed this
-    while those phases run)."""
-    return make_svm_data(n, m, seed=seed)
-
-
-@functools.lru_cache(maxsize=2)
-def mesh_sparse_data(n, m, density, seed=0):
-    """A news20-profile instance, made once (the CLIs'
-    ``make_sparse_svm_csr``)."""
-    return make_sparse_svm_csr(n, m, density=density, seed=seed)
-
-
 def mesh_cli(flags, grid=(P, Q), sparse=False, ref_epochs=0):
     """One mesh solve through the CLI's ``main`` on the card; returns its
     summary, history, the SolveResult the CLI got and the wall time."""
@@ -4268,8 +4316,6 @@ def mesh_cli(flags, grid=(P, Q), sparse=False, ref_epochs=0):
         out = os.path.join(tmp, "mesh.json")
         t0 = time.perf_counter()
         with patched(Solver, "solve", solve), \
-                patched(optimize, "make_svm_data", mesh_dense_data), \
-                patched(optimize, "make_sparse_svm_csr", mesh_sparse_data), \
                 contextlib.redirect_stderr(err):
             summary = optimize.main([*flags, "--mesh", f"{grid[0]}x{grid[1]}",
                                      *data, "--iters", str(OUTER_ITERS),
@@ -4363,8 +4409,9 @@ def mesh_setup():
     grid = process_grid(P, Q, device="cuda")
     grid.rank_hook = mesh_rank_hook
     MESH_GRIDS.append(grid)
-    # the CLI's own call, so that its solves find the arrays made here
-    Xn, yn = mesh_dense_data(N, M, seed=0)
+    # the arguments of the CLI's own call: DataMemo hands its solves these
+    # arrays
+    Xn, yn = make_svm_data(N, M, seed=0)
     X, y = torch.as_tensor(Xn, device="cuda"), torch.as_tensor(yn,
                                                                 device="cuda")
     ref = {
@@ -4377,7 +4424,7 @@ def mesh_setup():
         "admm": get_solver("admm")().solve(
             "hinge", X, y, P=P, Q=Q,
             cfg=ADMMConfig(lam=LAM, rho=LAM, outer_iters=OUTER_ITERS))}
-    csr, y20 = mesh_sparse_data(N20, M20, density=DENS20, seed=0)
+    csr, y20 = make_sparse_svm_csr(N20, M20, density=DENS20, seed=0)
     ref["d3ca_sparse"] = get_solver("d3ca")(block_format="sparse").solve(
         "hinge", csr, y20, P=P, Q=Q,
         cfg=D3CAConfig(lam=LAM20, outer_iters=OUTER_ITERS))
@@ -4537,8 +4584,6 @@ def phase_mesh_full(setup):
     held.update({f"pods rank {r}": [h["rel_err"] for h in rep["held"]]
                  for r, rep in g4.reports.items() if "held" in rep})
     close_grids()
-    mesh_dense_data.cache_clear()
-    mesh_sparse_data.cache_clear()
 
     probe_out, probe_err = setup["probe"].communicate(timeout=120)
     try:
@@ -4579,13 +4624,18 @@ MESH_D3CA_CELLS = (P * Q * (4 * OUTER_ITERS + OBS_CALIB + 1
 # ---------------------------------------------------------------------------
 
 #: the fleets of fleet_mesh_full: (sparse, solver, its kernel) -- the
-#: fleet phases' configurations, on the 7 x 4 process grid
+#: fleet phases' configurations, on the 7 x 4 process grid, each for
+#: FLEET_MESH_ITERS outer iterations, every tenant's objective checked at
+#: every one (depth cut from 10 for the script's time limit: 0.8-1.4 s an
+#: iteration in run BV, most of it the objective check)
 FLEET_MESH = ((False, "d3ca", "sdca_epoch"), (False, "radisa", "svrg_inner"),
               (False, "admm", None), (True, "d3ca", "sdca_epoch_sparse"),
               (True, "radisa", "svrg_inner_sparse"))
+FLEET_MESH_ITERS = 2
 #: online_full's window and batches on the mesh, depth cut to these rounds
-#: (cut from 5 to keep the script inside its time limit)
-FLEET_MESH_ROUNDS = 3
+#: (cut from 5, then from 3 (35.8 s for 3 in run BV), to keep the script
+#: inside its time limit)
+FLEET_MESH_ROUNDS = 1
 #: request rows a grid scoring call takes, and the calls timed
 SCORE_ROWS, SCORE_CALLS = 4096, 3
 #: the wrapper module core/local.py takes each solver kernel from
@@ -4640,20 +4690,11 @@ def step_ms(steps_ms):
     return statistics.median(steps_ms[1:])
 
 
-@contextlib.contextmanager
-def cached_tenant_data():
-    """The fleet CLI makes each tenant's data from its seed in every run;
-    inside this block it takes the copy made first (the same arrays)."""
-    with patched(fleet_cli, "make_svm_data", mesh_dense_data), \
-            patched(fleet_cli, "make_sparse_svm_csr", mesh_sparse_data):
-        yield
-
-
 def fleet_mesh_setup():
     """What fleet_mesh_full is held against, made before its counted
     window: the 7 x 4 grid (its spawn), each fleet on the grid engine and
     its ms per outer iteration there, tenant 0's solo mesh solve (a
-    program stepped OUTER_ITERS times, its steps timed as the fleet's),
+    program stepped FLEET_MESH_ITERS times, its steps timed as the fleet's),
     and the online stream of fleet_mesh_full on the grid engine (every
     version's w)."""
     t0 = time.perf_counter()
@@ -4662,35 +4703,37 @@ def fleet_mesh_setup():
     grid.rank_hook = fleet_mesh_rank_hook
     MESH_GRIDS.append(grid)
     ref = {}
-    with cached_tenant_data():
-        for sparse, solver, _ in FLEET_MESH:
-            problems = fleet_tenants(sparse)
-            p0 = problems[0]
-            bf = "sparse" if sparse else "dense"
-            cfg = fleet_config(solver, LAM20 if sparse else LAM)
-            fleet = FleetSolver(solver=solver, block_format=bf)
-            flat = fleet.solve_batch(problems, P=P, Q=Q, cfg=cfg,
-                                     record_history=False)
-            grid_fleet_ms = time_fleet(fleet.program(problems, P=P, Q=Q,
-                                                     cfg=cfg))
-            prog = get_solver(solver)(engine="shard_map", block_format=bf)\
-                .program(p0.loss_name, p0.X, p0.y, mesh=grid,
-                         cfg=solo_config(cfg, p0))
-            steps, state = [], prog.state
-            step = timed_steps(prog.step, grid.barrier, steps)
-            for t in range(1, OUTER_ITERS + 1):
-                state = step(t, state)
-            solo = (prog.w_of(state),
-                    prog.alpha_of(state) if prog.alpha_of else None)
-            prog.close()
-            ref[fleet_mesh_key(sparse, solver)] = {
-                "grid": [(r.w, r.alpha) for r in flat], "solo": solo,
-                "grid_fleet_ms": grid_fleet_ms, "solo_mesh_ms": step_ms(steps),
-                "solo_peaks": {r: rep["peak_bytes"]
-                               for r, rep in grid.reports.items()}}
-            del flat, solo, prog, state
-            gc.collect()
-            torch.cuda.empty_cache()
+    for sparse, solver, _ in FLEET_MESH:
+        t1 = time.perf_counter()
+        problems = fleet_tenants(sparse)
+        p0 = problems[0]
+        bf = "sparse" if sparse else "dense"
+        cfg = fleet_config(solver, LAM20 if sparse else LAM,
+                           FLEET_MESH_ITERS)
+        fleet = FleetSolver(solver=solver, block_format=bf)
+        flat = fleet.solve_batch(problems, P=P, Q=Q, cfg=cfg,
+                                 record_history=False)
+        grid_fleet_ms = time_fleet(fleet.program(problems, P=P, Q=Q,
+                                                 cfg=cfg))
+        prog = get_solver(solver)(engine="shard_map", block_format=bf)\
+            .program(p0.loss_name, p0.X, p0.y, mesh=grid,
+                     cfg=solo_config(cfg, p0))
+        steps, state = [], prog.state
+        step = timed_steps(prog.step, grid.barrier, steps)
+        for t in range(1, FLEET_MESH_ITERS + 1):
+            state = step(t, state)
+        solo = (prog.w_of(state),
+                prog.alpha_of(state) if prog.alpha_of else None)
+        prog.close()
+        ref[fleet_mesh_key(sparse, solver)] = {
+            "grid": [(r.w, r.alpha) for r in flat], "solo": solo,
+            "grid_fleet_ms": grid_fleet_ms, "solo_mesh_ms": step_ms(steps),
+            "solo_peaks": {r: rep["peak_bytes"]
+                           for r, rep in grid.reports.items()},
+            "setup_s": time.perf_counter() - t1}
+        del flat, solo, prog, state
+        gc.collect()
+        torch.cuda.empty_cache()
     online = []
     run_online([*ONLINE_ARGV, "--rounds", str(FLEET_MESH_ROUNDS)],
                on_round=lambda r, svc, rec: online.append(
@@ -4747,20 +4790,22 @@ def run_fleet_mesh(grid, sparse, solver, kernel, ref, peaks, held):
     got = []
     c0, r0, g0 = snap()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf), cached_tenant_data(), \
+    with contextlib.redirect_stdout(buf), \
             patched(FleetSolver, "program", program):
         summary = fleet_cli.run(
-            fleet_cli.parse_args([*fleet_argv(solver, sparse), "--engine",
-                                  "shard_map"]),
+            fleet_cli.parse_args([*fleet_argv(solver, sparse,
+                                             FLEET_MESH_ITERS),
+                                  "--engine", "shard_map"]),
             on_result=lambda p, r: got.append((p, r)))
     torch.cuda.synchronize()
     c1, r1, g1 = snap()
     T = FLEET_T_SPARSE if sparse else FLEET_T_DENSE
     if (summary["device"], summary["engine"], summary["local_backend"],
             len(got), summary["buckets"], len(steps)) != (
-                "cuda", "shard_map", "kernel", T, 1, OUTER_ITERS):
+                "cuda", "shard_map", "kernel", T, 1, FLEET_MESH_ITERS):
         raise AssertionError(f"{label}: {summary}, {len(steps)} steps")
-    want = {k: (P * Q * OUTER_ITERS if k == kernel else 0) for k in WRAPPERS}
+    want = {k: (P * Q * FLEET_MESH_ITERS if k == kernel else 0)
+            for k in WRAPPERS}
     launched = {k: c1[k] - c0[k] for k in WRAPPERS}
     if launched != want:
         raise AssertionError(f"{label}: launches {launched}; expected "
@@ -4776,7 +4821,7 @@ def run_fleet_mesh(grid, sparse, solver, kernel, ref, peaks, held):
     errs = []
     for i, (p, res) in enumerate(got):
         hist = [h["objective"] for h in res.history]
-        if len(hist) != OUTER_ITERS or not all(np.isfinite(hist)) \
+        if len(hist) != FLEET_MESH_ITERS or not all(np.isfinite(hist)) \
                 or not hist[-1] < hist[0]:
             raise AssertionError(f"{label} {p.tenant_id}: objective {hist}")
         errs.append(mesh_held(f"{label} {p.tenant_id} against the grid "
@@ -4795,7 +4840,8 @@ def run_fleet_mesh(grid, sparse, solver, kernel, ref, peaks, held):
             **times, "ms_per_outer_iter": step_ms(steps),
             "steps_ms": steps, "grid_engine_fleet_ms": ref["grid_fleet_ms"],
             "solo_mesh_ms": ref["solo_mesh_ms"],
-            "T_x_solo_mesh_ms": T * ref["solo_mesh_ms"]}
+            "T_x_solo_mesh_ms": T * ref["solo_mesh_ms"],
+            "setup_s": ref["setup_s"]}
 
 
 def phase_fleet_mesh_full(setup):
@@ -4803,10 +4849,11 @@ def phase_fleet_mesh_full(setup):
     one process grid of 7 x 4 ranks on the card.  The fleets of
     fleet_dense_full (T = 4 Part 1 tenants: D3CA, RADiSA, ADMM with rho =
     lambda) and fleet_sparse_full (T = 2 news20 tenants: D3CA, RADiSA)
-    through the fleet CLI under ``--engine shard_map``: one launch a rank
-    an outer step for all the tenants (28 x 10 a solver, summed from the
-    ranks), every tenant within MESH_TOL of the same tenant of the
-    grid-engine fleet, tenant 0 within MESH_TOL of its solo mesh solve,
+    through the fleet CLI under ``--engine shard_map`` for FLEET_MESH_ITERS
+    outer iterations: one launch a rank an outer step for all the tenants
+    (28 x 2 a solver, summed from the ranks), every tenant within
+    MESH_TOL of the same tenant of the grid-engine fleet, tenant 0 within
+    MESH_TOL of its solo mesh solve,
     the first and last launch of each kernel on ranks (0, 0) and (6, 3)
     against its plain version; each fleet's pack and block distribution
     and ms per outer iteration beside the grid engine's fleet and T x the
@@ -4827,8 +4874,6 @@ def phase_fleet_mesh_full(setup):
         gc.collect()
         torch.cuda.empty_cache()
     fleet_tenants.cache_clear()
-    mesh_dense_data.cache_clear()
-    mesh_sparse_data.cache_clear()
 
     # the online service on the mesh, its scorer on the grid
     state, rounds, update_s, program_s = {}, [], [], []
@@ -4926,7 +4971,7 @@ def phase_fleet_mesh_full(setup):
                   "rows_per_s": rates},
          wall_s=time.perf_counter() - t0)
     close_grids()
-    per_fleet = P * Q * OUTER_ITERS
+    per_fleet = P * Q * FLEET_MESH_ITERS
     return {"sdca_epoch": per_fleet + want, "svrg_inner": per_fleet,
             "sdca_epoch_sparse": per_fleet, "svrg_inner_sparse": per_fleet}
 
@@ -5049,18 +5094,42 @@ def held_first_step(got, one, control, limits):
     return held
 
 
-def _rank_hold_flash(ctx, mesh, on: bool):
-    """On a rank: from ``on``, every B5 call held against its plain
-    version (``held_flash``); then (``on`` False) the calls put back and
-    every rank's (calls, max abs error, worst row's share of its limit)
-    gathered to rank 0."""
+def held_linattn(record):
+    """B6 as the model calls it (the kernel), each call's output also held
+    against the plain version (the exact recurrence) on the same inputs:
+    (max abs error, its share of LINATTN_TOL times the plain output's
+    largest entry) appended to ``record``.  The plain version launches
+    nothing."""
+    def call(r, k, v, logw, u, *, chunk=64):
+        out, state = rwkv_linattn(r, k, v, logw, u, chunk=chunk)
+        with torch.no_grad():
+            want, _ = rwkv_linattn_ref(r.float(), k.float(), v.float(),
+                                       logw.float(), u.float())
+            err = (out.float() - want).abs().max()
+            record.append((err, err / (LINATTN_TOL * want.abs().max())
+                           .clamp_min(1e-30)))
+        return out, state
+    return call
+
+
+#: where a rank's LM kernels are reached, and their holding wrappers
+HELD = {"flash_attention": (lm_attention, "flash_attention", held_flash),
+        "rwkv_linattn": (lm_rwkv, "rwkv_linattn", held_linattn)}
+
+
+def _rank_hold(ctx, mesh, on: bool, kernel="flash_attention"):
+    """On a rank: from ``on``, every call of ``kernel`` (B5 or B6) held
+    against its plain version (``HELD``); then (``on`` False) the calls
+    put back and every rank's (calls, max abs error, worst share of its
+    limit) gathered to rank 0."""
+    owner, attr, wrap = HELD[kernel]
     if on:
         calls = []
-        ctx.resident["held_flash"] = (calls, lm_attention.flash_attention)
-        lm_attention.flash_attention = held_flash(calls)
+        ctx.resident["held"] = (calls, getattr(owner, attr))
+        setattr(owner, attr, wrap(calls))
         return None
-    calls, real = ctx.resident.pop("held_flash")
-    lm_attention.flash_attention = real
+    calls, real = ctx.resident.pop("held")
+    setattr(owner, attr, real)
     mine = [len(calls), 0.0, 0.0]
     if calls:
         errs, ratios = (torch.stack(c) for c in zip(*calls))
@@ -5069,6 +5138,12 @@ def _rank_hold_flash(ctx, mesh, on: bool):
            else None)
     torch.distributed.gather_object(mine, got, dst=0)
     return got
+
+
+def _rank_release(ctx, mesh):
+    """On a rank: its cached free device memory released to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def grid_steps(cfg, steps, hold_flash=False):
@@ -5088,7 +5163,7 @@ def grid_steps(cfg, steps, hold_flash=False):
     mesh_train.memory_peaks(mesh, reset=True)
     step = make_train_step(model, mesh_train_opt())
     want = mesh_train.wire_bytes(model, TRAIN_BATCH, TRAIN_SEQ)
-    hold = "chip_smoke:_rank_hold_flash"
+    hold = "chip_smoke:_rank_hold"
     for s in range(steps):
         batch = synthetic_lm_batch(cfg, s, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
         if hold_flash and s == 0:
@@ -5262,8 +5337,8 @@ def phase_train_mesh_full(setup):
          wire_bytes_per_step=run["wire"], rank_heads=run["heads"],
          first_step=held, rank_flash=rank_flash,
          float32_first_step={**setup["float32"],
-                              "layers": MESH_TRAIN_F32_DEPTH,
-                              "seconds": setup["float32_s"]},
+                             "layers": MESH_TRAIN_F32_DEPTH,
+                             "seconds": setup["float32_s"]},
          cli={"layers": cli_cfg.n_layers, "steps": steps,
               "wall_s": [w for w, _ in walls], "ckpt_bytes": ckpt_bytes,
               "restored_equal": same})
@@ -5275,6 +5350,194 @@ def phase_train_mesh_full(setup):
     return {"flash_attention": 2 * world * pieces * (
         cfg.n_layers * MESH_TRAIN_STEPS + cli_cfg.n_layers)
             + 2 * acc * cli_cfg.n_layers}
+
+
+#: the other families at full width on train_mesh_full's 2 x 2 grid: arch,
+#: depth, the kernel its layers launch.  Mixtral-8x7B at 1 of 32 layers
+#: (E = 8 over M = 2: 4 experts a rank; B5 on 16 of 32 query, 4 of 8 KV
+#: heads), RWKV6-3B at 2 of 32 (B6 on 20 of 40 heads), MusicGen-large at 4
+#: of 48 (frame embeddings; B5 on 16 of 32 heads): a rank's share of
+#: the four float32 copies of each, 16 bytes a parameter over 4 ranks,
+#: lies on the one card beside the others' views (PERF.md, section 7:
+#: RecurrentGemma-9B and Llama-3.2-Vision-90B do not fit)
+MESH_FAMILIES = (("mixtral-8x7b", 1, "flash_attention"),
+                 ("rwkv6-3b", 2, "rwkv_linattn"),
+                 ("musicgen-large", 4, "flash_attention"))
+MESH_FAMILY_STEPS = 2
+
+
+def mesh_families_setup():
+    """Before the counted window, on train_mesh_full's 2 x 2 grid (spawned
+    here when that phase did not run): each family's float32 first step
+    on one device and on the grid from init(0), held at
+    MESH_TRAIN_LIMITS["float32"] (float32 B5 calls take the ``simt``
+    route, so not on the main path; Mixtral's routing flips under bf16
+    rounding, so every family is held in float32).  The grid's parameters
+    and AdamW state after that step stay on the ranks for the counted
+    steps."""
+    t0 = time.perf_counter()
+    grid = process_grid(*MESH_TRAIN_GRID, device="cuda")
+    if grid not in MESH_GRIDS:
+        MESH_GRIDS.append(grid)
+    mesh = make_mesh(MESH_TRAIN_GRID, ("data", "model"))
+    resident.call(mesh, "chip_smoke:_rank_release")
+    out = {"mesh": mesh, "grid_s": time.perf_counter() - t0, "families": {}}
+    for arch, depth, _ in MESH_FAMILIES:
+        t0 = time.perf_counter()
+        cfg32 = family_config(arch, depth, compute_dtype="float32")
+        batch = synthetic_lm_batch(cfg32, 0, batch=TRAIN_BATCH,
+                                   seq=TRAIN_SEQ)
+        one = one_device_first_steps(cfg32, batch, control=False)
+        one_s = time.perf_counter() - t0
+        model = Transformer(cfg32, device=torch.device("cuda"), mesh=mesh)
+        t1 = time.perf_counter()
+        params, opt = mesh_train.init_on_mesh(model, 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t1
+        step = make_train_step(model, mesh_train_opt())
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        step_s = time.perf_counter() - t1
+        want = mesh_train.wire_bytes(model, TRAIN_BATCH, TRAIN_SEQ)
+        if step.last["wire"] != want:
+            raise AssertionError(f"train_mesh_families_full: {arch} float32 "
+                                 f"step wire bytes {step.last['wire']}, "
+                                 f"counted from the specs {want}")
+        t1 = time.perf_counter()
+        first = [torch.from_numpy(a) for a in
+                 tree_leaves_sorted(resident.gather_tree(params))]
+        gather_s = time.perf_counter() - t1
+        held = held_first_step({"loss": float(m["loss"]),
+                                "grad_norm": float(m["grad_norm"]),
+                                "params": first}, one["one"], None,
+                               MESH_TRAIN_LIMITS["float32"])
+        n_params = sum(t.numel() for t in first)
+        del one, first
+        resident.call(mesh, "chip_smoke:_rank_release")
+        gc.collect()
+        torch.cuda.empty_cache()
+        held.update(layers=depth, seconds={
+            "one_device": one_s, "init": init_s, "step": step_s,
+            "gather": gather_s, "all": time.perf_counter() - t0})
+        out["families"][arch] = {"params": params, "opt": opt,
+                                 "n_params": n_params, "float32": held}
+    return out
+
+
+def phase_train_mesh_families_full(setup):
+    """Mixtral-8x7B (1 layer), RWKV6-3B (2) and MusicGen-large (4) at full
+    width trained over train_mesh_full's 2 x 2 (data, model) grid
+    (``make_train_step`` on a sharded model, bf16, batch 8 x 128 in 8
+    microbatches: 4 pieces a rank): MESH_FAMILY_STEPS steps each from the
+    set-up's float32 first step (its gate is judged here), the first with
+    every rank's B5 / B6 calls held against the plain version on their
+    own inputs; each step's wire bytes equal to the count from the specs;
+    every rank's attention on 16 query heads (Mixtral 4 KV heads, its 4
+    experts; MusicGen 16) or RWKV6's time mix on 20 heads; the experts
+    every rank chose equal across each "model" group; each rank's peak
+    against its share of the four float32 copies; step ms and tokens/s.
+    Every B5 / B6 call is counted on the ranks: a rank's 4 pieces launch
+    the kernel twice a layer (forward and recompute)."""
+    mesh = setup["mesh"]
+    world = math.prod(MESH_TRAIN_GRID)
+    launches = {"flash_attention": 0, "rwkv_linattn": 0}
+    report, bad = {}, []
+    hold = "chip_smoke:_rank_hold"
+    for arch, depth, kernel in MESH_FAMILIES:
+        fam = setup["families"].pop(arch)
+        params, opt = fam["params"], fam["opt"]
+        cfg = family_config(arch, depth)
+        model = Transformer(cfg, device=torch.device("cuda"), mesh=mesh)
+        step = make_train_step(model, mesh_train_opt())
+        want = mesh_train.wire_bytes(model, TRAIN_BATCH, TRAIN_SEQ)
+        acc = _largest_divisor_leq(TRAIN_BATCH, cfg.train_accum)
+        pieces = len(mesh_train.pieces(TRAIN_BATCH // MESH_TRAIN_GRID[0], 0,
+                                       acc, TRAIN_BATCH // acc))
+        per, rem = kernel_layers(cfg, kernel)
+        calls = pieces * (2 * per + rem)
+        mesh_train.memory_peaks(mesh, reset=True)
+        hist, routes = [], None
+        for s in range(MESH_FAMILY_STEPS):
+            batch = synthetic_lm_batch(cfg, 1 + s, batch=TRAIN_BATCH,
+                                       seq=TRAIN_SEQ)
+            if s == 0:
+                resident.call(mesh, hold, on=True, kernel=kernel)
+            # the experts every rank's dispatches choose in the first step
+            record = s == 0 and cfg.moe is not None
+            t0 = time.perf_counter()
+            with (mesh_train.expert_routes(mesh) if record
+                  else contextlib.nullcontext()) as seen:
+                params, opt, m = step(params, opt, batch)
+            routes = seen if record else routes
+            hist.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "time_s": time.perf_counter() - t0})
+            if s == 0:
+                held = resident.call(mesh, hold, on=False, kernel=kernel)
+            if step.last["wire"] != want:
+                raise AssertionError(
+                    f"train_mesh_families_full: {arch} step {s} wire bytes "
+                    f"{step.last['wire']}, counted from the specs {want}")
+        peaks = mesh_train.memory_peaks(mesh, reset=True)
+        heads = mesh_train.attention_heads(model)
+        scans = mesh_train.scan_widths(model)
+        resident.free(params)
+        resident.free(opt)
+        del params, opt
+        resident.call(mesh, "chip_smoke:_rank_release")
+        launches[kernel] += world * calls * MESH_FAMILY_STEPS
+        tol = (FLASH_TOL[torch.bfloat16] if kernel == "flash_attention"
+               else LINATTN_TOL)
+        rank_calls = {"calls": [c for c, _, _ in held],
+                      "max_abs_err": max(e for _, e, _ in held),
+                      "worst_share_of_limit": max(r for _, _, r in held),
+                      "tol": tol}
+        if kernel == "flash_attention":
+            kv = cfg.n_kv // 2 if cfg.n_kv % 2 == 0 else cfg.n_kv
+            split_ok = heads == [(cfg.n_heads // 2, kv)] * world
+        else:
+            split_ok = scans == [("rwkv", cfg.rwkv_heads // 2)] * world
+        routes_ok = routes is None or (
+            routes[0] == routes[1] and routes[2] == routes[3]
+            and len(routes[0]) > 0)
+        finite = all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                     for h in hist)
+        f32 = fam["float32"]
+        if (rank_calls["calls"] != [calls] * world
+                or rank_calls["worst_share_of_limit"] > 1.0 or not split_ok
+                or not routes_ok or not finite or f32["over"]):
+            bad.append(arch)
+        share = 16 * fam["n_params"] / world
+        step_s = hist[-1]["time_s"]
+        report[arch] = {
+            "layers": depth, "full_layers": get_config(arch).n_layers,
+            "n_params": fam["n_params"], "kernel": kernel,
+            "microbatches": acc, "pieces_per_rank": pieces,
+            "step_ms": 1e3 * step_s,
+            "tokens_per_sec": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "step_ms_each": [1e3 * h["time_s"] for h in hist],
+            "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "peak_bytes": peaks, "share_bytes": share,
+            "peak_over_share": [p / share for p in peaks],
+            "wire_bytes_per_step": want, "rank_heads": heads,
+            "rank_scans": scans, "rank_calls": rank_calls,
+            "routes_equal_in_model_groups": routes_ok,
+            "expert_choices_per_rank": (None if routes is None else
+                                        [sum(len(r) for r in rr)
+                                         for rr in routes]),
+            "float32_first_step": f32}
+    emit("train_mesh_families_full", grid=list(MESH_TRAIN_GRID),
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_FAMILY_STEPS,
+         setup_grid_s=setup["grid_s"], families=report)
+    if bad:
+        raise AssertionError(
+            f"train_mesh_families_full: {bad} failed a check (the float32 "
+            "first step against one device, the ranks' kernel calls, heads "
+            "or routing, finite steps); see the train_mesh_families_full "
+            "line")
+    return launches
 
 
 SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
@@ -5309,7 +5572,7 @@ SDCA_SHAPE_LAUNCHES = {
     # a rank's T = 4 tenant cells in one launch (1 CTA each): the fleet
     # and the online updates (passes and calibration)
     "fleet_mesh_full": {"d3ca_cells": P * Q * (
-        OUTER_ITERS + FLEET_MESH_ROUNDS * (ONLINE_PASSES + OBS_CALIB))}}
+        FLEET_MESH_ITERS + FLEET_MESH_ROUNDS * (ONLINE_PASSES + OBS_CALIB))}}
 
 
 #: what a main path is held against that must be made before its counted
@@ -5320,7 +5583,8 @@ PHASE_SETUP = {**{name: functools.partial(train_setup, name)
                "fleet_sparse_full": lambda: fleet_solos(True),
                "obs_full": obs_setup, "mesh_full": mesh_setup,
                "fleet_mesh_full": fleet_mesh_setup,
-               "train_mesh_full": mesh_train_setup}
+               "train_mesh_full": mesh_train_setup,
+               "train_mesh_families_full": mesh_families_setup}
 
 
 def run_main_path(name, phase, results):
@@ -5879,6 +6143,12 @@ def serial_timing(X, y, dev):
 
 
 def phase_timing(dev, results):
+    split, t_split = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        split[name] = now - t_split[0]
+        t_split[0] = now
     data, alpha, w = full_problem(dev)
     src = GeneratorIndexSource(0, P=P, Q=Q, n_p=data.n_p, device=dev)
     sargs = (data.x_blocks, data.y_blocks, data.mask, alpha, w,
@@ -5934,6 +6204,7 @@ def phase_timing(dev, results):
         lambda a, lo: bounds("svrg_inner", a, data.m_q // P, 9), svrg_block)
     del data, alpha, w, sargs, vargs, tenants
     torch.cuda.empty_cache()
+    lap("dense_kernels")
 
     X, y = make_svm_data(N, M, seed=0)
     X, y = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
@@ -5950,6 +6221,7 @@ def phase_timing(dev, results):
                          "kernel_share": results[kernel]["ms"] / ms_iter}
     del X, y, prog
     torch.cuda.empty_cache()
+    lap("serial_and_dense_solvers")
 
     # -- the sparse path: news20 profile, 28 padded-ELL cells
     torch.cuda.reset_peak_memory_stats()
@@ -6025,9 +6297,12 @@ def phase_timing(dev, results):
     news20_problem.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
+    lap("sparse")
     fleets = fleet_timing(dev)
+    lap("fleets")
     lm = lm_timing(dev, results)
-    emit("timing", solvers=solvers, fleets=fleets,
+    lap("lm")
+    emit("timing", split_s=split, solvers=solvers, fleets=fleets,
          sparse_peak_mem_bytes=sparse_peak,
          sparse_cells={"P": P, "Q": Q, "n_p": sp_shape[0], "k": sp_shape[1],
                        "m_q": sp_shape[2], "ell_bytes": sp_shape[3]},
@@ -6302,6 +6577,8 @@ def main(argv=None):
     smi = phase_env()
     dev = torch.device("cuda")
     phase_build()
+    memo = DataMemo()
+    memo.install()
     results = {name: {"name": name, **meta, "launches": 0,
                       "routes": dict.fromkeys(route_counts(name), 0),
                       "max_abs_err": None, "ms": None, "plain_ms": None,
@@ -6335,6 +6612,7 @@ def main(argv=None):
         timed("cpu_vs_card", phase_cpu_vs_card)
     if "timing" in phases:
         timed("timing", phase_timing, dev, results)
+    emit("data_memo", **memo.report())
 
     print(smi, flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)

@@ -37,7 +37,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.util import tree_leaves, tree_map, tree_unflatten
-from ..models.transformer import Transformer, param_shapes
+from ..models import moe
+from ..models.transformer import Transformer, layer_exits, param_shapes
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..sharding import collectives as coll
 from ..sharding import resident
@@ -80,12 +81,40 @@ def _rank_init_opt(ctx, mesh: Mesh, pkey: str, okey: str):
                                  + tree_leaves(st["nu"]))
 
 
-def _rank_heads(ctx, mesh: Mesh, cfg):
-    """Every rank's (query heads, KV heads) of its last attention."""
-    model = _rank_model(ctx, mesh, cfg)
+def _gather_to_0(ctx, mine):
     got = [None] * dist.get_world_size() if ctx.rank == 0 else None
-    dist.gather_object(getattr(model, "last_heads", None), got, dst=0)
+    dist.gather_object(mine, got, dst=0)
     return got
+
+
+def _rank_reading(ctx, mesh: Mesh, cfg, what: str):
+    """Every rank's reading ``what`` of its model's last training forward
+    (gathered to rank 0): ``"heads"`` (query heads, KV heads) of its last
+    attention, ``"scan"`` (kind, heads or channels) of its last RWKV /
+    RG-LRU mixer."""
+    model = _rank_model(ctx, mesh, cfg)
+    return _gather_to_0(ctx, getattr(model, {"heads": "last_heads",
+                                             "scan": "last_scan"}[what],
+                                     None))
+
+
+def _rank_routes(ctx, mesh: Mesh, on: bool):
+    """On a rank: from ``on``, the experts every MoE dispatch chooses
+    recorded (``moe.top_k_lower_first`` wrapped); then (``on`` False) the
+    function put back and every rank's record gathered to rank 0."""
+    if on:
+        seen, real = [], moe.top_k_lower_first
+
+        def record(logits, k):
+            vals, idx = real(logits, k)
+            seen.append(idx.detach())
+            return vals, idx
+        ctx.resident["expert_routes"] = (seen, real)
+        moe.top_k_lower_first = record
+        return None
+    seen, real = ctx.resident.pop("expert_routes")
+    moe.top_k_lower_first = real
+    return _gather_to_0(ctx, [r.tolist() for r in seen])
 
 
 def _rank_memory(ctx, mesh: Mesh, reset: bool):
@@ -109,7 +138,29 @@ def attention_heads(model: Transformer):
     """``[(query heads, KV heads)]`` a rank, of each rank's last training
     attention on the model's mesh (the evidence that "model" splits the
     work: H / M query heads a rank where the heads split)."""
-    return _call(model.mesh, "_rank_heads", cfg=model.cfg)
+    return _call(model.mesh, "_rank_reading", cfg=model.cfg, what="heads")
+
+
+def scan_widths(model: Transformer):
+    """``[("rwkv", heads) or ("rglru", channels)]`` a rank, of each rank's
+    last RWKV time mix or RG-LRU scan (H / M heads, d_model / M channels
+    where "model" splits them)."""
+    return _call(model.mesh, "_rank_reading", cfg=model.cfg, what="scan")
+
+
+@contextlib.contextmanager
+def expert_routes(mesh: Mesh):
+    """Inside the block, every rank records the experts its MoE
+    dispatches choose (forward and recompute); at its end the list it
+    yields holds each rank's record (a list of nested (N, C, k) lists):
+    equal across the ranks of a "model" group, which route the same
+    rows."""
+    got = []
+    _call(mesh, "_rank_routes", on=True)
+    try:
+        yield got
+    finally:
+        got.extend(_call(mesh, "_rank_routes", on=False))
 
 
 def memory_peaks(mesh: Mesh, reset: bool = False):
@@ -295,8 +346,6 @@ def make_mesh_train_step(model: Transformer, opt_cfg: AdamWConfig,
               for f in dataclasses.fields(opt_cfg) if f.name != "lr"}
 
     def train_step(params, opt_state, batch):
-        if model.tp is None:
-            model.check_mesh_compute()       # names the item that ports it
         grid = mesh.grid()
         prefs = [(h.key, h.idx) for h in tree_leaves(params)]
         ohs = ([opt_state["count"]] + tree_leaves(opt_state["mu"])
@@ -345,9 +394,12 @@ def wire_bytes(model: Transformer, batch: int, seq: int,
                accum_steps: Optional[int] = None) -> Dict[str, int]:
     """The bytes one rank hands to each kind of collective in one step of
     :func:`make_mesh_train_step` on a global batch of ``batch`` x ``seq``
-    tokens, from the specs and the step's structure alone (remat
-    "nothing" or "save_boundaries": a period's forward runs again in its
-    backward, up to its last saved tensor)."""
+    tokens, from the specs and the step's structure alone: the leaves'
+    views and gradients (``ViewPlan.view_bytes``), every layer kind's
+    Megatron exits and entries (``layer_exits``), the vocab-parallel
+    lookup and cross entropy, the loss and the norm (remat "nothing" or
+    "save_boundaries": a period's forward runs again in its backward, up
+    to its last saved tensor)."""
     cfg, tp, mesh = model.cfg, model.tp, model.mesh
     if cfg.remat_policy not in ("nothing", "save_boundaries"):
         raise ValueError("wire_bytes counts the recomputing remat "
@@ -367,23 +419,26 @@ def wire_bytes(model: Transformer, batch: int, seq: int,
                                else accum_steps)
     mb = batch // acc
     n_full, n_rem = cfg.n_periods()
-    M = tp["M"]
+    kp = len(cfg.pattern)
+    exits = [layer_exits(tp, k) for k in cfg.pattern]
+    per_period = sum(map(sum, exits))
+    # the Megatron exits of a step's layers; a period's forward runs again
+    # in its backward (its checkpoint) up to its last saved tensor: past
+    # none of its exits under "save_boundaries" (each half its own
+    # checkpoint, ending at its exit), else up to its last exit when its
+    # last layer ends with one (nothing after it saves a tensor)
+    fwd = n_full * per_period + sum(sum(exits[r % kp]) for r in range(n_rem))
+    again = (0 if cfg.remat_policy == "save_boundaries" or not per_period
+             else per_period - exits[-1][1])
     f32 = 4
     for lo, hi in pieces(rows, 0, acc, mb):
         r = hi - lo
         act = r * seq * cfg.d_model * f32
-        if M > 1:
+        if tp["M"] > 1:
             if tp["embed_vp"]:
                 out["all_reduce"] += act
-            per_layer = tp["heads_local"] + tp["ff_local"]
-            # forward; the checkpoint's recompute of a period stops at its
-            # last saved tensor, before the period's last all-reduce (each
-            # half's own under "save_boundaries"); the backward's f
-            layers = n_full * len(cfg.pattern) + n_rem
-            again = (0 if cfg.remat_policy == "save_boundaries" or not
-                     per_layer else len(cfg.pattern) * per_layer - 1)
-            out["all_reduce"] += act * (per_layer * layers + again * n_full)
-            out["all_reduce"] += act * per_layer * layers
+            # forward and recompute; the backward's f at every entry
+            out["all_reduce"] += act * (2 * fwd + again * n_full)
             if tp["head_vp"]:
                 C = cfg.loss_chunk
                 chunked = bool(C) and seq > C and seq % C == 0

@@ -29,8 +29,8 @@ to ``cuda`` and raises without a card.
 grid on ``--device`` (every rank on the one card of a one-card machine),
 the parameters and AdamW's state laid out by the sharding rules, the
 step split by ``launch/mesh_train.py``; checkpoints are full arrays, so
-``--resume`` continues on any mesh (one device included).  The
-dense-attention family only; the others name ``MESH_ITEM``::
+``--resume`` continues on any mesh (one device included).  Every family
+trains on a mesh::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --reduced --steps 4 --batch 4 --seq 32 --mesh 2,2 --device cpu \
@@ -48,7 +48,6 @@ from ..configs import get_config
 from ..core.util import resolve_device
 from ..data.tokens import synthetic_lm_batch
 from ..models import Transformer, reduced
-from ..models.transformer import MESH_ITEM, mesh_trainable
 from ..optim import AdamWConfig, adamw_init, warmup_cosine
 from ..runtime import Trainer, TrainerConfig
 from .mesh import make_mesh
@@ -97,10 +96,6 @@ def main(argv=None):
         if len(shape) > 2:
             ap.error(f"--mesh {args.mesh}: at most (data, model)")
         if math.prod(shape) > 1:
-            if not mesh_trainable(cfg):
-                ap.error(f"--mesh {args.mesh}: {cfg.name} over a mesh is not "
-                         f"ported to repro_torch yet ({MESH_ITEM}); it "
-                         "trains on one device")
             mesh = make_mesh(shape, ("data", "model")[:len(shape)],
                              device=args.device)
     device = resolve_device(args.device)

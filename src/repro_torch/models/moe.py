@@ -15,6 +15,15 @@ slot) rows and the experts' outputs gathered back by index -- the same
 tokens kept and dropped, the same products.  The chunks of all rows run
 as one batch (each (row, chunk) is independent), so the number of
 operators does not grow with the sequence.
+
+On a rank of a mesh whose "model" axis splits the MoE, the routing runs
+whole on every rank from the full router (the same tokens, the same
+choices) and the rank's experts compute their part: with the experts
+split (E % M == 0) the rank's weights are its E / M experts and only the
+choices routed to them are dispatched (``first_expert`` names the first);
+with the experts' ``d_ff`` split (``expert_ff``) every expert runs on the
+rank's columns.  Either way the output is the rank's partial sum
+(``partial=True``: float32, summed over "model" by the caller).
 """
 from __future__ import annotations
 
@@ -55,10 +64,14 @@ def top_k_lower_first(logits, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _dispatch(x, params, cfg: ModelConfig, valid=None):
+def _dispatch(x, params, cfg: ModelConfig, valid=None, first_expert=0,
+              partial=False):
     """Chunks x: (N, C, dm) -> (N, C, dm), each row of N one (row, chunk)
     of the reference's dispatch.  ``valid``: optional (N, C) bool --
-    padded tokens take no capacity and give 0."""
+    padded tokens take no capacity and give 0.  The expert weights of
+    ``params`` are experts ``[first_expert, first_expert + n)`` (n their
+    leading extent); a choice of another expert contributes 0.
+    ``partial``: the float32 sum of the k products, not cast back."""
     moe = cfg.moe
     N, C, dm = x.shape
     E, k = moe.n_experts, moe.top_k
@@ -78,8 +91,11 @@ def _dispatch(x, params, cfg: ModelConfig, valid=None):
     before = (torch.cumsum(flat, dim=1) - flat).reshape(N, C, k, E)
     slot = (before * sel).sum(-1).long()                       # (N, C, k)
     keep = (sel.sum(-1) > 0) & (slot < cap)
-    trash = E * cap
-    row = torch.where(keep, expert * cap + slot,
+    # the rows of this rank's experts (all of them on one device)
+    n_e = params["w_gate"].shape[0]
+    mine = keep & (expert >= first_expert) & (expert < first_expert + n_e)
+    trash = n_e * cap
+    row = torch.where(mine, (expert - first_expert) * cap + slot,
                       torch.full_like(slot, trash)).reshape(N, C * k)
 
     # the kept choices' tokens in their (expert, slot) rows; dropped ones
@@ -87,7 +103,7 @@ def _dispatch(x, params, cfg: ModelConfig, valid=None):
     src = x[:, :, None, :].expand(N, C, k, dm).reshape(N, C * k, dm)
     xe = torch.zeros((N, trash + 1, dm), dtype=x.dtype, device=x.device)
     xe = xe.scatter(1, row[..., None].expand(N, C * k, dm), src)
-    xe = xe[:, :trash].reshape(N, E, cap, dm)
+    xe = xe[:, :trash].reshape(N, n_e, cap, dm)
     h = F.silu(torch.einsum("nexd,edf->nexf", xe, params["w_gate"].to(cdt))) \
         * torch.einsum("nexd,edf->nexf", xe, params["w_up"].to(cdt))
     ye = torch.einsum("nexf,efd->nexd", h, params["w_down"].to(cdt))
@@ -96,14 +112,16 @@ def _dispatch(x, params, cfg: ModelConfig, valid=None):
     # the gates rounded to the compute dtype (the reference's combine
     # tensor), the k products summed in float32
     w = (gates * keep).to(cdt).float().reshape(N, C * k, 1)
-    return (got.float() * w).reshape(N, C, k, dm).sum(2).to(x.dtype)
+    out = (got.float() * w).reshape(N, C, k, dm).sum(2)
+    return out if partial else out.to(x.dtype)
 
 
-def moe_ffn(params, x, cfg: ModelConfig):
+def moe_ffn(params, x, cfg: ModelConfig, *, first_expert=0, partial=False):
     """x: (B, S, dm) -> (B, S, dm): the reference's chunked dispatch over
     chunks of ``min(cfg.moe.chunk, S)`` tokens, a ragged tail padded and
     masked out of routing (its one-chunk, unrolled and scanned branches
-    are the same computation chunk by chunk)."""
+    are the same computation chunk by chunk).  ``first_expert``,
+    ``partial``: a rank's part (:func:`_dispatch`)."""
     B, S, dm = x.shape
     C = min(cfg.moe.chunk, S)
     n = -(-S // C)
@@ -112,5 +130,6 @@ def moe_ffn(params, x, cfg: ModelConfig):
         x = F.pad(x, (0, 0, 0, n * C - S))
         valid = (torch.arange(n * C, device=x.device) < S).reshape(1, n, C)
         valid = valid.expand(B, n, C).reshape(B * n, C)
-    out = _dispatch(x.reshape(B * n, C, dm), params, cfg, valid)
+    out = _dispatch(x.reshape(B * n, C, dm), params, cfg, valid,
+                    first_expert, partial)
     return out.reshape(B, n * C, dm)[:, :S]

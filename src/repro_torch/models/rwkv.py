@@ -13,6 +13,14 @@ linear-attention kernel: on a CUDA tensor the hand-written kernel
 plain version, the exact recurrence; in training through the kernel's
 autograd Function, whose backward is autograd through that recurrence.  Decode (one token from a carried state) is the plain
 recurrence, as in the reference.
+
+On a rank of a mesh whose "model" axis splits the heads, the time mix's
+parameters are the rank's: ``w_r`` ... ``w_w`` its heads' columns, ``u``
+its heads, ``w_o`` its rows; the head count is read off ``u``, and
+``channel0`` names the first of the rank's channels of the whole
+``ln_x`` (the output is then the rank's partial product).  The channel
+mix needs nothing of the kind: its ``w_in`` / ``w_out`` views are the
+rank's ``d_ff`` columns / rows.
 """
 from __future__ import annotations
 
@@ -62,7 +70,7 @@ def _projections(params, x, x_prev, cfg: ModelConfig):
     cdt = cfg.cdtype
     mix = params["mix"].to(cdt)
     B, S, dm = x.shape
-    H, D = cfg.rwkv_heads, cfg.rwkv_head_dim
+    H, D = params["u"].shape[0], cfg.rwkv_head_dim
 
     def mixed(i):
         return x * mix[i] + x_prev * (1.0 - mix[i])
@@ -101,14 +109,16 @@ def rwkv_scan(r, k, v, logw, u, state0=None):
             state.reshape(B, H, D, D))
 
 
-def rwkv_time_mix(params, x, cfg: ModelConfig, *, x_last=None, state=None):
+def rwkv_time_mix(params, x, cfg: ModelConfig, *, x_last=None, state=None,
+                  channel0: int = 0):
     """Full time-mix block. x: (B,S,dm).
 
     ``x_last``/``state``: decode-time carries ((B,dm) previous input and
     (B,H,D,D) recurrence state).  Returns (out, (new_x_last, new_state)).
+    ``channel0``: where the heads of ``params`` start in ``ln_x``.
     """
     B, S, dm = x.shape
-    H, D = cfg.rwkv_heads, cfg.rwkv_head_dim
+    H, D = params["u"].shape[0], cfg.rwkv_head_dim
     if x_last is None:
         x_last = torch.zeros((B, dm), dtype=x.dtype, device=x.device)
     x_prev = torch.cat([x_last[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
@@ -117,7 +127,8 @@ def rwkv_time_mix(params, x, cfg: ModelConfig, *, x_last=None, state=None):
     # per-head group norm, then output gate + projection
     out = rms_norm(out, torch.ones((D,), dtype=out.dtype, device=out.device),
                    1e-5).reshape(B, S, H * D)
-    out = out.to(cfg.cdtype) * params["ln_x"].to(cfg.cdtype)
+    ln_x = params["ln_x"][..., channel0:channel0 + H * D]
+    out = out.to(cfg.cdtype) * ln_x.to(cfg.cdtype)
     out = (out * g) @ params["w_o"].to(cfg.cdtype)
     return out, (x[:, -1, :], new_state)
 

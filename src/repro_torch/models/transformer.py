@@ -206,38 +206,58 @@ def param_shapes(cfg: ModelConfig):
     return Transformer(cfg, device="meta").init(0)
 
 
-#: where the families without sharded compute wait
-MESH_ITEM = ("ROADMAP queue A item 13d (sharded compute of the MoE, RWKV-6, "
-             "RG-LRU / LOCAL, XATTN and embedding-frontend families; "
-             "prefill and decode on a mesh)")
+#: where prefill and decode on a mesh wait
+MESH_ITEM = ("ROADMAP queue A item 13d, second half: prefill and decode on "
+             "a mesh")
 
 
 def mesh_size(mesh) -> int:
     return int(math.prod(mesh.shape.values()))
 
 
-def mesh_trainable(cfg: ModelConfig) -> bool:
-    """Whether a mesh of more than one device trains ``cfg``: the
-    dense-attention family (ATTN layers with their window and qk-norm, a
-    dense MLP, token input) -- qwen3, granite, stablelm, mistral-nemo."""
-    return (tuple(cfg.pattern) == (ATTN,) and cfg.moe is None
-            and cfg.embed_input == "tokens" and not cfg.encoder_len)
+def _kind_layers(cfg: ModelConfig, specs):
+    """``{kind: one layer's spec tree}`` (with the stacked layer axis) for
+    every mixer kind of the config, from its first period position or
+    remainder layer."""
+    kp = len(cfg.pattern)
+    out = {}
+    for kind, t in zip(cfg.pattern, specs["periods"]):
+        out.setdefault(kind, t)
+    for r, t in enumerate(specs["remainder"]):
+        out.setdefault(cfg.pattern[r % kp], tree_map(
+            lambda sp: PartitionSpec(None, *sp), t, leaf=PartitionSpec))
+    return out
 
 
 def tp_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
-    """How "model" splits the work of the dense-attention family on
-    ``mesh``, read off the specs of the rules:
+    """How "model" splits the work of every layer kind on ``mesh``, read
+    off the specs of the rules (each kind's own leaves: a split that the
+    work cannot use is gathered instead):
 
       * ``embed_vp`` / ``head_vp``: the vocabulary split over "model"
         (a vocab-parallel lookup and cross entropy);
-      * ``heads_local``: ``wq`` / ``wo`` split over "model" at a head
-        boundary (H % M == 0): each rank runs its H / M query heads;
+      * ``heads_local``: the attention kinds' ``wq`` / ``wo`` split over
+        "model" at a head boundary (H % M == 0): each rank runs its H / M
+        query heads;
       * ``kv_local``: ``wk`` / ``wv`` likewise (KV % M == 0); with heads
-        local but KV heads not (granite's single KV head), the KV
-        projection runs on every rank from ``wk`` / ``wv`` gathered over
-        "model" -- a spec that splits inside a head is never used split;
-      * ``ff_local``: ``w_gate`` / ``w_up`` / ``w_down`` split over
-        "model" (column- then row-parallel);
+        local but KV heads not (granite's and RecurrentGemma's single KV
+        head), the KV projection runs on every rank from ``wk`` / ``wv``
+        gathered over "model" -- a spec that splits inside a head is
+        never used split;
+      * ``ff_local``: the dense MLP's ``d_ff`` split (column- then
+        row-parallel);
+      * ``moe``: ``"experts"`` (E % M == 0: a rank runs its E / M
+        experts), ``"expert_ff"`` (the rules' fallback: every expert on
+        the rank's ``d_ff`` columns) or None; the router is gathered and
+        its gradient summed over "model" (``partial``) either way;
+      * ``rwkv_local``: RWKV-6's time mix on the rank's H / M heads
+        (``w_r`` ... ``w_w`` column-, ``w_o`` row-parallel, ``u`` local,
+        ``mix`` and ``ln_x`` whole and ``partial``: the activation enters
+        "model" before the token-shift mix, and a rank uses ``ln_x`` on
+        its channels only); ``cm_local``: the channel mix's ``d_ff``
+        (``mix`` whole, ``partial``);
+      * ``rglru_local``: RG-LRU's channels (``w_x`` / ``w_r`` / ``w_i``
+        column-, ``w_o`` row-parallel, ``lam`` local);
       * ``uses``: every leaf's :class:`~repro_torch.sharding.collectives.
         ViewPlan` use, in the parameter tree's structure."""
     M = mesh.shape.get("model", 1)
@@ -245,43 +265,85 @@ def tp_plan(cfg: ModelConfig, mesh) -> Dict[str, Any]:
 
     def split(spec, dim):
         return "model" in spec.axes(dim)
-    layer = (specs["periods"][0] if specs["periods"]
-             else {k: tree_map(lambda sp: PartitionSpec(None, *sp), v,
-                               leaf=PartitionSpec)
-                   for k, v in specs["remainder"][0].items()})
-    attn, mlp = layer["mixer"], layer["mlp"]
+    kinds = _kind_layers(cfg, specs)
+    attn = next((kinds[k]["mixer"] for k in (ATTN, LOCAL, XATTN)
+                 if k in kinds), None)
+    mlp = next((kinds[k]["mlp"] for k in kinds if k != RWKV), None)
     plan = {
         "M": M,
         "embed_vp": "embed" in specs and split(specs["embed"], 0),
         "head_vp": split(specs["head"], 1),
-        "heads_local": split(attn["wq"], 2) and cfg.n_heads % M == 0,
-        "kv_local": split(attn["wk"], 2) and cfg.n_kv % M == 0,
-        "ff_local": split(mlp["w_gate"], 2),
+        "heads_local": (attn is not None and split(attn["wq"], 2)
+                        and cfg.n_heads % M == 0),
+        "kv_local": (attn is not None and split(attn["wk"], 2)
+                     and cfg.n_kv % M == 0),
+        "ff_local": (mlp is not None and cfg.moe is None
+                     and split(mlp["w_gate"], 2)),
+        "moe": (None if mlp is None or cfg.moe is None else "experts"
+                if split(mlp["w_gate"], 1) else "expert_ff"
+                if split(mlp["w_gate"], 3) else None),
+        "rwkv_local": (RWKV in kinds and split(kinds[RWKV]["mixer"]["w_r"], 2)
+                       and cfg.rwkv_heads % M == 0),
+        "cm_local": RWKV in kinds and split(kinds[RWKV]["mlp"]["w_in"], 2),
+        "rglru_local": (RGLRU in kinds
+                        and split(kinds[RGLRU]["mixer"]["w_x"], 2)),
     }
     plan["kv_local"] &= plan["heads_local"]
-    hq = "local" if plan["heads_local"] else "replicated"
-    hkv = ("local" if plan["kv_local"] else "partial"
-           if plan["heads_local"] else "replicated")
-    ff = "local" if plan["ff_local"] else "replicated"
+
+    def use(local, gathered="replicated"):
+        return "local" if local else gathered
+    hq = use(plan["heads_local"])
+    hkv = use(plan["kv_local"], "partial" if plan["heads_local"]
+              else "replicated")
     norm = "partial" if plan["heads_local"] else "replicated"
-    one = {"ln1": "replicated", "ln2": "replicated",
-           "mixer": {"wq": hq, "wk": hkv, "wv": hkv, "wo": hq,
-                     "q_norm": norm, "k_norm": norm},
-           "mlp": {"w_gate": ff, "w_up": ff, "w_down": ff}}
+    rw, cm = plan["rwkv_local"], plan["cm_local"]
+    ex = use(plan["moe"] is not None)
+    mixers = {
+        "attn": {"wq": hq, "wk": hkv, "wv": hkv, "wo": hq,
+                 "q_norm": norm, "k_norm": norm},
+        RWKV: {**dict.fromkeys(("w_r", "w_k", "w_v", "w_g", "w_w", "w_o",
+                                "u"), use(rw)),
+               "mix": "partial" if rw else "replicated",
+               "ln_x": "partial" if rw else "replicated"},
+        RGLRU: dict.fromkeys(("w_x", "w_r", "w_i", "w_o", "lam"),
+                             use(plan["rglru_local"]))}
+    mlps = {
+        "dense": dict.fromkeys(("w_gate", "w_up", "w_down"),
+                               use(plan["ff_local"])),
+        "moe": {"router": "partial" if plan["moe"] else "replicated",
+                "w_gate": ex, "w_up": ex, "w_down": ex},
+        RWKV: {"w_in": use(cm), "w_out": use(cm),
+               "mix": "partial" if cm else "replicated"}}
 
-    top = {"embed": "local" if plan["embed_vp"] else "replicated",
-           "head": "local" if plan["head_vp"] else "replicated",
+    def layer_uses(kind, t):
+        mixer = mixers.get(kind, mixers["attn"])
+        mlp_u = mlps[RWKV if kind == RWKV else "moe" if cfg.moe is not None
+                     else "dense"]
+        return {"ln1": "replicated", "ln2": "replicated",
+                "mixer": {n: mixer[n] for n in t["mixer"]},
+                "mlp": {n: mlp_u[n] for n in t["mlp"]}}
+
+    top = {"embed": use(plan["embed_vp"]), "head": use(plan["head_vp"]),
            "final_norm": "replicated"}
-
-    def layer_uses(t):
-        return {k: ({n: one[k][n] for n in v} if isinstance(v, dict)
-                    else one[k]) for k, v in t.items()}
-    plan["uses"] = {**{k: top[k] for k in specs
-                       if k not in ("periods", "remainder")},
-                    "periods": [layer_uses(t) for t in specs["periods"]],
-                    "remainder": [layer_uses(t) for t in specs["remainder"]]}
+    kp = len(cfg.pattern)
+    plan["uses"] = {
+        **{k: top[k] for k in specs if k not in ("periods", "remainder")},
+        "periods": [layer_uses(k, t) for k, t in zip(cfg.pattern,
+                                                     specs["periods"])],
+        "remainder": [layer_uses(cfg.pattern[r % kp], t)
+                      for r, t in enumerate(specs["remainder"])]}
     plan["specs"] = specs
     return plan
+
+
+def layer_exits(tp, kind) -> tuple:
+    """(mixer, MLP) of a layer of ``kind`` under the plan ``tp``: 1 where
+    that half leaves "model" through a Megatron all-reduce, else 0."""
+    mixer = (tp["rwkv_local"] if kind == RWKV else tp["rglru_local"]
+             if kind == RGLRU else tp["heads_local"])
+    mlp = (tp["cm_local"] if kind == RWKV
+           else tp["moe"] is not None or tp["ff_local"])
+    return int(bool(mixer)), int(bool(mlp))
 
 
 def _init_layers(gen, cfg: ModelConfig, kind: str, n: int, device):
@@ -322,15 +384,16 @@ class Transformer:
     :class:`~repro_torch.sharding.collectives.ViewPlan` in
     ``view_plans`` (gathered over the batch axes; over "model" only where
     the split is not the work's -- :func:`tp_plan`) once a step by
-    ``launch/mesh_train.py``.  "model" splits the work Megatron's way: the query / KV
-    heads of a rank (column-parallel ``wq`` / ``wk`` / ``wv``, row-parallel
-    ``wo``, an all-reduce), the MLP's ``d_ff`` (column-parallel ``w_gate``
-    / ``w_up``, row-parallel ``w_down``), the vocabulary of ``embed`` (a
-    masked lookup, an all-reduce) and of ``head`` (the vocab-parallel
-    cross entropy); the activations keep the reference's ("batch", None,
-    None) layout.  Only the dense-attention family trains on a mesh
-    (:func:`mesh_trainable`); the others, and prefill / decode on a
-    mesh, raise naming ``MESH_ITEM``.
+    ``launch/mesh_train.py``.  "model" splits the work Megatron's way
+    (:func:`tp_plan`): the query / KV heads of a rank (column-parallel
+    ``wq`` / ``wk`` / ``wv``, row-parallel ``wo``, an all-reduce) for every
+    attention kind, RWKV-6's heads and RG-LRU's channels likewise, the
+    ``d_ff`` of the MLP and of the RWKV channel mix, the experts of a MoE
+    (or every expert's ``d_ff``), the vocabulary of ``embed`` (a masked
+    lookup, an all-reduce) and of ``head`` (the vocab-parallel cross
+    entropy); the activations keep the reference's ("batch", None, None)
+    layout.  Every family trains on a mesh; prefill / decode on a mesh
+    raise naming ``MESH_ITEM``.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", mesh=None):
@@ -341,8 +404,7 @@ class Transformer:
         self.device = mesh.device if on_rank else resolve_device(device)
         self.mesh = mesh
         self.sharded = mesh is not None and mesh_size(mesh) > 1
-        self.tp = (tp_plan(cfg, mesh) if self.sharded and mesh_trainable(cfg)
-                   else None)
+        self.tp = tp_plan(cfg, mesh) if self.sharded else None
         #: on a rank: every leaf's ViewPlan, in the parameters' structure
         self.view_plans = (self._view_plans() if self.tp is not None
                            and on_rank else None)
@@ -350,11 +412,10 @@ class Transformer:
     # ---- the mesh ----
     def check_mesh_compute(self, what: str = "training"):
         """Raise unless this model can run ``what`` where it is: a sharded
-        model computes only training, only on a rank, only for the
-        dense-attention family."""
+        model computes only training, only on a rank."""
         if not self.sharded:
             return
-        if what != "training" or self.tp is None:
+        if what != "training":
             raise NotImplementedError(
                 f"{self.cfg.name}: {what} over a mesh of "
                 f"{mesh_size(self.mesh)} devices is not ported to repro_torch "
@@ -476,12 +537,23 @@ class Transformer:
         return torch.as_tensor(enc, device=self.device).to(self.cfg.cdtype)
 
     def _mlp(self, p, x, kind):
+        cfg, tp = self.cfg, self.tp
         if kind == RWKV:
-            return rwkv_channel_mix(p, x, self.cfg)[0]
-        if self.cfg.moe is not None:
-            return moe_ffn(p, x, self.cfg)
-        cdt = self.cfg.cdtype
-        split = self.tp is not None and self.tp["ff_local"]
+            split = tp is not None and tp["cm_local"]
+            out = rwkv_channel_mix(p, self._enter_model(x) if split else x,
+                                   cfg)[0]
+            return self._sum_model(out) if split else out
+        if cfg.moe is not None:
+            if tp is None or tp["moe"] is None:
+                return moe_ffn(p, x, cfg)
+            # every rank routes all of its tokens; its experts' part summed
+            first = (self.mesh.coords["model"] * p["w_gate"].shape[0]
+                     if tp["moe"] == "experts" else 0)
+            out = moe_ffn(p, self._enter_model(x), cfg, first_expert=first,
+                          partial=True)
+            return self._sum_model(out).to(x.dtype)
+        cdt = cfg.cdtype
+        split = tp is not None and tp["ff_local"]
         if split:
             x = self._enter_model(x)
         h = F.silu(x @ p["w_gate"].to(cdt)) * (x @ p["w_up"].to(cdt))
@@ -547,12 +619,26 @@ class Transformer:
 
     def _mixer_train(self, p, x, kind, positions, enc=None):
         """ln1 and the mixer: the residual branch of the first half."""
-        h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
+        cfg, tp = self.cfg, self.tp
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if kind not in (RWKV, RGLRU):
+            return self._attn_train(p["mixer"], h, kind, positions, enc)
+        split = tp is not None and tp["rwkv_local" if kind == RWKV
+                                      else "rglru_local"]
+        if split:
+            h = self._enter_model(h)
         if kind == RWKV:
-            return rwkv_time_mix(p["mixer"], h, self.cfg)[0]
-        if kind == RGLRU:
-            return rglru_block(p["mixer"], h, self.cfg)[0]
-        return self._attn_train(p["mixer"], h, kind, positions, enc)
+            heads = p["mixer"]["u"].shape[0]
+            out = rwkv_time_mix(p["mixer"], h, cfg, channel0=(
+                self.mesh.coords["model"] * heads * cfg.rwkv_head_dim
+                if split else 0))[0]
+            #: the heads of the last RWKV time mix (on a mesh: this rank's)
+            self.last_scan = ("rwkv", heads)
+        else:
+            out = rglru_block(p["mixer"], h, cfg)[0]
+            #: ... or the channels of the last RG-LRU scan
+            self.last_scan = ("rglru", p["mixer"]["lam"].shape[-1])
+        return self._sum_model(out) if split else out
 
     def _mlp_train(self, p, x, kind):
         """ln2 and the MLP: the residual branch of the second half."""

@@ -164,19 +164,29 @@ def lm_pair(arch, **overrides):
     ``reduced(get_config(arch))`` with float32 compute unless overridden,
     both on the CPU, the port's weights carried across from the
     reference's ``init(PRNGKey(0))``; cached per process so the
-    reference's init compiles once per config."""
+    reference's init compiles once per config.  ``n_experts=E``: the
+    reduced MoE with E experts (each package's own ``MoEConfig``, top-2,
+    as ``reduced`` makes it otherwise)."""
     from repro import models as ref_models
     from repro.configs import get_config as ref_get_config
+    from repro.models.config import MoEConfig as RefMoEConfig
     from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.models import Transformer, reduced
+    from repro_torch.models.config import MoEConfig
     key = (arch, tuple(sorted(overrides.items())))
     if key not in _LM_PAIRS:
         kw = {"compute_dtype": "float32", **overrides}
+        rkw, pkw = dict(kw), dict(kw)
+        E = kw.pop("n_experts", None)
+        if E is not None:
+            moe = dict(n_experts=E, top_k=2, chunk=8, capacity_factor=4.0)
+            rkw = {**kw, "moe": RefMoEConfig(**moe)}
+            pkw = {**kw, "moe": MoEConfig(**moe)}
         rmodel = ref_models.Transformer(
-            ref_models.reduced(ref_get_config(arch), **kw))
+            ref_models.reduced(ref_get_config(arch), **rkw))
         rparams = jax.jit(lambda k: rmodel.init(k)[0])(jax.random.PRNGKey(0))
-        pmodel = Transformer(reduced(get_config(arch), **kw), device="cpu")
+        pmodel = Transformer(reduced(get_config(arch), **pkw), device="cpu")
         pparams = convert.lm_params_from_reference(
             jax.tree.map(np.asarray, rparams), device="cpu")
         _LM_PAIRS[key] = (rmodel, rparams, pmodel, pparams)

@@ -12,8 +12,10 @@ say, each rank's attention on H / M query heads, the wire bytes of a step
 equal to the count made from the specs beforehand, checkpoints that move
 bitwise between 2 x 2, 4 x 1, one device and the reference, the trainer's
 restore / rollback / preemption on the grid, the CLI's ``--mesh`` with
-``--resume``, and the refusals of the families whose sharded compute is
-ROADMAP item 13d.
+``--resume``, the refusals of prefill and decode on a mesh (ROADMAP item
+13d's second half), and the six other families training on a 2 x 1 grid
+and through the CLI's ``--mesh 2,1`` (their parity on a 2 x 2 grid:
+``test_torch_mesh_families.py``, ``test_torch_mesh_moe.py``).
 
 AdamW's eps is 1e-6 in both packages, as in ``test_torch_train.py``'s
 trajectories of the other families: at the default 1e-8 an entry whose
@@ -253,22 +255,6 @@ def test_train_cli_mesh_and_resume(tmp_path, capsys):
     assert capsys.readouterr().out.count("resumed at step") == 2
 
 
-@pytest.mark.parametrize("arch", FAMILIES_13D)
-def test_other_families_refuse_by_name(arch, tmp_path, capsys):
-    cfg = reduced(get_config(arch))
-    mesh = make_mesh((2, 1), ("data", "model"), device="cpu")
-    model = Transformer(cfg, device="cpu", mesh=mesh)
-    structs = param_shardings(model, mesh)[0]        # the layout is there
-    assert len(leaves(structs)) > 0
-    step = make_train_step(model, _opt())
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        step(None, None, synthetic_lm_batch(cfg, 0, batch=2, seq=8))
-    with pytest.raises(SystemExit) as e:
-        train_mod.main(["--arch", arch, "--reduced", "--mesh", "2,1",
-                        "--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    assert e.value.code == 2 and "item 13d" in capsys.readouterr().err
-
-
 def test_prefill_and_decode_on_a_mesh_refuse_by_name():
     cfg = reduced(get_config("qwen3-1.7b"))
     model = Transformer(cfg, device="cpu",
@@ -349,3 +335,35 @@ def test_reference_checkpoint_restores_onto_the_grid(tmp_path):
     np.testing.assert_allclose(float(m["loss"]), float(m1["loss"]),
                                rtol=TOL, atol=TOL)
     assert dataclasses.is_dataclass(resident.ShardedLeaf)
+
+
+# ---------------------------------------------------------------------------
+# a 2 x 1 grid (after the 4 x 1 cases)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", FAMILIES_13D)
+def test_other_families_refuse_by_name(arch, tmp_path):
+    """The six families that a mesh refused by name before their sharded
+    compute (the name is that case's) train on one: two steps of
+    ``make_train_step`` on a 2 x 1 grid (the batch's rows -- frame
+    embeddings, stub encoder states -- split over "data"), then a step of
+    the CLI's ``--mesh 2,1`` and one of its ``--resume``, every loss
+    finite."""
+    cfg = reduced(get_config(arch))
+    mesh = _grid((2, 1))
+    model = Transformer(cfg, device="cpu", mesh=mesh)
+    params, opt = mesh_train.init_on_mesh(model, 0)
+    step = make_train_step(model, _opt())
+    for s in range(2):
+        params, opt, m = step(params, opt, synthetic_lm_batch(
+            cfg, s, batch=2, seq=8))
+        assert np.isfinite(float(m["loss"]))
+        assert np.isfinite(float(m["grad_norm"]))
+    resident.free(params)
+    resident.free(opt)
+    argv = ["--arch", arch, "--reduced", "--mesh", "2,1", "--batch", "2",
+            "--seq", "8", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    hist = (train_mod.main(argv + ["--steps", "1"])
+            + train_mod.main(argv + ["--steps", "1", "--resume"]))
+    assert [h["step"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["loss"]) for h in hist)

@@ -1,7 +1,8 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) on the
 CPU: reduced Qwen3 learns (the case of ``tests/test_system.py``),
 ``--resume`` continues at the saved step, the card is the default device,
-and what the port does not have is refused by name."""
+and the families once refused by name train (two over a mesh of ranks,
+whose grids this module closes at its end)."""
 import os
 import subprocess
 import sys
@@ -11,8 +12,16 @@ import pytest
 import torch
 
 from repro_torch.launch import train as train_mod
+from repro_torch.launch.mesh import close_grids
+from test_torch_common import bounded  # noqa: F401
 
 ROOT = __file__.rsplit("/tests/", 1)[0]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _close_at_end():
+    yield
+    close_grids()
 
 
 def test_train_driver_end_to_end(tmp_path):
@@ -80,6 +89,7 @@ def test_train_cli_module_entry_point(tmp_path):
     assert "steps=2 first_loss=" in out.stdout
 
 
+@pytest.mark.usefixtures("bounded")
 @pytest.mark.parametrize("flags,named", [
     (["--arch", "mixtral-8x7b", "--mesh", "2,1"], "item 13d"),
     (["--arch", "rwkv6-3b", "--mesh", "1,4"], "item 13d"),
@@ -88,25 +98,20 @@ def test_train_cli_module_entry_point(tmp_path):
     (["--arch", "recurrentgemma-9b"], "rglru"),
     (["--arch", "llama-3.2-vision-90b"], "xattn")])
 def test_train_cli_refuses_by_name(tmp_path, capsys, flags, named):
-    """A mesh of more than one device exits 2 naming item 13d for the
-    families whose sharded compute it ports (the dense-attention family
-    trains on a mesh since item 13c: ``test_torch_mesh_train.py``); the
-    families once refused by name (item 13b: the embedding frontend, MoE,
-    RG-LRU, XATTN) now train -- two steps on their synthetic batches
-    (frame embeddings, stub encoder states), finite losses."""
+    """The families once refused by name now train, two steps on their
+    synthetic batches (frame embeddings, stub encoder states), finite
+    losses: those of item 13b (the embedding frontend, MoE, RG-LRU,
+    XATTN) on one device, and those refused over a mesh until item 13d's
+    first half (the cases tagged "item 13d") over their ``--mesh``, which
+    a ``--resume`` on the same mesh continues."""
     argv = flags + ["--reduced", "--device", "cpu", "--ckpt-dir",
-                    str(tmp_path)]
-    if named != "item 13d":
-        hist = train_mod.main(argv + ["--steps", "2", "--batch", "2",
-                                      "--seq", "16"])
-        assert len(hist) == 2
-        assert all(np.isfinite(h["loss"]) for h in hist)
-        return
-    with pytest.raises(SystemExit) as e:
-        train_mod.main(argv + ["--steps", "1"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert named in err and "item 13" in err
+                    str(tmp_path), "--batch", "2", "--seq", "16"]
+    hist = train_mod.main(argv + ["--steps", "2"])
+    if named == "item 13d":
+        hist += train_mod.main(argv + ["--steps", "1", "--resume"])
+        assert "resumed at step 2" in capsys.readouterr().out
+    assert [h["step"] for h in hist] == list(range(len(hist)))
+    assert all(np.isfinite(h["loss"]) for h in hist)
 
 
 def test_train_cli_mesh_of_one_device_runs(tmp_path):
