@@ -174,12 +174,10 @@ JSON; any failure is an exception and a non-zero exit:
                       under --trace --health --flight-recorder beside an
                       untraced run (28 flash launches a prefill span,
                       tok/s both ways)
-  mesh_full           the solvers' mesh engines: one process grid of 7 x 4
-                      ranks on the card (gloo), D3CA / RADiSA / ADMM /
-                      news20 D3CA under shard_map, async and overlap,
-                      each within 1e-5 of the grid engine's solve
-  fleet_mesh_full     the fleet, the online service and scoring on that
-                      grid: the fleets of fleet_dense_full and
+  fleet_mesh_full     the fleet, the online service and scoring on one
+                      process grid of 7 x 4 ranks on the card (gloo;
+                      mesh_full, next, runs on the same grid): the fleets
+                      of fleet_dense_full and
                       fleet_sparse_full through the fleet CLI under
                       ``--engine shard_map`` for 2 outer iterations (one
                       launch a rank an outer step for all tenants, every
@@ -193,6 +191,10 @@ JSON; any failure is an exception and a non-zero exit:
                       batch unmoved) and its scorer on the grid (margins
                       within 1e-5 of X @ w); ms per outer iteration,
                       distribution, update and scoring times
+  mesh_full           the solvers' mesh engines on that grid: D3CA /
+                      RADiSA / ADMM / news20 D3CA under shard_map, async
+                      and overlap, each within 1e-5 of the grid engine's
+                      solve
   train_mesh_full     Qwen3-1.7B at full width (4 of 28 layers, see
                       MESH_TRAIN_DEPTH) trained over a
                       2 x 2 (data, model) grid of 4 ranks sharing the card
@@ -226,6 +228,23 @@ JSON; any failure is an exception and a non-zero exit:
                       wire bytes equal to the count from the specs, the
                       ranks' heads and (Mixtral) routing, each rank's peak
                       against its share, step ms and tokens/s
+  serve_mesh_full     Qwen3-1.7B at full width and all 28 layers, bf16,
+                      served over the same grid (``make_prefill_step`` /
+                      ``make_decode_step`` on a sharded model; see
+                      SERVE_MESH_*): 4 prompts of 256 tokens, a cache of
+                      512, 16 decode steps; every step's logits against
+                      the one-device run from the same weights within
+                      twice its bf16-against-float32 spread, a float32
+                      pass at 2 layers within 1e-5 of the largest logit
+                      (before the counted window), every rank's B5 calls
+                      of the first prefill against the plain version, the
+                      wire bytes of every step and of the views gathered
+                      once against ``serve_wire_bytes``; then
+                      RecurrentGemma-9B at one period (B5 at head dim 256,
+                      the one KV head's cache split by length), RWKV6-3B at
+                      2 layers (B6 on 20 of 40 heads) and Mixtral-8x7B at 1;
+                      prefill and decode-step ms, tokens/s, each rank's
+                      peak
   cpu_vs_card         small cases, dense and sparse solvers and reduced
                       LM configs of every family (and the int8 cache):
                       port on the card (kernels) vs port on
@@ -368,8 +387,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.steps import (_largest_divisor_leq,  # noqa: E402
                                       clear_grads, loss_and_grads,
+                                      make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.launch import mesh_train  # noqa: E402
+from repro_torch.launch import mesh_serve, mesh_train  # noqa: E402
 from repro_torch.launch.mesh import (close_grids, make_mesh,  # noqa: E402
                                      process_grid)
 from repro_torch.models import Transformer, reduced  # noqa: E402
@@ -400,8 +420,8 @@ MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "train_recurrentgemma_full", "train_musicgen_full",
               "fleet_dense_full", "fleet_sparse_full",
               "admm_full", "online_full", "online_sparse_full", "comm_full",
-              "obs_full", "mesh_full", "fleet_mesh_full", "train_mesh_full",
-              "train_mesh_families_full")
+              "obs_full", "fleet_mesh_full", "mesh_full", "train_mesh_full",
+              "train_mesh_families_full", "serve_mesh_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
 # the paper's Part 1 instance at full width (configs/svm_paper.py, "7x4")
@@ -4405,10 +4425,11 @@ def mesh_setup():
     probe = subprocess.Popen([sys.executable, "-c", GLOO_CUDA_PROBE],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
-    close_grids()
+    # fleet_mesh_full's 7 x 4 grid where it ran first (no second spawn)
     grid = process_grid(P, Q, device="cuda")
     grid.rank_hook = mesh_rank_hook
-    MESH_GRIDS.append(grid)
+    if grid not in MESH_GRIDS:
+        MESH_GRIDS.append(grid)
     # the arguments of the CLI's own call: DataMemo hands its solves these
     # arrays
     Xn, yn = make_svm_data(N, M, seed=0)
@@ -4698,10 +4719,10 @@ def fleet_mesh_setup():
     and the online stream of fleet_mesh_full on the grid engine (every
     version's w)."""
     t0 = time.perf_counter()
-    close_grids()
     grid = process_grid(P, Q, device="cuda")
     grid.rank_hook = fleet_mesh_rank_hook
-    MESH_GRIDS.append(grid)
+    if grid not in MESH_GRIDS:
+        MESH_GRIDS.append(grid)
     ref = {}
     for sparse, solver, _ in FLEET_MESH:
         t1 = time.perf_counter()
@@ -4970,7 +4991,9 @@ def phase_fleet_mesh_full(setup):
          scoring={"rows": SCORE_ROWS, "rel_err": score_err,
                   "rows_per_s": rates},
          wall_s=time.perf_counter() - t0)
-    close_grids()
+    # the 7 x 4 grid stays up, its ranks' cached memory released: mesh_full,
+    # next, runs on it
+    grid.call("chip_smoke:_rank_release", mesh=None)
     per_fleet = P * Q * FLEET_MESH_ITERS
     return {"sdca_epoch": per_fleet + want, "svrg_inner": per_fleet,
             "sdca_epoch_sparse": per_fleet, "svrg_inner_sparse": per_fleet}
@@ -5540,6 +5563,271 @@ def phase_train_mesh_families_full(setup):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LM prefill and decode over the (data, model) grid
+# ---------------------------------------------------------------------------
+
+#: Qwen3-1.7B at full width and all 28 layers, bf16, served over
+#: train_mesh_full's 2 x 2 grid (``make_prefill_step`` /
+#: ``make_decode_step`` on a sharded model): SERVE_MESH_BATCH prompts of
+#: SERVE_MESH_PROMPT tokens into a cache of SERVE_MESH_CACHE positions,
+#: then SERVE_MESH_DECODE decoded tokens, each step fed the one-device
+#: step's greedy token (the grid and one device read the same inputs)
+SERVE_MESH_BATCH, SERVE_MESH_PROMPT = 4, 256
+SERVE_MESH_CACHE, SERVE_MESH_DECODE = 512, 16
+#: the grid's bf16 logits against one device's from the same weights: the
+#: largest difference over every step's logits at most
+#: SERVE_MESH_SPREAD_FACTOR times the one-device bf16-against-float32
+#: spread on the same inputs (the largest difference of those two runs'
+#: logits; PERF.md, section 6, fixes the factor before the run)
+SERVE_MESH_SPREAD_FACTOR = 2.0
+#: ... and a float32 pass at SERVE_MESH_F32_DEPTH layers (before the counted
+#: window: float32 B5 calls take the ``simt`` route) within
+#: SERVE_MESH_F32_TOL of the largest logit
+SERVE_MESH_F32_DEPTH, SERVE_MESH_F32_TOL = 2, 1e-5
+#: the other families at full width and reduced depth on the same grid:
+#: arch, depth, the kernel its prefill launches.  RecurrentGemma-9B at one
+#: period (RG-LRU x 2 and LOCAL: B5 at head dim 256 on 8 of 16 query heads,
+#: its one KV head's cache split by length -- 256 of the 512 slots a rank,
+#: the second rank's empty until the decode reaches them), RWKV6-3B at 2
+#: layers (B6 on 20 of 40 heads), Mixtral-8x7B at 1 (B5 on 16 of 32 query,
+#: 4 of 8 KV heads)
+SERVE_MESH_FAMILIES = (("recurrentgemma-9b", 3, "flash_attention"),
+                       ("rwkv6-3b", 2, "rwkv_linattn"),
+                       ("mixtral-8x7b", 1, "flash_attention"))
+
+
+def serve_mesh_batch(cfg):
+    rng = np.random.default_rng(17)
+    return {"tokens": rng.integers(0, cfg.vocab, (
+        SERVE_MESH_BATCH, SERVE_MESH_PROMPT)).astype(np.int32)}
+
+
+def one_device_serve(cfg, batch, inputs=None):
+    """The one-device prefill and SERVE_MESH_DECODE decode steps of ``cfg``
+    from init(0) on the card: every step's logits (host, float32) and the
+    inputs of every step (the prompt, then each step's greedy token unless
+    ``inputs`` gives them)."""
+    model = Transformer(cfg, device=torch.device("cuda"))
+    params = model.compute_params(model.init(0))
+    prefill = make_prefill_step(model, SERVE_MESH_CACHE)
+    decode = make_decode_step(model)
+    logits, cache = prefill(params, batch)
+    outs, ins = [logits.float().cpu()], [batch]
+    for s in range(SERVE_MESH_DECODE):
+        inp = inputs[1 + s] if inputs is not None else {
+            "tokens": outs[-1][:, -1].argmax(-1).numpy().astype(
+                np.int32)[:, None]}
+        logits, cache = decode(params, cache, inp)
+        outs.append(logits.float().cpu())
+        ins.append(inp)
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logits": outs, "inputs": ins}
+
+
+def logit_distance(got, want):
+    """The largest absolute difference over every step's logits, and the
+    largest logit of ``want``."""
+    return (max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            max(float(w.abs().max()) for w in want))
+
+
+def grid_serve(mesh, cfg, inputs, kernel=None):
+    """``cfg`` from init(0) (made on the ranks) served over the grid: a
+    prefill (the views gathered, every rank's ``kernel`` calls held
+    against the plain version), a second prefill (the views held), then a
+    decode step for each of ``inputs[1:]``; each step's wire bytes against
+    ``serve_wire_bytes``; seconds, peaks, the ranks' heads."""
+    model = Transformer(cfg, device=torch.device("cuda"), mesh=mesh)
+    t0 = time.perf_counter()
+    params = mesh_train.init_params_on_mesh(model, 0)
+    out = {"init_s": time.perf_counter() - t0}
+    mesh_train.memory_peaks(mesh, reset=True)
+    prefill = make_prefill_step(model, SERVE_MESH_CACHE)
+    decode = make_decode_step(model)
+    B, S = inputs[0]["tokens"].shape
+    want = {k: mesh_serve.serve_wire_bytes(model, B, n, k)
+            for k, n in (("prefill", S), ("decode", SERVE_MESH_CACHE))}
+    hold = "chip_smoke:_rank_hold"
+    if kernel:
+        resident.call(mesh, hold, on=True, kernel=kernel)
+    t0 = time.perf_counter()
+    _, cache = prefill(params, inputs[0])
+    out["first_prefill_s"] = time.perf_counter() - t0
+    if kernel:
+        out["rank_calls"] = resident.call(mesh, hold, on=False,
+                                          kernel=kernel)
+    views = prefill.last["views"]
+    wires = [prefill.last["wire"]]
+    mesh_serve.free_cache(cache)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, inputs[0])
+    out["prefill_s"] = time.perf_counter() - t0
+    gathered = [views["gathered"], prefill.last["views"]["gathered"]]
+    wires.append(prefill.last["wire"])
+    outs, dec_s = [logits.float().cpu()], []
+    for inp in inputs[1:]:
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, inp)
+        dec_s.append(time.perf_counter() - t0)
+        outs.append(logits.float().cpu())
+        wires.append(decode.last["wire"])
+    mesh_serve.free_cache(cache)
+    bad_wire = [i for i, w in enumerate(wires)
+                if w != want["prefill" if i < 2 else "decode"]["step"]]
+    if (bad_wire or gathered != [True, False]
+            or views["wire"] != want["prefill"]["views"]):
+        raise AssertionError(
+            f"serve_mesh_full: {cfg.name} wire bytes of steps {bad_wire} "
+            f"({wires}), views gathered {gathered} ({views['wire']}); "
+            f"counted from the specs {want}")
+    out.update(
+        logits=outs, decode_s=dec_s, views_s=views["s"],
+        views_wire=views["wire"], wire=want,
+        peaks=mesh_train.memory_peaks(mesh, reset=True),
+        heads=mesh_train.attention_heads(model),
+        scans=mesh_train.scan_widths(model),
+        n_params=sum(math.prod(h.shape) for h in tree_leaves_sorted(params)))
+    resident.free(params)
+    resident.call(mesh, "chip_smoke:_rank_release")
+    return out
+
+
+def serve_mesh_setup():
+    """Before the counted window: train_mesh_full's 2 x 2 grid (spawned
+    here when no earlier phase did); Qwen3-1.7B's one-device bf16 prefill
+    and decode steps from init(0) (their greedy tokens are both runs'
+    inputs) and float32 ones on the same inputs (the bf16 spread the
+    grid's limit scales); a float32 pass at SERVE_MESH_F32_DEPTH layers on
+    one device and on the grid, held at SERVE_MESH_F32_TOL; the other
+    families' one-device bf16 runs."""
+    start = t0 = time.perf_counter()
+    grid = process_grid(*MESH_TRAIN_GRID, device="cuda")
+    if grid not in MESH_GRIDS:
+        MESH_GRIDS.append(grid)
+    mesh = make_mesh(MESH_TRAIN_GRID, ("data", "model"))
+    resident.call(mesh, "chip_smoke:_rank_release")
+    out = {"mesh": mesh, "grid_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    cfg = family_config("qwen3-1.7b")
+    one = one_device_serve(cfg, serve_mesh_batch(cfg))
+    one32 = one_device_serve(dataclasses.replace(
+        cfg, compute_dtype="float32"), one["inputs"][0], one["inputs"])
+    spread, _ = logit_distance(one["logits"], one32["logits"])
+    del one32
+    out.update(one=one, spread=spread, one_device_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cfg32 = family_config("qwen3-1.7b", SERVE_MESH_F32_DEPTH,
+                          compute_dtype="float32")
+    ref32 = one_device_serve(cfg32, serve_mesh_batch(cfg32))
+    got32 = grid_serve(mesh, cfg32, ref32["inputs"])
+    err, top = logit_distance(got32["logits"], ref32["logits"])
+    out["float32"] = {"layers": SERVE_MESH_F32_DEPTH, "max_abs_diff": err,
+                      "largest_logit": top, "share_of_limit":
+                          err / (SERVE_MESH_F32_TOL * top),
+                      "seconds": time.perf_counter() - t0}
+    out["families"] = {}
+    for arch, depth, _ in SERVE_MESH_FAMILIES:
+        fcfg = family_config(arch, depth)
+        out["families"][arch] = one_device_serve(fcfg,
+                                                 serve_mesh_batch(fcfg))
+    out["setup_s"] = time.perf_counter() - start
+    return out
+
+
+def phase_serve_mesh_full(setup):
+    """Qwen3-1.7B at full width and all 28 layers, bf16, served over the
+    2 x 2 (data, model) grid (``make_prefill_step`` / ``make_decode_step``
+    on a sharded model: a rank's 2 rows, its 8 of 16 query heads and 4 of 8
+    KV heads, the cache's KV heads over "model"): the views gathered at
+    the first prefill and held, SERVE_MESH_DECODE decode steps; every
+    step's logits against the one-device run of the set-up within
+    SERVE_MESH_SPREAD_FACTOR times its bf16-against-float32 spread, the
+    greedy tokens reported; every rank's B5 calls of the first prefill
+    against the plain version; the wire bytes of every step and of the
+    views against ``serve_wire_bytes``; prefill and decode-step seconds,
+    tokens/s, each rank's peak.  Then SERVE_MESH_FAMILIES the same way
+    (their logits' distance from one device reported: Mixtral's routing
+    moves with bf16 rounding), and the set-up's float32 pass is judged.
+    Every B5 / B6 call is counted on the ranks: a prefill launches the
+    kernel once a layer on each rank, a decode step never."""
+    mesh = setup["mesh"]
+    world = math.prod(MESH_TRAIN_GRID)
+    launches = {"flash_attention": 0, "rwkv_linattn": 0}
+    report, bad = {}, []
+    runs = [("qwen3-1.7b", None, "flash_attention", setup["one"])] + [
+        (arch, depth, kernel, setup["families"][arch])
+        for arch, depth, kernel in SERVE_MESH_FAMILIES]
+    for arch, depth, kernel, one in runs:
+        cfg = family_config(arch, depth)
+        run = grid_serve(mesh, cfg, one["inputs"], kernel)
+        per, rem = kernel_layers(cfg, kernel)
+        calls = per + rem                       # one a layer a prefill
+        launches[kernel] += 2 * world * calls
+        err, top = logit_distance(run["logits"], one["logits"])
+        agree = [int((g[:, -1].argmax(-1) == w[:, -1].argmax(-1)).sum())
+                 for g, w in zip(run["logits"], one["logits"])]
+        held = run["rank_calls"]
+        tol = (FLASH_TOL[torch.bfloat16] if kernel == "flash_attention"
+               else LINATTN_TOL)
+        rank_calls = {"calls": [c for c, _, _ in held],
+                      "max_abs_err": max(e for _, e, _ in held),
+                      "worst_share_of_limit": max(r for _, _, r in held),
+                      "tol": tol}
+        if kernel == "flash_attention":
+            kv = cfg.n_kv // 2 if cfg.n_kv % 2 == 0 else cfg.n_kv
+            split_ok = run["heads"] == [(cfg.n_heads // 2, kv)] * world
+        else:
+            split_ok = run["scans"] == [("rwkv", cfg.rwkv_heads // 2)] * world
+        dec_s = statistics.median(run["decode_s"])
+        row = {"layers": cfg.n_layers,
+               "full_layers": get_config(arch).n_layers,
+               "n_params": run["n_params"], "kernel": kernel,
+               "init_s": run["init_s"],
+               "first_prefill_s": run["first_prefill_s"],
+               "views_s": run["views_s"], "views_wire": run["views_wire"],
+               "prefill_ms": 1e3 * run["prefill_s"],
+               "prefill_tokens_per_sec": SERVE_MESH_BATCH * SERVE_MESH_PROMPT
+               / run["prefill_s"],
+               "decode_step_ms": 1e3 * dec_s,
+               "decode_tokens_per_sec": SERVE_MESH_BATCH / dec_s,
+               "decode_step_ms_each": [1e3 * s for s in run["decode_s"]],
+               "peak_bytes": run["peaks"],
+               "wire_bytes": run["wire"], "rank_heads": run["heads"],
+               "rank_scans": run["scans"], "rank_calls": rank_calls,
+               "logits_max_abs_diff": err, "largest_logit": top,
+               "greedy_agree": agree,
+               "grid_greedy_tokens": [g[:, -1].argmax(-1).tolist()
+                                      for g in run["logits"]]}
+        finite = all(torch.isfinite(g).all() for g in run["logits"])
+        ok = (finite and split_ok and rank_calls["calls"] == [calls] * world
+              and rank_calls["worst_share_of_limit"] <= 1.0)
+        if arch == "qwen3-1.7b":
+            limit = SERVE_MESH_SPREAD_FACTOR * setup["spread"]
+            row.update(one_device_bf16_f32_spread=setup["spread"],
+                       limit=limit, share_of_limit=err / limit)
+            ok = ok and err <= limit
+        if not ok:
+            bad.append(arch)
+        report[arch] = row
+    f32 = setup["float32"]
+    if f32["share_of_limit"] > 1.0:
+        bad.append("float32")
+    emit("serve_mesh_full", grid=list(MESH_TRAIN_GRID),
+         batch=SERVE_MESH_BATCH, prompt=SERVE_MESH_PROMPT,
+         cache=SERVE_MESH_CACHE, decode_steps=SERVE_MESH_DECODE,
+         setup_s=setup["setup_s"], grid_s=setup["grid_s"],
+         one_device_s=setup["one_device_s"], float32=f32, runs=report)
+    if bad:
+        raise AssertionError(
+            f"serve_mesh_full: {bad} failed a check (logits against one "
+            "device, the ranks' kernel calls, heads, finite logits, the "
+            "float32 pass); see the serve_mesh_full line")
+    return launches
+
+
 SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
 #: B1's launches on each main path, by shape
 SDCA_SHAPE_LAUNCHES = {
@@ -5584,7 +5872,8 @@ PHASE_SETUP = {**{name: functools.partial(train_setup, name)
                "obs_full": obs_setup, "mesh_full": mesh_setup,
                "fleet_mesh_full": fleet_mesh_setup,
                "train_mesh_full": mesh_train_setup,
-               "train_mesh_families_full": mesh_families_setup}
+               "train_mesh_families_full": mesh_families_setup,
+               "serve_mesh_full": serve_mesh_setup}
 
 
 def run_main_path(name, phase, results):

@@ -17,6 +17,20 @@ def check_loss(loss: str, what: str) -> int:
     return LOSS_IDS[loss]
 
 
+#: the work that the kernels' ``meta`` path stood for since the last
+#: reset (shapes only: the dry run, ``launch/dryrun.py``, counts a rank's
+#: step on the meta device and reads this): FLOPs and the bytes of each
+#: call's operands and results
+META_WORK = {"flops": 0.0, "bytes": 0.0}
+
+
+def count_meta(flops, *tensors):
+    """Add one meta call's work to :data:`META_WORK`."""
+    META_WORK["flops"] += float(flops)
+    META_WORK["bytes"] += float(sum(t.numel() * t.element_size()
+                                    for t in tensors))
+
+
 def check_tensor(name: str, t, shape, dtype, device):
     """Raise unless ``t`` is a contiguous tensor of exactly this shape,
     dtype and device -- the kernels index raw pointers."""

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .._launch import check_tensor
+from .._launch import check_tensor, count_meta
 from .ref import mha_ref
 
 #: head dims the kernel is compiled for (csrc/flash_attention.cu)
@@ -72,7 +72,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
 
     A CUDA tensor launches the route's CUDA kernel (no copy of the KV
     heads: query head h reads KV head h // (H // KV) in place) or raises;
-    the plain version runs only for tensors that lie on the CPU.
+    the plain version runs only for tensors that lie on the CPU.  A meta
+    tensor (the dry run) gets an output of the right shape and its work
+    counted (:func:`_meta`).
     """
     if not isinstance(q, torch.Tensor) or q.dim() != 4:
         raise ValueError("q must be a (B, S, H, D) tensor")
@@ -93,7 +95,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     check_tensor("q", q, (B, S, H, D), q.dtype, dev)
     check_tensor("k", k, (B, Skv, KV, D), q.dtype, dev)
     check_tensor("v", v, (B, Skv, KV, D), q.dtype, dev)
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise NotImplementedError(f"flash_attention has no path for {dev}")
     if dev.type == "cuda" and D not in HEAD_DIMS:
         raise NotImplementedError(
@@ -111,12 +113,36 @@ def _forward(q, k, v, causal, window, scale):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
+    if q.device.type == "meta":
+        return _meta(q, k, v, causal, window)
     D = q.shape[3]
     route = flash_route(q.dtype, D)
     if route == "tc":
         check_tma_alignment(q, k, v)
     return _launch(q, k, v, causal, window,
                    float(scale if scale is not None else D ** -0.5), route)
+
+
+def attention_pairs(S: int, Skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs the mask keeps: query i reads keys j <= i
+    (causal) within ``window`` (i - j < window), as the plain version
+    masks them."""
+    if not causal:
+        return S * Skv
+    w = min(Skv, window if window is not None else Skv)
+    ramp = min(S, w)                  # queries i < w read i + 1 keys
+    return ramp * (ramp + 1) // 2 + (S - ramp) * w
+
+
+def _meta(q, k, v, causal, window):
+    """The meta path (shapes only, for the dry run): the output's shape,
+    and the kernel's work -- 4 B H D FLOPs a kept (query, key) pair, q, k,
+    v and the output once each -- added to ``_launch.META_WORK``."""
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    count_meta(4 * B * H * D * attention_pairs(S, k.shape[1], causal,
+                                               window), q, k, v, out)
+    return out
 
 
 class FlashAttention(torch.autograd.Function):

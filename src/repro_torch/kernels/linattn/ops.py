@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .._launch import check_tensor
+from .._launch import check_tensor, count_meta
 from .ref import rwkv_linattn_ref
 
 #: head dims the kernels are compiled for (csrc/rwkv_linattn.cu; the
@@ -42,6 +42,11 @@ def linattn_route(D: int, chunk: int) -> str:
     return "tc" if (D, chunk) == (TC_HEAD_DIM, TC_CHUNK) else "simt"
 
 
+#: FLOPs a token, row and D^2 of the recurrence: the state update
+#: w * S + k^T v (3) and the output r (S + u k^T v) (5)
+RECURRENCE_FLOPS = 8
+
+
 def rwkv_linattn(r, k, v, logw, u, *, chunk=64):
     """Chunked RWKV6 linear attention from a zero state.
 
@@ -55,7 +60,9 @@ def rwkv_linattn(r, k, v, logw, u, *, chunk=64):
 
     A CUDA tensor launches the route's CUDA kernel (:func:`linattn_route`)
     or raises; the plain version (the exact sequential recurrence) runs
-    only for tensors that lie on the CPU.
+    only for tensors that lie on the CPU.  A meta tensor (the dry run)
+    gets outputs of the right shape and its work counted in
+    ``_launch.META_WORK``.
     """
     if not isinstance(r, torch.Tensor) or r.dim() != 3:
         raise ValueError("r must be a (BH, S, D) tensor")
@@ -76,7 +83,7 @@ def rwkv_linattn(r, k, v, logw, u, *, chunk=64):
         raise ValueError(f"u must be (D,) or (H, D), got {tuple(u.shape)}")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise NotImplementedError(f"rwkv_linattn has no path for {dev}")
     if dev.type == "cuda" and D not in HEAD_DIMS:
         raise NotImplementedError(
@@ -95,6 +102,12 @@ def _forward(r, k, v, logw, u, chunk):
         out, state = rwkv_linattn_ref(r, k, v, logw, u)
         return out.to(r.dtype), state
     BH, S, D = r.shape
+    if r.device.type == "meta":
+        out = torch.empty_like(r)
+        state = torch.empty((BH, D, D), dtype=torch.float32, device="meta")
+        count_meta(RECURRENCE_FLOPS * BH * S * D * D, r, k, v, logw, u,
+                   out, state)
+        return out, state
     H = u.shape[0] if u.dim() == 2 else 1
     route = linattn_route(D, chunk)
     out, state = _launch(*(t.float().contiguous() for t in (r, k, v, logw)),
@@ -117,6 +130,15 @@ class RwkvLinattn(torch.autograd.Function):
     def backward(ctx, dout, dstate):
         rwkv_linattn.plain_backwards += 1
         need = ctx.needs_input_grad[:5]
+        if dout is not None and dout.device.type == "meta":
+            # the dry run: twice the forward recurrence's work
+            saved = ctx.saved_tensors
+            BH, S, D = saved[0].shape
+            grads = [torch.empty_like(t) if n else None
+                     for t, n in zip(saved, need)]
+            count_meta(2 * RECURRENCE_FLOPS * BH * S * D * D, *saved, dout,
+                       *(g for g in grads if g is not None))
+            return (*grads, None)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip(ctx.saved_tensors, need)]

@@ -16,8 +16,8 @@ import torch
 
 from .. import _build
 from .._launch import (MAX_DYNAMIC_SMEM, block_threads, cell_params,
-                       check_loss, check_smem, check_tensor, is_per_cell,
-                       scalar_arg)
+                       check_loss, check_smem, check_tensor, count_meta,
+                       is_per_cell, scalar_arg)
 from .ref import sdca_epoch_plain
 
 ROUTES = ("cluster", "block")
@@ -111,7 +111,8 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
 
     A CUDA tensor launches the route's CUDA kernel (:func:`sdca_route`)
     or raises; the plain PyTorch version runs only for tensors that lie on
-    the CPU.
+    the CPU; a meta tensor (the dry run) gets outputs of the right shape
+    and its work counted in ``_launch.META_WORK``.
     """
     loss_id = check_loss(loss, "the sdca_epoch kernel")
     unbatched = isinstance(x, torch.Tensor) and x.dim() == 2
@@ -144,6 +145,15 @@ def sdca_epoch(x, y, mask, alpha0, w0, idx, *, lam, n, Q,
         dalpha, w_fin = _launch(x, y, mask, alpha0, w0, idx, lam=lam, n=n,
                                 Q=Q, loss_id=loss_id, beta=beta,
                                 route=sdca_route(n_p, m_q, idx.shape[-1]))
+    elif dev.type == "meta":
+        # the dry run: the outputs' shapes, and the kernel's work -- 6
+        # FLOPs a visited row element (dot, norm, update), every operand
+        # read and every result written once
+        steps = idx.shape[-1]
+        dalpha = torch.empty((P, Qc, *ten, n_p), dtype=f32, device=dev)
+        w_fin = torch.empty((P, Qc, *ten, m_q), dtype=f32, device=dev)
+        count_meta(6 * x.numel() // n_p * steps, x, y, mask, alpha0, w0,
+                   idx, dalpha, w_fin)
     else:
         raise NotImplementedError(f"sdca_epoch has no path for {dev}")
     if unbatched:

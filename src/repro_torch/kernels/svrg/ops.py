@@ -17,8 +17,8 @@ import torch
 
 from .. import _build
 from .._launch import (MAX_DYNAMIC_SMEM, block_threads, cell_params,
-                       check_loss, check_smem, check_tensor, is_per_cell,
-                       scalar_arg)
+                       check_loss, check_smem, check_tensor, count_meta,
+                       is_per_cell, scalar_arg)
 from .ref import svrg_inner_plain
 
 ROUTES = ("ring", "block")
@@ -102,8 +102,9 @@ def svrg_inner(x, y, mask, z_anchor, w_anchor, mu, idx, *, lam, eta,
     as its per-cell ``cell_params``.  Returns the updated sub-block
     iterate ``(P, Q[, T], m_sub)`` (or ``(m_sub,)``).  A CUDA tensor
     launches the CUDA kernel or raises; the plain PyTorch version runs
-    only for tensors that lie on the CPU.  On the card the route is
-    :func:`svrg_route`'s.
+    only for tensors that lie on the CPU (a meta tensor, the dry run's,
+    gets an output of the right shape and its work counted in
+    ``_launch.META_WORK``).  On the card the route is :func:`svrg_route`'s.
     """
     loss_id = check_loss(loss, "the svrg_inner kernel")
     unbatched = isinstance(x, torch.Tensor) and x.dim() == 2
@@ -150,6 +151,13 @@ def svrg_inner(x, y, mask, z_anchor, w_anchor, mu, idx, *, lam, eta,
         w = _launch(x, y, mask, z_anchor, w_anchor, mu, idx, lo, lam=lam,
                     eta=eta, loss_id=loss_id,
                     route=svrg_route(m_sub, idx.shape[-1]))
+    elif dev.type == "meta":
+        # the dry run: the output's shape, and the kernel's work -- 9
+        # FLOPs a window element a step, every operand read and the
+        # result written once
+        w = torch.empty_like(w_anchor)
+        count_meta(9 * w_anchor.numel() * idx.shape[-1], x, y, mask,
+                   z_anchor, w_anchor, mu, idx, w)
     else:
         raise NotImplementedError(f"svrg_inner has no path for {dev}")
     return w[0, 0] if unbatched else w

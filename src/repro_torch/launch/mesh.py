@@ -987,6 +987,10 @@ class RankMesh:
     def group_size(self, axes) -> int:
         return int(math.prod(self.shape.get(a, 1) for a in axes))
 
+    def world(self):
+        """The process group of every rank."""
+        return dist.group.WORLD
+
     def index(self, axes) -> int:
         """This rank's place among the ranks of :meth:`group` (``axes``
         major first)."""

@@ -204,15 +204,38 @@ def init_opt(model: Transformer, params):
     return {"mu": mu, "nu": nu, "count": count}
 
 
-def init_on_mesh(model: Transformer, seed: int = 0, device=None):
+def _rank_init(ctx, mesh: Mesh, cfg, seed: int, key: str, metas):
+    """On every rank: ``cfg``'s ``init(seed)`` made on the rank's device,
+    its block of each leaf (``metas``: ``(shape, dtype, spec)`` a leaf)
+    kept under ``key``, the rest dropped."""
+    from ..sharding.layout import shard_of
+    full = tree_leaves(Transformer(cfg, device=ctx.device).init(seed))
+    coords = mesh.coords(ctx.rank)
+    resident.trees(ctx)[key] = [
+        shard_of(t, spec, mesh, coords).to(dtype).clone()
+        for t, (_, dtype, spec) in zip(full, metas)]
+    resident.changed(ctx, [key])
+
+
+def init_params_on_mesh(model: Transformer, seed: int = 0):
     """``model``'s ``init(seed)`` -- the same numbers as one device's --
-    made on ``device`` (the mesh's device by default) and scattered onto
-    the mesh, and AdamW's state made on the ranks: ``(params, opt)``
-    handle trees."""
-    dev = device if device is not None else model.mesh.device
-    full = Transformer(model.cfg, device=dev).init(seed)
-    params = put_params(model, full)
-    del full
+    made on every rank's own device, each rank keeping its blocks (no
+    full tree crosses the host): the tree of handles."""
+    mesh = model.mesh
+    structs = param_structs(model)
+    key = resident.new_key("params")
+    _call(mesh, "_rank_init", cfg=model.cfg, seed=int(seed), key=key,
+          metas=[(tuple(s.shape), s.dtype, s.spec)
+                 for s in tree_leaves(structs)])
+    return tree_unflatten(structs, [
+        ShardedLeaf(mesh, key, i, s)
+        for i, s in enumerate(tree_leaves(structs))])
+
+
+def init_on_mesh(model: Transformer, seed: int = 0):
+    """:func:`init_params_on_mesh` and AdamW's state made on the ranks:
+    ``(params, opt)`` handle trees."""
+    params = init_params_on_mesh(model, seed)
     return params, init_opt(model, params)
 
 
@@ -279,6 +302,26 @@ def _train_step_on_rank(ctx, *cells, mesh: Mesh, cfg, names, prefs, orefs,
              "mu": tree_unflatten(shapes, ostate[1:1 + n]),
              "nu": tree_unflatten(shapes, ostate[1 + n:])}
     batch = {k: c[0] for k, c in zip(names, cells)}
+    # the parameters change: views held from them (serving) go now
+    resident.changed(ctx, sorted({k for k, _ in prefs}))
+    total, gnorm, new, wire, n_pieces = rank_train_step(
+        model, rm, params, state, batch, acc_req, lr, opt)
+    key, i = orefs[0]
+    st[key][i] = new["count"]
+    return {"loss": float(total), "grad_norm": float(gnorm), "wire": wire,
+            "pieces": n_pieces}
+
+
+def rank_train_step(model: Transformer, rm: RankMesh, params, state, batch,
+                    acc_req: Optional[int], lr: float, opt: dict):
+    """The compute of one training step on a rank (see the module
+    docstring): ``params`` / ``state`` its blocks (updated in place),
+    ``batch`` its rows.  Returns (loss, grad norm, AdamW's new state, the
+    wire bytes it handed to each collective, the pieces it ran) -- 0-d
+    tensors, not yet read on the host (the dry run runs this on the meta
+    device)."""
+    cfg, mesh = model.cfg, rm.mesh
+    shapes = param_shapes(cfg)
     rows, S = batch["labels"].shape
     B = rows * mesh.batch_size
     acc = _largest_divisor_leq(B, cfg.train_accum if acc_req is None
@@ -316,12 +359,9 @@ def _train_step_on_rank(ctx, *cells, mesh: Mesh, cfg, names, prefs, orefs,
         _, new, gnorm = adamw_update(
             cfg_opt, tree_unflatten(shapes, grads), state, params,
             counted=_counted(model, rm),
-            reduce=lambda t: coll.all_reduce(t, dist.group.WORLD))
-    key, i = orefs[0]
-    st[key][i] = new["count"]
+            reduce=lambda t: coll.all_reduce(t, rm.world()))
     wire = {k: coll.WIRE[k] - before[k] for k in coll.WIRE}
-    return {"loss": float(total), "grad_norm": float(gnorm), "wire": wire,
-            "pieces": len(mine)}
+    return total, gnorm, new, wire, len(mine)
 
 
 def _largest_divisor_leq(n: int, k: int) -> int:

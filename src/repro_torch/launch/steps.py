@@ -7,9 +7,9 @@ cell (the port of ``repro/launch/steps.py``).
     dtype, ``(mesh, spec)``), nothing allocated, every family;
   * the steps: training with gradient accumulation and AdamW, prefill and
     decode, each a plain function of the model's parameter tree on one
-    device; with a mesh of more than one device, the training step of the
-    dense-attention family runs on the mesh's process grid
-    (``launch/mesh_train.py``).
+    device; with a mesh of more than one device, every family's steps run
+    on the mesh's process grid (training: ``launch/mesh_train.py``;
+    prefill and decode: ``launch/mesh_serve.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ from ..core.util import tree_leaves as leaves
 from ..core.util import tree_map
 from ..data.tokens import to_device
 from ..models.config import ModelConfig, ShapeConfig
-from ..models.transformer import Transformer, logical_tree, param_shapes
+from ..models.transformer import (Transformer, cache_logical, logical_tree,
+                                  param_shapes)
 from ..optim import AdamWConfig, adamw_update
 from ..sharding.layout import NamedSharding, ShapeDtypeStruct
 from ..sharding.rules import (PartitionSpec, batch_axes, logical_to_spec,
@@ -99,27 +100,10 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict[str, Any]:
 
 
 def _cache_logical(model: Transformer, mesh):
-    """Logical axes for decode-cache leaves.
-
-    KV caches shard their KV-head dim over "model" when it divides
-    (attention stays head-local); otherwise they shard the cache LENGTH
-    (sequence-parallel / flash-decoding style).
-    """
-    kv_div = ("model" in mesh.axis_names
-              and model.cfg.n_kv % mesh.shape["model"] == 0)
-    kv = ((None, "batch", None, "kv_heads", None) if kv_div
-          else (None, "batch", "kv_len", None, None))
-    return {
-        "k": kv,
-        "v": kv,
-        "k_scale": kv[:-1],
-        "v_scale": kv[:-1],
-        "state": (None, "batch", "heads", None, None),
-        "x_tm": (None, "batch", "model_dim"),
-        "x_cm": (None, "batch", "model_dim"),
-        "h": (None, "batch", "ff"),
-        "pos": (),
-    }
+    """Logical axes for decode-cache leaves
+    (``models/transformer.py::cache_logical``: KV heads over "model" when
+    they divide it, else the cache length)."""
+    return cache_logical(model.cfg, mesh)
 
 
 def cache_specs(model: Transformer, shape: ShapeConfig, mesh):
@@ -231,6 +215,13 @@ def make_train_step(model: Transformer, opt_cfg: AdamWConfig,
 
 
 def make_prefill_step(model: Transformer, cache_len: int):
+    """Prefill ``(params, batch) -> (logits, cache)``; a sharded model
+    gets the mesh's step (``launch/mesh_serve.py``: resident parameters,
+    the cache's blocks resident on the ranks, a handle cache)."""
+    if model.sharded:
+        from .mesh_serve import make_mesh_prefill_step
+        return make_mesh_prefill_step(model, cache_len)
+
     def prefill_step(params, batch):
         with torch.no_grad():
             return model.prefill(params, batch, cache_len)
@@ -239,6 +230,12 @@ def make_prefill_step(model: Transformer, cache_len: int):
 
 
 def make_decode_step(model: Transformer):
+    """Decode ``(params, cache, batch) -> (logits, cache)``, the cache
+    updated in place; a sharded model gets the mesh's step."""
+    if model.sharded:
+        from .mesh_serve import make_mesh_decode_step
+        return make_mesh_decode_step(model)
+
     def serve_step(params, cache, batch):
         with torch.no_grad():
             return model.decode_step(params, cache, batch)

@@ -11,7 +11,10 @@ CPU tensor it runs the kernel's plain version (float32 inside, as the
 Pallas kernel).  The reference's pure-JAX ``chunked_attention`` instead
 scales q in the input dtype and rounds p to it before p @ v, so in
 bfloat16 they all agree only to bfloat16 rounding.  ``full_attention`` and
-``decode_attention`` are plain PyTorch with the reference's dtype steps.
+``decode_attention`` are plain PyTorch with the reference's dtype steps;
+so is ``decode_attention_partial``, the (max, sum, output) of a decode
+over a part of the cache, which a rank of a length-split cache merges with
+its "model" group's (``sharding/collectives.py::merge_partials``).
 
 GQA layout: q (B, S, H, D), k/v (B, Skv, KV, D) with G = H // KV query
 heads per KV head (query head h reads KV head h // G).
@@ -85,3 +88,28 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, scale=None):
     out = torch.einsum("bkgx,bxkd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attention_partial(q, k_cache, v_cache, valid, *, scale=None):
+    """One token's attention over the slots of a (B, n, KV, D) part of a
+    cache where ``valid`` (n,) is true, as a partial for the
+    flash-decoding merge: ``(m, l, o)`` -- each head's largest valid score
+    (B, H), the sum of ``exp(score - m)`` over its valid slots (B, H) and
+    that sum's weighting of v (B, H, D), all float32 (p rounded to v's
+    dtype before p v, as in :func:`decode_attention`).  A part with no
+    valid slot gives m = -inf, l = 0, o = 0 (never NaN)."""
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    qr = q.reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bxkd->bkgx", (qr * scale).float(),
+                     k_cache.float())
+    s = torch.where(valid[None, None, None, :], s,
+                    torch.full_like(s, float("-inf")))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m,
+                                  torch.zeros_like(m))[..., None])
+    o = torch.einsum("bkgx,bxkd->bkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return m.reshape(B, H), p.sum(dim=-1).reshape(B, H), o.reshape(B, H, D)

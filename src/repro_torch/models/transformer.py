@@ -44,8 +44,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..core.util import resolve_device, tree_map
 from ..sharding import collectives as coll
-from ..sharding.rules import PartitionSpec, spec_tree
-from .attention import chunked_attention, decode_attention, full_attention
+from ..sharding.rules import PartitionSpec, logical_to_spec, spec_tree
+from .attention import (chunked_attention, decode_attention,
+                        decode_attention_partial, full_attention)
 from .config import ATTN, LOCAL, RGLRU, RWKV, XATTN, ModelConfig
 from .layers import apply_rope, head_rms_norm, rms_norm, trunc_normal
 from .moe import MOE_LOGICAL, init_moe, moe_ffn
@@ -206,9 +207,28 @@ def param_shapes(cfg: ModelConfig):
     return Transformer(cfg, device="meta").init(0)
 
 
-#: where prefill and decode on a mesh wait
-MESH_ITEM = ("ROADMAP queue A item 13d, second half: prefill and decode on "
-             "a mesh")
+def cache_logical(cfg: ModelConfig, mesh):
+    """Logical axes of the decode-cache leaves (the reference's
+    ``launch/steps.py::_cache_logical``): the KV caches shard their KV
+    heads over "model" when n_kv divides it (attention stays head-local),
+    else the cache length (flash-decoding style: a rank holds L / M of
+    every KV head's positions); RWKV-6's state over its heads, RG-LRU's
+    ``h`` over its channels, the token-shift carries whole."""
+    kv_div = ("model" in mesh.axis_names
+              and cfg.n_kv % mesh.shape["model"] == 0)
+    kv = ((None, "batch", None, "kv_heads", None) if kv_div
+          else (None, "batch", "kv_len", None, None))
+    return {
+        "k": kv,
+        "v": kv,
+        "k_scale": kv[:-1],
+        "v_scale": kv[:-1],
+        "state": (None, "batch", "heads", None, None),
+        "x_tm": (None, "batch", "model_dim"),
+        "x_cm": (None, "batch", "model_dim"),
+        "h": (None, "batch", "ff"),
+        "pos": (),
+    }
 
 
 def mesh_size(mesh) -> int:
@@ -346,6 +366,15 @@ def layer_exits(tp, kind) -> tuple:
     return int(bool(mixer)), int(bool(mlp))
 
 
+def owned_slot(slot: int, rows: int, index: int):
+    """Where global cache slot ``slot`` lies in the block of ``rows``
+    slots that the rank at ``index`` of its "model" group holds (slots
+    ``[index * rows, (index + 1) * rows)``), or None: only that rank
+    writes a decoded token there."""
+    j = slot - index * rows
+    return j if 0 <= j < rows else None
+
+
 def _init_layers(gen, cfg: ModelConfig, kind: str, n: int, device):
     """``n`` stacked layers of ``kind`` (leading axis n)."""
     dt = cfg.pdtype
@@ -392,8 +421,22 @@ class Transformer:
     (or every expert's ``d_ff``), the vocabulary of ``embed`` (a masked
     lookup, an all-reduce) and of ``head`` (the vocab-parallel cross
     entropy); the activations keep the reference's ("batch", None, None)
-    layout.  Every family trains on a mesh; prefill / decode on a mesh
-    raise naming ``MESH_ITEM``.
+    layout.
+
+    Prefill and decode on a rank run the same split (``launch/
+    mesh_serve.py`` drives them) and keep the rank's block of the decode
+    cache, exactly the block of ``launch/steps.py::cache_specs``
+    (:func:`cache_logical`): its rows, and its KV heads where n_kv % M ==
+    0, else its L / M cache positions (where they divide), RWKV-6's state
+    on its heads, RG-LRU's ``h`` on its channels.  A length-split cache
+    decodes flash-decoding style: the rank's query heads all-gathered over
+    "model", every head's (max, sum, output) over the rank's slots, the
+    partials merged by a log-sum-exp all-reduce over "model"
+    (``sharding/collectives.py::merge_partials``), the rank's heads kept
+    for the row-parallel ``wo``; only the rank that holds slot pos % L
+    writes the decoded token.  The logits come back whole (a
+    vocab-parallel head's columns all-gathered over "model").  Paged
+    decode runs on one device only.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", mesh=None):
@@ -412,19 +455,24 @@ class Transformer:
     # ---- the mesh ----
     def check_mesh_compute(self, what: str = "training"):
         """Raise unless this model can run ``what`` where it is: a sharded
-        model computes only training, only on a rank."""
+        model computes training, logits, prefill and decode only on a
+        rank, and paged decode not at all."""
         if not self.sharded:
             return
-        if what != "training":
+        if what == "paged decode":
             raise NotImplementedError(
-                f"{self.cfg.name}: {what} over a mesh of "
-                f"{mesh_size(self.mesh)} devices is not ported to repro_torch "
-                f"yet ({MESH_ITEM}); it runs on one device")
+                f"{self.cfg.name}: paged decode runs on one device, not "
+                f"over a mesh of {mesh_size(self.mesh)} devices (the "
+                "reference's paged decode constrains nothing and never "
+                "runs over a mesh)")
         if self.view_plans is None:
+            route = ("launch.steps.make_train_step" if what == "training"
+                     else "launch.steps.make_prefill_step / "
+                     "make_decode_step")
             raise RuntimeError(
                 f"{self.cfg.name} over {self.mesh!r}: this model describes "
-                "the layout; its training runs on the mesh's ranks "
-                "(launch.steps.make_train_step)")
+                f"the layout; its {what} runs on the mesh's ranks "
+                f"({route})")
 
     def _view_plans(self):
         mesh, tp = self.mesh, self.tp
@@ -444,6 +492,33 @@ class Transformer:
         """Megatron's entry: identity forward, dL/dx summed over "model"
         backward."""
         return coll.copy_to(x, self._group())
+
+    def _split(self, what: str) -> bool:
+        """Whether "model" splits ``what`` (a key of :func:`tp_plan`)."""
+        return self.tp is not None and bool(self.tp[what])
+
+    def _own(self, t, dim: int):
+        """This rank's block of ``t`` along ``dim`` of M blocks over
+        "model"."""
+        return coll.own_block(t, dim, self.tp["M"],
+                              self.mesh.coords["model"])
+
+    def _cache_split(self, name: str, shape) -> tuple:
+        """The dims of a cache leaf ``name`` of (global, layer axis left
+        out) ``shape`` that its spec (:func:`cache_logical`) splits over
+        "model" -- on a sharded model; () on one device."""
+        if not self.sharded or self.tp["M"] == 1:
+            return ()
+        logical = cache_logical(self.cfg, self.mesh)[name][1:]
+        spec = logical_to_spec(shape, logical, self.mesh)
+        return tuple(d for d in range(len(shape)) if "model" in spec.axes(d))
+
+    def _gather_vocab(self, logits):
+        """Whole logits from a vocab-parallel head's columns."""
+        if not self._split("head_vp"):
+            return logits
+        return coll.all_gather(logits.float(), logits.dim() - 1,
+                               self._group(), self.tp["M"])
 
     def _heads(self):
         """(query heads, KV heads of the projection, KV heads to pick
@@ -536,12 +611,12 @@ class Transformer:
             return None
         return torch.as_tensor(enc, device=self.device).to(self.cfg.cdtype)
 
-    def _mlp(self, p, x, kind):
+    def _mlp(self, p, x, kind, x_last=None):
         cfg, tp = self.cfg, self.tp
         if kind == RWKV:
             split = tp is not None and tp["cm_local"]
             out = rwkv_channel_mix(p, self._enter_model(x) if split else x,
-                                   cfg)[0]
+                                   cfg, x_last=x_last)[0]
             return self._sum_model(out) if split else out
         if cfg.moe is not None:
             if tp is None or tp["moe"] is None:
@@ -560,25 +635,38 @@ class Transformer:
         out = h @ p["w_down"].to(cdt)
         return self._sum_model(out) if split else out
 
-    def _qkv(self, p, h, src=None):
-        """q of ``h``, k and v of ``src`` (XATTN's encoder states; ``h``
-        by default), q / k normed where the config says."""
+    def _q(self, p, h):
+        """The (rank's) query heads of ``h``, normed where the config
+        says."""
         cfg, cdt = self.cfg, self.cfg.cdtype
-        src = h if src is None else src
         B, S, _ = h.shape
-        Skv = src.shape[1]
-        H, KV, pick = self._heads()
-        hd = cfg.hd
-        k = (src @ p["wk"].to(cdt)).reshape(B, Skv, KV, hd)
-        v = (src @ p["wv"].to(cdt)).reshape(B, Skv, KV, hd)
-        q = (h @ p["wq"].to(cdt)).reshape(B, S, H, hd)
+        q = (h @ p["wq"].to(cdt)).reshape(B, S, self._heads()[0], cfg.hd)
         if cfg.qk_norm:
             q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        return q
+
+    def _qkv(self, p, h, src=None):
+        """q of ``h``, k and v of ``src`` (XATTN's encoder states; ``h``
+        by default), q / k normed where the config says.  k and v are
+        the projection's KV heads (all of them where a rank's heads read
+        a pick of them: :meth:`_picked`)."""
+        cfg, cdt = self.cfg, self.cfg.cdtype
+        src = h if src is None else src
+        B, Skv = src.shape[:2]
+        KV, hd = self._heads()[1], cfg.hd
+        k = (src @ p["wk"].to(cdt)).reshape(B, Skv, KV, hd)
+        v = (src @ p["wv"].to(cdt)).reshape(B, Skv, KV, hd)
+        if cfg.qk_norm:
             k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-        if pick is not None:
-            # the KV heads this rank's query heads read, in their order
-            k, v = k[:, :, pick], v[:, :, pick]
-        return q, k, v
+        return self._q(p, h), k, v
+
+    def _picked(self, k, v):
+        """The KV heads this rank's query heads read, in their order (k
+        and v as they are where there is no pick)."""
+        pick = self._heads()[2]
+        if pick is None:
+            return k, v
+        return k[:, :, pick], v[:, :, pick]
 
     def _window(self, kind):
         return self.cfg.swa_window if kind == ATTN else self.cfg.local_window
@@ -592,53 +680,35 @@ class Transformer:
                 else full_attention)
         if kind == XATTN:
             q, k, v = self._qkv(p, h, enc)
-            return attn(q, k, v, causal=False, window=None), k, v
+            return attn(q, *self._picked(k, v), causal=False,
+                        window=None), k, v
         q, k, v = self._qkv(p, h)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        ka, va = self._picked(k, v)
         #: the query / KV heads of the last sequence attention (on a
         #: mesh: this rank's)
-        self.last_heads = (q.shape[2], k.shape[2])
-        return attn(q, k, v, causal=True, window=self._window(kind)), k, v
+        self.last_heads = (q.shape[2], ka.shape[2])
+        return attn(q, ka, va, causal=True, window=self._window(kind)), k, v
 
     def _final_logits(self, params, x):
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return (x @ params["head"].to(cfg.cdtype)).float()
+        return self._gather_vocab((x @ params["head"].to(cfg.cdtype))
+                                  .float())
 
     # ---- train ----
     def _attn_train(self, p, x, kind, positions, enc):
-        cfg, cdt = self.cfg, self.cfg.cdtype
-        B, S, _ = x.shape
-        split = self.tp is not None and self.tp["heads_local"]
-        if split:
+        if self._split("heads_local"):
             x = self._enter_model(x)
-        out = self._attn_seq(p, x, kind, positions, enc)[0]
-        out = out.reshape(B, S, out.shape[2] * cfg.hd) @ p["wo"].to(cdt)
-        return self._sum_model(out) if split else out
+        return self._wo(p, self._attn_seq(p, x, kind, positions, enc)[0])
 
     def _mixer_train(self, p, x, kind, positions, enc=None):
         """ln1 and the mixer: the residual branch of the first half."""
-        cfg, tp = self.cfg, self.tp
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
         if kind not in (RWKV, RGLRU):
             return self._attn_train(p["mixer"], h, kind, positions, enc)
-        split = tp is not None and tp["rwkv_local" if kind == RWKV
-                                      else "rglru_local"]
-        if split:
-            h = self._enter_model(h)
-        if kind == RWKV:
-            heads = p["mixer"]["u"].shape[0]
-            out = rwkv_time_mix(p["mixer"], h, cfg, channel0=(
-                self.mesh.coords["model"] * heads * cfg.rwkv_head_dim
-                if split else 0))[0]
-            #: the heads of the last RWKV time mix (on a mesh: this rank's)
-            self.last_scan = ("rwkv", heads)
-        else:
-            out = rglru_block(p["mixer"], h, cfg)[0]
-            #: ... or the channels of the last RG-LRU scan
-            self.last_scan = ("rglru", p["mixer"]["lam"].shape[-1])
-        return self._sum_model(out) if split else out
+        return self._recurrent(p["mixer"], h, kind)[0]
 
     def _mlp_train(self, p, x, kind):
         """ln2 and the MLP: the residual branch of the second half."""
@@ -712,10 +782,12 @@ class Transformer:
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def logits_fn(self, params, batch):
-        """Logits (B, S, V) float32 of every position of ``batch``."""
+        """Logits (B, S, V) float32 of every position of ``batch`` (on a
+        rank: of its rows, the whole vocabulary)."""
         self.check_mesh_compute("logits")
         x = self._hidden_fn(params, batch)
-        return (x @ params["head"].to(self.cfg.cdtype)).float()
+        return self._gather_vocab((x @ params["head"].to(self.cfg.cdtype))
+                                  .float())
 
     def train_loss(self, params, batch, tokens=None):
         """Mean next-token cross entropy of ``batch`` ({"tokens",
@@ -829,6 +901,59 @@ class Transformer:
                           for r in range(n_rem)]}
 
     # ---- prefill ----
+    def _recurrent(self, p, h, kind, cache=None):
+        """An RWKV-6 time mix or RG-LRU block of ``h`` -- over a whole
+        sequence, or (``cache``: the layer's carries) one decoded token --
+        on the rank's heads / channels where "model" splits them (its exit
+        summed): (out, the cache entries it leaves)."""
+        cfg = self.cfg
+        split = self._split("rwkv_local" if kind == RWKV else "rglru_local")
+        hin = self._enter_model(h) if split else h
+        if kind == RWKV:
+            heads = p["u"].shape[0]
+            out, (x_tm, state) = rwkv_time_mix(
+                p, hin, cfg, channel0=(self.mesh.coords["model"] * heads
+                                       * cfg.rwkv_head_dim if split else 0),
+                x_last=None if cache is None else cache["x_tm"],
+                state=None if cache is None else cache["state"])
+            new = {"state": state, "x_tm": x_tm.to(cfg.cdtype)}
+            #: the heads of the last RWKV time mix (on a mesh: this rank's)
+            self.last_scan = ("rwkv", heads)
+        else:
+            out, hs = (rglru_block(p, hin, cfg) if cache is None
+                       else rglru_decode(p, hin, cfg, state=cache["h"]))
+            new = {"h": hs}
+            #: ... or the channels of the last RG-LRU scan
+            self.last_scan = ("rglru", p["lam"].shape[-1])
+        return (self._sum_model(out) if split else out), new
+
+    def _wo(self, p, out):
+        """The attention heads ``out`` (B, S, heads, hd) through ``wo``
+        (row-parallel on a rank's heads: its exit summed)."""
+        B, S = out.shape[:2]
+        y = out.reshape(B, S, out.shape[2] * self.cfg.hd) @ p["wo"].to(
+            self.cfg.cdtype)
+        return self._sum_model(y) if self._split("heads_local") else y
+
+    def _rank_block(self, name: str, t, local: tuple = ()):
+        """The block of cache leaf ``name`` that this rank keeps, from the
+        rank's tensor ``t`` (no layer axis; its rows; ``local``: the dims
+        it already holds only its "model" block of): the dims the spec
+        splits over "model" cut to the rank's block."""
+        if not self.sharded or self.tp["M"] == 1:
+            return t
+        M = self.tp["M"]
+        shape = tuple(n * (M if d in local else 1)
+                      for d, n in enumerate(t.shape))
+        split = self._cache_split(name, shape)
+        if set(local) - set(split):
+            raise ValueError(f"cache leaf {name!r}: the rank computed dims "
+                             f"{local} split, its spec splits {split}")
+        for d in split:
+            if d not in local:
+                t = self._own(t, d)
+        return t
+
     def _layer_prefill(self, p, x, kind, positions, cache_len, enc=None,
                        linear_cache=False):
         """One layer over the whole sequence; returns (x, cache entry).
@@ -836,23 +961,28 @@ class Transformer:
         ``linear_cache=True`` (paged serving): attention layers return the
         prompt's raw full-length k/v (no ring buffer, no padding to
         ``cache_len``, no int8) for the caller to scatter into a paged
-        arena."""
+        arena.  On a rank, the entry is the rank's block of the cache."""
         cfg, cdt = self.cfg, self.cfg.cdtype
-        B, S, _ = x.shape
+        S = x.shape[1]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        if kind == RWKV:
-            mix, (x_tm, state) = rwkv_time_mix(p["mixer"], h, cfg)
+        if kind in (RWKV, RGLRU):
+            mix, cache = self._recurrent(p["mixer"], h, kind)
             x = x + mix
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-            out, x_cm = rwkv_channel_mix(p["mlp"], h2, cfg)
-            return x + out, {"state": state, "x_tm": x_tm.to(cdt),
-                             "x_cm": x_cm.to(cdt)}
-        if kind == RGLRU:
-            mix, hstate = rglru_block(p["mixer"], h, cfg)
-            x = x + mix
-            h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-            return x + self._mlp(p["mlp"], h2, kind), {"h": hstate}
-        out, k, v = self._attn_seq(p["mixer"], h, kind, positions, enc)
+            if kind == RWKV:
+                cache["x_cm"] = h2[:, -1].to(cdt)
+                cache["state"] = self._rank_block(
+                    "state", cache["state"],
+                    (1,) if self._split("rwkv_local") else ())
+            else:
+                cache["h"] = self._rank_block(
+                    "h", cache["h"], (1,) if self._split("rglru_local")
+                    else ())
+            return x + self._mlp(p["mlp"], h2, kind), cache
+        split = self._split("heads_local")
+        out, k, v = self._attn_seq(p["mixer"],
+                                   self._enter_model(h) if split else h,
+                                   kind, positions, enc)
         L = self._cache_len(kind, cache_len)
         Skv = k.shape[1]
         if kind == XATTN or linear_cache:
@@ -872,8 +1002,9 @@ class Transformer:
             cache = {"k": ck, "v": cv, "k_scale": sk, "v_scale": sv}
         else:
             cache = {"k": ck, "v": cv}
-        H, hd = cfg.n_heads, cfg.hd
-        x = x + out.reshape(B, S, H * hd) @ p["mixer"]["wo"].to(cdt)
+        local = (2,) if self._split("kv_local") else ()
+        cache = {n: self._rank_block(n, t, local) for n, t in cache.items()}
+        x = x + self._wo(p["mixer"], out)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + self._mlp(p["mlp"], h2, kind), cache
 
@@ -886,9 +1017,13 @@ class Transformer:
         ``last_pos``: position whose next-token logits to return
         (default: the last); serving prefills pad prompts to a bucket
         length, so the real last token sits mid-way.  ``linear_cache``:
-        raw full-length k/v per attention layer (see ``_layer_prefill``).
-        Returns (logits (B, 1, V) float32, cache)."""
+        raw full-length k/v per attention layer (see ``_layer_prefill``;
+        one device only).  Returns (logits (B, 1, V) float32, cache); on a
+        rank, its rows' logits and its blocks of the cache, which also
+        keeps ``cache_len`` (its decode reads the global lengths)."""
         self.check_mesh_compute("prefill")
+        if linear_cache and self.sharded:
+            self.check_mesh_compute("paged decode")
         cfg = self.cfg
         x = self._embed(params, batch)
         enc = self._encoder(batch)
@@ -910,66 +1045,87 @@ class Transformer:
                      for cs in per_pos] if n_period_layers else [])
         last = S - 1 if last_pos is None else int(last_pos)
         logits = self._final_logits(params, x[:, last:last + 1])
-        return logits, {"pos": S, "periods": caches_p,
-                        "remainder": caches_r}
+        cache = {"pos": S, "periods": caches_p, "remainder": caches_r}
+        if self.sharded:
+            cache["cache_len"] = int(cache_len)
+        return logits, cache
 
     # ---- decode ----
-    def _layer_decode(self, p, x, cache, kind, pos: int):
+    def _decode_attn(self, q, ak, av, last: int, L: int):
+        """One token's attention over a layer's cache (the rank's block of
+        it), every slot up to global index ``last`` valid; ``L`` the
+        cache's global length.  A length-split cache (the rank holds L / M
+        slots of every KV head): the query heads gathered over "model",
+        each head's partial over the rank's slots, merged over "model",
+        the rank's heads kept."""
+        B, KV, hd = q.shape[0], self.cfg.n_kv, self.cfg.hd
+        if 1 not in self._cache_split("k", (B, L, KV, hd)):
+            return decode_attention(q, *self._picked(ak, av), last)
+        g, M = self._group(), self.tp["M"]
+        heads = self._split("heads_local")
+        qa = (coll.all_gather(q.float(), 2, g, M).to(q.dtype) if heads
+              else q)
+        n = ak.shape[1]
+        first = self.mesh.coords["model"] * n
+        valid = torch.arange(first, first + n, device=q.device) <= last
+        out = coll.merge_partials(*decode_attention_partial(qa, ak, av,
+                                                            valid), g)
+        out = out.to(q.dtype)[:, None]
+        return self._own(out, 2) if heads else out
+
+    def _layer_decode(self, p, x, cache, kind, pos: int, cache_len=None):
         """x: (B,1,dm); cache: this layer's subtree (no leading layer
-        axis), written in place."""
+        axis), written in place; ``cache_len``: the cache's global length
+        (a rank's; on one device the cache's own)."""
         cfg, cdt = self.cfg, self.cfg.cdtype
-        B = x.shape[0]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        if kind == RWKV:
-            mix, (x_tm, state) = rwkv_time_mix(
-                p["mixer"], h, cfg, x_last=cache["x_tm"],
-                state=cache["state"])
+        if kind in (RWKV, RGLRU):
+            mix, new = self._recurrent(p["mixer"], h, kind, cache)
             x = x + mix
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-            out, x_cm = rwkv_channel_mix(p["mlp"], h2, cfg,
-                                         x_last=cache["x_cm"])
-            cache["state"].copy_(state)
-            cache["x_tm"].copy_(x_tm)
-            cache["x_cm"].copy_(x_cm)
+            out = self._mlp(p["mlp"], h2, kind, x_last=cache.get("x_cm"))
+            for name, t in new.items():
+                cache[name].copy_(t)
+            if kind == RWKV:
+                cache["x_cm"].copy_(h2[:, -1])
             return x + out
-        if kind == RGLRU:
-            mix, hstate = rglru_decode(p["mixer"], h, cfg, state=cache["h"])
-            cache["h"].copy_(hstate)
-            x = x + mix
-            h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-            return x + self._mlp(p["mlp"], h2, kind)
-        H, hd = cfg.n_heads, cfg.hd
+        mp = p["mixer"]
+        hin = self._enter_model(h) if self._split("heads_local") else h
         if kind == XATTN:
             # the static encoder cache, every entry visible
-            q = (h @ p["mixer"]["wq"].to(cdt)).reshape(B, 1, H, hd)
-            if cfg.qk_norm:
-                q = head_rms_norm(q, p["mixer"]["q_norm"], cfg.norm_eps)
-            out = decode_attention(q, cache["k"], cache["v"],
-                                   cfg.encoder_len - 1)
+            out = self._decode_attn(self._q(mp, hin), cache["k"], cache["v"],
+                                    cfg.encoder_len - 1,
+                                    self._cache_len(kind, 0))
         else:
-            q, k, v = self._qkv(p["mixer"], h)
+            q, k, v = self._qkv(mp, hin)
             posv = torch.tensor([pos], device=self.device)
             q = apply_rope(q, posv, cfg.rope_theta)
             k = apply_rope(k, posv, cfg.rope_theta)
-            L = cache["k"].shape[1]
+            n = cache["k"].shape[1]
+            L = n if cache_len is None else self._cache_len(kind, cache_len)
             slot = pos % L
+            if n != L:
+                # a length-split cache: the rank that holds the slot
+                slot = owned_slot(slot, n, self.mesh.coords["model"])
             if self._int8(kind):
                 qk, sk = _kv_quant(k)
                 qv, sv = _kv_quant(v)
-                cache["k"][:, slot] = qk[:, 0]
-                cache["v"][:, slot] = qv[:, 0]
-                cache["k_scale"][:, slot] = sk[:, 0]
-                cache["v_scale"][:, slot] = sv[:, 0]
+                if slot is not None:
+                    cache["k"][:, slot] = qk[:, 0]
+                    cache["v"][:, slot] = qv[:, 0]
+                    cache["k_scale"][:, slot] = sk[:, 0]
+                    cache["v_scale"][:, slot] = sv[:, 0]
                 ak = _kv_dequant(cache["k"], cache["k_scale"], cdt)
                 av = _kv_dequant(cache["v"], cache["v_scale"], cdt)
             else:
-                cache["k"][:, slot] = k[:, 0]
-                cache["v"][:, slot] = v[:, 0]
+                if slot is not None:
+                    cache["k"][:, slot] = k[:, 0]
+                    cache["v"][:, slot] = v[:, 0]
                 ak, av = cache["k"], cache["v"]
             # with a ring buffer every slot is valid once filled; the
             # per-slot positional mask only matters while pos < L
-            out = decode_attention(q, ak, av, min(pos, L - 1))
-        x = x + out.reshape(B, 1, H * hd) @ p["mixer"]["wo"].to(cdt)
+            out = self._decode_attn(q, ak, av, min(pos, L - 1), L)
+        x = x + self._wo(mp, out)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + self._mlp(p["mlp"], h2, kind)
 
@@ -987,13 +1143,15 @@ class Transformer:
     def decode_step(self, params, cache, batch):
         """batch: {"tokens": (B, 1)} (or {"embeds": (B, 1, d_model)}).
         Returns (logits (B, 1, V), cache) with the cache updated in place
-        and ``cache["pos"]`` advanced."""
+        and ``cache["pos"]`` advanced (on a rank: its rows' logits, its
+        blocks of the cache, as its prefill left them)."""
         self.check_mesh_compute("decode")
         x = self._embed(params, batch)
         pos = int(cache["pos"])
         for (p, kind), c in zip(self._layers(params),
                                 self._cache_layers(cache)):
-            x = self._layer_decode(p, x, c, kind, pos)
+            x = self._layer_decode(p, x, c, kind, pos,
+                                   cache.get("cache_len"))
         cache["pos"] = pos + 1
         return self._final_logits(params, x), cache
 
@@ -1042,7 +1200,7 @@ class Transformer:
         token); ``active``: (B,) bool.  Returns (logits (B, 1, V), arenas)
         with the arenas updated in place.  Attention mixers only (see
         ``serve.cache.paged_kinds``)."""
-        self.check_mesh_compute("decode")
+        self.check_mesh_compute("paged decode")
         dev = self.device
         x = self._embed(params, batch)
         bt = torch.as_tensor(block_tables, device=dev).long()

@@ -24,9 +24,19 @@ A group of one rank (an axis of extent 1) is no collective at all.
     "model" along the vocabulary (the max and the sum of the log-sum-exp
     across the group, the gold logit from the rank that holds it).
 
+  * :func:`merge_partials`: the flash-decoding merge of each rank's
+    partial decode attention over its slots of a length-split cache (a
+    log-sum-exp all-reduce: the heads' maxima, then the rescaled sums and
+    outputs).
+
 ``WIRE`` counts the bytes handed to each kind of collective by this
 process (the full gathered tensor of an all-gather, the full input of a
 reduce-scatter, the tensor of an all-reduce).
+
+A :class:`CountingGroup` in place of a process group (the dry run's, on
+the ``meta`` device) makes every collective here count its bytes in
+``WIRE`` and move nothing: its results are tensors of the right shape
+whose values mean nothing.
 """
 from __future__ import annotations
 
@@ -37,15 +47,32 @@ import torch.distributed as dist
 
 #: bytes this process has handed to collectives, by kind
 WIRE = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+#: ... and the calls it made, by kind
+CALLS = dict.fromkeys(WIRE, 0)
 
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+class CountingGroup:
+    """A stand-in for a process group of ``size`` ranks (the dry run's):
+    the collectives below count their bytes and call no backend."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+
+
+def _dist(name: str, *args, group, **kw):
+    """``torch.distributed.<name>(*args, group=group)``, or nothing for a
+    :class:`CountingGroup`."""
+    if not isinstance(group, CountingGroup):
+        getattr(dist, name)(*args, group=group, **kw)
+
+
 def _host(x):
     """A contiguous host copy of ``x`` that nothing else holds (pinned for
-    a CUDA tensor)."""
+    a CUDA tensor; a meta tensor stays one)."""
     if x.device.type == "cuda":
         h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         h.copy_(x)
@@ -65,9 +92,11 @@ def all_gather(x, dim: int, group, n: int):
         return x
     moved = _host(x.movedim(dim, 0))
     out = torch.empty((n * moved.shape[0], *moved.shape[1:]),
-                      dtype=moved.dtype, pin_memory=moved.is_pinned())
-    dist.all_gather_into_tensor(out, moved, group=group)
+                      dtype=moved.dtype, device=moved.device,
+                      pin_memory=moved.is_pinned())
+    _dist("all_gather_into_tensor", out, moved, group=group)
     WIRE["all_gather"] += _nbytes(out)
+    CALLS["all_gather"] += 1
     return _back(out, x).movedim(0, dim)
 
 
@@ -78,9 +107,11 @@ def reduce_scatter(x, dim: int, group, n: int):
         return x
     moved = _host(x.movedim(dim, 0))
     out = torch.empty((moved.shape[0] // n, *moved.shape[1:]),
-                      dtype=moved.dtype, pin_memory=moved.is_pinned())
-    dist.reduce_scatter_tensor(out, moved, group=group)
+                      dtype=moved.dtype, device=moved.device,
+                      pin_memory=moved.is_pinned())
+    _dist("reduce_scatter_tensor", out, moved, group=group)
     WIRE["reduce_scatter"] += _nbytes(moved)
+    CALLS["reduce_scatter"] += 1
     return _back(out, x).movedim(0, dim)
 
 
@@ -89,9 +120,26 @@ def all_reduce(x, group, op=dist.ReduceOp.SUM):
     if group is None:
         return x
     h = _host(x)
-    dist.all_reduce(h, op=op, group=group)
+    _dist("all_reduce", h, op=op, group=group)
     WIRE["all_reduce"] += _nbytes(h)
+    CALLS["all_reduce"] += 1
     return _back(h, x)
+
+
+def merge_partials(m, l, o, group):
+    """The attention output (B, H, D) float32 of every rank's partial
+    ``(m, l, o)`` (``models/attention.py::decode_attention_partial`` over
+    its slots) merged over ``group``: the heads' global maxima M (a MAX
+    all-reduce), then ``sum_r exp(m_r - M) o_r`` over ``sum_r exp(m_r -
+    M) l_r`` (one SUM all-reduce of both).  A rank with no valid slot (m
+    = -inf) adds 0."""
+    if group is None:
+        return o / l[..., None]
+    top = all_reduce(m, group, dist.ReduceOp.MAX)
+    w = torch.exp(m - top)
+    both = all_reduce(torch.cat([(l * w)[..., None], o * w[..., None]], -1),
+                      group)
+    return both[..., 1:] / both[..., :1]
 
 
 def own_block(x, dim: int, n: int, index: int):
@@ -159,11 +207,11 @@ class ViewPlan:
                 grad = all_reduce(grad, self.mesh.group(("model",)))
         return grad
 
-    def view_bytes(self) -> dict:
+    def view_bytes(self, item: int = 4) -> dict:
         """What one :meth:`gather` and one :meth:`reduce` hand to each kind
-        of collective (``WIRE``'s units), by the shapes alone."""
+        of collective (``WIRE``'s units), by the shapes alone, for
+        elements of ``item`` bytes (float32 by default)."""
         out = dict.fromkeys(WIRE, 0)
-        item = 4
         block = [int(s) // math.prod(self.mesh.shape[a]
                                      for a in self.spec.axes(d))
                  for d, s in enumerate(self.shape)]

@@ -15,6 +15,13 @@ AdamW tree on a mesh is a tree of handles in the usual structure:
 A mesh here is a ``launch.mesh.Mesh``: its ``coords(rank)``, ``size``,
 ``device`` and ``grid()`` (the process grid whose ``call`` runs a
 function on every rank) are all that is read.
+
+**Versions and held views.**  Every write into a resident list (a put, a
+restore, a training step through :func:`changed`) gives its key a new
+version on every rank and drops what the ranks hold derived from the old
+one (:func:`derived`: the serving steps' gathered parameter views,
+``launch/mesh_serve.py``), so nothing computes with a view of parameters
+that have since changed.
 """
 from __future__ import annotations
 
@@ -49,6 +56,29 @@ def trees(ctx) -> Dict[str, list]:
     return ctx.resident.setdefault("sharded_trees", {})
 
 
+def version(ctx, keys) -> tuple:
+    """The versions of resident lists ``keys`` on this rank."""
+    got = ctx.resident.setdefault("versions", {})
+    return tuple(got.get(k, 0) for k in keys)
+
+
+def derived(ctx) -> Dict[tuple, Any]:
+    """What this rank holds derived from resident lists, by the tuple of
+    their keys: ``(their versions when it was made, the thing)``."""
+    return ctx.resident.setdefault("derived", {})
+
+
+def changed(ctx, keys):
+    """Resident lists ``keys`` change (or go) on this rank: a new version
+    of each, and everything held from any of them dropped."""
+    got = ctx.resident.setdefault("versions", {})
+    for k in keys:
+        got[k] = got.get(k, 0) + 1
+    store = derived(ctx)
+    for hk in [hk for hk in store if set(hk) & set(keys)]:
+        del store[hk]
+
+
 def _block_shape(shape, spec, mesh, coords):
     return shard_of(torch.empty(shape, device="meta"), spec, mesh,
                     coords).shape
@@ -59,6 +89,7 @@ def _rank_put(ctx, mesh, key: str, metas, idxs):
     ``_OUTBOX[key]`` (``metas``: ``(shape, dtype, spec)`` a leaf) into
     entries ``idxs`` of the list under ``key``."""
     full = _OUTBOX.pop(key) if ctx.rank == 0 else None
+    changed(ctx, [key])
     blocks = trees(ctx)[key]
     coords = [mesh.coords(r) for r in range(mesh.size)]
     for i, (j, (shape, dtype, spec)) in enumerate(zip(idxs, metas)):
@@ -101,6 +132,7 @@ def _rank_alloc(ctx, mesh, key: str, metas):
 
 
 def _rank_free(ctx, mesh, keys):
+    changed(ctx, keys)
     for k in keys:
         trees(ctx).pop(k, None)
 

@@ -33,18 +33,33 @@ reference at ``test_torch_train.py``'s trajectory tolerance (1e-4): the
 port's single-device step, with no grid, sits 3.0e-5 from the reference
 (2.9 TOL; 2.4 against the reference at level 0) at one entry of the first
 channel mix's ``w_out``, [118, 63], from the first step on.  That entry's
-first gradient is 5.5e-8 in the port and 7.8e-8 in the reference, where
-the leaf's median |g| is 1.6e-3: both are the rounding of a sum that
-cancels.  Below AdamW's eps the first update lr g / (|g| + eps) is
-linear in g, so the 2.3e-8 between them, over eps = 1e-6, times the
-first rate 1.5e-3, is the 3e-5.  The grid holds the single-device step
-there at 1e-5 (ROADMAP C files the one-device distance)."""
+first gradient is 5.5e-8 in the port and 7.8e-8 in the reference after
+AdamW's clipping (the leaf's median |g| is 1.6e-3); below AdamW's eps the
+first update lr g / (|g| + eps) is linear in g, so the 2.3e-8 between
+them, over eps = 1e-6, times the first rate 1.5e-3, is the 3e-5.
+
+It is the conditioning of that entry, not a sum that rounds wrongly.
+Before clipping (one microbatch) the entry is the sum over the step's 128
+tokens of h[t, 118] dout[t, 63] (h the squared-ReLU activation, dout the
+gradient of the channel mix's output).  Summed in float64 from each
+package's own float32 operands: port 1.0518e-7, reference 1.4824e-7.
+Each package's float32 result sits next to its own float64 sum: port
+1.0477e-7 (4.1e-10 off), reference 1.4833e-7 (9.1e-11 off), where the
+float32 bound gamma_128 sum|terms| is 1.53e-7 (sum|terms| = 0.02011).
+The two float64 sums differ by 4.3e-8, 2.1e-6 of sum|terms|: the
+operands themselves differ by float32 rounding upstream, and a sum that
+cancels to 5e-6 of its terms' magnitude turns that into a 30 % change.
+``test_rwkv6_w_out_gradient_within_the_float32_bound`` holds the port's
+gradient of that leaf against the float64 sum of its operands, entry by
+entry, within the float32 bound.  The grid holds the single-device step
+at 1e-5 (ROADMAP C files the entry under "Choices")."""
 import contextlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.checkpoint.manager import save_tree as ref_save_tree
 from repro.launch.steps import make_train_step as ref_make_train_step
@@ -320,6 +335,48 @@ def test_family_split_heads_and_wire_bytes(fam, acc):
 def test_rwkv6_checkpoint_saved_on_the_grid_restores_on_one_device(
         tmp_path):
     check_checkpoint_to_one_device("rwkv6", tmp_path)
+
+
+def test_rwkv6_w_out_gradient_within_the_float32_bound(monkeypatch):
+    """The first channel mix's ``w_out`` gradient of the reduced RWKV-6's
+    first step (one microbatch, the reference's weights) against the
+    float64 sum of its own float32 operands, sum_t h[t, i] dout[t, j],
+    entry by entry within the float32 bound gamma_n sum_t |h dout| (n the
+    step's B * S tokens): the backward's sum is as exact as a float32 sum
+    can be, entry [118, 63] included (see the module docstring)."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import transformer
+    _, _, pmodel, pparams = lm_pair("rwkv6-3b")
+    w0 = pparams["periods"][0]["mlp"]["w_out"][0]
+    real = transformer.rwkv_channel_mix
+    seen = []
+
+    def tapped(params, x, cfg, *, x_last=None):
+        out, x_cm = real(params, x, cfg, x_last=x_last)
+        if out.requires_grad and torch.equal(params["w_out"].detach(), w0):
+            x_prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], 1)
+            mix = params["mix"].detach()
+            xm = x.detach() * mix + x_prev.detach() * (1.0 - mix)
+            h = torch.square(torch.relu(xm @ params["w_in"].detach()))
+            out.register_hook(lambda g: seen.append((h, g.detach())))
+        return out, x_cm
+    monkeypatch.setattr(transformer, "rwkv_channel_mix", tapped)
+    params = tree_map(lambda t: t.detach().clone(), pparams)
+    _, grads = loss_and_grads(pmodel, params, _batch(pmodel.cfg, 0),
+                              accum_steps=1)
+    (h, dout), = seen
+    h = h.reshape(-1, h.shape[-1]).double()
+    dout = dout.reshape(-1, dout.shape[-1]).double()
+    n = h.shape[0]
+    u = 2.0 ** -24
+    want = h.T @ dout
+    bound = n * u / (1 - n * u) * (h.abs().T @ dout.abs())
+    got = grads["periods"][0]["mlp"]["w_out"][0].double()
+    assert n == B * S and got.shape == want.shape
+    assert bool(((got - want).abs() <= bound).all())
+    # the entry of ROADMAP C: cancelled to ~5e-6 of its terms' magnitude
+    assert abs(float(want[118, 63])) < 1e-5 * float(
+        (h[:, 118] * dout[:, 63]).abs().sum())
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ say, each rank's attention on H / M query heads, the wire bytes of a step
 equal to the count made from the specs beforehand, checkpoints that move
 bitwise between 2 x 2, 4 x 1, one device and the reference, the trainer's
 restore / rollback / preemption on the grid, the CLI's ``--mesh`` with
-``--resume``, the refusals of prefill and decode on a mesh (ROADMAP item
-13d's second half), and the six other families training on a 2 x 1 grid
+``--resume``, the refusals of a model that only describes a mesh (and of
+paged decode on a mesh), and the six other families training on a 2 x 1 grid
 and through the CLI's ``--mesh 2,1`` (their parity on a 2 x 2 grid:
 ``test_torch_mesh_families.py``, ``test_torch_mesh_moe.py``).
 
@@ -46,9 +46,8 @@ from repro_torch.data import TokenPipeline, shard_batch, synthetic_lm_batch
 from repro_torch.launch import mesh_train
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import close_grids, make_mesh, process_grid
-from repro_torch.launch.steps import (batch_specs, make_prefill_step,
-                                      make_train_step, opt_shardings,
-                                      param_shardings)
+from repro_torch.launch.steps import (batch_specs, make_train_step,
+                                      opt_shardings, param_shardings)
 from repro_torch.models import ShapeConfig, Transformer, reduced
 from repro_torch.sharding import resident
 from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
@@ -256,17 +255,25 @@ def test_train_cli_mesh_and_resume(tmp_path, capsys):
 
 
 def test_prefill_and_decode_on_a_mesh_refuse_by_name():
+    """A model that only describes a mesh refuses prefill, decode and
+    training by the rank route that runs them (their parity over a grid:
+    ``test_torch_mesh_serve.py``); paged decode refuses a mesh by name --
+    it runs on one device, as the reference's."""
     cfg = reduced(get_config("qwen3-1.7b"))
     model = Transformer(cfg, device="cpu",
                         mesh=make_mesh((1, 2), ("data", "model"),
                                        device="cpu"))
     toks = np.zeros((2, 8), np.int32)
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        make_prefill_step(model, 16)(None, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        model.decode_step(None, None, {"tokens": toks[:, :1]})
+    with pytest.raises(RuntimeError, match="make_prefill_step"):
+        model.prefill(None, {"tokens": toks}, 16)
+    with pytest.raises(RuntimeError, match="make_decode_step"):
+        model.decode_step(None, {"pos": 8}, {"tokens": toks[:, :1]})
     with pytest.raises(RuntimeError, match="mesh's ranks"):
         model.train_loss(None, {"tokens": toks, "labels": toks})
+    with pytest.raises(NotImplementedError, match="paged decode runs on "
+                       "one device"):
+        model.decode_step_paged(None, None, {"tokens": toks[:, :1]}, None,
+                                None, None)
 
 
 def test_token_pipeline_hands_each_rank_its_rows():
