@@ -16,7 +16,12 @@ on the continuous-batching engine with its paged KV cache, RWKV6-3B (all 32
 layers) on the static loop, and the other families (Mixtral, RecurrentGemma,
 Llama-3.2-Vision, MusicGen, the int8 cache), depth cut only where one card's
 memory forces it.  Phases, each printing one line of
-JSON; any failure is an exception and a non-zero exit:
+JSON; any failure is an exception and a non-zero exit.  The kernels
+phase and the LM paths of at most 40 GB of the card's memory run in two
+more processes of this script (``SIDES``), beside the solver paths; their
+lines are printed when they have ended, before the LM paths that fill the
+card and the grid phases, which run alone, as cpu_vs_card and the timing
+do:
 
   env                 a CUDA device or an error; card name and power limit;
                       TF32 off
@@ -195,6 +200,16 @@ JSON; any failure is an exception and a non-zero exit:
                       RADiSA / ADMM / news20 D3CA under shard_map, async
                       and overlap, each within 1e-5 of the grid engine's
                       solve
+  examples_full       the six examples (``main`` of examples/torch_*.py)
+                      on the card at their own sizes: quickstart (300
+                      serial SDCA epochs, 15 D3CA and 15 RADiSA
+                      iterations, 60 of ADMM), the grid example on 4 x 2
+                      ranks (mesh_full's grid), trace_solve (timed path), online_loop (12
+                      rounds, recovery), serve_lm (reduced Mixtral: B5 at
+                      head dim 16 on the ``simt`` route) and lm_train
+                      (``--small`` for 60 steps, then the ~100M config
+                      for 20 steps: B5 ``tc`` at head dim 64); one line an
+                      example with the card beside its numbers
   train_mesh_full     Qwen3-1.7B at full width (4 of 28 layers, see
                       MESH_TRAIN_DEPTH) trained over a
                       2 x 2 (data, model) grid of 4 ranks sharing the card
@@ -245,7 +260,7 @@ JSON; any failure is an exception and a non-zero exit:
                       2 layers (B6 on 20 of 40 heads) and Mixtral-8x7B at 1;
                       prefill and decode-step ms, tokens/s, each rank's
                       peak
-  cpu_vs_card         small cases, dense and sparse solvers and reduced
+  cpu_vs_card        small cases, dense and sparse solvers and reduced
                       LM configs of every family (and the int8 cache):
                       port on the card (kernels) vs port on
                       the CPU, in float32 (prefill, decode and one train
@@ -317,6 +332,7 @@ import dataclasses
 import functools
 import gc
 import importlib
+import importlib.util
 import io
 import json
 import math
@@ -407,20 +423,20 @@ from repro_torch.obs import (HealthMonitor, ObsServer,  # noqa: E402
 from repro_torch.obs.phases import calibrate_phases  # noqa: E402
 from repro_torch.serve import InferenceEngine  # noqa: E402
 from repro_torch.serve.scoring import LinearScorer  # noqa: E402
-from repro_torch.models.transformer import tree_map  # noqa: E402
+from repro_torch.models.transformer import param_shapes, tree_map  # noqa: E402
 from repro_torch.serve.cache import (PagedCacheConfig,  # noqa: E402
                                      make_paged_arenas)
 
 MAIN_PATHS = ("d3ca_full", "radisa_full", "d3ca_sparse_full",
               "radisa_sparse_full", "sfk_sparse_full", "serve_qwen3_full",
               "serve_rwkv6_full", "train_qwen3_full", "train_rwkv6_full",
-              "serve_mixtral_full", "serve_recurrentgemma_full",
-              "serve_vlm_full", "serve_musicgen_full",
-              "serve_qwen3_int8_full", "train_mixtral_full",
-              "train_recurrentgemma_full", "train_musicgen_full",
+              "serve_mixtral_full", "serve_vlm_full", "serve_musicgen_full",
+              "serve_qwen3_int8_full", "train_musicgen_full",
               "fleet_dense_full", "fleet_sparse_full",
               "admm_full", "online_full", "online_sparse_full", "comm_full",
-              "obs_full", "fleet_mesh_full", "mesh_full", "train_mesh_full",
+              "obs_full", "serve_recurrentgemma_full", "train_mixtral_full",
+              "train_recurrentgemma_full", "fleet_mesh_full", "mesh_full",
+              "examples_full", "train_mesh_full",
               "train_mesh_families_full", "serve_mesh_full")
 PHASES = ("kernels", *MAIN_PATHS, "cpu_vs_card", "timing")
 
@@ -450,10 +466,14 @@ FLEET_TOL = 1e-6
 # round N / ONLINE_BATCH = 28), ONLINE_PASSES gated passes an update, a
 # checkpoint of every published version
 ONLINE_ROUNDS, ONLINE_BATCH, ONLINE_PASSES = 30, 500, 2
+#: the rows each round scores (the stream makes them on the host, ~1.2 s a
+#: round at 4096; the accuracy gate below holds at 1024 with a standard
+#: error of 0.014)
+ONLINE_SCORE_BATCH = 1024
 ONLINE_ARGV = ["--m", str(M), "--capacity", str(N), "--mesh", f"{P}x{Q}",
                "--loss", "hinge", "--lam", str(LAM), "--passes",
                str(ONLINE_PASSES), "--batch", str(ONLINE_BATCH),
-               "--score-batch", "4096"]
+               "--score-batch", str(ONLINE_SCORE_BATCH)]
 #: the rounds whose launches are held against the plain version: the first,
 #: the first after the wrap, the last
 ONLINE_CHECKED = (0, N // ONLINE_BATCH, ONLINE_ROUNDS - 1)
@@ -698,6 +718,14 @@ def both_ms(fn, reps: int):
     what a caller that waits for one call sees) and with it (the device's
     time alone).  Compare two calls within one of the two, never across."""
     return cuda_ms(fn, reps=reps), cuda_ms(fn, reps=reps, queued=True)
+
+
+def plain_loop_ms(fn):
+    """One call of a solver kernel's plain version, CUDA-event timed: a
+    Python loop of one step a row (1-2 s a call at the main-path shapes,
+    where a first call's own costs are lost in the loop), so one call
+    without a warm-up is taken on each side of the kernel's timings."""
+    return cuda_ms(fn, reps=1, warmup=0)
 
 
 def medians(pairs, key: str) -> dict:
@@ -1561,6 +1589,10 @@ def tenant_main_check(name, tenants):
 # phases
 # ---------------------------------------------------------------------------
 
+#: the card's name and power limit as nvidia-smi gives them (phase_env)
+CARD = {}
+
+
 def phase_env():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
@@ -1571,6 +1603,7 @@ def phase_env():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+    CARD["line"] = smi
     emit("env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          capability=list(torch.cuda.get_device_capability(0)))
@@ -4030,7 +4063,8 @@ def obs_online(tmp):
     every round, the monitor OK; then the same stream with ``update``
     given no registry (nor tracer), the untimed path, to read both ways'
     update ms (CUDA events) and staleness."""
-    argv = [a if a != "4096" else str(OBS_SCORE_BATCH) for a in ONLINE_ARGV]
+    argv = [a if a != str(ONLINE_SCORE_BATCH) else str(OBS_SCORE_BATCH)
+            for a in ONLINE_ARGV]
     argv += ["--rounds", str(OBS_ONLINE_ROUNDS)]
     runs = {}
     for way in ("registry", "none"):
@@ -4604,7 +4638,8 @@ def phase_mesh_full(setup):
                                            ref["flat_4x2"])
     held.update({f"pods rank {r}": [h["rel_err"] for h in rep["held"]]
                  for r, rep in g4.reports.items() if "held" in rep})
-    close_grids()
+    # the 4 x 2 grid stays up: examples_full, next, runs the grid example
+    # on it (no second spawn); the next phase with another grid closes it
 
     probe_out, probe_err = setup["probe"].communicate(timeout=120)
     try:
@@ -4667,16 +4702,16 @@ KERNEL_MODULES = {"sdca_epoch": "repro_torch.kernels.sdca",
 
 
 @contextlib.contextmanager
-def fleet_mesh_rank_hook(rank):
+def fleet_mesh_rank_hook(rank, hold=True):
     """The rank hook of fleet_mesh_full's grid: each rank's peak device
-    memory in a session and, on the MESH_TAPPED ranks, the first and last
-    launch of every solver kernel the session made held against its plain
-    version on the rank's device (a failing check fails the rank, and so
-    the phase)."""
+    memory in a session and, on the MESH_TAPPED ranks (``hold``: not in
+    the set-up's reference solves), the first and last launch of every
+    solver kernel the session made held against its plain version on the
+    rank's device (a failing check fails the rank, and so the phase)."""
     report, keeps = {}, {name: [] for name in KERNEL_MODULES}
     torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as taps:
-        if rank in MESH_TAPPED:
+        if hold and rank in MESH_TAPPED:
             for name, module in KERNEL_MODULES.items():
                 taps.enter_context(tap(name, first_last(keeps[name]),
                                        module))
@@ -4720,7 +4755,9 @@ def fleet_mesh_setup():
     version's w)."""
     t0 = time.perf_counter()
     grid = process_grid(P, Q, device="cuda")
-    grid.rank_hook = fleet_mesh_rank_hook
+    # the reference solves' peaks, without holds: the phase holds the
+    # same kernels in its own sessions
+    grid.rank_hook = functools.partial(fleet_mesh_rank_hook, hold=False)
     if grid not in MESH_GRIDS:
         MESH_GRIDS.append(grid)
     ref = {}
@@ -4755,6 +4792,7 @@ def fleet_mesh_setup():
         del flat, solo, prog, state
         gc.collect()
         torch.cuda.empty_cache()
+    grid.rank_hook = fleet_mesh_rank_hook
     online = []
     run_online([*ONLINE_ARGV, "--rounds", str(FLEET_MESH_ROUNDS)],
                on_round=lambda r, svc, rec: online.append(
@@ -5828,6 +5866,288 @@ def phase_serve_mesh_full(setup):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# examples_full: the six examples of examples/torch_*.py on the card
+# ---------------------------------------------------------------------------
+
+#: the grid example's grid (its default --mesh)
+EXAMPLE_GRID = (4, 2)
+#: steps of the ~100M config (the example's default is 300; at 20 its
+#: mean loss of the last 5 is below the first 5's, as the example asserts
+#: from 10 steps on: not at 10, where the learning rate is still warming)
+EXAMPLE_100M_STEPS = 20
+#: the SDCA kernel's launches of the solver examples at their own sizes,
+#: every one at 1 CTA a cell (rows of at most 400 columns): quickstart
+#: (300 serial epochs for f*, 15 D3CA iterations), the grid example (200
+#: serial epochs, 15 iterations on each of its 8 ranks), trace_solve (10
+#: iterations and the timed path's OBS_CALIB calibration steps),
+#: online_loop (12 updates of 2 passes, each on the timed path, and the
+#: warm and the cold update of 2 passes, untimed)
+EXAMPLE_SDCA = ((300 + 15) + (200 + 15 * EXAMPLE_GRID[0] * EXAMPLE_GRID[1])
+                + (10 + OBS_CALIB) + 12 * (2 + OBS_CALIB) + 2 * 2)
+#: the SVRG kernel's: RADiSA's 15 iterations in quickstart and on each
+#: rank of the grid example
+EXAMPLE_SVRG = 15 + 15 * EXAMPLE_GRID[0] * EXAMPLE_GRID[1]
+
+
+def load_example(name):
+    """The module ``examples/torch_<name>.py``, loaded by path."""
+    path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name, argv):
+    """``main(argv)`` of ``examples/torch_<name>.py``, as a user runs it;
+    its result, what it printed and its wall time."""
+    mod = load_example(name)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    return out, buf.getvalue(), time.perf_counter() - t0
+
+
+#: where each kernel's callers take it from (see :func:`tap`)
+EXAMPLE_TAPS = {"sdca_epoch": "repro_torch.kernels.sdca",
+                "svrg_inner": "repro_torch.kernels.svrg",
+                "flash_attention": "repro_torch.models.attention"}
+
+
+@contextlib.contextmanager
+def example_taps(*names):
+    """Keep the first and the last call this process makes of each named
+    kernel wrapper inside the block (inputs and outputs detached):
+    ``{name: [(args, kwargs, outputs), ...]}``."""
+    def detached(x):
+        if torch.is_tensor(x):
+            return x.detach()
+        return tuple(map(detached, x)) if isinstance(x, tuple) else x
+
+    def keeper(keep):
+        def on_launch(args, kw, out):
+            call = (detached(tuple(args)), kw, detached(out))
+            keep[min(len(keep), 1):] = [call]
+        return on_launch
+    keeps = {name: [] for name in names}
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(tap(name, keeper(keeps[name]),
+                                    EXAMPLE_TAPS[name]))
+        yield keeps
+
+
+def sdca_plain_any(x, y, mask, alpha0, w0, idx, **kw):
+    """B1's plain version for a call in either of the wrapper's forms:
+    the grid's (P, Q, n_p, m_q) or one block (n_p, m_q), as the serial
+    SDCA epochs for f* call it."""
+    if x.dim() != 2:
+        return sdca_epoch_plain(x, y, mask, alpha0, w0, idx, **kw)
+    dalpha, w = sdca_epoch_plain(x[None, None], y[None], mask[None],
+                                 alpha0[None], w0[None], idx[None], **kw)
+    return dalpha[0, 0], w[0, 0]
+
+
+def example_holds(label, keeps):
+    """Each kept call against the plain version on its own inputs: the
+    solver kernels relative to each output's largest entry
+    (``main_check``, MAIN_TOL), B5 one query row at a time at FLASH_TOL
+    of its dtype (``row_check``; a share of the limit over 1 fails).
+    The plain versions launch nothing."""
+    out = {}
+    for name, keep in keeps.items():
+        if name != "flash_attention":
+            out[name] = held_first_last(
+                f"{label} {name}", keep,
+                sdca_plain_any if name == "sdca_epoch" else PLAINS[name])
+            continue
+        if len(keep) != 2:
+            raise AssertionError(f"{label}: kept {len(keep)} B5 calls")
+        out[name] = []
+        for args, kw, got in keep:
+            with torch.no_grad():
+                want = flash_attention_plain(*args, **kw)
+            err, share = row_check(got, want, FLASH_TOL[got.dtype])
+            if float(share) > 1.0:
+                raise AssertionError(f"{label} flash_attention: worst row "
+                                     f"{float(share)} of its limit")
+            out[name].append({"shape": list(got.shape),
+                              "dtype": str(got.dtype).split(".")[-1],
+                              "max_abs_err": float(err),
+                              "share_of_limit": float(share)})
+    return out
+
+
+def examples_setup():
+    """Before the counted window: the grid example's 4 x 2 grid on the
+    card (mesh_full's, where it ran just before, else its spawn; the
+    example then finds it memoized), without mesh_full's rank hook."""
+    t0 = time.perf_counter()
+    grid = process_grid(*EXAMPLE_GRID, device="cuda")
+    grid.rank_hook = None
+    if grid not in MESH_GRIDS:
+        MESH_GRIDS.append(grid)
+    return {"grid": grid, "grid_s": time.perf_counter() - t0}
+
+
+def example_lm_launches(cfg, batch, steps):
+    """B5's launches and route for ``steps`` training steps of ``cfg`` at
+    ``batch`` rows (see ``kernel_layers``)."""
+    in_periods, in_rem = kernel_layers(cfg)
+    acc = _largest_divisor_leq(batch, cfg.train_accum)
+    return (acc * steps * (2 * in_periods + in_rem),
+            flash_route(cfg.cdtype, cfg.head_dim))
+
+
+def phase_examples_full(setup):
+    """The six examples as a user runs them (``main`` of
+    ``examples/torch_*.py``, every one on the card, its default device), at
+    their own sizes: quickstart (SDCA and SVRG kernels), the grid example
+    on EXAMPLE_GRID ranks (both, on every rank), trace_solve (SDCA, timed
+    path), online_loop (SDCA with the row gate as its mask), serve_lm
+    (reduced Mixtral on the engine: B5 at head dim 16, the ``simt`` route,
+    the only one at that width) and lm_train, ``--small`` (B5 ``simt``)
+    and then the ~100M config for EXAMPLE_100M_STEPS steps (B5 ``tc`` at
+    head dim 64).  One line an example, with the card beside its numbers;
+    gated: every solver's rel-opt falls, the traced objective falls,
+    recovery resumes at the newest persisted version, every request
+    finishes, ``--small`` learns and the 100M losses are finite.  The
+    first and the last call of each kernel an example makes in this
+    process (the grid example: rank 0's) are held against the plain
+    version on their own inputs (``held``)."""
+    card = CARD["line"]
+
+    def line(example, wall, **fields):
+        emit("examples_full", example=example, wall_s=wall, card=card,
+             **fields)
+
+    # 1. quickstart: f*, every solver's rel-opt each 5 iterations
+    with example_taps("sdca_epoch", "svrg_inner") as keeps:
+        out, _, wall = run_example("quickstart", [])
+    printed = {}
+    for name, hist in out["history"].items():
+        printed[name] = [h["rel_opt"] for h in hist if h["iter"] % 5 == 0]
+        if not (np.all(np.isfinite(printed[name]))
+                and printed[name][-1] < printed[name][0]):
+            raise AssertionError(f"quickstart {name}: rel-opt {printed}")
+    line("quickstart", wall, f_star=out["f_star"], rel_opt=out["rel_opt"],
+         rel_opt_printed=printed, held=example_holds("quickstart", keeps))
+
+    # 2. the grid example: rel-opt of each solver below that of w = 0
+    with example_taps("sdca_epoch", "svrg_inner") as keeps:
+        out, text, wall = run_example("svm_doubly_distributed", [])
+    if out["grid"] is not setup["grid"]:
+        raise AssertionError(f"grid example ran on {out['grid']}")
+    rel0 = (1.0 - out["f_star"]) / abs(out["f_star"])
+    for name in ("d3ca", "radisa"):
+        r = out[name]["rel_opt"]
+        if not (np.isfinite(r) and r < rel0):
+            raise AssertionError(f"grid example {name}: rel-opt {r} (at w "
+                                 f"= 0: {rel0})")
+    line("svm_doubly_distributed", wall, f_star=out["f_star"],
+         ranks=out["grid"].world, rel_opt_at_zero=rel0,
+         rel_opt={k: out[k]["rel_opt"] for k in ("d3ca", "radisa")},
+         grid_spawn_s=setup["grid_s"], mesh=text.splitlines()[0],
+         held_rank0=example_holds("svm_doubly_distributed", keeps))
+
+    # 3. trace_solve: the phase split of every iteration, span totals
+    with tempfile.TemporaryDirectory() as tmp, \
+            example_taps("sdca_epoch") as keeps:
+        out, _, wall = run_example("trace_solve", [
+            "--out", os.path.join(tmp, "trace.json")])
+    hist = out["history"]
+    if not (len(hist) == 10 and hist[-1]["objective"] < hist[0]["objective"]
+            and out["events"] > 0
+            and all(out["spans"][k] > 0 for k in ("solve", "calibrate",
+                                                  "local_solve"))):
+        raise AssertionError(f"trace_solve: {hist} {out['spans']}")
+    line("trace_solve", wall, objective=[h["objective"] for h in hist],
+         **{f"{k}_ms_median": 1e3 * statistics.median(h[f"{k}_s"]
+                                                      for h in hist)
+            for k in ("step", "local", "comm", "host")},
+         span_s=out["spans"], events=out["events"],
+         held=example_holds("trace_solve", keeps))
+
+    # 4. online_loop: staleness and lag a round, recovery
+    with tempfile.TemporaryDirectory() as tmp, \
+            example_taps("sdca_epoch") as keeps:
+        out, _, wall = run_example("online_loop", ["--ckpt-dir", tmp])
+    rounds = out["rounds"]
+    if not (out["recovered"] == out["newest"] == len(rounds) == 12
+            and out["weights_match"]
+            and all(0 <= r["staleness_s"] < 60 and r["version_lag"] == 0
+                    for r in rounds)):
+        raise AssertionError(f"online_loop: {out}")
+    hists = out["snapshot"]["histograms"]
+    line("online_loop", wall, recovered_version=out["recovered"],
+         staleness_s=[r["staleness_s"] for r in rounds],
+         version=[r["version"] for r in rounds],
+         objective=[r["objective"] for r in rounds],
+         accuracy=[r["accuracy"] for r in rounds],
+         f_warm=out["f_warm"], f_cold=out["f_cold"],
+         update_s_p50={k: v["p50"] for k, v in hists.items()
+                       if k.startswith(("online/update_s",
+                                        "online/swap_s"))},
+         held=example_holds("online_loop", keeps))
+
+    # 5. serve_lm: reduced Mixtral, 6 requests over 3 slots
+    with example_taps("flash_attention") as keeps:
+        out, _, wall = run_example("serve_lm", [])
+    s = out["summary"]
+    cfg = reduced(get_config("mixtral-8x7b"))
+    check_outputs("serve_lm", out["outputs"], 6, 12, cfg.vocab)
+    if s["requests_finished"] != 6 or s["rejections"]:
+        raise AssertionError(f"serve_lm: {s}")
+    serve_n = sum(kernel_layers(cfg)) * s["prefills"]
+    line("serve_lm", wall, tokens_per_sec=s["tokens_per_sec"],
+         ttft_p50_s=s["ttft_s"]["p50"], latency_p99_s=s["latency_s"]["p99"],
+         prefills=s["prefills"], decode_steps=s["decode_steps"],
+         generated_tokens=s["generated_tokens"],
+         held=example_holds("serve_lm", keeps))
+    launches = {flash_route(cfg.cdtype, cfg.head_dim): serve_n}
+
+    # 6. lm_train: --small, then the ~100M config
+    with tempfile.TemporaryDirectory(dir=TRAIN_CKPT_ROOT) as tmp:
+        with example_taps("flash_attention") as keeps_small:
+            small, _, wall_small = run_example("lm_train", [
+                "--small", "--ckpt-dir", os.path.join(tmp, "small")])
+        with example_taps("flash_attention") as keeps_big:
+            big, _, wall_big = run_example("lm_train", [
+                "--steps", str(EXAMPLE_100M_STEPS), "--ckpt-dir",
+                os.path.join(tmp, "100m")])
+    losses = small["losses"]
+    if not (small["learned"] and len(losses) == 60
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise AssertionError(f"lm_train --small: {losses}")
+    if not (len(big["losses"]) == EXAMPLE_100M_STEPS
+            and np.all(np.isfinite(big["losses"]))):
+        raise AssertionError(f"lm_train 100M: {big['losses']}")
+    cfg100 = load_example("lm_train").config_100m()
+    line("lm_train", wall_small + wall_big,
+         small={"loss_first5": float(np.mean(losses[:5])),
+                "loss_last5": float(np.mean(losses[-5:])),
+                "step_ms": small["step_ms"],
+                "tokens_per_s": small["tokens_per_s"], "wall_s": wall_small,
+                "held": example_holds("lm_train --small", keeps_small)},
+         config_100m={"params": sum(t.numel() for t in tree_leaves_sorted(
+                          param_shapes(cfg100))),
+                      "steps": EXAMPLE_100M_STEPS, "step_ms": big["step_ms"],
+                      "tokens_per_s": big["tokens_per_s"],
+                      "loss_first": big["losses"][0],
+                      "loss_last": big["losses"][-1], "wall_s": wall_big,
+                      "held": example_holds("lm_train 100M", keeps_big)})
+    for cfg_, batch, steps in ((reduced(get_config("qwen3-1.7b")), 4, 60),
+                               (cfg100, 8, EXAMPLE_100M_STEPS)):
+        n, route = example_lm_launches(cfg_, batch, steps)
+        launches[route] = launches.get(route, 0) + n
+    return {"sdca_epoch": EXAMPLE_SDCA, "svrg_inner": EXAMPLE_SVRG,
+            "flash_attention": sum(launches.values()),
+            "routes": {"flash_attention": launches}}
+
+
 SDCA_SHAPE_OF_CLUSTER = {1: "d3ca_cells", 16: "serial"}
 #: B1's launches on each main path, by shape
 SDCA_SHAPE_LAUNCHES = {
@@ -5860,7 +6180,10 @@ SDCA_SHAPE_LAUNCHES = {
     # a rank's T = 4 tenant cells in one launch (1 CTA each): the fleet
     # and the online updates (passes and calibration)
     "fleet_mesh_full": {"d3ca_cells": P * Q * (
-        FLEET_MESH_ITERS + FLEET_MESH_ROUNDS * (ONLINE_PASSES + OBS_CALIB))}}
+        FLEET_MESH_ITERS + FLEET_MESH_ROUNDS * (ONLINE_PASSES + OBS_CALIB))},
+    # the examples' rows are at most 400 columns wide: every launch, the
+    # serial epochs for f* too, on 1 CTA a cell
+    "examples_full": {"d3ca_cells": EXAMPLE_SDCA}}
 
 
 #: what a main path is held against that must be made before its counted
@@ -5873,14 +6196,17 @@ PHASE_SETUP = {**{name: functools.partial(train_setup, name)
                "fleet_mesh_full": fleet_mesh_setup,
                "train_mesh_full": mesh_train_setup,
                "train_mesh_families_full": mesh_families_setup,
-               "serve_mesh_full": serve_mesh_setup}
+               "serve_mesh_full": serve_mesh_setup,
+               "examples_full": examples_setup}
 
 
 def run_main_path(name, phase, results):
     """Drive one main path with every launch counter at 0 just before and
     read just after; it must have launched exactly the kernels it names,
     as often as it says, and every launch of a two-route wrapper must have
-    taken its main route (``MAIN_ROUTES``).  Its ``PHASE_SETUP``, if any,
+    taken its main route (``MAIN_ROUTES``), or the split by route the
+    phase names under ``routes`` (examples_full: B5 at head dim 16, which
+    only the ``simt`` route serves, beside ``tc`` at 64).  Its ``PHASE_SETUP``, if any,
     runs before the counters go to 0."""
     setup = [PHASE_SETUP[name]()] if name in PHASE_SETUP else []
     reset_counts()
@@ -5892,9 +6218,15 @@ def run_main_path(name, phase, results):
     want = {k: expected.get(k, 0) for k in WRAPPERS}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}; expected {want}")
+    split = expected.get("routes", {})
     for k, route in MAIN_ROUTES.items():
         by = route_counts(k)
-        if by[route] != counts[k]:
+        if k in split:
+            want_by = {r: split[k].get(r, 0) for r in by}
+            if by != want_by:
+                raise AssertionError(f"{name}: {k} launches by route {by}; "
+                                     f"expected {want_by}")
+        elif by[route] != counts[k]:
             raise AssertionError(f"{name}: {k} launches by route {by}; all "
                                  f"{counts[k]} must take the {route!r} route")
     for k, v in counts.items():
@@ -6448,19 +6780,19 @@ def phase_timing(dev, results):
 
     # plain, kernel, kernel, plain -- on one card, in one process; between
     # them the block route (the main path's before this slice)
-    plain_s = [cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3)]
+    plain_s = [plain_loop_ms(lambda: sdca_epoch_plain(*sargs, **skw))]
     kern_s = [both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7)]
     prev_s = [both_ms(lambda: sdca_block(sargs, skw), reps=5)]
     # B2: plain, ring, block, block, ring, plain
-    plain_v = [cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3)]
+    plain_v = [plain_loop_ms(lambda: svrg_inner_plain(*vargs, **vkw))]
     kern_v = [both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7)]
     prev_v = [both_ms(lambda: svrg_block(vargs, vkw), reps=5)]
     prev_v.append(both_ms(lambda: svrg_block(vargs, vkw), reps=5))
     kern_v.append(both_ms(lambda: svrg_inner(*vargs, **vkw), reps=7))
-    plain_v.append(cuda_ms(lambda: svrg_inner_plain(*vargs, **vkw), reps=3))
+    plain_v.append(plain_loop_ms(lambda: svrg_inner_plain(*vargs, **vkw)))
     prev_s.append(both_ms(lambda: sdca_block(sargs, skw), reps=5))
     kern_s.append(both_ms(lambda: sdca_epoch(*sargs, **skw), reps=7))
-    plain_s.append(cuda_ms(lambda: sdca_epoch_plain(*sargs, **skw), reps=3))
+    plain_s.append(plain_loop_ms(lambda: sdca_epoch_plain(*sargs, **skw)))
 
     # per step: dot (2) + norm (2) + update (2) flops per row element;
     # SVRG: subtract + dot (3) + update (6)
@@ -6522,8 +6854,7 @@ def phase_timing(dev, results):
     vargs, lo, eta = svrg_sparse_main_inputs(sp, w20)
     vkw = dict(lam=LAM20, eta=eta, loss="hinge", lo=lo)
     # B3: plain, lookahead, block, block, lookahead, plain
-    plain_s = [cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
-                       reps=3)]
+    plain_s = [plain_loop_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw))]
     kern_s = [both_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7)]
     prev_s = [both_ms(lambda: sparse_route_launch(sargs, skw, "block"),
                       reps=5)]
@@ -6535,16 +6866,15 @@ def phase_timing(dev, results):
     def block_route():            # the route the main path took before
         return svrg_sparse._launch(*vargs, lo, lam=LAM20, eta=eta,
                                    loss_id=0, route="block")
-    plain_v = [cuda_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw),
-                       reps=3)]
+    plain_v = [plain_loop_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw))]
     kern_v = [both_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7)]
     prev_v = [both_ms(block_route, reps=5), both_ms(block_route, reps=5)]
     kern_v.append(both_ms(lambda: svrg_inner_sparse(*vargs, **vkw), reps=7))
-    plain_v.append(cuda_ms(lambda: svrg_inner_sparse_plain(*vargs, **vkw),
-                           reps=3))
+    plain_v.append(plain_loop_ms(
+        lambda: svrg_inner_sparse_plain(*vargs, **vkw)))
     kern_s.append(both_ms(lambda: sdca_epoch_sparse(*sargs, **skw), reps=7))
-    plain_s.append(cuda_ms(lambda: sdca_epoch_sparse_plain(*sargs, **skw),
-                           reps=3))
+    plain_s.append(plain_loop_ms(
+        lambda: sdca_epoch_sparse_plain(*sargs, **skw)))
     results["sdca_epoch_sparse"]["gated"] = gated_timing(
         sdca_epoch_sparse, sargs, skw, 3, 3 * sp.n_p + sp.n_p // 2,
         ONLINE_SPARSE_ROWS)
@@ -6659,12 +6989,13 @@ def linattn_bound(BH, S, D, C=64, sub=16):
             "tensor_core_flops": tc_flops}
 
 
-def device_busy(fn, reps=3):
+def device_busy(fn, reps=1):
     """What the device does during ``fn()``, by ``torch.profiler``: the
     kernels' own device time per call (ms), the kernels launched per
     call, and the five kernels with the most device time (name, ms per
     call).  Against the call's CUDA-event time this gives the device's
-    idle share."""
+    idle share.  One traced call after a warm-up by default: the trace's
+    processing on the host is the cost, and it grows with the calls."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -6853,10 +7184,118 @@ def lm_timing(dev, results):
     return out
 
 
+# ---------------------------------------------------------------------------
+# side runs: phases a second process of this script drives beside this one
+# ---------------------------------------------------------------------------
+
+#: the phases two other processes of this script drive while this one runs
+#: the solver paths: the kernels phase (checks only), and the LM paths of
+#: at most 40 GB of the card's memory, whose steps are host-bound as the
+#: solver paths' are (the card idles most of the time in all of them).
+#: Each side counts its launches as this process does.
+SIDES = (("kernels",),
+         ("serve_qwen3_full", "serve_rwkv6_full", "train_qwen3_full",
+          "train_rwkv6_full", "serve_mixtral_full", "serve_vlm_full",
+          "serve_musicgen_full", "serve_qwen3_int8_full",
+          "train_musicgen_full"))
+#: the phases that run once the sides have ended, alone on the card: the
+#: LM paths that take up to 67 GB of its memory, and the ones that start
+#: process grids (then cpu_vs_card and the timing)
+ALONE_PATHS = ("serve_recurrentgemma_full", "train_mixtral_full",
+               "train_recurrentgemma_full", "fleet_mesh_full", "mesh_full",
+               "examples_full", "train_mesh_full",
+               "train_mesh_families_full", "serve_mesh_full")
+#: what the kernels phase sets on a kernel's entry of the kernels line
+KERNELS_PHASE_KEYS = ("max_abs_err", "max_abs_ref", "rel_err", "outputs",
+                      "max_abs_err_vs_plain_f32", "reference", "draws",
+                      "tol", "tenant_main", "sweep_cases",
+                      "sweep_max_abs_err", "sweep_tol",
+                      "checked_launches_by_route", "ok")
+
+
+class SideRun:
+    """``python3 chip_smoke.py --phases <phases> --side-out <json>`` in a
+    process of its own, started now: it prints into a file, and writes
+    its kernels line's entries (the launches of its main paths, the
+    kernels phase's readings) to the json when it ends."""
+
+    def __init__(self, phases):
+        self.phases = tuple(phases)
+        self.dir = tempfile.mkdtemp(prefix="chip_side_")
+        self.out = os.path.join(self.dir, "results.json")
+        self.log = open(os.path.join(self.dir, "stdout.txt"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phases",
+             ",".join(self.phases), "--side-out", self.out],
+            stdout=self.log, cwd=ROOT)
+
+    def join(self, results):
+        """Wait for the side, print its lines (phase_time lines marked
+        ``"side": true``; its env and build lines are this run's) and add
+        its counts to ``results``; raise if it failed."""
+        rc = self.proc.wait()
+        waited = time.perf_counter() - self.t0
+        self.log.seek(0)
+        lines = self.log.read().splitlines()
+        for ln in lines:
+            try:
+                rec = json.loads(ln)
+            except ValueError:
+                rec = None
+            if isinstance(rec, dict) and rec.get("phase") in ("env",
+                                                              "build"):
+                continue
+            if isinstance(rec, dict) and rec.get("phase") == "phase_time":
+                ln = json.dumps({**rec, "side": True})
+            print(ln, flush=True)
+        if rc != 0:
+            raise AssertionError(f"the side run of {list(self.phases)} "
+                                 f"failed (exit {rc}); its error output "
+                                 "is above")
+        with open(self.out) as fh:
+            side = json.load(fh)
+        add_side(results, side, readings="kernels" in self.phases)
+        emit("side_run", phases=list(self.phases), seconds=waited)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def add_side(results, side, readings):
+    """Add a side run's launches to ``results`` -- in all, by route, by
+    head dim and, for B1, by shape -- and, when it ran the kernels phase
+    (``readings``), take over that phase's readings."""
+    for name, res in side.items():
+        mine = results[name]
+        mine["launches"] += res["launches"]
+        for r, n in res["routes"].items():
+            mine["routes"][r] += n
+        if res.get("launches_by_head_dim"):
+            dims = mine.setdefault("launches_by_head_dim", {})
+            for key, n in res["launches_by_head_dim"].items():
+                dims[key] = dims.get(key, 0) + n
+        if name == "sdca_epoch":
+            for shape, v in res["shapes"].items():
+                mine["shapes"][shape]["launches"] += v["launches"]
+        if readings:
+            mine.update({k: res[k] for k in KERNELS_PHASE_KEYS if k in res})
+            if name == "flash_attention":
+                mine["shapes"] = res["shapes"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES))
+    ap.add_argument("--side-out", metavar="JSON",
+                    help="a side run (see SideRun): drive --phases alone "
+                         "and write the kernels line's entries to JSON in "
+                         "place of the last lines")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -6866,6 +7305,22 @@ def main(argv=None):
     smi = phase_env()
     dev = torch.device("cuda")
     phase_build()
+    sides = []
+    if not args.side_out:
+        for group in SIDES:
+            beside = [p for p in group if p in phases]
+            if beside and set(phases) - set(beside):
+                sides.append(SideRun(beside))
+    try:
+        return run_phases(args, phases, smi, dev, sides)
+    finally:
+        for side in sides:
+            side.stop()
+
+
+def run_phases(args, phases, smi, dev, sides):
+    """The phases of ``main`` after the build, the sides' ones left to
+    them."""
     memo = DataMemo()
     memo.install()
     results = {name: {"name": name, **meta, "launches": 0,
@@ -6883,15 +7338,29 @@ def main(argv=None):
         emit("phase_time", of=name, seconds=time.perf_counter() - t0,
              since_start_s=time.perf_counter() - t_start)
 
-    if "kernels" in phases:
+    here = set(phases) - {p for side in sides for p in side.phases}
+
+    def join_sides():
+        while sides:
+            sides[0].join(results)
+            sides.pop(0).stop()
+
+    if "kernels" in here:
         timed("kernels", phase_kernels, dev, results)
 
     # the main paths: every count to 0 just before each, read just after
     for name in MAIN_PATHS:
-        if name in phases:
+        if name in ALONE_PATHS:
+            join_sides()
+        if name in here:
             phase = (functools.partial(phase_train, name)
                      if name in TRAIN_PATHS else globals()[f"phase_{name}"])
             timed(name, run_main_path, name, phase, results)
+    join_sides()
+    if args.side_out:
+        with open(args.side_out, "w") as fh:
+            json.dump(results, fh)
+        return 0
     if set(phases) >= set(MAIN_PATHS):
         for name, res in results.items():
             if res["launches"] < 1:

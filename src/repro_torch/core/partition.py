@@ -207,29 +207,27 @@ def _ell_blocks(csr, y, P: int, Q: int, m_pad: int, k_multiple: int):
     # per (row, q) nonzero count -> global k
     q_of = np.minimum(csr.indices // m_q, Q - 1)
     row = csr.row_ids()
-    counts = np.zeros((n, Q), dtype=np.int64)
-    np.add.at(counts, (row, q_of), 1)
+    pair = row * Q + q_of
+    counts = np.bincount(pair, minlength=n * Q)
     k_max = int(counts.max()) if counts.size else 0
     k = max(_ceil_to(max(k_max, 1), k_multiple), k_multiple)
 
     cols = np.zeros((P, Q, n_p, k), dtype=np.int32)
     vals = np.zeros((P, Q, n_p, k), dtype=np.float32)
-    # ELL slot of each entry = its rank within its (row, q) group (stable
-    # sort keeps the CSR entry order inside every group)
-    pair = row * Q + q_of
-    perm = np.argsort(pair, kind="stable")
-    sp = pair[perm]
-    is_start = np.r_[True, sp[1:] != sp[:-1]] if sp.size else \
-        np.zeros((0,), dtype=bool)
-    run_id = np.cumsum(is_start) - 1
-    run_starts = np.flatnonzero(is_start)
-    ranks = np.empty((csr.nnz,), dtype=np.int64)
-    ranks[perm] = np.arange(csr.nnz, dtype=np.int64) - run_starts[run_id]
-    p_of = row // n_p
-    r_loc = row % n_p
-    c_loc = csr.indices - q_of * m_q
-    cols[p_of, q_of, r_loc, ranks] = c_loc.astype(np.int32)
-    vals[p_of, q_of, r_loc, ranks] = csr.data.astype(np.float32)
+    # ELL slot of each entry = its rank within its (row, q) group, in CSR
+    # entry order inside every group (a stable sort, which rows in order
+    # with their columns ascending -- the usual CSR -- do not need)
+    starts = np.cumsum(counts) - counts
+    if np.any(pair[1:] < pair[:-1]):
+        perm = np.argsort(pair, kind="stable")
+        ranks = np.empty((csr.nnz,), dtype=np.int64)
+        ranks[perm] = np.arange(csr.nnz, dtype=np.int64) - starts[pair[perm]]
+    else:
+        ranks = np.arange(csr.nnz, dtype=np.int64) - starts[pair]
+    # flat slot ((p * Q + q) * n_p + local row) * k + rank, p = row // n_p
+    slot = ((row // n_p * Q + q_of) * n_p + row % n_p) * k + ranks
+    cols.reshape(-1)[slot] = (csr.indices - q_of * m_q).astype(np.int32)
+    vals.reshape(-1)[slot] = csr.data.astype(np.float32)
 
     yp = np.zeros((n_pad,), dtype=np.float32)
     yp[:n] = np.asarray(y, dtype=np.float32)

@@ -131,10 +131,18 @@ class GridSpec:
     device_type: str
     timeout_s: float
     controller: int           # the pid of rank 0
+    threads: int              # rank 0's intra-op threads when it started
 
     @property
     def world(self) -> int:
         return self.P * self.Q
+
+    @property
+    def cpu_threads(self) -> int:
+        """A CPU rank's intra-op threads: its share of the host's cores,
+        never more than the caller itself runs (a caller held to one
+        thread, beside other processes of its own, gets ranks of one)."""
+        return max(1, min(self.threads, (os.cpu_count() or 1) // self.world))
 
 
 class RankContext:
@@ -147,6 +155,7 @@ class RankContext:
         self.p, self.q = divmod(rank, spec.Q)
         self.device = device
         self.sizes = {"data": spec.P, "model": spec.Q}
+        self.cpu_threads = spec.cpu_threads
         #: what CALLs keep on this rank across sessions, by key
         self.resident: Dict[str, Any] = {}
         self._groups = _make_groups(spec.P, spec.Q)
@@ -416,6 +425,8 @@ def _next_job(jobs, controller: int):
 def _worker(rank: int, spec: GridSpec, jobs, results):
     """Entry point of ranks 1..P*Q-1."""
     try:
+        if spec.device_type == "cpu":
+            torch.set_num_threads(spec.cpu_threads)
         results.put((rank, "started", None))
         ctx = _join(spec, rank)
         results.put((rank, "ready", None))
@@ -516,7 +527,7 @@ class ProcessGrid:
         store = dist.TCPStore("127.0.0.1", 0, self.world, is_master=True,
                               timeout=td, wait_for_workers=False)
         spec = GridSpec(self.P, self.Q, store.port, self.device.type,
-                        self.timeout, os.getpid())
+                        self.timeout, os.getpid(), torch.get_num_threads())
         ctx = mp.get_context("spawn")
         self._results = ctx.Queue()
         self._jobs = {r: ctx.Queue() for r in range(1, self.world)}

@@ -29,7 +29,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -269,13 +268,13 @@ def _counted(model: Transformer, rm: RankMesh):
 def _cpu_share(ctx):
     """On CPU ranks, this rank's share of the host's cores for the intra-op
     pool while the step runs (P x Q ranks each with every core spin
-    against each other); put back after."""
+    against each other), never more than the grid's caller runs
+    (``RankContext.cpu_threads``); put back after."""
     if ctx.device.type != "cpu":
         yield
         return
     old = torch.get_num_threads()
-    torch.set_num_threads(max(1, (os.cpu_count() or 1)
-                              // dist.get_world_size()))
+    torch.set_num_threads(ctx.cpu_threads)
     try:
         yield
     finally:

@@ -167,7 +167,10 @@ def build_parser():
                      "schema solver telemetry uses) after the run")
 
 
-def main(argv=None):
+def main(argv=None, *, on_summary=None):
+    """Serve the synthetic trace; returns ``{rid: generated tokens}``.
+    ``on_summary``, if given, is called with the engine's metrics summary
+    (the JSON block printed; not called on the static loop)."""
     ap = build_parser()
     args = ap.parse_args(argv)
 
@@ -213,6 +216,8 @@ def main(argv=None):
         outputs = engine.run(reqs)
 
     s = engine.metrics.summary()
+    if on_summary is not None:
+        on_summary(s)
     print(f"{len(outputs)} requests, {s['generated_tokens']} tokens in "
           f"{s['elapsed_s']:.2f}s ({s['tokens_per_sec']:.1f} tok/s); "
           f"ttft p50 {s['ttft_s']['p50'] * 1e3:.0f} ms, "

@@ -55,11 +55,13 @@ from .mesh_train import init_on_mesh
 from .steps import make_train_step
 
 
-def build_parser():
+def build_parser(require_arch: bool = True):
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.train",
         description="LM training CLI (PyTorch/CUDA port)")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=require_arch,
+                    help="the config to train (left out when main() is "
+                         "handed a config)")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU friendly)")
     ap.add_argument("--device", default="cuda",
@@ -80,14 +82,21 @@ def build_parser():
     return ap
 
 
-def main(argv=None):
-    ap = build_parser()
+def main(argv=None, *, config=None):
+    """Train; returns the trainer's history (one dict a step).  ``config``
+    (a :class:`~repro_torch.models.config.ModelConfig`) trains that
+    model in place of ``--arch``, which is then left out -- a model no
+    config module names, such as an example's scaled-down family member.
+    """
+    ap = build_parser(require_arch=config is None)
     args = ap.parse_args(argv)
+    if config is not None and args.arch is not None:
+        ap.error("--arch names a config and main() was handed another")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
 
-    cfg = get_config(args.arch)
+    cfg = config if config is not None else get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     mesh = None

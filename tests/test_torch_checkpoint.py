@@ -18,6 +18,7 @@ from repro.checkpoint import save_tree as j_save_tree
 from repro.online import SnapshotBook as JBook
 from repro_torch.checkpoint import CheckpointManager, restore_tree, save_tree
 from repro_torch.online import SnapshotBook
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 
 def _tree(seed=0):

@@ -5,14 +5,35 @@ packages.  The reference draws its coordinate orders with ``jax.random``;
 the helpers here compute those exact streams with the reference's own
 formulas so that the tests can inject them into the port through an
 ``ArrayIndexSource``.
+
+Every port test module imports this one, which caps torch at one intra-op
+and one inter-op thread in the importing process: the suite runs in
+several worker processes at once, and torch's default of one thread a
+core in each of them oversubscribes the host many times over (a reduced
+training step then takes seconds instead of milliseconds).  Subprocesses
+a test starts get the same cap through ``TORCH_TEST_ENV``; the process
+itself is never given it through ``os.environ``, which other suites'
+subprocesses read.
 """
+import os
 import signal
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import ArrayIndexSource
+
+torch.set_num_threads(1)
+try:
+    torch.set_num_interop_threads(1)
+except RuntimeError:        # the inter-op pool has already started
+    pass
+
+#: the environment of a subprocess a port test starts: one thread a pool
+TORCH_TEST_ENV = {**os.environ, "OMP_NUM_THREADS": "1",
+                  "MKL_NUM_THREADS": "1"}
 
 #: seconds a test of a module that starts a CPU process grid is given, and
 #: the grid's bound on each of its collectives and waits
@@ -157,6 +178,10 @@ def compare(res_t, its_t, res_j, its_j, dual):
 
 
 _LM_PAIRS = {}
+_LM_INITS = {}
+#: config fields that the forward pass reads and ``init`` does not: pairs
+#: whose overrides differ only in them share one reference init
+FORWARD_ONLY = ("remat_policy", "attn_impl", "loss_chunk")
 
 
 def lm_pair(arch, **overrides):
@@ -164,7 +189,8 @@ def lm_pair(arch, **overrides):
     ``reduced(get_config(arch))`` with float32 compute unless overridden,
     both on the CPU, the port's weights carried across from the
     reference's ``init(PRNGKey(0))``; cached per process so the
-    reference's init compiles once per config.  ``n_experts=E``: the
+    reference's init compiles once per config (once for configs that
+    differ only in ``FORWARD_ONLY`` fields).  ``n_experts=E``: the
     reduced MoE with E experts (each package's own ``MoEConfig``, top-2,
     as ``reduced`` makes it otherwise)."""
     from repro import models as ref_models
@@ -185,7 +211,12 @@ def lm_pair(arch, **overrides):
             pkw = {**kw, "moe": MoEConfig(**moe)}
         rmodel = ref_models.Transformer(
             ref_models.reduced(ref_get_config(arch), **rkw))
-        rparams = jax.jit(lambda k: rmodel.init(k)[0])(jax.random.PRNGKey(0))
+        init_key = (arch, tuple(sorted(
+            (k, v) for k, v in overrides.items() if k not in FORWARD_ONLY)))
+        if init_key not in _LM_INITS:
+            _LM_INITS[init_key] = jax.jit(lambda k: rmodel.init(k)[0])(
+                jax.random.PRNGKey(0))
+        rparams = _LM_INITS[init_key]
         pmodel = Transformer(reduced(get_config(arch), **pkw), device="cpu")
         pparams = convert.lm_params_from_reference(
             jax.tree.map(np.asarray, rparams), device="cpu")

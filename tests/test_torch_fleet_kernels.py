@@ -17,6 +17,7 @@ from repro_torch.kernels._launch import cell_index, cell_params
 from repro_torch.kernels.sdca import sdca_epoch, sdca_epoch_sparse
 from repro_torch.kernels.svrg import svrg_inner, svrg_inner_sparse
 from test_torch_sparse import _ell_cell
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 #: the tolerance of the reference's own kernel tests
 TOL = dict(rtol=1e-5, atol=1e-5)

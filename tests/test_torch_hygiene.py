@@ -1,14 +1,23 @@
 """The port stands alone: it imports neither jax nor the JAX package,
-ships its CUDA sources, and builds into a git-ignored directory."""
+ships its CUDA sources, and builds into a git-ignored directory; its
+examples (``examples/torch_*.py``) import neither either and default to
+the card."""
+import glob
+import importlib.util
 import os
 import re
 import subprocess
 import sys
 
 import pytest
+from test_torch_common import TORCH_TEST_ENV
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
+#: an import of jax or of the JAX package at the start of a line
+NAMES_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
+                       r"|from\s+repro(\.|\s))", re.M)
 
 
 def _port_files():
@@ -60,7 +69,7 @@ def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
         "or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {k: v for k, v in TORCH_TEST_ENV.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-2000:]
@@ -71,9 +80,59 @@ def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_names_jax_or_the_jax_package(path):
     text = open(path).read()
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
-                     r"|from\s+repro(\.|\s))", re.M)
-    assert not pat.search(text), pat.search(text).group(0)
+    assert not NAMES_JAX.search(text), NAMES_JAX.search(text).group(0)
+
+
+def test_the_six_examples_are_ported():
+    assert [os.path.basename(p) for p in EXAMPLES] == [
+        f"torch_{n}.py" for n in ("lm_train", "online_loop", "quickstart",
+                                  "serve_lm", "svm_doubly_distributed",
+                                  "trace_solve")]
+    for path in EXAMPLES:
+        twin = os.path.join(ROOT, "examples",
+                            os.path.basename(path)[len("torch_"):])
+        assert os.path.exists(twin), twin
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
+def test_no_example_names_jax_or_the_jax_package(path):
+    text = open(path).read()
+    assert not NAMES_JAX.search(text), NAMES_JAX.search(text).group(0)
+    assert "def main(argv=None" in text
+
+
+def test_importing_the_examples_pulls_in_neither_jax_nor_the_jax_package():
+    """A fresh interpreter loads every example module by path (nothing
+    runs: ``main`` is not called)."""
+    code = (
+        "import importlib.util, sys\n"
+        f"for i, p in enumerate({EXAMPLES!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'jaxlib' or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    env = {k: v for k, v in TORCH_TEST_ENV.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.startswith("clean")
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
+def test_example_without_device_cpu_raises_without_a_card(path):
+    """Every example defaults to the card and never falls back to the CPU
+    (as ``test_chip_smoke_fails_without_a_card`` for the script)."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    spec = importlib.util.spec_from_file_location("example_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        mod.main([])
 
 
 def test_cuda_sources_ship_and_build_dir_is_ignored():
@@ -101,7 +160,8 @@ def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=300,
+                       env=TORCH_TEST_ENV)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
     assert "needs a CUDA device" in r.stderr

@@ -11,6 +11,7 @@ from repro.kernels.sdca import sdca_epoch_pallas, sdca_epoch_ref
 from repro.kernels.svrg import svrg_inner_pallas, svrg_inner_ref
 from repro_torch.kernels.sdca import sdca_epoch, sdca_epoch_plain
 from repro_torch.kernels.svrg import svrg_inner, svrg_inner_plain
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

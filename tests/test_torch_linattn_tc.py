@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.linattn import rwkv_linattn_ref
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 F32, F64 = torch.float32, torch.float64
 LOG2E = torch.tensor(1.4426950408889634, dtype=F32)

@@ -6,7 +6,10 @@ the same weights (``convert.lm_params_from_reference``) and the same numpy
 inputs through ``logits_fn``, ``train_loss`` and its gradients, prefill
 and a decode chain (ring buffers that wrap, XATTN's static encoder cache),
 paged decode with MoE, and B5 at head dim 256 (RecurrentGemma's).
-Tolerance 1e-5 (rtol = atol) unless a test says otherwise.
+Tolerance 1e-5 (rtol = atol) unless a test says otherwise.  The
+per-family checks run here for MoE and the embedding frontend and, as the
+same ``check_*`` functions, for RG-LRU and cross attention in
+``test_torch_lm_families_rglru_xattn.py``.
 
 RecurrentGemma runs at ``reduced(cfg, n_layers=5)``: one (rglru, rglru,
 local) period and two remainder layers.  ``reduced()`` itself, copied from
@@ -28,8 +31,11 @@ from repro_torch.serve import cache as port_cache
 from test_torch_common import lm_pair
 
 TOL = 1e-5
-FAMILIES = ["mixtral-8x7b", "moonshot-v1-16b-a3b", "recurrentgemma-9b",
-            "llama-3.2-vision-90b", "musicgen-large"]
+#: the families whose cases this file runs: MoE and the embedding
+#: frontend; RG-LRU with LOCAL attention and cross attention run the same
+#: checks in ``test_torch_lm_families_rglru_xattn.py``
+HERE = ["mixtral-8x7b", "moonshot-v1-16b-a3b", "musicgen-large"]
+REMATS = ["nothing", "save_boundaries"]
 #: the overrides that make each reduced config reach all of its paths
 OVERRIDES = {"recurrentgemma-9b": {"n_layers": 5}}
 
@@ -84,8 +90,7 @@ def _t(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_logits_fn_matches_the_reference(arch):
+def check_logits_fn(arch):
     rmodel, rparams, pmodel, pparams = _pair(arch)
     b = _inputs(pmodel.cfg, 1, 2, 16)
     with torch.no_grad():
@@ -93,9 +98,12 @@ def test_logits_fn_matches_the_reference(arch):
     _close(got, rmodel.logits_fn(rparams, _j(b)))
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-@pytest.mark.parametrize("remat", ["nothing", "save_boundaries"])
-def test_train_loss_and_grads_match_the_reference(arch, remat):
+@pytest.mark.parametrize("arch", HERE)
+def test_logits_fn_matches_the_reference(arch):
+    check_logits_fn(arch)
+
+
+def check_loss_and_grads(arch, remat):
     """Every leaf's gradient (the router's, the experts', RG-LRU's lam,
     XATTN's) at 1e-5, none of them zero."""
     rmodel, rparams, pmodel, pparams = _pair(arch, remat_policy=remat)
@@ -107,6 +115,12 @@ def test_train_loss_and_grads_match_the_reference(arch, remat):
     np.testing.assert_allclose(float(loss), float(r_loss), rtol=TOL, atol=TOL)
     _close_tree(grads, r_grads)
     assert all(float(g.abs().max()) > 0 for g in leaves(grads))
+
+
+@pytest.mark.parametrize("arch", HERE)
+@pytest.mark.parametrize("remat", REMATS)
+def test_train_loss_and_grads_match_the_reference(arch, remat):
+    check_loss_and_grads(arch, remat)
 
 
 def _decode_input(cfg, nxt, step):
@@ -144,8 +158,7 @@ def _prefill_decode(arch, S, cache_len, steps, **kw):
     return p_cache
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_prefill_then_decode_matches_the_reference(arch):
+def check_prefill_then_decode(arch):
     """Prompt 20, cache 28: the windows of 16 (Mixtral's sliding window,
     RecurrentGemma's LOCAL layers) wrap their ring buffers in prefill and
     again in decode; XATTN layers decode against the encoder cache."""
@@ -155,10 +168,12 @@ def test_prefill_then_decode_matches_the_reference(arch):
         assert cache["periods"][4]["k"].shape[2] == 8
 
 
-@pytest.mark.parametrize("arch,S,cache_len", [
-    ("qwen3-1.7b", 12, 8), ("mixtral-8x7b", 20, 28),
-    ("recurrentgemma-9b", 20, 28), ("llama-3.2-vision-90b", 10, 16)])
-def test_int8_kv_cache_matches_the_reference(arch, S, cache_len):
+@pytest.mark.parametrize("arch", HERE)
+def test_prefill_then_decode_matches_the_reference(arch):
+    check_prefill_then_decode(arch)
+
+
+def check_int8_kv_cache(arch, S, cache_len):
     """int8 ring buffers (values, and absmax / 127 scales in float32):
     Qwen3's 8-slot cache and Mixtral's / RecurrentGemma's 16-slot windows
     wrap in prefill and in decode; Vision's XATTN cache stays in the
@@ -169,6 +184,12 @@ def test_int8_kv_cache_matches_the_reference(arch, S, cache_len):
     assert kinds
     assert all(c["k"].dtype == torch.int8 for k in ("periods", "remainder")
                for c in cache[k] if "k_scale" in c)
+
+
+@pytest.mark.parametrize("arch,S,cache_len", [
+    ("qwen3-1.7b", 12, 8), ("mixtral-8x7b", 20, 28)])
+def test_int8_kv_cache_matches_the_reference(arch, S, cache_len):
+    check_int8_kv_cache(arch, S, cache_len)
 
 
 def test_moe_paged_decode_matches_the_reference():

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash import flash_attention, mha_ref
 from repro_torch.kernels.linattn import rwkv_linattn, rwkv_linattn_ref
 from repro_torch.models import attention
 from repro_torch.models.rwkv import rwkv_scan
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 FLASH_SWEEP = [(2, 128, 4, 2, 32), (1, 256, 2, 2, 64), (2, 64, 8, 1, 16)]
 LINATTN_SWEEP = [(2, 64, 16, 16), (3, 128, 32, 32), (1, 256, 64, 64),

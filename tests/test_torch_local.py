@@ -10,6 +10,7 @@ from repro.core import local as jlocal
 from repro.core.losses import get_loss as j_loss
 from repro_torch.core import local as tlocal
 from repro_torch.core.losses import get_loss as t_loss
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 P, Q, N_P, M_Q = 3, 2, 17, 12
 

@@ -19,6 +19,7 @@ from repro.core.engines import CellProgram as JCellProgram
 from repro.core.engines import mesh_program as j_mesh_program
 from repro_torch.core.comm import (CommSchedule, GridWire, OverlapComm,
                                    Ready, StaleComm, SyncComm)
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 STEPS = 9
 SIZES = {"data": 1, "model": 1}

@@ -18,6 +18,7 @@ from repro.models import reduced as ref_reduced
 from repro_torch.configs import get_config
 from repro_torch.models import reduced
 from repro_torch.models import moe
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 TOL = 1e-5
 

@@ -6,7 +6,6 @@ reference's own Bernoulli mask injected, the cases of
 state carried across by ``convert.adamw_state_from_reference``.
 Tolerances: 1e-6 (rtol = atol) after one update, 1e-5 after ten."""
 import importlib
-import os
 import subprocess
 import sys
 import warnings
@@ -28,6 +27,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                radisa_svrg, warmup_cosine)
 from repro_torch.core.util import tree_leaves as leaves
 from repro_torch.core.util import tree_map
+from test_torch_common import TORCH_TEST_ENV
 
 TOL = 1e-6
 
@@ -251,7 +251,7 @@ def test_import_optim_and_serve_are_silent():
             "assert sum(issubclass(r.category, DeprecationWarning)"
             " for r in rec) == 2, rec\n")
     subprocess.run([sys.executable, "-c", code], check=True,
-                   env={**os.environ, "PYTHONPATH": "src"},
+                   env={**TORCH_TEST_ENV, "PYTHONPATH": "src"},
                    cwd=__file__.rsplit("/tests/", 1)[0])
 
 

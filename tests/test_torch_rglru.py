@@ -17,6 +17,7 @@ from repro.models import rglru as ref_rglru
 from repro_torch.configs import get_config
 from repro_torch.models import reduced
 from repro_torch.models import rglru
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 TOL = 1e-5
 

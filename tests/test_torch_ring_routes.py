@@ -23,6 +23,7 @@ from repro_torch.kernels.sdca import sdca_epoch_sparse, sdca_sparse_route
 from repro_torch.kernels.sdca import sparse as sdca_sparse
 from repro_torch.kernels.svrg import svrg_inner, svrg_route
 from repro_torch.kernels.svrg import ops as svrg_ops
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -41,6 +41,7 @@ from repro_torch.kernels.sdca import sdca_epoch, sdca_route
 from repro_torch.kernels.sdca import ops as sdca_ops
 from repro_torch.kernels.svrg import svrg_inner_sparse, svrg_sparse_route
 from repro_torch.kernels.svrg import sparse as svrg_sparse
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 #: tests/test_kernels.py's bf16 tolerance (rtol = atol)
 BF16_TOL = 3e-2

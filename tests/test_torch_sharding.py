@@ -31,6 +31,7 @@ from repro_torch.sharding.layout import (device_coords, shard_of,
                                          shard_params_from_reference, unshard)
 from repro_torch.sharding.rules import (PartitionSpec, constrain,
                                         logical_to_spec, spec_tree)
+import test_torch_common  # noqa: F401  (one torch thread a process)
 
 
 class FakeMesh:

@@ -20,6 +20,7 @@ from repro.core.local import local_svrg_sparse as j_local_svrg_sparse
 from repro.core.losses import get_loss as j_get_loss
 from repro.core.partition import ell_gather as j_ell_gather
 from repro.core.partition import ell_scatter_add as j_ell_scatter_add
+from repro.data import CSRMatrix as JCSRMatrix
 from repro.data import csr_from_dense as j_csr_from_dense
 from repro.data import load_libsvm_csr as j_load_libsvm_csr
 from repro.data import make_sparse_svm_csr as j_make_sparse_svm_csr
@@ -138,6 +139,33 @@ def test_partition_sparse_matches_reference(k_multiple, as_csr):
     Xs, ys = sp.dense()
     np.testing.assert_array_equal(Xs, dn.dense()[0].numpy())
     np.testing.assert_array_equal(ys, y)
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (4, 2), (3, 5)])
+def test_partition_sparse_unsorted_rows_match_reference(grid):
+    """CSR rows whose columns are out of order (and one given twice): the
+    ELL slots follow the CSR's entry order inside every (row, block)
+    group, as the reference's stable sort orders them -- the port sorts
+    only when the groups are out of order."""
+    csr, y = make_sparse_svm_csr(60, 97, density=0.15, seed=3)
+    rng = np.random.default_rng(0)
+    indices, data = csr.indices.copy(), csr.data.copy()
+    for i in range(csr.shape[0]):
+        lo, hi = csr.indptr[i], csr.indptr[i + 1]
+        order = lo + rng.permutation(hi - lo)
+        indices[lo:hi], data[lo:hi] = indices[order], data[order]
+        if i % 4 == 0 and hi - lo >= 2:
+            indices[lo + 1] = indices[lo]
+    mine = CSRMatrix(csr.indptr.copy(), indices, data, csr.shape)
+    ref = JCSRMatrix(csr.indptr.copy(), indices.copy(), data.copy(),
+                     csr.shape)
+    m_multiple = grid[0] * grid[1]
+    sp = partition_sparse(mine, y, *grid, m_multiple=m_multiple,
+                          device="cpu")
+    jp = j_partition_sparse(ref, y, *grid, m_multiple=m_multiple)
+    assert sp.k == jp.k
+    for got, want in ((sp.cols, jp.cols), (sp.vals, jp.vals)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_ell_gather_and_scatter_match_reference():

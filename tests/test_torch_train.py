@@ -1,8 +1,11 @@
 """LM training of the port (``Transformer.train_loss``, remat, chunked
-cross entropy, ``launch.steps.make_train_step``, the autograd Functions
-around the flash attention and RWKV6 linear attention kernels) against the
-reference's single-device ``jax.value_and_grad(model.train_loss)`` and
-jitted ``make_train_step`` at reduced size on the CPU, float32 compute.
+cross entropy, ``launch.steps.make_train_step``, the autograd Function
+around the flash attention kernel) against the reference's single-device
+``jax.value_and_grad(model.train_loss)`` and jitted ``make_train_step`` at
+reduced size on the CPU, float32 compute: Qwen3 and the other families
+that attend (through B5).  RWKV6's cases, and the Function around the
+linear attention kernel, are in ``test_torch_train_rwkv.py``, which runs
+the same checks (``check_loss_and_grads``, ``check_trajectory``).
 
 The same weights (``convert.lm_params_from_reference``) and the same numpy
 tokens go to both.  Tolerances: 1e-5 (rtol = atol) for losses and
@@ -15,17 +18,15 @@ import torch
 
 from repro.launch.steps import make_train_step as ref_make_train_step
 from repro.models import attention as ref_attention
-from repro.models import rwkv as ref_rwkv
 from repro.optim import AdamWConfig as RefAdamWConfig
 from repro.optim import adamw_init as ref_adamw_init
 from repro.optim import warmup_cosine as ref_warmup_cosine
 from repro_torch.data import synthetic_lm_batch
 from repro_torch.kernels.flash import flash_attention
-from repro_torch.kernels.linattn import rwkv_linattn
 from repro_torch.launch.steps import (_largest_divisor_leq, loss_and_grads,
                                       make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.models import attention, rwkv
+from repro_torch.models import attention
 from repro_torch.models.transformer import tree_map
 from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
 from repro_torch.core.util import tree_leaves as leaves
@@ -34,7 +35,7 @@ from test_torch_common import lm_pair
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-5
 PARAM_TOL = 1e-4
-ARCHS = ["qwen3-1.7b", "rwkv6-3b"]
+REMATS = ["nothing", "save_boundaries", "save_dots"]
 #: the other families (MoE, RG-LRU + LOCAL, XATTN, the embedding frontend)
 #: and the overrides that make their reduced configs reach every path
 FAMILY_ARCHS = ["mixtral-8x7b", "moonshot-v1-16b-a3b", "recurrentgemma-9b",
@@ -63,13 +64,7 @@ def _close_leaves(got, want, tol, what):
                                    err_msg=f"{what} {p}")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("remat", ["nothing", "save_boundaries",
-                                   "save_dots"])
-@pytest.mark.parametrize("attn_impl", ["chunked", "full"])
-@pytest.mark.parametrize("loss_chunk", [8, None])
-def test_train_loss_and_grads_match_reference(arch, remat, attn_impl,
-                                              loss_chunk):
+def check_loss_and_grads(arch, remat, attn_impl, loss_chunk):
     """Loss and the gradient of every leaf; loss_chunk 8 at S = 32 takes
     the chunked cross entropy, None the single pass."""
     rmodel, rparams, pmodel, pparams = lm_pair(
@@ -83,6 +78,15 @@ def test_train_loss_and_grads_match_reference(arch, remat, attn_impl,
                                atol=LOSS_TOL)
     _close_leaves(grads, r_grads, GRAD_TOL, "grad")
     assert all(float(g.abs().max()) > 0 for g in leaves(grads))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b"])
+@pytest.mark.parametrize("remat", REMATS)
+@pytest.mark.parametrize("attn_impl", ["chunked", "full"])
+@pytest.mark.parametrize("loss_chunk", [8, None])
+def test_train_loss_and_grads_match_reference(arch, remat, attn_impl,
+                                              loss_chunk):
+    check_loss_and_grads(arch, remat, attn_impl, loss_chunk)
 
 
 def test_train_loss_without_grad_and_logits_fn():
@@ -103,9 +107,7 @@ def test_train_loss_without_grad_and_logits_fn():
                                rtol=LOSS_TOL, atol=LOSS_TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
-@pytest.mark.parametrize("accum", [1, 4])
-def test_train_step_trajectory_matches_reference(arch, accum):
+def check_trajectory(arch, accum):
     """Three steps of make_train_step (warmup_cosine(3e-3, 2, 10), batch
     4, seq 32, the training CLI's synthetic batches -- tokens, or frame
     embeddings, and stub encoder states): losses and grad norms at 1e-5,
@@ -142,6 +144,12 @@ def test_train_step_trajectory_matches_reference(arch, accum):
     _close_leaves(opt["nu"], ro["nu"], PARAM_TOL, "nu")
     assert int(opt["count"]) == int(ro["count"]) == 3
     assert all(p.grad is None for p in leaves(params))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b"] + FAMILY_ARCHS)
+@pytest.mark.parametrize("accum", [1, 4])
+def test_train_step_trajectory_matches_reference(arch, accum):
+    check_trajectory(arch, accum)
 
 
 def test_largest_divisor_and_microbatch_count():
@@ -220,58 +228,3 @@ def test_flash_function_only_where_a_grad_is_wanted():
     out = flash_attention(q.detach(), kg, k)
     out.sum().backward()
     assert kg.grad is not None and kg.grad.abs().max() > 0
-
-
-def test_rwkv_function_grads_match_reference():
-    """rwkv_scan from a zero state (the linear-attention Function on the
-    CPU) against jax.grad of the reference's rwkv_scan: gradients of r, k,
-    v, logw and the per-head u."""
-    rng = np.random.default_rng(8)
-    B, S, H, D = 2, 24, 3, 16
-    r, k, v = (rng.normal(size=(B, S, H, D)).astype(np.float32)
-               for _ in range(3))
-    logw = -np.exp(rng.uniform(-3, 1, size=(B, S, H, D))).astype(np.float32)
-    u = rng.normal(size=(H, D)).astype(np.float32) * 0.5
-    dout = rng.normal(size=(B, S, H, D)).astype(np.float32)
-
-    def ref(*a):
-        o, _ = ref_rwkv.rwkv_scan(*a)
-        return jnp.sum(o * dout)
-    r_val = ref(r, k, v, logw, u)
-    r_grads = jax.grad(ref, argnums=(0, 1, 2, 3, 4))(r, k, v, logw, u)
-    ts = [torch.from_numpy(a).requires_grad_(True)
-          for a in (r, k, v, logw, u)]
-    before = rwkv_linattn.plain_backwards
-    out, state = rwkv.rwkv_scan(*ts)
-    assert out.grad_fn is not None
-    val = torch.sum(out * torch.from_numpy(dout))
-    val.backward()
-    assert rwkv_linattn.plain_backwards == before + 1
-    np.testing.assert_allclose(val.item(), float(r_val), rtol=1e-5,
-                               atol=1e-5)
-    for name, t, g in zip("r k v logw u".split(), ts, r_grads):
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
-                                   rtol=1e-5, atol=1e-5, err_msg=name)
-
-
-def test_rwkv_function_state_gradient():
-    """A loss on the final state too: its gradient flows back through the
-    recurrence (the reference's scan carries it)."""
-    rng = np.random.default_rng(9)
-    BH, S, D = 4, 10, 16
-    a = [rng.normal(size=(BH, S, D)).astype(np.float32) for _ in range(3)]
-    lw = -np.exp(rng.uniform(-3, 0, size=(BH, S, D))).astype(np.float32)
-    u = rng.normal(size=(D,)).astype(np.float32)
-    ts = [torch.from_numpy(x).requires_grad_(True) for x in (*a, lw, u)]
-    out, state = rwkv_linattn(*ts)
-    (out.sum() + state.square().sum()).backward()
-
-    def ref(r_, k_, v_, w_, u_):
-        o, st = ref_rwkv.rwkv_scan(r_[:, :, None], k_[:, :, None],
-                                   v_[:, :, None], w_[:, :, None],
-                                   u_[None])
-        return jnp.sum(o) + jnp.sum(st * st)
-    r_grads = jax.grad(ref, argnums=(0, 1, 2, 3, 4))(*a, lw, u)
-    for t, g in zip(ts, r_grads):
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
-                                   rtol=1e-5, atol=1e-5)

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import close_grids
-from test_torch_common import bounded  # noqa: F401
+from test_torch_common import TORCH_TEST_ENV, bounded  # noqa: F401
 
 ROOT = __file__.rsplit("/tests/", 1)[0]
 
@@ -84,7 +84,7 @@ def test_train_cli_module_entry_point(tmp_path):
          "rwkv6-3b", "--reduced", "--steps", "2", "--batch", "2", "--seq",
          "8", "--device", "cpu", "--ckpt-dir", str(tmp_path)],
         capture_output=True, text=True, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": "src"})
+        env={**TORCH_TEST_ENV, "PYTHONPATH": "src"})
     assert out.returncode == 0, out.stderr
     assert "steps=2 first_loss=" in out.stdout
 
@@ -132,6 +132,6 @@ def test_default_ckpt_dir_follows_tmpdir(tmp_path):
          "build_parser; print(build_parser().parse_args(['--arch', 'x'])"
          ".ckpt_dir)"],
         capture_output=True, text=True, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": "src", "TMPDIR": str(tmp_path)})
+        env={**TORCH_TEST_ENV, "PYTHONPATH": "src", "TMPDIR": str(tmp_path)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == str(tmp_path / "repro_ckpt")
