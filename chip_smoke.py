@@ -42,7 +42,12 @@ do:
                       must leave dalpha 0 and w bitwise w0), and B5 and
                       B6 as training calls them (their autograd Functions
                       at the training shapes: forward against the plain
-                      version, gradients bitwise the plain version's), and
+                      version, gradients -- the backward kernels --
+                      against the plain backward in float64 within
+                      FLASH_TOL / LINATTN_TOL x (1 + |ref|), the float32
+                      plain backward's own distance beside), the backward
+                      kernels over their edge shapes (``backward_sweep``
+                      line), and
                       B5 at the other families' shapes (head dim 256 on
                       both routes, non-causal XATTN, window 4096) at unit
                       and peaked q, each query row also held to its own
@@ -72,7 +77,7 @@ do:
                       train_mesh_full); every layer of
                       every microbatch launches the flash attention
                       kernel twice (forward and the checkpoint's
-                      recompute) and differentiates its plain version
+                      recompute) and launches its backward kernels
                       once.  Before the counted run the first step is
                       taken through the kernels and again with the plain
                       versions tapped in: loss, gradient norm and every
@@ -285,7 +290,9 @@ do:
                       prefill; B5 at the other families' shapes
                       (RecurrentGemma's head dim 256 on both routes,
                       Vision's non-causal XATTN, Mixtral's window 4096)
-                      beside SDPA with the same mask
+                      beside SDPA with the same mask; the backward
+                      kernels of B5 and B6 at the training shapes beside
+                      the plain backward and (B5) SDPA's backward
 
 Each full-width phase is a main path: every launch counter is set to 0
 just before it and read just after, and it must have launched exactly the
@@ -293,8 +300,10 @@ kernels it names as often as it says: the solvers once per outer
 iteration (plus serial-SDCA epochs for f* where the dense phases compute
 it), the Qwen3 server 28 times per prefill, the RWKV6 loop 32 times,
 the other families once per attention layer of a prefill, training
-twice per period layer and microbatch and once per remainder layer (its
-backward calls through the plain versions are counted apart).  B5 also
+twice per period layer and microbatch and once per remainder layer, and
+its backward kernels once per layer and microbatch (counted apart, by
+their own wrappers; no backward on a main path may take the plain
+version).  B5 also
 counts its launches per route and head dim; none at head dim 256 may take
 the CUDA-core route on a main path.  All
 six wrappers have two routes and count launches per route too, and every
@@ -384,10 +393,14 @@ from repro_torch.kernels._launch import tenant_axes  # noqa: E402
 from repro_torch.kernels.sdca import ops as sdca_ops  # noqa: E402
 from repro_torch.kernels.sdca import sparse as sdca_sparse  # noqa: E402
 from repro_torch.kernels.flash import (flash_attention,  # noqa: E402
+                                       flash_attention_backward,
+                                       flash_attention_backward_plain,
                                        flash_attention_plain, flash_route)
 from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.linattn import (linattn_route,  # noqa: E402
-                                         rwkv_linattn, rwkv_linattn_ref)
+                                         rwkv_linattn, rwkv_linattn_backward,
+                                         rwkv_linattn_backward_plain,
+                                         rwkv_linattn_ref)
 from repro_torch.kernels.linattn import ops as linattn_ops  # noqa: E402
 from repro_torch.kernels.svrg import (svrg_inner,  # noqa: E402
                                       svrg_inner_plain, svrg_inner_sparse,
@@ -653,13 +666,34 @@ KERNEL_META = {
         "sources": {"tc": "src/repro_torch/csrc/rwkv_linattn_tc.cu",
                     "simt": "src/repro_torch/csrc/rwkv_linattn.cu"},
         "replaces": "src/repro/kernels/linattn/linattn.py:80"},
+    # the backward kernels have no Pallas counterpart: "replaces" names the
+    # function whose jax.grad is the reference's backward
+    "flash_attention_backward": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:33",
+        "tpu_kernel": None,
+        "cuda_kernels": ["flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"]},
+    "rwkv_linattn_backward": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv_linattn_bwd.cu",
+        "replaces": "src/repro/models/rwkv.py:75",
+        "tpu_kernel": None,
+        "cuda_kernels": ["rwkv_bwd_forward_kernel",
+                         "rwkv_bwd_reverse_kernel"]},
 }
 #: each kernel's wrapper, whose ``launches`` counts its CUDA launches
 WRAPPERS = {"sdca_epoch": sdca_epoch, "svrg_inner": svrg_inner,
             "sdca_epoch_sparse": sdca_epoch_sparse,
             "svrg_inner_sparse": svrg_inner_sparse,
             "flash_attention": flash_attention,
-            "rwkv_linattn": rwkv_linattn}
+            "rwkv_linattn": rwkv_linattn,
+            "flash_attention_backward": flash_attention_backward,
+            "rwkv_linattn_backward": rwkv_linattn_backward}
+#: the backward wrapper of each LM kernel, whose ``launches`` count its
+#: backward calls on the card (each launching both of its kernels)
+BACKWARD = {"flash_attention": "flash_attention_backward",
+            "rwkv_linattn": "rwkv_linattn_backward"}
 #: the solver kernels' plain versions
 PLAINS = {"sdca_epoch": sdca_epoch_plain, "svrg_inner": svrg_inner_plain,
           "sdca_epoch_sparse": sdca_epoch_sparse_plain,
@@ -667,7 +701,9 @@ PLAINS = {"sdca_epoch": sdca_epoch_plain, "svrg_inner": svrg_inner_plain,
 #: the route every main-path launch of each wrapper must take
 MAIN_ROUTES = {"flash_attention": "tc", "svrg_inner_sparse": "cluster",
                "sdca_epoch": "cluster", "rwkv_linattn": "tc",
-               "svrg_inner": "ring", "sdca_epoch_sparse": "lookahead"}
+               "svrg_inner": "ring", "sdca_epoch_sparse": "lookahead",
+               "flash_attention_backward": "simt",
+               "rwkv_linattn_backward": "simt"}
 #: (main-shape tolerance, sweep tolerance) per kernel, as ``compare`` uses
 #: them (the solver kernels' main shapes relative to the largest entry)
 TOLS = {"sdca_epoch": (MAIN_TOL, SWEEP_TOL),
@@ -677,7 +713,11 @@ TOLS = {"sdca_epoch": (MAIN_TOL, SWEEP_TOL),
         "flash_attention": (FLASH_TOL[torch.bfloat16],
                             {"float32": FLASH_TOL[torch.float32],
                              "bfloat16": FLASH_TOL[torch.bfloat16]}),
-        "rwkv_linattn": (LINATTN_TOL, LINATTN_TOL)}
+        "rwkv_linattn": (LINATTN_TOL, LINATTN_TOL),
+        "flash_attention_backward": (FLASH_TOL[torch.bfloat16],
+                                     {"float32": FLASH_TOL[torch.float32],
+                                      "bfloat16": FLASH_TOL[torch.bfloat16]}),
+        "rwkv_linattn_backward": (LINATTN_TOL, LINATTN_TOL)}
 
 
 def emit(phase: str, **fields):
@@ -1837,7 +1877,7 @@ def phase_kernels(dev, results):
     tenant_kernel_checks(rng, dev, checks)
     gated = gated_sweep(rng, dev, checks)
     lm_kernel_checks(rng, dev, checks, main_err)
-    train_function_checks(rng, dev, checks)
+    train_function_checks(rng, dev, checks, main_err)
 
     summary = []
     for name in KERNEL_META:
@@ -2086,17 +2126,110 @@ def lm_kernel_checks(rng, dev, checks, main_err):
     torch.cuda.synchronize()
 
 
-def train_function_checks(rng, dev, checks):
-    """B5 and B6 as training calls them, at the training main-path shapes:
-    the autograd Function's forward (the kernel, on its main route)
-    against the plain version, and its gradients against the plain
-    version's own autograd gradients for the same output gradient --
-    bitwise, since the Function's backward is autograd through that very
-    plain version, recomputed from the saved inputs."""
+#: the backward kernels' edge shapes, B5: (B, S, Skv, H, KV, D, causal,
+#: window, dtype) -- GQA 1 / 2 / 4 / 16, head dims 16 / 32 / 64 / 128 /
+#: 256 in float32 and bf16, ragged S, a window shorter than S,
+#: non-causal with Skv != S both ways, S = 1, query rows without a key
+#: (the last two: S > Skv + window - 1), and the other training paths'
+#: shapes (Mixtral, MusicGen, RecurrentGemma's LOCAL layers)
+FLASH_BWD_SWEEP = [
+    (2, 100, 100, 4, 4, 16, True, None, torch.float32),
+    (1, 77, 77, 8, 4, 32, True, 20, torch.bfloat16),
+    (2, 50, 90, 8, 2, 64, False, None, torch.float32),
+    (1, 90, 40, 8, 2, 64, False, None, torch.bfloat16),
+    (1, 130, 130, 16, 1, 256, True, 64, torch.bfloat16),
+    (1, 70, 70, 16, 1, 256, True, None, torch.float32),
+    (1, 1, 1, 4, 2, 128, True, None, torch.bfloat16),
+    (1, 1, 50, 8, 2, 128, False, None, torch.float32),
+    (1, 60, 10, 4, 2, 32, True, 4, torch.float32),
+    (1, 200, 10, 4, 2, 128, False, 5, torch.bfloat16),
+    (1, 128, 128, 32, 8, 128, True, None, torch.bfloat16),
+    (1, 128, 128, 32, 32, 64, True, None, torch.bfloat16),
+    (1, 128, 128, 16, 1, 256, True, 2048, torch.bfloat16),
+]
+#: ... B6: (BH, S, D, heads of u or None for a (D,) u, constant logw or
+#: None for the model's range, dout given, dstate given) -- D 16 / 32 /
+#: 64, S not a multiple of the reverse sweep's chunk, S = 1, dout or
+#: dstate absent, the extreme decay and none at all
+LINATTN_BWD_SWEEP = [
+    (6, 70, 16, None, None, True, True),
+    (4, 33, 32, 2, None, False, True),
+    (8, 129, 64, 4, None, True, False),
+    (3, 1, 64, 3, None, True, True),
+    (2, 200, 64, 2, -50.0, True, True),
+    (4, 64, 32, None, 0.0, True, True),
+]
+
+
+def grad_reading(got, ref, tol):
+    """One gradient against its float64 reference: max abs error, largest
+    entry, and the worst element's share of the elementwise bound tol (1 +
+    |ref|) (``ratio``)."""
+    err = (got.double() - ref).abs()
+    return {"max_abs_err": float(err.max()),
+            "max_abs_ref": float(ref.abs().max()),
+            "ratio": float((err / (tol * (1 + ref.abs()))).max())}
+
+
+def backward_held(label, got, ref, plain, names, tol):
+    """The backward kernels' gradients ``got`` and the float32 plain
+    backward's ``plain`` (the conditioning control) against the plain
+    backward in float64 ``ref``, gradient by gradient; raises when a
+    kernel gradient is not finite or over its bound.  Returns the
+    readings by gradient and the worst kernel error."""
+    reads = {}
+    for n, g, r, p in zip(names, got, ref, plain):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: {n} is not finite")
+        reads[n] = {"kernel": grad_reading(g, r, tol),
+                    "plain_f32": grad_reading(p, r, tol),
+                    "kernel_vs_plain_f32": float(
+                        (g.double() - p.double()).abs().max())}
+    worst = max(v["kernel"]["ratio"] for v in reads.values())
+    if worst > 1.0:
+        raise AssertionError(f"{label}: backward kernel and the float64 "
+                             f"plain backward disagree ({worst:.3f} of "
+                             f"the bound): {reads}")
+    return reads, max(v["kernel"]["max_abs_err"] for v in reads.values())
+
+
+FLASH_GRADS = ("dq", "dk", "dv")
+LINATTN_GRADS = ("dr", "dk", "dv", "dlogw", "du")
+
+
+def flash_backward_refs(q, k, v, dout, **kw):
+    """B5's plain backward in float64 (the reference) and in float32 (the
+    control) on the same inputs."""
+    return (flash_attention_backward_plain(
+                *(t.double() for t in (q, k, v, dout)), **kw),
+            flash_attention_backward_plain(
+                *(t.float() for t in (q, k, v, dout)), **kw))
+
+
+def linattn_backward_refs(r, k, v, logw, u, dout, dstate):
+    """B6's plain backward in float64 and in float32 on the same inputs."""
+    def cast(dtype):
+        return [None if t is None else t.to(dtype)
+                for t in (r, k, v, logw, u, dout, dstate)]
+    return (rwkv_linattn_backward_plain(*cast(torch.float64)),
+            rwkv_linattn_backward_plain(*cast(torch.float32)))
+
+
+def train_function_checks(rng, dev, checks, main_err):
+    """B5 and B6 as training calls them, at the training main-path shapes
+    (Qwen3-1.7B's B5 in bf16 at head dim 128, RWKV6-3B's B6 at 40 x 128 x
+    64): the autograd Function's forward (the kernel, on its main route)
+    against the plain version, and its gradients -- the backward kernels,
+    one launch of each -- against the plain backward in float64 within
+    FLASH_TOL[dtype] / LINATTN_TOL x (1 + |ref|), elementwise, with the
+    float32 plain backward's own distance beside (the conditioning
+    control); no plain backward counted.  Then the backward kernels over
+    their edge shapes (FLASH_BWD_SWEEP, LINATTN_BWD_SWEEP), the same
+    way, and B6's main shape again with a final-state gradient."""
     for kernel, plain, arch in (
             ("flash_attention", plain_flash, "qwen3-1.7b"),
             ("rwkv_linattn", plain_linattn, "rwkv6-3b")):
-        fn = WRAPPERS[kernel]
+        fn, bwd = WRAPPERS[kernel], WRAPPERS[BACKWARD[kernel]]
         ins = train_function_inputs(rng, get_config(arch), kernel, dev)
         by_route = dict(fn.launches_by_route)
         out = fn(*ins)
@@ -2115,20 +2248,84 @@ def train_function_checks(rng, dev, checks):
         err = compare(f"{kernel} training forward {tuple(out.shape)}",
                       [out.detach().float()], [want.detach().float()], tol)
         dout = torch.randn_like(out)
-        before = fn.plain_backwards
+        before = (fn.plain_backwards, bwd.launches)
         got = torch.autograd.grad(out, ins, dout)
-        ref = torch.autograd.grad(want, ins, dout)
-        if fn.plain_backwards != before + 1:
-            raise AssertionError(f"{kernel}: backward not counted")
-        for i, (g, r) in enumerate(zip(got, ref)):
-            if not torch.equal(g, r):
-                raise AssertionError(
-                    f"{kernel}: gradient {i} of the Function differs from "
-                    f"the plain version's by "
-                    f"{float((g.float() - r.float()).abs().max()):.3e}")
+        if (fn.plain_backwards, bwd.launches) != (before[0],
+                                                  before[1] + 1):
+            raise AssertionError(f"{kernel}: the backward did not launch "
+                                 "the backward kernels once")
+        plain_ins = [t.detach() for t in ins]
+        if kernel == "flash_attention":
+            ref, f32 = flash_backward_refs(*plain_ins, dout)
+            names = FLASH_GRADS
+        else:
+            ref, f32 = linattn_backward_refs(*plain_ins, dout, None)
+            names = LINATTN_GRADS
+        reads, bwd_err = backward_held(
+            f"{kernel} training backward {tuple(out.shape)}", got, ref, f32,
+            names, tol)
         checks.append((kernel, err))
+        main_err[BACKWARD[kernel]] = {
+            "max_abs_err": bwd_err,
+            "max_abs_ref": max(v["kernel"]["max_abs_ref"]
+                               for v in reads.values()),
+            "max_abs_err_vs_plain_f32": max(v["kernel_vs_plain_f32"]
+                                            for v in reads.values()),
+            "reference": "float64 plain backward", "outputs": reads}
         emit("train_function", kernel=kernel, shape=list(out.shape),
-             forward_max_abs_err=err, tol=tol, grads_bitwise=True)
+             forward_max_abs_err=err, tol=tol,
+             backward={"reference": "float64 plain backward",
+                       "bound": f"{tol} x (1 + |ref|)", "grads": reads})
+        del ins, out, want, got, ref, f32, dout
+    sweep = []
+    for (B, S, Skv, H, KV, D, causal, window, dtype) in FLASH_BWD_SWEEP:
+        q, k, v = flash_inputs(rng, B, S, H, KV, D, dtype, dev, Skv=Skv)
+        dout = torch.randn_like(q)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention_backward(q, k, v, dout, **kw)
+        label = (f"flash_attention_backward {(B, S, Skv, H, KV, D)} "
+                 f"causal={causal} w={window} {dtype}")
+        reads, err = backward_held(label, got, *flash_backward_refs(
+            q, k, v, dout, **kw), FLASH_GRADS, FLASH_TOL[dtype])
+        if window is not None and S > Skv + window - 1:
+            keyless = slice(Skv + window - 1, S)
+            if float(got[0][:, keyless].abs().max()) != 0.0:
+                raise AssertionError(f"{label}: a query row without a key "
+                                     "got a gradient")
+        checks.append(("flash_attention_backward", err))
+        sweep.append({"case": label, "max_abs_err": err,
+                      "ratio": max(r["kernel"]["ratio"]
+                                   for r in reads.values()),
+                      "plain_f32_ratio": max(r["plain_f32"]["ratio"]
+                                             for r in reads.values())})
+        del q, k, v, dout, got
+    Bl, Hl, Dl = 1, get_config("rwkv6-3b").rwkv_heads, \
+        get_config("rwkv6-3b").rwkv_head_dim
+    cases = [(Bl * Hl, TRAIN_SEQ, Dl, Hl, None, True, True),
+             *LINATTN_BWD_SWEEP]
+    for (BH, S, D, heads, logw, with_dout, with_dstate) in cases:
+        r, k, v, lw, u = linattn_inputs(rng, BH, S, D, dev, heads=heads,
+                                        logw=logw)
+        dout = torch.randn_like(r) if with_dout else None
+        dstate = (torch.randn(BH, D, D, device=dev) if with_dstate
+                  else None)
+        got = rwkv_linattn_backward(r, k, v, lw, u, dout, dstate)
+        label = (f"rwkv_linattn_backward {(BH, S, D)} heads={heads} "
+                 f"logw={logw} dout={with_dout} dstate={with_dstate}")
+        reads, err = backward_held(label, got, *linattn_backward_refs(
+            r, k, v, lw, u, dout, dstate), LINATTN_GRADS, LINATTN_TOL)
+        checks.append(("rwkv_linattn_backward", err))
+        sweep.append({"case": label, "max_abs_err": err,
+                      "ratio": max(x["kernel"]["ratio"]
+                                   for x in reads.values()),
+                      "plain_f32_ratio": max(x["plain_f32"]["ratio"]
+                                             for x in reads.values())})
+        del r, k, v, lw, u, dout, dstate, got
+    torch.cuda.synchronize()
+    emit("backward_sweep", cases=sweep,
+         tol={"flash": {str(d): t for d, t in FLASH_TOL.items()},
+              "linattn": LINATTN_TOL},
+         bound="tol x (1 + |float64 plain backward|), elementwise")
 
 
 def linattn_main_check(rng, dev):
@@ -2204,16 +2401,26 @@ def route_counts(name):
 
 
 def reset_counts():
+    """Every launch counter to 0 (``plain_backwards`` is never reset: it
+    must stay 0 over every main path of the run)."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-        if hasattr(fn, "plain_backwards"):
-            fn.plain_backwards = 0
         for by in ("launches_by_route", "launches_by_cluster",
-                   "launches_by_head_dim"):
+                   "launches_by_head_dim", "launches_by_kernel"):
             for r in getattr(fn, by, {}):
                 getattr(fn, by)[r] = 0
     for g in MESH_GRIDS:
         g.worker_launches = {}
+
+
+def plain_backward_counts():
+    """B5's and B6's backward calls that took the plain backward, this
+    process's since it started and the MESH_GRIDS workers' since the last
+    reset: 0 on every main path (the plain backward runs for tensors on
+    the CPU only)."""
+    return {name: WRAPPERS[name].plain_backwards + sum(
+        g.worker_launches.get(name, {}).get("plain_backwards", 0)
+        for g in MESH_GRIDS) for name in BACKWARD}
 
 
 def run_solver_full(solver: str, expect_dual: bool, sparse: bool = False,
@@ -3247,18 +3454,26 @@ def train_function_inputs(rng, cfg, kernel, dev, requires_grad=True):
 
 
 def function_backward_ms(rng, cfg, kernel, dev):
-    """CUDA-event ms of one forward of the kernel's autograd Function
-    (the kernel) and of one backward (autograd through the plain
-    version) at ``cfg``'s training shape."""
+    """CUDA-event ms of one call each at ``cfg``'s training shape: the
+    forward of the kernel's autograd Function (the kernel), its backward
+    (the backward kernels), and the plain backward on the same inputs."""
     fn = WRAPPERS[kernel]
     ins = train_function_inputs(rng, cfg, kernel, dev)
     out = fn(*ins)
     out = out if torch.is_tensor(out) else out[0]
     dout = torch.randn_like(out)
+    plain_ins = [t.detach() for t in ins]
+    if kernel == "flash_attention":
+        def plain():
+            return flash_attention_backward_plain(*plain_ins, dout)
+    else:
+        def plain():
+            return rwkv_linattn_backward_plain(*plain_ins, dout, None)
     fwd = cuda_ms(lambda: fn(*ins), reps=10)
     bwd = cuda_ms(lambda: torch.autograd.grad(out, ins, dout,
-                                              retain_graph=True), reps=5)
-    return {"forward_ms": fwd, "backward_ms": bwd}
+                                              retain_graph=True), reps=10)
+    return {"forward_ms": fwd, "backward_ms": bwd,
+            "plain_backward_ms": cuda_ms(plain, reps=2)}
 
 
 def f64_linattn(r, k, v, logw, u, *, chunk=64):
@@ -3469,9 +3684,9 @@ def phase_train(name, setup):
     The first step is the one the set-up held against the plain versions.
     Every kernel layer of a period launches the kernel twice a microbatch
     (the forward and the checkpoint's recompute, "nothing" remat), a
-    remainder layer once, and each runs its backward once through the
-    plain version.  Peak device memory against the four float32 copies
-    (gate TRAIN_PEAK_FACTOR)."""
+    remainder layer once, and each launches its backward kernels once
+    (none through the plain backward).  Peak device memory against the
+    four float32 copies (gate TRAIN_PEAK_FACTOR)."""
     path = TRAIN_PATHS[name]
     dev = torch.device("cuda")
     cfg = family_config(path.arch, path.depth)
@@ -3558,10 +3773,13 @@ def phase_train(name, setup):
         raise AssertionError(f"{name}: the first step {full[0]} is not the "
                              f"checked one ({first['loss']}, "
                              f"{first['grad_norm']})")
-    got = WRAPPERS[path.kernel].plain_backwards
-    if got != backwards:
-        raise AssertionError(f"{name}: {got} plain backward calls, "
-                             f"expected {backwards}")
+    bwd = BACKWARD[path.kernel]
+    got = launch_counts()[bwd]
+    if got != backwards or WRAPPERS[path.kernel].plain_backwards:
+        raise AssertionError(
+            f"{name}: {got} backward kernel launches (expected "
+            f"{backwards}), {WRAPPERS[path.kernel].plain_backwards} plain "
+            "backward calls (expected 0)")
     reckoned = 4 * 4 * setup["n_params"]
     if not reckoned <= peak <= TRAIN_PEAK_FACTOR * reckoned:
         raise AssertionError(f"{name}: peak {peak} B against the four "
@@ -3578,12 +3796,14 @@ def phase_train(name, setup):
          grad_norms=[h["grad_norm"] for h in full],
          peak_mem_bytes=peak, reckoned_bytes=reckoned,
          peak_over_reckoned=peak / reckoned, launches=launches,
-         plain_backwards=backwards, function=fn,
-         plain_backward_share=fn["backward_ms"] * (in_periods + in_rem)
+         backward_launches=backwards,
+         plain_backwards=WRAPPERS[path.kernel].plain_backwards,
+         function=fn,
+         backward_share=fn["backward_ms"] * (in_periods + in_rem)
          * acc / (1e3 * step_s),
          kernel_forward_share=fn["forward_ms"] * (2 * in_periods + in_rem)
          * acc / (1e3 * step_s), cli=cli)
-    return {path.kernel: launches}
+    return {path.kernel: launches, bwd: backwards}
 
 
 # ---------------------------------------------------------------------------
@@ -5408,9 +5628,11 @@ def phase_train_mesh_full(setup):
             "train_mesh_full: the grid's first step is not the one-device "
             f"step: bfloat16 {held}, float32 {setup['float32']}, the ranks' "
             f"B5 calls {rank_flash}")
-    return {"flash_attention": 2 * world * pieces * (
-        cfg.n_layers * MESH_TRAIN_STEPS + cli_cfg.n_layers)
-            + 2 * acc * cli_cfg.n_layers}
+    # a layer's backward launches the backward kernels once
+    backwards = world * pieces * (cfg.n_layers * MESH_TRAIN_STEPS
+                                  + cli_cfg.n_layers) + acc * cli_cfg.n_layers
+    return {"flash_attention": 2 * backwards,
+            "flash_attention_backward": backwards}
 
 
 #: the other families at full width on train_mesh_full's 2 x 2 grid: arch,
@@ -5502,7 +5724,8 @@ def phase_train_mesh_families_full(setup):
     the kernel twice a layer (forward and recompute)."""
     mesh = setup["mesh"]
     world = math.prod(MESH_TRAIN_GRID)
-    launches = {"flash_attention": 0, "rwkv_linattn": 0}
+    launches = {"flash_attention": 0, "rwkv_linattn": 0,
+                "flash_attention_backward": 0, "rwkv_linattn_backward": 0}
     report, bad = {}, []
     hold = "chip_smoke:_rank_hold"
     for arch, depth, kernel in MESH_FAMILIES:
@@ -5548,6 +5771,8 @@ def phase_train_mesh_families_full(setup):
         del params, opt
         resident.call(mesh, "chip_smoke:_rank_release")
         launches[kernel] += world * calls * MESH_FAMILY_STEPS
+        launches[BACKWARD[kernel]] += (world * pieces * (per + rem)
+                                       * MESH_FAMILY_STEPS)
         tol = (FLASH_TOL[torch.bfloat16] if kernel == "flash_attention"
                else LINATTN_TOL)
         rank_calls = {"calls": [c for c, _, _ in held],
@@ -5994,12 +6219,13 @@ def examples_setup():
 
 
 def example_lm_launches(cfg, batch, steps):
-    """B5's launches and route for ``steps`` training steps of ``cfg`` at
-    ``batch`` rows (see ``kernel_layers``)."""
+    """B5's launches, route and backward calls for ``steps`` training
+    steps of ``cfg`` at ``batch`` rows (see ``kernel_layers``)."""
     in_periods, in_rem = kernel_layers(cfg)
     acc = _largest_divisor_leq(batch, cfg.train_accum)
     return (acc * steps * (2 * in_periods + in_rem),
-            flash_route(cfg.cdtype, cfg.head_dim))
+            flash_route(cfg.cdtype, cfg.head_dim),
+            acc * steps * (in_periods + in_rem))
 
 
 def phase_examples_full(setup):
@@ -6139,12 +6365,15 @@ def phase_examples_full(setup):
                       "loss_first": big["losses"][0],
                       "loss_last": big["losses"][-1], "wall_s": wall_big,
                       "held": example_holds("lm_train 100M", keeps_big)})
+    backwards = 0
     for cfg_, batch, steps in ((reduced(get_config("qwen3-1.7b")), 4, 60),
                                (cfg100, 8, EXAMPLE_100M_STEPS)):
-        n, route = example_lm_launches(cfg_, batch, steps)
+        n, route, n_bwd = example_lm_launches(cfg_, batch, steps)
         launches[route] = launches.get(route, 0) + n
+        backwards += n_bwd
     return {"sdca_epoch": EXAMPLE_SDCA, "svrg_inner": EXAMPLE_SVRG,
             "flash_attention": sum(launches.values()),
+            "flash_attention_backward": backwards,
             "routes": {"flash_attention": launches}}
 
 
@@ -6229,6 +6458,20 @@ def run_main_path(name, phase, results):
         elif by[route] != counts[k]:
             raise AssertionError(f"{name}: {k} launches by route {by}; all "
                                  f"{counts[k]} must take the {route!r} route")
+    # the backward on the card: both of its kernels launched at each
+    # call, and no call through the plain backward
+    for bname in BACKWARD.values():
+        per_kernel = counts_by(bname, "launches_by_kernel")
+        if set(per_kernel.values()) - {counts[bname]}:
+            raise AssertionError(f"{name}: {bname} kernel launches "
+                                 f"{per_kernel}, {counts[bname]} calls")
+        mine = results[bname].setdefault("launches_by_kernel", {})
+        for kern, n in per_kernel.items():
+            mine[kern] = mine.get(kern, 0) + n
+    plain = plain_backward_counts()
+    if any(plain.values()):
+        raise AssertionError(f"{name}: backward calls through the plain "
+                             f"backward {plain}")
     for k, v in counts.items():
         results[k]["launches"] += v
         for r, n in route_counts(k).items():
@@ -6336,10 +6579,13 @@ def train_card_vs_cpu(dev):
     """Reduced Qwen3 and RWKV6, float32 compute, the same weights and batch
     on both sides: one train step (batch 4 of 32 tokens, 4 microbatches,
     AdamW) on the card through the kernels (their CUDA-core routes at head
-    dim 16) and on the CPU through the plain versions: loss, gradient norm
-    and every parameter after the step, relative to their largest entry."""
+    dim 16, and the backward kernels) and on the CPU through the plain
+    versions (the plain backward, the CPU's): loss, gradient norm and every
+    parameter after the step, relative to their largest entry."""
     out = {}
-    for arch in ("qwen3-1.7b", "rwkv6-3b"):
+    for arch, kernel in (("qwen3-1.7b", "flash_attention"),
+                         ("rwkv6-3b", "rwkv_linattn")):
+        bwd = WRAPPERS[BACKWARD[kernel]]
         cfg = reduced(get_config(arch), compute_dtype="float32")
         batch = synthetic_token_batch(0, batch=4, seq=32, vocab=cfg.vocab)
         res = {}
@@ -6348,7 +6594,12 @@ def train_card_vs_cpu(dev):
             params = tree_map(lambda t: t.to(device),
                               Transformer(cfg, device="cpu").init(0))
             step = make_train_step(model, AdamWConfig(lr=1e-3), 4)
+            before = bwd.launches
             params, _, m = step(params, adamw_init(params), batch)
+            if (bwd.launches > before) != (d == "card"):
+                raise AssertionError(f"{arch} train step on the {d}: "
+                                     f"{bwd.launches - before} backward "
+                                     "kernel launches")
             res[d] = ([m["loss"], m["grad_norm"]]
                       + tree_leaves_sorted(params))
         worst = 0.0
@@ -6958,6 +7209,38 @@ def flash_bound(B, S, H, KV, D, nbytes_el, Skv=None, causal=True,
             "bytes_moved": nbytes, "flops": flops}
 
 
+def flash_backward_bound(B, S, H, KV, D, nbytes_el, Skv=None, causal=True,
+                         window=None):
+    """Least time of one backward call of flash attention: q, k, v and
+    the output's gradient read once, dq, dk, dv written once; 10 D flops
+    per unmasked (query, key) pair (the scores q.k recomputed, dout.v, and
+    the products for dq, dk and dv, 2 D each), at the peak of the inputs'
+    type (the bf16 tensor cores, or float32 on the CUDA cores)."""
+    Skv = S if Skv is None else Skv
+    nbytes = nbytes_el * B * D * (3 * S * H + 4 * Skv * KV)
+    flops = 10 * D * flash_pairs(S, Skv, causal, window) * B * H
+    peak = PEAK_BF16_FLOPS if nbytes_el == 2 else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_moved": nbytes, "flops": flops}
+
+
+def linattn_backward_bound(BH, S, D, H):
+    """Least time of one backward call of the linear attention (float32,
+    no final-state gradient): r, k, v, logw, dout and u read once, dr, dk,
+    dv, dlogw and du written once; 15 flops a token and state entry -- the
+    forward sweep's state update (3) and dr (2), the reverse sweep's dk
+    (2), dlogw (2), dv (3) and the state gradient's update (3), without
+    the kernels' recompute of the states -- at the float32 peak."""
+    nbytes = 4 * (9 * BH * S * D + 2 * H * D)
+    flops = 15 * BH * S * D * D
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_moved": nbytes, "flops": flops}
+
+
 def linattn_bound(BH, S, D, C=64, sub=16):
     """Least time of one chunked linear attention call, for the work of
     the tensor-core route: r, k, v, logw read once, out and the state
@@ -7072,10 +7355,79 @@ def flash_family_timing(rng, dev, results):
         torch.cuda.empty_cache()
 
 
+def sdpa_backward(q, k, v, dout, causal=True, window=None):
+    """A closure running the backward of
+    ``F.scaled_dot_product_attention`` once on B5's inputs (heads
+    expanded, the same mask): the library column of the backward kernels,
+    timed here only -- the port never calls it."""
+    S, Skv, G = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    qs = q.transpose(1, 2).detach().requires_grad_(True)
+    ks, vs = (t.repeat_interleave(G, 2).transpose(1, 2).detach()
+              .requires_grad_(True) for t in (k, v))
+    mask = None
+    if window is not None:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None)
+    g = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), g,
+                                       retain_graph=True)
+
+
+def backward_timing(rng, dev, kernel):
+    """B5's or B6's backward kernels at the training main-path shape --
+    Qwen3-1.7B's B5 (one microbatch of TRAIN_SEQ tokens, bf16, causal) or
+    RWKV6-3B's B6 (its heads x TRAIN_SEQ x head dim, u per head, no
+    final-state gradient, as training calls it) -- in turns with the
+    plain backward and, for B5, SDPA's backward (plain, kernel, library,
+    library, kernel, plain), beside their bound."""
+    arch = "qwen3-1.7b" if kernel == "flash_attention" else "rwkv6-3b"
+    ins = train_function_inputs(rng, get_config(arch), kernel, dev,
+                                requires_grad=False)
+    library = None
+    if kernel == "flash_attention":
+        q, k, v = ins
+        dout = torch.randn_like(q)
+
+        def kern():
+            return flash_attention_backward(q, k, v, dout)
+
+        def plain():
+            return flash_attention_backward_plain(q, k, v, dout)
+        library = sdpa_backward(q, k, v, dout)
+        B, S, H, D = q.shape
+        bound = flash_backward_bound(B, S, H, k.shape[2], D, 2)
+        shape = dict(zip("B S H KV D".split(), (B, S, H, k.shape[2], D)))
+    else:
+        r, k, v, lw, u = ins
+        dout = torch.randn_like(r)
+
+        def kern():
+            return rwkv_linattn_backward(r, k, v, lw, u, dout, None)
+
+        def plain():
+            return rwkv_linattn_backward_plain(r, k, v, lw, u, dout, None)
+        bound = linattn_backward_bound(*r.shape, u.shape[0])
+        shape = dict(zip("BH S D H".split(), (*r.shape, u.shape[0])))
+    plain_ms = [cuda_ms(plain, reps=3)]
+    kern_ms = [both_ms(kern, reps=20)]
+    lib = ([both_ms(library, reps=20), both_ms(library, reps=20)]
+           if library else [])
+    kern_ms.append(both_ms(kern, reps=20))
+    plain_ms.append(cuda_ms(plain, reps=3))
+    return {**medians(kern_ms, "ms"), "plain_ms": statistics.median(plain_ms),
+            **(medians(lib, "library_ms") if lib else
+               {"library_ms": None, "library_device_ms": None}),
+            **bound, "shape": shape}
+
+
 def lm_timing(dev, results):
     """B5 and B6 at their main-path shapes (kernel, plain version and, for
     B5, ``F.scaled_dot_product_attention`` on the expanded heads -- timed
-    here only, the port never calls it), then the full-width models:
+    here only, the port never calls it), their backward kernels at the
+    training shapes (``backward_timing``), then the full-width models:
     Qwen3 prefill of one 1024-token bucket and one paged decode step of 8
     slots, RWKV6 prefill of 8 x 512 tokens."""
     rng = np.random.default_rng(11)
@@ -7127,6 +7479,9 @@ def lm_timing(dev, results):
         library_ms=None, prev_route="simt", **medians(prev, "prev_route_ms"),
         **linattn_bound(Bl * Hl, Sl, Dl))
     del r, k, v, lw, u
+    for kernel in BACKWARD:
+        results[BACKWARD[kernel]].update(backward_timing(rng, dev, kernel))
+        torch.cuda.empty_cache()
 
     out = {}
     # Qwen3-1.7B: prefill of one bucket, then a decode step of 8 slots
@@ -7275,10 +7630,11 @@ def add_side(results, side, readings):
         mine["launches"] += res["launches"]
         for r, n in res["routes"].items():
             mine["routes"][r] += n
-        if res.get("launches_by_head_dim"):
-            dims = mine.setdefault("launches_by_head_dim", {})
-            for key, n in res["launches_by_head_dim"].items():
-                dims[key] = dims.get(key, 0) + n
+        for counter in ("launches_by_head_dim", "launches_by_kernel"):
+            if res.get(counter):
+                into = mine.setdefault(counter, {})
+                for key, n in res[counter].items():
+                    into[key] = into.get(key, 0) + n
         if name == "sdca_epoch":
             for shape, v in res["shapes"].items():
                 mine["shapes"][shape]["launches"] += v["launches"]
@@ -7357,6 +7713,12 @@ def run_phases(args, phases, smi, dev, sides):
                      if name in TRAIN_PATHS else globals()[f"phase_{name}"])
             timed(name, run_main_path, name, phase, results)
     join_sides()
+    plain = plain_backward_counts()
+    if any(plain.values()):
+        raise AssertionError(f"backward calls through the plain backward "
+                             f"over the main paths: {plain}")
+    for kernel, name in BACKWARD.items():
+        results[name]["plain_backwards"] = plain[kernel]
     if args.side_out:
         with open(args.side_out, "w") as fh:
             json.dump(results, fh)

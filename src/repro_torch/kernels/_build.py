@@ -106,6 +106,21 @@ _SIGNATURES = {
     "rwkv_linattn_tc_launch": (
         [_PTR] * 5 + [_PTR] * 2          # r k v logw u | out state
         + [_INT] * 5 + [_PTR]),           # BH S D H C stream
+    "flash_attention_bwd_dq_launch": (
+        [_PTR] * 4 + [_PTR] * 3          # q k v dout | dq lse delta
+        + [_INT] * 6                      # B S Skv H KV D
+        + [_FLT] + [_INT] * 3 + [_PTR]),  # scale causal window dtype stream
+    "flash_attention_bwd_dkv_launch": (
+        [_PTR] * 6 + [_PTR] * 2          # q k v dout lse delta | dk dv
+        + [_INT] * 6                      # B S Skv H KV D
+        + [_FLT] + [_INT] * 3 + [_PTR]),  # scale causal window dtype stream
+    "rwkv_linattn_bwd_forward_launch": (
+        [_PTR] * 6 + [_PTR] * 3          # r k v logw u dout | dr du_rows ck
+        + [_INT] * 5 + [_PTR]),           # BH S D H C stream
+    "rwkv_linattn_bwd_reverse_launch": (
+        [_PTR] * 9                        # r k v logw u dout dstate ck du_rows
+        + [_PTR] * 5                      # | dk dv dlogw du states
+        + [_INT] * 5 + [_PTR]),           # BH S D H C stream
 }
 
 

@@ -10,11 +10,13 @@ kernel (``csrc/flash_attention.cu``, float32 inside).
 Training: when q, k or v requires a gradient, :func:`flash_attention`
 runs as the autograd Function :class:`FlashAttention`, on the CPU too.
 Its forward is the kernel (the plain version on the CPU); its backward is
-``torch.autograd.grad`` through the plain version recomputed from the
-saved q, k, v -- the reference differentiates its pure-JAX
-``chunked_attention`` and has no backward kernel either.  Backward calls
-are counted in ``flash_attention.plain_backwards``, apart from the
-forward launches."""
+:func:`flash_attention_backward`: on the card the two kernels of
+``csrc/flash_attention_bwd.cu`` (float32 on the CUDA cores, from the
+saved q, k, v), on the CPU
+:func:`flash_attention_backward_plain` -- autograd through the plain
+version, counted in ``flash_attention.plain_backwards``.  The reference
+differentiates its pure-JAX ``chunked_attention`` and has no backward
+kernel; the backward kernels replace no TPU kernel."""
 from __future__ import annotations
 
 import torch
@@ -146,8 +148,8 @@ def _meta(q, k, v, causal, window):
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward: the kernel (:func:`_forward`).  Backward: autograd through
-    :func:`flash_attention_plain` recomputed from the saved q, k, v."""
+    """Forward: the kernel (:func:`_forward`).  Backward:
+    :func:`flash_attention_backward` from the saved q, k, v."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -157,18 +159,82 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        flash_attention.plain_backwards += 1
+        q, k, v = ctx.saved_tensors      # unpacked once (checkpointing)
         causal, window, scale = ctx.args
+        grads = flash_attention_backward(
+            q, k, v, dout.to(q.dtype).contiguous(), causal=causal,
+            window=window, scale=scale)
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            out = flash_attention_plain(*ins, causal=causal, window=window,
-                                        scale=scale)
-            wrt = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(out, wrt, dout))
-        return (*(next(got) if n else None for n in need), None, None,
-                None)
+        return (*(g if n else None for g, n in zip(grads, need)), None,
+                None, None)
+
+
+def flash_attention_backward_plain(q, k, v, dout, *, causal=True,
+                                   window=None, scale=None):
+    """The plain backward: (dq, dk, dv) of :func:`flash_attention_plain`
+    for the output gradient ``dout``, by autograd through it recomputed
+    from q, k, v (float32 inside, float64 for float64 inputs; gradients in
+    the inputs' dtype, the GQA heads' dk / dv summed in that dtype)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_plain(*ins, causal=causal, window=window,
+                                    scale=scale)
+        return torch.autograd.grad(out, ins, dout)
+
+
+#: FLOPs per kept (query, key) pair and head dim of the backward kernels:
+#: the dq kernel's two passes (q.k, dout.v; q.k, dout.v, ds.k) and the
+#: dk / dv kernel's q.k, dout.v, ds^T.q, p^T.dout, 2 flops each
+BACKWARD_FLOPS = 18
+
+
+def flash_attention_backward(q, k, v, dout, *, causal=True, window=None,
+                             scale=None):
+    """(dq, dk, dv) of :func:`flash_attention` for the output gradient
+    ``dout``: q, dout (B, S, H, D), k, v (B, Skv, KV, D), contiguous, one
+    dtype (float32 or bfloat16); gradients in that dtype, float32 inside
+    (each row's softmax statistics and rowsum(p dp) recomputed from the
+    scores), dk / dv summed over the H / KV query heads of each KV head
+    before they are rounded.  The semantics of autograd through the plain
+    version: masked scores get no gradient, a query row with no unmasked
+    key gets zero gradients.
+
+    A CUDA tensor launches the two kernels of
+    ``csrc/flash_attention_bwd.cu`` or raises; a CPU tensor takes
+    :func:`flash_attention_backward_plain` (counted in
+    ``flash_attention.plain_backwards``); a meta tensor (the dry run)
+    gets outputs of the right shape and the kernels' work counted."""
+    B, S, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    dev = q.device
+    if q.dtype not in _DTYPE_IDS:
+        raise TypeError(f"flash_attention_backward takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    for name, t, shape in (("q", q, (B, S, H, D)), ("k", k, (B, Skv, KV, D)),
+                           ("v", v, (B, Skv, KV, D)),
+                           ("dout", dout, (B, S, H, D))):
+        check_tensor(name, t, shape, q.dtype, dev)
+    if KV < 1 or H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV "
+                         "heads")
+    if dev.type == "cpu":
+        flash_attention.plain_backwards += 1
+        return flash_attention_backward_plain(q, k, v, dout, causal=causal,
+                                              window=window, scale=scale)
+    if dev.type == "meta":
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        count_meta(BACKWARD_FLOPS * B * H * D * attention_pairs(
+            S, Skv, causal, window), q, k, v, dout, *grads)
+        return grads
+    if dev.type != "cuda":
+        raise NotImplementedError(
+            f"flash_attention_backward has no path for {dev}")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash attention backward kernels are compiled for head "
+            f"dims {HEAD_DIMS}, not {D}")
+    return _backward_launch(q, k, v, dout, causal, window, float(
+        scale if scale is not None else D ** -0.5))
 
 
 def check_tma_alignment(q, k, v):
@@ -184,12 +250,17 @@ def check_tma_alignment(q, k, v):
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
-#: in all, per route and per "route/head dim"; and of backward calls
-#: (autograd through the plain version, on any device)
+#: in all, per route and per "route/head dim"; and of backward calls that
+#: took the plain backward (tensors on the CPU)
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention.launches_by_head_dim = {}
 flash_attention.plain_backwards = 0
+#: backward calls that launched the backward kernels (one a call), per
+#: route (one: the CUDA cores) and per kernel (each launch of each)
+flash_attention_backward.launches = 0
+flash_attention_backward.launches_by_route = {"simt": 0}
+flash_attention_backward.launches_by_kernel = {"dq": 0, "dkv": 0}
 
 
 def _launch(q, k, v, causal, window, scale, route):
@@ -221,3 +292,37 @@ def _launch(q, k, v, causal, window, scale, route):
     by_dim = flash_attention.launches_by_head_dim
     by_dim[f"{route}/{D}"] = by_dim.get(f"{route}/{D}", 0) + 1
     return out
+
+
+def _backward_launch(q, k, v, dout, causal, window, scale):
+    """The two backward kernels on checked CUDA arguments: the dq kernel
+    (which also writes each row's log-sum-exp and rowsum(p dp) to a
+    float32 scratch), then the dk / dv kernel that reads them."""
+    B, S, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B * H == 0 or S == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = _build.load_library()
+    win = -1 if window is None else int(window)
+    dims = (B, S, Skv, H, KV, D, scale, int(bool(causal)), win,
+            _DTYPE_IDS[q.dtype])
+    by_kernel = flash_attention_backward.launches_by_kernel
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.flash_attention_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), lse.data_ptr(), delta.data_ptr(), *dims, stream)
+        _build.check_launch(lib, code, "flash_attention backward (dq)")
+        by_kernel["dq"] += 1
+        code = lib.flash_attention_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *dims, stream)
+        _build.check_launch(lib, code, "flash_attention backward (dk, dv)")
+        by_kernel["dkv"] += 1
+    flash_attention_backward.launches += 1
+    flash_attention_backward.launches_by_route["simt"] += 1
+    return dq, dk, dv

@@ -14,8 +14,9 @@ NEG_INF = -1e30
 
 
 def mha_ref(q, k, v, *, causal=True, window=None, scale=None):
-    """q: (BH, S, D); k, v: (BH, Skv, D).  Float32 inside; returns
-    (BH, S, D) in q's dtype.
+    """q: (BH, S, D); k, v: (BH, Skv, D).  Float32 inside (float64 for
+    float64 inputs: a reference for the rounding of the float32 versions);
+    returns (BH, S, D) in q's dtype.
 
     A query row with no unmasked key at all (a sliding window with
     S > Skv + window - 1) comes out 0, as on both CUDA routes and as in
@@ -26,7 +27,8 @@ def mha_ref(q, k, v, *, causal=True, window=None, scale=None):
     BH, S, D = q.shape
     Skv = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
-    s = torch.einsum("bsd,bxd->bsx", q.float() * scale, k.float())
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.einsum("bsd,bxd->bsx", q.to(ct) * scale, k.to(ct))
     qp = torch.arange(S, device=q.device)[:, None]
     kp = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
@@ -37,4 +39,4 @@ def mha_ref(q, k, v, *, causal=True, window=None, scale=None):
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(-1)[None, :, None], p, torch.zeros_like(p))
-    return torch.einsum("bsx,bxd->bsd", p, v.float()).to(q.dtype)
+    return torch.einsum("bsx,bxd->bsd", p, v.to(ct)).to(q.dtype)

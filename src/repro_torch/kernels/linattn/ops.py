@@ -11,13 +11,19 @@ for head dims 16 / 32 or smaller chunks.  Both compute the same function.
 Training: when an input requires a gradient, :func:`rwkv_linattn` runs as
 the autograd Function :class:`RwkvLinattn`, on the CPU too.  Its forward
 is the kernel (the plain version on the CPU); its backward is
-``torch.autograd.grad`` through the exact recurrence
-(:func:`rwkv_linattn_ref`, the reference's ``rwkv_scan``) recomputed from
-the saved inputs, so gradients reach r, k, v, logw and u.  Backward calls
-are counted in ``rwkv_linattn.plain_backwards``, apart from the forward
-launches.
+:func:`rwkv_linattn_backward`, the gradient of the exact recurrence for r,
+k, v, logw and u: on the card the two kernels of
+``csrc/rwkv_linattn_bwd.cu`` (a forward sweep writing state checkpoints,
+then a reverse sweep recomputing each chunk's states), on the CPU
+:func:`rwkv_linattn_backward_plain` -- autograd through
+:func:`rwkv_linattn_ref` (the reference's ``rwkv_scan``), counted in
+``rwkv_linattn.plain_backwards``.  The reference differentiates
+``rwkv_scan`` with ``jax.grad``; the backward kernels replace no TPU
+kernel.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -117,8 +123,8 @@ def _forward(r, k, v, logw, u, chunk):
 
 
 class RwkvLinattn(torch.autograd.Function):
-    """Forward: the kernel (:func:`_forward`).  Backward: autograd through
-    :func:`rwkv_linattn_ref` recomputed from the saved inputs."""
+    """Forward: the kernel (:func:`_forward`).  Backward:
+    :func:`rwkv_linattn_backward` from the saved inputs."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, chunk):
@@ -128,40 +134,107 @@ class RwkvLinattn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dstate):
-        rwkv_linattn.plain_backwards += 1
+        grads = rwkv_linattn_backward(*ctx.saved_tensors, dout, dstate)
         need = ctx.needs_input_grad[:5]
-        if dout is not None and dout.device.type == "meta":
-            # the dry run: twice the forward recurrence's work
-            saved = ctx.saved_tensors
-            BH, S, D = saved[0].shape
-            grads = [torch.empty_like(t) if n else None
-                     for t, n in zip(saved, need)]
-            count_meta(2 * RECURRENCE_FLOPS * BH * S * D * D, *saved, dout,
-                       *(g for g in grads if g is not None))
-            return (*grads, None)
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            out, state = rwkv_linattn_ref(*ins)
-            outs, douts = zip(*[(o, d) for o, d in ((out.to(ins[0].dtype),
-                                                     dout), (state, dstate))
-                                if d is not None])
-            wrt = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(outs, wrt, douts,
-                                           allow_unused=True))
-        grads = []
-        for t, n in zip(ins, need):
-            g = next(got) if n else None
-            grads.append(torch.zeros_like(t) if n and g is None else g)
-        return (*grads, None)
+        return (*(g if n else None for g, n in zip(grads, need)), None)
+
+
+def rwkv_linattn_backward_plain(r, k, v, logw, u, dout, dstate):
+    """The plain backward: (dr, dk, dv, dlogw, du) of
+    :func:`rwkv_linattn_ref` for the gradients ``dout`` of the output and
+    ``dstate`` of the final state (either may be None: zero), by autograd
+    through it recomputed from the inputs -- float32 inside, float64 for
+    float64 inputs; gradients in the inputs' dtypes."""
+    dtype = torch.float64 if r.dtype == torch.float64 else torch.float32
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (r, k, v, logw, u)]
+        out, state = rwkv_linattn_ref(*ins, dtype=dtype)
+        pairs = [(o, d.to(o.dtype)) for o, d in ((out.to(r.dtype), dout),
+                                                 (state, dstate))
+                 if d is not None]
+        got = [None] * len(ins)
+        if pairs:
+            outs, douts = zip(*pairs)
+            got = torch.autograd.grad(outs, ins, douts, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(ins, got))
+
+
+#: FLOPs a token, row and D^2 of the backward kernels: the forward sweep's
+#: state update (3) and dr (2); the reverse sweep's recompute (3), dk (2),
+#: dlogw (2), dv (3) and the update of the state's gradient (3)
+BACKWARD_FLOPS = 18
+
+
+def backward_chunk(S: int) -> int:
+    """Tokens a chunk of the backward's reverse sweep: ceil(sqrt(S)) (at
+    most MAX_CHUNK), so that its two float32 scratches -- ceil(S / C)
+    state checkpoints and C recomputed states a row -- are both
+    O(sqrt(S) D^2) floats a row."""
+    return max(1, min(MAX_CHUNK, math.isqrt(max(S - 1, 0)) + 1))
+
+
+def rwkv_linattn_backward(r, k, v, logw, u, dout, dstate):
+    """(dr, dk, dv, dlogw, du) of :func:`rwkv_linattn` (from a zero state)
+    for the gradients ``dout`` (BH, S, D) of the output and ``dstate``
+    (BH, D, D) of the final state, either None for zero; each gradient in
+    its input's dtype and shape (du summed over the rows of its head, or
+    over every row for a (D,) u).
+
+    A CUDA tensor launches the two kernels of ``csrc/rwkv_linattn_bwd.cu``
+    (float32 inside) or raises; a CPU tensor takes
+    :func:`rwkv_linattn_backward_plain` (counted in
+    ``rwkv_linattn.plain_backwards``); a meta tensor (the dry run) gets
+    outputs of the right shape and the kernels' work counted."""
+    BH, S, D = r.shape
+    dev = r.device
+    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+        check_tensor(name, t, (BH, S, D), t.dtype, dev)
+    H = u.shape[0] if u.dim() == 2 else 1
+    check_tensor("u", u, (H, D) if u.dim() == 2 else (D,), u.dtype, dev)
+    if BH % H:
+        raise ValueError(f"{BH} rows are not a multiple of {H} heads")
+    for name, t, shape in (("dout", dout, (BH, S, D)),
+                           ("dstate", dstate, (BH, D, D))):
+        if t is not None and (tuple(t.shape) != shape or t.device != dev):
+            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}; "
+                             f"expected {shape} on {dev}")
+    if dev.type == "cpu":
+        rwkv_linattn.plain_backwards += 1
+        return rwkv_linattn_backward_plain(r, k, v, logw, u, dout, dstate)
+    ins = (r, k, v, logw, u)
+    if dev.type == "meta":
+        grads = tuple(torch.empty_like(t) for t in ins)
+        count_meta(BACKWARD_FLOPS * BH * S * D * D, *ins,
+                   *(t for t in (dout, dstate) if t is not None), *grads)
+        return grads
+    if dev.type != "cuda":
+        raise NotImplementedError(
+            f"rwkv_linattn_backward has no path for {dev}")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"the linear-attention backward kernels are compiled for head "
+            f"dims {HEAD_DIMS}, not {D}")
+    grads = _backward_launch(
+        *(t.float().contiguous() for t in (r, k, v, logw)),
+        u.float().reshape(H, D).contiguous(),
+        *(None if t is None else t.float().contiguous()
+          for t in (dout, dstate)), H, backward_chunk(S))
+    return tuple(g.reshape(t.shape).to(t.dtype) for g, t in zip(grads, ins))
 
 
 #: number of CUDA kernel launches made by this wrapper (and nothing else),
-#: in all and per route; and of backward calls (autograd through the
-#: exact recurrence, on any device)
+#: in all and per route; and of backward calls that took the plain
+#: backward (tensors on the CPU)
 rwkv_linattn.launches = 0
 rwkv_linattn.launches_by_route = dict.fromkeys(ROUTES, 0)
 rwkv_linattn.plain_backwards = 0
+#: backward calls that launched the backward kernels (one a call), per
+#: route (one: the CUDA cores) and per kernel (each launch of each)
+rwkv_linattn_backward.launches = 0
+rwkv_linattn_backward.launches_by_route = {"simt": 0}
+rwkv_linattn_backward.launches_by_kernel = {"forward_sweep": 0,
+                                            "reverse_sweep": 0}
 
 
 def _launch(r, k, v, logw, u, H, C, route):
@@ -186,3 +259,42 @@ def _launch(r, k, v, logw, u, H, C, route):
     rwkv_linattn.launches += 1
     rwkv_linattn.launches_by_route[route] += 1
     return out, state
+
+
+def _backward_launch(r, k, v, logw, u, dout, dstate, H, C):
+    """The two backward kernels on float32 contiguous CUDA arguments
+    (``dout`` / ``dstate`` None: zero): the forward sweep (dr, each row's
+    du terms and a state checkpoint every C tokens), then the reverse
+    sweep (dk, dv, dlogw, du).  Returns (dr, dk, dv, dlogw, du (H, D))."""
+    BH, S, D = r.shape
+    dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((H, D), dtype=torch.float32, device=r.device)
+    if BH == 0 or S == 0:
+        return dr.zero_(), dk.zero_(), dv.zero_(), dlogw.zero_(), du.zero_()
+    ck = torch.empty((BH, -(-S // C), D, D), dtype=torch.float32,
+                     device=r.device)
+    states = torch.empty((BH, C, D, D), dtype=torch.float32,
+                         device=r.device)
+    du_rows = torch.empty((BH, D), dtype=torch.float32, device=r.device)
+    lib = _build.load_library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    by_kernel = rwkv_linattn_backward.launches_by_kernel
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.rwkv_linattn_bwd_forward_launch(
+            *map(ptr, (r, k, v, logw, u, dout, dr, du_rows, ck)), BH, S, D,
+            H, C, stream)
+        _build.check_launch(lib, code, "rwkv_linattn backward (forward "
+                            "sweep)")
+        by_kernel["forward_sweep"] += 1
+        code = lib.rwkv_linattn_bwd_reverse_launch(
+            *map(ptr, (r, k, v, logw, u, dout, dstate, ck, du_rows, dk, dv,
+                       dlogw, du, states)), BH, S, D, H, C, stream)
+        _build.check_launch(lib, code, "rwkv_linattn backward (reverse "
+                            "sweep)")
+        by_kernel["reverse_sweep"] += 1
+    rwkv_linattn_backward.launches += 1
+    rwkv_linattn_backward.launches_by_route["simt"] += 1
+    return dr, dk, dv, dlogw, du

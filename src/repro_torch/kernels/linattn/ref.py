@@ -12,9 +12,10 @@ import torch
 
 
 def per_row_u(u, BH):
-    """``u`` as (BH, D) float32: a (D,) u is shared by every row; an (H, D)
-    u gives row bh the entry ``u[bh % H]`` (rows ordered b * H + h)."""
-    u = u.float()
+    """``u`` as (BH, D) float32 (float64 if it is float64): a (D,) u is
+    shared by every row; an (H, D) u gives row bh the entry ``u[bh % H]``
+    (rows ordered b * H + h)."""
+    u = u if u.dtype == torch.float64 else u.float()
     if u.dim() == 1:
         return u[None, :].expand(BH, -1)
     H = u.shape[0]

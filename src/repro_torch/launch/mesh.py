@@ -112,9 +112,14 @@ COUNTED = (("repro_torch.kernels.sdca.ops", "sdca_epoch"),
            ("repro_torch.kernels.svrg.ops", "svrg_inner"),
            ("repro_torch.kernels.svrg.sparse", "svrg_inner_sparse"),
            ("repro_torch.kernels.flash.ops", "flash_attention"),
-           ("repro_torch.kernels.linattn.ops", "rwkv_linattn"))
+           ("repro_torch.kernels.flash.ops", "flash_attention_backward"),
+           ("repro_torch.kernels.linattn.ops", "rwkv_linattn"),
+           ("repro_torch.kernels.linattn.ops", "rwkv_linattn_backward"))
+#: the counters of a wrapper besides ``launches``: the calls that took the
+#: plain backward (B5 / B6 on the CPU), and dicts of launches
+_SCALARS = ("plain_backwards",)
 _COUNTERS = ("launches_by_route", "launches_by_cluster",
-             "launches_by_head_dim")
+             "launches_by_head_dim", "launches_by_kernel")
 
 
 def _pod_counts(P: int):
@@ -225,6 +230,8 @@ def launch_counts() -> dict:
     for module, name in COUNTED:
         fn = getattr(importlib.import_module(module), name)
         out[name] = {"launches": fn.launches}
+        out[name].update({k: getattr(fn, k) for k in _SCALARS
+                          if hasattr(fn, k)})
         out[name].update({k: dict(getattr(fn, k)) for k in _COUNTERS
                           if hasattr(fn, k)})
     return out
@@ -238,7 +245,7 @@ def add_counts(a: dict, b: dict, sign: int = 1) -> dict:
         ca, cb = a.get(name, {}), b.get(name, {})
         out[name] = {}
         for k in ca.keys() | cb.keys():
-            if k == "launches":
+            if k == "launches" or k in _SCALARS:
                 out[name][k] = ca.get(k, 0) + sign * cb.get(k, 0)
             else:
                 ka, kb = ca.get(k, {}), cb.get(k, {})

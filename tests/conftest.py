@@ -48,6 +48,10 @@ def pytest_configure(config):
         "queue/store/snapshot unit tests stay in the simulated split)")
     config.addinivalue_line(
         "markers",
+        "card: needs a CUDA card (a kernel with no CPU path); the test "
+        "decides inside itself and skips without one")
+    config.addinivalue_line(
+        "markers",
         "fleet: multi-tenant batched-solve integration tests that run "
         "real fleet-vs-solo equivalence solves (own CI matrix leg; the "
         "pure packing/bucketing unit tests stay in the simulated split)")

@@ -20,6 +20,11 @@ NAMES_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
                        r"|from\s+repro(\.|\s))", re.M)
 
 
+#: CUDA sources whose kernels have no Pallas counterpart: the backward of
+#: flash attention and of the RWKV6 linear attention
+NO_TPU_COUNTERPART = ("flash_attention_bwd.cu", "rwkv_linattn_bwd.cu")
+
+
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(PKG):
@@ -140,12 +145,18 @@ def test_cuda_sources_ship_and_build_dir_is_ignored():
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
     assert set(sources) >= {"sdca_epoch.cu", "svrg_inner.cu",
                             "sdca_epoch_sparse.cu", "svrg_inner_sparse.cu",
-                            "flash_attention.cu", "rwkv_linattn.cu"}
+                            "flash_attention.cu", "rwkv_linattn.cu",
+                            *NO_TPU_COUNTERPART}
     for name in sources:
         src = open(os.path.join(csrc, name)).read()
         assert "__global__" in src and 'extern "C"' in src
-        # the note every kernel carries: what it replaces, what bounds it
-        assert "Replaces the TPU kernel src/repro/kernels/" in src
+        # the note every kernel carries: what it replaces, what bounds it;
+        # the two backward kernels' sources replace none (the reference
+        # differentiates pure-JAX functions) and say so
+        if name in NO_TPU_COUNTERPART:
+            assert "Replaces no TPU kernel" in src
+        else:
+            assert "Replaces the TPU kernel src/repro/kernels/" in src
         assert "What bounds it" in src
         assert "torch/extension.h" not in src
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
